@@ -1,0 +1,9 @@
+from .partition import (dirichlet_proportions, pathological_assignment,
+                        partition_pool_dirichlet, partition_pool_pathological)
+from .synthetic import FederatedData, make_federated_classification
+
+__all__ = [
+    "dirichlet_proportions", "pathological_assignment",
+    "partition_pool_dirichlet", "partition_pool_pathological",
+    "FederatedData", "make_federated_classification",
+]

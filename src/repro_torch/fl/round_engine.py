@@ -1,0 +1,140 @@
+"""Device-resident FL round engine (port of `repro.fl.round_engine`).
+
+One federated round (local train -> aggregate -> eval -> best-model
+tracking) is ``round_step(state) -> state`` over a `RoundState` whose
+tensors stay on the device: flattened client params, best-on-validation
+tracking, the collaboration graph, comm counters and history buffers.
+The round counter is a host int, so per-round decisions (refresh or not,
+history slot) are Python branches that never read the device.
+
+`run_rounds` drives the rounds with no device-to-host sync: on CUDA the
+loop runs under ``torch.cuda.set_sync_debug_mode("error")``, so a hidden
+sync raises instead of serializing the rounds (the counterpart of
+`repro`'s ``no_transfer`` guard). Histories leave the device only in
+``on_flush``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from .. import prng
+
+
+@dataclasses.dataclass
+class RoundState:
+    """Everything one federated round reads and writes.
+
+    t:         round counter (host int; PRNG streams fold it in)
+    key:       base PRNG key; round t trains with fold_in(key, t)
+    flat:      (N, P) client-stacked flattened params
+    best_val:  (N,) best validation accuracy seen per client
+    best_flat: (N, P) params at each client's best_val
+    val_hist:  (K, N) rolling validation-accuracy buffer, or None
+    aux:       method-specific dict (DPFL: adjacency, candidate graph,
+               graph-refresh key, comm counters, graph history)
+    """
+    t: int
+    key: torch.Tensor
+    flat: torch.Tensor
+    best_val: torch.Tensor
+    best_flat: torch.Tensor
+    val_hist: Optional[torch.Tensor]
+    aux: Any
+
+
+def init_round_state(flat, key, *, hist_len: int = 0, aux=None) -> RoundState:
+    """Fresh state from client-stacked flattened params (N, P). Every
+    tensor is copied, so a round that updates a buffer in place never
+    writes into the caller's tensors."""
+    N = flat.shape[0]
+    dev = flat.device
+
+    def own(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return RoundState(
+        t=0, key=key.clone(), flat=flat.clone(),
+        best_val=torch.full((N,), float("-inf"), dtype=torch.float32,
+                            device=dev),
+        best_flat=flat.clone(),
+        val_hist=(torch.zeros((hist_len, N), dtype=torch.float32,
+                              device=dev) if hist_len else None),
+        aux={} if aux is None else {k: own(v) for k, v in aux.items()})
+
+
+def make_round_step(engine, *, tau: int,
+                    aggregate: Optional[Callable] = None,
+                    hist_len: int = 0):
+    """Build ``round_step(state) -> state``.
+
+    tau:       local epochs per round
+    aggregate: (flat, aux, t) -> (flat, aux), the communication step
+               (mixing, graph refresh, comm accounting). Default: no
+               communication (local-only).
+    hist_len:  > 0 writes the validation accuracy into
+               ``state.val_hist[t % hist_len]`` (in place)
+    """
+    agg = aggregate if aggregate is not None else \
+        (lambda flat, aux, t: (flat, aux))
+
+    def round_step(state: RoundState) -> RoundState:
+        t = state.t
+        stacked = engine.unflatten(state.flat)
+        kt = prng.fold_in(state.key, t)
+        stacked, _ = engine.local_train(stacked, kt, epochs=tau)
+        flat = engine.flatten(stacked)
+        flat, aux = agg(flat, state.aux, t)
+        val_acc, _ = engine.eval_val(engine.unflatten(flat))
+        improved = val_acc > state.best_val
+        if hist_len:
+            state.val_hist[t % hist_len] = val_acc
+        return RoundState(
+            t=t + 1,
+            key=state.key,
+            flat=flat,
+            best_val=torch.where(improved, val_acc, state.best_val),
+            best_flat=torch.where(improved[:, None], flat, state.best_flat),
+            val_hist=state.val_hist,
+            aux=aux)
+
+    return round_step
+
+
+@contextlib.contextmanager
+def no_sync(device: torch.device):
+    """On CUDA, make any device-to-host synchronization raise inside the
+    block; a no-op on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def run_rounds(round_step, state: RoundState, rounds: int,
+               on_flush: Optional[Callable] = None,
+               flush_every: int = 0) -> RoundState:
+    """Run ``rounds`` round steps with no device-to-host sync between them
+    (`no_sync`). ``on_flush(state, done)`` (if given) is called every
+    ``flush_every`` rounds, outside the guard since pulling histories off
+    the device is its purpose, and once more at the end."""
+    last = 0
+    device = state.flat.device
+    for t in range(rounds):
+        with no_sync(device):
+            state = round_step(state)
+        if flush_every and on_flush is not None and \
+                (t + 1) % flush_every == 0 and t + 1 < rounds:
+            on_flush(state, t + 1 - last)
+            last = t + 1
+    if on_flush is not None and rounds > last:
+        on_flush(state, rounds - last)
+    return state

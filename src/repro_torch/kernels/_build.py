@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
+
+Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, at first
+use, into ``build/repro_torch_kernels/`` at the root of the checkout
+(git-ignored). A library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and a stale one is never loaded.
+`build` starts one ``nvcc`` per missing library, all at once.
+
+Importing this module needs neither ``nvcc`` nor a GPU: the CPU tests
+import it. Asking for a library where ``nvcc`` is missing raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+#: kernel name -> its source under csrc/
+SOURCES = {"graph_mix": "graph_mix.cu"}
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    """One compiled library: where it is, how long nvcc took (0 when it
+    was already built) and what nvcc printed (ptxas register and shared
+    memory use)."""
+    path: Path
+    seconds: float
+    log: str
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else the toolkit's default place."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if DEFAULT_NVCC.exists():
+        return str(DEFAULT_NVCC)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
+    """Compile the named kernels (default: all) that are not built yet,
+    one ``nvcc`` process each, started together. Raises with nvcc's
+    output if any compile fails."""
+    names = list(SOURCES if names is None else names)
+    out: Dict[str, Built] = {}
+    todo = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = Built(path, 0.0, "")
+        else:
+            todo[name] = path
+    if not todo:
+        return out
+    exe = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {SOURCES[name]} "
+                            f"(exit {proc.returncode}):\n{log}")
+            continue
+        # atomic publish: a concurrent builder never loads a partial file
+        os.replace(tmp, todo[name])
+        out[name] = Built(todo[name], time.perf_counter() - t0, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name].path))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,146 @@
+"""Classifier models for the federated-learning experiments, batched over
+a leading model axis.
+
+``PaperCNN`` is the paper's CIFAR10 model (App. F.3.2): 2 conv + pool
+layers, 2 fully-connected layers and an output head. ``MLP`` is the
+cheap substitute the fast tests use. Port of `repro.models.classifier`.
+
+Parameters keep `repro`'s names and layouts (HWIO conv weights, (in, out)
+dense weights) so a flat row is the same vector in both packages. Every
+forward takes a stack of G models (each leaf has a leading G axis) and a
+stack of G input batches, ``x`` of shape (G, B, ...), and returns
+(G, B, n_classes): G is the clients during local training and the
+clients times the greedy's reward probes during a GGC refresh. The G
+convolutions run as one grouped convolution (``groups=G``), the dense
+layers as batched matmuls.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .. import prng
+
+Params = Dict[str, torch.Tensor]
+
+
+def dense_init(key, shape, dtype=torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """`repro.models.common.dense_init`: normal(key, shape) * scale, with
+    scale 1/sqrt(fan_in) unless given."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (prng.normal(key, shape) * scale).to(dtype)
+
+
+def _conv(h, w, b):
+    """Grouped VALID conv. h: (B, G*Cin, H, W); w: (G, kh, kw, Cin, Cout)
+    HWIO per model; b: (G, Cout). Returns (B, G*Cout, H', W')."""
+    G, kh, kw, cin, cout = w.shape
+    wt = w.permute(0, 4, 3, 1, 2).reshape(G * cout, cin, kh, kw)
+    return F.conv2d(h, wt, groups=G) + b.reshape(1, G * cout, 1, 1)
+
+
+def _dense(h, w, b):
+    """h: (G, B, in); w: (G, in, out); b: (G, out)."""
+    return torch.bmm(h, w) + b[:, None, :]
+
+
+class PaperCNN:
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def init(self, key) -> Params:
+        """One model's parameters (no model axis), `repro`'s init, on the
+        key's device."""
+        c = self.cfg
+        ks = prng.split(key, 5)
+        sz = c.image_size
+        sz = (sz - 4) // 2       # conv5 + pool
+        sz = (sz - 4) // 2       # conv5 + pool
+        flat = sz * sz * c.c2
+        dev = ks.device
+
+        def zeros(n):
+            return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+        return {
+            "conv1_w": dense_init(ks[0], (5, 5, c.in_channels, c.c1),
+                                  scale=0.1),
+            "conv1_b": zeros(c.c1),
+            "conv2_w": dense_init(ks[1], (5, 5, c.c1, c.c2), scale=0.1),
+            "conv2_b": zeros(c.c2),
+            "fc1_w": dense_init(ks[2], (flat, c.fc1)),
+            "fc1_b": zeros(c.fc1),
+            "fc2_w": dense_init(ks[3], (c.fc1, c.fc2)),
+            "fc2_b": zeros(c.fc2),
+            "out_w": dense_init(ks[4], (c.fc2, c.n_classes)),
+            "out_b": zeros(c.n_classes),
+        }
+
+    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """x: (G, B, H, W, C) float32 (NHWC per model)."""
+        G, B = x.shape[:2]
+        # NHWC -> one NCHW batch whose channels are the G models' inputs
+        h = x.permute(1, 0, 4, 2, 3).reshape(B, G * x.shape[4], x.shape[2],
+                                              x.shape[3])
+        h = F.relu(_conv(h, params["conv1_w"], params["conv1_b"]))
+        h = F.max_pool2d(h, 2)
+        h = F.relu(_conv(h, params["conv2_w"], params["conv2_b"]))
+        h = F.max_pool2d(h, 2)
+        # flatten each model's activations in NHWC order, as repro does
+        c2 = params["conv2_w"].shape[-1]
+        h = h.reshape(B, G, c2, h.shape[2], h.shape[3])
+        h = h.permute(1, 0, 3, 4, 2).reshape(G, B, -1)
+        h = F.relu(_dense(h, params["fc1_w"], params["fc1_b"]))
+        h = F.relu(_dense(h, params["fc2_w"], params["fc2_b"]))
+        return _dense(h, params["out_w"], params["out_b"])
+
+
+class MLP:
+    """Small MLP on flattened features; used for fast FL tests."""
+
+    def __init__(self, in_dim: int, hidden: int, n_classes: int):
+        self.in_dim, self.hidden, self.n_classes = in_dim, hidden, n_classes
+
+    def init(self, key) -> Params:
+        ks = prng.split(key, 3)
+        dev = ks.device
+
+        def zeros(n):
+            return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+        return {
+            "w1": dense_init(ks[0], (self.in_dim, self.hidden)),
+            "b1": zeros(self.hidden),
+            "w2": dense_init(ks[1], (self.hidden, self.hidden)),
+            "b2": zeros(self.hidden),
+            "out_w": dense_init(ks[2], (self.hidden, self.n_classes)),
+            "out_b": zeros(self.n_classes),
+        }
+
+    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """x: (G, B, in_dim)."""
+        h = F.relu(_dense(x, params["w1"], params["b1"]))
+        h = F.relu(_dense(h, params["w2"], params["b2"]))
+        return _dense(h, params["out_w"], params["out_b"])
+
+
+def xent_loss(model, params: Params, batch) -> torch.Tensor:
+    """batch: {"x": (G, B, ...), "y": (G, B) int64}. Mean cross-entropy
+    per model: (G,)."""
+    logits = model.logits(params, batch["x"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, batch["y"][..., None])[..., 0]
+    return nll.mean(dim=-1)
+
+
+def accuracy(model, params: Params, batch) -> torch.Tensor:
+    """Per-model accuracy (G,); ties in the logits go to the first
+    maximum, as ``jnp.argmax`` does."""
+    logits = model.logits(params, batch["x"])
+    hit = torch.argmax(logits, dim=-1) == batch["y"]
+    return hit.float().mean(dim=-1)
