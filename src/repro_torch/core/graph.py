@@ -17,9 +17,15 @@ in one call. The running set sums go through `kernels.ops.graph_mix`
 (one (K, N) @ (N, P) launch per greedy init, one (K, b) @ (b, P) launch
 per BGGC phase-1 batch), as does the Eq.-4 mix.
 
+Every builder exists in two graph representations: the dense entry
+points emit (N, N) bool masks, the ``*_sparse`` ones (N, B) int32
+neighbor lists (ascending peer ids, -1 pads, self edge implicit) whose
+greedy scans probe only the <= B candidates: the same seeded decisions,
+bit for bit, in O(N·B) instead of O(N²) steps. The sparse Eq.-4 mix goes
+through `kernels.ops.sparse_graph_mix`.
+
 Not ported yet: the ``active=`` participation mask (ROADMAP Queue 1 item
-8), the sparse neighbor-list builders (item 7), the heterogeneous-budget
-variant and the client-mesh paths (item 12).
+8) and the client-mesh paths (item 12).
 """
 from __future__ import annotations
 
@@ -91,16 +97,22 @@ class GreedyCarry(NamedTuple):
 def greedy_decision_step(reward_fn: Callable):
     """The single copy of the seeded double-greedy decision body.
 
-    Returns ``step(carry, j, w_j, *, u, k_idx, is_cand, p_j, budget)``
-    processing candidate ``j[r]`` (model ``w_j[r]``, coin flip ``u[r]``)
-    for every client ``k_idx[r]`` of the batch: four reward probes per
-    client in one batched forward, the a/(a+b) coin flip, and the
-    running-sum accept/reject update.
+    Returns ``step(carry, j, w_j, *, u, k_idx, is_cand, p_j, budget,
+    slot=None)`` processing candidate ``j[r]`` (model ``w_j[r]``, coin
+    flip ``u[r]``) for every client ``k_idx[r]`` of the batch: four reward
+    probes per client in one batched forward, the a/(a+b) coin flip, and
+    the running-sum accept/reject update. ``budget`` is an int or a (K,)
+    tensor of per-client budgets. ``slot`` is the carry-mask column of
+    the candidate: the dense scans index their (K, N) masks by the
+    global id ``j`` (the default), the sparse scan its (K, B) masks by
+    the neighbor-list slot; the coin flip and the probes always use the
+    global id, so both layouts make the same decisions.
     """
 
     def step(carry: GreedyCarry, j, w_j, *, u, k_idx, is_cand, p_j,
-             budget) -> GreedyCarry:
+             budget, slot=None) -> GreedyCarry:
         maskX, maskY, wX, wY, pX, pY, nsel = carry
+        pos = j if slot is None else slot
         pw = p_j[:, None] * w_j
         wX_add, pX_add = wX + pw, pX + p_j
         wY_rem, pY_rem = wY - pw, pY - p_j
@@ -118,7 +130,7 @@ def greedy_decision_step(reward_fn: Callable):
         add = hit & is_cand & (nsel < budget)
         rem = ~hit & is_cand
         at_j = torch.arange(maskX.shape[1], device=j.device)[None, :] \
-            == j[:, None]
+            == pos[:, None]
         return GreedyCarry(
             maskX=maskX | (at_j & add[:, None]),
             maskY=maskY & ~(at_j & rem[:, None]),
@@ -180,19 +192,21 @@ def make_ggc(reward_fn: Callable, budget: int):
     is better: minus the validation loss of client ``k_idx[r]``).
 
     Returns ``ggc(keys (K, 2), k_idx (K,), cand_mask (K, N), flat_w (N, P),
-    p (N,)) -> (K, N) bool``: each client's selected collaborators,
-    itself included.
+    p (N,), budget_k=None) -> (K, N) bool``: each client's selected
+    collaborators, itself included. ``budget_k`` ((K,) int) overrides the
+    budget per client (the heterogeneous variant).
     """
     step = greedy_decision_step(reward_fn)
 
     @torch.no_grad()
-    def ggc(keys, k_idx, cand_mask, flat_w, p):
+    def ggc(keys, k_idx, cand_mask, flat_w, p, budget_k=None):
         N = flat_w.shape[0]
         cand_mask = cand_mask & ~_self_mask(k_idx, N)
         carry = _greedy_init(k_idx, cand_mask, flat_w, p)
         order, coins = _streams(keys, N)
         carry = _scan(step, carry, order, coins, flat_w, p, k_idx,
-                      cand_mask, budget, range(N))
+                      cand_mask, budget if budget_k is None else budget_k,
+                      range(N))
         return carry.maskX
 
     return ggc
@@ -280,6 +294,21 @@ def make_bggc(reward_fn: Callable, budget: int):
     return bggc
 
 
+def make_ggc_heterogeneous(reward_fn: Callable, max_budget: int):
+    """Per-client budgets B_c^k (the paper's §Limitations): `make_ggc`
+    with the budget a (K,) tensor, so one scan serves every client.
+    ``max_budget`` is kept for `repro`'s signature; the per-client
+    budgets are what constrain the selection.
+
+    Returns ``ggc(keys, k_idx, cand_mask, flat_w, p, budget_k)``."""
+    base = make_ggc(reward_fn, int(max_budget))
+
+    def ggc(keys, k_idx, cand_mask, flat_w, p, budget_k):
+        return base(keys, k_idx, cand_mask, flat_w, p, budget_k=budget_k)
+
+    return ggc
+
+
 def _client_keys(key, N: int):
     """Client k's graph key: ``fold_in(key, k)``, for all k at once."""
     return prng.fold_in(key, torch.arange(N, device=key.device))
@@ -309,3 +338,197 @@ def all_clients_bggc(key, flat_w, p, cand_masks, reward_fn, budget):
     bggc = make_bggc(reward_fn, budget)
     k_idx = torch.arange(N, device=flat_w.device)
     return bggc(_client_keys(key, N), k_idx, cand_masks, flat_w, p)
+
+
+def all_clients_graph_heterogeneous(key, flat_w, p, cand_masks, reward_fn,
+                                    budgets, reachability=None):
+    """Per-client budgets and an optional communicability restriction
+    (both from the paper's §Limitations). budgets: (N,) int; reachability:
+    (N, N) bool, client k may only ever talk to reachable peers."""
+    N = flat_w.shape[0]
+    if reachability is not None:
+        cand_masks = cand_masks & reachability
+    budgets = torch.as_tensor(budgets, device=flat_w.device).long()
+    ggc = make_ggc_heterogeneous(reward_fn, int(budgets.max()))
+    k_idx = torch.arange(N, device=flat_w.device)
+    return ggc(_client_keys(key, N), k_idx, cand_masks, flat_w, p, budgets)
+
+
+# ------------------------------------------------- sparse neighbor lists
+#
+# Budget-sparse representation: the constrained greedy keeps |C_k| <= B,
+# so the collaboration graph is stored as (N, B) int32 neighbor-index
+# lists (ascending global client ids, -1 = empty slot, self excluded: the
+# Eq.-4 self term is implicit) instead of (N, N) masks. Decisions,
+# download counts and wire bytes are the same integers in both layouts;
+# only the fp summation order of the mix differs.
+
+
+def _lists(off, budget: int):
+    """(K, n) bool off-diagonal selections -> (K, budget) int32 lists of
+    the selected ids, ascending, -1 padding the unused slots."""
+    n = off.shape[1]
+    ar = torch.arange(n, device=off.device)
+    # selected ids ascend; unselected ones sort after them as n + id
+    sel = torch.sort(torch.where(off, ar, n + ar), dim=1).values
+    idx = torch.where(sel < n, sel, -1)[:, :min(budget, n)].to(torch.int32)
+    if budget > n:
+        idx = torch.nn.functional.pad(idx, (0, budget - n), value=-1)
+    return idx.contiguous()
+
+
+def mask_to_neighbors(mask, k_idx, budget: int):
+    """One client's (N,) bool selection mask -> its (budget,) int32
+    neighbor list: the selected off-diagonal peers, ascending, -1
+    padding the unused slots. Lossless for selections of <= budget
+    peers, which the budget-constrained greedy guarantees."""
+    off = mask.bool() & (torch.arange(mask.shape[0], device=mask.device)
+                         != k_idx)
+    return _lists(off[None, :], budget)[0]
+
+
+def neighbors_from_adjacency(adj, budget: int):
+    """(N, N) bool adjacency -> (N, budget) int32 neighbor lists, row k =
+    `mask_to_neighbors` of row k. Inverse of `adjacency_from_neighbors`
+    whenever every row has <= budget peers."""
+    N, n = adj.shape
+    rows = torch.arange(N, device=adj.device)[:, None]
+    off = adj.bool() & (torch.arange(n, device=adj.device)[None, :] != rows)
+    return _lists(off, budget)
+
+
+def adjacency_from_neighbors(idx, n: int):
+    """(N, B) int32 neighbor lists -> (N, n) bool adjacency with the
+    diagonal forced True (every client collaborates with itself)."""
+    N = idx.shape[0]
+    valid = idx >= 0
+    hits = torch.zeros((N, n), dtype=torch.int64, device=idx.device)
+    hits.scatter_add_(1, idx.clamp(0, n - 1).long(), valid.long())
+    eye = torch.eye(N, n, dtype=torch.bool, device=idx.device)
+    return (hits > 0) | eye
+
+
+def count_neighbor_downloads(idx, active=None):
+    """Realized model downloads encoded by neighbor lists ``idx`` (N, B):
+    one per non-sentinel slot, as a 0-d int64 tensor (no host sync). It
+    equals the off-diagonal edge count of the equivalent dense adjacency,
+    so dense and sparse comm accounting cannot drift."""
+    if active is not None:
+        raise NotImplementedError(
+            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
+    return (idx >= 0).sum()
+
+
+def sparse_eq4_unnormalized(idx, p, active=None):
+    """Neighbor-list counterpart of `eq4_weights_unnormalized`: returns
+    ``(p, w)``, the (N,) fp32 self weights and the (N, B) fp32 peer
+    weights (``p[idx]``, 0 at empty slots) before row normalization."""
+    if active is not None:
+        raise NotImplementedError(
+            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
+    N = idx.shape[0]
+    p = p.float()
+    w = (idx >= 0).float() * p[idx.clamp(0, N - 1).long()]
+    return p, w
+
+
+def sparse_mixing_weights(idx, p, active=None):
+    """Eq.-4 row weights in neighbor-list form: ``(self_w (N,), nbr_w
+    (N, B))`` with ``self_w[k] + sum_b nbr_w[k, b] = 1``, exactly the
+    nonzero entries of `mixing_matrix`'s row k (diagonal forced on,
+    p-weighted, normalized)."""
+    p, w = sparse_eq4_unnormalized(idx, p, active=active)
+    denom = torch.clamp_min(p + w.sum(dim=1), 1e-12)
+    return p / denom, w / denom[:, None]
+
+
+@exchange_site(charges="caller")
+def mix_flat_sparse(self_w, nbr_w, idx, flat_w, peers=None):
+    """Eq.-4 mix in neighbor-list form: each client gathers only its
+    <= B selected peer rows (`kernels.ops.sparse_graph_mix`), never the
+    dense (N, N) @ (N, P) product. ``peers`` (default ``flat_w``) is the
+    peer-visible model table, the decoded payloads under compression;
+    the self term always reads the exact local row of ``flat_w``."""
+    peers = flat_w if peers is None else peers
+    return _kops.sparse_graph_mix(
+        self_w.float().contiguous(), nbr_w.float().contiguous(),
+        idx.to(torch.int32).contiguous(), flat_w.contiguous(),
+        peers.contiguous())
+
+
+def make_ggc_sparse(reward_fn: Callable, budget: int):
+    """GGC emitting neighbor lists: each client's scan visits only its
+    <= B candidate slots, in the order the dense scan would reach them
+    (the position of each global id in ``permutation(fold_in(key_k, 0),
+    N)``). Skipped non-candidates are exact no-ops of the dense scan and
+    the coin flip of candidate j is ``uniform(fold_in(key_k, j + 1))`` in
+    both, so the selections equal `make_ggc`'s on the equivalent masks,
+    bit for bit.
+
+    Returns ``ggc(keys (K, 2), k_idx (K,), cand_idx (K, B), flat_w (N, P),
+    p (N,)) -> (K, B) int32``: each client's selected C_k, ascending, -1
+    padded."""
+    step = greedy_decision_step(reward_fn)
+
+    @torch.no_grad()
+    def ggc(keys, k_idx, cand_idx, flat_w, p):
+        N = flat_w.shape[0]
+        K, B = cand_idx.shape
+        dev = flat_w.device
+        safe = cand_idx.clamp(0, N - 1).long()
+        valid = (cand_idx >= 0) & (safe != k_idx[:, None])
+        # running sums start from the same masked (K, N) @ (N, P) launch
+        # as the dense scan, so the probes start bitwise aligned
+        hits = torch.zeros((K, N), dtype=torch.int64, device=dev)
+        cand_mask = hits.scatter_add_(1, safe, valid.long()) > 0
+        full = _greedy_init(k_idx, cand_mask, flat_w, p)
+        carry = full._replace(
+            maskX=torch.zeros((K, B), dtype=torch.bool, device=dev),
+            maskY=valid)
+        # visit the slots in dense-permutation order; invalid slots
+        # (no-ops) go last, in a fixed order
+        order = prng.permutation(prng.fold_in(keys, 0), N)
+        inv = torch.argsort(order, dim=1)
+        rank = torch.where(valid, inv.gather(1, safe), N + safe)
+        visit = torch.argsort(rank, dim=1, stable=True)
+        coins = prng.uniform(prng.fold_in(keys[:, None, :], safe + 1))
+        for s in range(B):
+            slot = visit[:, s]
+            col = slot[:, None]
+            j = safe.gather(1, col)[:, 0]
+            carry = step(carry, j, flat_w[j], u=coins.gather(1, col)[:, 0],
+                         k_idx=k_idx, is_cand=valid.gather(1, col)[:, 0],
+                         p_j=p[j], budget=budget, slot=slot)
+        # canonical output order: ascending global id, -1 slots last
+        sel = torch.sort(torch.where(carry.maskX, safe, N + safe),
+                         dim=1).values
+        return torch.where(sel < N, sel, -1).to(torch.int32)
+
+    return ggc
+
+
+def all_clients_graph_sparse(key, flat_w, p, cand_idx, reward_fn,
+                             budget: int, active=None):
+    """Sparse-representation graph construction for every client in one
+    batch: candidates and selections are (N, B) neighbor lists, and each
+    client's greedy probes only its <= B candidates. Selects what
+    `all_clients_graph` selects on the equivalent masks."""
+    if active is not None:
+        raise NotImplementedError(
+            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
+    N = flat_w.shape[0]
+    ggc = make_ggc_sparse(reward_fn, budget)
+    k_idx = torch.arange(N, device=flat_w.device)
+    return ggc(_client_keys(key, N), k_idx, cand_idx, flat_w, p)
+
+
+def all_clients_bggc_sparse(key, flat_w, p, reward_fn, budget: int):
+    """Batched-GGC preprocessing emitting (N, B) Omega lists. Algorithm 3
+    streams every peer (full candidacy), so this is `all_clients_bggc`
+    with full candidate masks, converted to lists of width
+    ``max(1, min(budget, N - 1))`` (a client selects at most that many
+    peers; the round buffers use the same width)."""
+    N = flat_w.shape[0]
+    cand = ~torch.eye(N, dtype=torch.bool, device=flat_w.device)
+    omega = all_clients_bggc(key, flat_w, p, cand, reward_fn, budget)
+    return neighbors_from_adjacency(omega, max(1, min(budget, N - 1)))

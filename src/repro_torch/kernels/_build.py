@@ -20,17 +20,20 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: kernel name -> its source under csrc/
-SOURCES = {"graph_mix": "graph_mix.cu"}
+SOURCES = {"graph_mix": "graph_mix.cu",
+           "sparse_graph_mix": "sparse_graph_mix.cu",
+           "compressed_graph_mix": "compressed_graph_mix.cu"}
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +110,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name].path))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel ``name``'s library, bound with
+    ``argtypes`` and an int result (the ``cudaError_t`` of the launch).
+    Pass ``ctypes.c_void_p`` for every pointer and the stream: an
+    unannotated Python int would be cut to 32 bits."""
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[symbol] = fn
+    return fn
+
+
+def check(name: str, err: int):
+    """Raise if a launch of kernel ``name`` returned a CUDA error: a
+    refused launch never runs, and no later synchronize reports it."""
+    if err != 0:
+        msg = getattr(load(name), f"{name}_error_string")
+        msg.argtypes = [ctypes.c_int]
+        msg.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{err} ({msg(err).decode()})")

@@ -19,20 +19,9 @@ import torch
 
 from . import _build
 
-_DTYPES = {torch.float32: "graph_mix_f32", torch.bfloat16: "graph_mix_bf16"}
-_BOUND = {}
-
-
-def _entry(dtype: torch.dtype):
-    fn = _BOUND.get(dtype)
-    if fn is None:
-        fn = getattr(_build.load("graph_mix"), _DTYPES[dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BOUND[dtype] = fn
-    return fn
+_SYMBOLS = {torch.float32: "graph_mix_f32", torch.bfloat16: "graph_mix_bf16"}
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
 
 
 def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -44,7 +33,7 @@ def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
                          f"device, got {A.device} and {W.device}")
     if A.dtype != torch.float32:
         raise TypeError(f"graph_mix: A must be float32, got {A.dtype}")
-    if W.dtype not in _DTYPES:
+    if W.dtype not in _SYMBOLS:
         raise TypeError(f"graph_mix: W must be float32 or bfloat16, "
                         f"got {W.dtype}")
     if A.dim() != 2 or W.dim() != 2 or A.shape[1] != W.shape[0]:
@@ -59,16 +48,11 @@ def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         return out
     if N == 0:
         return out.zero_()
-    lib_fn = _entry(W.dtype)
+    lib_fn = _build.entry("graph_mix", _SYMBOLS[W.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib_fn(A.data_ptr(), W.data_ptr(), out.data_ptr(), M, N, P,
-                 W.device.index, stream)
-    if err != 0:
-        msg = _build.load("graph_mix").graph_mix_error_string
-        msg.argtypes = [ctypes.c_int]
-        msg.restype = ctypes.c_char_p
-        raise RuntimeError(f"graph_mix kernel launch failed: CUDA error "
-                           f"{err} ({msg(err).decode()})")
+    _build.check("graph_mix", lib_fn(A.data_ptr(), W.data_ptr(),
+                                     out.data_ptr(), M, N, P,
+                                     W.device.index, stream))
     graph_mix.launches += 1
     return out
 

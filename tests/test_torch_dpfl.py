@@ -21,6 +21,7 @@ from repro.core import run_dpfl as jrun  # noqa: E402
 from repro_torch import prng  # noqa: E402
 from repro_torch.core.dpfl import (DPFLConfig, graph_stats,  # noqa: E402
                                    run_dpfl, run_dpfl_reference)
+from repro_torch.fl.compress import CompressionConfig  # noqa: E402
 
 SETTINGS = {
     "mlp-refresh1": ("mlp", dict(rounds=4, tau_init=2, tau_train=1,
@@ -190,11 +191,16 @@ def test_history_flushes_every_k_rounds():
 
 
 @pytest.mark.parametrize("override", [
-    dict(participation=object()), dict(compression=object()),
-    dict(adversary=object()), dict(graph_repr="sparse"),
-    dict(mix_rule="trimmed"), dict(random_graph=True),
+    dict(participation=object()),
+    dict(compression=CompressionConfig("topk"), adversary=object()),
+    dict(adversary=object()),
+    dict(graph_repr="sparse", participation=object()),
+    dict(mix_rule="trimmed"),
+    dict(random_graph=True, mix_rule="clipped"),
     dict(graph_impl="other")], ids=lambda d: next(iter(d)))
 def test_unported_settings_raise(override):
+    """Settings still to port raise, alone or beside ported ones (the
+    case ids name the first setting of each)."""
     _, te = _engines("mlp")
     for run in (run_dpfl, run_dpfl_reference):
         with pytest.raises(NotImplementedError):

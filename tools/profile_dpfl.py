@@ -1,14 +1,15 @@
 """Where the time of the port's main path goes on the card.
 
 Runs `repro_torch.core.dpfl.run_dpfl` on the configuration of
-``chip_smoke.py`` (PaperCNN at its published width, 32 clients) once to
-warm up, then once under ``torch.profiler`` and prints one JSON line: the
-wall time, the summed device-kernel time and the device's idle share,
-the time of each phase (preprocessing vs the round loop, by CUDA-synced
-host clock), and the kernels that take the most device time, the port's
-graph_mix among them.
+``chip_smoke.py`` (PaperCNN at its published width, 32 clients) in one
+of its main-path variants (dense; sparse; dense top-k; sparse top-k)
+once to warm up, then once under ``torch.profiler`` and prints one JSON
+line: the wall time, the summed device-kernel time and the device's idle
+share, the time of each phase (preprocessing vs the round loop, by
+CUDA-synced host clock), and the kernels that take the most device time,
+the port's own kernels among them.
 
-    python3 tools/profile_dpfl.py [--rounds 3]
+    python3 tools/profile_dpfl.py [--rounds 3] [--variant dense]
 
 Needs a CUDA card; imports no JAX.
 """
@@ -29,6 +30,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--variant", default="dense",
+                    choices=["dense", "sparse", "topk", "sparse-topk"])
     args = ap.parse_args()
 
     import torch
@@ -39,16 +42,12 @@ def main():
         sys.exit("profile_dpfl: needs a CUDA card")
 
     import chip_smoke
-    from repro_torch.configs.paper_cnn import CNNConfig
     from repro_torch.core import dpfl
-    from repro_torch.data import make_federated_classification
-    from repro_torch.fl.engine import FLEngine
-    from repro_torch.models.classifier import PaperCNN
 
-    data = make_federated_classification(**chip_smoke.SMOKE_DATA)
-    engine = FLEngine(PaperCNN(CNNConfig()), data, lr=chip_smoke.SMOKE_LR,
-                      batch_size=chip_smoke.SMOKE_BATCH)
-    cfg = dpfl.DPFLConfig(**dict(chip_smoke.SMOKE_RUN, rounds=args.rounds))
+    engine = chip_smoke.make_engine()
+    cfg = chip_smoke.smoke_config(args.variant,
+                             **dict(chip_smoke.SMOKE_RUN,
+                                    rounds=args.rounds))
 
     # phase split by the host clock, each phase ending in a synchronize
     phases = {}
@@ -84,16 +83,19 @@ def main():
     device_s = sum(r[0] for r in rows) / 1e6
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "rounds": args.rounds, "wall_s": wall, **phases,
+        "variant": args.variant, "rounds": args.rounds, "wall_s": wall,
+        **phases,
         "rounds_per_s_loop": args.rounds / phases["rounds_s"],
         "device_kernel_s": device_s,
         "device_idle_share": 1.0 - device_s / wall,
         "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
                          "calls": n, "share_of_device": us / 1e6 / device_s}
                         for us, k, n in rows[:args.top]],
-        "graph_mix_kernel": [{"name": k[:90], "device_ms": us / 1e3,
-                              "calls": n} for us, k, n in rows
-                             if "graph_mix" in k],
+        # the port's kernels: graph_mix, sparse_graph_mix and
+        # compressed_graph_mix
+        "port_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                          "calls": n} for us, k, n in rows
+                         if "graph_mix" in k],
     }))
 
 
