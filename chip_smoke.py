@@ -13,6 +13,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    K2 sparse_graph_mix (sentinel slots, all-sentinel rows, duplicate
    indices, B > N, ragged P, bf16), K3 compressed_graph_mix (duplicate
    indices, -1 pads, K and P off the tile);
+   and K4 flash_attention (the serve shape in fp32 and bf16, MQA with a
+   window, h2o-danube's hd 80, recurrentgemma's hd 256 with one KV
+   head, ragged S, S = 1, Sq != Sk);
 4. the port's main paths: Algorithm 1 through
    `repro_torch.core.dpfl.run_dpfl` on PaperCNN at its published width
    (32 clients, 3 rounds) in four configurations (dense graphs without
@@ -21,7 +24,14 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    and read just after, the run's invariants (Omega equal to the dense
    run's) and a learning check; then the same entry point on a small
    input on the card and on the CPU (dense, sparse, top-k, int8), which
-   must select the same graphs;
+   must select the same graphs; then the serving path:
+   `repro_torch.launch.serve.generate` on qwen3-0.6b at its full
+   published config (28 layers, float32, random weights from a seed),
+   batch 4, prompt 512, 32 new tokens, greedy, with the counts zeroed
+   just before and read just after (28 K4 launches in the prefill, 0 in
+   decode), the same tokens from a second call, and the same weights on
+   the card and on the CPU (batch 1, prompt 128, 8 tokens), which must
+   give the same tokens;
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function, and its bound (after phase 4, so
    the card runs at its working clocks, not idle ones);
@@ -77,6 +87,31 @@ K1_SHAPES = [(32, 32, PAPER_CNN_PARAMS, "float32"),
              (7, 5, 1000, "float32"),
              (32, 32, PAPER_CNN_PARAMS, "bfloat16")]
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}   # tests/test_kernels.py
+# K4 cases: (name, B, Sq, Sk, Hq, Hkv, hd, window, dtype); the first is
+# the serve run's prefill attention (qwen3-0.6b, batch 4, prompt 512)
+K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, None, "float32"),
+            ("serve bf16", 4, 512, 512, 16, 8, 128, None, "bfloat16"),
+            ("MQA, window 96", 1, 256, 256, 4, 1, 64, 96, "float32"),
+            ("hd 80, window 128", 2, 384, 384, 32, 8, 80, 128, "float32"),
+            ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, 64,
+             "float32"),
+            ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "float32"),
+            ("S = 1", 4, 1, 1, 16, 8, 128, None, "float32"),
+            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32")]
+K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
+# The serving path: qwen3-0.6b at its published config, in float32 as
+# `repro.launch.serve` runs it
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
+CROSS_RUN = dict(batch=1, prompt_len=128, new_tokens=8)
+# Card against CPU on the same weights: last-position prefill logits
+# (std 0.64) within CROSS_TOL. A CPU rehearsal at full width with 2 and 4
+# layers (B 1, S 128, float32) put two summation orders (the prompt alone
+# against inside a batch of 3; 4 threads against 1) at most 6.3e-6 apart,
+# and 4.2e-6 from a float64 forward, growing little with depth; 28
+# layers and another BLAS grow that, while a wrong mask or rope moves
+# logits by 1e-2 and more.
+CROSS_TOL = 1e-3
 # K2 cases: (name, N, B, P, dtype, index table, separate W_peers). The
 # main path's: Omega-shaped lists (B = budget distinct peers) over one
 # table (no codec) and over a separate decoded table (a codec).
@@ -97,9 +132,13 @@ K3_CASES = [("main", 32, 32, 6201, PAPER_CNN_PARAMS, "topk"),
             ("K, P off the tile", 7, 5, 33, 1000, "topk"),
             ("M > 32 rows", 40, 9, 77, 515, "duplicates")]
 
-# (HBM bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data sheets
-CARDS = {"H200": (4.8e12, 67e12), "H100 PCIe": (2.0e12, 51e12),
-         "H100 NVL": (3.9e12, 60e12), "H100": (3.35e12, 67e12)}
+# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
+# on the tensor cores), NVIDIA data sheets. A row's bound takes the rate
+# of its inputs' type: a kernel on bf16 inputs could use the tensor cores.
+CARDS = {"H200": (4.8e12, 67e12, 989e12),
+         "H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H100": (3.35e12, 67e12, 989e12)}
 
 
 def fail(msg: str):
@@ -126,8 +165,11 @@ def _close(torch, label, got, want, tol):
     return err
 
 
-def _bound(rates, nbytes, flops):
-    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / rates[1] * 1e3
+def _bound(rates, nbytes, flops, dtype):
+    """The least time (ms) for ``nbytes`` of memory traffic and ``flops``
+    on inputs of ``dtype``, and which of the two binds."""
+    peak = rates[2] if dtype == "bfloat16" else rates[1]
+    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -195,7 +237,7 @@ def time_k1(torch, inputs, errs, rates):
         elt = W.element_size()
         nbytes = 4 * M * N + elt * (N * P + M * P)
         flops = 2 * M * N * P
-        bound_ms, bound_by = _bound(rates, nbytes, flops)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
         rows.append(dict(M=M, N=N, P=P, dtype=dt, max_abs_err=err,
                          tol=TOL[dt], ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
@@ -330,7 +372,7 @@ def time_k2(torch, inputs, errs, rates):
         peer_rows = 0 if Wp is W else int(torch.unique(idx[valid]).numel())
         nbytes = 4 * N + 8 * N * B + elt * (2 * N + peer_rows) * P
         flops = 2 * P * (N + int(valid.sum()))
-        bound_ms, bound_by = _bound(rates, nbytes, flops)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
         rows.append(dict(case=name, N=N, B=B, P=P, dtype=dt,
                          max_abs_err=err, tol=TOL[dt], ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
@@ -375,7 +417,7 @@ def time_k3(torch, inputs, errs, rates):
         entries = int((idx >= 0).sum())
         nbytes = 8 * N * K + 4 * M * N + 4 * M * P
         flops = 2 * M * entries
-        bound_ms, bound_by = _bound(rates, nbytes, flops)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         rows.append(dict(case=name, M=M, N=N, K=K, P=P, dtype="float32",
                          max_abs_err=err, tol=TOL["float32"], ms=ms,
                          sort_ms=sort_ms, kernel_ms=kernel_ms,
@@ -389,24 +431,108 @@ def time_k3(torch, inputs, errs, rates):
     return rows
 
 
+def k4_inputs(torch):
+    """Seeded (name, dtype, window, q, k, v) on the card for every K4 case,
+    q and k scaled by 0.5 as in tests/test_kernels.py."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for name, B, Sq, Sk, Hq, Hkv, hd, window, dt in K4_CASES:
+        def draw(S, H, scale):
+            return (torch.randn((B, S, H, hd), generator=gen, device="cuda")
+                    * scale).to(getattr(torch, dt))
+        out.append((name, dt, window, draw(Sq, Hq, 0.5), draw(Sk, Hkv, 0.5),
+                    draw(Sk, Hkv, 1.0)))
+    return out
+
+
+def check_k4(torch, inputs):
+    """K4 against its plain version in every case; returns the max abs
+    error per case."""
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    return [_close(torch, f"K4 {name} {dt}",
+                   k4.flash_attention(q, k, v, window=window),
+                   ref.flash_attention_ref(q, k, v, window=window),
+                   K4_TOL[dt])
+            for name, dt, window, q, k, v in inputs]
+
+
+def k4_work(q, k, window):
+    """(bytes, flops) K4 must at least move and do: q, k, v read once and
+    out written once; 4 hd flops (two products) per visible (query, key)
+    pair of every head, counted from the mask of these shapes."""
+    B, Sq, Hq, hd = q.shape
+    Sk = k.shape[1]
+    pairs = 0
+    for i in range(Sq):
+        lo = 0 if window is None else max(0, i - window + 1)
+        pairs += max(0, min(i, Sk - 1) - lo + 1)
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return nbytes, 4 * B * Hq * hd * pairs
+
+
+def time_k4(torch, inputs, errs, rates):
+    """K4, its plain version and the yardstick
+    (`scaled_dot_product_attention` with ``is_causal`` and ``enable_gqa``
+    on (B, H, S, hd) views) timed at the serve shape, fp32 and bf16,
+    beside the bound; returns the rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    rows = []
+    for (name, dt, window, q, k, v), err in zip(inputs, errs):
+        if not name.startswith("serve"):
+            continue
+        ms = time_ms(lambda: k4.flash_attention(q, k, v), torch)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), torch)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), torch)
+        lib_err = (F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+            .float() - k4.flash_attention(q, k, v).float()).abs().max().item()
+        nbytes, flops = k4_work(q, k, window)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
+        B, S, Hq, hd = q.shape
+        rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
+                         dtype=dt, max_abs_err=err, tol=K4_TOL[dt], ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_max_abs_diff=lib_err, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         tflops=flops / ms / 1e9))
+        print(f"  K4 {name:<10} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}) "
+              f"{dt:<8} err {err:.3g} kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} ms  "
+              f"sdpa {lib_ms:.4f} ms (diff {lib_err:.3g})  bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
 def _zero_launches():
     from repro_torch.kernels import compressed_graph_mix as k3
+    from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import graph_mix as k1
     from repro_torch.kernels import sparse_graph_mix as k2
 
     k1.graph_mix.launches = 0
     k2.sparse_graph_mix.launches = 0
     k3.compressed_graph_mix.launches = 0
+    k4.flash_attention.launches = 0
 
 
 def _read_launches():
     from repro_torch.kernels import compressed_graph_mix as k3
+    from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import graph_mix as k1
     from repro_torch.kernels import sparse_graph_mix as k2
 
     return {"graph_mix": k1.graph_mix.launches,
             "sparse_graph_mix": k2.sparse_graph_mix.launches,
-            "compressed_graph_mix": k3.compressed_graph_mix.launches}
+            "compressed_graph_mix": k3.compressed_graph_mix.launches,
+            "flash_attention": k4.flash_attention.launches}
 
 
 def smoke_config(variant, **run):
@@ -462,7 +588,8 @@ def expected_launches(variant, N, B, rounds):
         k1 += 1 + (0 if topk else rounds)
     return {"graph_mix": k1,
             "sparse_graph_mix": 1 + rounds if sparse else 0,
-            "compressed_graph_mix": rounds if topk and not sparse else 0}
+            "compressed_graph_mix": rounds if topk and not sparse else 0,
+            "flash_attention": 0}
 
 
 def check_main_path(res, engine, cfg, variant, launches, omega_dense):
@@ -562,6 +689,101 @@ def check_small_input(torch):
     return errs
 
 
+def serve_model(torch):
+    """qwen3-0.6b at its published config in float32 on the card, its
+    weights drawn from seed 0 there; returns (cfg, model, params)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH).replace(dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(prng.PRNGKey(0, device="cuda"))
+    n = sum(t.numel() for t in params.values())
+    print(f"{SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n} float32 weights")
+    return cfg, model, params
+
+
+def run_serve(torch, cfg, model, params):
+    """The serving path once through `generate` with every kernel count
+    zeroed just before and read just after (one K4 launch per layer, no
+    other kernel); then `generate`'s prefill phase alone, counted the same
+    way, so the decode loop's K4 launches are the difference (none); then
+    a second call, which must give the same tokens. Returns (launches, K4
+    launches in (prefill, decode), the first call's Generation, the
+    second's)."""
+    from repro_torch.launch.serve import generate, make_prompts, prefill
+
+    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
+    prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")
+    torch.cuda.synchronize()
+    _zero_launches()
+    gen = generate(model, params, prompts, new)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want = {"graph_mix": 0, "sparse_graph_mix": 0, "compressed_graph_mix": 0,
+            "flash_attention": cfg.n_layers}
+    if launches != want:
+        fail(f"serve: kernel launches {launches}, expected {want}")
+    _zero_launches()
+    prefill(model, prompts, new)
+    torch.cuda.synchronize()
+    n_prefill = _read_launches()["flash_attention"]
+    split = (n_prefill, launches["flash_attention"] - n_prefill)
+    if split != (cfg.n_layers, 0):
+        fail(f"serve: K4 launches (prefill, decode) {split}, expected "
+             f"({cfg.n_layers}, 0)")
+    if tuple(gen.tokens.shape) != (B, new):
+        fail(f"serve: tokens {tuple(gen.tokens.shape)}, expected {(B, new)}")
+    if int(gen.tokens.min()) < 0 or int(gen.tokens.max()) >= cfg.vocab_size:
+        fail("serve: a token outside the vocabulary")
+    for name in ("prefill_logits", "last_logits"):
+        logits = getattr(gen, name)
+        if tuple(logits.shape) != (B, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"serve: {name} not a finite {(B, cfg.vocab_size)} table")
+    again = generate(model, params, prompts, new)
+    if not torch.equal(again.tokens, gen.tokens):
+        fail("serve: a second call gave other tokens")
+    return launches, split, gen, again
+
+
+def check_cross(torch, cfg, model, params):
+    """The same weights on the card and on the CPU (copied from the card:
+    drawing 0.6 B threefry normals on the CPU is slow), batch 1: the
+    greedy tokens equal and the last-position prefill logits within
+    CROSS_TOL, so K4 is held against the plain path inside the model.
+    Returns (max abs logits difference, CPU seconds)."""
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import build_model
+
+    B, S, new = (CROSS_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
+    prompts = make_prompts(cfg.vocab_size, B, S, 1, "cuda")
+    _zero_launches()
+    card = generate(model, params, prompts, new)
+    torch.cuda.synchronize()
+    n_card = _read_launches()["flash_attention"]
+    t0 = time.perf_counter()
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu = generate(build_model(cfg, device="meta"), cpu_params, prompts.cpu(),
+                   new)
+    seconds = time.perf_counter() - t0
+    n_cpu = _read_launches()["flash_attention"] - n_card
+    if (n_card, n_cpu) != (cfg.n_layers, 0):
+        fail(f"card against CPU: K4 launches {n_card} on the card, {n_cpu} "
+             f"on the CPU")
+    diff = (card.prefill_logits.cpu() - cpu.prefill_logits).abs().max().item()
+    if not diff <= CROSS_TOL:
+        fail(f"card against CPU: prefill logits differ by {diff} > "
+             f"{CROSS_TOL}")
+    if not torch.equal(card.tokens.cpu(), cpu.tokens):
+        fail(f"card against CPU: tokens {card.tokens.tolist()} != "
+             f"{cpu.tokens.tolist()}")
+    return diff, seconds
+
+
 def _kernel_row(name, source, replaces, launches, rows):
     main = rows[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -592,10 +814,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
-          f"device {name}  count {torch.cuda.device_count()}")
-    rates = card_rates(name)
+          f"device {device_name}  count {torch.cuda.device_count()}")
+    rates = card_rates(device_name)
 
     # ---- 2. build
     from repro_torch.kernels import _build
@@ -620,6 +842,14 @@ def main():
     k3_errs = check_k3(torch, k3_in)
     print(f"K3 agrees with its plain version in {len(k3_in) + 1} cases "
           f"(max abs err {max(k3_errs):.3g})")
+    k4_in = k4_inputs(torch)
+    k4_errs = check_k4(torch, k4_in)
+    k4_max = {dt: max(e for e, c in zip(k4_errs, K4_CASES) if c[-1] == dt)
+              for dt in K4_TOL}
+    print(f"K4 agrees with its plain version in {len(k4_in)} cases (max abs "
+          f"err {k4_max['float32']:.3g} fp32, {k4_max['bfloat16']:.3g} bf16)")
+    for case, err in zip(K4_CASES, k4_errs):
+        print(f"  K4 {case[0]}: max abs err {err:.3g}")
 
     # ---- 4. the main paths
     engine = make_engine()
@@ -643,19 +873,40 @@ def main():
     small = check_small_input(torch)
     print(f"small input: card and CPU select the same graphs (best_flat "
           f"max abs diff {small})")
+    cfg, model, params = serve_model(torch)
+    launches["serve"], split, gen, again = run_serve(torch, cfg, model,
+                                                     params)
+    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
+    for label, g in (("first call", gen), ("second call", again)):
+        print(f"serve {SERVE_ARCH} float32 B={B} S={S} new={new} ({label}): "
+              f"prefill {g.prefill_seconds * 1e3:.3f} ms wall "
+              f"({B * S / g.prefill_seconds:.1f} prompt tok/s), decode "
+              f"{new - 1} steps {g.decode_seconds * 1e3:.3f} ms wall "
+              f"({g.decode_seconds / (new - 1) * 1e3:.3f} ms/step, "
+              f"{(new - 1) * B / g.decode_seconds:.1f} tok/s)")
+    print(f"serve: launches {launches['serve']}, K4 (prefill, decode) "
+          f"{split}, same tokens on a second call; sample "
+          f"{gen.tokens[0, :8].tolist()}")
+    diff, cpu_s = check_cross(torch, cfg, model, params)
+    print(f"card against CPU ({SERVE_ARCH}, B={CROSS_RUN['batch']} "
+          f"S={CROSS_RUN['prompt_len']} new={CROSS_RUN['new_tokens']}): same "
+          f"tokens, prefill logits max abs diff {diff:.3g} (tol {CROSS_TOL}),"
+          f" CPU side {cpu_s:.1f} s")
+    del model, params
 
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle
     k1_rows = time_k1(torch, k1_in, k1_errs, rates)
     k2_rows = time_k2(torch, k2_in, k2_errs, rates)
     k3_rows = time_k3(torch, k3_in, k3_errs, rates)
+    k4_rows = time_k4(torch, k4_in, k4_errs, rates)
     print("clocks.sm, power.draw after timing: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
-    # ---- 6. results: launches summed over the four main-path runs, with
-    # each run's counts beside them
+    # ---- 6. results: launches summed over the main-path runs (the four
+    # DPFL runs and the serve run), with each run's counts beside them
     def total(kname):
         return sum(c[kname] for c in launches.values())
 
@@ -670,13 +921,17 @@ def main():
         _kernel_row("compressed_graph_mix",
                     "src/repro_torch/kernels/csrc/compressed_graph_mix.cu",
                     "src/repro/kernels/compressed_graph_mix.py:66",
-                    total("compressed_graph_mix"), k3_rows)]
+                    total("compressed_graph_mix"), k3_rows),
+        _kernel_row("flash_attention",
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:96",
+                    total("flash_attention"), k4_rows)]
     for row in rows:
         row["launches_by_run"] = {v: c[row["name"]]
                                   for v, c in launches.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
 
 

@@ -4,8 +4,9 @@ The port keeps `repro`'s flat layout exactly: the leaves of a parameter
 dict in ``ravel_pytree`` order (sorted keys), each raveled in its JAX
 layout (HWIO conv weights, (in, out) dense weights). So a row of a
 (N, P) table of one package is the same model in the other, and weights
-cross as numpy arrays with no reshuffling. Takes numpy, not JAX arrays:
-this module imports no JAX.
+cross as numpy arrays with no reshuffling. An LM's stacked layer tree
+becomes the port's per-layer state dict (`lm_params_from_jax`). Takes
+numpy, not JAX arrays: this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -31,3 +32,38 @@ def flat_from_jax(flat: np.ndarray, device=None) -> torch.Tensor:
     device = torch.device("cuda") if device is None else torch.device(device)
     return torch.tensor(np.asarray(flat), dtype=torch.float32,
                         device=device)
+
+
+def lm_params_from_jax(params: Mapping, cfg, device=None
+                       ) -> Dict[str, torch.Tensor]:
+    """A `repro` ``DecoderLM`` parameter tree of the dense family, as numpy
+    arrays (every leaf under ``"layers"`` stacked over a leading
+    n_layers axis) -> the state dict of the port's
+    `repro_torch.models.lm.DecoderLM` ("tok_embed", "final_norm",
+    ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq", ...), in
+    ``cfg.dtype`` on ``device`` (default cuda)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"lm_params_from_jax: the {cfg.family} "
+                                  f"family is not ported")
+    device = torch.device("cuda") if device is None else torch.device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def put(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            dtype=dtype)
+
+    def leaves(tree, prefix=""):
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                yield from leaves(leaf, f"{prefix}{name}.")
+            else:
+                yield f"{prefix}{name}", np.asarray(leaf)
+
+    out = {name: put(a) for name, a in params.items() if name != "layers"}
+    for name, a in leaves(params["layers"]):
+        if a.shape[0] != cfg.n_layers:
+            raise ValueError(f"lm_params_from_jax: layers.{name} has "
+                             f"{a.shape[0]} rows for {cfg.n_layers} layers")
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{name}"] = put(a[i])
+    return out

@@ -7,10 +7,13 @@ implementation. On a CUDA tensor an op launches its kernel or raises.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..analysis.registry import exchange_site
 from . import compressed_graph_mix as _k3
+from . import flash_attention as _k4
 from . import graph_mix as _k1
 from . import ref
 from . import sparse_graph_mix as _k2
@@ -52,3 +55,17 @@ def compressed_graph_mix(A: torch.Tensor, vals: torch.Tensor,
     if _on_cpu(A, vals, idx):
         return ref.compressed_graph_mix_ref(A, vals, idx, p_dim)
     return _k3.compressed_graph_mix(A, vals, idx, p_dim)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Causal GQA attention over aligned positions, optional sliding
+    window: q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), output in q's
+    dtype (`repro.kernels.ops.flash_attention`). Raises
+    ``NotImplementedError`` for inputs that require grad, on either
+    device: the kernel has no backward."""
+    _k4.check_no_grad(q, k, v)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _k4.flash_attention(q, k, v, causal=causal, window=window)

@@ -7,7 +7,11 @@ version on the card.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..models.common import attention_ref
 
 
 def graph_mix_ref(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -56,3 +60,18 @@ def compressed_graph_mix_ref(A: torch.Tensor, vals: torch.Tensor,
     """``A @ densify(vals, idx)``: densify, then an fp32 matmul, cast to
     vals.dtype (`repro.kernels.ref.compressed_graph_mix_ref`)."""
     return (A.float() @ densify_topk(vals, idx, p_dim)).to(vals.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd); aligned positions
+    (q_pos = arange(Sq), kv_pos = arange(Sk)): `attention_ref` in one
+    chunk (`repro.kernels.ref.flash_attention_ref`)."""
+    B, Sq = q.shape[0], q.shape[1]
+    Sk = k.shape[1]
+    q_pos = torch.arange(Sq, dtype=torch.int32, device=q.device)
+    kv_pos = torch.arange(Sk, dtype=torch.int32,
+                          device=q.device)[None].expand(B, Sk)
+    return attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                         window=window, q_chunk=1 << 30)

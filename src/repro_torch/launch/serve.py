@@ -1,0 +1,162 @@
+"""Batched serving: prefill of a batch of prompts, then a decode
+loop (port of `repro.launch.serve`, dense family). Reduced config by
+default; runs on the card unless ``--device cpu``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --batch 4 --prompt-len 32 --new-tokens 16 [--full] [--device cpu]
+
+Every prefill attention runs on the K4 kernel on the card (the plain
+version on the CPU); decode runs the plain ring-cache attention, as in
+`repro`. The decode loop keeps the tokens on the device and makes no
+device-to-host copy (``set_sync_debug_mode("error")`` on CUDA).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import torch
+
+from .. import prng
+from ..configs import ARCH_IDS, get_config
+from ..fl.round_engine import no_sync
+from ..models import build_model
+
+
+@dataclasses.dataclass
+class Generation:
+    """What `generate` returns. Tensors stay on the model's device."""
+    tokens: torch.Tensor          # (B, new_tokens) int64
+    prefill_logits: torch.Tensor  # (B, V) at the prompt's last position
+    last_logits: torch.Tensor     # (B, V) of the last decode step
+    prefill_seconds: float        # host clock, the card synchronised
+    decode_seconds: float
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _next_token(logits: torch.Tensor, temperature: float,
+                key: Optional[torch.Tensor]):
+    """Greedy, or with ``temperature`` > 0 a Gumbel-max draw (what
+    ``jax.random.categorical`` computes) from a split of ``key``.
+    Returns ((B, 1) tokens, the carried key)."""
+    if temperature <= 0:
+        return logits.argmax(-1, keepdim=True), key
+    ks = prng.split(key, 2)
+    key, sub = ks[0], ks[1]
+    u = prng.uniform(sub, logits.shape,
+                     float(torch.finfo(torch.float32).tiny), 1.0)
+    gumbel = -torch.log(-torch.log(u))
+    return (logits / temperature + gumbel).argmax(-1, keepdim=True), key
+
+
+@torch.inference_mode()
+def prefill(model, prompts: torch.Tensor, new_tokens: int):
+    """The first phase of `generate`: ``prompts`` (B, S) into ring caches
+    of S + new_tokens slots. Returns (last-position logits, the greedy
+    first token (B, 1), caches)."""
+    logits, caches = model.prefill(prompts,
+                                   cache_len=prompts.shape[1] + new_tokens)
+    return logits, logits.argmax(-1, keepdim=True), caches
+
+
+@torch.inference_mode()
+def decode(model, caches, tok: torch.Tensor, pos: int, steps: int, *,
+           temperature: float = 0.0, key: Optional[torch.Tensor] = None):
+    """The second phase of `generate`: ``steps`` decode steps after token
+    ``tok`` (B, 1) at position ``pos``, the tokens kept on the device with
+    no device-to-host copy (`no_sync`). Returns ((B, steps) tokens, the
+    last step's logits, None for no step)."""
+    out, logits = [], None
+    with no_sync(tok.device):
+        for t in range(steps):
+            logits, caches = model.decode_step(caches, tok, pos + t)
+            tok, key = _next_token(logits, temperature, key)
+            out.append(tok)
+        tokens = torch.cat(out, dim=1) if out else tok[:, :0]
+    return tokens, logits
+
+
+def generate(model, params: Optional[Dict[str, torch.Tensor]],
+             prompts: torch.Tensor, new_tokens: int, *,
+             temperature: float = 0.0,
+             key: Optional[torch.Tensor] = None) -> Generation:
+    """`prefill`, the first token greedy from its logits, then `decode` of
+    ``new_tokens - 1`` more (greedy, or Gumbel-max at ``temperature`` with
+    ``key``, a `repro_torch.prng` key on the model's device). ``params``
+    is a state dict of ``model`` (`DecoderLM.init`,
+    `repro_torch.interop.lm_params_from_jax`), bound to it without a copy
+    (None keeps the model's own). Runs under ``torch.inference_mode()``."""
+    if new_tokens < 1:
+        raise ValueError(f"new_tokens {new_tokens} < 1")
+    if temperature > 0 and key is None:
+        raise ValueError("sampling at a temperature needs a key")
+    if params is not None:
+        model.load_state_dict(params, assign=True)
+    device = prompts.device
+    _sync(device)
+    t0 = time.perf_counter()
+    prefill_logits, tok, caches = prefill(model, prompts, new_tokens)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens, last = decode(model, caches, tok, prompts.shape[1],
+                          new_tokens - 1, temperature=temperature, key=key)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return Generation(torch.cat([tok, tokens], dim=1), prefill_logits,
+                      prefill_logits if last is None else last, t_prefill,
+                      t_decode)
+
+
+def make_prompts(vocab_size: int, batch: int, length: int, seed: int,
+                 device) -> torch.Tensor:
+    """(batch, length) int64 token ids, uniform over the vocabulary, from a
+    generator seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, vocab_size, (batch, length), generator=gen,
+                         device=device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
+    ap.add_argument("--full", action="store_true",
+                    help="full config (default: reduced)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; no fallback between them")
+    args = ap.parse_args(argv)
+
+    # IEEE fp32 products, as the reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    cfg = cfg.replace(dtype="float32")
+    model = build_model(cfg, device=device)
+    key = prng.PRNGKey(0, device=device)
+    params = model.init(key)
+    B, S = args.batch, args.prompt_len
+    prompts = make_prompts(cfg.vocab_size, B, S, 0, device)
+    gen = generate(model, params, prompts, args.new_tokens,
+                   temperature=args.temperature, key=key)
+    n = args.new_tokens - 1
+    print(f"prefill B={B} S={S}: {gen.prefill_seconds * 1e3:.1f} ms")
+    print(f"decoded {n} steps x {B} seqs in {gen.decode_seconds:.2f}s "
+          f"({n * B / max(gen.decode_seconds, 1e-9):.1f} tok/s)")
+    print("sample token ids:", gen.tokens[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,16 @@
-from .classifier import MLP, PaperCNN, accuracy, dense_init, xent_loss
+"""Model zoo: the DPFL classifiers and, for the dense family, the
+decoder-only LM built from its config (`build_model`)."""
+from ..configs.base import ArchConfig
+from .classifier import MLP, PaperCNN, accuracy, xent_loss
+from .common import dense_init
+from .lm import DecoderLM
 
-__all__ = ["MLP", "PaperCNN", "accuracy", "dense_init", "xent_loss"]
+
+def build_model(cfg: ArchConfig, device=None, **kw) -> DecoderLM:
+    """`repro.models.build_model` for the families the port serves (dense);
+    the others raise ``NotImplementedError`` naming their ROADMAP item."""
+    return DecoderLM(cfg, device=device, **kw)
+
+
+__all__ = ["build_model", "DecoderLM", "MLP", "PaperCNN", "accuracy",
+           "dense_init", "xent_loss"]

@@ -16,24 +16,15 @@ layers as batched matmuls.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from .. import prng
+from .common import dense_init
 
 Params = Dict[str, torch.Tensor]
-
-
-def dense_init(key, shape, dtype=torch.float32,
-               scale: Optional[float] = None) -> torch.Tensor:
-    """`repro.models.common.dense_init`: normal(key, shape) * scale, with
-    scale 1/sqrt(fan_in) unless given."""
-    fan_in = shape[0] if len(shape) >= 2 else 1
-    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (prng.normal(key, shape) * scale).to(dtype)
 
 
 def _conv(h, w, b):

@@ -1,0 +1,132 @@
+"""Shared neural building blocks of the LM substrate (port of
+`repro.models.common`): init, RMS norm, rotary embeddings, the plain
+grouped-query attention and the SwiGLU MLP.
+
+Each computes what its `repro` counterpart computes, in the same layouts
+(heads as (B, S, H, hd), dense weights as (in, out)), so weights and
+activations carry between the packages unchanged. `attention_ref` is the
+plain path of every attention call that has no kernel (ring-cache
+decode) and the plain version of the K4 kernel
+(`repro_torch.kernels.ref.flash_attention_ref`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .. import prng
+
+# --------------------------------------------------------------------- init
+
+
+def dense_init(key, shape, dtype=torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """`repro.models.common.dense_init`: normal(key, shape) * scale, with
+    scale 1/sqrt(fan_in) unless given."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (prng.normal(key, shape) * scale).to(dtype)
+
+
+def embed_init(key, shape, dtype=torch.float32) -> torch.Tensor:
+    """`repro.models.common.embed_init`: normal(key, shape) * 0.02."""
+    return (prng.normal(key, shape) * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis, computed in fp32, cast back to x's
+    dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+# ---------------------------------------------------------------------- rope
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Rotates
+    the two halves of each head (not interleaved pairs), in fp32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_chunk: int = 1024) -> torch.Tensor:
+    """Grouped-query attention with absolute-position masking.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd)
+    q_pos: (Sq,) or (B, Sq); kv_pos: (B, Sk) absolute positions, -1 =
+    invalid (ring-buffer slots not yet written). window: tokens attend to
+    positions in (q_pos - window, q_pos]. Masked scores are -1e30, so a
+    row with no valid key averages all of them, as `repro`'s does.
+
+    Products are exact fp32 products of the stored values, summed in
+    fp32, as `repro`'s einsums with an fp32 accumulator compute them
+    (bf16 operands are widened first: PyTorch has no portable fp32
+    accumulator type for a bf16 product); the probabilities are rounded
+    to v's dtype before the second product, as in `repro`.
+    """
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None, :].expand(B, Sq)
+    qg = q.reshape(B, Sq, Hkv, rep, hd)
+    kf, vf = k.float(), v.float()
+
+    def chunk_attn(qc, qp):
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qc.float(), kf) * scale
+        mask = kv_pos[:, None, :] >= 0
+        if causal:
+            mask = mask & (kv_pos[:, None, :] <= qp[:, :, None])
+        if window is not None:
+            mask = mask & (kv_pos[:, None, :] > qp[:, :, None] - window)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), vf)
+        return o.to(q.dtype)
+
+    if Sq > q_chunk and Sq % q_chunk == 0:
+        out = torch.cat([chunk_attn(qc, qp) for qc, qp in
+                         zip(qg.split(q_chunk, dim=1),
+                             q_pos.split(q_chunk, dim=1))], dim=1)
+    else:
+        out = chunk_attn(qg, q_pos)
+    return out.reshape(B, Sq, Hq, hd)
+
+
+# ---------------------------------------------------------------------- mlp
+
+
+def swiglu(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
+           wo: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo

@@ -1,0 +1,327 @@
+"""Decoder-only language model, dense family (port of `repro.models.lm`):
+GQA with optional qk-norm, rotary embeddings, sliding windows, ring-buffer
+KV caches, SwiGLU MLPs and a tied or separate output head.
+
+`DecoderLM` is an ``nn.Module`` that owns its weights: one `DenseLayer`
+module per layer, each holding `repro`'s per-layer leaves under `repro`'s
+names and layouts ((in, out) dense weights). Its state dict is `repro`'s
+stacked tree split by layer ("layers.3.attn.wq" is row 3 of
+``params["layers"]["attn"]["wq"]``; `repro_torch.interop.
+lm_params_from_jax`). The prefill's attention runs on the K4 kernel
+(`kernels.ops.flash_attention`); decode against the ring cache runs the
+plain `attention_ref`, as in `repro`, which has no decode kernel. The
+weights take no gradient: the LM serves here, and its training is ROADMAP
+Queue 1 item 14d.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import prng
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from .common import (NEG_INF, apply_rope, attention_ref, dense_init,
+                     embed_init, rms_norm, swiglu)
+
+Cache = Dict[str, torch.Tensor]
+
+#: families not ported yet -> the ROADMAP Queue 1 item that ports them
+UNPORTED_FAMILIES = {"ssm": "14b", "hybrid": "14c", "moe": "14d",
+                     "vlm": "14d", "audio": "14d"}
+
+
+def check_family(cfg: ArchConfig):
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"(ROADMAP Queue 1 item {UNPORTED_FAMILIES[cfg.family]}); the "
+            f"port serves the dense family")
+
+
+# ----------------------------------------------------------------- attention
+
+
+def init_attn(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
+    """`repro`'s attention init for ``key``, on the key's device."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    ks = prng.split(key, 4)
+    p = {
+        "wq": dense_init(ks[0], (d, Hq * hd), dtype),
+        "wk": dense_init(ks[1], (d, Hkv * hd), dtype),
+        "wv": dense_init(ks[2], (d, Hkv * hd), dtype),
+        "wo": dense_init(ks[3], (Hq * hd, d), dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=key.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=key.device)
+    return p
+
+
+def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
+               q_pos: torch.Tensor, cache: Optional[Cache] = None,
+               window: Optional[int] = None,
+               cache_len: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """x: (B, S, d). q_pos: (S,) int64 absolute positions (decode: (1,)).
+    cache: {"k": (B, C, Hkv, hd), "v": ..., "pos": (B, C)} ring buffer or
+    None. Without a cache, the positions are ``arange(S)`` and the
+    attention is the K4 kernel; given ``cache_len`` it also returns the
+    ring cache the prefill leaves (`cache_from_prefill`, from the K and V
+    computed here: `repro` computes them a second time for the cache, the
+    same values). With a cache, the new rows go to slots ``q_pos % C``,
+    written in place, and the attention is `attention_ref` over the ring.
+    Returns (out (B, S, d), cache)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p.wq).reshape(B, S, Hq, hd)
+    k = (x @ p.wk).reshape(B, S, Hkv, hd)
+    v = (x @ p.wv).reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    q = apply_rope(q, q_pos, cfg.rope_theta)
+    k = apply_rope(k, q_pos, cfg.rope_theta)
+
+    if cache is None:
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        if cache_len is not None:
+            cache = cache_from_prefill(k, v, q_pos, cache_len, window)
+    else:
+        slot = q_pos % cache["k"].shape[1]
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        cache["pos"].index_copy_(
+            1, slot, q_pos.to(cache["pos"].dtype)[None].expand(B, S))
+        out = attention_ref(q, cache["k"], cache["v"], q_pos, cache["pos"],
+                            causal=True, window=window)
+    return out.reshape(B, S, Hq * hd) @ p.wo, cache
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+                    window: Optional[int] = None, device=None) -> Cache:
+    """An empty ring cache of C = min(cache_len, window) slots (pos -1)."""
+    C = min(cache_len, window) if window else cache_len
+    hd, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    return {
+        "k": torch.zeros((batch, C, Hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, C, Hkv, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, C), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_from_prefill(k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                       cache_len: int, window: Optional[int] = None) -> Cache:
+    """Build a ring cache of C = min(cache_len, window) slots from
+    full-sequence prefill keys and values: all S rows followed by empty
+    slots when C >= S, else the last C rows, position i at slot i % C."""
+    B, S = k.shape[0], k.shape[1]
+    C = min(cache_len, window) if window else cache_len
+    if C >= S:
+        pad = C - S
+        return {
+            "k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+            "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+            "pos": torch.cat([
+                q_pos[None].expand(B, S).to(torch.int32),
+                torch.full((B, pad), -1, dtype=torch.int32,
+                           device=k.device)], dim=1)}
+    # keep the last C entries at their ring slots: row S - C + t goes to
+    # slot (S - C + t) % C = (S % C + t) % C, a roll by S % C
+    shift = S % C
+    idx = torch.arange(S - C, S, dtype=torch.int32, device=k.device)
+    return {"k": torch.roll(k[:, S - C:], shift, dims=1),
+            "v": torch.roll(v[:, S - C:], shift, dims=1),
+            "pos": torch.roll(idx, shift).repeat(B, 1)}
+
+
+# ------------------------------------------------------------- layer blocks
+
+
+def init_dense_layer(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
+    """`repro`'s dense-layer init for ``key``, on the key's device."""
+    d = cfg.d_model
+    ks = prng.split(key, 4)
+    return {
+        "ln1": torch.ones((d,), dtype=dtype, device=key.device),
+        "attn": init_attn(ks[0], cfg, dtype),
+        "ln2": torch.ones((d,), dtype=dtype, device=key.device),
+        "wi_gate": dense_init(ks[1], (d, cfg.d_ff), dtype),
+        "wi_up": dense_init(ks[2], (d, cfg.d_ff), dtype),
+        "wo_mlp": dense_init(ks[3], (cfg.d_ff, d), dtype),
+    }
+
+
+def _weight(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised weight that takes no gradient."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    """One layer's attention weights under `repro`'s names: wq (d, Hq*hd),
+    wk and wv (d, Hkv*hd), wo (Hq*hd, d), and with qk_norm q_norm and
+    k_norm (hd,)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        self.wq = _weight((d, Hq * hd), dtype, device)
+        self.wk = _weight((d, Hkv * hd), dtype, device)
+        self.wv = _weight((d, Hkv * hd), dtype, device)
+        self.wo = _weight((Hq * hd, d), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = _weight((hd,), dtype, device)
+            self.k_norm = _weight((hd,), dtype, device)
+
+
+class DenseLayer(nn.Module):
+    """One dense layer's weights: ln1, attn, ln2 and the SwiGLU MLP
+    (wi_gate, wi_up (d, d_ff), wo_mlp (d_ff, d))."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _weight((d,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = _weight((d,), dtype, device)
+        self.wi_gate = _weight((d, cfg.d_ff), dtype, device)
+        self.wi_up = _weight((d, cfg.d_ff), dtype, device)
+        self.wo_mlp = _weight((cfg.d_ff, d), dtype, device)
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.update(_flatten(leaf, f"{prefix}{name}."))
+        else:
+            out[f"{prefix}{name}"] = leaf
+    return out
+
+
+class DecoderLM(nn.Module):
+    """Decoder-only LM of the dense family. The weights are allocated
+    uninitialised on ``device`` (default cuda; "meta" allocates nothing);
+    `init` draws them, or ``load_state_dict(params, assign=True)`` takes
+    a state dict (`repro_torch.interop.lm_params_from_jax`), without a
+    copy, on that state's device."""
+
+    def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
+                 device=None):
+        super().__init__()
+        check_family(cfg)
+        self.cfg = cfg
+        self.window = cfg.attn_window
+        self.vp = cfg.padded_vocab(vocab_pad_multiple) \
+            if vocab_pad_multiple > 1 else cfg.vocab_size
+        self.dtype = getattr(torch, cfg.dtype)
+        device = torch.device("cuda" if device is None else device)
+        d = cfg.d_model
+        self.tok_embed = _weight((self.vp, d), self.dtype, device)
+        self.final_norm = _weight((d,), self.dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _weight((d, self.vp), self.dtype, device)
+        self.layers = nn.ModuleList(DenseLayer(cfg, self.dtype, device)
+                                    for _ in range(cfg.n_layers))
+
+    # ------------------------------------------------------------ params
+    def init(self, key: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Draw `repro`'s init for ``key`` (its key tree: ``split(key, 4)``,
+        the layers from ``split(ks[2], n_layers)``) on the key's device,
+        make it the module's weights and return the state dict. The
+        port's normal sampler may differ from jax's by a few ulps
+        (`repro_torch.prng.normal`)."""
+        cfg, dtype = self.cfg, self.dtype
+        ks = prng.split(key, 4)
+        params = {
+            "tok_embed": embed_init(ks[0], (self.vp, cfg.d_model), dtype),
+            "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                     device=key.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(ks[1], (cfg.d_model, self.vp),
+                                           dtype)
+        keys = prng.split(ks[2], cfg.n_layers)
+        for i in range(cfg.n_layers):
+            params.update(_flatten(init_dense_layer(keys[i], cfg, dtype),
+                                   f"layers.{i}."))
+        self.load_state_dict(params, assign=True)
+        return self.state_dict()
+
+    # ------------------------------------------------------------ blocks
+    def _dense_block(self, layer: DenseLayer, x: torch.Tensor,
+                     q_pos: torch.Tensor, cache: Optional[Cache] = None,
+                     cache_len: Optional[int] = None):
+        cfg = self.cfg
+        h, cache = attn_apply(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
+                              cfg, q_pos, cache, self.window,
+                              cache_len=cache_len)
+        x = x + h
+        x = x + swiglu(rms_norm(x, layer.ln2, cfg.norm_eps), layer.wi_gate,
+                       layer.wi_up, layer.wo_mlp)
+        return x, cache
+
+    def _apply_stack(self, x: torch.Tensor, q_pos: torch.Tensor,
+                     caches: Optional[List[Cache]] = None):
+        """Run all layers, with one ring cache per layer (updated in
+        place) or none. Returns (x, caches)."""
+        for i, layer in enumerate(self.layers):
+            x, _ = self._dense_block(layer, x, q_pos,
+                                     None if caches is None else caches[i])
+        return x, caches
+
+    def _apply_stack_prefill(self, x: torch.Tensor, q_pos: torch.Tensor,
+                             cache_len: int):
+        """Prefill pass that builds each layer's serving cache."""
+        caches = []
+        for layer in self.layers:
+            x, cache = self._dense_block(layer, x, q_pos,
+                                         cache_len=cache_len)
+            caches.append(cache)
+        return x, caches
+
+    # ------------------------------------------------------------- embed/out
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.tok_embed)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        head = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head
+        logits = x @ head
+        if self.vp != self.cfg.vocab_size:
+            mask = torch.arange(self.vp, device=x.device) < self.cfg.vocab_size
+            logits = torch.where(mask, logits, NEG_INF)
+        return logits
+
+    # ------------------------------------------------------------- serving
+    def init_cache(self, batch: int, cache_len: int) -> List[Cache]:
+        return [init_attn_cache(self.cfg, batch, cache_len, self.dtype,
+                                self.window, self.tok_embed.device)
+                for _ in range(self.cfg.n_layers)]
+
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
+        """tokens: (B, S). Returns (last-position logits (B, V), one ring
+        cache per layer)."""
+        x = self._embed(tokens)
+        S = x.shape[1]
+        q_pos = torch.arange(S, device=x.device)
+        x, caches = self._apply_stack_prefill(x, q_pos, cache_len or S)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x[:, -1:, :])[:, 0], caches
+
+    def decode_step(self, caches: List[Cache], token: torch.Tensor,
+                    pos: int):
+        """token: (B, 1) int64 on the model's device; pos: the position
+        (a host int, so the step makes no device-to-host copy). Writes
+        the caches in place; returns (logits (B, V), caches)."""
+        x = self._embed(token)
+        q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        x, caches = self._apply_stack(x, q_pos, caches)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x)[:, 0], caches

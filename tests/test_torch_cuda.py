@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import compressed_graph_mix as k3
+from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import graph_mix as k1
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_graph_mix as k2
@@ -184,3 +185,73 @@ def test_compressed_graph_mix_kernel_refuses_what_it_does_not_take(cuda):
         k3.compressed_graph_mix(A.t(), vals, idx, 64)
     with pytest.raises(ValueError):
         k3.compressed_graph_mix(A, vals.cpu(), idx, 64)
+
+
+# K4 (B, Sq, Sk, Hq, Hkv, hd, window): chip_smoke.py's cases (the serve
+# shape, MQA with a window, hd 80, hd 256 with one KV head, ragged S,
+# S = 1, Sq != Sk) and every head size of the repo's configs
+K4_SHAPES = [(4, 512, 512, 16, 8, 128, None), (1, 256, 256, 4, 1, 64, 96),
+             (2, 384, 384, 32, 8, 80, 128), (1, 256, 256, 16, 1, 256, 64),
+             (2, 200, 200, 16, 8, 128, None), (4, 1, 1, 16, 8, 128, None),
+             (2, 128, 256, 16, 8, 128, None), (2, 250, 128, 4, 2, 112, 128),
+             (1, 70, 70, 3, 3, 16, None), (1, 33, 33, 2, 1, 48, 5)]
+K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # as tests/test_kernels.py
+
+
+def _k4_inputs(B, Sq, Sk, Hq, Hkv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, Sq, Hq, hd)) * 0.5,
+              rng.standard_normal((B, Sk, Hkv, hd)) * 0.5,
+              rng.standard_normal((B, Sk, Hkv, hd)))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 .to(getattr(torch, dtype)) for a in arrays)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_version(cuda, dtype):
+    for B, Sq, Sk, Hq, Hkv, hd, window in K4_SHAPES:
+        q, k, v = _k4_inputs(B, Sq, Sk, Hq, Hkv, hd, dtype, cuda)
+        before = k4.flash_attention.launches
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert k4.flash_attention.launches == before + 1
+        assert got.dtype == q.dtype and got.shape == q.shape
+        tol = K4_TOL[dtype]
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_ref(q, k, v, window=window)
+            .float(), rtol=tol, atol=tol)
+        # no atomics: the same bits from run to run
+        assert torch.equal(got, ops.flash_attention(q, k, v, window=window))
+
+
+def test_flash_attention_kernel_reads_strided_heads(cuda):
+    """(B, H, S, hd) storage viewed as (B, S, H, hd): read in place."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _k4_inputs(2, 100, 100, 8, 2, 64, "float32", cuda))
+    assert not q.is_contiguous()
+    torch.testing.assert_close(k4.flash_attention(q, k, v, window=40),
+                               ref.flash_attention_ref(q, k, v, window=40),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_non_causal(cuda):
+    q, k, v = _k4_inputs(1, 64, 96, 4, 2, 32, "float32", cuda)
+    for window in (None, 40):
+        torch.testing.assert_close(
+            k4.flash_attention(q, k, v, causal=False, window=window),
+            ref.flash_attention_ref(q, k, v, causal=False, window=window),
+            rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _k4_inputs(1, 16, 16, 4, 2, 32, "float32", cuda)
+    with pytest.raises(TypeError):
+        k4.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        k4.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        k4.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError):
+        k4.flash_attention(q, k[:, :2], v[:, :2], window=4)
+    with pytest.raises(NotImplementedError):
+        k4.flash_attention(q.requires_grad_(True), k, v)

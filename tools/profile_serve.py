@@ -1,0 +1,98 @@
+"""Where the time of the port's serving path goes on the card.
+
+Builds qwen3-0.6b at its published config in float32 and serves it as
+``chip_smoke.py`` does (its ``SERVE_RUN``: batch 4, prompt 512, 32 new
+tokens, greedy), runs `repro_torch.launch.serve.generate` once to warm
+up, then profiles its two phases, `serve.prefill` and `serve.decode`,
+apart under ``torch.profiler`` and prints one JSON line per phase: the
+wall time (host clock, the card synchronised), the summed device-kernel
+time and the device's idle share, and the TOP kernels that take the most
+device time, the K4 attention kernel among them.
+
+    python3 tools/profile_serve.py
+
+Needs a CUDA card; imports no JAX.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+TOP = 8
+
+
+def _phase(prof, wall):
+    """One phase's record from its profile: device events only (kernels,
+    memsets, copies); the CPU-side ops that launched them carry the same
+    time again."""
+    from torch.autograd import DeviceType
+
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    device_s = sum(r[0] for r in rows) / 1e6
+    return {"wall_s": wall, "device_kernel_s": device_s,
+            "device_idle_share": 1.0 - device_s / wall,
+            "kernel_launches": sum(r[2] for r in rows),
+            "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                             "calls": n, "share_of_device": us / 1e6 / device_s}
+                            for us, k, n in rows[:TOP]],
+            "flash_attention": [{"name": k[:90], "device_ms": us / 1e3,
+                                 "calls": n} for us, k, n in rows
+                                if "flash_attention" in k]}
+
+
+def main():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_serve: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import chip_smoke
+    from repro_torch.launch import serve
+
+    cfg, model, params = chip_smoke.serve_model(torch)
+    B, S, new = (chip_smoke.SERVE_RUN[k]
+                 for k in ("batch", "prompt_len", "new_tokens"))
+    prompts = serve.make_prompts(cfg.vocab_size, B, S, 0, "cuda")
+    serve.generate(model, params, prompts, new)         # warm-up
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, tok, caches = serve.prefill(model, prompts, new)
+        torch.cuda.synchronize()
+        prefill_wall = time.perf_counter() - t0
+    with profile(activities=acts) as prof_d:
+        t0 = time.perf_counter()
+        serve.decode(model, caches, tok, S, new - 1)
+        torch.cuda.synchronize()
+        decode_wall = time.perf_counter() - t0
+    smi = chip_smoke.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    common = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "arch": chip_smoke.SERVE_ARCH, "batch": B, "prompt_len": S}
+    print(json.dumps({**common, "phase": "prefill",
+                      "prompt_tok_per_s": B * S / prefill_wall,
+                      **_phase(prof, prefill_wall)}))
+    print(json.dumps({**common, "phase": "decode", "steps": new - 1,
+                      "ms_per_step": decode_wall / (new - 1) * 1e3,
+                      "tok_per_s": (new - 1) * B / decode_wall,
+                      **_phase(prof_d, decode_wall)}))
+
+
+if __name__ == "__main__":
+    main()
