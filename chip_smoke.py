@@ -13,9 +13,11 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    K2 sparse_graph_mix (sentinel slots, all-sentinel rows, duplicate
    indices, B > N, ragged P, bf16), K3 compressed_graph_mix (duplicate
    indices, -1 pads, K and P off the tile);
-   and K4 flash_attention (the serve shape in fp32 and bf16, MQA with a
+   K4 flash_attention (the serve shape in fp32 and bf16, MQA with a
    window, h2o-danube's hd 80, recurrentgemma's hd 256 with one KV
-   head, ragged S, S = 1, Sq != Sk);
+   head, ragged S, S = 1, Sq != Sk) and K5 ssd (mamba2-370m's serve
+   shape with the model's dt, tests/test_kernels.py's three shapes, the
+   reduced model's, one ragged chunk, h0, p 128);
 4. the port's main paths: Algorithm 1 through
    `repro_torch.core.dpfl.run_dpfl` on PaperCNN at its published width
    (32 clients, 3 rounds) in four configurations (dense graphs without
@@ -31,10 +33,13 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    just before and read just after (28 K4 launches in the prefill, 0 in
    decode), the same tokens from a second call, and the same weights on
    the card and on the CPU (batch 1, prompt 128, 8 tokens), which must
-   give the same tokens;
+   give the same tokens; then the same for mamba2-370m at its full
+   published config (48 Mamba2 blocks, float32; 48 K5 launches in the
+   prefill, 0 in decode, no other kernel of the port);
 5. each kernel timed beside its plain version, the one PyTorch call
-   that computes the same function, and its bound (after phase 4, so
-   the card runs at its working clocks, not idle ones);
+   that computes the same function where there is one (none for K5),
+   and its bound (after phase 4, so the card runs at its working
+   clocks, not idle ones);
 6. one JSON line of per-kernel results, then the device line.
 
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -99,13 +104,15 @@ K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, None, "float32"),
             ("S = 1", 4, 1, 1, 16, 8, 128, None, "float32"),
             ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32")]
 K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
-# The serving path: qwen3-0.6b at its published config, in float32 as
-# `repro.launch.serve` runs it
-SERVE_ARCH = "qwen3-0.6b"
+# The serving paths: qwen3-0.6b (dense, K4) and mamba2-370m (SSM, K5) at
+# their published configs, in float32 as `repro.launch.serve` runs them;
+# the kernel that each family's prefill launches once per layer
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m")
+SERVE_KERNEL = {"dense": "flash_attention", "ssm": "ssd"}
 SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
 CROSS_RUN = dict(batch=1, prompt_len=128, new_tokens=8)
 # Card against CPU on the same weights: last-position prefill logits
-# (std 0.64) within CROSS_TOL. A CPU rehearsal at full width with 2 and 4
+# (qwen3's std 0.64) within CROSS_TOL. A CPU rehearsal at full width with 2 and 4
 # layers (B 1, S 128, float32) put two summation orders (the prompt alone
 # against inside a batch of 3; 4 threads against 1) at most 6.3e-6 apart,
 # and 4.2e-6 from a float64 forward, growing little with depth; 28
@@ -132,6 +139,24 @@ K3_CASES = [("main", 32, 32, 6201, PAPER_CNN_PARAMS, "topk"),
             ("K, P off the tile", 7, 5, 33, 1000, "topk"),
             ("M > 32 rows", 40, 9, 77, 515, "duplicates")]
 
+# K5 cases: (name, b, l, H, p, n, chunk, dlogA, h0). The first is the
+# serve run's prefill scan (mamba2-370m, batch 4, prompt 512: 32 heads of
+# 64, state 128, chunk 256), with dlogA as the model makes it ("model":
+# dt = softplus(normal logits), A = -1 at init, x scaled by dt);
+# "kernels" draws as tests/test_kernels.py does. No bf16 case: the
+# kernel takes float32 only (csrc/ssd.cu).
+K5_CASES = [("serve", 4, 512, 32, 64, 128, 256, "model", False),
+            ("test_kernels 1", 1, 128, 2, 16, 8, 32, "kernels", False),
+            ("test_kernels 2", 2, 256, 4, 32, 16, 64, "kernels", False),
+            ("test_kernels 3, one chunk", 1, 64, 1, 64, 32, 64, "kernels",
+             False),
+            ("reduced model", 2, 64, 16, 32, 16, 32, "model", False),
+            ("one ragged chunk, l 100", 2, 100, 8, 64, 128, 256, "model",
+             False),
+            ("h0", 2, 256, 4, 32, 16, 64, "kernels", True),
+            ("p 128, n 64, h0", 1, 256, 4, 128, 64, 128, "model", True)]
+K5_TOL = dict(atol=2e-4, rtol=1e-3)   # tests/test_kernels.py
+
 # (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
 # on the tensor cores), NVIDIA data sheets. A row's bound takes the rate
 # of its inputs' type: a kernel on bf16 inputs could use the tensor cores.
@@ -153,15 +178,18 @@ def card_rates(name: str):
     fail(f"no published rates for {name!r}: the port targets Hopper")
 
 
-def _close(torch, label, got, want, tol):
+def _close(torch, label, got, want, tol, rtol=None):
+    """Max abs error of ``got`` against ``want``; fails beyond atol
+    ``tol`` and rtol ``rtol`` (default ``tol``)."""
+    rtol = tol if rtol is None else rtol
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{label}: got {tuple(got.shape)} {got.dtype}, want "
              f"{tuple(want.shape)} {want.dtype}")
     err = (got.float() - want.float()).abs().max().item() \
         if got.numel() else 0.0
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-        fail(f"{label}: max abs err {err} over atol=rtol={tol}")
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=rtol):
+        fail(f"{label}: max abs err {err} over atol={tol} rtol={rtol}")
     return err
 
 
@@ -511,16 +539,109 @@ def time_k4(torch, inputs, errs, rates):
     return rows
 
 
+def k5_inputs(torch):
+    """Seeded (name, chunk, x, dlogA, B, C, h0) on the card for every K5
+    case: x, B, C normal * 0.3, and dlogA -|normal| * 0.1 ("kernels", as
+    tests/test_kernels.py) or the model's -softplus(normal) with x scaled
+    by that dt ("model"); h0 normal * 0.5 or None."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = []
+    for name, b, l, H, p, n, chunk, kind, with_h0 in K5_CASES:
+        def draw(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        x = draw(b, l, H, p, scale=0.3)
+        if kind == "model":
+            dt = torch.nn.functional.softplus(draw(b, l, H))
+            x, dlogA = x * dt[..., None], -dt
+        else:
+            dlogA = -draw(b, l, H).abs() * 0.1
+        h0 = draw(b, H, p, n, scale=0.5) if with_h0 else None
+        out.append((name, chunk, x, dlogA, draw(b, l, n, scale=0.3),
+                    draw(b, l, n, scale=0.3), h0))
+    return out
+
+
+def check_k5(torch, inputs):
+    """K5 against its plain version in every case (y and h_last); returns
+    the max abs error per case."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k5
+
+    errs = []
+    for name, chunk, x, dlogA, B, C, h0 in inputs:
+        y, hl = k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
+        wy, wh = ref.ssd_ref(x, dlogA, B, C, chunk, h0)
+        tol = (K5_TOL["atol"], K5_TOL["rtol"])
+        errs.append(max(_close(torch, f"K5 {name} y", y, wy, *tol),
+                        _close(torch, f"K5 {name} h_last", hl, wh, *tol)))
+    return errs
+
+
+def k5_work(x, B, chunk, h0):
+    """(bytes, flops) K5 must at least move and do: x, dlogA, B, C (and
+    h0) read once, y and h_last written once; the scores C_i . B_j of the
+    causal pairs once per (b, chunk), since B and C are shared by the
+    heads (2n each), then per head the scores times X (2p per pair), the
+    state update (2 L n p per chunk) and the carried-in C h^T (2 L n p per
+    chunk that receives a state: all but the first when h0 is None)."""
+    b, l, H, p = x.shape
+    n = B.shape[-1]
+    L = min(chunk, l)
+    c = l // L
+    pairs = L * (L + 1) // 2
+    carried = c - (1 if h0 is None else 0)
+    flops = (b * c * pairs * 2 * n
+             + b * H * (c * pairs * 2 * p + c * 2 * L * n * p
+                        + carried * 2 * L * n * p))
+    nbytes = 4 * (2 * x.numel() + b * l * H + 2 * B.numel()
+                  + (2 if h0 is not None else 1) * b * H * p * n)
+    return nbytes, flops
+
+
+def time_k5(torch, inputs, errs, rates):
+    """K5 and its plain version timed at the serve shape, beside the
+    bound; no single PyTorch call computes a chunked SSD scan, so no
+    library time. Returns the rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k5
+
+    rows = []
+    for (name, chunk, x, dlogA, B, C, h0), err in zip(inputs, errs):
+        if name != "serve":
+            continue
+        ms = time_ms(lambda: k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0),
+                     torch)
+        plain_ms = time_ms(lambda: ref.ssd_ref(x, dlogA, B, C, chunk, h0),
+                           torch)
+        nbytes, flops = k5_work(x, B, chunk, h0)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+        b, l, H, p = x.shape
+        rows.append(dict(case=name, b=b, l=l, H=H, p=p, n=B.shape[-1],
+                         chunk=chunk, dtype="float32", max_abs_err=err,
+                         atol=K5_TOL["atol"], rtol=K5_TOL["rtol"], ms=ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bytes=nbytes, flops=flops,
+                         tflops=flops / ms / 1e9))
+        print(f"  K5 {name:<10} ({b}, {l}, {H}, {p}, {B.shape[-1]}, chunk "
+              f"{chunk}) err {err:.3g} kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} ms  "
+              f"library none  bound {bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
 def _zero_launches():
     from repro_torch.kernels import compressed_graph_mix as k3
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import graph_mix as k1
     from repro_torch.kernels import sparse_graph_mix as k2
+    from repro_torch.kernels import ssd as k5
 
     k1.graph_mix.launches = 0
     k2.sparse_graph_mix.launches = 0
     k3.compressed_graph_mix.launches = 0
     k4.flash_attention.launches = 0
+    k5.ssd.launches = 0
 
 
 def _read_launches():
@@ -528,11 +649,13 @@ def _read_launches():
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import graph_mix as k1
     from repro_torch.kernels import sparse_graph_mix as k2
+    from repro_torch.kernels import ssd as k5
 
     return {"graph_mix": k1.graph_mix.launches,
             "sparse_graph_mix": k2.sparse_graph_mix.launches,
             "compressed_graph_mix": k3.compressed_graph_mix.launches,
-            "flash_attention": k4.flash_attention.launches}
+            "flash_attention": k4.flash_attention.launches,
+            "ssd": k5.ssd.launches}
 
 
 def smoke_config(variant, **run):
@@ -589,7 +712,7 @@ def expected_launches(variant, N, B, rounds):
     return {"graph_mix": k1,
             "sparse_graph_mix": 1 + rounds if sparse else 0,
             "compressed_graph_mix": rounds if topk and not sparse else 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "ssd": 0}
 
 
 def check_main_path(res, engine, cfg, variant, launches, omega_dense):
@@ -689,33 +812,41 @@ def check_small_input(torch):
     return errs
 
 
-def serve_model(torch):
-    """qwen3-0.6b at its published config in float32 on the card, its
-    weights drawn from seed 0 there; returns (cfg, model, params)."""
+def serve_model(torch, arch):
+    """``arch`` (one of SERVE_ARCHS) at its published config in float32 on
+    the card, its weights drawn from seed 0 there; returns (cfg, model,
+    params)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config(SERVE_ARCH).replace(dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32")
     model = build_model(cfg, device="cuda")
     params = model.init(prng.PRNGKey(0, device="cuda"))
     n = sum(t.numel() for t in params.values())
-    print(f"{SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n} float32 weights")
+    if cfg.family == "ssm":
+        shape = (f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} SSM "
+                 f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, conv "
+                 f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}")
+    else:
+        shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                 f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}")
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {shape}, "
+          f"vocab {cfg.vocab_size}: {n} float32 weights")
     return cfg, model, params
 
 
 def run_serve(torch, cfg, model, params):
     """The serving path once through `generate` with every kernel count
-    zeroed just before and read just after (one K4 launch per layer, no
-    other kernel); then `generate`'s prefill phase alone, counted the same
-    way, so the decode loop's K4 launches are the difference (none); then
-    a second call, which must give the same tokens. Returns (launches, K4
-    launches in (prefill, decode), the first call's Generation, the
-    second's)."""
+    zeroed just before and read just after (one launch per layer of the
+    family's kernel, K4 or K5, and no other kernel); then `generate`'s
+    prefill phase alone, counted the same way, so the decode loop's
+    launches are the difference (none); then a second call, which must
+    give the same tokens. Returns (launches, the kernel's launches in
+    (prefill, decode), the first call's Generation, the second's)."""
     from repro_torch.launch.serve import generate, make_prompts, prefill
 
+    kname = SERVE_KERNEL[cfg.family]
     B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")
     torch.cuda.synchronize()
@@ -723,64 +854,69 @@ def run_serve(torch, cfg, model, params):
     gen = generate(model, params, prompts, new)
     torch.cuda.synchronize()
     launches = _read_launches()
-    want = {"graph_mix": 0, "sparse_graph_mix": 0, "compressed_graph_mix": 0,
-            "flash_attention": cfg.n_layers}
+    want = {k: 0 for k in launches}
+    want[kname] = cfg.n_layers
     if launches != want:
-        fail(f"serve: kernel launches {launches}, expected {want}")
+        fail(f"serve {cfg.name}: kernel launches {launches}, expected "
+             f"{want}")
     _zero_launches()
     prefill(model, prompts, new)
     torch.cuda.synchronize()
-    n_prefill = _read_launches()["flash_attention"]
-    split = (n_prefill, launches["flash_attention"] - n_prefill)
+    n_prefill = _read_launches()[kname]
+    split = (n_prefill, launches[kname] - n_prefill)
     if split != (cfg.n_layers, 0):
-        fail(f"serve: K4 launches (prefill, decode) {split}, expected "
-             f"({cfg.n_layers}, 0)")
+        fail(f"serve {cfg.name}: {kname} launches (prefill, decode) "
+             f"{split}, expected ({cfg.n_layers}, 0)")
     if tuple(gen.tokens.shape) != (B, new):
-        fail(f"serve: tokens {tuple(gen.tokens.shape)}, expected {(B, new)}")
+        fail(f"serve {cfg.name}: tokens {tuple(gen.tokens.shape)}, expected "
+             f"{(B, new)}")
     if int(gen.tokens.min()) < 0 or int(gen.tokens.max()) >= cfg.vocab_size:
-        fail("serve: a token outside the vocabulary")
+        fail(f"serve {cfg.name}: a token outside the vocabulary")
     for name in ("prefill_logits", "last_logits"):
         logits = getattr(gen, name)
         if tuple(logits.shape) != (B, cfg.vocab_size) or \
                 not torch.isfinite(logits).all():
-            fail(f"serve: {name} not a finite {(B, cfg.vocab_size)} table")
+            fail(f"serve {cfg.name}: {name} not a finite "
+                 f"{(B, cfg.vocab_size)} table")
     again = generate(model, params, prompts, new)
     if not torch.equal(again.tokens, gen.tokens):
-        fail("serve: a second call gave other tokens")
+        fail(f"serve {cfg.name}: a second call gave other tokens")
     return launches, split, gen, again
 
 
 def check_cross(torch, cfg, model, params):
     """The same weights on the card and on the CPU (copied from the card:
-    drawing 0.6 B threefry normals on the CPU is slow), batch 1: the
+    drawing 0.4-0.6 B threefry normals on the CPU is slow), batch 1: the
     greedy tokens equal and the last-position prefill logits within
-    CROSS_TOL, so K4 is held against the plain path inside the model.
-    Returns (max abs logits difference, CPU seconds)."""
+    CROSS_TOL, so the family's kernel (K4 or K5) is held against the
+    plain path inside the model. Returns (max abs logits difference, CPU
+    seconds)."""
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models import build_model
 
+    kname = SERVE_KERNEL[cfg.family]
     B, S, new = (CROSS_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     prompts = make_prompts(cfg.vocab_size, B, S, 1, "cuda")
     _zero_launches()
     card = generate(model, params, prompts, new)
     torch.cuda.synchronize()
-    n_card = _read_launches()["flash_attention"]
+    n_card = _read_launches()[kname]
     t0 = time.perf_counter()
     cpu_params = {k: v.cpu() for k, v in params.items()}
     cpu = generate(build_model(cfg, device="meta"), cpu_params, prompts.cpu(),
                    new)
     seconds = time.perf_counter() - t0
-    n_cpu = _read_launches()["flash_attention"] - n_card
+    n_cpu = _read_launches()[kname] - n_card
     if (n_card, n_cpu) != (cfg.n_layers, 0):
-        fail(f"card against CPU: K4 launches {n_card} on the card, {n_cpu} "
-             f"on the CPU")
+        fail(f"{cfg.name} card against CPU: {kname} launches {n_card} on "
+             f"the card, {n_cpu} on the CPU")
     diff = (card.prefill_logits.cpu() - cpu.prefill_logits).abs().max().item()
     if not diff <= CROSS_TOL:
-        fail(f"card against CPU: prefill logits differ by {diff} > "
-             f"{CROSS_TOL}")
+        fail(f"{cfg.name} card against CPU: prefill logits differ by {diff} "
+             f"> {CROSS_TOL}")
     if not torch.equal(card.tokens.cpu(), cpu.tokens):
-        fail(f"card against CPU: tokens {card.tokens.tolist()} != "
-             f"{cpu.tokens.tolist()}")
+        fail(f"{cfg.name} card against CPU: tokens {card.tokens.tolist()} "
+             f"!= {cpu.tokens.tolist()}")
     return diff, seconds
 
 
@@ -850,6 +986,13 @@ def main():
           f"err {k4_max['float32']:.3g} fp32, {k4_max['bfloat16']:.3g} bf16)")
     for case, err in zip(K4_CASES, k4_errs):
         print(f"  K4 {case[0]}: max abs err {err:.3g}")
+    k5_in = k5_inputs(torch)
+    k5_errs = check_k5(torch, k5_in)
+    print(f"K5 agrees with its plain version in {len(k5_in)} cases (max abs "
+          f"err {max(k5_errs):.3g}, atol {K5_TOL['atol']} rtol "
+          f"{K5_TOL['rtol']})")
+    for case, err in zip(K5_CASES, k5_errs):
+        print(f"  K5 {case[0]}: max abs err {err:.3g}")
 
     # ---- 4. the main paths
     engine = make_engine()
@@ -873,26 +1016,35 @@ def main():
     small = check_small_input(torch)
     print(f"small input: card and CPU select the same graphs (best_flat "
           f"max abs diff {small})")
-    cfg, model, params = serve_model(torch)
-    launches["serve"], split, gen, again = run_serve(torch, cfg, model,
-                                                     params)
     B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
-    for label, g in (("first call", gen), ("second call", again)):
-        print(f"serve {SERVE_ARCH} float32 B={B} S={S} new={new} ({label}): "
-              f"prefill {g.prefill_seconds * 1e3:.3f} ms wall "
-              f"({B * S / g.prefill_seconds:.1f} prompt tok/s), decode "
-              f"{new - 1} steps {g.decode_seconds * 1e3:.3f} ms wall "
-              f"({g.decode_seconds / (new - 1) * 1e3:.3f} ms/step, "
-              f"{(new - 1) * B / g.decode_seconds:.1f} tok/s)")
-    print(f"serve: launches {launches['serve']}, K4 (prefill, decode) "
-          f"{split}, same tokens on a second call; sample "
-          f"{gen.tokens[0, :8].tolist()}")
-    diff, cpu_s = check_cross(torch, cfg, model, params)
-    print(f"card against CPU ({SERVE_ARCH}, B={CROSS_RUN['batch']} "
-          f"S={CROSS_RUN['prompt_len']} new={CROSS_RUN['new_tokens']}): same "
-          f"tokens, prefill logits max abs diff {diff:.3g} (tol {CROSS_TOL}),"
-          f" CPU side {cpu_s:.1f} s")
-    del model, params
+    walls = {}
+    for arch in SERVE_ARCHS:
+        # one model on the card at a time
+        cfg, model, params = serve_model(torch, arch)
+        run = f"serve {arch}"
+        launches[run], split, gen, again = run_serve(torch, cfg, model,
+                                                     params)
+        for label, g in (("first call", gen), ("second call", again)):
+            print(f"serve {arch} float32 B={B} S={S} new={new} ({label}): "
+                  f"prefill {g.prefill_seconds * 1e3:.3f} ms wall "
+                  f"({B * S / g.prefill_seconds:.1f} prompt tok/s), decode "
+                  f"{new - 1} steps {g.decode_seconds * 1e3:.3f} ms wall "
+                  f"({g.decode_seconds / (new - 1) * 1e3:.3f} ms/step, "
+                  f"{(new - 1) * B / g.decode_seconds:.1f} tok/s)")
+        walls[arch] = (again.prefill_seconds * 1e3,
+                       again.decode_seconds / (new - 1) * 1e3)
+        print(f"serve {arch}: launches {launches[run]}, "
+              f"{SERVE_KERNEL[cfg.family]} (prefill, decode) {split}, same "
+              f"tokens on a second call; sample {gen.tokens[0, :8].tolist()}")
+        diff, cpu_s = check_cross(torch, cfg, model, params)
+        print(f"card against CPU ({arch}, B={CROSS_RUN['batch']} "
+              f"S={CROSS_RUN['prompt_len']} new={CROSS_RUN['new_tokens']}): "
+              f"same tokens, prefill logits max abs diff {diff:.3g} (tol "
+              f"{CROSS_TOL}), CPU side {cpu_s:.1f} s")
+        del model, params, gen, again
+        torch.cuda.empty_cache()
+    print("serve walls, second call (prefill ms, decode ms/step): " +
+          ", ".join(f"{a} {p:.3f}, {d:.3f}" for a, (p, d) in walls.items()))
 
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle
@@ -900,13 +1052,15 @@ def main():
     k2_rows = time_k2(torch, k2_in, k2_errs, rates)
     k3_rows = time_k3(torch, k3_in, k3_errs, rates)
     k4_rows = time_k4(torch, k4_in, k4_errs, rates)
+    k5_rows = time_k5(torch, k5_in, k5_errs, rates)
     print("clocks.sm, power.draw after timing: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the four
-    # DPFL runs and the serve run), with each run's counts beside them
+    # DPFL runs and the two serve runs), with each run's counts beside
+    # them
     def total(kname):
         return sum(c[kname] for c in launches.values())
 
@@ -925,7 +1079,9 @@ def main():
         _kernel_row("flash_attention",
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:96",
-                    total("flash_attention"), k4_rows)]
+                    total("flash_attention"), k4_rows),
+        _kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+                    "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows)]
     for row in rows:
         row["launches_by_run"] = {v: c[row["name"]]
                                   for v, c in launches.items()}

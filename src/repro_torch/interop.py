@@ -34,23 +34,31 @@ def flat_from_jax(flat: np.ndarray, device=None) -> torch.Tensor:
                         device=device)
 
 
+#: Mamba2 block leaves that are float32 in `repro` whatever ``cfg.dtype``
+#: (`repro.models.ssm.init_mamba_block`)
+FLOAT32_LEAVES = ("A_log", "D", "dt_bias")
+
+
 def lm_params_from_jax(params: Mapping, cfg, device=None
                        ) -> Dict[str, torch.Tensor]:
-    """A `repro` ``DecoderLM`` parameter tree of the dense family, as numpy
-    arrays (every leaf under ``"layers"`` stacked over a leading
+    """A `repro` ``DecoderLM`` parameter tree of the dense or SSM family, as
+    numpy arrays (every leaf under ``"layers"`` stacked over a leading
     n_layers axis) -> the state dict of the port's
     `repro_torch.models.lm.DecoderLM` ("tok_embed", "final_norm",
-    ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq", ...), in
-    ``cfg.dtype`` on ``device`` (default cuda)."""
-    if cfg.family != "dense":
+    ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq", ...,
+    "layers.{i}.in_proj", ...), in ``cfg.dtype`` on ``device`` (default
+    cuda), except the SSM leaves that `repro` keeps in float32 whatever
+    the dtype (`FLOAT32_LEAVES`)."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"lm_params_from_jax: the {cfg.family} "
                                   f"family is not ported")
     device = torch.device("cuda") if device is None else torch.device(device)
     dtype = getattr(torch, cfg.dtype)
 
-    def put(a):
+    def put(a, name=""):
+        keep = cfg.family == "ssm" and name in FLOAT32_LEAVES
         return torch.tensor(np.asarray(a, np.float32), device=device,
-                            dtype=dtype)
+                            dtype=torch.float32 if keep else dtype)
 
     def leaves(tree, prefix=""):
         for name, leaf in tree.items():
@@ -65,5 +73,5 @@ def lm_params_from_jax(params: Mapping, cfg, device=None
             raise ValueError(f"lm_params_from_jax: layers.{name} has "
                              f"{a.shape[0]} rows for {cfg.n_layers} layers")
         for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = put(a[i])
+            out[f"layers.{i}.{name}"] = put(a[i], name)
     return out

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = {"graph_mix": "graph_mix.cu",
            "sparse_graph_mix": "sparse_graph_mix.cu",
            "compressed_graph_mix": "compressed_graph_mix.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "ssd": "ssd.cu"}
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

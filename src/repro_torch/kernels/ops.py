@@ -7,7 +7,7 @@ implementation. On a CUDA tensor an op launches its kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,6 +17,7 @@ from . import flash_attention as _k4
 from . import graph_mix as _k1
 from . import ref
 from . import sparse_graph_mix as _k2
+from . import ssd as _k5
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -69,3 +70,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _k4.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int = 256,
+        h0: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 chunked SSD scan: x (b, l, h, p) already scaled by dt,
+    dlogA (b, l, h), B and C (b, l, n), h0 (b, h, p, n) or None; returns
+    (y (b, l, h, p), h_last (b, h, p, n)) (`repro.kernels.ops.ssd`).
+    Raises ``NotImplementedError`` for inputs that require grad, on
+    either device: the kernel has no backward."""
+    _k5.check_no_grad(x, dlogA, B, C, h0)
+    if _on_cpu(x, dlogA, B, C, *(() if h0 is None else (h0,))):
+        return ref.ssd_ref(x, dlogA, B, C, chunk, h0)
+    return _k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)

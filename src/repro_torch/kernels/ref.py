@@ -7,11 +7,9 @@ version on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
-
-from ..models.common import attention_ref
 
 
 def graph_mix_ref(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -68,6 +66,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd); aligned positions
     (q_pos = arange(Sq), kv_pos = arange(Sk)): `attention_ref` in one
     chunk (`repro.kernels.ref.flash_attention_ref`)."""
+    # imported here: `models` imports this module (`models.ssm` re-exports
+    # `segsum` and `ssd_ref`), so a top-level import would be a cycle
+    from ..models.common import attention_ref
+
     B, Sq = q.shape[0], q.shape[1]
     Sk = k.shape[1]
     q_pos = torch.arange(Sq, dtype=torch.int32, device=q.device)
@@ -75,3 +77,62 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           device=q.device)[None].expand(B, Sk)
     return attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
                          window=window, q_chunk=1 << 30)
+
+
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., L) -> (..., L, L) with out[i, j] = sum_{j<k<=i} x[k] (the
+    difference of inclusive cumulative sums); -inf above the diagonal
+    (`repro.models.ssm.segsum`)."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(L, device=x.device)
+    return torch.where(i[:, None] >= i[None, :], d, -torch.inf)
+
+
+def ssd_ref(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, chunk: int, h0: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan (`repro.models.ssm.ssd_ref`), the plain version
+    of the K5 kernel. x: (b, l, h, p), already scaled by dt; dlogA:
+    (b, l, h) per-step log decay (dt * A, A < 0); B, C: (b, l, n), one
+    group shared by every head; h0: (b, h, p, n) or None (zeros).
+    Chunks of L = min(chunk, l) steps; the inter-chunk recurrence is a
+    Python loop over chunks where `repro` runs ``lax.scan``. Returns
+    (y (b, l, h, p), h_last (b, h, p, n))."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    L = min(chunk, l)
+    if l % L != 0:
+        raise ValueError(f"seq {l} not divisible by chunk {L}")
+    c = l // L
+
+    xc = x.reshape(b, c, L, h, p)
+    Bc = B.reshape(b, c, L, n)
+    Cc = C.reshape(b, c, L, n)
+    Ac = dlogA.reshape(b, c, L, h).permute(0, 3, 1, 2)   # (b, h, c, L)
+    A_cumsum = torch.cumsum(Ac, dim=-1)
+
+    # 1. intra-chunk (diagonal blocks)
+    Lmat = torch.exp(segsum(Ac))                         # (b, h, c, L, L)
+    Y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", Cc, Bc, Lmat, xc)
+
+    # 2. per-chunk final states
+    decay_states = torch.exp(A_cumsum[..., -1:] - A_cumsum)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, xc)
+
+    # 3. inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(A_cumsum[..., -1])           # (b, h, c)
+    hprev = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device) \
+        if h0 is None else h0
+    prev = []
+    for i in range(c):
+        prev.append(hprev)
+        hprev = hprev * chunk_decay[:, :, i, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)               # (b, c, h, p, n)
+
+    # 4. contribution of the carried-in states
+    state_decay_out = torch.exp(A_cumsum)                # (b, h, c, L)
+    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, prev_states,
+                         state_decay_out)
+    return (Y_diag + Y_off).reshape(b, l, h, p), hprev

@@ -1,14 +1,16 @@
 """Batched serving: prefill of a batch of prompts, then a decode
-loop (port of `repro.launch.serve`, dense family). Reduced config by
-default; runs on the card unless ``--device cpu``:
+loop (port of `repro.launch.serve`, dense and SSM families). Reduced
+config by default; runs on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 32 --new-tokens 16 [--full] [--device cpu]
 
-Every prefill attention runs on the K4 kernel on the card (the plain
-version on the CPU); decode runs the plain ring-cache attention, as in
-`repro`. The decode loop keeps the tokens on the device and makes no
-device-to-host copy (``set_sync_debug_mode("error")`` on CUDA).
+Every prefill attention runs on the K4 kernel and every prefill SSD
+scan on the K5 kernel on the card (their plain versions on the CPU);
+decode runs the plain ring-cache attention or the plain one-token SSD
+update, as in `repro`. The decode loop keeps the tokens on the device
+and makes no device-to-host copy (``set_sync_debug_mode("error")`` on
+CUDA).
 """
 from __future__ import annotations
 
@@ -57,9 +59,9 @@ def _next_token(logits: torch.Tensor, temperature: float,
 
 @torch.inference_mode()
 def prefill(model, prompts: torch.Tensor, new_tokens: int):
-    """The first phase of `generate`: ``prompts`` (B, S) into ring caches
-    of S + new_tokens slots. Returns (last-position logits, the greedy
-    first token (B, 1), caches)."""
+    """The first phase of `generate`: ``prompts`` (B, S) into the model's
+    caches (rings of S + new_tokens slots, or SSM states). Returns
+    (last-position logits, the greedy first token (B, 1), caches)."""
     logits, caches = model.prefill(prompts,
                                    cache_len=prompts.shape[1] + new_tokens)
     return logits, logits.argmax(-1, keepdim=True), caches

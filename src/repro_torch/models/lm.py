@@ -1,17 +1,19 @@
-"""Decoder-only language model, dense family (port of `repro.models.lm`):
-GQA with optional qk-norm, rotary embeddings, sliding windows, ring-buffer
-KV caches, SwiGLU MLPs and a tied or separate output head.
+"""Decoder-only language model, dense and SSM families (port of
+`repro.models.lm`): GQA with optional qk-norm, rotary embeddings, sliding
+windows, ring-buffer KV caches, SwiGLU MLPs, Mamba2 (SSD) blocks and a
+tied or separate output head.
 
 `DecoderLM` is an ``nn.Module`` that owns its weights: one `DenseLayer`
-module per layer, each holding `repro`'s per-layer leaves under `repro`'s
-names and layouts ((in, out) dense weights). Its state dict is `repro`'s
-stacked tree split by layer ("layers.3.attn.wq" is row 3 of
-``params["layers"]["attn"]["wq"]``; `repro_torch.interop.
-lm_params_from_jax`). The prefill's attention runs on the K4 kernel
-(`kernels.ops.flash_attention`); decode against the ring cache runs the
-plain `attention_ref`, as in `repro`, which has no decode kernel. The
-weights take no gradient: the LM serves here, and its training is ROADMAP
-Queue 1 item 14d.
+or `MambaLayer` module per layer, each holding `repro`'s per-layer leaves
+under `repro`'s names and layouts ((in, out) dense weights). Its state
+dict is `repro`'s stacked tree split by layer ("layers.3.attn.wq" is row
+3 of ``params["layers"]["attn"]["wq"]``; `repro_torch.interop.
+lm_params_from_jax`). The dense prefill's attention runs on the K4 kernel
+(`kernels.ops.flash_attention`) and the SSM prefill's scan on the K5
+kernel (`kernels.ops.ssd`); decode runs the plain ring-cache
+`attention_ref` or the plain one-token SSD update, as in `repro`, which
+has no decode kernel. The weights take no gradient: the LM serves here,
+and its training is ROADMAP Queue 1 item 14d.
 """
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from .common import (NEG_INF, apply_rope, attention_ref, dense_init,
                      embed_init, rms_norm, swiglu)
+from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_dims
 
 Cache = Dict[str, torch.Tensor]
 
 #: families not ported yet -> the ROADMAP Queue 1 item that ports them
-UNPORTED_FAMILIES = {"ssm": "14b", "hybrid": "14c", "moe": "14d",
-                     "vlm": "14d", "audio": "14d"}
+UNPORTED_FAMILIES = {"hybrid": "14c", "moe": "14d", "vlm": "14d",
+                     "audio": "14d"}
 
 
 def check_family(cfg: ArchConfig):
@@ -39,7 +42,7 @@ def check_family(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP Queue 1 item {UNPORTED_FAMILIES[cfg.family]}); the "
-            f"port serves the dense family")
+            f"port serves the dense and SSM families")
 
 
 # ----------------------------------------------------------------- attention
@@ -196,6 +199,27 @@ class DenseLayer(nn.Module):
         self.wo_mlp = _weight((cfg.d_ff, d), dtype, device)
 
 
+class MambaLayer(nn.Module):
+    """One Mamba2 block's weights: ln (d,), in_proj (d, 2 d_in + 2n + H),
+    conv_w (K, conv_dim), A_log, D and dt_bias (H,) in float32 whatever
+    the model's dtype (as in `repro`), norm_w (d_in,), out_proj
+    (d_in, d)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        d_in, H, conv_dim = mamba_dims(cfg)
+        self.ln = _weight((d,), dtype, device)
+        self.in_proj = _weight((d, 2 * d_in + 2 * cfg.ssm_state + H), dtype,
+                               device)
+        self.conv_w = _weight((cfg.ssm_conv, conv_dim), dtype, device)
+        self.A_log = _weight((H,), torch.float32, device)
+        self.D = _weight((H,), torch.float32, device)
+        self.dt_bias = _weight((H,), torch.float32, device)
+        self.norm_w = _weight((d_in,), dtype, device)
+        self.out_proj = _weight((d_in, d), dtype, device)
+
+
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
     for name, leaf in tree.items():
@@ -207,7 +231,7 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense family. The weights are allocated
+    """Decoder-only LM of the dense or SSM family. The weights are allocated
     uninitialised on ``device`` (default cuda; "meta" allocates nothing);
     `init` draws them, or ``load_state_dict(params, assign=True)`` takes
     a state dict (`repro_torch.interop.lm_params_from_jax`), without a
@@ -228,7 +252,8 @@ class DecoderLM(nn.Module):
         self.final_norm = _weight((d,), self.dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _weight((d, self.vp), self.dtype, device)
-        self.layers = nn.ModuleList(DenseLayer(cfg, self.dtype, device)
+        layer = MambaLayer if cfg.family == "ssm" else DenseLayer
+        self.layers = nn.ModuleList(layer(cfg, self.dtype, device)
                                     for _ in range(cfg.n_layers))
 
     # ------------------------------------------------------------ params
@@ -248,14 +273,26 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(ks[1], (cfg.d_model, self.vp),
                                            dtype)
+        layer_init = init_mamba_block if cfg.family == "ssm" \
+            else init_dense_layer
         keys = prng.split(ks[2], cfg.n_layers)
         for i in range(cfg.n_layers):
-            params.update(_flatten(init_dense_layer(keys[i], cfg, dtype),
+            params.update(_flatten(layer_init(keys[i], cfg, dtype),
                                    f"layers.{i}."))
         self.load_state_dict(params, assign=True)
         return self.state_dict()
 
     # ------------------------------------------------------------ blocks
+    def _block(self, layer: nn.Module, x: torch.Tensor, q_pos: torch.Tensor,
+               cache: Optional[Cache] = None,
+               cache_len: Optional[int] = None):
+        """One layer (`repro`'s ``_block``): a Mamba2 block, whose cache
+        does not depend on ``cache_len`` or the positions, or a dense
+        block."""
+        if isinstance(layer, MambaLayer):
+            return mamba_block(layer, x, self.cfg, cache)
+        return self._dense_block(layer, x, q_pos, cache, cache_len)
+
     def _dense_block(self, layer: DenseLayer, x: torch.Tensor,
                      q_pos: torch.Tensor, cache: Optional[Cache] = None,
                      cache_len: Optional[int] = None):
@@ -270,11 +307,11 @@ class DecoderLM(nn.Module):
 
     def _apply_stack(self, x: torch.Tensor, q_pos: torch.Tensor,
                      caches: Optional[List[Cache]] = None):
-        """Run all layers, with one ring cache per layer (updated in
-        place) or none. Returns (x, caches)."""
+        """Run all layers, with one cache per layer (updated in place) or
+        none. Returns (x, caches)."""
         for i, layer in enumerate(self.layers):
-            x, _ = self._dense_block(layer, x, q_pos,
-                                     None if caches is None else caches[i])
+            x, _ = self._block(layer, x, q_pos,
+                               None if caches is None else caches[i])
         return x, caches
 
     def _apply_stack_prefill(self, x: torch.Tensor, q_pos: torch.Tensor,
@@ -282,8 +319,7 @@ class DecoderLM(nn.Module):
         """Prefill pass that builds each layer's serving cache."""
         caches = []
         for layer in self.layers:
-            x, cache = self._dense_block(layer, x, q_pos,
-                                         cache_len=cache_len)
+            x, cache = self._block(layer, x, q_pos, cache_len=cache_len)
             caches.append(cache)
         return x, caches
 
@@ -301,13 +337,22 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, cache_len: int) -> List[Cache]:
+        """One empty cache per layer: a ring of ``cache_len`` slots (dense)
+        or {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)} zeros
+        (SSM)."""
+        device = self.tok_embed.device
+        if self.cfg.family == "ssm":
+            return [init_mamba_cache(self.cfg, batch, self.dtype, device)
+                    for _ in range(self.cfg.n_layers)]
         return [init_attn_cache(self.cfg, batch, cache_len, self.dtype,
-                                self.window, self.tok_embed.device)
+                                self.window, device)
                 for _ in range(self.cfg.n_layers)]
 
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
-        """tokens: (B, S). Returns (last-position logits (B, V), one ring
-        cache per layer)."""
+        """tokens: (B, S). Returns (last-position logits (B, V), one cache
+        per layer: a ring (dense) or the SSM state and conv rows, which
+        ``cache_len`` does not size). An SSM prompt shorter than
+        ``ssm_conv - 1`` tokens raises ``ValueError`` (`mamba_block`)."""
         x = self._embed(tokens)
         S = x.shape[1]
         q_pos = torch.arange(S, device=x.device)
@@ -318,8 +363,10 @@ class DecoderLM(nn.Module):
     def decode_step(self, caches: List[Cache], token: torch.Tensor,
                     pos: int):
         """token: (B, 1) int64 on the model's device; pos: the position
-        (a host int, so the step makes no device-to-host copy). Writes
-        the caches in place; returns (logits (B, V), caches)."""
+        (a host int, so the step makes no device-to-host copy; the SSM
+        family does not read it). Writes the caches in place (the ring's
+        slot, or the SSM state and conv rows); returns (logits (B, V),
+        caches)."""
         x = self._embed(token)
         q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         x, caches = self._apply_stack(x, q_pos, caches)

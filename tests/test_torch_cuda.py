@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import graph_mix as k1
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_graph_mix as k2
+from repro_torch.kernels import ssd as k5
 
 pytestmark = pytest.mark.gpu
 
@@ -255,3 +256,78 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         k4.flash_attention(q, k[:, :2], v[:, :2], window=4)
     with pytest.raises(NotImplementedError):
         k4.flash_attention(q.requires_grad_(True), k, v)
+
+
+# K5 (b, l, H, p, n, chunk, dlogA, h0): chip_smoke.py's cases (the serve
+# shape of mamba2-370m with the model's dt, tests/test_kernels.py's three
+# shapes, a single ragged chunk, an h0, p 128)
+K5_SHAPES = [(4, 512, 32, 64, 128, 256, "model", False),
+             (1, 128, 2, 16, 8, 32, "kernels", False),
+             (2, 256, 4, 32, 16, 64, "kernels", False),
+             (1, 64, 1, 64, 32, 64, "kernels", False),
+             (2, 100, 8, 64, 128, 256, "model", False),
+             (2, 256, 4, 32, 16, 64, "kernels", True),
+             (1, 256, 4, 128, 64, 128, "model", True)]
+K5_TOL = dict(atol=2e-4, rtol=1e-3)   # as tests/test_kernels.py
+
+
+def _k5_inputs(b, l, H, p, n, dlogA, h0, device, seed=0):
+    """x, B, C normal * 0.3 with dlogA = -|normal| * 0.1 (tests/
+    test_kernels.py), or as the model makes them: dt = softplus(normal),
+    A = -1, x scaled by dt."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, H, p)) * 0.3
+    if dlogA == "model":
+        dt = np.logaddexp(rng.standard_normal((b, l, H)), 0.0)
+        x, dA = x * dt[..., None], -dt
+    else:
+        dA = -np.abs(rng.standard_normal((b, l, H))) * 0.1
+    arrays = (x, dA, rng.standard_normal((b, l, n)) * 0.3,
+              rng.standard_normal((b, l, n)) * 0.3)
+    if h0:
+        arrays += (rng.standard_normal((b, H, p, n)) * 0.5,)
+    out = [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+    return out if h0 else out + [None]
+
+
+def test_ssd_kernel_matches_plain_version(cuda):
+    for b, l, H, p, n, chunk, dlogA, with_h0 in K5_SHAPES:
+        x, dA, Bm, Cm, h0 = _k5_inputs(b, l, H, p, n, dlogA, with_h0, cuda)
+        before = k5.ssd.launches
+        y, hl = ops.ssd(x, dA, Bm, Cm, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        assert k5.ssd.launches == before + 1
+        assert y.shape == x.shape and tuple(hl.shape) == (b, H, p, n)
+        wy, wh = ref.ssd_ref(x, dA, Bm, Cm, chunk, h0)
+        torch.testing.assert_close(y, wy, **K5_TOL)
+        torch.testing.assert_close(hl, wh, **K5_TOL)
+        # no atomics: the same bits from run to run
+        assert torch.equal(y, ops.ssd(x, dA, Bm, Cm, chunk=chunk, h0=h0)[0])
+
+
+def test_ssd_kernel_reads_strided_inputs(cuda):
+    """x a (b, l, h, p) view of (b, h, l, p) storage, B and C column
+    slices of one projection, as mamba_block passes them."""
+    x, dA, Bm, Cm, _ = _k5_inputs(2, 128, 4, 32, 16, "model", False, cuda)
+    xs = x.transpose(1, 2).contiguous().transpose(1, 2)
+    proj = torch.cat([Bm, Cm], dim=-1)
+    Bv, Cv = proj[..., :16], proj[..., 16:]
+    assert not xs.is_contiguous() and not Bv.is_contiguous()
+    y, hl = k5.ssd(xs, dA, Bv, Cv, chunk=64)
+    wy, wh = ref.ssd_ref(x, dA, Bm, Cm, 64)
+    torch.testing.assert_close(y, wy, **K5_TOL)
+    torch.testing.assert_close(hl, wh, **K5_TOL)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dA, Bm, Cm, _ = _k5_inputs(1, 64, 2, 16, 8, "kernels", False, cuda)
+    with pytest.raises(TypeError):
+        k5.ssd(x.bfloat16(), dA, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError):
+        k5.ssd(x, dA, Bm.cpu(), Cm, chunk=32)
+    with pytest.raises(ValueError):
+        k5.ssd(x, dA, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError):
+        k5.ssd(x, dA, Bm[..., :6], Cm[..., :6], chunk=32)
+    with pytest.raises(NotImplementedError):
+        k5.ssd(x.requires_grad_(True), dA, Bm, Cm, chunk=32)

@@ -8,7 +8,7 @@ tensor, eight decode steps and the greedy tokens of
 `repro_torch.launch.serve.generate` (1e-5; building blocks 1e-6). The
 port alone: decode against the teacher-forced forward, as
 tests/test_models.py asserts for `repro`, and the families it does not
-serve raise."""
+serve raise (the SSM family is tests/test_torch_ssm.py's)."""
 import test_torch_common as common  # noqa: F401  (jax patch, threads)
 
 import dataclasses  # noqa: E402
@@ -325,7 +325,8 @@ def test_vocab_pad_mask_and_separate_head():
 
 
 @pytest.mark.parametrize("arch", [a for a in sorted(tconfigs.REGISTRY)
-                                  if tconfigs.REGISTRY[a].family != "dense"])
+                                  if tconfigs.REGISTRY[a].family
+                                  in tlm.UNPORTED_FAMILIES])
 def test_unported_families_raise(arch):
     cfg = tconfigs.get_config(arch).reduced()
     item = tlm.UNPORTED_FAMILIES[cfg.family]

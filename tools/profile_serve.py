@@ -1,20 +1,24 @@
 """Where the time of the port's serving path goes on the card.
 
-Builds qwen3-0.6b at its published config in float32 and serves it as
-``chip_smoke.py`` does (its ``SERVE_RUN``: batch 4, prompt 512, 32 new
-tokens, greedy), runs `repro_torch.launch.serve.generate` once to warm
-up, then profiles its two phases, `serve.prefill` and `serve.decode`,
-apart under ``torch.profiler`` and prints one JSON line per phase: the
-wall time (host clock, the card synchronised), the summed device-kernel
-time and the device's idle share, and the TOP kernels that take the most
-device time, the K4 attention kernel among them.
+Builds one of ``chip_smoke.py``'s serve models (qwen3-0.6b, the
+default, or mamba2-370m) at its published config in float32 and serves
+it as ``chip_smoke.py`` does (its ``SERVE_RUN``: batch 4, prompt 512, 32
+new tokens, greedy), runs `repro_torch.launch.serve.generate` once to
+warm up, then profiles its two phases, `serve.prefill` and
+`serve.decode`, apart under ``torch.profiler`` and prints one JSON line
+per phase: the wall time (host clock, the card synchronised), the summed
+device-kernel time and the device's idle share, the kernel launches (per
+step in decode), the TOP kernels that take the most device time, and the
+port's kernel of the family (K4 ``flash_attention`` or K5 ``ssd``) with
+its share of the phase's device time.
 
-    python3 tools/profile_serve.py
+    python3 tools/profile_serve.py [--arch mamba2-370m]
 
 Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -27,7 +31,7 @@ sys.path.insert(0, str(ROOT))
 TOP = 8
 
 
-def _phase(prof, wall):
+def _phase(prof, wall, port_kernel):
     """One phase's record from its profile: device events only (kernels,
     memsets, copies); the CPU-side ops that launched them carry the same
     time again."""
@@ -45,24 +49,30 @@ def _phase(prof, wall):
             "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
                              "calls": n, "share_of_device": us / 1e6 / device_s}
                             for us, k, n in rows[:TOP]],
-            "flash_attention": [{"name": k[:90], "device_ms": us / 1e3,
-                                 "calls": n} for us, k, n in rows
-                                if "flash_attention" in k]}
+            "port_kernel": [{"name": k[:90], "device_ms": us / 1e3,
+                             "calls": n, "share_of_device": us / 1e6 / device_s}
+                            for us, k, n in rows if port_kernel in k]}
 
 
-def main():
+def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import chip_smoke
+    from repro_torch.launch import serve
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=chip_smoke.SERVE_ARCHS[0],
+                    choices=chip_smoke.SERVE_ARCHS)
+    arch = ap.parse_args(argv).arch
     if not torch.cuda.is_available():
         sys.exit("profile_serve: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import chip_smoke
-    from repro_torch.launch import serve
-
-    cfg, model, params = chip_smoke.serve_model(torch)
+    cfg, model, params = chip_smoke.serve_model(torch, arch)
+    # the device name of the family's kernel in csrc/: "<name>_kernel"
+    port_kernel = chip_smoke.SERVE_KERNEL[cfg.family] + "_kernel"
     B, S, new = (chip_smoke.SERVE_RUN[k]
                  for k in ("batch", "prompt_len", "new_tokens"))
     prompts = serve.make_prompts(cfg.vocab_size, B, S, 0, "cuda")
@@ -84,14 +94,16 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     common = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "arch": chip_smoke.SERVE_ARCH, "batch": B, "prompt_len": S}
+              "arch": arch, "batch": B, "prompt_len": S}
     print(json.dumps({**common, "phase": "prefill",
                       "prompt_tok_per_s": B * S / prefill_wall,
-                      **_phase(prof, prefill_wall)}))
+                      **_phase(prof, prefill_wall, port_kernel)}))
+    decode = _phase(prof_d, decode_wall, port_kernel)
     print(json.dumps({**common, "phase": "decode", "steps": new - 1,
                       "ms_per_step": decode_wall / (new - 1) * 1e3,
                       "tok_per_s": (new - 1) * B / decode_wall,
-                      **_phase(prof_d, decode_wall)}))
+                      "launches_per_step": decode["kernel_launches"]
+                      / (new - 1), **decode}))
 
 
 if __name__ == "__main__":
