@@ -15,9 +15,13 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    indices, -1 pads, K and P off the tile);
    K4 flash_attention (the serve shape in fp32 and bf16, MQA with a
    window, h2o-danube's hd 80, recurrentgemma's hd 256 with one KV
-   head, ragged S, S = 1, Sq != Sk) and K5 ssd (mamba2-370m's serve
+   head at a window of 64 and at its serve shape with the window of
+   2048, ragged S, S = 1, Sq != Sk), K5 ssd (mamba2-370m's serve
    shape with the model's dt, tests/test_kernels.py's three shapes, the
-   reduced model's, one ragged chunk, h0, p 128);
+   reduced model's, one ragged chunk, h0, p 128) and K6 rglru_scan
+   (recurrentgemma-9b's serve shape with the model's a and b,
+   tests/test_kernels.py's three shapes with h0 and its case without,
+   ragged S and W, one step with h0, fewer channels than one block);
 4. the port's main paths: Algorithm 1 through
    `repro_torch.core.dpfl.run_dpfl` on PaperCNN at its published width
    (32 clients, 3 rounds) in four configurations (dense graphs without
@@ -35,9 +39,15 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    the card and on the CPU (batch 1, prompt 128, 8 tokens), which must
    give the same tokens; then the same for mamba2-370m at its full
    published config (48 Mamba2 blocks, float32; 48 K5 launches in the
-   prefill, 0 in decode, no other kernel of the port);
+   prefill, 0 in decode, no other kernel of the port) and for
+   recurrentgemma-9b at its full published config (26 RG-LRU blocks and
+   12 local-attention blocks, float32, 26.1 GB of weights; 26 K6 and 12
+   K4 launches in the prefill, 0 in decode), whose card-against-CPU
+   check runs the model's first five layers (two segments) with its
+   embedding, head and final norm (CROSS_LAYERS);
 5. each kernel timed beside its plain version, the one PyTorch call
-   that computes the same function where there is one (none for K5),
+   that computes the same function where there is one (none for K5
+   and K6),
    and its bound (after phase 4, so the card runs at its working
    clocks, not idle ones);
 6. one JSON line of per-kernel results, then the device line.
@@ -100,17 +110,25 @@ K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, None, "float32"),
             ("hd 80, window 128", 2, 384, 384, 32, 8, 80, 128, "float32"),
             ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, 64,
              "float32"),
+            ("hybrid serve, hd 256, Hkv 1, window 2048", 4, 512, 512, 16, 1,
+             256, 2048, "float32"),
             ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "float32"),
             ("S = 1", 4, 1, 1, 16, 8, 128, None, "float32"),
             ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32")]
 K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
-# The serving paths: qwen3-0.6b (dense, K4) and mamba2-370m (SSM, K5) at
-# their published configs, in float32 as `repro.launch.serve` runs them;
-# the kernel that each family's prefill launches once per layer
-SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m")
-SERVE_KERNEL = {"dense": "flash_attention", "ssm": "ssd"}
+# The serving paths: qwen3-0.6b (dense, K4), mamba2-370m (SSM, K5) and
+# recurrentgemma-9b (hybrid: K6 in its recurrent blocks, K4 in its
+# attention blocks) at their published configs, in float32 as
+# `repro.launch.serve` runs them
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "recurrentgemma-9b")
 SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
 CROSS_RUN = dict(batch=1, prompt_len=128, new_tokens=8)
+# Card against CPU at a stated reduction: recurrentgemma-9b's 26.1 GB of
+# weights are run on the CPU as the model's first five layers (rec, rec,
+# attn, then the (rec, rec) remainder segment, so both segments run) with
+# its embedding, head and final norm: 10.4 GB copied to the host, nothing
+# drawn anew. The other serve models run whole.
+CROSS_LAYERS = {"recurrentgemma-9b": 5}
 # Card against CPU on the same weights: last-position prefill logits
 # (qwen3's std 0.64) within CROSS_TOL. A CPU rehearsal at full width with 2 and 4
 # layers (B 1, S 128, float32) put two summation orders (the prompt alone
@@ -156,6 +174,23 @@ K5_CASES = [("serve", 4, 512, 32, 64, 128, 256, "model", False),
             ("h0", 2, 256, 4, 32, 16, 64, "kernels", True),
             ("p 128, n 64, h0", 1, 256, 4, 128, 64, 128, "model", True)]
 K5_TOL = dict(atol=2e-4, rtol=1e-3)   # tests/test_kernels.py
+# K6 cases: (name, B, S, W, inputs, h0). The first is the serve run's
+# prefill recurrence (recurrentgemma-9b, batch 4, prompt 512, lru width
+# 4096) with a and b as the model makes them ("model": a = u^r with u
+# uniform on [0.9, 0.999) per channel, Griffin's init, and r a sigmoid;
+# b = sqrt(1 - a^2) i v with i a sigmoid); "kernels" draws as
+# tests/test_kernels.py does (a = sigmoid(normal) * 0.2 + 0.79, or
+# * 0.5 + 0.49 in its case without h0; b = normal * 0.1). No bf16 case:
+# the kernel takes float32 only (csrc/rglru_scan.cu).
+K6_CASES = [("serve", 4, 512, 4096, "model", False),
+            ("test_kernels 1", 1, 128, 256, "kernels", True),
+            ("test_kernels 2", 2, 256, 512, "kernels", True),
+            ("test_kernels 3", 3, 64, 128, "kernels", True),
+            ("test_kernels, no h0", 2, 128, 128, "wide", False),
+            ("ragged S 200, W 100", 2, 200, 100, "kernels", True),
+            ("S = 1, h0", 4, 1, 4096, "model", True),
+            ("B W under one block", 1, 33, 40, "kernels", False)]
+K6_TOL = 1e-4   # tests/test_kernels.py (atol)
 
 # (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
 # on the tensor cores), NVIDIA data sheets. A row's bound takes the rate
@@ -503,8 +538,9 @@ def k4_work(q, k, window):
 def time_k4(torch, inputs, errs, rates):
     """K4, its plain version and the yardstick
     (`scaled_dot_product_attention` with ``is_causal`` and ``enable_gqa``
-    on (B, H, S, hd) views) timed at the serve shape, fp32 and bf16,
-    beside the bound; returns the rows."""
+    on (B, H, S, hd) views) timed at qwen3-0.6b's serve shape, fp32 and
+    bf16, and at recurrentgemma-9b's, beside the bound; returns the
+    rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k4
@@ -512,26 +548,33 @@ def time_k4(torch, inputs, errs, rates):
 
     rows = []
     for (name, dt, window, q, k, v), err in zip(inputs, errs):
-        if not name.startswith("serve"):
+        if "serve" not in name:
             continue
-        ms = time_ms(lambda: k4.flash_attention(q, k, v), torch)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), torch)
+        # the hybrid's window of 2048 does not bind at 512 positions, so
+        # the causal SDPA computes the same function there
+        ms = time_ms(lambda: k4.flash_attention(q, k, v, window=window),
+                     torch)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, window=window), torch)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), torch)
         lib_err = (F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
-            .float() - k4.flash_attention(q, k, v).float()).abs().max().item()
+            .float() - k4.flash_attention(q, k, v, window=window).float()
+        ).abs().max().item()
         nbytes, flops = k4_work(q, k, window)
         bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
         B, S, Hq, hd = q.shape
         rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
+                         window=window,
                          dtype=dt, max_abs_err=err, tol=K4_TOL[dt], ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          library_max_abs_diff=lib_err, bound_ms=bound_ms,
                          bound_by=bound_by, bytes=nbytes, flops=flops,
                          tflops=flops / ms / 1e9))
-        print(f"  K4 {name:<10} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}) "
+        print(f"  K4 {name:<10} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}, window "
+              f"{window}) "
               f"{dt:<8} err {err:.3g} kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} ms  "
               f"sdpa {lib_ms:.4f} ms (diff {lib_err:.3g})  bound "
@@ -630,32 +673,106 @@ def time_k5(torch, inputs, errs, rates):
     return rows
 
 
-def _zero_launches():
+def k6_inputs(torch):
+    """Seeded (name, a, b, h0) on the card for every K6 case (K6_CASES)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for name, B, S, W, kind, with_h0 in K6_CASES:
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        if kind == "model":
+            u = torch.rand((W,), generator=gen, device="cuda") * 0.099 + 0.9
+            a = u ** torch.sigmoid(draw(B, S, W))
+            b = torch.sqrt(1.0 - a * a) * torch.sigmoid(draw(B, S, W)) * \
+                draw(B, S, W)
+        else:
+            lo, width = (0.49, 0.5) if kind == "wide" else (0.79, 0.2)
+            a = torch.sigmoid(draw(B, S, W)) * width + lo
+            b = draw(B, S, W) * 0.1
+        out.append((name, a, b, draw(B, W) if with_h0 else None))
+    return out
+
+
+def check_k6(torch, inputs):
+    """K6 against its plain version in every case (h and h_last) at atol
+    K6_TOL; returns the max abs error per case and the number of cases
+    that agree bit for bit (the kernel rounds in the plain version's
+    order)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as k6
+
+    errs, bitwise = [], 0
+    for name, a, b, h0 in inputs:
+        h, hl = k6.rglru_scan(a, b, h0)
+        wh, whl = ref.linear_scan_ref(a, b, h0)
+        errs.append(max(_close(torch, f"K6 {name} h", h, wh, K6_TOL, 0.0),
+                        _close(torch, f"K6 {name} h_last", hl, whl, K6_TOL,
+                               0.0)))
+        bitwise += bool(torch.equal(h, wh) and torch.equal(hl, whl))
+    return errs, bitwise
+
+
+def k6_work(a, h0):
+    """(bytes, flops) K6 must at least move and do: a and b (and h0) read
+    once, h and h_last written once; a product and a sum per element."""
+    B, S, W = a.shape
+    nbytes = 4 * (3 * a.numel() + (2 if h0 is not None else 1) * B * W)
+    return nbytes, 2 * a.numel()
+
+
+def time_k6(torch, inputs, errs, rates):
+    """K6 and its plain version (a Python loop of S steps) timed at the
+    serve shape, beside the bound; no single PyTorch call computes a
+    first-order linear recurrence, so no library time. Returns the
+    rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as k6
+
+    rows = []
+    for (name, a, b, h0), err in zip(inputs, errs):
+        if name != "serve":
+            continue
+        ms = time_ms(lambda: k6.rglru_scan(a, b, h0), torch)
+        plain_ms = time_ms(lambda: ref.linear_scan_ref(a, b, h0), torch)
+        nbytes, flops = k6_work(a, h0)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+        B, S, W = a.shape
+        rows.append(dict(case=name, B=B, S=S, W=W, dtype="float32",
+                         max_abs_err=err, atol=K6_TOL, ms=ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bytes=nbytes, flops=flops,
+                         gbytes_per_s=nbytes / ms / 1e6))
+        print(f"  K6 {name:<10} ({B}, {S}, {W}) err {err:.3g} kernel "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)  plain "
+              f"{plain_ms:.4f} ms  library none  bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+    return rows
+
+
+def _kernel_modules():
     from repro_torch.kernels import compressed_graph_mix as k3
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import graph_mix as k1
+    from repro_torch.kernels import rglru_scan as k6
     from repro_torch.kernels import sparse_graph_mix as k2
     from repro_torch.kernels import ssd as k5
 
-    k1.graph_mix.launches = 0
-    k2.sparse_graph_mix.launches = 0
-    k3.compressed_graph_mix.launches = 0
-    k4.flash_attention.launches = 0
-    k5.ssd.launches = 0
+    return {"graph_mix": k1.graph_mix,
+            "sparse_graph_mix": k2.sparse_graph_mix,
+            "compressed_graph_mix": k3.compressed_graph_mix,
+            "flash_attention": k4.flash_attention, "ssd": k5.ssd,
+            "rglru_scan": k6.rglru_scan}
+
+
+def _zero_launches():
+    for wrapper in _kernel_modules().values():
+        wrapper.launches = 0
 
 
 def _read_launches():
-    from repro_torch.kernels import compressed_graph_mix as k3
-    from repro_torch.kernels import flash_attention as k4
-    from repro_torch.kernels import graph_mix as k1
-    from repro_torch.kernels import sparse_graph_mix as k2
-    from repro_torch.kernels import ssd as k5
-
-    return {"graph_mix": k1.graph_mix.launches,
-            "sparse_graph_mix": k2.sparse_graph_mix.launches,
-            "compressed_graph_mix": k3.compressed_graph_mix.launches,
-            "flash_attention": k4.flash_attention.launches,
-            "ssd": k5.ssd.launches}
+    return {name: wrapper.launches
+            for name, wrapper in _kernel_modules().items()}
 
 
 def smoke_config(variant, **run):
@@ -712,7 +829,7 @@ def expected_launches(variant, N, B, rounds):
     return {"graph_mix": k1,
             "sparse_graph_mix": 1 + rounds if sparse else 0,
             "compressed_graph_mix": rounds if topk and not sparse else 0,
-            "flash_attention": 0, "ssd": 0}
+            "flash_attention": 0, "ssd": 0, "rglru_scan": 0}
 
 
 def check_main_path(res, engine, cfg, variant, launches, omega_dense):
@@ -812,17 +929,41 @@ def check_small_input(torch):
     return errs
 
 
+def serve_kernels(cfg):
+    """The launches of each port kernel that one prefill of ``cfg`` must
+    make, counted from the config alone: one K4 per attention layer, one
+    K5 per Mamba2 layer, one K6 per RG-LRU layer (a hybrid model's layers
+    follow its pattern unit cyclically: `repro`'s segments); every other
+    kernel none."""
+    want = {name: 0 for name in _kernel_modules()}
+    if cfg.family == "ssm":
+        want["ssd"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        unit = cfg.hybrid_pattern
+        kinds = [unit[i % len(unit)] for i in range(cfg.n_layers)]
+        want["rglru_scan"] = kinds.count("rec")
+        want["flash_attention"] = cfg.n_layers - kinds.count("rec")
+    else:
+        want["flash_attention"] = cfg.n_layers
+    return want
+
+
 def serve_model(torch, arch):
-    """``arch`` (one of SERVE_ARCHS) at its published config in float32 on
-    the card, its weights drawn from seed 0 there; returns (cfg, model,
-    params)."""
+    """``arch`` (one of SERVE_ARCHS) at its published config in float32,
+    built on "meta" and its weights drawn from seed 0 on the card (so
+    they exist once: recurrentgemma-9b's are 26.1 GB); returns (cfg,
+    model, params)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     cfg = get_config(arch).replace(dtype="float32")
-    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="meta")
     params = model.init(prng.PRNGKey(0, device="cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     n = sum(t.numel() for t in params.values())
     if cfg.family == "ssm":
         shape = (f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} SSM "
@@ -831,22 +972,28 @@ def serve_model(torch, arch):
     else:
         shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
                  f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}")
+        if cfg.family == "hybrid":
+            shape += (f", pattern {cfg.hybrid_pattern}, lru width "
+                      f"{cfg.lru_width}, window {cfg.local_window}")
     print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {shape}, "
-          f"vocab {cfg.vocab_size}: {n} float32 weights")
+          f"vocab {cfg.vocab_size}: {n} float32 weights, drawn on the card "
+          f"in {seconds:.2f} s; max_memory_allocated after init "
+          f"{torch.cuda.max_memory_allocated()} bytes")
     return cfg, model, params
 
 
 def run_serve(torch, cfg, model, params):
     """The serving path once through `generate` with every kernel count
-    zeroed just before and read just after (one launch per layer of the
-    family's kernel, K4 or K5, and no other kernel); then `generate`'s
-    prefill phase alone, counted the same way, so the decode loop's
-    launches are the difference (none); then a second call, which must
-    give the same tokens. Returns (launches, the kernel's launches in
-    (prefill, decode), the first call's Generation, the second's)."""
+    zeroed just before and read just after (`serve_kernels`: one launch
+    per layer of the layer's kernel, K4, K5 or K6, and no other kernel);
+    then `generate`'s prefill phase alone, counted the same way, so the
+    decode loop's launches are the difference (none); then a second call,
+    which must give the same tokens. Returns (launches, each launched
+    kernel's (prefill, decode) launches, the first call's Generation, the
+    second's)."""
     from repro_torch.launch.serve import generate, make_prompts, prefill
 
-    kname = SERVE_KERNEL[cfg.family]
+    want = serve_kernels(cfg)
     B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")
     torch.cuda.synchronize()
@@ -854,19 +1001,18 @@ def run_serve(torch, cfg, model, params):
     gen = generate(model, params, prompts, new)
     torch.cuda.synchronize()
     launches = _read_launches()
-    want = {k: 0 for k in launches}
-    want[kname] = cfg.n_layers
     if launches != want:
         fail(f"serve {cfg.name}: kernel launches {launches}, expected "
              f"{want}")
     _zero_launches()
     prefill(model, prompts, new)
     torch.cuda.synchronize()
-    n_prefill = _read_launches()[kname]
-    split = (n_prefill, launches[kname] - n_prefill)
-    if split != (cfg.n_layers, 0):
-        fail(f"serve {cfg.name}: {kname} launches (prefill, decode) "
-             f"{split}, expected ({cfg.n_layers}, 0)")
+    n_prefill = _read_launches()
+    split = {k: (n_prefill[k], launches[k] - n_prefill[k])
+             for k, n in want.items() if n}
+    if split != {k: (n, 0) for k, n in want.items() if n}:
+        fail(f"serve {cfg.name}: launches (prefill, decode) {split}, "
+             f"expected {want} in the prefill and none in decode")
     if tuple(gen.tokens.shape) != (B, new):
         fail(f"serve {cfg.name}: tokens {tuple(gen.tokens.shape)}, expected "
              f"{(B, new)}")
@@ -886,30 +1032,38 @@ def run_serve(torch, cfg, model, params):
 
 def check_cross(torch, cfg, model, params):
     """The same weights on the card and on the CPU (copied from the card:
-    drawing 0.4-0.6 B threefry normals on the CPU is slow), batch 1: the
+    drawing 0.4-6.5 B threefry normals on the CPU is slow), batch 1: the
     greedy tokens equal and the last-position prefill logits within
-    CROSS_TOL, so the family's kernel (K4 or K5) is held against the
-    plain path inside the model. Returns (max abs logits difference, CPU
-    seconds)."""
+    CROSS_TOL, so the family's kernels (K4, K5, K6) are held against the
+    plain path inside the model. A model in CROSS_LAYERS runs cut to its
+    first layers, on both sides, with its embedding, head and final norm.
+    Returns (max abs logits difference, CPU seconds, layers run)."""
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models import build_model
 
-    kname = SERVE_KERNEL[cfg.family]
+    n_layers = CROSS_LAYERS.get(cfg.name, cfg.n_layers)
+    if n_layers != cfg.n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+        params = {k: v for k, v in params.items()
+                  if not k.startswith("layers.")
+                  or int(k.split(".")[1]) < n_layers}
+        model = build_model(cfg, device="meta")
+    want = serve_kernels(cfg)
     B, S, new = (CROSS_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     prompts = make_prompts(cfg.vocab_size, B, S, 1, "cuda")
     _zero_launches()
     card = generate(model, params, prompts, new)
     torch.cuda.synchronize()
-    n_card = _read_launches()[kname]
+    n_card = _read_launches()
     t0 = time.perf_counter()
     cpu_params = {k: v.cpu() for k, v in params.items()}
     cpu = generate(build_model(cfg, device="meta"), cpu_params, prompts.cpu(),
                    new)
     seconds = time.perf_counter() - t0
-    n_cpu = _read_launches()[kname] - n_card
-    if (n_card, n_cpu) != (cfg.n_layers, 0):
-        fail(f"{cfg.name} card against CPU: {kname} launches {n_card} on "
-             f"the card, {n_cpu} on the CPU")
+    n_cpu = {k: v - n_card[k] for k, v in _read_launches().items()}
+    if n_card != want or any(n_cpu.values()):
+        fail(f"{cfg.name} card against CPU: launches {n_card} on the card "
+             f"(expected {want}), {n_cpu} on the CPU")
     diff = (card.prefill_logits.cpu() - cpu.prefill_logits).abs().max().item()
     if not diff <= CROSS_TOL:
         fail(f"{cfg.name} card against CPU: prefill logits differ by {diff} "
@@ -917,7 +1071,7 @@ def check_cross(torch, cfg, model, params):
     if not torch.equal(card.tokens.cpu(), cpu.tokens):
         fail(f"{cfg.name} card against CPU: tokens {card.tokens.tolist()} "
              f"!= {cpu.tokens.tolist()}")
-    return diff, seconds
+    return diff, seconds, n_layers
 
 
 def _kernel_row(name, source, replaces, launches, rows):
@@ -993,6 +1147,13 @@ def main():
           f"{K5_TOL['rtol']})")
     for case, err in zip(K5_CASES, k5_errs):
         print(f"  K5 {case[0]}: max abs err {err:.3g}")
+    k6_in = k6_inputs(torch)
+    k6_errs, k6_bitwise = check_k6(torch, k6_in)
+    print(f"K6 agrees with its plain version in {len(k6_in)} cases (max abs "
+          f"err {max(k6_errs):.3g}, atol {K6_TOL}; bit for bit in "
+          f"{k6_bitwise} of them)")
+    for case, err in zip(K6_CASES, k6_errs):
+        print(f"  K6 {case[0]}: max abs err {err:.3g}")
 
     # ---- 4. the main paths
     engine = make_engine()
@@ -1033,14 +1194,16 @@ def main():
                   f"{(new - 1) * B / g.decode_seconds:.1f} tok/s)")
         walls[arch] = (again.prefill_seconds * 1e3,
                        again.decode_seconds / (new - 1) * 1e3)
-        print(f"serve {arch}: launches {launches[run]}, "
-              f"{SERVE_KERNEL[cfg.family]} (prefill, decode) {split}, same "
-              f"tokens on a second call; sample {gen.tokens[0, :8].tolist()}")
-        diff, cpu_s = check_cross(torch, cfg, model, params)
-        print(f"card against CPU ({arch}, B={CROSS_RUN['batch']} "
-              f"S={CROSS_RUN['prompt_len']} new={CROSS_RUN['new_tokens']}): "
-              f"same tokens, prefill logits max abs diff {diff:.3g} (tol "
-              f"{CROSS_TOL}), CPU side {cpu_s:.1f} s")
+        print(f"serve {arch}: launches {launches[run]}, (prefill, decode) "
+              f"{split}, same tokens on a second call; sample "
+              f"{gen.tokens[0, :8].tolist()}; max_memory_allocated after "
+              f"the serve runs {torch.cuda.max_memory_allocated()} bytes")
+        diff, cpu_s, layers = check_cross(torch, cfg, model, params)
+        print(f"card against CPU ({arch}, {layers} of {cfg.n_layers} "
+              f"layers, B={CROSS_RUN['batch']} S={CROSS_RUN['prompt_len']} "
+              f"new={CROSS_RUN['new_tokens']}): same tokens, prefill logits "
+              f"max abs diff {diff:.3g} (tol {CROSS_TOL}), CPU side "
+              f"{cpu_s:.1f} s")
         del model, params, gen, again
         torch.cuda.empty_cache()
     print("serve walls, second call (prefill ms, decode ms/step): " +
@@ -1053,13 +1216,14 @@ def main():
     k3_rows = time_k3(torch, k3_in, k3_errs, rates)
     k4_rows = time_k4(torch, k4_in, k4_errs, rates)
     k5_rows = time_k5(torch, k5_in, k5_errs, rates)
+    k6_rows = time_k6(torch, k6_in, k6_errs, rates)
     print("clocks.sm, power.draw after timing: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the four
-    # DPFL runs and the two serve runs), with each run's counts beside
+    # DPFL runs and the three serve runs), with each run's counts beside
     # them
     def total(kname):
         return sum(c[kname] for c in launches.values())
@@ -1081,7 +1245,10 @@ def main():
                     "src/repro/kernels/flash_attention.py:96",
                     total("flash_attention"), k4_rows),
         _kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
-                    "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows)]
+                    "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows),
+        _kernel_row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                    "src/repro/kernels/rglru_scan.py:60",
+                    total("rglru_scan"), k6_rows)]
     for row in rows:
         row["launches_by_run"] = {v: c[row["name"]]
                                   for v, c in launches.items()}

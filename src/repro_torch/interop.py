@@ -15,6 +15,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .models.lm import hybrid_layout
+
 
 def params_from_jax(params: Mapping[str, np.ndarray],
                     device=None) -> Dict[str, torch.Tensor]:
@@ -34,29 +36,36 @@ def flat_from_jax(flat: np.ndarray, device=None) -> torch.Tensor:
                         device=device)
 
 
-#: Mamba2 block leaves that are float32 in `repro` whatever ``cfg.dtype``
-#: (`repro.models.ssm.init_mamba_block`)
-FLOAT32_LEAVES = ("A_log", "D", "dt_bias")
+#: per family, the layer leaves that are float32 in `repro` whatever
+#: ``cfg.dtype``: the Mamba2 block's scalars
+#: (`repro.models.ssm.init_mamba_block`) and the RG-LRU block's gate
+#: weights and decay (`repro.models.rglru.init_rec_block`)
+FLOAT32_LEAVES = {"ssm": ("A_log", "D", "dt_bias"),
+                  "hybrid": ("wa", "ba", "wx", "bx", "lam")}
 
 
 def lm_params_from_jax(params: Mapping, cfg, device=None
                        ) -> Dict[str, torch.Tensor]:
-    """A `repro` ``DecoderLM`` parameter tree of the dense or SSM family, as
-    numpy arrays (every leaf under ``"layers"`` stacked over a leading
-    n_layers axis) -> the state dict of the port's
+    """A `repro` ``DecoderLM`` parameter tree of the dense, SSM or hybrid
+    family, as numpy arrays -> the state dict of the port's
     `repro_torch.models.lm.DecoderLM` ("tok_embed", "final_norm",
     ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq", ...,
     "layers.{i}.in_proj", ...), in ``cfg.dtype`` on ``device`` (default
-    cuda), except the SSM leaves that `repro` keeps in float32 whatever
-    the dtype (`FLOAT32_LEAVES`)."""
-    if cfg.family not in ("dense", "ssm"):
+    cuda), except the leaves that `repro` keeps in float32 whatever the
+    dtype (`FLOAT32_LEAVES`). Dense and SSM trees stack every leaf under
+    ``"layers"`` over a leading n_layers axis; a hybrid tree's leaf
+    ``params["segments"][si][f"b{bi}"][name][g]`` becomes
+    ``layers.{i}.{name}`` for the layer i at (si, g, bi)
+    (`repro_torch.models.lm.hybrid_layout`)."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"lm_params_from_jax: the {cfg.family} "
                                   f"family is not ported")
     device = torch.device("cuda") if device is None else torch.device(device)
     dtype = getattr(torch, cfg.dtype)
+    float32 = FLOAT32_LEAVES.get(cfg.family, ())
 
     def put(a, name=""):
-        keep = cfg.family == "ssm" and name in FLOAT32_LEAVES
+        keep = name in float32
         return torch.tensor(np.asarray(a, np.float32), device=device,
                             dtype=torch.float32 if keep else dtype)
 
@@ -67,7 +76,14 @@ def lm_params_from_jax(params: Mapping, cfg, device=None
             else:
                 yield f"{prefix}{name}", np.asarray(leaf)
 
-    out = {name: put(a) for name, a in params.items() if name != "layers"}
+    stacks = "segments" if cfg.family == "hybrid" else "layers"
+    out = {name: put(a) for name, a in params.items() if name != stacks}
+    if cfg.family == "hybrid":
+        segs = params["segments"]
+        for i, (si, g, bi, _) in enumerate(hybrid_layout(cfg)):
+            for name, a in leaves(segs[si][f"b{bi}"]):
+                out[f"layers.{i}.{name}"] = put(a[g], name)
+        return out
     for name, a in leaves(params["layers"]):
         if a.shape[0] != cfg.n_layers:
             raise ValueError(f"lm_params_from_jax: layers.{name} has "

@@ -29,7 +29,8 @@ SOURCES = {"graph_mix": "graph_mix.cu",
            "sparse_graph_mix": "sparse_graph_mix.cu",
            "compressed_graph_mix": "compressed_graph_mix.cu",
            "flash_attention": "flash_attention.cu",
-           "ssd": "ssd.cu"}
+           "ssd": "ssd.cu",
+           "rglru_scan": "rglru_scan.cu"}
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -16,6 +16,7 @@ from . import compressed_graph_mix as _k3
 from . import flash_attention as _k4
 from . import graph_mix as _k1
 from . import ref
+from . import rglru_scan as _k6
 from . import sparse_graph_mix as _k2
 from . import ssd as _k5
 
@@ -85,3 +86,17 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     if _on_cpu(x, dlogA, B, C, *(() if h0 is None else (h0,))):
         return ref.ssd_ref(x, dlogA, B, C, chunk, h0)
     return _k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` over axis 1: a, b
+    (B, S, W) float32, h0 (B, W) or None; returns (h (B, S, W), h_last
+    (B, W)) (`repro.kernels.rglru_scan.rglru_scan`, whose oracle `repro`'s
+    model runs). Raises ``NotImplementedError`` for inputs that require
+    grad, on either device: the kernel has no backward."""
+    _k6.check_no_grad(a, b, h0)
+    if _on_cpu(a, b, *(() if h0 is None else (h0,))):
+        return ref.linear_scan_ref(a, b, h0)
+    return _k6.rglru_scan(a, b, h0)

@@ -136,3 +136,26 @@ def ssd_ref(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, prev_states,
                          state_decay_out)
     return (Y_diag + Y_off).reshape(b, l, h, p), hprev
+
+
+def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first-order linear recurrence ``h_t = a_t * h_{t-1} + b_t`` over
+    axis 1, the plain version of the K6 kernel. a, b: (B, S, W) float32;
+    h0: (B, W) or None (zeros). Returns (h (B, S, W), h_last (B, W)).
+
+    A Python loop over the S steps, each ``a_t * h + b_t`` rounded after
+    the product and after the sum: the order of the Pallas kernel
+    (``repro/kernels/rglru_scan.py``), which K6 keeps bit for bit.
+    `repro`'s oracle (`repro.models.rglru.linear_scan_ref`) is an
+    associative scan, which sums in another order, so the two agree to
+    rounding only. Not the closed form ``P_t * cumsum(b / P)`` with
+    ``P_t`` the running product of a: it divides by products that
+    underflow."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out, out[:, -1]

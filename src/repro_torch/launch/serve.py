@@ -1,16 +1,18 @@
 """Batched serving: prefill of a batch of prompts, then a decode
-loop (port of `repro.launch.serve`, dense and SSM families). Reduced
-config by default; runs on the card unless ``--device cpu``:
+loop (port of `repro.launch.serve`, dense, SSM and hybrid families).
+Reduced config by default; runs on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 32 --new-tokens 16 [--full] [--device cpu]
 
-Every prefill attention runs on the K4 kernel and every prefill SSD
-scan on the K5 kernel on the card (their plain versions on the CPU);
-decode runs the plain ring-cache attention or the plain one-token SSD
-update, as in `repro`. The decode loop keeps the tokens on the device
-and makes no device-to-host copy (``set_sync_debug_mode("error")`` on
-CUDA).
+Every prefill attention runs on the K4 kernel, every prefill SSD scan on
+the K5 kernel and every prefill RG-LRU recurrence on the K6 kernel on
+the card (their plain versions on the CPU); decode runs the plain
+ring-cache attention and the plain one-token SSD or RG-LRU updates, as
+in `repro`. The decode loop keeps the tokens on the device and makes no
+device-to-host copy (``set_sync_debug_mode("error")`` on CUDA). The CLI
+draws its weights, prompts and samples from ``PRNGKey(0)`` as `repro`'s
+does, so the same flags give `repro`'s prompts.
 """
 from __future__ import annotations
 
@@ -119,7 +121,8 @@ def generate(model, params: Optional[Dict[str, torch.Tensor]],
 def make_prompts(vocab_size: int, batch: int, length: int, seed: int,
                  device) -> torch.Tensor:
     """(batch, length) int64 token ids, uniform over the vocabulary, from a
-    generator seeded with ``seed`` on ``device``."""
+    generator seeded with ``seed`` on ``device`` (chip_smoke.py's inputs;
+    the CLI draws `repro`'s prompts with `prng.randint` instead)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randint(0, vocab_size, (batch, length), generator=gen,
                          device=device)
@@ -146,11 +149,13 @@ def main(argv=None):
     if not args.full:
         cfg = cfg.reduced()
     cfg = cfg.replace(dtype="float32")
-    model = build_model(cfg, device=device)
+    # weights drawn once, on the key's device (not over empty ones)
+    model = build_model(cfg, device="meta")
     key = prng.PRNGKey(0, device=device)
     params = model.init(key)
     B, S = args.batch, args.prompt_len
-    prompts = make_prompts(cfg.vocab_size, B, S, 0, device)
+    # `repro`'s prompts: jax.random.randint(key, (B, S), 0, vocab)
+    prompts = prng.randint(key, (B, S), 0, cfg.vocab_size)
     gen = generate(model, params, prompts, args.new_tokens,
                    temperature=args.temperature, key=key)
     n = args.new_tokens - 1

@@ -3,7 +3,7 @@ of `repro.launch.steps`: `make_prefill_step`, `make_decode_step`).
 
 The model owns its weights (`repro_torch.models.lm.DecoderLM`), so a step
 takes no params argument, and a maker no config: the model is a
-`DecoderLM` of the dense or SSM family, which has no audio or vlm
+`DecoderLM` of the dense, SSM or hybrid family, which has no audio or vlm
 branch.
 `make_train_step` and `make_dpfl_mix` come with LM training (ROADMAP
 Queue 1 item 14d).
@@ -21,7 +21,7 @@ def make_prefill_step(model):
 
 def make_decode_step(model):
     """step(caches, token, pos) -> (logits, caches), caches written in
-    place (a ring slot, or the SSM state and conv rows)."""
+    place (a ring slot, or the SSM or RG-LRU state and conv rows)."""
 
     def step(caches, token, pos: int):
         return model.decode_step(caches, token, pos)

@@ -1,5 +1,5 @@
-"""Model zoo: the DPFL classifiers and, for the dense and SSM families,
-the decoder-only LM built from its config (`build_model`)."""
+"""Model zoo: the DPFL classifiers and, for the dense, SSM and hybrid
+families, the decoder-only LM built from its config (`build_model`)."""
 from ..configs.base import ArchConfig
 from .classifier import MLP, PaperCNN, accuracy, xent_loss
 from .common import dense_init
@@ -7,8 +7,8 @@ from .lm import DecoderLM
 
 
 def build_model(cfg: ArchConfig, device=None, **kw) -> DecoderLM:
-    """`repro.models.build_model` for the families the port serves (dense
-    and SSM); the others raise ``NotImplementedError`` naming their
+    """`repro.models.build_model` for the families the port serves (dense,
+    SSM and hybrid); the others raise ``NotImplementedError`` naming their
     ROADMAP item."""
     return DecoderLM(cfg, device=device, **kw)
 

@@ -1,19 +1,23 @@
-"""Decoder-only language model, dense and SSM families (port of
+"""Decoder-only language model, dense, SSM and hybrid families (port of
 `repro.models.lm`): GQA with optional qk-norm, rotary embeddings, sliding
-windows, ring-buffer KV caches, SwiGLU MLPs, Mamba2 (SSD) blocks and a
-tied or separate output head.
+windows, ring-buffer KV caches, SwiGLU MLPs, Mamba2 (SSD) blocks, RG-LRU
+recurrent blocks interleaved with local attention (Griffin) and a tied
+or separate output head.
 
-`DecoderLM` is an ``nn.Module`` that owns its weights: one `DenseLayer`
-or `MambaLayer` module per layer, each holding `repro`'s per-layer leaves
-under `repro`'s names and layouts ((in, out) dense weights). Its state
-dict is `repro`'s stacked tree split by layer ("layers.3.attn.wq" is row
-3 of ``params["layers"]["attn"]["wq"]``; `repro_torch.interop.
-lm_params_from_jax`). The dense prefill's attention runs on the K4 kernel
-(`kernels.ops.flash_attention`) and the SSM prefill's scan on the K5
-kernel (`kernels.ops.ssd`); decode runs the plain ring-cache
-`attention_ref` or the plain one-token SSD update, as in `repro`, which
-has no decode kernel. The weights take no gradient: the LM serves here,
-and its training is ROADMAP Queue 1 item 14d.
+`DecoderLM` is an ``nn.Module`` that owns its weights: one `DenseLayer`,
+`MambaLayer` or `RecLayer` module per layer, in execution order, each
+holding `repro`'s per-layer leaves under `repro`'s names and layouts
+((in, out) dense weights). Its state dict is `repro`'s stacked tree split
+by layer ("layers.3.attn.wq" is row 3 of
+``params["layers"]["attn"]["wq"]``; a hybrid model's layer i is group g
+of block bi of segment si, `hybrid_layout`;
+`repro_torch.interop.lm_params_from_jax`). The prefill's attention runs
+on the K4 kernel (`kernels.ops.flash_attention`), the SSM prefill's scan
+on the K5 kernel (`kernels.ops.ssd`) and the recurrent blocks' prefill
+on the K6 kernel (`kernels.ops.rglru_scan`); decode runs the plain
+ring-cache `attention_ref` and the plain one-token SSD or RG-LRU updates,
+as in `repro`, which has no decode kernel. The weights take no gradient:
+the LM serves here, and its training is ROADMAP Queue 1 item 14d.
 """
 from __future__ import annotations
 
@@ -28,13 +32,13 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from .common import (NEG_INF, apply_rope, attention_ref, dense_init,
                      embed_init, rms_norm, swiglu)
+from .rglru import init_rec_block, init_rec_cache, rec_block
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_dims
 
 Cache = Dict[str, torch.Tensor]
 
 #: families not ported yet -> the ROADMAP Queue 1 item that ports them
-UNPORTED_FAMILIES = {"hybrid": "14c", "moe": "14d", "vlm": "14d",
-                     "audio": "14d"}
+UNPORTED_FAMILIES = {"moe": "14d", "vlm": "14d", "audio": "14d"}
 
 
 def check_family(cfg: ArchConfig):
@@ -42,7 +46,7 @@ def check_family(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP Queue 1 item {UNPORTED_FAMILIES[cfg.family]}); the "
-            f"port serves the dense and SSM families")
+            f"port serves the dense, SSM and hybrid families")
 
 
 # ----------------------------------------------------------------- attention
@@ -220,6 +224,49 @@ class MambaLayer(nn.Module):
         self.out_proj = _weight((d_in, d), dtype, device)
 
 
+class RecLayer(nn.Module):
+    """One RG-LRU recurrent block's weights: ln (d,), w_gate and w_lin
+    (d, W), conv_w (K, W), wa and wx (W, W), ba, bx and lam (W,), these
+    five float32 whatever the model's dtype (as in `repro`), w_out (W, d).
+    No MLP, as in `repro`."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, W = cfg.d_model, cfg.lru_width
+        self.ln = _weight((d,), dtype, device)
+        self.w_gate = _weight((d, W), dtype, device)
+        self.w_lin = _weight((d, W), dtype, device)
+        self.conv_w = _weight((cfg.ssm_conv, W), dtype, device)
+        self.wa = _weight((W, W), torch.float32, device)
+        self.ba = _weight((W,), torch.float32, device)
+        self.wx = _weight((W, W), torch.float32, device)
+        self.bx = _weight((W,), torch.float32, device)
+        self.lam = _weight((W,), torch.float32, device)
+        self.w_out = _weight((W, d), dtype, device)
+
+
+def hybrid_segments(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """`repro`'s ``_hybrid_segments``: (pattern unit, groups) pairs, the
+    whole unit repeated n_layers // len(unit) times, then the first
+    n_layers % len(unit) blocks of it once."""
+    unit = cfg.hybrid_pattern
+    n_groups, rem = divmod(cfg.n_layers, len(unit))
+    segs = [(unit, n_groups)]
+    if rem:
+        segs.append((unit[:rem], 1))
+    return segs
+
+
+def hybrid_layout(cfg: ArchConfig) -> List[Tuple[int, int, int, str]]:
+    """(segment si, group g, block bi, kind) of each layer of a hybrid
+    model, in execution order: layer i holds `repro`'s
+    ``params["segments"][si][f"b{bi}"]`` row g. recurrentgemma-9b's 38
+    layers are 12 groups of (rec, rec, attn), then one (rec, rec)."""
+    return [(si, g, bi, kind)
+            for si, (unit, n) in enumerate(hybrid_segments(cfg))
+            for g in range(n) for bi, kind in enumerate(unit)]
+
+
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
     for name, leaf in tree.items():
@@ -231,11 +278,11 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense or SSM family. The weights are allocated
-    uninitialised on ``device`` (default cuda; "meta" allocates nothing);
-    `init` draws them, or ``load_state_dict(params, assign=True)`` takes
-    a state dict (`repro_torch.interop.lm_params_from_jax`), without a
-    copy, on that state's device."""
+    """Decoder-only LM of the dense, SSM or hybrid family. The weights are
+    allocated uninitialised on ``device`` (default cuda; "meta" allocates
+    nothing); `init` draws them, or ``load_state_dict(params,
+    assign=True)`` takes a state dict (`repro_torch.interop.
+    lm_params_from_jax`), without a copy, on that state's device."""
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
                  device=None):
@@ -243,6 +290,9 @@ class DecoderLM(nn.Module):
         check_family(cfg)
         self.cfg = cfg
         self.window = cfg.attn_window
+        if cfg.family == "hybrid" and cfg.local_window and \
+                self.window is None:
+            self.window = cfg.local_window
         self.vp = cfg.padded_vocab(vocab_pad_multiple) \
             if vocab_pad_multiple > 1 else cfg.vocab_size
         self.dtype = getattr(torch, cfg.dtype)
@@ -252,16 +302,24 @@ class DecoderLM(nn.Module):
         self.final_norm = _weight((d,), self.dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _weight((d, self.vp), self.dtype, device)
-        layer = MambaLayer if cfg.family == "ssm" else DenseLayer
+        if cfg.family == "hybrid":
+            layers = [RecLayer if kind == "rec" else DenseLayer
+                      for *_, kind in hybrid_layout(cfg)]
+        else:
+            layers = [MambaLayer if cfg.family == "ssm" else DenseLayer
+                      ] * cfg.n_layers
         self.layers = nn.ModuleList(layer(cfg, self.dtype, device)
-                                    for _ in range(cfg.n_layers))
+                                    for layer in layers)
 
     # ------------------------------------------------------------ params
     def init(self, key: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Draw `repro`'s init for ``key`` (its key tree: ``split(key, 4)``,
-        the layers from ``split(ks[2], n_layers)``) on the key's device,
-        make it the module's weights and return the state dict. The
-        port's normal sampler may differ from jax's by a few ulps
+        the layers from ``split(ks[2], n_layers)``, or a hybrid model's
+        group g of block bi of segment si from ``split(fold_in(ks[2],
+        si * 16 + bi), groups)[g]``) on the key's device, make it the
+        module's weights and return the state dict. Build the model on
+        "meta" first, so that the weights exist once. The port's normal
+        sampler may differ from jax's by a few ulps
         (`repro_torch.prng.normal`)."""
         cfg, dtype = self.cfg, self.dtype
         ks = prng.split(key, 4)
@@ -273,12 +331,22 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(ks[1], (cfg.d_model, self.vp),
                                            dtype)
-        layer_init = init_mamba_block if cfg.family == "ssm" \
-            else init_dense_layer
-        keys = prng.split(ks[2], cfg.n_layers)
-        for i in range(cfg.n_layers):
-            params.update(_flatten(layer_init(keys[i], cfg, dtype),
-                                   f"layers.{i}."))
+        if cfg.family == "hybrid":
+            segs = hybrid_segments(cfg)
+            for i, (si, g, bi, kind) in enumerate(hybrid_layout(cfg)):
+                keys = prng.split(prng.fold_in(ks[2], si * 16 + bi),
+                                  segs[si][1])
+                layer_init = init_rec_block if kind == "rec" \
+                    else init_dense_layer
+                params.update(_flatten(layer_init(keys[g], cfg, dtype),
+                                       f"layers.{i}."))
+        else:
+            layer_init = init_mamba_block if cfg.family == "ssm" \
+                else init_dense_layer
+            keys = prng.split(ks[2], cfg.n_layers)
+            for i in range(cfg.n_layers):
+                params.update(_flatten(layer_init(keys[i], cfg, dtype),
+                                       f"layers.{i}."))
         self.load_state_dict(params, assign=True)
         return self.state_dict()
 
@@ -286,11 +354,13 @@ class DecoderLM(nn.Module):
     def _block(self, layer: nn.Module, x: torch.Tensor, q_pos: torch.Tensor,
                cache: Optional[Cache] = None,
                cache_len: Optional[int] = None):
-        """One layer (`repro`'s ``_block``): a Mamba2 block, whose cache
-        does not depend on ``cache_len`` or the positions, or a dense
+        """One layer (`repro`'s ``_block``): a Mamba2 or RG-LRU block, whose
+        cache does not depend on ``cache_len`` or the positions, or a dense
         block."""
         if isinstance(layer, MambaLayer):
             return mamba_block(layer, x, self.cfg, cache)
+        if isinstance(layer, RecLayer):
+            return rec_block(layer, x, self.cfg, cache)
         return self._dense_block(layer, x, q_pos, cache, cache_len)
 
     def _dense_block(self, layer: DenseLayer, x: torch.Tensor,
@@ -337,22 +407,27 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, cache_len: int) -> List[Cache]:
-        """One empty cache per layer: a ring of ``cache_len`` slots (dense)
-        or {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)} zeros
-        (SSM)."""
+        """One empty cache per layer: a ring of ``cache_len`` slots
+        (attention), {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)}
+        zeros (Mamba2) or {"h": (B, W) fp32, "conv": (B, K-1, W)} zeros
+        (RG-LRU)."""
         device = self.tok_embed.device
-        if self.cfg.family == "ssm":
-            return [init_mamba_cache(self.cfg, batch, self.dtype, device)
-                    for _ in range(self.cfg.n_layers)]
-        return [init_attn_cache(self.cfg, batch, cache_len, self.dtype,
-                                self.window, device)
-                for _ in range(self.cfg.n_layers)]
+
+        def one(layer):
+            if isinstance(layer, MambaLayer):
+                return init_mamba_cache(self.cfg, batch, self.dtype, device)
+            if isinstance(layer, RecLayer):
+                return init_rec_cache(self.cfg, batch, self.dtype, device)
+            return init_attn_cache(self.cfg, batch, cache_len, self.dtype,
+                                   self.window, device)
+        return [one(layer) for layer in self.layers]
 
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
         """tokens: (B, S). Returns (last-position logits (B, V), one cache
-        per layer: a ring (dense) or the SSM state and conv rows, which
-        ``cache_len`` does not size). An SSM prompt shorter than
-        ``ssm_conv - 1`` tokens raises ``ValueError`` (`mamba_block`)."""
+        per layer: a ring (attention) or the SSM or RG-LRU state and conv
+        rows, which ``cache_len`` does not size). An SSM or hybrid prompt
+        shorter than ``ssm_conv - 1`` tokens raises ``ValueError``
+        (`mamba_block`, `rec_block`)."""
         x = self._embed(tokens)
         S = x.shape[1]
         q_pos = torch.arange(S, device=x.device)
@@ -363,9 +438,9 @@ class DecoderLM(nn.Module):
     def decode_step(self, caches: List[Cache], token: torch.Tensor,
                     pos: int):
         """token: (B, 1) int64 on the model's device; pos: the position
-        (a host int, so the step makes no device-to-host copy; the SSM
-        family does not read it). Writes the caches in place (the ring's
-        slot, or the SSM state and conv rows); returns (logits (B, V),
+        (a host int, so the step makes no device-to-host copy; the
+        recurrent blocks do not read it). Writes the caches in place (the
+        ring's slot, or the state and conv rows); returns (logits (B, V),
         caches)."""
         x = self._embed(token)
         q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import compressed_graph_mix as k3
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import graph_mix as k1
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru_scan as k6
 from repro_torch.kernels import sparse_graph_mix as k2
 from repro_torch.kernels import ssd as k5
 
@@ -331,3 +333,61 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         k5.ssd(x, dA, Bm[..., :6], Cm[..., :6], chunk=32)
     with pytest.raises(NotImplementedError):
         k5.ssd(x.requires_grad_(True), dA, Bm, Cm, chunk=32)
+
+
+# K6 cases (B, S, W, h0): chip_smoke.py's phase 3 without the serve
+# shape: tests/test_kernels.py's three shapes with h0 and its no-h0
+# case, ragged S and W, one step with h0, B * W under one block
+K6_SHAPES = [(1, 128, 256, True), (2, 256, 512, True), (3, 64, 128, True),
+             (2, 128, 128, False), (2, 200, 100, True), (4, 1, 300, True),
+             (1, 33, 40, False)]
+
+
+def _k6_inputs(B, S, W, h0, device, seed=0):
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, W)))) * 0.2 + 0.79
+    b = rng.standard_normal((B, S, W)) * 0.1
+    out = [torch.from_numpy(x.astype(np.float32)).to(device) for x in (a, b)]
+    return out + [torch.from_numpy(rng.standard_normal((B, W)).astype(
+        np.float32)).to(device) if h0 else None]
+
+
+def test_rglru_scan_kernel_matches_plain_version(cuda):
+    """Bit for bit: the kernel rounds each product and each sum in the
+    plain version's order (atol 1e-4 is tests/test_kernels.py's)."""
+    for B, S, W, with_h0 in K6_SHAPES:
+        a, b, h0 = _k6_inputs(B, S, W, with_h0, cuda)
+        before = k6.rglru_scan.launches
+        h, hl = ops.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        assert k6.rglru_scan.launches == before + 1
+        assert h.shape == a.shape and tuple(hl.shape) == (B, W)
+        wh, whl = ref.linear_scan_ref(a, b, h0)
+        torch.testing.assert_close(h, wh, atol=1e-4, rtol=0)
+        torch.testing.assert_close(hl, whl, atol=1e-4, rtol=0)
+        assert torch.equal(h, wh) and torch.equal(hl, whl)
+
+
+def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
+    a, b, h0 = _k6_inputs(2, 16, 8, True, cuda)
+    with pytest.raises(TypeError):
+        k6.rglru_scan(a.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError):
+        k6.rglru_scan(a, b.cpu())
+    with pytest.raises(ValueError):
+        k6.rglru_scan(a, b, h0[:, :4])
+    with pytest.raises(ValueError):
+        k6.rglru_scan(a[:, :0], b[:, :0])
+    with pytest.raises(NotImplementedError):
+        k6.rglru_scan(a.requires_grad_(True), b)
+
+
+def test_blocked_prng_draw_is_the_same_bits_on_the_card(cuda, monkeypatch):
+    """The card's blocked draw gives the CPU's bits (one whole draw)."""
+    want = prng.normal(prng.PRNGKey(3), (70, 9))
+    monkeypatch.setattr(prng, "BLOCK", 64)
+    got = prng.normal(prng.PRNGKey(3, device=cuda), (70, 9))
+    bits = prng.random_bits(prng.PRNGKey(3, device=cuda), (70, 9))
+    assert torch.equal(bits.cpu(), prng.random_bits(prng.PRNGKey(3),
+                                                    (70, 9)))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

@@ -8,10 +8,14 @@ tensor, eight decode steps and the greedy tokens of
 `repro_torch.launch.serve.generate` (1e-5; building blocks 1e-6). The
 port alone: decode against the teacher-forced forward, as
 tests/test_models.py asserts for `repro`, and the families it does not
-serve raise (the SSM family is tests/test_torch_ssm.py's)."""
+serve raise (the SSM family is tests/test_torch_ssm.py's, the hybrid
+tests/test_torch_rglru.py's). The serve CLI against `repro`'s: the same
+prompts and sample ids from the same flags, and the temperature sampler
+against ``jax.random.categorical``."""
 import test_torch_common as common  # noqa: F401  (jax patch, threads)
 
 import dataclasses  # noqa: E402
+import sys  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -22,6 +26,7 @@ import torch  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -379,3 +384,54 @@ def test_generate_samples_at_a_temperature():
     before = k4.flash_attention.launches
     serve.generate(model, None, prompts, 1)
     assert k4.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_next_token_samples_as_jax_categorical(temperature):
+    """`serve._next_token` at a temperature is `repro`'s sampler: split the
+    key, ``jax.random.categorical`` of the scaled logits under the second
+    half, carry the first; 20 seeds on (4, 1000) logits."""
+    rng = np.random.default_rng(0)
+    for seed in range(20):
+        logits = (rng.standard_normal((4, 1000)) * 2).astype(np.float32)
+        carried, sub = jax.random.split(jax.random.PRNGKey(seed))
+        want = jax.random.categorical(sub, jnp.asarray(logits) / temperature)
+        tok, key = serve._next_token(_t(logits), temperature,
+                                     prng.PRNGKey(seed))
+        np.testing.assert_array_equal(tok[:, 0].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(key.numpy(),
+                                      np.asarray(carried).astype(np.int64))
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("qwen3-0.6b", []), ("qwen3-0.6b", ["--temperature", "1.0"]),
+    ("mamba2-370m", []), ("recurrentgemma-9b", [])])
+def test_serve_cli_matches_repro_cli(arch, flags, monkeypatch, capsys):
+    """The same flags give `repro`'s CLI run: the prompts are
+    ``jax.random.randint(PRNGKey(0), (B, S), 0, vocab)`` (`prng.randint`),
+    and the sample ids, from the port's own init of the same key tree
+    (within `prng.normal`'s ulps of `repro`'s, far from a greedy tie
+    here) and the same sampling key, are `repro`'s."""
+    seen = []
+    generate = serve.generate
+
+    def spy(model, params, prompts, *args, **kw):
+        seen.append(prompts)
+        return generate(model, params, prompts, *args, **kw)
+
+    monkeypatch.setattr(serve, "generate", spy)
+    flags = ["--arch", arch, "--batch", "2", "--prompt-len", "8",
+             "--new-tokens", "6"] + flags
+    serve.main(flags + ["--device", "cpu"])
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags)
+    jserve.main()
+    jax_out = capsys.readouterr().out
+    vocab = jconfigs.get_config(arch).reduced().vocab_size
+    want = jax.random.randint(jax.random.PRNGKey(0), (2, 8), 0, vocab)
+    np.testing.assert_array_equal(seen[0].numpy(), np.asarray(want))
+
+    def ids(out):
+        return [line for line in out.splitlines()
+                if line.startswith("sample token ids:")]
+    assert len(ids(port_out)) == 1 and ids(port_out) == ids(jax_out)

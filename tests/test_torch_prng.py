@@ -93,3 +93,47 @@ def test_normal_within_ulps():
     np.testing.assert_allclose(np.asarray(jax.random.normal(jk, (4096,))),
                                prng.normal(tk, (4096,)).numpy(),
                                rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("shape", [(), (2, 8), (4, 512)])
+@pytest.mark.parametrize("minval,maxval", [
+    (0, 151_936), (0, 50_280), (0, 256_000),   # qwen3, mamba2, gemma vocabs
+    (0, 10), (-5, 7), (0, 1 << 16), (0, (1 << 16) + 1), (3, 3), (10, 2),
+    (0, 2 ** 31 - 1), (-2 ** 31, 2 ** 31 - 1)])
+def test_randint_is_bitwise_jax(seed, shape, minval, maxval):
+    """jax 0.9's ``_randint``: two draws from a split key, combined modulo
+    the span with every uint32 product and sum wrapping (above a span of
+    2**16 the multiplier wraps to 0)."""
+    want = jax.random.randint(jax.random.PRNGKey(seed), shape, minval, maxval)
+    got = prng.randint(prng.PRNGKey(seed), shape, minval, maxval)
+    assert got.dtype == torch.int64 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(_np(want), got.numpy())
+
+
+def test_randint_refuses_bounds_outside_int32():
+    with pytest.raises(ValueError, match="int32"):
+        prng.randint(prng.PRNGKey(0), (2,), 0, 2 ** 32)
+
+
+@pytest.mark.parametrize("block", [1, 7, 64])
+def test_blocked_draw_is_the_same_bits(monkeypatch, block):
+    """A draw longer than `prng.BLOCK` counters is hashed block by block
+    over the flat counter range; an element's counter is its flat index,
+    so the bits, uniforms and normals are those of one whole draw (and
+    jax's), for one key and for a batch of keys."""
+    jk = jax.random.PRNGKey(4)
+    tk = prng.PRNGKey(4)
+    whole = (prng.random_bits(tk, (9, 33)), prng.uniform(tk, (9, 33)),
+             prng.normal(tk, (9, 33)))
+    keys = common.key_to_torch(jax.random.split(jk, 3))
+    batched = prng.uniform(keys, (5, 13))
+    monkeypatch.setattr(prng, "BLOCK", block)
+    np.testing.assert_array_equal(_np(jax.random.bits(jk, (9, 33))),
+                                  prng.random_bits(tk, (9, 33)).numpy())
+    for got, want in zip((prng.random_bits(tk, (9, 33)),
+                          prng.uniform(tk, (9, 33)),
+                          prng.normal(tk, (9, 33))), whole):
+        assert torch.equal(got, want)
+    assert torch.equal(prng.uniform(keys, (5, 13)), batched)
+    assert torch.equal(prng.uniform(keys, ()), prng.uniform(keys))

@@ -1,7 +1,8 @@
 """Where the time of the port's serving path goes on the card.
 
 Builds one of ``chip_smoke.py``'s serve models (qwen3-0.6b, the
-default, or mamba2-370m) at its published config in float32 and serves
+default, mamba2-370m or recurrentgemma-9b) at its published config in
+float32 and serves
 it as ``chip_smoke.py`` does (its ``SERVE_RUN``: batch 4, prompt 512, 32
 new tokens, greedy), runs `repro_torch.launch.serve.generate` once to
 warm up, then profiles its two phases, `serve.prefill` and
@@ -9,10 +10,10 @@ warm up, then profiles its two phases, `serve.prefill` and
 per phase: the wall time (host clock, the card synchronised), the summed
 device-kernel time and the device's idle share, the kernel launches (per
 step in decode), the TOP kernels that take the most device time, and the
-port's kernel of the family (K4 ``flash_attention`` or K5 ``ssd``) with
-its share of the phase's device time.
+port's kernels of the family (K4 ``flash_attention``, K5 ``ssd``, K6
+``rglru_scan``) with their shares of the phase's device time.
 
-    python3 tools/profile_serve.py [--arch mamba2-370m]
+    python3 tools/profile_serve.py [--arch mamba2-370m|recurrentgemma-9b]
 
 Needs a CUDA card; imports no JAX.
 """
@@ -31,7 +32,7 @@ sys.path.insert(0, str(ROOT))
 TOP = 8
 
 
-def _phase(prof, wall, port_kernel):
+def _phase(prof, wall, port_kernels):
     """One phase's record from its profile: device events only (kernels,
     memsets, copies); the CPU-side ops that launched them carry the same
     time again."""
@@ -51,7 +52,8 @@ def _phase(prof, wall, port_kernel):
                             for us, k, n in rows[:TOP]],
             "port_kernel": [{"name": k[:90], "device_ms": us / 1e3,
                              "calls": n, "share_of_device": us / 1e6 / device_s}
-                            for us, k, n in rows if port_kernel in k]}
+                            for us, k, n in rows
+                            if any(p in k for p in port_kernels)]}
 
 
 def main(argv=None):
@@ -71,8 +73,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     cfg, model, params = chip_smoke.serve_model(torch, arch)
-    # the device name of the family's kernel in csrc/: "<name>_kernel"
-    port_kernel = chip_smoke.SERVE_KERNEL[cfg.family] + "_kernel"
+    # the device names of the family's kernels in csrc/: "<name>_kernel"
+    port_kernels = [name + "_kernel" for name, n
+                    in chip_smoke.serve_kernels(cfg).items() if n]
     B, S, new = (chip_smoke.SERVE_RUN[k]
                  for k in ("batch", "prompt_len", "new_tokens"))
     prompts = serve.make_prompts(cfg.vocab_size, B, S, 0, "cuda")
@@ -97,8 +100,8 @@ def main(argv=None):
               "arch": arch, "batch": B, "prompt_len": S}
     print(json.dumps({**common, "phase": "prefill",
                       "prompt_tok_per_s": B * S / prefill_wall,
-                      **_phase(prof, prefill_wall, port_kernel)}))
-    decode = _phase(prof_d, decode_wall, port_kernel)
+                      **_phase(prof, prefill_wall, port_kernels)}))
+    decode = _phase(prof_d, decode_wall, port_kernels)
     print(json.dumps({**common, "phase": "decode", "steps": new - 1,
                       "ms_per_step": decode_wall / (new - 1) * 1e3,
                       "tok_per_s": (new - 1) * B / decode_wall,
