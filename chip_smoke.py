@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -94,13 +95,33 @@ LEARN_REF = {"dense": 0.8583984375, "sparse": 0.8583984375,
              "topk": 0.54345703125, "sparse-topk": 0.54345703125}
 LEARN_MARGIN = 0.1
 
-# K1 shapes: (M, N, P, dtype) — the Eq.-4 mix, one BGGC phase-1 batch,
-# one client's set sum, a ragged P, and bf16 W
-K1_SHAPES = [(32, 32, PAPER_CNN_PARAMS, "float32"),
-             (32, 4, PAPER_CNN_PARAMS, "float32"),
-             (1, 32, PAPER_CNN_PARAMS, "float32"),
-             (7, 5, 1000, "float32"),
-             (32, 32, PAPER_CNN_PARAMS, "bfloat16")]
+# K1 shapes: (M, N, P, dtype, W a row-offset view) — the Eq.-4 mix, one
+# BGGC phase-1 batch, one client's set sum, a ragged P, bf16 W, and the
+# Eq.-4 mix at an odd P, which takes the one-column path (these six are
+# timed); then shapes that reach every vector width and edge
+# (kernels/graph_mix.py vector_width): P = 0 and 3 mod 4 (PaperCNN's is
+# 2), P under one vector, M 33 and 64 (two block rows), N 1, 33 and 100,
+# and W as a view one element into a larger buffer (`narrow`), so its
+# data_ptr() is only element-aligned
+K1_SHAPES = [(32, 32, PAPER_CNN_PARAMS, "float32", False),
+             (32, 4, PAPER_CNN_PARAMS, "float32", False),
+             (1, 32, PAPER_CNN_PARAMS, "float32", False),
+             (7, 5, 1000, "float32", False),
+             (32, 32, PAPER_CNN_PARAMS, "bfloat16", False),
+             (32, 32, 62005, "float32", False),
+             (32, 32, 62004, "float32", False),
+             (32, 32, 62007, "float32", False),
+             (5, 3, 3, "float32", False),
+             (5, 3, 1, "bfloat16", False),
+             (33, 32, 1000, "float32", False),
+             (64, 32, 2048, "bfloat16", False),
+             (32, 1, PAPER_CNN_PARAMS, "float32", False),
+             (32, 33, 999, "float32", False),
+             (7, 100, 4098, "bfloat16", False),
+             (32, 32, 62004, "float32", True),
+             (32, 32, PAPER_CNN_PARAMS, "float32", True),
+             (32, 32, 62004, "bfloat16", True)]
+K1_TIMED = 6   # the first six shapes
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}   # tests/test_kernels.py
 # K4 cases: (name, B, Sq, Sk, Hq, Hkv, hd, window, dtype); the first is
 # the serve run's prefill attention (qwen3-0.6b, batch 4, prompt 512)
@@ -114,8 +135,25 @@ K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, None, "float32"),
              256, 2048, "float32"),
             ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "float32"),
             ("S = 1", 4, 1, 1, 16, 8, 128, None, "float32"),
-            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32")]
+            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32"),
+            # bf16 twins: the tensor-core path at every edge, and its
+            # timing row at the hybrid shape
+            ("MQA, window 96", 1, 256, 256, 4, 1, 64, 96, "bfloat16"),
+            ("hd 80, window 128", 2, 384, 384, 32, 8, 80, 128, "bfloat16"),
+            ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, 64,
+             "bfloat16"),
+            ("hybrid serve, hd 256, Hkv 1, window 2048", 4, 512, 512, 16, 1,
+             256, 2048, "bfloat16"),
+            ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "bfloat16"),
+            ("S = 1", 4, 1, 1, 16, 8, 128, None, "bfloat16"),
+            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "bfloat16")]
 K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
+# bf16 K4 also against the fp32 plain version on the same bf16 inputs,
+# (atol, rtol): rtol 2^-6, two bf16 ulps, for the output's own rounding
+# (at most half an ulp); atol 2^-7 for the rounding of P to bf16 (at
+# most 2^-8 of each p), an error that scales with |v|, not with the
+# output, so it shows in rows whose output is near 0
+K4_BF16_FP32_TOL = (2.0 ** -7, 2.0 ** -6)
 # The serving paths: qwen3-0.6b (dense, K4), mamba2-370m (SSM, K5) and
 # recurrentgemma-9b (hybrid: K6 in its recurrent blocks, K4 in its
 # attention blocks) at their published configs, in float32 as
@@ -263,26 +301,43 @@ def time_ms(fn, torch, reps: int = 50, warmup: int = 10) -> float:
 
 def k1_inputs(torch):
     """Seeded (A, W) on the card for every K1 shape: A row-stochastic
-    like the Eq.-4 matrix, W normal in the shape's dtype."""
+    like the Eq.-4 matrix, W normal in the shape's dtype (as a view one
+    element into a larger buffer where the shape says so)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
-    for M, N, P, dt in K1_SHAPES:
+    for M, N, P, dt, offset in K1_SHAPES:
         A = torch.rand((M, N), generator=gen, device="cuda")
         A = A / A.sum(dim=1, keepdim=True)
-        W = torch.randn((N, P), generator=gen, device="cuda")
-        out.append((M, N, P, dt, A, W.to(getattr(torch, dt))))
+        W = torch.randn((N, P), generator=gen,
+                        device="cuda").to(getattr(torch, dt))
+        if offset:
+            buf = torch.empty(N * P + 1, dtype=W.dtype, device="cuda")
+            W = buf.narrow(0, 1, N * P).view(N, P).copy_(W)
+        out.append((M, N, P, dt, A, W))
     return out
 
 
 def check_k1(torch, inputs):
-    """K1 against its plain version at every shape; returns the max
-    abs error per shape."""
+    """K1 against its plain version at every shape, and a repeated call
+    bit for bit (fixed summation order); returns the max abs error per
+    shape and the vector widths reached."""
     from repro_torch.kernels import graph_mix as k1
     from repro_torch.kernels import ref
 
-    return [_close(torch, f"K1 {M}x{N}@{N}x{P} {dt}", k1.graph_mix(A, W),
-                   ref.graph_mix_ref(A, W), TOL[dt])
-            for M, N, P, dt, A, W in inputs]
+    errs, widths = [], {}
+    for M, N, P, dt, A, W in inputs:
+        label = f"K1 {M}x{N}@{N}x{P} {dt} (W at {W.data_ptr() % 16} mod 16)"
+        got = k1.graph_mix(A, W)
+        errs.append(_close(torch, label, got, ref.graph_mix_ref(A, W),
+                           TOL[dt]))
+        if not torch.equal(got, k1.graph_mix(A, W)):
+            fail(f"{label}: a repeated call gave other bits")
+        cols = k1.vector_width(P, W.element_size(), W.data_ptr())
+        widths.setdefault((dt, cols), []).append(P)
+    if {c for _, c in widths} != set(k1.WIDTHS):
+        fail(f"K1 shapes reach vector widths {sorted(widths)}, not all of "
+             f"{k1.WIDTHS}")
+    return errs, widths
 
 
 def time_k1(torch, inputs, errs, rates):
@@ -292,7 +347,7 @@ def time_k1(torch, inputs, errs, rates):
     from repro_torch.kernels import ref
 
     rows = []
-    for (M, N, P, dt, A, W), err in zip(inputs, errs):
+    for (M, N, P, dt, A, W), err in zip(inputs[:K1_TIMED], errs):
         ms = time_ms(lambda: k1.graph_mix(A, W), torch)
         plain_ms = time_ms(lambda: ref.graph_mix_ref(A, W), torch)
         lib_ms = (time_ms(lambda: torch.matmul(A, W), torch)
@@ -509,16 +564,35 @@ def k4_inputs(torch):
 
 
 def check_k4(torch, inputs):
-    """K4 against its plain version in every case; returns the max abs
-    error per case."""
+    """K4 against its plain version in every case, bf16 also against the
+    fp32 plain version on the same inputs (K4_BF16_FP32_TOL), and a
+    repeated call bit for bit (no atomics); returns the max abs error per
+    case, and per bf16 case (None for fp32) the max abs error against
+    fp32 and the largest share of its limit, |err| / (atol + rtol |ref|),
+    that any element used."""
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import ref
 
-    return [_close(torch, f"K4 {name} {dt}",
-                   k4.flash_attention(q, k, v, window=window),
-                   ref.flash_attention_ref(q, k, v, window=window),
-                   K4_TOL[dt])
-            for name, dt, window, q, k, v in inputs]
+    atol, rtol = K4_BF16_FP32_TOL
+    errs, against_fp32 = [], []
+    for name, dt, window, q, k, v in inputs:
+        got = k4.flash_attention(q, k, v, window=window)
+        errs.append(_close(torch, f"K4 {name} {dt}", got,
+                           ref.flash_attention_ref(q, k, v, window=window),
+                           K4_TOL[dt]))
+        if not torch.equal(got, k4.flash_attention(q, k, v, window=window)):
+            fail(f"K4 {name} {dt}: a repeated call gave other bits")
+        if dt == "float32":
+            against_fp32.append(None)
+            continue
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       window=window)
+        err = _close(torch, f"K4 {name} bf16 against fp32", got.float(),
+                     want, atol, rtol)
+        share = ((got.float() - want).abs() / (atol + rtol * want.abs())
+                 ).max().item() if want.numel() else 0.0
+        against_fp32.append((err, share))
+    return errs, against_fp32
 
 
 def k4_work(q, k, window):
@@ -748,6 +822,118 @@ def time_k6(torch, inputs, errs, rates):
               f"{plain_ms:.4f} ms  library none  bound {bound_ms:.4f} ms "
               f"({bound_by})")
     return rows
+
+
+#: the kernels this slice rebuilt: their ptxas report is printed in full,
+#: and a spill fails the run
+REDESIGNED = ("graph_mix", "flash_attention")
+
+
+def ptxas_report(log):
+    """Per entry function of an ``nvcc -Xptxas=-v`` log: (mangled name,
+    registers, spill store bytes, spill load bytes, static shared
+    bytes)."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append([m.group(1), None, 0, 0, 0])
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1][2:4] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1][1] = int(m.group(1))
+            out[-1][4] = int(sm.group(1)) if sm else 0
+    return [tuple(r) for r in out]
+
+
+def demangle(names):
+    """C++ names of mangled symbols, by the toolkit's ``cu++filt`` (beside
+    nvcc), without their return type, parameter list and casts of
+    template arguments: ``<unnamed>::graph_mix_kernel<32, 2, float>``."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cu++filt"
+    lines = subprocess.run([str(tool), *names], capture_output=True,
+                           text=True, check=True, timeout=60
+                           ).stdout.splitlines()
+    if len(lines) != len(names):
+        fail(f"cu++filt gave {len(lines)} names for {len(names)}")
+    out = []
+    for line in lines:
+        i, depth = len(line), 0   # the parameter list: the last (...)
+        while line.endswith(")") and i > 0:
+            i -= 1
+            depth += {")": 1, "(": -1}.get(line[i], 0)
+            if depth == 0:
+                break
+        out.append(line[:i].removeprefix("void ").replace("(int)", ""))
+    return out
+
+
+def sass_mma_counts(path):
+    """``cuobjdump -sass`` of a built library: per entry function, the
+    number of HMMA (mma.sync) and HGMMA (wgmma) instructions."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        counts[name] = (len(re.findall(r"\bHMMA\b", part)),
+                        len(re.findall(r"\bHGMMA\b", part)))
+    return counts
+
+
+def report_build(built):
+    """Print each kernel's ptxas use; for the redesigned kernels every
+    entry function (registers, spills, static shared memory), failing on
+    a spill; and K4's SASS: its bf16 kernels must run on the tensor cores
+    (HMMA or HGMMA) and its fp32 kernels must not."""
+    from repro_torch.kernels import _build
+
+    for kname, b in sorted(built.items()):
+        if not b.log:
+            print(f"  {kname}: built before this run, no ptxas log")
+            continue
+        rows = ptxas_report(b.log)
+        if kname not in REDESIGNED:
+            regs = [r[1] for r in rows if r[1] is not None]
+            print(f"  {kname}: {len(rows)} entry functions, registers "
+                  f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
+                  f"bytes {sum(r[2] + r[3] for r in rows)}")
+            continue
+        labels = demangle([r[0] for r in rows])
+        for label, (_, regs, st, ld, smem) in zip(labels, rows):
+            print(f"  {kname}: {label}: {regs} registers, spill stores "
+                  f"{st} loads {ld} bytes, static smem {smem} bytes")
+            if st or ld:
+                fail(f"{kname} {label} spills registers ({st} bytes stored, "
+                     f"{ld} loaded)")
+    counts = sass_mma_counts(_build.library_path("flash_attention"))
+    bf16 = {n: c for n, c in counts.items() if "bf16_kernel" in n}
+    f32 = {n: c for n, c in counts.items() if "f32_kernel" in n}
+    if len(bf16) != 16 or len(f32) != 16:
+        fail(f"K4 SASS: {len(bf16)} bf16 and {len(f32)} fp32 kernels, "
+             f"expected 16 each")
+    if not all(h + g for h, g in bf16.values()):
+        fail("K4 SASS: a bf16 kernel has no HMMA/HGMMA")
+    if any(h + g for h, g in f32.values()):
+        fail("K4 SASS: an fp32 kernel runs on the tensor cores")
+    print(f"K4 SASS (cuobjdump -sass): HMMA {sum(h for h, _ in bf16.values())}"
+          f", HGMMA {sum(g for _, g in bf16.values())} in its 16 bf16 "
+          f"kernels (min HMMA {min(h for h, _ in bf16.values())} a kernel); "
+          f"HMMA {sum(h for h, _ in f32.values())}, HGMMA "
+          f"{sum(g for _, g in f32.values())} in its 16 fp32 kernels")
 
 
 def _kernel_modules():
@@ -1114,16 +1300,15 @@ def main():
     t0 = time.perf_counter()
     built = _build.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    for kname, b in sorted(built.items()):
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {kname}: {line.strip()}")
+    report_build(built)
 
     # ---- 3. each kernel against its plain version
     k1_in = k1_inputs(torch)
-    k1_errs = check_k1(torch, k1_in)
-    print(f"K1 agrees with its plain version at {len(k1_in)} shapes "
-          f"(max abs err {max(k1_errs):.3g})")
+    k1_errs, k1_widths = check_k1(torch, k1_in)
+    print(f"K1 agrees with its plain version at {len(k1_in)} shapes, the "
+          f"same bits on a repeated call (max abs err {max(k1_errs):.3g}); "
+          f"vector widths (dtype, columns): P " + ", ".join(
+              f"{k}: {v}" for k, v in sorted(k1_widths.items())))
     k2_in = k2_inputs(torch)
     k2_errs = check_k2(torch, k2_in)
     print(f"K2 agrees with its plain version in {len(k2_in)} cases "
@@ -1133,13 +1318,19 @@ def main():
     print(f"K3 agrees with its plain version in {len(k3_in) + 1} cases "
           f"(max abs err {max(k3_errs):.3g})")
     k4_in = k4_inputs(torch)
-    k4_errs = check_k4(torch, k4_in)
+    k4_errs, k4_fp32 = check_k4(torch, k4_in)
     k4_max = {dt: max(e for e, c in zip(k4_errs, K4_CASES) if c[-1] == dt)
               for dt in K4_TOL}
-    print(f"K4 agrees with its plain version in {len(k4_in)} cases (max abs "
+    print(f"K4 agrees with its plain version in {len(k4_in)} cases, the "
+          f"same bits on a repeated call (max abs "
           f"err {k4_max['float32']:.3g} fp32, {k4_max['bfloat16']:.3g} bf16)")
-    for case, err in zip(K4_CASES, k4_errs):
-        print(f"  K4 {case[0]}: max abs err {err:.3g}")
+    for case, err, tight in zip(K4_CASES, k4_errs, k4_fp32):
+        print(f"  K4 {case[0]} {case[-1]}: max abs err {err:.3g}" + (
+            "" if tight is None else f"; against fp32 {tight[0]:.3g}, "
+            f"{tight[1]:.3f} of its limit"))
+    print(f"K4 bf16 against the fp32 plain version: within atol "
+          f"{K4_BF16_FP32_TOL[0]} rtol {K4_BF16_FP32_TOL[1]} in every case, "
+          f"at most {max(t[1] for t in k4_fp32 if t):.3f} of the limit")
     k5_in = k5_inputs(torch)
     k5_errs = check_k5(torch, k5_in)
     print(f"K5 agrees with its plain version in {len(k5_in)} cases (max abs "

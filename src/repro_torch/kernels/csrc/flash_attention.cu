@@ -3,272 +3,632 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention. q is (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), read in
-// place through their strides (the last axis contiguous); out is
-// (B, Sq, Hq, hd), contiguous, in q's dtype. Positions are aligned: query
-// row i and key j sit at positions i and j, so row i sees the keys j with
-// j <= i (causal) and j > i - window (window > 0). Inputs are fp32 or
-// bf16, widened to fp32; every product is an IEEE fp32 fmaf (no tensor
-// cores, no TF32). The online softmax keeps fp32 m, l and acc per row and
-// takes the Pallas kernel's steps: masked scores are -1e30, each tile
-// rescales by exp(m_prev - m_new), and the output divides by
-// max(l, 1e-30).
+// place through their strides (the last axis contiguous; the wrapper
+// checks that every address a 16-byte copy starts at is 16-byte aligned);
+// out is (B, Sq, Hq, hd), contiguous, in q's dtype. Positions are
+// aligned: query row i and key j sit at positions i and j, so row i sees
+// the keys j with j <= i (causal) and j > i - window (window > 0). Both
+// paths keep the Pallas kernel's online softmax in fp32: masked scores
+// are -1e30, each tile rescales by exp(m_prev - m_new), and the output
+// divides by max(l, 1e-30). Each sum runs in a fixed order without
+// atomics, so a repeated call gives the same bits.
 //
 // What bounds it: operations. At the serve shape of qwen3-0.6b (B 4,
 // S 512, Hq 16, Hkv 8, hd 128, causal) the work is 4*B*Hq*hd*S(S+1)/2 =
-// 4.30 GFLOP against 50.3 MB of q, k, v and out: 85 flops per byte, far
-// above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s, 20 flops per
-// byte), so the least time is the flops at the fp32 rate outside the
-// tensor cores, 64 us.
+// 4.30 GFLOP against 50.3 MB of q, k, v and out (25.2 MB in bf16): 85
+// flops per byte in fp32, far above the H100's fp32 ridge (67 TFLOP/s
+// over 3.35 TB/s, 20 flops per byte), so the least time is the flops at
+// the fp32 rate outside the tensor cores, 64 us; in bf16 (989 TFLOP/s on
+// the tensor cores) 4.3 us of flops sit under 7.5 us of bytes.
 //
-// What the design does about it: the (Sq, Sk) score matrix never leaves
-// the SM. One block of four warps takes 32 query rows of one (b, head),
-// stages them in shared memory once, and walks the key tiles (32 keys
-// each) from the window's start to the causal frontier, skipping the
-// tiles that no row of the block can see. A tile's K and V are staged in
-// shared memory; each warp owns 8 query rows and each lane one key for
-// the scores (Q read as float4 broadcasts, K rows padded to hd + 4 floats
-// so the lanes' float4 reads hit distinct banks), then one output column
-// in every 32 for P V (P through shared memory as float4 broadcasts).
-// Blocks start with the longest rows (the last query tiles), so the
-// causal triangle's short tiles fill the tail of the grid. Tails of Sq and
-// Sk are masked here, where the Pallas wrapper demands whole blocks.
-// wgmma, TMA and mma.sync bf16 are left for a later change.
+// What the design does about it. Common to both paths: the (Sq, Sk)
+// score matrix never leaves the SM. One block of four warps takes 64
+// query rows of one (b, head) and walks the key tiles from the window's
+// start to the causal frontier, skipping the tiles that no row of the
+// block can see, masking only the tiles that hold a masked pair (the
+// ragged ends of Sq and Sk too). Q is staged in shared memory once; K and
+// V tiles arrive by cp.async (16-byte copies, rows past Sk zero-filled)
+// into a two-stage ring, so tile t+1 is in flight while tile t is
+// computed, with one barrier per tile for the ring (and one more in fp32,
+// where P passes through shared memory). Blocks start with the longest
+// rows (the last query tiles), so the causal triangle's short tiles fill
+// the tail of the grid. The head size is a template parameter (16, 32,
+// ..., 256), so every loop over it unrolls into registers.
+//
+// bf16: the tensor cores, in the FlashAttention-2 shape. Each warp owns 16
+// query rows; key tiles hold 64 keys. S = Q K^T runs through
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate: the products are exact in
+// fp32), with Q and K fragments from ldmatrix; rows are padded by 16
+// bytes so ldmatrix's eight rows hit distinct banks. The online softmax
+// runs on the accumulator fragments in registers, in base 2 (scores
+// pre-scaled by log2 e): a row lives in one quad of threads, so its max
+// takes two shuffles, and its sum is kept per thread and reduced once at
+// the end. P is rounded to bf16 in registers: the m16n8 accumulator
+// layout is the A operand layout of the next m16n8k16, so P V runs on the
+// tensor cores without passing through shared memory, V's fragments
+// from ldmatrix.trans. Q is read from shared memory at every tile, so hd
+// 256 keeps its 16 x 256 fp32 output (128 registers a thread) and the
+// 16 x 64 scores and nothing more. Shared memory: Q, two K and two V
+// tiles, 87 KB at hd 128 (two blocks an SM), 169 KB at hd 256.
+//
+// fp32: IEEE fp32 FMAs only (no tensor cores, no TF32), register-tiled.
+// Key tiles hold 32 keys. For S each thread computes a 4-row x 4-key
+// block (keys k, k + 8, k + 16, k + 24, so the eight threads of a row
+// group read eight distinct K rows, conflict-free with rows padded by 4
+// floats), reading Q and K as float4 along hd: 64 FMAs per 8 shared
+// loads. A row's 32 keys lie in eight adjacent lanes, so its max and sum
+// take three shuffles each. P (transposed) and each row's rescale factor
+// go through shared memory; for P V each thread owns 8 rows x 4*NCH
+// columns (chunks c + 16 j of four columns): per key 2 float4 loads of P
+// and NCH of V for 32*NCH FMAs, 16 FMAs per load at hd 128 and 21 at
+// hd 256 (the old design did 3.5 to 5). Shared memory: Q, two K and two
+// V tiles and P, 110 KB at hd 128 (two blocks an SM), 208 KB at hd 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;               // query rows per warp
-constexpr int kBQ = kWarps * kRows;    // query rows per block
-constexpr int kBK = 32;                // keys per tile, one per lane
-constexpr float kNegInf = -1e30f;      // the Pallas kernel's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+constexpr int kThreads = 128;            // four warps
+constexpr int kBQ = 64;                  // query rows per block
+constexpr float kNegInf = -1e30f;        // the Pallas kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   int64_t b, s, h;  // of q, k or v, in elements; the last axis is 1
 };
 
-// shared memory of one block, in floats: Q [kBQ][hd], K [kBK][hd + 4],
-// V [kBK][NJ * 32] (columns past hd stay 0), P [kWarps][kRows][kBK]
-__host__ __device__ constexpr int smem_floats(int hd, int nj) {
-  return kBQ * hd + kBK * (hd + 4) + kBK * nj * 32 + kWarps * kRows * kBK;
+struct Problem {
+  int Sq, Sk, Hq, rep, causal, window;
+  float scale;
+  Strides qs, ks, vs;
+};
+
+// ---- cp.async and tensor-core primitives (sm_80 and later)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// NJ = ceil(hd / 32): output columns per lane
-template <int NJ, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int Hq, int rep, int hd, Strides qs,
-                       Strides ks, Strides vs, int causal, int window,
-                       float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int VW = NJ * 32;
-  const int kw = hd + 4;  // padded K row: hd is a multiple of 16
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + kBQ * hd;
-  float* v_s = k_s + kBK * kw;
-  float* p_s = v_s + kBK * VW;
+// 16 bytes from global to shared memory; zero-filled when !in
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
 
-  const int qt = causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x)
-                        : static_cast<int>(blockIdx.x);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b for one m16n8k16 tile: bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- shared by both paths
+
+// rows [r0, r0 + ROWS) of one (b, head) slice of q, k or v into shared
+// memory at `pitch` elements a row; rows at or past S are zero-filled
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, int pitch, const T* base,
+                                          int64_t stride_s, int r0, int S) {
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPerRow = HD / kChunk;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+    const int r = i / kPerRow;
+    const int c = (i - r * kPerRow) * kChunk;
+    const bool in = r0 + r < S;
+    const T* src = base + (in ? (r0 + r) * stride_s + c : 0);
+    cp_async16(dst + r * pitch + c, src, in);
+  }
+}
+
+__device__ __forceinline__ bool visible(int qp, int kp, const Problem& p) {
+  return kp < p.Sk && (!p.causal || kp <= qp) &&
+         (p.window <= 0 || kp > qp - p.window);
+}
+
+// whether keys [k0, k0 + bk) hold a pair that some row of [q0, q0 + kBQ)
+// must not see
+__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, int bk,
+                                                const Problem& p) {
+  return k0 + bk > p.Sk || (p.causal && k0 + bk - 1 > q0) ||
+         (p.window > 0 && k0 <= q0 + kBQ - 1 - p.window);
+}
+
+// the block's query tile and the key tiles its rows can see
+struct Span {
+  int q0, k_first, n_tiles;
+};
+
+template <int BK>
+__device__ __forceinline__ Span block_span(const Problem& p) {
+  const int qt = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x)
+                          : static_cast<int>(blockIdx.x);
+  const int q0 = qt * kBQ;
+  const int q_end = min(q0 + kBQ, p.Sq);
+  const int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int hi = p.causal ? min(p.Sk, q_end) : p.Sk;
+  const int k_first = (lo / BK) * BK;
+  return {q0, k_first, (hi - k_first + BK - 1) / BK};
+}
+
+// ---- bf16: mma.sync on the tensor cores
+
+template <int HD>
+struct Bf16Tiles {
+  static constexpr int kBK = 64;
+  static constexpr int kPitch = HD + 8;  // +16 bytes: ldmatrix conflict-free
+  static constexpr int kBytes = (kBQ + 4 * kBK) * kPitch * 2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, Problem p) {
+  using Tiles = Bf16Tiles<HD>;
+  constexpr int BK = Tiles::kBK;
+  constexpr int PITCH = Tiles::kPitch;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* k_s = q_s + kBQ * PITCH;  // [2][BK][PITCH]
+  __nv_bfloat16* v_s = k_s + 2 * BK * PITCH;
+
+  const Span span = block_span<BK>(p);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / rep;
-  const int q0 = qt * kBQ;
-  const int q_end = min(q0 + kBQ, Sq);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = warp * kRows;  // this warp's first row in the tile
+  const int hk = h / p.rep;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // the fragment row (and row + 8)
+  const int tq = lane % 4;  // the fragment column pair
+  const int row_a = span.q0 + warp * 16 + g;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const __nv_bfloat16* qb = q + b * p.qs.b + h * p.qs.h;
+  const __nv_bfloat16* kb = k + b * p.ks.b + hk * p.ks.h;
+  const __nv_bfloat16* vb = v + b * p.vs.b + hk * p.vs.h;
 
-  // Q tile, rows past Sq zero; V's padding columns zero once (the tile
-  // loads below never write them)
-  for (int i = tid; i < kBQ * hd; i += kThreads) {
-    const int r = i / hd;
-    const int d = i - r * hd;
-    q_s[i] = (q0 + r < Sq) ? to_f32(qb[(q0 + r) * qs.s + d]) : 0.0f;
-  }
-  if (VW > hd) {
-    for (int i = tid; i < kBK * (VW - hd); i += kThreads) {
-      const int key = i / (VW - hd);
-      v_s[key * VW + hd + (i - key * (VW - hd))] = 0.0f;
+  load_tile<__nv_bfloat16, HD, kBQ>(q_s, PITCH, qb, p.qs.s, span.q0, p.Sq);
+  load_tile<__nv_bfloat16, HD, BK>(k_s, PITCH, kb, p.ks.s, span.k_first,
+                                   p.Sk);
+  load_tile<__nv_bfloat16, HD, BK>(v_s, PITCH, vb, p.vs.s, span.k_first,
+                                   p.Sk);
+  cp_async_commit();
+
+  const float sl2 = p.scale * kLog2e;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // rows row_a, row_a + 8; base 2
+  float l[2] = {0.0f, 0.0f};        // this thread's part of the row sums
+
+  for (int t = 0; t < span.n_tiles; ++t) {
+    const int k0 = span.k_first + t * BK;
+    const int st = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < span.n_tiles) {
+      load_tile<__nv_bfloat16, HD, BK>(k_s + (st ^ 1) * BK * PITCH, PITCH,
+                                       kb, p.ks.s, k0 + BK, p.Sk);
+      load_tile<__nv_bfloat16, HD, BK>(v_s + (st ^ 1) * BK * PITCH, PITCH,
+                                       vb, p.vs.s, k0 + BK, p.Sk);
+      cp_async_commit();
     }
-  }
+    const __nv_bfloat16* kt = k_s + st * BK * PITCH;
+    const __nv_bfloat16* vt = v_s + st * BK * PITCH;
 
-  // the keys any row of this block can see
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(Sk, q_end) : Sk;
-
-  float m[kRows], l[kRows], acc[kRows][NJ];
+    // S = Q K^T: 16 rows x 64 keys per warp, eight n8 tiles
+    float s[BK / 8][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.0f;
-  }
-
-  for (int k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
-    __syncthreads();  // Q staged / the previous tile consumed
-    for (int i = tid; i < kBK * hd; i += kThreads) {
-      const int key = i / hd;
-      const int d = i - key * hd;
-      const bool in = k0 + key < Sk;
-      k_s[key * kw + d] = in ? to_f32(kb[(k0 + key) * ks.s + d]) : 0.0f;
-      v_s[key * VW + d] = in ? to_f32(vb[(k0 + key) * vs.s + d]) : 0.0f;
-    }
-    __syncthreads();
-
-    // scores of this warp's rows against key k0 + lane
-    float s[kRows];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
-    const float* krow = k_s + lane * kw;
-#pragma unroll 2
-    for (int d = 0; d < hd; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_s + (warp * 16 + lane % 16) * PITCH + kk * 16 +
+                         (lane / 16) * 8);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(q_s + (row0 + r) * hd + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bb[4];
+        ldmatrix_x4(bb, kt + (np * 16 + (lane / 16) * 8 + lane % 8) * PITCH +
+                            kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * np], a, bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
       }
     }
 
-    // mask, then the online softmax step of each row
-    const int kp = k0 + lane;
-    float* p_w = p_s + warp * kRows * kBK;
+    // scale to base 2, mask, and the online softmax step of both rows
+    const bool masked = tile_needs_mask(span.q0, k0, BK, p);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + row0 + r;
-      const bool valid = kp < Sk && (!causal || kp <= qp) &&
-                         (window <= 0 || kp > qp - window);
-      const float sr = valid ? s[r] * scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float p = expf(sr - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
+    for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[r][j] *= corr;
-      p_w[r * kBK + lane] = p;
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (masked &&
+            !visible(row_a + (e / 2) * 8, k0 + n * 8 + 2 * tq + (e % 2), p))
+          x = kNegInf;
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
     }
-    __syncwarp();
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e / 2]);
+        l[e / 2] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
 
-    // acc += P V: this lane's columns lane + 32 j
+    // O += P V: P from the score fragments, rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                       pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                       pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                       pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, vt + (kk * 16 + lane % 8 +
+                                    ((lane / 8) % 2) * 8) * PITCH +
+                                  np * 16 + (lane / 16) * 8);
+        mma_bf16(o[2 * np], a, bb[0], bb[1]);
+        mma_bf16(o[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+
+  // out[b, row, h, :] = O / max(l, 1e-30), contiguous (B, Sq, Hq, hd)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = row_a + i * 8;
+    if (row >= p.Sq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow =
+        out + ((static_cast<int64_t>(b) * p.Sq + row) * p.Hq + h) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tq) =
+          __floats2bfloat162_rn(o[n][2 * i] / denom, o[n][2 * i + 1] / denom);
+    }
+  }
+}
+
+// ---- fp32: register-tiled IEEE FMAs
+
+template <int HD>
+struct F32Tiles {
+  static constexpr int kBK = 32;
+  static constexpr int kPitch = HD + 4;           // Q and K rows, floats
+  static constexpr int kNch = (HD + 63) / 64;     // float4 chunks a thread
+  static constexpr int kVPitch = kNch * 64;       // V rows, zero past hd
+  static constexpr int kPPitch = kBQ + 4;         // P^T rows
+  static constexpr int kFloats = kBQ * kPitch + 2 * kBK * kPitch +
+                                 2 * kBK * kVPitch + kBK * kPPitch + 2 * kBQ;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+// one block an SM is all the bound promises: with (kThreads) alone ptxas
+// held hd 32 and 48 to 128 registers and spilled
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, Problem p) {
+  using Tiles = F32Tiles<HD>;
+  constexpr int BK = Tiles::kBK;
+  constexpr int PITCH = Tiles::kPitch;
+  constexpr int NCH = Tiles::kNch;
+  constexpr int VP = Tiles::kVPitch;
+  constexpr int PP = Tiles::kPPitch;
+  // the hd loop unrolled whole at hd 16, 32 and 64, else by 4
+  constexpr int kDUnroll = HD <= 64 && (HD & (HD - 1)) == 0 ? HD / 4 : 4;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [kBQ][PITCH]
+  float* k_s = q_s + kBQ * PITCH;                // [2][BK][PITCH]
+  float* v_s = k_s + 2 * BK * PITCH;             // [2][BK][VP]
+  float* p_s = v_s + 2 * BK * VP;                // [BK][PP], P^T
+  float* c_s = p_s + BK * PP;                    // [kBQ] rescale factors
+  float* l_s = c_s + kBQ;                        // [kBQ] row sums
+
+  const Span span = block_span<BK>(p);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.rep;
+  const int tid = threadIdx.x;
+  // S: rows srg*4 + i, keys skg + 8 j; P V: rows org*8 + i, columns
+  // 4 (ocg + 16 j) + c
+  const int srg = tid / 8, skg = tid % 8;
+  const int org = tid / 16, ocg = tid % 16;
+
+  const float* qb = q + b * p.qs.b + h * p.qs.h;
+  const float* kb = k + b * p.ks.b + hk * p.ks.h;
+  const float* vb = v + b * p.vs.b + hk * p.vs.h;
+
+  if (VP > HD) {  // V's padding columns, never written by the loads
+    for (int i = tid; i < 2 * BK * (VP - HD); i += kThreads) {
+      const int r = i / (VP - HD);
+      v_s[r * VP + HD + (i - r * (VP - HD))] = 0.0f;
+    }
+  }
+  load_tile<float, HD, kBQ>(q_s, PITCH, qb, p.qs.s, span.q0, p.Sq);
+  load_tile<float, HD, BK>(k_s, PITCH, kb, p.ks.s, span.k_first, p.Sk);
+  load_tile<float, HD, BK>(v_s, VP, vb, p.vs.s, span.k_first, p.Sk);
+  cp_async_commit();
+
+  float m[4], l[4];  // of rows srg*4 + i, the same in the row's 8 lanes
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+  float acc[8][NCH * 4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NCH * 4; ++c) acc[i][c] = 0.0f;
+
+  for (int t = 0; t < span.n_tiles; ++t) {
+    const int k0 = span.k_first + t * BK;
+    const int st = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; everyone is done with tile t - 1
+    if (t + 1 < span.n_tiles) {
+      load_tile<float, HD, BK>(k_s + (st ^ 1) * BK * PITCH, PITCH, kb,
+                               p.ks.s, k0 + BK, p.Sk);
+      load_tile<float, HD, BK>(v_s + (st ^ 1) * BK * VP, VP, vb, p.vs.s,
+                               k0 + BK, p.Sk);
+      cp_async_commit();
+    }
+    const float* kt = k_s + st * BK * PITCH;
+    const float* vt = v_s + st * BK * VP;
+
+    // scores of 4 rows x 4 keys
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll kDUnroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_s + (srg * 4 + i) * PITCH +
+                                                 d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(kt + (skg + 8 * j) * PITCH +
+                                                 d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+
+    // mask, the online softmax step, and P^T and the rescale factors to
+    // shared memory
+    const bool masked = tile_needs_mask(span.q0, k0, BK, p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = span.q0 + srg * 4 + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = (!masked || visible(qp, k0 + skg + 8 * j, p))
+                      ? s[i][j] * p.scale
+                      : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float corr = expf(m[i] - mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - mx);
+        sum += s[i][j];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      l[i] = l[i] * corr + sum;
+      m[i] = mx;
+      if (skg == 0) c_s[srg * 4 + i] = corr;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(p_s + (skg + 8 * j) * PP + srg * 4) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+    // acc = acc * corr + P V over this tile's keys
+    {
+      const float4 c0 = *reinterpret_cast<const float4*>(c_s + org * 8);
+      const float4 c1 = *reinterpret_cast<const float4*>(c_s + org * 8 + 4);
+      const float cr[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < NCH * 4; ++c) acc[i][c] *= cr[i];
+    }
 #pragma unroll 2
-    for (int key = 0; key < kBK; key += 4) {
-      float vv[4][NJ];
+    for (int key = 0; key < BK; ++key) {
+      const float4 p0 =
+          *reinterpret_cast<const float4*>(p_s + key * PP + org * 8);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(p_s + key * PP + org * 8 + 4);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float4 vv[NCH];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int j = 0; j < NCH; ++j)
+        vv[j] = *reinterpret_cast<const float4*>(vt + key * VP +
+                                                 4 * (ocg + 16 * j));
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          vv[t][j] = v_s[(key + t) * VW + lane + 32 * j];
+      for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pv =
-            *reinterpret_cast<const float4*>(p_w + r * kBK + key);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          acc[r][j] = fmaf(pv.x, vv[0][j], acc[r][j]);
-          acc[r][j] = fmaf(pv.y, vv[1][j], acc[r][j]);
-          acc[r][j] = fmaf(pv.z, vv[2][j], acc[r][j]);
-          acc[r][j] = fmaf(pv.w, vv[3][j], acc[r][j]);
+        for (int j = 0; j < NCH; ++j) {
+          acc[i][4 * j + 0] = fmaf(pr[i], vv[j].x, acc[i][4 * j + 0]);
+          acc[i][4 * j + 1] = fmaf(pr[i], vv[j].y, acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(pr[i], vv[j].z, acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(pr[i], vv[j].w, acc[i][4 * j + 3]);
         }
       }
     }
   }
 
   // out[b, row, h, :] = acc / max(l, 1e-30), contiguous (B, Sq, Hq, hd)
+  if (skg == 0) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + row0 + r;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = out + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * hd;
+    for (int i = 0; i < 4; ++i) l_s[srg * 4 + i] = l[i];
+  }
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd) store_out(orow + d, acc[r][j] / denom);
+  for (int i = 0; i < 8; ++i) {
+    const int row = span.q0 + org * 8 + i;
+    if (row >= p.Sq) continue;
+    const float denom = fmaxf(l_s[org * 8 + i], 1e-30f);
+    float* orow = out + ((static_cast<int64_t>(b) * p.Sq + row) * p.Hq + h) *
+                            HD;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int col = 4 * (ocg + 16 * j);
+      if (col < HD)
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            acc[i][4 * j] / denom, acc[i][4 * j + 1] / denom,
+            acc[i][4 * j + 2] / denom, acc[i][4 * j + 3] / denom);
     }
   }
 }
 
-template <int NJ, typename T>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out, int B, int Sq,
-                   int Sk, int Hq, int Hkv, int hd, const Strides& qs,
-                   const Strides& ks, const Strides& vs, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const int bytes = smem_floats(hd, NJ) * static_cast<int>(sizeof(float));
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<NJ, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
+// ---- launch
+
+template <int HD>
+cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
+                      void* out, int B, const Problem& p,
+                      cudaStream_t stream) {
+  if (bf16) {
+    const int bytes = Bf16Tiles<HD>::kBytes;
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_bf16_kernel<HD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+    }
+    const dim3 grid(static_cast<unsigned>((p.Sq + kBQ - 1) / kBQ),
+                    static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+    flash_attention_bf16_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), p);
+  } else {
+    const int bytes = F32Tiles<HD>::kBytes;
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_f32_kernel<HD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+    }
+    const dim3 grid(static_cast<unsigned>((p.Sq + kBQ - 1) / kBQ),
+                    static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+    flash_attention_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), p);
   }
-  const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-  flash_attention_kernel<NJ, T><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, out, Sq, Sk, Hq, Hq / Hkv, hd, qs, ks, vs, causal, window,
-      scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int B, int Sq, int Sk, int Hq, int Hkv, int hd,
-                     const long long* strides, int causal, int window,
-                     float scale, int device, void* stream) {
+cudaError_t dispatch(bool bf16, const void* q, const void* k, const void* v,
+                     void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                     int hd, const long long* strides, int causal,
+                     int window, float scale, int device, void* stream) {
   // this library carries its own (static) CUDA runtime, whose current
   // device is set here to the one the tensors live on
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Strides qs{strides[0], strides[1], strides[2]};
-  const Strides ks{strides[3], strides[4], strides[5]};
-  const Strides vs{strides[6], strides[7], strides[8]};
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
+  const Problem p{Sq,
+                  Sk,
+                  Hq,
+                  Hq / Hkv,
+                  causal,
+                  window,
+                  scale,
+                  {strides[0], strides[1], strides[2]},
+                  {strides[3], strides[4], strides[5]},
+                  {strides[6], strides[7], strides[8]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA_CASE(NJ)                                                         \
-  case NJ:                                                                  \
-    return launch<NJ, T>(qp, kp, vp, op, B, Sq, Sk, Hq, Hkv, hd, qs, ks, vs, \
-                         causal, window, scale, s);
-  switch ((hd + 31) / 32) {
+#define FA_CASE(N) \
+  case N:          \
+    return launch_hd<16 * N>(bf16, q, k, v, out, B, p, s);
+  if (hd % 16) return cudaErrorInvalidValue;
+  switch (hd / 16) {
     FA_CASE(1)
     FA_CASE(2)
     FA_CASE(3)
@@ -277,6 +637,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     FA_CASE(6)
     FA_CASE(7)
     FA_CASE(8)
+    FA_CASE(9)
+    FA_CASE(10)
+    FA_CASE(11)
+    FA_CASE(12)
+    FA_CASE(13)
+    FA_CASE(14)
+    FA_CASE(15)
+    FA_CASE(16)
     default:
       return cudaErrorInvalidValue;
   }
@@ -287,19 +655,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 // C entry points, bound with ctypes. q, k, v on `device` in the dtype of
 // the name; `strides` holds the (b, s, h) strides of q, k and v in
-// elements (nine values; the head axis has stride 1); out is contiguous
-// (B, Sq, Hq, hd). hd is a multiple of 16 up to 256, Hq a multiple of
-// Hkv; window <= 0 means none. The launch goes on `stream`. Returns
-// cudaGetLastError() after the launch.
+// elements (nine values; the head axis has stride 1); every base address
+// and every stride of a dimension longer than 1 is 16-byte aligned; out
+// is contiguous (B, Sq, Hq, hd). hd is a multiple of 16 up to 256, Hq a
+// multiple of Hkv; window <= 0 means none. The launch goes on `stream`.
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int Hq, int Hkv, int hd,
                                    const long long* strides, int causal,
                                    int window, float scale, int device,
                                    void* stream) {
-  return static_cast<int>(dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv,
-                                          hd, strides, causal, window, scale,
-                                          device, stream));
+  return static_cast<int>(dispatch(false, q, k, v, out, B, Sq, Sk, Hq, Hkv,
+                                   hd, strides, causal, window, scale,
+                                   device, stream));
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -308,9 +677,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const long long* strides, int causal,
                                     int window, float scale, int device,
                                     void* stream) {
-  return static_cast<int>(dispatch<__nv_bfloat16>(
-      q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, strides, causal, window, scale,
-      device, stream));
+  return static_cast<int>(dispatch(true, q, k, v, out, B, Sq, Sk, Hq, Hkv,
+                                   hd, strides, causal, window, scale,
+                                   device, stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

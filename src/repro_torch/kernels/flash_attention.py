@@ -30,6 +30,28 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
              ctypes.c_void_p)
 MAX_HEAD_DIM = 256
+#: bytes of each cp.async copy (and ldmatrix row) of the kernel
+ALIGN = 16
+
+
+def alignment_error(name: str, address: int, shape, strides,
+                    element_size: int) -> Optional[str]:
+    """Why the kernel cannot read ``name`` (a (B, S, H, hd) tensor at
+    ``address`` with element ``strides``), or None. Every row of hd
+    elements is copied in 16-byte pieces, so the base address and the
+    byte stride of each of the first three axes that is longer than 1
+    must be multiples of ALIGN (an axis of length 1 is never stepped).
+    Pure arithmetic on integers, so the CPU tests reach it."""
+    if address % ALIGN:
+        return (f"flash_attention: {name}.data_ptr() {address:#x} is not "
+                f"{ALIGN}-byte aligned")
+    for axis, label in enumerate("bsh"):
+        step = strides[axis] * element_size
+        if shape[axis] > 1 and step % ALIGN:
+            return (f"flash_attention: {name}'s {label} stride "
+                    f"{strides[axis]} is {step} bytes, not a multiple of "
+                    f"{ALIGN}")
+    return None
 
 
 def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -47,12 +69,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), one dtype (fp32 or bf16)
     on one CUDA device, the last axis contiguous (other strides are read
-    as they are). hd is a multiple of 16 up to 256 and Hq a multiple of
-    Hkv. Returns (B, Sq, Hq, hd) in q's dtype. Refuses inputs where a
-    query row sees no key (Sk = 0, or Sq > Sk + window - 1): there the
-    plain version averages every key, which a kernel that skips masked
-    tiles does not compute. Adds one to ``flash_attention.launches`` per
-    kernel launch."""
+    as they are, and must be 16-byte aligned: `alignment_error`). hd is
+    a multiple of 16 up to 256 and Hq a multiple of Hkv. Returns (B, Sq,
+    Hq, hd) in q's dtype. Refuses inputs where a query row sees no key
+    (Sk = 0, or Sq > Sk + window - 1): there the plain version averages
+    every key, which a kernel that skips masked tiles does not compute.
+    Adds one to ``flash_attention.launches`` per kernel launch."""
     check_no_grad(q, k, v)
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share one dtype, "
@@ -84,6 +106,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel needs q, k and v on one "
                          f"CUDA device, got {q.device}, {k.device} and "
                          f"{v.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        err = alignment_error(name, t.data_ptr(), t.shape, t.stride(),
+                              t.element_size())
+        if err:
+            raise ValueError(err)
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or Hq == 0:
         return out

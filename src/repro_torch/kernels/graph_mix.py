@@ -21,13 +21,32 @@ from . import _build
 
 _SYMBOLS = {torch.float32: "graph_mix_f32", torch.bfloat16: "graph_mix_bf16"}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
+#: columns per thread the kernel takes, widest first (no 4: csrc note)
+WIDTHS = (2, 1)
+
+
+def vector_width(P: int, element_size: int, *addresses: int) -> int:
+    """Columns of W each kernel thread loads as one vector: the widest of
+    WIDTHS that divides P (so row n, which starts at ``n * P`` elements,
+    keeps the alignment of row 0) and to whose byte size every base
+    address (W's and out's ``data_ptr()``) is aligned. PaperCNN's P of
+    62,006 is even: its rows are 8-byte aligned in fp32, so 2."""
+    for cols in WIDTHS:
+        if P % cols == 0 and all(a % (cols * element_size) == 0
+                                 for a in addresses):
+            return cols
+    raise ValueError(f"graph_mix: an address in {addresses} is not aligned "
+                     f"to its {element_size}-byte elements")
 
 
 def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """A: (M, N) fp32; W: (N, P) fp32 or bf16, both contiguous on one CUDA
     device. Returns (M, P) = A @ W in W's dtype, fp32 accumulation.
-    Adds one to ``graph_mix.launches`` per kernel launch."""
+    W may start at any element boundary (a row-offset view): the vector
+    width follows P and the addresses (`vector_width`). Adds one to
+    ``graph_mix.launches`` per kernel launch."""
     if A.device.type != "cuda" or W.device != A.device:
         raise ValueError(f"graph_mix kernel needs A and W on one CUDA "
                          f"device, got {A.device} and {W.device}")
@@ -48,10 +67,11 @@ def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         return out
     if N == 0:
         return out.zero_()
+    cols = vector_width(P, W.element_size(), W.data_ptr(), out.data_ptr())
     lib_fn = _build.entry("graph_mix", _SYMBOLS[W.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(W.device).cuda_stream
     _build.check("graph_mix", lib_fn(A.data_ptr(), W.data_ptr(),
-                                     out.data_ptr(), M, N, P,
+                                     out.data_ptr(), M, N, P, cols,
                                      W.device.index, stream))
     graph_mix.launches += 1
     return out

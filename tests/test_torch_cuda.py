@@ -58,6 +58,36 @@ def test_graph_mix_kernel_matches_plain_version(cuda, dtype):
                                    rtol=tol, atol=tol)
 
 
+# K1 shapes that reach every vector width and edge: P = 0, 1, 2, 3 mod 4,
+# P under one vector, M 33 and 64 (two block rows), N 1, 33 and 100 (a
+# partial and several passes of W's rows)
+K1_EDGE_SHAPES = [(32, 32, 62004), (32, 32, 62005), (32, 32, 62007),
+                  (5, 3, 1), (5, 3, 3), (33, 32, 1000), (64, 32, 2048),
+                  (32, 1, 62006), (32, 33, 999), (7, 100, 4098)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_mix_kernel_every_vector_width(cuda, dtype):
+    """Each edge shape, on W itself and on a row-offset view of a larger
+    buffer (``narrow`` of one element, so data_ptr() is only element-
+    aligned): the width follows P and the address, and a repeated call
+    gives the same bits."""
+    widths = set()
+    for M, N, P in K1_EDGE_SHAPES:
+        A, W = _inputs(M, N, P, dtype, cuda)
+        buf = torch.empty(N * P + 1, dtype=W.dtype, device=cuda)
+        view = buf.narrow(0, 1, N * P).view(N, P).copy_(W)
+        for w in (W, view):
+            widths.add(k1.vector_width(P, w.element_size(), w.data_ptr()))
+            got = ops.graph_mix(A, w)
+            tol = TOL[dtype]
+            torch.testing.assert_close(
+                got.float(), ref.graph_mix_ref(A, w).float(), rtol=tol,
+                atol=tol)
+            assert torch.equal(got, ops.graph_mix(A, w))
+    assert widths == set(k1.WIDTHS)
+
+
 def test_graph_mix_kernel_refuses_what_it_does_not_take(cuda):
     A, W = _inputs(4, 4, 64, "float32", cuda)
     with pytest.raises(TypeError):
@@ -199,6 +229,9 @@ K4_SHAPES = [(4, 512, 512, 16, 8, 128, None), (1, 256, 256, 4, 1, 64, 96),
              (2, 128, 256, 16, 8, 128, None), (2, 250, 128, 4, 2, 112, 128),
              (1, 70, 70, 3, 3, 16, None), (1, 33, 33, 2, 1, 48, 5)]
 K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # as tests/test_kernels.py
+# bf16 against the fp32 plain version on the same inputs, (atol, rtol):
+# as chip_smoke.py's K4_BF16_FP32_TOL (one bf16 ulp at 1, two ulps)
+K4_BF16_FP32_TOL = (2.0 ** -7, 2.0 ** -6)
 
 
 def _k4_inputs(B, Sq, Sk, Hq, Hkv, hd, dtype, device, seed=0):
@@ -223,18 +256,49 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype):
         torch.testing.assert_close(
             got.float(), ref.flash_attention_ref(q, k, v, window=window)
             .float(), rtol=tol, atol=tol)
+        if dtype == "bfloat16":
+            atol, rtol = K4_BF16_FP32_TOL
+            torch.testing.assert_close(
+                got.float(), ref.flash_attention_ref(
+                    q.float(), k.float(), v.float(), window=window),
+                rtol=rtol, atol=atol)
         # no atomics: the same bits from run to run
         assert torch.equal(got, ops.flash_attention(q, k, v, window=window))
 
 
-def test_flash_attention_kernel_reads_strided_heads(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_reads_strided_heads(cuda, dtype):
     """(B, H, S, hd) storage viewed as (B, S, H, hd): read in place."""
     q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
-               _k4_inputs(2, 100, 100, 8, 2, 64, "float32", cuda))
+               _k4_inputs(2, 100, 100, 8, 2, 64, dtype, cuda))
     assert not q.is_contiguous()
-    torch.testing.assert_close(k4.flash_attention(q, k, v, window=40),
-                               ref.flash_attention_ref(q, k, v, window=40),
-                               rtol=2e-5, atol=2e-5)
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(
+        k4.flash_attention(q, k, v, window=40).float(),
+        ref.flash_attention_ref(q, k, v, window=40).float(), rtol=tol,
+        atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_refuses_misaligned_inputs(cuda, dtype):
+    """Rows are copied in 16-byte pieces: a base address or a (b, s, h)
+    stride off 16 bytes raises ValueError, never a slow path; a stride
+    that is a multiple of 16 bytes is read in place."""
+    q, k, v = _k4_inputs(2, 64, 64, 4, 2, 32, dtype, cuda)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat.narrow(0, 1, q.numel()).view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        k4.flash_attention(shifted, k, v)
+    wide = torch.zeros((2, 64, 2, 33), dtype=q.dtype, device=cuda)
+    ragged = wide[..., :32]   # head stride 33 elements
+    with pytest.raises(ValueError, match="stride"):
+        k4.flash_attention(q, ragged, v)
+    padded = torch.zeros((2, 64, 2, 40), dtype=q.dtype, device=cuda)
+    kp = padded[..., :32].copy_(k)   # head stride 40 elements: aligned
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(
+        k4.flash_attention(q, kp, v).float(),
+        ref.flash_attention_ref(q, k, v).float(), rtol=tol, atol=tol)
 
 
 def test_flash_attention_kernel_non_causal(cuda):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -53,7 +54,7 @@ def _phase(prof, wall, port_kernels):
             "port_kernel": [{"name": k[:90], "device_ms": us / 1e3,
                              "calls": n, "share_of_device": us / 1e6 / device_s}
                             for us, k, n in rows
-                            if any(p in k for p in port_kernels)]}
+                            if any(re.search(p, k) for p in port_kernels)]}
 
 
 def main(argv=None):
@@ -73,8 +74,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     cfg, model, params = chip_smoke.serve_model(torch, arch)
-    # the device names of the family's kernels in csrc/: "<name>_kernel"
-    port_kernels = [name + "_kernel" for name, n
+    # the device names of the family's kernels in csrc/: "<name>_kernel",
+    # or "<name>_f32_kernel" / "<name>_bf16_kernel" where a kernel has one
+    # body per type (K4)
+    port_kernels = [rf"\b{name}(_f32|_bf16)?_kernel\b" for name, n
                     in chip_smoke.serve_kernels(cfg).items() if n]
     B, S, new = (chip_smoke.SERVE_RUN[k]
                  for k in ("batch", "prompt_len", "new_tokens"))
