@@ -11,8 +11,13 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it and at its edge cases: K1 graph_mix,
    K2 sparse_graph_mix (sentinel slots, all-sentinel rows, duplicate
-   indices, B > N, ragged P, bf16), K3 compressed_graph_mix (duplicate
-   indices, -1 pads, K and P off the tile);
+   indices, B > N, ragged P, bf16, the one-column path, B past a group
+   of 8 slots and a chunk of 64; the same bits on a repeat), K3
+   compressed_graph_mix (duplicate indices, -1 pads, K and P off the
+   tile, every entry in one tile, K > P, four bucketing windows, a
+   window past the shared-memory stage; the
+   same bits on a repeat, and its bucketing pass exactly its plain
+   version's);
    K4 flash_attention (the serve shape in fp32 and bf16, MQA with a
    window, h2o-danube's hd 80, recurrentgemma's hd 256 with one KV
    head at a window of 64 and at its serve shape with the window of
@@ -186,14 +191,29 @@ K2_CASES = [("main", 32, 4, PAPER_CNN_PARAMS, "float32", "lists", False),
             ("all-sentinel rows", 6, 3, 40, "float32", "sentinel", True),
             ("duplicate indices", 16, 4, 2100, "float32", "zeros", True),
             ("B > N", 5, 7, 33, "float32", "random", True),
-            ("ragged P, bf16", 9, 5, 1001, "bfloat16", "random", True)]
+            ("ragged P, bf16", 9, 5, 1001, "bfloat16", "random", True),
+            # the one-column path (odd P) past a group of kSlots = 4 peer
+            # rows, and past a staged chunk of 64 slots
+            ("odd P, B 11 > kSlots", 5, 11, 1001, "float32", "random",
+             True),
+            ("B 70 > kChunk, bf16", 6, 70, 2002, "bfloat16", "random",
+             True)]
 # K3 cases: (name, M, N, K, P, index table). The main path's: the top-k
 # payload of (32, 62006) rows at topk_frac 0.1.
 K3_CASES = [("main", 32, 32, 6201, PAPER_CNN_PARAMS, "topk"),
             ("duplicate indices", 12, 12, 300, 900, "duplicates"),
             ("-1 pads", 12, 12, 300, 900, "pads"),
             ("K, P off the tile", 7, 5, 33, 1000, "topk"),
-            ("M > 32 rows", 40, 9, 77, 515, "duplicates")]
+            ("M > 32 rows", 40, 9, 77, 515, "duplicates"),
+            # the bucketing design's edges: one tile holding every entry
+            # (buckets of 200, duplicates across 32-entry steps), K > P,
+            # P over one bucketing window of 256 tiles (4 windows), and a
+            # window of more entries than shared memory stages (24,576)
+            ("every entry in one tile", 4, 4, 200, 1000, "one tile"),
+            ("K > P", 5, 5, 300, 100, "duplicates"),
+            ("4 bucketing windows", 4, 3, 5000, 200_000, "topk"),
+            ("a window past the shared-memory stage", 3, 2, 30_000, 5000,
+             "duplicates")]
 
 # K5 cases: (name, b, l, H, p, n, chunk, dlogA, h0). The first is the
 # serve run's prefill scan (mamba2-370m, batch 4, prompt 512: 32 heads of
@@ -412,6 +432,10 @@ def k3_inputs(torch):
         if table == "topk":
             idx = torch.topk(x.abs(), K, dim=1).indices
             vals = x.gather(1, idx)
+        elif table == "one tile":
+            idx = torch.randint(256, 512, (N, K), generator=gen,
+                                device="cuda")
+            vals = torch.randn((N, K), generator=gen, device="cuda")
         else:
             # few distinct columns per row, so indices repeat
             idx = torch.randint(0, max(1, P // 8), (N, K), generator=gen,
@@ -426,29 +450,50 @@ def k3_inputs(torch):
 
 
 def check_k2(torch, inputs):
-    """K2 against its plain version in every case; returns the max abs
-    error per case."""
+    """K2 against its plain version in every case, and a repeated call
+    bit for bit (slots added in a fixed order); returns the max abs
+    error per case and the vector widths reached."""
+    from repro_torch.kernels import graph_mix as k1
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_graph_mix as k2
 
-    return [_close(torch, f"K2 {name} {dt}",
-                   k2.sparse_graph_mix(sw, nw, idx, W, Wp),
-                   ref.sparse_graph_mix_ref(sw, nw, idx, W, Wp), TOL[dt])
-            for name, dt, sw, nw, idx, W, Wp in inputs]
+    errs, widths = [], set()
+    for name, dt, sw, nw, idx, W, Wp in inputs:
+        got = k2.sparse_graph_mix(sw, nw, idx, W, Wp)
+        errs.append(_close(torch, f"K2 {name} {dt}", got,
+                           ref.sparse_graph_mix_ref(sw, nw, idx, W, Wp),
+                           TOL[dt]))
+        if not torch.equal(got, k2.sparse_graph_mix(sw, nw, idx, W, Wp)):
+            fail(f"K2 {name} {dt}: a repeated call gave other bits")
+        widths.add(k1.vector_width(W.shape[1], W.element_size(),
+                                   W.data_ptr(), Wp.data_ptr()))
+    if widths != set(k1.WIDTHS):
+        fail(f"K2 cases reach vector widths {sorted(widths)}, not all of "
+             f"{k1.WIDTHS}")
+    return errs
 
 
 def check_k3(torch, inputs):
-    """K3 against its plain version in every case, plus the exact
-    duplicate-index case of tests/test_kernels.py; returns the max abs
-    error per case."""
+    """K3 against its plain version in every case, a repeated call bit
+    for bit (no atomics), and its bucketing pass exactly equal to the
+    pass's plain version; plus the exact duplicate-index case of
+    tests/test_kernels.py. Returns the max abs error per case."""
     from repro_torch.kernels import compressed_graph_mix as k3
     from repro_torch.kernels import ref
 
-    errs = [_close(torch, f"K3 {name}",
-                   k3.compressed_graph_mix(A, vals, idx, P),
-                   ref.compressed_graph_mix_ref(A, vals, idx, P),
-                   TOL["float32"])
-            for name, A, vals, idx, P in inputs]
+    errs = []
+    for name, A, vals, idx, P in inputs:
+        got = k3.compressed_graph_mix(A, vals, idx, P)
+        errs.append(_close(torch, f"K3 {name}", got,
+                           ref.compressed_graph_mix_ref(A, vals, idx, P),
+                           TOL["float32"]))
+        if not torch.equal(got, k3.compressed_graph_mix(A, vals, idx, P)):
+            fail(f"K3 {name}: a repeated call gave other bits")
+        bucketed = k3.bucket_payload(vals, idx, P)
+        want = ref.bucket_payload_ref(vals, idx, P, k3.TILE)
+        if not all(torch.equal(g, w) for g, w in zip(bucketed, want)):
+            fail(f"K3 {name}: the bucketing pass differs from its plain "
+                 f"version")
     got = k3.compressed_graph_mix(
         torch.eye(2, device="cuda"),
         torch.tensor([[1.0, 2.0, 4.0], [0.5, 0.25, 0.125]], device="cuda"),
@@ -504,8 +549,9 @@ def time_k2(torch, inputs, errs, rates):
 
 
 def time_k3(torch, inputs, errs, rates):
-    """K3 (the wrapper's stable sort included: the main path pays it), its
-    plain version and the yardstick (`torch.sparse.mm` of the payload as
+    """K3 (both launches: the bucketing pass and the mix, as the main path
+    pays them), its plain version and the yardstick (`torch.sparse.mm`
+    of the payload as
     a sparse COO (P, N) matrix by A^T, the sparse tensor built outside
     the timed window) at the main path's shape, beside the bound; returns
     the rows."""
@@ -520,10 +566,11 @@ def time_k3(torch, inputs, errs, rates):
         K = vals.shape[1]
         ms = time_ms(lambda: k3.compressed_graph_mix(A, vals, idx, P),
                      torch)
-        # the split: the wrapper's sort alone, the kernel alone
-        sort_ms = time_ms(lambda: k3.sort_payload(vals, idx), torch)
-        sv, si = k3.sort_payload(vals, idx)
-        kernel_ms = time_ms(lambda: k3.launch_sorted(A, sv, si, P), torch)
+        # the split: the bucketing pass alone, the mix kernel alone
+        bucket_ms = time_ms(lambda: k3.bucket_payload(vals, idx, P), torch)
+        bucketed = k3.bucket_payload(vals, idx, P)
+        kernel_ms = time_ms(lambda: k3.launch_bucketed(A, *bucketed, P),
+                            torch)
         plain_ms = time_ms(
             lambda: ref.compressed_graph_mix_ref(A, vals, idx, P), torch)
         cols = torch.arange(N, device="cuda")[:, None].expand(N, K)
@@ -538,12 +585,12 @@ def time_k3(torch, inputs, errs, rates):
         bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         rows.append(dict(case=name, M=M, N=N, K=K, P=P, dtype="float32",
                          max_abs_err=err, tol=TOL["float32"], ms=ms,
-                         sort_ms=sort_ms, kernel_ms=kernel_ms,
+                         bucket_ms=bucket_ms, kernel_ms=kernel_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          bytes=nbytes, flops=flops))
         print(f"  K3 {name:<18} ({M}, {N}, {K}, {P}) err {err:.3g} "
-              f"kernel+sort {ms:.4f} ms (sort {sort_ms:.4f}, kernel "
+              f"bucket+kernel {ms:.4f} ms (bucket {bucket_ms:.4f}, kernel "
               f"{kernel_ms:.4f})  plain {plain_ms:.4f} ms  "
               f"sparse.mm {lib_ms:.4f} ms  bound {bound_ms:.4f} ms")
     return rows
@@ -824,9 +871,10 @@ def time_k6(torch, inputs, errs, rates):
     return rows
 
 
-#: the kernels this slice rebuilt: their ptxas report is printed in full,
-#: and a spill fails the run
-REDESIGNED = ("graph_mix", "flash_attention")
+#: the kernels redesigned for Hopper: their ptxas report is printed in
+#: full, and a spill fails the run
+REDESIGNED = ("graph_mix", "sparse_graph_mix", "compressed_graph_mix",
+              "flash_attention")
 
 
 def ptxas_report(log):
@@ -1311,12 +1359,13 @@ def main():
               f"{k}: {v}" for k, v in sorted(k1_widths.items())))
     k2_in = k2_inputs(torch)
     k2_errs = check_k2(torch, k2_in)
-    print(f"K2 agrees with its plain version in {len(k2_in)} cases "
-          f"(max abs err {max(k2_errs):.3g})")
+    print(f"K2 agrees with its plain version in {len(k2_in)} cases, the "
+          f"same bits on a repeated call (max abs err {max(k2_errs):.3g})")
     k3_in = k3_inputs(torch)
     k3_errs = check_k3(torch, k3_in)
-    print(f"K3 agrees with its plain version in {len(k3_in) + 1} cases "
-          f"(max abs err {max(k3_errs):.3g})")
+    print(f"K3 agrees with its plain version in {len(k3_in) + 1} cases, the "
+          f"same bits on a repeated call, its bucketing pass exactly its "
+          f"plain version's (max abs err {max(k3_errs):.3g})")
     k4_in = k4_inputs(torch)
     k4_errs, k4_fp32 = check_k4(torch, k4_in)
     k4_max = {dt: max(e for e, c in zip(k4_errs, K4_CASES) if c[-1] == dt)

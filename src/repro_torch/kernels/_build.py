@@ -3,8 +3,9 @@
 Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``build/repro_torch_kernels/`` at the root of the checkout
-(git-ignored). A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale one is never loaded.
+(git-ignored). A library's file name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 `build` starts one ``nvcc`` per missing library, all at once.
 
 Importing this module needs neither ``nvcc`` nor a GPU: the CPU tests
@@ -61,7 +62,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # every source includes what it needs of the shared headers: hash them
+    # all, so an edited header rebuilds its users
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -9,9 +9,13 @@ device (the client-mesh all-gather is not ported); the kernel, its bound
 and its design are described in ``csrc/compressed_graph_mix.cu``. Its
 plain version is `repro_torch.kernels.ref.compressed_graph_mix_ref`.
 
-The kernel reads each payload row sorted by index: the wrapper sorts it
-first (a stable `torch.sort`, so duplicates keep their payload order and
-add in it), on the same stream, and that sort belongs to the op's time.
+One op is two launches on the same stream, both hand-written CUDA: a
+bucketing pass (`bucket_payload`) groups each payload row by 256-column
+tile, stably (duplicates keep their payload order and add in it), and
+writes each tile's bucket bounds to an offset table; the mix
+(`launch_bucketed`) reads each tile's buckets from it. No library sort
+runs. The pass's plain version is
+`repro_torch.kernels.ref.bucket_payload_ref`.
 
 The wrapper launches the kernel on CUDA tensors, or raises: it never
 falls back to the plain version (`repro_torch.kernels.ops` picks the
@@ -25,17 +29,24 @@ import torch
 
 from . import _build
 
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_longlong,
-                                      ctypes.c_int, ctypes.c_void_p)
+_BUCKET_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_longlong, ctypes.c_int,
+                                             ctypes.c_void_p)
+_MIX_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_longlong,
+                                          ctypes.c_int, ctypes.c_void_p)
+#: output columns of one tile (csrc: kTile)
+TILE = 256
 
 
 def compressed_graph_mix(A: torch.Tensor, vals: torch.Tensor,
                          idx: torch.Tensor, p_dim: int) -> torch.Tensor:
-    """A: (M, N) fp32; vals: (N, K) fp32; idx: (N, K) int32 in
-    [0, p_dim) or -1. All contiguous on one CUDA device. Returns
-    (M, p_dim) = A @ densify(vals, idx) in fp32. Adds one to
-    ``compressed_graph_mix.launches`` per kernel launch."""
+    """A: (M, N) fp32; vals: (N, K) fp32; idx: (N, K) int32, an entry
+    outside [0, p_dim) (the -1 pad) landing nowhere. All contiguous on
+    one CUDA device. Returns
+    (M, p_dim) = A @ densify(vals, idx) in fp32. Launches the bucketing
+    pass and the mix; the pair is one op, so it adds one to
+    ``compressed_graph_mix.launches`` (in `launch_bucketed`)."""
     dev = A.device
     if dev.type != "cuda" or vals.device != dev or idx.device != dev:
         raise ValueError(f"compressed_graph_mix kernel needs A, vals and "
@@ -64,33 +75,48 @@ def compressed_graph_mix(A: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"compressed_graph_mix: p_dim {p_dim} < 0")
     if M == 0 or P == 0 or N == 0 or K == 0:
         return torch.zeros((M, P), dtype=torch.float32, device=dev)
-    return launch_sorted(A, *sort_payload(vals, idx), P)
+    return launch_bucketed(A, *bucket_payload(vals, idx, P), P)
 
 
-def sort_payload(vals: torch.Tensor, idx: torch.Tensor):
-    """Each row's (vals, idx) sorted by index, stably: duplicates keep
-    their payload order, -1 pads come first. Returns (vals, idx)."""
-    sorted_idx, perm = torch.sort(idx, dim=1, stable=True)
-    return vals.gather(1, perm), sorted_idx
+def bucket_payload(vals: torch.Tensor, idx: torch.Tensor, p_dim: int):
+    """The bucketing pass alone, on a payload checked by
+    `compressed_graph_mix`: returns (vals, idx, offsets), the first two
+    (N, K) with each row's entries in [0, p_dim) grouped by TILE-column
+    tile in payload order and the row's tail (0.0, -1), and offsets
+    (N, T + 1) int32, T = ceil(p_dim / TILE): tile t of row n is
+    ``[offsets[n, t], offsets[n, t + 1])``. Counts no launch."""
+    N, K = idx.shape
+    T = -(-p_dim // TILE)
+    bvals = torch.empty_like(vals)
+    bidx = torch.empty_like(idx)
+    offsets = torch.empty((N, T + 1), dtype=torch.int32, device=idx.device)
+    fn = _build.entry("compressed_graph_mix", "compressed_graph_mix_bucket",
+                      _BUCKET_ARGTYPES)
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    _build.check("compressed_graph_mix", fn(
+        vals.data_ptr(), idx.data_ptr(), bvals.data_ptr(), bidx.data_ptr(),
+        offsets.data_ptr(), N, K, p_dim, idx.device.index, stream))
+    return bvals, bidx, offsets
 
 
-def launch_sorted(A: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
-                  p_dim: int) -> torch.Tensor:
-    """The kernel alone, on payload rows already sorted by index
-    (`sort_payload`), checked by `compressed_graph_mix`. Adds one to
-    ``compressed_graph_mix.launches``."""
+def launch_bucketed(A: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                    offsets: torch.Tensor, p_dim: int) -> torch.Tensor:
+    """The mix alone, on a payload `bucket_payload` grouped, checked by
+    `compressed_graph_mix`. Adds one to ``compressed_graph_mix.launches``
+    (the op's count)."""
     M, N = A.shape
     out = torch.empty((M, p_dim), dtype=torch.float32, device=A.device)
     fn = _build.entry("compressed_graph_mix", "compressed_graph_mix_f32",
-                      _ARGTYPES)
+                      _MIX_ARGTYPES)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     _build.check("compressed_graph_mix", fn(
-        A.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
-        vals.shape[1], p_dim, A.device.index, stream))
+        A.data_ptr(), vals.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), M, N, vals.shape[1], p_dim, A.device.index, stream))
     compressed_graph_mix.launches += 1
     return out
 
 
-#: kernel launches since the last reset (a plain int; chip_smoke.py zeroes
-#: it before driving the main path and reads it after)
+#: ops launched since the last reset, one per bucketing pass and mix pair
+#: (a plain int; chip_smoke.py zeroes it before driving the main path and
+#: reads it after)
 compressed_graph_mix.launches = 0

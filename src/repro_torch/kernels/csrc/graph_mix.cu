@@ -47,47 +47,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // column vectors of W per block
 constexpr int kNB = 32;        // rows of W per pass
 constexpr int kRG = 8;         // output rows summed together
-
-// COLS consecutive elements of W's type, loaded as one vector
-template <typename T, int COLS>
-struct Vec;
-template <>
-struct Vec<float, 2> {
-  using type = float2;
-};
-template <>
-struct Vec<float, 1> {
-  using type = float;
-};
-template <>
-struct Vec<__nv_bfloat16, 2> {
-  using type = uint32_t;
-};
-template <>
-struct Vec<__nv_bfloat16, 1> {
-  using type = unsigned short;
-};
-
-template <int COLS, typename V>
-__device__ __forceinline__ void widen(const V& v, float* f) {
-  static_assert(sizeof(V) == COLS * 4 || sizeof(V) * 2 == COLS * 4,
-                "vector size");
-  if constexpr (sizeof(V) == COLS * 4) {  // fp32
-    const float* p = reinterpret_cast<const float*>(&v);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) f[c] = p[c];
-  } else {  // bf16: the high half of an fp32 word
-    const unsigned short* p = reinterpret_cast<const unsigned short*>(&v);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c)
-      f[c] = __uint_as_float(static_cast<uint32_t>(p[c]) << 16);
-  }
-}
 
 // one vector of W, which is read once: not kept in L1, and L2 asked to
 // fetch the 256 bytes around it

@@ -31,14 +31,15 @@ def vector_width(P: int, element_size: int, *addresses: int) -> int:
     """Columns of W each kernel thread loads as one vector: the widest of
     WIDTHS that divides P (so row n, which starts at ``n * P`` elements,
     keeps the alignment of row 0) and to whose byte size every base
-    address (W's and out's ``data_ptr()``) is aligned. PaperCNN's P of
-    62,006 is even: its rows are 8-byte aligned in fp32, so 2."""
+    address (W's and out's ``data_ptr()``; K2's W_self, W_peers and out)
+    is aligned. PaperCNN's P of 62,006 is even: its rows are 8-byte
+    aligned in fp32, so 2."""
     for cols in WIDTHS:
         if P % cols == 0 and all(a % (cols * element_size) == 0
                                  for a in addresses):
             return cols
-    raise ValueError(f"graph_mix: an address in {addresses} is not aligned "
-                     f"to its {element_size}-byte elements")
+    raise ValueError(f"an address in {addresses} is not aligned to its "
+                     f"{element_size}-byte elements")
 
 
 def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

@@ -43,11 +43,11 @@ def densify_topk(vals: torch.Tensor, idx: torch.Tensor,
                  p_dim: int) -> torch.Tensor:
     """Scatter a (N, K) top-k payload back to dense (N, p_dim) fp32. The
     single definition of the densify semantics: duplicate indices add,
-    and an idx of -1 is a pad that lands nowhere, as in the
+    and an idx outside [0, p_dim) (the -1 pad) lands nowhere, as in the
     `compressed_graph_mix` kernel (the codec's `decode` and the plain
     version below both call this)."""
     N = vals.shape[0]
-    pad = idx < 0
+    pad = (idx < 0) | (idx >= p_dim)
     v = torch.where(pad, 0.0, vals.float())
     out = torch.zeros((N, p_dim), dtype=torch.float32, device=vals.device)
     return out.scatter_add_(1, torch.where(pad, 0, idx).long(), v)
@@ -58,6 +58,30 @@ def compressed_graph_mix_ref(A: torch.Tensor, vals: torch.Tensor,
     """``A @ densify(vals, idx)``: densify, then an fp32 matmul, cast to
     vals.dtype (`repro.kernels.ref.compressed_graph_mix_ref`)."""
     return (A.float() @ densify_topk(vals, idx, p_dim)).to(vals.dtype)
+
+
+def bucket_payload_ref(vals: torch.Tensor, idx: torch.Tensor, p_dim: int,
+                       tile: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The K3 bucketing pass: each (N, K) payload row's entries with an
+    idx in [0, p_dim) grouped by ``tile``-column tile, in payload order
+    within a tile, then the row's tail as (0.0, -1) (pads and indices
+    out of range dropped). Returns (vals, idx, offsets), offsets (N, T + 1)
+    int32 with T = ceil(p_dim / tile): tile t of row n is
+    ``[offsets[n, t], offsets[n, t + 1])``, and offsets[n, T] counts the
+    row's kept entries."""
+    N, K = idx.shape
+    T = -(-p_dim // tile)
+    keep = (idx >= 0) & (idx < p_dim)
+    bucket = torch.where(keep, idx.long() // tile, T)  # dropped: past T
+    order = torch.sort(bucket, dim=1, stable=True).indices
+    counts = torch.zeros((N, T + 1), dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(1, bucket, torch.ones_like(bucket))
+    offsets = torch.zeros((N, T + 1), dtype=torch.int32, device=idx.device)
+    offsets[:, 1:] = torch.cumsum(counts[:, :T], dim=1)
+    tail = torch.arange(K, device=idx.device)[None] >= offsets[:, T:]
+    return (torch.where(tail, 0.0, vals.gather(1, order)),
+            torch.where(tail, -1, idx.gather(1, order)), offsets)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

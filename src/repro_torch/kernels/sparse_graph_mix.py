@@ -21,13 +21,33 @@ import ctypes
 import torch
 
 from . import _build
+from .graph_mix import vector_width
 
 _SYMBOLS = {torch.float32: "sparse_graph_mix_f32",
             torch.bfloat16: "sparse_graph_mix_bf16"}
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p)
-_MAX_ROWS = 65535   # the grid's y extent: one row of blocks per client
+#: column vectors of one output row a block owns (csrc: kThreads * kVecs);
+#: it only sizes the grid, whose blocks stride over the tiles
+BLOCK_VECTORS = 256 * 2
+#: the largest grid extents CUDA takes: x (clients) and y (P tiles)
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_Y = 65535
+
+
+def launch_grid(N: int, P: int, cols: int) -> int:
+    """The y extent of the kernel's (N, y) grid for N clients and P
+    columns moved ``cols`` at a time. x is one block per client, so the
+    blocks of one P tile are launched together; y walks the P tiles with
+    a stride of y (a block takes tiles y0, y0 + y, ...), so every P fits.
+    Raises where N exceeds the grid's x extent."""
+    if N > MAX_GRID_X:
+        raise ValueError(f"sparse_graph_mix: N = {N} clients is more than "
+                         f"the kernel's grid takes ({MAX_GRID_X})")
+    tiles = -(-P // (BLOCK_VECTORS * cols))
+    return max(1, min(tiles, MAX_GRID_Y))
 
 
 def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
@@ -36,8 +56,10 @@ def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
     """self_w: (N,) fp32; nbr_w: (N, B) fp32; nbr_idx: (N, B) int32 in
     [0, N) or -1; W_self, W_peers: (N, P), both fp32 or both bf16. All
     contiguous on one CUDA device. Returns the (N, P) mix in W_self's
-    dtype, fp32 accumulation. Adds one to ``sparse_graph_mix.launches``
-    per kernel launch."""
+    dtype, fp32 accumulation. The tables may start at any element
+    boundary: two columns a thread where P is even and W_self, W_peers
+    and out are aligned to two elements, else one (`vector_width`). Adds
+    one to ``sparse_graph_mix.launches`` per kernel launch."""
     dev = W_self.device
     tensors = (self_w, nbr_w, nbr_idx, W_self, W_peers)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -68,18 +90,18 @@ def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
         raise ValueError("sparse_graph_mix: every tensor must be contiguous")
     N, B = nbr_idx.shape
     P = W_self.shape[1]
-    if N > _MAX_ROWS:
-        raise ValueError(f"sparse_graph_mix: N = {N} clients is more than "
-                         f"the kernel's grid takes ({_MAX_ROWS})")
     out = torch.empty_like(W_self)
     if N == 0 or P == 0:
         return out
+    cols = vector_width(P, W_self.element_size(), W_self.data_ptr(),
+                        W_peers.data_ptr(), out.data_ptr())
+    grid_y = launch_grid(N, P, cols)
     fn = _build.entry("sparse_graph_mix", _SYMBOLS[W_self.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check("sparse_graph_mix", fn(
         self_w.data_ptr(), nbr_w.data_ptr(), nbr_idx.data_ptr(),
         W_self.data_ptr(), W_peers.data_ptr(), out.data_ptr(), N, B, P,
-        dev.index, stream))
+        cols, grid_y, dev.index, stream))
     sparse_graph_mix.launches += 1
     return out
 

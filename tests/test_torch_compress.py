@@ -213,6 +213,38 @@ def test_compressed_plain_version_skips_pads_as_the_pallas_kernel():
     np.testing.assert_array_equal(dense.numpy(), [[1.0, 0.0, 0.0, 0.0]])
 
 
+def test_compressed_plain_version_drops_indices_past_p_as_repro():
+    """An idx >= P lands nowhere: `repro`'s densify (jax's scatter drops
+    out-of-bound updates) and its Pallas kernel in interpret mode (whose
+    one-hot never matches such a column, or only a padded one it slices
+    away) agree with the port's plain version on the same payload, with
+    indices at P, inside the Pallas kernel's padded columns and far
+    past both."""
+    P, bp = 300, 128   # Pallas pads P to 384
+    A = _mixing(4, 5)
+    vals, idx = _topk_payload(4, P, 0.2, 6)
+    rng = np.random.default_rng(7)
+    past = rng.choice(np.array([P, P + 1, 383, 384, 10 * P, 2 ** 31 - 1]),
+                      size=idx.shape)
+    idx = np.where(rng.random(idx.shape) < 0.3, past, idx).astype(np.int32)
+    assert (idx >= P).sum() > 0
+    j = (jnp.asarray(A), jnp.asarray(vals), jnp.asarray(idx))
+    np.testing.assert_array_equal(
+        ref.densify_topk(torch.from_numpy(vals), torch.from_numpy(idx),
+                         P).numpy(),
+        np.asarray(jref.densify_topk(j[1], j[2], P)))
+    got = ops.compressed_graph_mix(torch.from_numpy(A),
+                                   torch.from_numpy(vals),
+                                   torch.from_numpy(idx), P).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(pallas_compressed_mix(
+            *j, P, block_p=bp, block_k=16, interpret=True)),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.compressed_graph_mix_ref(*j, P)), rtol=1e-5,
+        atol=1e-5)
+
+
 def test_compressed_kernel_wrapper_refuses_cpu_tensors():
     vals, idx = _topk_payload(3, 40, 0.5, 0)
     with pytest.raises(ValueError, match="CUDA"):

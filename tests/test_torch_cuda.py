@@ -220,6 +220,123 @@ def test_compressed_graph_mix_kernel_refuses_what_it_does_not_take(cuda):
         k3.compressed_graph_mix(A, vals.cpu(), idx, 64)
 
 
+# K3 edge cases of the bucketing design: (name, M, N, K, P); the
+# payloads are drawn by `_k3_edge`
+K3_EDGES = [("every entry in one tile", 4, 4, 200, 1000),
+            ("duplicates across a 32-entry step", 3, 3, 70, 600),
+            ("a row of pads only", 5, 4, 100, 700),
+            ("P off the tile", 6, 5, 120, 1000),
+            ("K > P", 5, 5, 300, 100),
+            ("several windows, indices past P", 4, 3, 5000, 200_000),
+            # more entries in one window than shared memory stages
+            # (kStageMax, 24,576): written to device memory directly
+            ("a window past the stage", 3, 2, 30_000, 5000)]
+
+
+def _k3_edge(name, M, N, K, P, device, seed=0):
+    """(A, vals, idx) for one K3_EDGES case: integer values (so every sum
+    is exact) where the case is about the order of duplicates."""
+    rng = np.random.default_rng(seed)
+    A = rng.random((M, N)).astype(np.float32)
+    A /= A.sum(axis=1, keepdims=True)
+    vals = rng.standard_normal((N, K)).astype(np.float32)
+    if name == "every entry in one tile":
+        idx = rng.integers(256, 512, (N, K))
+    elif name == "duplicates across a 32-entry step":
+        # one tile, each row's bucket 70 entries long: column k % 20, and
+        # entries 31 and 32 (the two sides of a step) both column 17
+        idx = np.tile(np.arange(K) % 20, (N, 1))
+        idx[:, 31] = idx[:, 32] = 17
+        vals = rng.integers(-8, 9, (N, K)).astype(np.float32)
+        A = np.eye(M, N, dtype=np.float32)
+    elif name == "a row of pads only":
+        idx = np.where(rng.random((N, K)) < 0.2, -1,
+                       rng.integers(0, P, (N, K)))
+        idx[1] = -1
+    elif name == "several windows, indices past P":
+        idx = rng.integers(0, P, (N, K))
+        idx = np.where(rng.random((N, K)) < 0.05, P + 3, idx)
+    else:
+        idx = rng.integers(0, P, (N, K))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (A, vals, idx.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", K3_EDGES, ids=[c[0] for c in K3_EDGES])
+def test_compressed_graph_mix_kernel_edge_cases(cuda, case):
+    """Against the plain version (exactly where the sums are integers),
+    one op counted per call, and the same bits on a repeated call."""
+    name, M, N, K, P = case
+    A, vals, idx = _k3_edge(name, M, N, K, P, cuda)
+    before = k3.compressed_graph_mix.launches
+    got = ops.compressed_graph_mix(A, vals, idx, P)
+    torch.cuda.synchronize()
+    assert k3.compressed_graph_mix.launches == before + 1
+    want = ref.compressed_graph_mix_ref(A, vals, idx, P)
+    if name == "duplicates across a 32-entry step":
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.compressed_graph_mix(A, vals, idx, P))
+
+
+@pytest.mark.parametrize("case", K3_EDGES + [
+    ("main", 32, 32, 6201, 62006)], ids=[c[0] for c in K3_EDGES] + ["main"])
+def test_compressed_graph_mix_bucketing_matches_plain_version(cuda, case):
+    """The bucketing pass gives its plain version's entries, order, tail
+    and offsets exactly."""
+    name, M, N, K, P = case
+    if name == "main":
+        _, vals, idx = _k3_inputs(M, N, K, P, "topk", cuda)
+    else:
+        _, vals, idx = _k3_edge(name, M, N, K, P, cuda)
+    got = k3.bucket_payload(vals, idx, P)
+    want = ref.bucket_payload_ref(vals, idx, P, k3.TILE)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# K2 on its one-column path and past its slot group (kSlots 4) and
+# staging chunk (kChunk 64): (N, B, P, W_self one element into a buffer)
+K2_EDGES = [(5, 11, 1001, False),   # odd P, B > kSlots, B > N
+            (5, 11, 1000, True),    # base address off 8 bytes
+            (6, 70, 2002, False),   # B > kChunk, two columns a thread
+            (6, 70, 2003, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_graph_mix_kernel_vector_paths(cuda, dtype):
+    widths = set()
+    for N, B, P, offset in K2_EDGES:
+        sw, nw, idx, W, peers = _k2_inputs(N, B, P, "random", dtype, cuda)
+        if offset:
+            buf = torch.empty(N * P + 1, dtype=W.dtype, device=cuda)
+            W = buf.narrow(0, 1, N * P).view(N, P).copy_(W)
+        for Wp in (W, peers):
+            widths.add(k1.vector_width(P, W.element_size(), W.data_ptr(),
+                                       Wp.data_ptr()))
+            got = k2.sparse_graph_mix(sw, nw, idx, W, Wp)
+            tol = TOL[dtype]
+            torch.testing.assert_close(
+                got.float(),
+                ref.sparse_graph_mix_ref(sw, nw, idx, W, Wp).float(),
+                rtol=tol, atol=tol)
+            # a fixed order of slots: the same bits from run to run
+            assert torch.equal(got, k2.sparse_graph_mix(sw, nw, idx, W, Wp))
+    assert widths == {1, 2}
+
+
+def test_sparse_graph_mix_kernel_tiles_past_the_grid(cuda):
+    """More P tiles than the grid's y extent: blocks take several tiles
+    (`launch_grid`), and every column is written."""
+    P = 512 * 65536 + 1   # odd: one column a thread, 65,537 tiles
+    assert k2.launch_grid(1, P, 1) == 65535
+    sw, nw, idx, W, peers = _k2_inputs(1, 2, P, "random", "float32", cuda)
+    torch.testing.assert_close(
+        k2.sparse_graph_mix(sw, nw, idx, W, peers),
+        ref.sparse_graph_mix_ref(sw, nw, idx, W, peers), rtol=1e-5,
+        atol=1e-5)
+
+
 # K4 (B, Sq, Sk, Hq, Hkv, hd, window): chip_smoke.py's cases (the serve
 # shape, MQA with a window, hd 80, hd 256 with one KV head, ragged S,
 # S = 1, Sq != Sk) and every head size of the repo's configs

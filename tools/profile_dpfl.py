@@ -92,7 +92,8 @@ def main():
                          "calls": n, "share_of_device": us / 1e6 / device_s}
                         for us, k, n in rows[:args.top]],
         # the port's kernels: graph_mix, sparse_graph_mix and
-        # compressed_graph_mix
+        # compressed_graph_mix (its bucketing pass and its mix, two
+        # kernels whose names both hold "graph_mix")
         "port_kernels": [{"name": k[:90], "device_ms": us / 1e3,
                           "calls": n} for us, k, n in rows
                          if "graph_mix" in k],
