@@ -23,7 +23,10 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    head at a window of 64 and at its serve shape with the window of
    2048, ragged S, S = 1, Sq != Sk), K5 ssd (mamba2-370m's serve
    shape with the model's dt, tests/test_kernels.py's three shapes, the
-   reduced model's, one ragged chunk, h0, p 128) and K6 rglru_scan
+   reduced model's, one ragged chunk, h0, p 128, eight chunks at the
+   serve width, B and C as views of the model's xBC projection, h0 with
+   one chunk, p 24 with n 4, inputs off 16-byte alignment; the same bits
+   on a repeat) and K6 rglru_scan
    (recurrentgemma-9b's serve shape with the model's a and b,
    tests/test_kernels.py's three shapes with h0 and its case without,
    ragged S and W, one step with h0, fewer channels than one block);
@@ -52,7 +55,7 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    embedding, head and final norm (CROSS_LAYERS);
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function where there is one (none for K5
-   and K6),
+   and K6), K3's and K5's launches also alone,
    and its bound (after phase 4, so the card runs at its working
    clocks, not idle ones);
 6. one JSON line of per-kernel results, then the device line.
@@ -215,22 +218,37 @@ K3_CASES = [("main", 32, 32, 6201, PAPER_CNN_PARAMS, "topk"),
             ("a window past the shared-memory stage", 3, 2, 30_000, 5000,
              "duplicates")]
 
-# K5 cases: (name, b, l, H, p, n, chunk, dlogA, h0). The first is the
-# serve run's prefill scan (mamba2-370m, batch 4, prompt 512: 32 heads of
-# 64, state 128, chunk 256), with dlogA as the model makes it ("model":
-# dt = softplus(normal logits), A = -1 at init, x scaled by dt);
-# "kernels" draws as tests/test_kernels.py does. No bf16 case: the
-# kernel takes float32 only (csrc/ssd.cu).
-K5_CASES = [("serve", 4, 512, 32, 64, 128, 256, "model", False),
-            ("test_kernels 1", 1, 128, 2, 16, 8, 32, "kernels", False),
-            ("test_kernels 2", 2, 256, 4, 32, 16, 64, "kernels", False),
+# K5 cases: (name, b, l, H, p, n, chunk, dlogA, h0, layout). The first
+# is the serve run's prefill scan (mamba2-370m, batch 4, prompt 512: 32
+# heads of 64, state 128, chunk 256), with dlogA as the model makes it
+# ("model": dt = softplus(normal logits), A = -1 at init, x scaled by
+# dt); "kernels" draws as tests/test_kernels.py does. Layout "xBC": x, B
+# and C as column slices of one (b, l, H p + 2n) tensor, as mamba_block
+# passes B and C (row stride 2,304 floats at the serve width); "offset":
+# x, B and C one float into their buffers, off 16-byte alignment, so the
+# kernels copy by element. No bf16 case: the kernels take float32 only
+# (csrc/ssd.cu).
+K5_CASES = [("serve", 4, 512, 32, 64, 128, 256, "model", False, None),
+            ("test_kernels 1", 1, 128, 2, 16, 8, 32, "kernels", False, None),
+            ("test_kernels 2", 2, 256, 4, 32, 16, 64, "kernels", False,
+             None),
             ("test_kernels 3, one chunk", 1, 64, 1, 64, 32, 64, "kernels",
-             False),
-            ("reduced model", 2, 64, 16, 32, 16, 32, "model", False),
+             False, None),
+            ("reduced model", 2, 64, 16, 32, 16, 32, "model", False, None),
             ("one ragged chunk, l 100", 2, 100, 8, 64, 128, 256, "model",
-             False),
-            ("h0", 2, 256, 4, 32, 16, 64, "kernels", True),
-            ("p 128, n 64, h0", 1, 256, 4, 128, 64, 128, "model", True)]
+             False, None),
+            ("h0", 2, 256, 4, 32, 16, 64, "kernels", True, None),
+            ("p 128, n 64, h0", 1, 256, 4, 128, 64, 128, "model", True,
+             None),
+            ("8 chunks", 1, 2048, 32, 64, 128, 256, "model", False, None),
+            ("serve, B/C views of xBC", 4, 512, 32, 64, 128, 256, "model",
+             False, "xBC"),
+            ("h0, one chunk", 2, 64, 4, 32, 16, 64, "kernels", True, None),
+            ("p 24, n 4", 2, 192, 3, 24, 4, 64, "model", True, None),
+            ("p 10, 4-byte copies", 2, 128, 3, 10, 12, 64, "model", True,
+             "offset")]
+#: the K5 cases timed (the first is the serve shape)
+K5_TIMED = ("serve", "8 chunks")
 K5_TOL = dict(atol=2e-4, rtol=1e-3)   # tests/test_kernels.py
 # K6 cases: (name, B, S, W, inputs, h0). The first is the serve run's
 # prefill recurrence (recurrentgemma-9b, batch 4, prompt 512, lru width
@@ -301,14 +319,17 @@ def time_ms(fn, torch, reps: int = 50, warmup: int = 10) -> float:
     finds W after local training has streamed activations through it),
     and a spin kernel holds the card while the host enqueues the events
     and ``fn``'s launches, so the interval holds device time only, not
-    the host's launch latency."""
+    the host's launch latency. The spin, 10^6 cycles (about 0.5 ms), is
+    long enough for a wrapper that checks its inputs, allocates and makes
+    three launches (K5); one of 2 x 10^5 cycles let K5's host time into
+    the interval."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -707,10 +728,11 @@ def k5_inputs(torch):
     """Seeded (name, chunk, x, dlogA, B, C, h0) on the card for every K5
     case: x, B, C normal * 0.3, and dlogA -|normal| * 0.1 ("kernels", as
     tests/test_kernels.py) or the model's -softplus(normal) with x scaled
-    by that dt ("model"); h0 normal * 0.5 or None."""
+    by that dt ("model"); h0 normal * 0.5 or None; x, B and C laid out as
+    the case says (K5_CASES)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = []
-    for name, b, l, H, p, n, chunk, kind, with_h0 in K5_CASES:
+    for name, b, l, H, p, n, chunk, kind, with_h0, layout in K5_CASES:
         def draw(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device="cuda") * scale
         x = draw(b, l, H, p, scale=0.3)
@@ -720,24 +742,42 @@ def k5_inputs(torch):
         else:
             dlogA = -draw(b, l, H).abs() * 0.1
         h0 = draw(b, H, p, n, scale=0.5) if with_h0 else None
-        out.append((name, chunk, x, dlogA, draw(b, l, n, scale=0.3),
-                    draw(b, l, n, scale=0.3), h0))
+        B, C = draw(b, l, n, scale=0.3), draw(b, l, n, scale=0.3)
+        if layout is not None:
+            # one buffer (b, l, H p + 2n), at one float in for "offset"
+            off = 1 if layout == "offset" else 0
+            width = H * p + 2 * n
+            buf = torch.empty(b * l * width + off, device="cuda")
+            xBC = buf[off:].view(b, l, width)
+            xBC.copy_(torch.cat([x.reshape(b, l, H * p), B, C], dim=-1))
+            x = xBC[..., :H * p].unflatten(-1, (H, p))
+            B, C = xBC[..., H * p:H * p + n], xBC[..., H * p + n:]
+        out.append((name, chunk, x, dlogA, B, C, h0))
     return out
 
 
 def check_k5(torch, inputs):
-    """K5 against its plain version in every case (y and h_last); returns
-    the max abs error per case."""
+    """K5 against its plain version in every case (y and h_last), a
+    repeated call bit for bit (fixed summation order, no atomics), and
+    the 16-byte copy path taken where the inputs allow it; returns the
+    max abs error per case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as k5
 
     errs = []
-    for name, chunk, x, dlogA, B, C, h0 in inputs:
+    for (name, chunk, x, dlogA, B, C, h0), case in zip(inputs, K5_CASES):
         y, hl = k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
         wy, wh = ref.ssd_ref(x, dlogA, B, C, chunk, h0)
         tol = (K5_TOL["atol"], K5_TOL["rtol"])
         errs.append(max(_close(torch, f"K5 {name} y", y, wy, *tol),
                         _close(torch, f"K5 {name} h_last", hl, wh, *tol)))
+        y2, hl2 = k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
+        if not (torch.equal(y, y2) and torch.equal(hl, hl2)):
+            fail(f"K5 {name}: a repeated call gave other bits")
+        vec = (k5.aligned16(x, (0, 1, 2)) and k5.aligned16(B, (0, 1))
+               and k5.aligned16(C, (0, 1)))
+        if vec != (case[-1] != "offset" and x.shape[-1] % 4 == 0):
+            fail(f"K5 {name}: 16-byte copies {vec}, not as the case says")
     return errs
 
 
@@ -763,33 +803,49 @@ def k5_work(x, B, chunk, h0):
 
 
 def time_k5(torch, inputs, errs, rates):
-    """K5 and its plain version timed at the serve shape, beside the
-    bound; no single PyTorch call computes a chunked SSD scan, so no
-    library time. Returns the rows."""
+    """K5 (its three launches, as the main path pays them) and its plain
+    version timed at the serve shape and with eight chunks, beside the
+    bound, each launch alone too (on the workspaces of one prepared
+    call); the flops the kernels do (`ssd.kernel_flops`) beside the least
+    work (`k5_work`, which sets the bound). No single PyTorch call
+    computes a chunked SSD scan, so no library time. Returns the rows."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as k5
 
     rows = []
     for (name, chunk, x, dlogA, B, C, h0), err in zip(inputs, errs):
-        if name != "serve":
+        if name not in K5_TIMED:
             continue
         ms = time_ms(lambda: k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0),
                      torch)
+        call = k5.prepare(x, dlogA, B, C, chunk, h0)
+        k5.launch(call)
+        pass_ms = {p: time_ms(lambda: k5.launch(call, bit), torch)
+                   for p, bit in k5.PASSES.items()}
         plain_ms = time_ms(lambda: ref.ssd_ref(x, dlogA, B, C, chunk, h0),
                            torch)
         nbytes, flops = k5_work(x, B, chunk, h0)
         bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         b, l, H, p = x.shape
-        rows.append(dict(case=name, b=b, l=l, H=H, p=p, n=B.shape[-1],
+        n = B.shape[-1]
+        done = k5.kernel_flops(b, l, H, p, n, min(chunk, l), h0 is not None)
+        rows.append(dict(case=name, b=b, l=l, H=H, p=p, n=n,
                          chunk=chunk, dtype="float32", max_abs_err=err,
                          atol=K5_TOL["atol"], rtol=K5_TOL["rtol"], ms=ms,
-                         plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         bytes=nbytes, flops=flops,
-                         tflops=flops / ms / 1e9))
-        print(f"  K5 {name:<10} ({b}, {l}, {H}, {p}, {B.shape[-1]}, chunk "
-              f"{chunk}) err {err:.3g} kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} ms  "
+                         pass_ms=pass_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         kernel_flops=done, tflops=flops / ms / 1e9,
+                         kernel_tflops=done["total"] / ms / 1e9))
+        print(f"  K5 {name:<10} ({b}, {l}, {H}, {p}, {n}, chunk "
+              f"{chunk}) err {err:.3g} kernel {ms:.4f} ms (chunk "
+              f"{pass_ms['chunk']:.4f} + pass {pass_ms['pass']:.4f} + "
+              f"output {pass_ms['output']:.4f} alone; "
+              f"{flops / ms / 1e9:.2f} TFLOP/s of the least "
+              f"{flops / 1e9:.3f} GFLOP, {done['total'] / ms / 1e9:.2f} of "
+              f"the {done['total'] / 1e9:.3f} done: " + ", ".join(
+                  f"{k} {v / 1e9:.3f}" for k, v in done.items()
+                  if k != "total") + f")  plain {plain_ms:.4f} ms  "
               f"library none  bound {bound_ms:.4f} ms ({bound_by})")
     return rows
 
@@ -874,7 +930,7 @@ def time_k6(torch, inputs, errs, rates):
 #: the kernels redesigned for Hopper: their ptxas report is printed in
 #: full, and a spill fails the run
 REDESIGNED = ("graph_mix", "sparse_graph_mix", "compressed_graph_mix",
-              "flash_attention")
+              "flash_attention", "ssd")
 
 
 def ptxas_report(log):

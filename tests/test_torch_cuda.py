@@ -443,14 +443,19 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
 
 # K5 (b, l, H, p, n, chunk, dlogA, h0): chip_smoke.py's cases (the serve
 # shape of mamba2-370m with the model's dt, tests/test_kernels.py's three
-# shapes, a single ragged chunk, an h0, p 128)
+# shapes, a single ragged chunk, an h0, p 128), then eight chunks at the
+# serve width (the state passed seven times), h0 with a single chunk, and
+# p 24 with n 4 (widths that are not a whole tile)
 K5_SHAPES = [(4, 512, 32, 64, 128, 256, "model", False),
              (1, 128, 2, 16, 8, 32, "kernels", False),
              (2, 256, 4, 32, 16, 64, "kernels", False),
              (1, 64, 1, 64, 32, 64, "kernels", False),
              (2, 100, 8, 64, 128, 256, "model", False),
              (2, 256, 4, 32, 16, 64, "kernels", True),
-             (1, 256, 4, 128, 64, 128, "model", True)]
+             (1, 256, 4, 128, 64, 128, "model", True),
+             (1, 2048, 32, 64, 128, 256, "model", False),
+             (2, 64, 4, 32, 16, 64, "kernels", True),
+             (2, 192, 3, 24, 4, 64, "model", True)]
 K5_TOL = dict(atol=2e-4, rtol=1e-3)   # as tests/test_kernels.py
 
 
@@ -485,7 +490,8 @@ def test_ssd_kernel_matches_plain_version(cuda):
         torch.testing.assert_close(y, wy, **K5_TOL)
         torch.testing.assert_close(hl, wh, **K5_TOL)
         # no atomics: the same bits from run to run
-        assert torch.equal(y, ops.ssd(x, dA, Bm, Cm, chunk=chunk, h0=h0)[0])
+        y2, hl2 = ops.ssd(x, dA, Bm, Cm, chunk=chunk, h0=h0)
+        assert torch.equal(y, y2) and torch.equal(hl, hl2)
 
 
 def test_ssd_kernel_reads_strided_inputs(cuda):
@@ -502,6 +508,38 @@ def test_ssd_kernel_reads_strided_inputs(cuda):
     torch.testing.assert_close(hl, wh, **K5_TOL)
 
 
+def test_ssd_kernel_reads_b_and_c_in_place_from_the_projection(cuda):
+    """B and C as mamba_block takes them at mamba2-370m's widths: column
+    slices of one (b, l, d_in + 2n) tensor (row stride 2,304 floats,
+    offsets 2,048 and 2,176), read through 16-byte copies, no copy on the
+    host; two chunks with h0."""
+    b, l, H, p, n = 2, 512, 32, 64, 128
+    x, dA, Bm, Cm, h0 = _k5_inputs(b, l, H, p, n, "model", True, cuda)
+    xBC = torch.cat([x.reshape(b, l, H * p), Bm, Cm], dim=-1)
+    Bv, Cv = xBC[..., H * p:H * p + n], xBC[..., H * p + n:]
+    assert Bv.stride() == (l * 2304, 2304, 1)
+    assert k5.aligned16(Bv, (0, 1)) and k5.aligned16(Cv, (0, 1))
+    y, hl = k5.ssd(x, dA, Bv, Cv, chunk=256, h0=h0)
+    wy, wh = ref.ssd_ref(x, dA, Bm, Cm, 256, h0)
+    torch.testing.assert_close(y, wy, **K5_TOL)
+    torch.testing.assert_close(hl, wh, **K5_TOL)
+
+
+def test_ssd_kernel_copies_misaligned_inputs_by_element(cuda):
+    """Inputs off 16-byte alignment take the kernels' 4-byte copies: p 10
+    (rows 40 bytes apart), and B and C one float into their buffers."""
+    b, l, H, p, n = 2, 128, 3, 10, 12
+    x, dA, Bm, Cm, h0 = _k5_inputs(b, l, H, p, n, "model", True, cuda)
+    buf = torch.empty(2 * Bm.numel() + 1, device=cuda)
+    Bv = buf[1:1 + Bm.numel()].view(b, l, n).copy_(Bm)
+    Cv = buf[1 + Bm.numel():].view(b, l, n).copy_(Cm)
+    assert not k5.aligned16(x, (0, 1, 2)) and not k5.aligned16(Bv, (0, 1))
+    y, hl = k5.ssd(x, dA, Bv, Cv, chunk=64, h0=h0)
+    wy, wh = ref.ssd_ref(x, dA, Bm, Cm, 64, h0)
+    torch.testing.assert_close(y, wy, **K5_TOL)
+    torch.testing.assert_close(hl, wh, **K5_TOL)
+
+
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     x, dA, Bm, Cm, _ = _k5_inputs(1, 64, 2, 16, 8, "kernels", False, cuda)
     with pytest.raises(TypeError):
@@ -512,6 +550,9 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         k5.ssd(x, dA, Bm, Cm, chunk=48)
     with pytest.raises(ValueError):
         k5.ssd(x, dA, Bm[..., :6], Cm[..., :6], chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.ssd(x, dA, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm,
+               chunk=32)
     with pytest.raises(NotImplementedError):
         k5.ssd(x.requires_grad_(True), dA, Bm, Cm, chunk=32)
 

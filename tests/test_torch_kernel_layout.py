@@ -6,7 +6,10 @@ clients on x and walks the P tiles on y with a stride; K3
 (`compressed_graph_mix`) groups each payload row by 256-column tile
 before its mix (`ref.bucket_payload_ref` is that pass's plain version);
 K4 (`flash_attention`) copies rows in 16-byte pieces and refuses an input
-it cannot copy so. These are tested here without a card; the kernels
+it cannot copy so; K5 (`ssd`) splits the scan into three launches over
+(b, head, chunk) and 64-row tiles (`ssd.launch_plan`), and copies in
+16-byte pieces only where every row is aligned (`ssd.aligned16`). These
+are tested here without a card; the kernels
 themselves are held to their plain versions by tests/test_torch_cuda.py
 and ``chip_smoke.py``.
 """
@@ -19,6 +22,7 @@ from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import graph_mix as k1
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse_graph_mix as k2
+from repro_torch.kernels import ssd as k5
 
 BASE = 0x7F0000000000  # a 256-byte aligned device address
 
@@ -215,3 +219,205 @@ def test_flash_attention_alignment_rule(shape, strides, elt, offset,
         assert "data_ptr" in err and "aligned" in err
     else:
         assert f"{refused} stride" in err
+
+
+# K5 shapes (b, l, H, p, n, L, h0): the serve shape, eight chunks, one
+# ragged chunk (L 100), one tile (L 32), p 24 and n 4, p 128 with h0, a
+# chunk of 65 rows (a one-row second tile)
+K5_PLANS = [(4, 512, 32, 64, 128, 256, False),
+            (1, 2048, 2, 64, 128, 256, False),
+            (2, 100, 3, 64, 128, 100, False),
+            (1, 128, 2, 16, 8, 32, False),
+            (2, 128, 3, 24, 4, 64, True),
+            (1, 256, 2, 128, 64, 128, True),
+            (1, 130, 2, 10, 12, 65, True)]
+
+
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS)
+def test_ssd_plan_covers_every_block_once(b, l, H, p, n, L, h0):
+    """Pass 1 takes every (b, head, chunk) once and every causal pair of
+    64-row tiles of every (b, chunk) once; pass 3 every (b, head, chunk,
+    query tile) once, the tiles with the most key tiles first."""
+    plan = k5.launch_plan(b, l, H, p, n, L)
+    nc, nt = l // L, -(-L // k5.TILE)
+    assert (plan.nc, plan.nt, plan.ntri) == (nc, nt, nt * (nt + 1) // 2)
+    blocks = k5.chunk_blocks(plan, b, H)
+    assert len(blocks) == plan.grids["chunk"][0]
+    states = [blk[1:] for blk in blocks if blk[0] == "state"]
+    scores = [blk[1:] for blk in blocks if blk[0] == "scores"]
+    assert sorted(states) == [(bi, hh, c) for bi in range(b)
+                              for hh in range(H) for c in range(nc)]
+    assert sorted(scores) == [(bi, c, qt, kt) for bi in range(b)
+                              for c in range(nc) for qt in range(nt)
+                              for kt in range(qt + 1)]
+    out = k5.output_blocks(plan, b, H)
+    assert len(out) == plan.grids["output"][0]
+    assert sorted(out) == [(bi, hh, c, qt) for bi in range(b)
+                           for hh in range(H) for c in range(nc)
+                           for qt in range(nt)]
+    assert [qt for *_, qt in out] == sorted((qt for *_, qt in out),
+                                            reverse=True)
+    gx, gy = plan.grids["pass"]
+    assert gx == b * H and \
+        gy * k5.PASS_THREADS * k5.PASS_VALUES >= n * plan.pw
+
+
+def _parent_smem(p, n, L):
+    """Shared memory of the parent design's one block per (b, head): the
+    state, C and B tiles padded to n + 4 floats, an x tile, a score tile
+    and the chunk's prefix sums; it refused a chunk that overflowed."""
+    pw = 16 * next(c for c in (1, 2, 4, 8) if 16 * c >= p)
+    ns = n + 4
+    return 4 * (pw * ns + 2 * 64 * ns + 64 * pw + 64 * 68 + L)
+
+
+@pytest.mark.parametrize("p", [1, 10, 16, 24, 63, 64, 65, 100, 127, 128])
+def test_ssd_plan_shared_memory_fits_every_accepted_shape(p):
+    """Each kernel's shared memory depends on p alone and fits a block at
+    every p; at p <= 64 two blocks of pass 1 and three of pass 3 fit an
+    SM (228 KB, 1 KB reserved a block), as the kernels' launch bounds
+    assume. Every
+    (p, n, chunk) the parent design took is still taken, and longer
+    chunks too: no workspace lives in shared memory."""
+    smem = k5.smem_bytes(p)
+    assert max(smem.values()) <= k5.MAX_SMEM
+    if p <= 64:
+        assert 2 * (smem["chunk"] + 1024) <= 233472
+        assert 3 * (smem["output"] + 1024) <= 233472
+    for n in (4, 8, 64, 124, 128):
+        for L in (1, 64, 100, 256, 4096, 20224, 51583):
+            if _parent_smem(p, n, L) <= k5.MAX_SMEM:
+                plan = k5.launch_plan(1, L, 2, p, n, L)
+                assert plan.smem == smem
+    assert k5.launch_plan(1, 16384, 1, 128, 128, 16384).nt == 256
+
+
+def test_ssd_plan_refuses_a_grid_past_cuda_extent():
+    with pytest.raises(ValueError, match="grid"):
+        k5.launch_plan(2 ** 16, 2 ** 16, 2 ** 10, 64, 128, 64)
+
+
+def _emulate_ssd(x, dA, B, C, L, h0):
+    """The three passes as the kernels split them, in float64 through the
+    plan's block lists and workspace layouts: pass 1 writes the prefix
+    sums, the transposed chunk states and the score tiles; pass 2 turns
+    each state slot, in place, into the state entering its chunk; pass 3
+    reads only the workspaces and x. Workspace entries no block writes
+    stay NaN, so a gap in the plan shows in the result. The decays are
+    applied as pass 3 applies them: e^{cum_i0} on the carried-in sums,
+    off the diagonal a factor per key row and, once, one per query
+    row."""
+    b, l, H, p = x.shape
+    n = B.shape[-1]
+    T = k5.TILE
+    plan = k5.launch_plan(b, l, H, p, n, L)
+    nan = float("nan")
+    cum = torch.full(plan.workspace["cum"], nan, dtype=torch.float64)
+    scores = torch.full(plan.workspace["scores"], nan, dtype=torch.float64)
+    states = torch.full(plan.workspace["states"], nan, dtype=torch.float64)
+    ct = torch.full(plan.workspace["ct"], nan, dtype=torch.float64)
+    for blk in k5.chunk_blocks(plan, b, H):
+        if blk[0] == "state":
+            _, bi, hh, c = blk
+            t = slice(c * L, c * L + L)
+            cs = torch.cumsum(dA[bi, t, hh], 0)
+            cum[bi, hh, t] = cs
+            xd = x[bi, t, hh] * torch.exp(cs[-1] - cs)[:, None]
+            states[bi, c, hh] = 0.0
+            states[bi, c, hh, :, :p] = B[bi, t].T @ xd
+        else:
+            _, bi, c, qt, kt = blk
+            q0, k0 = c * L + qt * T, c * L + kt * T
+            rq, rk = min(T, L - qt * T), min(T, L - kt * T)
+            g = torch.zeros((T, T), dtype=torch.float64)
+            g[:rq, :rk] = C[bi, q0:q0 + rq] @ B[bi, k0:k0 + rk].T
+            scores[bi, c, qt * (qt + 1) // 2 + kt] = g.T   # keys by queries
+            if qt == kt:
+                ct[bi, c, qt] = 0.0
+                ct[bi, c, qt, :, :rq] = C[bi, q0:q0 + rq].T
+    h_last = torch.full((b, H, p, n), nan, dtype=torch.float64)
+    for bi in range(b):
+        for hh in range(H):
+            h = torch.zeros((n, plan.pw), dtype=torch.float64)
+            if h0 is not None:
+                h[:, :p] = h0[bi, hh].T
+            for c in range(plan.nc):
+                s = states[bi, c, hh].clone()
+                states[bi, c, hh] = h
+                h = torch.exp(cum[bi, hh, c * L + L - 1]) * h + s
+            h_last[bi, hh] = h[:, :p].T
+    y = torch.full(x.shape, nan, dtype=torch.float64)
+    for bi, hh, c, qt in k5.output_blocks(plan, b, H):
+        i0 = c * L + qt * T
+        rq = min(T, L - qt * T)
+        cq = cum[bi, hh, i0:i0 + rq]
+        acc = torch.zeros((rq, p), dtype=torch.float64)
+        if c > 0 or h0 is not None:   # carried in, times e^{cum_i0}
+            acc += ct[bi, c, qt, :, :rq].T @ states[bi, c, hh, :, :p]
+            acc *= torch.exp(cq[0])
+        tri = qt * (qt + 1) // 2
+        for kt in range(qt + 1):
+            j0 = c * L + kt * T
+            rk = min(T, L - kt * T)
+            ck = cum[bi, hh, j0:j0 + rk]
+            G = scores[bi, c, tri + kt, :rk, :rq].T
+            xk = x[bi, j0:j0 + rk, hh]
+            if kt < qt:   # off the diagonal: the decay as column factors
+                acc += G @ (torch.exp(cq[0] - ck)[:, None] * xk)
+                continue
+            # and row factors, once; the diagonal decayed pair by pair
+            acc *= torch.exp(cq - cq[0])[:, None]
+            acc += torch.tril(G * torch.exp(cq[:, None] - ck[None, :])) @ xk
+        y[bi, i0:i0 + rq, hh] = acc
+    return y, h_last
+
+
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS[1:])
+def test_ssd_plan_computes_the_scan(b, l, H, p, n, L, h0):
+    """The plan's split of the work, run in float64, is the plain
+    version's scan: nothing is missed or taken twice (serve-shape blocks
+    are covered by the test above; its scan would take minutes here)."""
+    rng = np.random.default_rng(7)
+    dt = np.logaddexp(rng.standard_normal((b, l, H)), 0.0)
+    x = torch.from_numpy(rng.standard_normal((b, l, H, p)) * 0.3 * dt[
+        ..., None])
+    dA = torch.from_numpy(-dt)
+    Bm = torch.from_numpy(rng.standard_normal((b, l, n)) * 0.3)
+    Cm = torch.from_numpy(rng.standard_normal((b, l, n)) * 0.3)
+    h = torch.from_numpy(rng.standard_normal((b, H, p, n)) * 0.5) \
+        if h0 else None
+    y, hl = _emulate_ssd(x, dA, Bm, Cm, L, h)
+    wy, wh = ref.ssd_ref(x, dA, Bm, Cm, L, h)
+    torch.testing.assert_close(y, wy, atol=1e-10, rtol=1e-10)
+    torch.testing.assert_close(hl, wh, atol=1e-10, rtol=1e-10)
+
+
+def test_ssd_copies_in_16_byte_pieces_only_where_every_row_is_aligned():
+    """`aligned16`: the base address and every stride of an axis longer
+    than 1, in 16-byte units; the model's B and C, column slices of its
+    (b, l, d_in + 2n) projection at mamba2-370m's widths, are aligned."""
+    xBC = torch.empty((2, 8, 2048 + 2 * 128))
+    B, C = xBC[..., 2048:2176], xBC[..., 2176:]
+    assert k5.aligned16(B, (0, 1)) and k5.aligned16(C, (0, 1))
+    x = torch.empty((2, 8, 3, 10))               # p 10: rows 40 bytes
+    assert x.data_ptr() % 16 == 0 and not k5.aligned16(x, (0, 1, 2))
+    padded = torch.empty((2, 8, 3, 12))[..., :10]  # rows 48 bytes apart
+    assert k5.aligned16(padded, (0, 1, 2))
+    odd = torch.empty(2 * 8 * 12 + 1)[1:].view(2, 8, 12)   # one float in
+    assert not k5.aligned16(odd, (0, 1))
+    # a stride of an axis of extent 1 is never stepped
+    assert k5.aligned16(torch.empty((1, 8, 1, 10)), (0, 1, 2)) is False
+    assert k5.aligned16(torch.empty((1, 1, 1, 10)), (0, 1, 2))
+
+
+def test_ssd_kernel_flops_at_the_serve_shape():
+    """The kernels' work at mamba2-370m's serve shape: at most 3.1 GFLOP
+    (the parent design did 6.17), against the least work's 2.76."""
+    f = k5.kernel_flops(4, 512, 32, 64, 128, 256, False)
+    assert f["total"] == f["scores"] + f["states"] + f["intra"] + \
+        f["carried"]
+    assert 2.76e9 < f["total"] <= 3.1e9
+    # scores once per (b, chunk): 4 x 2 x 10 tile pairs of 64 x 64 x 128
+    assert f["scores"] == 4 * 2 * 10 * 64 * 64 * 128 * 2
+    # no carried-in product in the first chunk without h0
+    assert f["carried"] == 4 * 32 * 1 * 256 * 128 * 64 * 2

@@ -451,7 +451,9 @@ def test_kernel_wrapper_never_takes_the_plain_version():
         k5.ssd(x, dA, Bm, Cm, chunk=32, h0=torch.zeros((1, 2, 16, 4)))
     with pytest.raises(ValueError, match="match"):
         k5.ssd(x, dA[:, :32], Bm, Cm, chunk=32)
-    with pytest.raises(ValueError, match="shared memory"):
+    # a chunk of 16,384 steps at p 128 is taken (no block's shared memory
+    # grows with the chunk), so on the CPU only the device is refused
+    with pytest.raises(ValueError, match="CUDA"):
         k5.ssd(torch.zeros((1, 16384, 1, 128)), torch.zeros((1, 16384, 1)),
                torch.zeros((1, 16384, 128)), torch.zeros((1, 16384, 128)),
                chunk=16384)
@@ -464,9 +466,16 @@ def test_kernel_source_is_registered_for_nvcc():
     assert 'extern "C" int ssd_f32(' in src
     assert 'extern "C" const char* ssd_error_string(' in src
     assert "repro/kernels/ssd.py::ssd" in src
-    # the wrapper's shared-memory reckoning is the kernel's
-    assert k5.smem_bytes(64, 128, 256) == 4 * (64 * 132 + 2 * 64 * 132
-                                               + 64 * 64 + 64 * 68 + 256)
+    # the wrapper's shared-memory reckoning is the kernel's (csrc/ssd.cu
+    # Layout): pass 1's B and x tiles two deep and the scan's 4 warp
+    # totals and its last sum; pass 3's transposed score tiles (rows of
+    # 68) and x tiles two deep and 192 prefix sums; pass 2 has only
+    # static shared memory
+    assert "kStateFloats = 2 * kT * kN + 2 * kT * PW + kWarps + 1" in src
+    assert "kThreads = 128" in src
+    assert k5.smem_bytes(64) == {
+        "chunk": 4 * (2 * 64 * 128 + 2 * 64 * 64 + 5), "pass": 0,
+        "output": 4 * (2 * 64 * 68 + 2 * 64 * 64 + 192)}
 
 
 def test_serve_main_on_cpu(capsys):

@@ -10,8 +10,9 @@ warm up, then profiles its two phases, `serve.prefill` and
 per phase: the wall time (host clock, the card synchronised), the summed
 device-kernel time and the device's idle share, the kernel launches (per
 step in decode), the TOP kernels that take the most device time, and the
-port's kernels of the family (K4 ``flash_attention``, K5 ``ssd``, K6
-``rglru_scan``) with their shares of the phase's device time.
+port's kernels of the family (K4 ``flash_attention``, K5 ``ssd``'s three
+launches, K6 ``rglru_scan``), each by name, with their shares of the
+phase's device time.
 
     python3 tools/profile_serve.py [--arch mamba2-370m|recurrentgemma-9b]
 
@@ -75,9 +76,10 @@ def main(argv=None):
 
     cfg, model, params = chip_smoke.serve_model(torch, arch)
     # the device names of the family's kernels in csrc/: "<name>_kernel",
-    # or "<name>_f32_kernel" / "<name>_bf16_kernel" where a kernel has one
-    # body per type (K4)
-    port_kernels = [rf"\b{name}(_f32|_bf16)?_kernel\b" for name, n
+    # "<name>_f32_kernel" / "<name>_bf16_kernel" where a kernel has one
+    # body per type (K4), or "<name>_<pass>_kernel" where an op is several
+    # launches (K5: ssd_chunk_kernel, ssd_pass_kernel, ssd_output_kernel)
+    port_kernels = [rf"\b{name}(_[a-z0-9]+)?_kernel\b" for name, n
                     in chip_smoke.serve_kernels(cfg).items() if n]
     B, S, new = (chip_smoke.SERVE_RUN[k]
                  for k in ("batch", "prompt_len", "new_tokens"))
