@@ -55,7 +55,8 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    embedding, head and final norm (CROSS_LAYERS);
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function where there is one (none for K5
-   and K6), K3's and K5's launches also alone,
+   and K6), K3's launches also alone, K5's three kernels by
+   torch.profiler's records and its wrapper's host time,
    and its bound (after phase 4, so the card runs at its working
    clocks, not idle ones);
 6. one JSON line of per-kernel results, then the device line.
@@ -319,17 +320,14 @@ def time_ms(fn, torch, reps: int = 50, warmup: int = 10) -> float:
     finds W after local training has streamed activations through it),
     and a spin kernel holds the card while the host enqueues the events
     and ``fn``'s launches, so the interval holds device time only, not
-    the host's launch latency. The spin, 10^6 cycles (about 0.5 ms), is
-    long enough for a wrapper that checks its inputs, allocates and makes
-    three launches (K5); one of 2 x 10^5 cycles let K5's host time into
-    the interval."""
+    the host's launch latency."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -802,12 +800,49 @@ def k5_work(x, B, chunk, h0):
     return nbytes, flops
 
 
+def k5_pass_ms(fn, torch):
+    """Mean device time (ms) of each of K5's three kernels in ``fn()``,
+    from torch.profiler's kernel records matched by name, over 20 runs
+    made as `time_ms` makes them (cold L2, after a spin)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time_ms(fn, torch, reps=20, warmup=0)
+    out = {}
+    for ev in prof.key_averages():
+        m = re.search(r"\bssd_(chunk|pass|output)_kernel\b", ev.key)
+        if m and ev.device_type == DeviceType.CUDA:
+            out[m.group(1)] = ev.self_device_time_total / ev.count / 1e3
+    if sorted(out) != ["chunk", "output", "pass"]:
+        fail(f"K5: the profiler recorded the kernels {sorted(out)}, not "
+             f"ssd_chunk_kernel, ssd_pass_kernel and ssd_output_kernel")
+    return out
+
+
+def host_ms(fn, torch, reps: int = 20) -> float:
+    """Median host time (ms) of one ``fn()``: its checks, allocations and
+    launches, with the card held by a spin (about 25 ms) so that no call
+    waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def time_k5(torch, inputs, errs, rates):
     """K5 (its three launches, as the main path pays them) and its plain
     version timed at the serve shape and with eight chunks, beside the
-    bound, each launch alone too (on the workspaces of one prepared
-    call); the flops the kernels do (`ssd.kernel_flops`) beside the least
-    work (`k5_work`, which sets the bound). No single PyTorch call
+    bound; each kernel's device time from the profiler, and the wrapper's
+    host time a call. The flops the kernels are modelled to do
+    (`ssd.kernel_flops`, not counted on the card) are printed beside the
+    least work (`k5_work`, which sets the bound). No single PyTorch call
     computes a chunked SSD scan, so no library time. Returns the rows."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as k5
@@ -816,12 +851,12 @@ def time_k5(torch, inputs, errs, rates):
     for (name, chunk, x, dlogA, B, C, h0), err in zip(inputs, errs):
         if name not in K5_TIMED:
             continue
-        ms = time_ms(lambda: k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0),
-                     torch)
-        call = k5.prepare(x, dlogA, B, C, chunk, h0)
-        k5.launch(call)
-        pass_ms = {p: time_ms(lambda: k5.launch(call, bit), torch)
-                   for p, bit in k5.PASSES.items()}
+
+        def op():
+            return k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
+        ms = time_ms(op, torch)
+        pass_ms = k5_pass_ms(op, torch)
+        wrapper_ms = host_ms(op, torch)
         plain_ms = time_ms(lambda: ref.ssd_ref(x, dlogA, B, C, chunk, h0),
                            torch)
         nbytes, flops = k5_work(x, B, chunk, h0)
@@ -832,18 +867,17 @@ def time_k5(torch, inputs, errs, rates):
         rows.append(dict(case=name, b=b, l=l, H=H, p=p, n=n,
                          chunk=chunk, dtype="float32", max_abs_err=err,
                          atol=K5_TOL["atol"], rtol=K5_TOL["rtol"], ms=ms,
-                         pass_ms=pass_ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=bound_ms,
-                         bound_by=bound_by, bytes=nbytes, flops=flops,
-                         kernel_flops=done, tflops=flops / ms / 1e9,
-                         kernel_tflops=done["total"] / ms / 1e9))
+                         pass_ms=pass_ms, host_ms=wrapper_ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         flops=flops, tflops=flops / ms / 1e9))
         print(f"  K5 {name:<10} ({b}, {l}, {H}, {p}, {n}, chunk "
-              f"{chunk}) err {err:.3g} kernel {ms:.4f} ms (chunk "
+              f"{chunk}) err {err:.3g} kernel {ms:.4f} ms (profiled: chunk "
               f"{pass_ms['chunk']:.4f} + pass {pass_ms['pass']:.4f} + "
-              f"output {pass_ms['output']:.4f} alone; "
-              f"{flops / ms / 1e9:.2f} TFLOP/s of the least "
-              f"{flops / 1e9:.3f} GFLOP, {done['total'] / ms / 1e9:.2f} of "
-              f"the {done['total'] / 1e9:.3f} done: " + ", ".join(
+              f"output {pass_ms['output']:.4f}; wrapper host "
+              f"{wrapper_ms:.4f} ms a call; {flops / ms / 1e9:.2f} TFLOP/s "
+              f"of the least {flops / 1e9:.3f} GFLOP; modelled, not "
+              f"counted: {done['total'] / 1e9:.3f} GFLOP done, " + ", ".join(
                   f"{k} {v / 1e9:.3f}" for k, v in done.items()
                   if k != "total") + f")  plain {plain_ms:.4f} ms  "
               f"library none  bound {bound_ms:.4f} ms ({bound_by})")

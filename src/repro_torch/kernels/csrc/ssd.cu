@@ -63,13 +63,17 @@
 //     masked in place, and there each warp stops at its own last row
 //     (16-row steps, so 40 of the 64 key rows on average).
 // At p <= 64 two blocks of pass 1 and three of pass 3 share an SM
-// (98,324 and 68,352 bytes of shared memory each).
+// (98,324 and 68,352 bytes of shared memory each). The wrapper owns the
+// grids and each launch's shared memory (ssd.py::launch_plan,
+// smem_bytes); the kernels own the decode of blockIdx and the carve-up
+// of their shared memory.
 // Tiles arrive by cp.async in 16-byte pieces, two stages deep, so the
 // next tile's copy runs under this tile's FMAs; inputs off 16-byte
 // alignment (a base address or a row stride) take 4-byte pieces instead
 // (the wrapper's `vec` flag), with no copy on the host. Sums run in a
 // fixed order with no atomics, so a repeated call gives the same bits.
-// At the serve shape the kernels do 2.84 GFLOP (ssd.py::kernel_flops):
+// At the serve shape the kernels do 2.84 GFLOP, as modelled by
+// ssd.py::kernel_flops (not counted on the card):
 // 0.08 scores over whole tiles, 1.07 states, 1.14 scores times x and
 // 0.54 carried-in state (one block per (b, head) walking its chunks in
 // order did 6.17). What still bounds them, besides the FMAs: the tiles
@@ -112,24 +116,6 @@ struct Args {
   int64_t ab, al, ah;  // of dlogA
   int64_t bb, bl;      // of B (the n axis is 1)
   int64_t cb, cl;      // of C
-};
-
-// ---- shared-memory layouts, in floats (ssd.py::launch_plan mirrors
-// them). PW is p padded to 64 or 128.
-template <int PW>
-struct Layout {
-  // ssd_chunk_kernel, state blocks: B and x tiles two stages deep, the
-  // scan's warp totals
-  static constexpr int kStateFloats = 2 * kT * kN + 2 * kT * PW + kWarps + 1;
-  // scores blocks: C and B tiles, padded rows
-  static constexpr int kScoreFloats = 2 * kT * kCP;
-  static constexpr int kChunkFloats =
-      kStateFloats > kScoreFloats ? kStateFloats : kScoreFloats;
-  // ssd_output_kernel: S^T and X tiles two stages deep (transposed
-  // scores and x rows, or C^T and h^T rows), the query and key prefix
-  // sums
-  static constexpr int kOutputFloats =
-      2 * kT * kGP + 2 * kT * PW + kT + 2 * kT;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -690,67 +676,56 @@ __global__ void __launch_bounds__(kThreads, PW <= 64 ? 3 : 2)
   }
 }
 
-// opt both large kernels in to their dynamic shared memory and to the
-// largest shared-memory carveout, so that the blocks their launch bounds
-// count on fit an SM; the attributes belong to a function on a device, so
-// this is done once per device
+// opt both large kernels in to the device's largest dynamic shared
+// memory and shared-memory carveout, so that the blocks their launch
+// bounds count on fit an SM (the wrapper sizes each launch:
+// ssd.py::smem_bytes); the attributes belong to a function on a device,
+// so this is done once per device
 template <int PW>
 cudaError_t configure(int device) {
   constexpr int kDevices = 64;
   static bool done[kDevices] = {};
   if (device >= 0 && device < kDevices && done[device]) return cudaSuccess;
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
   const void* kernels[2] = {reinterpret_cast<const void*>(
                                 &ssd_chunk_kernel<PW>),
                             reinterpret_cast<const void*>(
                                 &ssd_output_kernel<PW>)};
-  const int bytes[2] = {Layout<PW>::kChunkFloats * 4,
-                        Layout<PW>::kOutputFloats * 4};
-  for (int i = 0; i < 2; ++i) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernels[i], cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
+  for (const void* k : kernels) {
+    err = cudaFuncSetAttribute(k,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(kernels[i],
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes[i]);
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
     if (err != cudaSuccess) return err;
   }
   if (device >= 0 && device < kDevices) done[device] = true;
   return cudaSuccess;
 }
 
+// the three launches on one stream, with the wrapper's grids and dynamic
+// shared memory (ssd.py::launch_plan)
 template <int PW>
-cudaError_t launch(const Args& a, int passes, int device,
+cudaError_t launch(const Args& a, const int* grid, int device,
                    cudaStream_t stream) {
-  const int64_t chunk_bytes = Layout<PW>::kChunkFloats * 4LL;
-  const int64_t out_bytes = Layout<PW>::kOutputFloats * 4LL;
-  const int64_t bh = static_cast<int64_t>(a.b) * a.H;
   cudaError_t err = configure<PW>(device);
   if (err != cudaSuccess) return err;
-  if (passes & 1) {
-    const int64_t blocks = bh * a.nc + static_cast<int64_t>(a.b) * a.nc *
-                                           a.ntri;
-    ssd_chunk_kernel<PW><<<static_cast<unsigned>(blocks), kThreads,
-                           static_cast<size_t>(chunk_bytes), stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (passes & 2) {
-    const int per_head = (a.n * PW + kPassThreads * kPassVals - 1) /
-                         (kPassThreads * kPassVals);
-    ssd_pass_kernel<PW><<<dim3(static_cast<unsigned>(bh),
-                               static_cast<unsigned>(per_head)),
-                          kPassThreads, 0, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (passes & 4) {
-    const int64_t blocks = bh * a.nc * a.nt;
-    ssd_output_kernel<PW><<<static_cast<unsigned>(blocks), kThreads,
-                            static_cast<size_t>(out_bytes), stream>>>(a);
-    err = cudaGetLastError();
-  }
-  return err;
+  ssd_chunk_kernel<PW><<<static_cast<unsigned>(grid[0]), kThreads,
+                         static_cast<size_t>(grid[1]), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_pass_kernel<PW><<<dim3(static_cast<unsigned>(grid[2]),
+                             static_cast<unsigned>(grid[3])),
+                        kPassThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_output_kernel<PW><<<static_cast<unsigned>(grid[4]), kThreads,
+                          static_cast<size_t>(grid[5]), stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -766,8 +741,10 @@ cudaError_t launch(const Args& a, int passes, int device,
 // p <= 64, else 128. l is a multiple of the chunk length
 // L; p <= 128; n a multiple of 4 up to 128. vec: x, B and C have 16-byte
 // aligned base addresses and row strides (else 0: 4-byte copies).
-// passes: a mask of the launches to make, 1 chunk states and scores,
-// 2 state passing, 4 outputs (7: the scan). The launches go on `stream`.
+// grid: the launches as ssd.py::launch_plan gives them, ssd_chunk_kernel's
+// blocks and dynamic shared memory in bytes, ssd_pass_kernel's grid (x,
+// y), ssd_output_kernel's blocks and shared memory. The three launches go
+// on `stream`.
 // Returns the first cudaGetLastError() that is not cudaSuccess
 // (cudaErrorInvalidValue for shapes out of range).
 extern "C" int ssd_f32(const void* x, const void* dlogA, const void* B,
@@ -775,14 +752,14 @@ extern "C" int ssd_f32(const void* x, const void* dlogA, const void* B,
                        void* cum, void* scores, void* ct, void* states,
                        int b, int l,
                        int H, int p, int n, int L, int vec,
-                       const long long* strides, int passes, int device,
-                       void* stream) {
+                       const long long* strides, const int* grid,
+                       int device, void* stream) {
   // this library carries its own (static) CUDA runtime, whose current
   // device is set here to the one the tensors live on
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (L < 1 || l % L != 0 || p < 1 || p > 128 || n < 4 || n > kN ||
-      n % 4 != 0)
+      n % 4 != 0 || grid[0] < 1 || grid[2] < 1 || grid[3] < 1 || grid[4] < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = static_cast<const float*>(x);
@@ -817,8 +794,8 @@ extern "C" int ssd_f32(const void* x, const void* dlogA, const void* B,
   a.cb = strides[8];
   a.cl = strides[9];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p <= 64) return static_cast<int>(launch<64>(a, passes, device, s));
-  return static_cast<int>(launch<128>(a, passes, device, s));
+  if (p <= 64) return static_cast<int>(launch<64>(a, grid, device, s));
+  return static_cast<int>(launch<128>(a, grid, device, s));
 }
 
 extern "C" const char* ssd_error_string(int code) {

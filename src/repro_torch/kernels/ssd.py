@@ -7,8 +7,9 @@ head, an optional h0 (b, h, p, n); returns y (b, l, h, p) and h_last
 ssd``; the kernels, their bound and their design are described in
 ``csrc/ssd.cu``.
 
-One op is three launches on the current stream, the chunks in parallel
-(`launch_plan` gives their grids and shared memory):
+One op is three launches on the current stream, the chunks in parallel,
+with the grids and shared memory of `launch_plan` (the kernels launch
+with these values and decode their blocks from them):
 
 1. ``ssd_chunk_kernel``: per (b, head, chunk) the prefix sums of dlogA
    and the chunk's own state contribution; per (b, chunk, causal pair of
@@ -40,7 +41,7 @@ import torch
 from . import _build
 
 _ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 MAX_HEAD_DIM = 128   # p
 MAX_STATE = 128      # n, a multiple of 4
 #: shared memory a block may opt in to on Hopper (227 KB)
@@ -51,8 +52,6 @@ THREADS = 128        # a block of ssd_chunk_kernel or ssd_output_kernel
 PASS_THREADS = 256   # a block of ssd_pass_kernel
 TILE = 64            # rows of a query or key tile
 PASS_VALUES = 8      # state values a thread of ssd_pass_kernel carries
-#: the launches of one op, in order, as bits of `launch`'s mask
-PASSES = {"chunk": 1, "pass": 2, "output": 4}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +59,8 @@ class Plan:
     """The launches of one op (``csrc/ssd.cu``): p padded to ``pw`` (64 or
     128), ``nc`` chunks of ``nt`` 64-row tiles, ``ntri`` causal tile pairs
     a chunk; per kernel its grid and its dynamic shared memory in bytes;
-    the workspace shapes (float32)."""
+    the workspace shapes (float32); ``launch``, the six launch values
+    ``ssd_f32`` takes."""
     pw: int
     nc: int
     nt: int
@@ -68,23 +68,25 @@ class Plan:
     grids: dict
     smem: dict
     workspace: dict
+    launch: tuple
 
 
 def smem_bytes(p: int) -> dict:
-    """Dynamic shared memory of a block of each kernel
-    (``csrc/ssd.cu::Layout``), which depends on p's padding alone:
-    ``chunk``, the larger of a state block (B and x tiles two stages deep,
-    the scan's warp totals) and a scores block (C
-    and B tiles, rows padded to n + 4 floats); ``pass``, none (its
-    8 KB transpose tile is static); ``output``, transposed score tiles
-    (rows padded to 68 floats) and x tiles two stages deep, the query and
-    key prefix sums."""
+    """Dynamic shared memory, in bytes, that a block of ``ssd_chunk_kernel``
+    and of ``ssd_output_kernel`` is launched with: what the kernels carve
+    out of it (``csrc/ssd.cu``), which depends on p's padding alone.
+    ``chunk``: the larger of a state block's (``chunk_state``: B and x
+    tiles two stages deep, the scan's warp totals and its last sum) and a
+    scores block's (``chunk_scores``: C and B tiles, rows padded to n + 4
+    floats); ``output``: transposed score tiles (rows padded to 68 floats)
+    and x tiles two stages deep, the query and key prefix sums.
+    ``ssd_pass_kernel`` has only its static 8 KB transpose tile."""
     pw = 64 if p <= 64 else 128
     n, warps = MAX_STATE, THREADS // 32
     state = 2 * TILE * n + 2 * TILE * pw + warps + 1
     scores = 2 * TILE * (n + 4)
     output = 2 * TILE * (TILE + 4) + 2 * TILE * pw + 3 * TILE
-    return {"chunk": 4 * max(state, scores), "pass": 0, "output": 4 * output}
+    return {"chunk": 4 * max(state, scores), "output": 4 * output}
 
 
 def launch_plan(b: int, l: int, H: int, p: int, n: int, L: int) -> Plan:
@@ -93,8 +95,7 @@ def launch_plan(b: int, l: int, H: int, p: int, n: int, L: int) -> Plan:
     workspaces (``cum`` (b, H, l); ``scores`` (b, nc, ntri, 64, 64), each
     tile key rows by query columns; ``ct``, C transposed by query tile,
     (b, nc, nt, n, 64); ``states`` (b, nc, H, n, pw)). Raises
-    ``ValueError`` where a grid would exceed CUDA's extent or a block's
-    shared memory ``MAX_SMEM``."""
+    ``ValueError`` where a grid would exceed CUDA's extent."""
     pw = 64 if p <= 64 else 128
     nc = l // L
     nt = -(-L // TILE)
@@ -107,58 +108,24 @@ def launch_plan(b: int, l: int, H: int, p: int, n: int, L: int) -> Plan:
             raise ValueError(f"ssd: the {name} kernel's grid of {gx} blocks "
                              f"is more than CUDA takes ({MAX_GRID_X})")
     smem = smem_bytes(p)
-    if max(smem.values()) > MAX_SMEM:
-        raise ValueError(f"ssd: a block needs {smem} bytes of shared memory, "
-                         f"over {MAX_SMEM}")
     return Plan(pw=pw, nc=nc, nt=nt, ntri=ntri, grids=grids, smem=smem,
                 workspace={"cum": (b, H, l),
                            "scores": (b, nc, ntri, TILE, TILE),
                            "ct": (b, nc, nt, n, TILE),
-                           "states": (b, nc, H, n, pw)})
-
-
-def chunk_blocks(plan: Plan, b: int, H: int):
-    """What each block of ``ssd_chunk_kernel`` takes, in block order, as
-    the kernel decodes ``blockIdx.x``: ``("state", b, head, chunk)`` for
-    the first b H nc blocks, then ``("scores", b, chunk, qt, kt)``."""
-    out = []
-    for blk in range(plan.grids["chunk"][0]):
-        if blk < b * H * plan.nc:
-            i = blk % (b * H)
-            out.append(("state", i // H, i % H, blk // (b * H)))
-            continue
-        j = blk - b * H * plan.nc
-        tile, bc = j % plan.ntri, j // plan.ntri
-        qt = 0
-        while (qt + 1) * (qt + 2) // 2 <= tile:
-            qt += 1
-        out.append(("scores", bc // plan.nc, bc % plan.nc, qt,
-                    tile - qt * (qt + 1) // 2))
-    return out
-
-
-def output_blocks(plan: Plan, b: int, H: int):
-    """(b, head, chunk, query tile) of each block of ``ssd_output_kernel``,
-    in block order, as the kernel decodes ``blockIdx.x``: the last query
-    tile (the most key tiles) first."""
-    per_tile = b * H * plan.nc
-    out = []
-    for blk in range(plan.grids["output"][0]):
-        rest = blk % per_tile
-        bh = rest % (b * H)
-        out.append((bh // H, bh % H, rest // (b * H),
-                    plan.nt - 1 - blk // per_tile))
-    return out
+                           "states": (b, nc, H, n, pw)},
+                launch=(grids["chunk"][0], smem["chunk"], *grids["pass"],
+                        grids["output"][0], smem["output"]))
 
 
 def kernel_flops(b: int, l: int, H: int, p: int, n: int, L: int,
                  with_h0: bool) -> dict:
-    """Flops the kernels do (2 per fmaf), by part, as ``csrc/ssd.cu`` does
-    them at p's padding: the scores over whole 64 x 64 tiles of every
-    causal pair; the states over whole key tiles; the scores times x over
-    whole key tiles off the diagonal and, on it, each warp's keys up to
-    its last row (16-row steps); C hᵀ where a state enters a chunk (every
-    chunk but the first, or every chunk with h0)."""
+    """Flops the kernels are modelled to do (2 per fmaf; not counted on
+    the card), by part, as ``csrc/ssd.cu`` does them at p's padding: the
+    scores over whole 64 x 64 tiles of every causal pair; the states over
+    whole key tiles; the scores times x over whole key tiles off the
+    diagonal and, on it, each warp's keys up to its last row (16-row
+    steps); C hᵀ where a state enters a chunk (every chunk but the first,
+    or every chunk with h0)."""
     plan = launch_plan(b, l, H, p, n, L)
     pw, nc, nt = plan.pw, plan.nc, plan.nt
     # (row, key) pairs of a diagonal tile: each warp's 16 rows run to the
@@ -192,20 +159,19 @@ def check_no_grad(*tensors: Optional[torch.Tensor]):
             "call it under torch.no_grad() or torch.inference_mode()")
 
 
-@dataclasses.dataclass
-class Call:
-    """One op's arguments, outputs and workspaces, ready to launch."""
-    args: tuple
-    y: torch.Tensor
-    h_last: torch.Tensor
-    keep: tuple   # tensors the pointers in args point into
-
-
-def prepare(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
-            C: torch.Tensor, chunk: int = 256,
-            h0: Optional[torch.Tensor] = None) -> Call:
-    """Check the inputs as `ssd` takes them, allocate its outputs and
-    workspaces, and return the launch arguments (`launch`)."""
+def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int = 256,
+        h0: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, l, h, p); dlogA: (b, l, h); B, C: (b, l, n); h0: (b, h, p, n)
+    or None. All float32 on one CUDA device; the last axis of x, B and C
+    contiguous (other strides are read as they are, at any alignment).
+    p <= 128; n a multiple of 4 up to 128; l a multiple of L = min(chunk,
+    l). Returns (y (b, l, h, p), h_last (b, h, p, n)), float32. bf16 is
+    refused: the model casts the scan's inputs to float32
+    (``csrc/ssd.cu``). The workspaces hold about b l (H + (L + 64) / 2 +
+    n + H n pw / L) floats: 11 MB at mamba2-370m's serve shape. Adds one
+    to ``ssd.launches`` per op (three kernel launches)."""
     check_no_grad(x, dlogA, B, C, h0)
     tensors = (x, dlogA, B, C) + (() if h0 is None else (h0,))
     if any(t.dtype != torch.float32 for t in tensors):
@@ -246,6 +212,8 @@ def prepare(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     dev = x.device
     y = torch.empty((b, l, H, p), dtype=x.dtype, device=dev)
     h_last = torch.empty((b, H, p, n), dtype=x.dtype, device=dev)
+    if y.numel() == 0:   # b or H is 0: no block to launch
+        return y, h_last
     # one allocation for the four workspaces, each at a 16-byte boundary
     sizes = [math.prod(plan.workspace[k])
              for k in ("cum", "scores", "ct", "states")]
@@ -259,44 +227,16 @@ def prepare(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
         x.stride(0), x.stride(1), x.stride(2),
         dlogA.stride(0), dlogA.stride(1), dlogA.stride(2),
         B.stride(0), B.stride(1), C.stride(0), C.stride(1))
-    args = (x.data_ptr(), dlogA.data_ptr(), B.data_ptr(), C.data_ptr(),
-            None if h0c is None else h0c.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), *(work.data_ptr() + 4 * i for i in starts),
-            b, l, H, p, n, L, vec, ctypes.addressof(strides))
-    return Call(args=args, y=y, h_last=h_last,
-                keep=(x, dlogA, B, C, h0c, work, strides))
-
-
-def launch(call: Call, passes: int = 7):
-    """Launch the kernels of ``passes`` (a mask of `PASSES`' bits; 7: the
-    whole op) on the current stream. Adds one to ``ssd.launches`` where
-    the output pass, the op's last launch, is among them."""
-    if call.y.numel() == 0:   # b or H is 0: no block to launch
-        return
-    dev = call.y.device
     lib_fn = _build.entry("ssd", "ssd_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check("ssd", lib_fn(*call.args, passes, dev.index, stream))
-    if passes & PASSES["output"]:
-        ssd.launches += 1
-
-
-def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
-        C: torch.Tensor, chunk: int = 256,
-        h0: Optional[torch.Tensor] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, l, h, p); dlogA: (b, l, h); B, C: (b, l, n); h0: (b, h, p, n)
-    or None. All float32 on one CUDA device; the last axis of x, B and C
-    contiguous (other strides are read as they are, at any alignment).
-    p <= 128; n a multiple of 4 up to 128; l a multiple of L = min(chunk,
-    l). Returns (y (b, l, h, p), h_last (b, h, p, n)), float32. bf16 is
-    refused: the model casts the scan's inputs to float32
-    (``csrc/ssd.cu``). The workspaces hold about b l (H + (L + 64) / 2 +
-    n + H n pw / L) floats: 11 MB at mamba2-370m's serve shape. Adds one
-    to ``ssd.launches`` per op (three kernel launches)."""
-    call = prepare(x, dlogA, B, C, chunk, h0)
-    launch(call)
-    return call.y, call.h_last
+    _build.check("ssd", lib_fn(
+        x.data_ptr(), dlogA.data_ptr(), B.data_ptr(), C.data_ptr(),
+        None if h0c is None else h0c.data_ptr(), y.data_ptr(),
+        h_last.data_ptr(), *(work.data_ptr() + 4 * i for i in starts),
+        b, l, H, p, n, L, vec, strides, (ctypes.c_int * 6)(*plan.launch),
+        dev.index, stream))
+    ssd.launches += 1
+    return y, h_last
 
 
 #: ops since the last reset, one per three-launch op (a plain int;

@@ -233,6 +233,41 @@ K5_PLANS = [(4, 512, 32, 64, 128, 256, False),
             (1, 130, 2, 10, 12, 65, True)]
 
 
+def _chunk_blocks(plan, b, H):
+    """What each block of ``ssd_chunk_kernel`` takes, in block order, as
+    the kernel decodes ``blockIdx.x`` (``csrc/ssd.cu``): ``("state", b,
+    head, chunk)`` for the first b H nc blocks, then ``("scores", b,
+    chunk, qt, kt)``."""
+    out = []
+    for blk in range(plan.grids["chunk"][0]):
+        if blk < b * H * plan.nc:
+            i = blk % (b * H)
+            out.append(("state", i // H, i % H, blk // (b * H)))
+            continue
+        j = blk - b * H * plan.nc
+        tile, bc = j % plan.ntri, j // plan.ntri
+        qt = 0
+        while (qt + 1) * (qt + 2) // 2 <= tile:
+            qt += 1
+        out.append(("scores", bc // plan.nc, bc % plan.nc, qt,
+                    tile - qt * (qt + 1) // 2))
+    return out
+
+
+def _output_blocks(plan, b, H):
+    """(b, head, chunk, query tile) of each block of ``ssd_output_kernel``,
+    in block order, as the kernel decodes ``blockIdx.x``: the last query
+    tile (the most key tiles) first."""
+    per_tile = b * H * plan.nc
+    out = []
+    for blk in range(plan.grids["output"][0]):
+        rest = blk % per_tile
+        bh = rest % (b * H)
+        out.append((bh // H, bh % H, rest // (b * H),
+                    plan.nt - 1 - blk // per_tile))
+    return out
+
+
 @pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS)
 def test_ssd_plan_covers_every_block_once(b, l, H, p, n, L, h0):
     """Pass 1 takes every (b, head, chunk) once and every causal pair of
@@ -241,7 +276,11 @@ def test_ssd_plan_covers_every_block_once(b, l, H, p, n, L, h0):
     plan = k5.launch_plan(b, l, H, p, n, L)
     nc, nt = l // L, -(-L // k5.TILE)
     assert (plan.nc, plan.nt, plan.ntri) == (nc, nt, nt * (nt + 1) // 2)
-    blocks = k5.chunk_blocks(plan, b, H)
+    # the values the kernels launch with (ssd_f32's grid)
+    assert plan.launch == (plan.grids["chunk"][0], plan.smem["chunk"],
+                           *plan.grids["pass"], plan.grids["output"][0],
+                           plan.smem["output"])
+    blocks = _chunk_blocks(plan, b, H)
     assert len(blocks) == plan.grids["chunk"][0]
     states = [blk[1:] for blk in blocks if blk[0] == "state"]
     scores = [blk[1:] for blk in blocks if blk[0] == "scores"]
@@ -250,7 +289,7 @@ def test_ssd_plan_covers_every_block_once(b, l, H, p, n, L, h0):
     assert sorted(scores) == [(bi, c, qt, kt) for bi in range(b)
                               for c in range(nc) for qt in range(nt)
                               for kt in range(qt + 1)]
-    out = k5.output_blocks(plan, b, H)
+    out = _output_blocks(plan, b, H)
     assert len(out) == plan.grids["output"][0]
     assert sorted(out) == [(bi, hh, c, qt) for bi in range(b)
                            for hh in range(H) for c in range(nc)
@@ -316,7 +355,7 @@ def _emulate_ssd(x, dA, B, C, L, h0):
     scores = torch.full(plan.workspace["scores"], nan, dtype=torch.float64)
     states = torch.full(plan.workspace["states"], nan, dtype=torch.float64)
     ct = torch.full(plan.workspace["ct"], nan, dtype=torch.float64)
-    for blk in k5.chunk_blocks(plan, b, H):
+    for blk in _chunk_blocks(plan, b, H):
         if blk[0] == "state":
             _, bi, hh, c = blk
             t = slice(c * L, c * L + L)
@@ -347,7 +386,7 @@ def _emulate_ssd(x, dA, B, C, L, h0):
                 h = torch.exp(cum[bi, hh, c * L + L - 1]) * h + s
             h_last[bi, hh] = h[:, :p].T
     y = torch.full(x.shape, nan, dtype=torch.float64)
-    for bi, hh, c, qt in k5.output_blocks(plan, b, H):
+    for bi, hh, c, qt in _output_blocks(plan, b, H):
         i0 = c * L + qt * T
         rq = min(T, L - qt * T)
         cq = cum[bi, hh, i0:i0 + rq]
@@ -421,3 +460,29 @@ def test_ssd_kernel_flops_at_the_serve_shape():
     assert f["scores"] == 4 * 2 * 10 * 64 * 64 * 128 * 2
     # no carried-in product in the first chunk without h0
     assert f["carried"] == 4 * 32 * 1 * 256 * 128 * 64 * 2
+
+
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS)
+def test_ssd_kernel_flops_count_the_launched_blocks(b, l, H, p, n, L, h0):
+    """`ssd.kernel_flops`' closed form is the sum, over the blocks the
+    plan launches, of what each block's loops run: a state block every
+    key tile at n padded to 128, a score block one 64 x 64 tile at n,
+    an output block C hᵀ where a state enters its chunk, its whole key
+    tiles off the diagonal, and on it each warp's 16 rows up to the
+    warp's last row."""
+    plan = k5.launch_plan(b, l, H, p, n, L)
+    T, pw = k5.TILE, plan.pw
+    want = dict(scores=0, states=0, intra=0, carried=0)
+    for blk in _chunk_blocks(plan, b, H):
+        if blk[0] == "state":
+            want["states"] += 2 * plan.nt * T * pw * k5.MAX_STATE
+        else:
+            want["scores"] += 2 * T * T * n
+    for _, _, c, qt in _output_blocks(plan, b, H):
+        if c > 0 or h0:
+            want["carried"] += 2 * T * n * pw
+        want["intra"] += 2 * qt * T * T * pw
+        want["intra"] += 2 * sum(16 * min(T, 16 * (w + 1)) * pw
+                                 for w in range(k5.THREADS // 32))
+    want["total"] = sum(want.values())
+    assert k5.kernel_flops(b, l, H, p, n, L, h0) == want

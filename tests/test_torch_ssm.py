@@ -466,16 +466,29 @@ def test_kernel_source_is_registered_for_nvcc():
     assert 'extern "C" int ssd_f32(' in src
     assert 'extern "C" const char* ssd_error_string(' in src
     assert "repro/kernels/ssd.py::ssd" in src
-    # the wrapper's shared-memory reckoning is the kernel's (csrc/ssd.cu
-    # Layout): pass 1's B and x tiles two deep and the scan's 4 warp
-    # totals and its last sum; pass 3's transposed score tiles (rows of
-    # 68) and x tiles two deep and 192 prefix sums; pass 2 has only
-    # static shared memory
-    assert "kStateFloats = 2 * kT * kN + 2 * kT * PW + kWarps + 1" in src
-    assert "kThreads = 128" in src
+    # the shared memory the wrapper launches each kernel with
+    # (smem_bytes) covers what the kernel carves out of it: pass 1's state
+    # blocks, B and x tiles two deep, the scan's 4 warp totals and its last
+    # sum; its score blocks, C and B tiles of 64 rows of n + 4; pass 3's
+    # transposed score tiles (rows of 68), x tiles two deep and 192 prefix
+    # sums; pass 2 has only static shared memory
+    for carve in ("float* x_s = b_s + 2 * kT * kN;",
+                  "float* warp_s = x_s + 2 * kT * PW;  // [kWarps + 1]",
+                  "float* b_s = c_s + kT * kCP;  // [kT][kCP]",
+                  "float* x_s = g_s + 2 * kT * kGP;",
+                  "float* cq_s = x_s + 2 * kT * PW;",
+                  "float* ck_s = cq_s + kT;                       // [2][kT]",
+                  "kThreads = 128", "kN = 128", "kGP = kT + 4"):
+        assert carve in src
     assert k5.smem_bytes(64) == {
-        "chunk": 4 * (2 * 64 * 128 + 2 * 64 * 64 + 5), "pass": 0,
+        "chunk": 4 * (2 * 64 * 128 + 2 * 64 * 64 + 5),
         "output": 4 * (2 * 64 * 68 + 2 * 64 * 64 + 192)}
+    assert k5.smem_bytes(128) == {
+        "chunk": 4 * (2 * 64 * 128 + 2 * 64 * 128 + 5),
+        "output": 4 * (2 * 64 * 68 + 2 * 64 * 128 + 192)}
+    # and the kernels launch with it, not with sizes of their own
+    assert "static_cast<size_t>(grid[1])" in src and \
+        "static_cast<size_t>(grid[5])" in src
 
 
 def test_serve_main_on_cpu(capsys):
