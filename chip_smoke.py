@@ -32,12 +32,18 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    ragged S and W, one step with h0, fewer channels than one block);
 4. the port's main paths: Algorithm 1 through
    `repro_torch.core.dpfl.run_dpfl` on PaperCNN at its published width
-   (32 clients, 3 rounds) in four configurations (dense graphs without
-   a codec; ``graph_repr="sparse"``; dense with the top-k codec; sparse
-   with top-k), each with the kernel launch counts zeroed just before
-   and read just after, the run's invariants (Omega equal to the dense
-   run's) and a learning check; then the same entry point on a small
-   input on the card and on the CPU (dense, sparse, top-k, int8), which
+   (32 clients, 3 rounds) in eight configurations (`VARIANTS`: dense
+   graphs without a codec; ``graph_repr="sparse"``; dense with the top-k
+   codec; sparse with top-k; then partial participation, adversaries and
+   the robust mix rules: markov outages; free riders under bernoulli
+   outages, clipped, sparse; sign flippers under cluster outages,
+   clipped, top-k; label flippers, trimmed), each with the kernel launch
+   counts zeroed just before and read just after, the run's invariants
+   (Omega equal to the dense run's, realized downloads, absent clients'
+   graphs held, the malicious head-count) and a learning check; then
+   the same entry point on a small input on the card and on the CPU
+   (dense, sparse, top-k, int8, and dense and sparse under participation
+   with sign flippers clipped and with label flippers trimmed), which
    must select the same graphs; then the serving path:
    `repro_torch.launch.serve.generate` on qwen3-0.6b at its full
    published config (28 layers, float32, random weights from a seed),
@@ -88,20 +94,53 @@ SMOKE_RUN = dict(rounds=3, tau_init=2, tau_train=1, budget=4, seed=0)
 SMOKE_LR, SMOKE_BATCH = 0.01, 16
 PAPER_CNN_PARAMS = 62006
 TOPK_FRAC = 0.1
-# The main-path runs: graph representation and codec of each (the
-# variants of tools/jax_reference_smoke.py).
-VARIANTS = {"dense": ("dense", None), "sparse": ("sparse", None),
-            "topk": ("dense", "topk"), "sparse-topk": ("sparse", "topk")}
+# The main-path runs, as DPFLConfig settings over SMOKE_RUN (``codec``: a
+# CompressionConfig of that codec at TOPK_FRAC; ``participation`` and
+# ``adversary``: the keyword arguments of ParticipationConfig and
+# AdversaryConfig). tools/jax_reference_smoke.py builds `repro`'s configs
+# from the same table. The last four run partial participation,
+# adversaries and the robust mix rules: markov outages on dense graphs
+# (K1 on the restricted matrix); free riders (noise 1.0) under bernoulli
+# outages, clipped, on lists (K2 with the wire table as W_peers); sign
+# flippers under cluster outages, clipped, with top-k (K3 on the clipped
+# matrix, the error-feedback hold); label flippers, trimmed (K1 only in
+# BGGC and the greedy: the trimmed mix is plain torch, as in `repro`).
+VARIANTS = {
+    "dense": {}, "sparse": dict(graph_repr="sparse"),
+    "topk": dict(codec="topk"),
+    "sparse-topk": dict(graph_repr="sparse", codec="topk"),
+    "dense-markov": dict(participation=dict(
+        rate=0.7, model="markov", mean_burst=3.0, seed=0)),
+    "sparse-freerider-clipped": dict(
+        graph_repr="sparse",
+        participation=dict(rate=0.8, model="bernoulli", seed=1),
+        adversary=dict(attack="free_rider", fraction=0.25, noise_scale=1.0,
+                       seed=0),
+        mix_rule="clipped", clip_mult=1.0),
+    "topk-signflip-clipped": dict(
+        codec="topk", participation=dict(rate=0.75, model="cluster", seed=2),
+        adversary=dict(attack="sign_flip", fraction=0.25, seed=0),
+        mix_rule="clipped", clip_mult=1.0),
+    "dense-labelflip-trimmed": dict(
+        adversary=dict(attack="label_flip", fraction=0.25, seed=0),
+        mix_rule="trimmed", trim_frac=0.2)}
 # Learning check: the JAX reference on each configuration, on the CPU,
 # reaches a mean best-validation test accuracy of LEARN_REF
 # (`PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_reference_smoke.py`,
 # jax 0.9.0 on x86-64; its mean validation accuracy per round was 0.628,
 # 0.760, 0.870 dense, 0.628, 0.760, 0.871 sparse, and 0.475, 0.512, 0.536
 # with top-k in either representation: three rounds of top-k at 10 %
-# learn slower). Chance is 1/10. The port must reach the reference's
-# figure less a margin of 0.1, for graph decisions that fp noise may flip.
+# learn slower; 0.561, 0.647, 0.757 dense-markov, 0.465, 0.585, 0.633
+# sparse-freerider-clipped, 0.395, 0.482, 0.493 topk-signflip-clipped
+# and 0.551, 0.620, 0.729 dense-labelflip-trimmed). Chance is 1/10. The
+# port must reach the reference's figure less a margin of 0.1, for graph
+# decisions that fp noise may flip.
 LEARN_REF = {"dense": 0.8583984375, "sparse": 0.8583984375,
-             "topk": 0.54345703125, "sparse-topk": 0.54345703125}
+             "topk": 0.54345703125, "sparse-topk": 0.54345703125,
+             "dense-markov": 0.74267578125,
+             "sparse-freerider-clipped": 0.64404296875,
+             "topk-signflip-clipped": 0.55810546875,
+             "dense-labelflip-trimmed": 0.744140625}
 LEARN_MARGIN = 0.1
 
 # K1 shapes: (M, N, P, dtype, W a row-offset view) — the Eq.-4 mix, one
@@ -1101,12 +1140,19 @@ def _read_launches():
 
 def smoke_config(variant, **run):
     from repro_torch.core.dpfl import DPFLConfig
+    from repro_torch.data import ParticipationConfig
+    from repro_torch.fl.adversary import AdversaryConfig
     from repro_torch.fl.compress import CompressionConfig
 
-    repr_, codec = VARIANTS[variant]
-    comp = (CompressionConfig(codec, topk_frac=TOPK_FRAC) if codec
-            else None)
-    return DPFLConfig(**run, graph_repr=repr_, compression=comp)
+    spec = dict(VARIANTS[variant])
+    codec = spec.pop("codec", None)
+    if codec:
+        spec["compression"] = CompressionConfig(codec, topk_frac=TOPK_FRAC)
+    if "participation" in spec:
+        spec["participation"] = ParticipationConfig(**spec["participation"])
+    if "adversary" in spec:
+        spec["adversary"] = AdversaryConfig(**spec["adversary"])
+    return DPFLConfig(**run, **spec)
 
 
 def make_engine():
@@ -1127,40 +1173,52 @@ def make_engine():
 def run_main_path(torch, engine, variant):
     """Algorithm 1 at full PaperCNN width on the card in one variant;
     returns the result, the config, the launch counts of every kernel
-    (zeroed just before the run, read just after) and the wall time."""
+    (zeroed just before the run, read just after), the wall time and the
+    run's peak of allocated device memory in bytes."""
     from repro_torch.core.dpfl import run_dpfl
 
     cfg = smoke_config(variant, **SMOKE_RUN)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
     res = run_dpfl(engine, cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return res, cfg, _read_launches(), seconds
+    return res, cfg, _read_launches(), seconds, \
+        torch.cuda.max_memory_allocated()
 
 
 def expected_launches(variant, N, B, rounds):
     """Launches of each kernel in one refresh-every-round run: BGGC phase 1
-    is ceil(N/B) K1 launches and each round's greedy init one more; the
-    preprocessing mix and each round's mix are K1 (dense), K2 (sparse,
-    with or without a codec) or, for the rounds of dense top-k, K3."""
-    repr_, codec = VARIANTS[variant]
-    sparse, topk = repr_ == "sparse", codec == "topk"
+    is ceil(N/B) K1 launches and each round's greedy init one more
+    (participation and attacks change no launch); the preprocessing mix
+    and each round's mix are K1 (dense), K2 (sparse, with or without a
+    codec) or, for the rounds of dense top-k, K3. The trimmed rule mixes
+    its rounds in plain torch (an order statistic, no kernel), the
+    clipped rule through the same kernels as the weighted one."""
+    spec = VARIANTS[variant]
+    sparse = spec.get("graph_repr") == "sparse"
+    topk = spec.get("codec") == "topk"
+    round_mixes = 0 if spec.get("mix_rule") == "trimmed" else rounds
     k1 = math.ceil(N / B) + rounds
     if not sparse:
-        k1 += 1 + (0 if topk else rounds)
+        k1 += 1 + (0 if topk else round_mixes)
     return {"graph_mix": k1,
-            "sparse_graph_mix": 1 + rounds if sparse else 0,
-            "compressed_graph_mix": rounds if topk and not sparse else 0,
+            "sparse_graph_mix": 1 + round_mixes if sparse else 0,
+            "compressed_graph_mix": round_mixes if topk and not sparse else 0,
             "flash_attention": 0, "ssd": 0, "rglru_scan": 0}
 
 
 def check_main_path(res, engine, cfg, variant, launches, omega_dense):
     """The invariants of a refresh_period=1 run; returns the mean test
-    accuracy."""
+    accuracy. Preprocessing sees every client and no attack, so every
+    run's Omega is the dense run's. Each round downloads Omega among the
+    clients available that round; a client absent in round t keeps its
+    C_k of round t - 1 (Omega's in round 0)."""
     import numpy as np
 
+    from repro_torch.fl.adversary import n_malicious
     from repro_torch.fl.compress import bytes_per_model
 
     N = SMOKE_DATA["n_clients"]
@@ -1180,13 +1238,26 @@ def check_main_path(res, engine, cfg, variant, launches, omega_dense):
     omega = res.omega.astype(bool)
     if omega_dense is not None and not np.array_equal(omega, omega_dense):
         fail(f"{variant}: Omega differs from the dense run's")
+    part = res.participation
+    if (part is None) != (cfg.participation is None) or (
+            part is not None and part.shape != (cfg.rounds, N)):
+        fail(f"{variant}: no (rounds, N) participation schedule")
+    if cfg.adversary is not None and (
+            res.malicious is None
+            or int(res.malicious.sum()) != n_malicious(cfg.adversary, N)):
+        fail(f"{variant}: the malicious set is not "
+             f"{n_malicious(cfg.adversary, N)} of {N} clients")
+    off_omega = omega & ~np.eye(N, dtype=bool)
     for t, d in enumerate(res.comm_downloads):
-        if d != int(omega.sum()) - N:   # every round refreshes
-            fail(f"{variant} round {t}: {d} downloads, Omega has "
-                 f"{omega.sum() - N}")
+        act = np.ones(N, bool) if part is None else part[t]
+        want = int((off_omega & act[:, None] & act[None, :]).sum())
+        if d != want:   # every round refreshes: Omega among the available
+            fail(f"{variant} round {t}: {d} downloads, the realized count "
+                 f"over Omega is {want}")
     if len(res.graph_history) != cfg.rounds:
         fail(f"{variant}: {len(res.graph_history)} graphs for "
              f"{cfg.rounds} rounds")
+    prev = omega
     for t, g in enumerate(res.graph_history):
         g = np.asarray(g, bool)
         off = g & ~np.eye(N, dtype=bool)
@@ -1197,6 +1268,10 @@ def check_main_path(res, engine, cfg, variant, launches, omega_dense):
                  f"peers")
         if np.any(g & ~omega):
             fail(f"{variant} round {t}: graph leaves Omega")
+        if part is not None and not np.array_equal(g[~part[t]],
+                                                   prev[~part[t]]):
+            fail(f"{variant} round {t}: an absent client's C_k changed")
+        prev = g
     if res.best_flat.shape != (N, P) or not np.isfinite(res.best_flat).all():
         fail(f"{variant}: best_flat is not a finite (N, P) table")
     accs = np.concatenate([res.test_acc] + list(res.val_acc_history))
@@ -1212,13 +1287,18 @@ def check_main_path(res, engine, cfg, variant, launches, omega_dense):
 
 def check_small_input(torch):
     """The same entry point on a small input (MLP, 6 clients), on the card
-    and on the CPU, without a codec (dense and sparse) and with top-k and
-    int8: graphs and counters equal, models within fp noise. Returns the
+    and on the CPU, without a codec (dense and sparse), with top-k and
+    int8, and, dense and sparse, under participation with sign flippers
+    and the clipped rule and with label flippers and the trimmed rule
+    (free riding stays out: its noise is not bitwise across devices):
+    graphs and counters equal, models within fp noise. Returns the
     best_flat max abs difference per run."""
     import numpy as np
 
     from repro_torch.core.dpfl import DPFLConfig, run_dpfl
-    from repro_torch.data import make_federated_classification
+    from repro_torch.data import (ParticipationConfig,
+                                  make_federated_classification)
+    from repro_torch.fl.adversary import AdversaryConfig
     from repro_torch.fl.compress import CompressionConfig
     from repro_torch.fl.engine import FLEngine
     from repro_torch.models.classifier import MLP
@@ -1233,6 +1313,18 @@ def check_small_input(torch):
         "sparse": DPFLConfig(**run, graph_repr="sparse"),
         "topk": DPFLConfig(**run, compression=CompressionConfig("topk")),
         "int8": DPFLConfig(**run, compression=CompressionConfig("int8"))}
+    robust = {
+        "signflip-clipped": dict(
+            participation=ParticipationConfig(rate=0.7, seed=3),
+            adversary=AdversaryConfig("sign_flip", fraction=0.34, seed=1),
+            mix_rule="clipped"),
+        "labelflip-trimmed": dict(
+            adversary=AdversaryConfig("label_flip", fraction=0.34, seed=1),
+            mix_rule="trimmed")}
+    for name, kw in robust.items():
+        configs[f"dense {name}"] = DPFLConfig(**run, **kw)
+        configs[f"sparse {name}"] = DPFLConfig(**run, **kw,
+                                               graph_repr="sparse")
     engines = {dev: FLEngine(MLP(8, 16, 10), data, lr=0.05, batch_size=8,
                              device=dev) for dev in ("cuda", "cpu")}
     errs = {}
@@ -1240,6 +1332,8 @@ def check_small_input(torch):
         gpu, cpu = (run_dpfl(engines[d], cfg) for d in ("cuda", "cpu"))
         if gpu.comm_downloads != cpu.comm_downloads or \
                 gpu.comm_bytes != cpu.comm_bytes or \
+                not all(np.array_equal(getattr(gpu, f), getattr(cpu, f))
+                        for f in ("participation", "malicious")) or \
                 not np.array_equal(gpu.omega, cpu.omega) or \
                 not all(np.array_equal(a, b) for a, b in
                         zip(gpu.graph_history, cpu.graph_history)):
@@ -1486,20 +1580,36 @@ def main():
         print(f"  K6 {case[0]}: max abs err {err:.3g}")
 
     # ---- 4. the main paths
+    import numpy as np
+
+    from repro_torch.fl.adversary import segregation_history
+
     engine = make_engine()
     launches = {}
     omega_dense = None
     for variant in VARIANTS:
-        res, cfg, counts, seconds = run_main_path(torch, engine, variant)
+        res, cfg, counts, seconds, peak = run_main_path(torch, engine,
+                                                        variant)
         mean_acc = check_main_path(res, engine, cfg, variant, counts,
                                    omega_dense)
         if omega_dense is None:
             omega_dense = res.omega.astype(bool)
         launches[variant] = counts
+        if res.malicious is not None:
+            seg = segregation_history(res.graph_history, res.malicious)
+            print(f"run_dpfl {variant}: malicious clients "
+                  f"{np.flatnonzero(res.malicious).tolist()}; edge rates "
+                  f"per round (benign to malicious, benign to benign) " +
+                  ", ".join(f"({c:.4f}, {w:.4f})" for c, w in zip(
+                      seg["benign_to_malicious"], seg["benign_to_benign"])))
+        if res.participation is not None:
+            print(f"run_dpfl {variant}: available clients per round "
+                  f"{res.participation.sum(axis=1).tolist()}")
         print(f"run_dpfl {variant}: PaperCNN P={engine.n_params} N="
               f"{SMOKE_DATA['n_clients']} rounds={cfg.rounds}: "
               f"{seconds:.3f} s wall incl. preprocessing "
-              f"({cfg.rounds / seconds:.4f} rounds/s), launches {counts}, "
+              f"({cfg.rounds / seconds:.4f} rounds/s), peak device memory "
+              f"{peak} bytes, launches {counts}, "
               f"comm_downloads {res.comm_downloads}, comm_bytes "
               f"{res.comm_bytes}, mean test acc {mean_acc:.4f} (JAX "
               f"reference {LEARN_REF[variant]}), mean val acc per round "
@@ -1552,7 +1662,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
-    # ---- 6. results: launches summed over the main-path runs (the four
+    # ---- 6. results: launches summed over the main-path runs (the eight
     # DPFL runs and the three serve runs), with each run's counts beside
     # them
     def total(kname):

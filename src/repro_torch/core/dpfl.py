@@ -1,7 +1,8 @@
 """DPFL — Algorithm 1 (Decentralized Personalized Federated Learning),
-port of `repro.core.dpfl` with full participation, no adversary and
-``mix_rule="weighted"``: dense (N, N) or sparse (N, B) neighbor-list
-graphs, the Fig.-3 random graph, and the codecs of `fl.compress`.
+port of `repro.core.dpfl` on one device: dense (N, N) or sparse (N, B)
+neighbor-list graphs, the Fig.-3 random graph, the codecs of
+`fl.compress`, partial participation, adversarial clients and the
+robust mix rules of `fl.robust`.
 
 Preprocess: same-init local models, tau_init local epochs, BGGC (or the
 random graph) builds the budgeted candidate graph Omega, one Eq.-4 mix
@@ -16,6 +17,17 @@ decoded peers, the off-diagonal Eq.-4 terms mix the decoded payloads
 stays exact, and the error-feedback residuals ride in ``aux["ef"]``.
 Preprocessing exchanges raw fp32 models and is charged 4P per download.
 
+With ``participation``, a seeded (rounds, N) availability schedule rides
+in ``aux["part"]``: absent clients hold their params, keep their C_k and
+their residuals, the Eq.-4 weights are restricted to available peers and
+the counters count realized downloads only. With ``adversary``, a seeded
+(rounds, N) attack schedule rides in ``aux["adv"]``: label flipping
+through the local-train hook, model poisoning through the post-train
+hook, and free riders' uploads through the wire table that peers see
+(probes, codec input and off-diagonal mix) while every self term reads
+the exact local row. ``mix_rule`` picks the weighted (Eq. 4), trimmed
+or clipped aggregation. Preprocessing sees every client and no attack.
+
 `run_dpfl` runs the rounds on the device-resident round engine
 (`repro_torch.fl.round_engine`): comm counters and histories stay on the
 device and leave it once, at the end (or every ``history_every``
@@ -26,20 +38,26 @@ on the same init they make the same random choices.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import prng
 from ..analysis.registry import exchange_site
+from ..data.availability import ParticipationConfig, schedule_for_data
+from ..fl import adversary as _adversary
 from ..fl import compress as _compress
+from ..fl import robust as _robust
+from ..fl.adversary import AdversaryConfig
 from ..fl.engine import FLEngine
+from ..fl.robust import MIX_RULES
 from ..fl.round_engine import init_round_state, make_round_step, run_rounds
 from .graph import (all_clients_bggc, all_clients_bggc_sparse,
                     all_clients_graph, all_clients_graph_sparse,
-                    count_neighbor_downloads, mix_flat, mix_flat_sparse,
-                    mixing_matrix, sparse_mixing_weights)
+                    count_neighbor_downloads, eq4_weights_unnormalized,
+                    mix_flat, mix_flat_sparse, mixing_matrix,
+                    sparse_eq4_unnormalized, sparse_mixing_weights)
 
 
 @dataclass
@@ -59,16 +77,16 @@ class DPFLConfig:
     graph_repr: str = "dense"         # dense | sparse: (N, B) int32
     #                                   neighbor lists in place of (N, N)
     #                                   masks; needs graph_impl="ggc"
-    compression: Optional[Any] = None  # fl.compress.CompressionConfig;
-    #                                    None and "identity" run the same
-    #                                    code
-    # settings of `repro.core.dpfl.DPFLConfig` the port does not run yet;
-    # anything but the default raises NotImplementedError (`_check_ported`)
-    participation: Optional[Any] = None
-    adversary: Optional[Any] = None
-    mix_rule: str = "weighted"
-    trim_frac: float = 0.2
-    clip_mult: float = 1.0
+    compression: Optional[_compress.CompressionConfig] = None
+    # the peer-exchange codec; None and "identity" run the same code
+    participation: Optional[ParticipationConfig] = None
+    # partial participation; None = every client in every round (a
+    # rate=1.0 schedule gives the same bits)
+    adversary: Optional[AdversaryConfig] = None
+    # adversarial clients; None (and fraction=0.0) = no attack, bit for bit
+    mix_rule: str = "weighted"        # weighted (Eq. 4) | trimmed | clipped
+    trim_frac: float = 0.2            # trimmed: fraction cut from each tail
+    clip_mult: float = 1.0            # clipped: tau = clip_mult x own update
 
 
 @dataclass
@@ -92,19 +110,28 @@ class DPFLResult:
     # models and is charged 4P each
     comm_bytes: list = field(default_factory=list)      # per-round totals
     comm_bytes_preprocess: int = 0
+    participation: Optional[np.ndarray] = None  # (rounds, N) realized
+    #                                             schedule, if enabled
+    malicious: Optional[np.ndarray] = None      # (N,) bool malicious set,
+    #                                             if an adversary ran
 
 
-_NOT_PORTED = (
-    ("participation", None, "Queue 1 item 8"),
-    ("adversary", None, "Queue 1 item 10"),
-    ("mix_rule", "weighted", "Queue 1 item 10"),
-)
+# (DPFLConfig field, its default, the ROADMAP item that ports it) for each
+# setting the port does not run yet: anything but the default raises
+# NotImplementedError naming the item. Every setting is ported.
+_NOT_PORTED: tuple = ()
+
+# the config classes of the fields that take one: the port's own
+_CONFIG_TYPES = (("compression", _compress.CompressionConfig),
+                 ("participation", ParticipationConfig),
+                 ("adversary", AdversaryConfig))
 
 
 def _check_ported(cfg: DPFLConfig):
     """Raise NotImplementedError for a setting the port does not run yet,
-    naming the ROADMAP item that ports it; ValueError for a combination
-    `repro` refuses too."""
+    naming the ROADMAP item that ports it; TypeError for a config object
+    not of the port's class; ValueError for a setting `repro` refuses
+    too."""
     for name, default, item in _NOT_PORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(
@@ -114,12 +141,27 @@ def _check_ported(cfg: DPFLConfig):
         raise NotImplementedError(
             f"DPFLConfig.graph_impl={cfg.graph_impl!r}: the port has "
             f"'ggc' and 'naive'")
-    if cfg.compression is not None and \
-            not isinstance(cfg.compression, _compress.CompressionConfig):
-        raise TypeError(f"DPFLConfig.compression must be a "
-                        f"repro_torch.fl.compress.CompressionConfig or "
-                        f"None, got {cfg.compression!r}")
+    for name, cls in _CONFIG_TYPES:
+        value = getattr(cfg, name)
+        if value is not None and not isinstance(value, cls):
+            raise TypeError(f"DPFLConfig.{name} must be a "
+                            f"{cls.__module__}.{cls.__name__} or None, "
+                            f"got {value!r}")
+    _mix_rule(cfg)
     _sparse(cfg)
+
+
+def _mix_rule(cfg: DPFLConfig) -> str:
+    """The validated Eq.-4 aggregation rule."""
+    if cfg.mix_rule not in MIX_RULES:
+        raise ValueError(f"mix_rule must be one of {MIX_RULES}, "
+                         f"got {cfg.mix_rule!r}")
+    if cfg.mix_rule == "trimmed" and not 0.0 <= cfg.trim_frac < 0.5:
+        raise ValueError(f"trim_frac must be in [0, 0.5), "
+                         f"got {cfg.trim_frac}")
+    if cfg.mix_rule == "clipped" and cfg.clip_mult <= 0.0:
+        raise ValueError(f"clip_mult must be > 0, got {cfg.clip_mult}")
+    return cfg.mix_rule
 
 
 def _sparse(cfg: DPFLConfig) -> bool:
@@ -252,61 +294,152 @@ def _omega_np(omega: torch.Tensor, N: int, sparse: bool) -> np.ndarray:
     return _nbr_to_adj_np(om, N) if sparse else om
 
 
-def _exchange(comp, flat, aux, t):
+def _round_aux(engine: FLEngine, cfg: DPFLConfig, flat, result):
+    """The round-loop state both loops share: the codec's key and
+    residuals, the availability schedule (``part``) and the attack
+    schedule with its key (``adv``). Fills ``result.participation`` and
+    ``result.malicious``."""
+    dev = engine.device
+    N = engine.data.n_clients
+    aux = {}
+    comp = _compress.normalize(cfg.compression)
+    if comp is not None:
+        aux["k_comp"] = _comp_base_key(cfg.seed, dev)
+        if _compress.uses_ef(comp):
+            aux["ef"] = torch.zeros_like(flat)
+    if cfg.participation is not None:
+        sched = schedule_for_data(cfg.participation, cfg.rounds, engine.data)
+        aux["part"] = torch.from_numpy(sched).to(dev)
+        result.participation = sched
+    if cfg.adversary is not None:
+        aux["adv"] = {
+            "sched": torch.from_numpy(_adversary.attack_schedule(
+                cfg.adversary, cfg.rounds, N)).to(dev),
+            "key": _adversary.adv_base_key(cfg.adversary.seed, dev)}
+        result.malicious = _adversary.malicious_mask(cfg.adversary, N)
+    return aux
+
+
+def _wire(cfg: DPFLConfig, flat, aux, t):
+    """The peer-visible upload table of round t: ``flat`` with the active
+    free riders' stale, noisy uploads in their rows."""
+    if not _adversary.free_rider_active(cfg.adversary):
+        return flat
+    return _adversary.wire_view(cfg.adversary, flat, aux["adv"]["sched"][t],
+                                aux["adv"]["key"], t)
+
+
+def _exchange(comp, wire, aux, t, active):
     """The transmit side of round t under codec ``comp`` (None: no codec):
-    ``(probe_w, payload, dec, new_ef)``, the model table the GGC refresh
-    probes, the wire payload, the decoded table and the new residuals."""
+    ``(recv, payload, new_ef)``, the table peers receive (what the GGC
+    refresh probes and the off-diagonal mix reads: the decoded payloads,
+    or the wire table itself), the wire payload and the new residuals
+    (an absent client transmits nothing, so its residual holds)."""
     if comp is None:
-        return flat, None, None, None
+        return wire, None, None
     payload, dec, new_ef = _compress.compress_exchange(
-        comp, flat, aux.get("ef"), prng.fold_in(aux["k_comp"], t))
-    return dec, payload, dec, new_ef
+        comp, wire, aux.get("ef"), prng.fold_in(aux["k_comp"], t))
+    if new_ef is not None and active is not None:
+        new_ef = torch.where(active[:, None], new_ef, aux["ef"])
+    return dec, payload, new_ef
 
 
-def _mix_dense(comp, adj, p, flat, payload, dec):
-    A = mixing_matrix(adj, p)
-    if comp is None:
+def _realized_downloads(adj, active):
+    """Downloads of one round over (N, N) graph ``adj``: an available
+    client downloads its available peers (never itself). Without a mask,
+    ``sum(adj) - N``, the same integer as an all-ones mask gives."""
+    N = adj.shape[0]
+    if active is None:
+        return adj.sum() - N
+    off = adj & ~torch.eye(N, dtype=torch.bool, device=adj.device)
+    return (off & active[:, None] & active[None, :]).sum()
+
+
+def _make_mix(cfg: DPFLConfig, p, sparse: bool):
+    """The Eq.-4 mix of one round under ``cfg``'s codec, rule and
+    adversary: ``mix(g, flat, recv, payload, prev, active)`` with ``g``
+    the round's (N, N) graph or (N, B) lists, ``recv`` the table peers
+    receive and ``prev`` the round-start panel (the clipped rule's
+    reference point). The self term always reads ``flat``."""
+    comp = _compress.normalize(cfg.compression)
+    fr = _adversary.free_rider_active(cfg.adversary)
+    rule = _mix_rule(cfg)
+
+    def mix_dense(adj, flat, recv, payload, prev, active):
+        if rule == "trimmed":
+            w = eq4_weights_unnormalized(adj, p, active=active)
+            return _robust.trimmed_mix_dense(w, flat, recv, cfg.trim_frac)
+        A = mixing_matrix(adj, p, active=active)
+        if rule == "clipped":
+            A = _robust.clipped_matrix(
+                A, _robust.clip_factors(recv, flat, prev, cfg.clip_mult))
+        if comp is not None:
+            return _compress.mix_compressed(comp, A, flat, payload, recv)
+        if fr:
+            # peers mix the wire table, the self term the exact local row
+            eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+            return mix_flat(A * (1.0 - eye), recv) \
+                + torch.diagonal(A)[:, None] * flat
         return mix_flat(A, flat)
-    return _compress.mix_compressed(comp, A, flat, payload, dec)
 
+    def mix_sparse(nbr, flat, recv, payload, prev, active):
+        if rule == "trimmed":
+            p_un, w_un = sparse_eq4_unnormalized(nbr, p, active=active)
+            return _robust.trimmed_mix_sparse(p_un, w_un, nbr, flat, recv,
+                                              cfg.trim_frac)
+        self_w, nbr_w = sparse_mixing_weights(nbr, p, active=active)
+        if rule == "clipped":
+            safe = nbr.clamp(0, flat.shape[0] - 1).long()
+            gamma = _robust.clip_factors_sparse(recv[safe], flat, prev,
+                                                cfg.clip_mult)
+            self_w, nbr_w = _robust.clipped_sparse_weights(self_w, nbr_w,
+                                                           gamma)
+        if comp is not None:
+            return _compress.sparse_mix_compressed(comp, self_w, nbr_w, nbr,
+                                                   flat, payload, recv)
+        return mix_flat_sparse(self_w, nbr_w, nbr, flat, peers=recv)
 
-def _mix_sparse(comp, nbr, p, flat, payload, dec):
-    self_w, nbr_w = sparse_mixing_weights(nbr, p)
-    if comp is None:
-        return mix_flat_sparse(self_w, nbr_w, nbr, flat)
-    return _compress.sparse_mix_compressed(comp, self_w, nbr_w, nbr, flat,
-                                           payload, dec)
+    return mix_sparse if sparse else mix_dense
 
 
 def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
                          budget: int, hist_len: int):
     """The communication step of one DPFL round, dense (N, N) graphs:
-    the codec exchange, the GGC refresh inside Omega every
-    ``cfg.refresh_period`` rounds (Alg. 1 line 9; never for the random
-    graph), the Eq.-4 mix and the comm-download counter. Omega, the
-    current graph, the keys, the residuals and the counters are read from
-    ``aux``; the counters and the graph history are written in place."""
+    the codec exchange of the wire table, the GGC refresh inside Omega
+    every ``cfg.refresh_period`` rounds (Alg. 1 line 9; never for the
+    random graph) among the available candidates, the Eq.-4 mix under
+    ``cfg.mix_rule`` and the comm-download counter. Omega, the current
+    graph, the keys, the schedules, the residuals and the counters are
+    read from ``aux``; the counters and the graph history are written in
+    place."""
     p = engine.p
     comp = _compress.normalize(cfg.compression)
+    part = cfg.participation is not None
+    mix = _make_mix(cfg, p, sparse=False)
 
     # bare @exchange_site: this aggregate charges its own downloads, the
     # aux["comm"] counter below
     @exchange_site
-    def aggregate(flat, aux, t):
+    def aggregate(flat, aux, t, prev):
         adj, omega = aux["adj"], aux["omega"]
-        N = adj.shape[0]
-        probe_w, payload, dec, new_ef = _exchange(comp, flat, aux, t)
+        active = aux["part"][t] if part else None
+        recv, payload, new_ef = _exchange(comp, _wire(cfg, flat, aux, t),
+                                          aux, t, active)
         refresh = not cfg.random_graph and t % cfg.refresh_period == 0
         # line 9 needs all of Omega_k; aggregation-only rounds download
-        # the currently selected C_k (the random graph: Omega itself)
-        comm_t = (omega if refresh else adj).sum() - N
+        # the currently selected C_k (the random graph: Omega itself);
+        # only available downloader/peer pairs move models
+        comm_t = _realized_downloads(omega if refresh else adj, active)
+        new_adj = adj
         if refresh:
+            cand = omega if active is None else omega & active[None, :]
             new_adj = all_clients_graph(
-                prng.fold_in(aux["k_graph"], 1000 + t), probe_w, p, omega,
+                prng.fold_in(aux["k_graph"], 1000 + t), recv, p, cand,
                 reward_fn, budget, impl=cfg.graph_impl)
-        else:
-            new_adj = adj
-        mixed = _mix_dense(comp, new_adj, p, flat, payload, dec)
+            if active is not None:
+                # absent clients keep their previous C_k
+                new_adj = torch.where(active[:, None], new_adj, adj)
+        mixed = mix(new_adj, flat, recv, payload, prev, active)
         aux["comm"][t] = comm_t
         if hist_len:
             aux["graph_hist"][t % hist_len] = new_adj
@@ -324,28 +457,34 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
     rides in aux as (N, B) int32 lists (``aux["nbr"]`` the current C_k,
     ``aux["omega_nbr"]`` Omega), the GGC refresh probes only the <= B
     candidates of each client, the Eq.-4 mix gathers the selected peer
-    rows (`mix_flat_sparse`, `compress.sparse_mix_compressed`; never a
-    dense (N, N) operator), and the counter sums the realized list
-    lengths (`count_neighbor_downloads`), the same integers as the dense
-    accounting."""
+    rows (`mix_flat_sparse`, `compress.sparse_mix_compressed`,
+    `robust.trimmed_mix_sparse`; never a dense (N, N) operator), and the
+    counter sums the realized list slots (`count_neighbor_downloads`),
+    the same integers as the dense accounting."""
     p = engine.p
     comp = _compress.normalize(cfg.compression)
+    part = cfg.participation is not None
+    mix = _make_mix(cfg, p, sparse=True)
 
     # bare @exchange_site: this aggregate charges its own downloads, the
     # aux["comm"] counter below
     @exchange_site
-    def aggregate(flat, aux, t):
+    def aggregate(flat, aux, t, prev):
         nbr, omega = aux["nbr"], aux["omega_nbr"]
-        probe_w, payload, dec, new_ef = _exchange(comp, flat, aux, t)
+        active = aux["part"][t] if part else None
+        recv, payload, new_ef = _exchange(comp, _wire(cfg, flat, aux, t),
+                                          aux, t, active)
         refresh = not cfg.random_graph and t % cfg.refresh_period == 0
-        comm_t = count_neighbor_downloads(omega if refresh else nbr)
+        comm_t = count_neighbor_downloads(omega if refresh else nbr, active)
+        new_nbr = nbr
         if refresh:
             new_nbr = all_clients_graph_sparse(
-                prng.fold_in(aux["k_graph"], 1000 + t), probe_w, p, omega,
-                reward_fn, budget)
-        else:
-            new_nbr = nbr
-        mixed = _mix_sparse(comp, new_nbr, p, flat, payload, dec)
+                prng.fold_in(aux["k_graph"], 1000 + t), recv, p, omega,
+                reward_fn, budget, active=active)
+            if active is not None:
+                # absent clients keep their previous C_k lists
+                new_nbr = torch.where(active[:, None], new_nbr, nbr)
+        mixed = mix(new_nbr, flat, recv, payload, prev, active)
         aux["comm"][t] = comm_t
         if hist_len:
             aux["graph_hist"][t % hist_len] = new_nbr
@@ -372,7 +511,7 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     reward_fn = engine.make_reward_fn()
     dev = engine.device
     sparse = _sparse(cfg)
-    comp = _compress.normalize(cfg.compression)
+    adv = cfg.adversary
 
     # ---- preprocess (Alg. 1 lines 1-5)
     omega, flat, k_graph, k_train = _preprocess(engine, cfg, reward_fn,
@@ -382,9 +521,10 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
 
     # ---- training loop (Alg. 1 lines 6-12)
     hist_len = _hist_len(cfg)
-    aux = {"k_graph": k_graph,
-           "comm": torch.zeros((cfg.rounds,), dtype=torch.int64,
-                               device=dev)}
+    aux = _round_aux(engine, cfg, flat, result)
+    aux.update(k_graph=k_graph,
+               comm=torch.zeros((cfg.rounds,), dtype=torch.int64,
+                                device=dev))
     if sparse:
         aux.update(nbr=omega, omega_nbr=omega)
         if hist_len:
@@ -396,14 +536,15 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
         if hist_len:
             aux["graph_hist"] = torch.zeros((hist_len, N, N),
                                             dtype=torch.bool, device=dev)
-    if comp is not None:
-        aux["k_comp"] = _comp_base_key(cfg.seed, dev)
-        if _compress.uses_ef(comp):
-            aux["ef"] = torch.zeros_like(flat)
     make_agg = _make_dpfl_aggregate_sparse if sparse else _make_dpfl_aggregate
     round_step = make_round_step(
         engine, tau=cfg.tau_train,
         aggregate=make_agg(engine, cfg, reward_fn, budget, hist_len),
+        local_train=(_adversary.make_adv_local_train(engine, adv)
+                     if adv is not None else None),
+        post_train=(_adversary.make_post_train(adv)
+                    if adv is not None else None),
+        participation_key="part" if "part" in aux else None,
         hist_len=hist_len)
     state = init_round_state(flat, k_train, hist_len=hist_len, aux=aux)
 
@@ -432,7 +573,8 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
 
 def run_dpfl_reference(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     """The host-driven round loop (per-round host-side comm accounting and
-    history copies). The equivalence oracle of `run_dpfl`."""
+    history copies), step by step as `repro.core.dpfl.run_dpfl_reference`.
+    The equivalence oracle of `run_dpfl`."""
     _check_ported(cfg)
     N = engine.data.n_clients
     budget = _budget(cfg, N)
@@ -440,6 +582,7 @@ def run_dpfl_reference(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     p = engine.p
     sparse = _sparse(cfg)
     comp = _compress.normalize(cfg.compression)
+    adv = cfg.adversary
 
     omega, flat, k_graph, k_train = _preprocess(engine, cfg, reward_fn,
                                                 budget)
@@ -449,36 +592,60 @@ def run_dpfl_reference(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     best_flat = flat.clone()
     result = DPFLResult(test_acc=None, omega=_omega_np(omega, N, sparse))
     result.comm_preprocess = _comm_preprocess(cfg, N, budget)
-    aux = {}
-    if comp is not None:
-        aux["k_comp"] = _comp_base_key(cfg.seed, engine.device)
-        if _compress.uses_ef(comp):
-            aux["ef"] = torch.zeros_like(flat)
+    aux = _round_aux(engine, cfg, flat, result)
+    mix = _make_mix(cfg, p, sparse)
+    flip_y = None
+    if adv is not None and adv.attack == "label_flip":
+        train_y = engine.train_data[1]
+        flip_y = torch.as_tensor(_adversary.label_permutation(
+            adv, engine.data.n_classes), device=engine.device)[train_y]
     adj = omega
     for t in range(cfg.rounds):
-        stacked, _ = engine.local_train(stacked, prng.fold_in(k_train, t),
-                                        epochs=cfg.tau_train)
+        prev_flat = flat
+        kt = prng.fold_in(k_train, t)
+        if flip_y is not None:
+            # data-level attack: attacking rows train on deranged labels
+            ys = torch.where(aux["adv"]["sched"][t][:, None], flip_y,
+                             train_y)
+            stacked, _ = engine.local_train_with_labels(
+                stacked, kt, cfg.tau_train, ys)
+        else:
+            stacked, _ = engine.local_train(stacked, kt,
+                                            epochs=cfg.tau_train)
         flat = engine.flatten(stacked)
-        probe_w, payload, dec, new_ef = _exchange(comp, flat, aux, t)
+        active = aux["part"][t] if "part" in aux else None
+        if active is not None:
+            # absent clients hold their round-start params
+            flat = torch.where(active[:, None], flat, prev_flat)
+        if adv is not None:
+            # model poisoning after the hold (identity for label_flip)
+            flat = _adversary.poison_update(adv, flat, prev_flat,
+                                            aux["adv"]["sched"][t])
+        recv, payload, new_ef = _exchange(comp, _wire(cfg, flat, aux, t),
+                                          aux, t, active)
         if new_ef is not None:
             aux["ef"] = new_ef
         refresh = not cfg.random_graph and t % cfg.refresh_period == 0
         count_graph = omega if (refresh or cfg.random_graph) else adj
         if sparse:
             result.comm_downloads.append(
-                int(count_neighbor_downloads(count_graph)))
+                int(count_neighbor_downloads(count_graph, active)))
         else:
-            result.comm_downloads.append(int(count_graph.sum()) - N)
+            result.comm_downloads.append(
+                int(_realized_downloads(count_graph, active)))
         if refresh and sparse:
-            adj = all_clients_graph_sparse(prng.fold_in(k_graph, 1000 + t),
-                                           probe_w, p, omega, reward_fn,
-                                           budget)
+            refreshed = all_clients_graph_sparse(
+                prng.fold_in(k_graph, 1000 + t), recv, p, omega, reward_fn,
+                budget, active=active)
         elif refresh:
-            adj = all_clients_graph(prng.fold_in(k_graph, 1000 + t),
-                                    probe_w, p, omega, reward_fn, budget,
-                                    impl=cfg.graph_impl)
-        mix = _mix_sparse if sparse else _mix_dense
-        flat = mix(comp, adj, p, flat, payload, dec)
+            cand = omega if active is None else omega & active[None, :]
+            refreshed = all_clients_graph(
+                prng.fold_in(k_graph, 1000 + t), recv, p, cand, reward_fn,
+                budget, impl=cfg.graph_impl)
+        if refresh:
+            adj = refreshed if active is None else \
+                torch.where(active[:, None], refreshed, adj)
+        flat = mix(adj, flat, recv, payload, prev_flat, active)
         stacked = engine.unflatten(flat)
         val_acc, _ = engine.eval_val(stacked)
         improved = val_acc > best_val

@@ -24,8 +24,11 @@ greedy scans probe only the <= B candidates: the same seeded decisions,
 bit for bit, in O(N·B) instead of O(N²) steps. The sparse Eq.-4 mix goes
 through `kernels.ops.sparse_graph_mix`.
 
-Not ported yet: the ``active=`` participation mask (ROADMAP Queue 1 item
-8) and the client-mesh paths (item 12).
+Partial participation (``active=``, an (N,) bool availability row)
+restricts the Eq.-4 weights, the download counts and the sparse greedy's
+candidates to available clients; the dense refresh takes ``omega &
+active[None, :]`` from its caller. Not ported yet: the client-mesh
+paths (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -44,12 +47,15 @@ from ..kernels import ops as _kops
 def eq4_weights_unnormalized(adj, p, active=None):
     """The Eq.-4 member weights before row normalization: (N, N) fp32
     with entry ``p_i`` where k receives from i (diagonal forced on), 0
-    elsewhere."""
-    if active is not None:
-        raise NotImplementedError(
-            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
+    elsewhere. ``active`` ((N,) bool) zeroes the rows and columns of
+    absent clients before the diagonal is forced on; multiplying by 1.0
+    is exact, so an all-ones mask changes no bit. The robust rules
+    (`fl.robust`) take this unnormalized form."""
     adj = adj.float()
     n = adj.shape[0]
+    if active is not None:
+        act = active.float()
+        adj = adj * act[:, None] * act[None, :]
     adj = torch.maximum(adj, torch.eye(n, dtype=adj.dtype, device=adj.device))
     return adj * p[None, :]
 
@@ -57,7 +63,9 @@ def eq4_weights_unnormalized(adj, p, active=None):
 def mixing_matrix(adj, p, active=None):
     """adj: (N, N) bool/float, adj[k, i] = 1 iff k receives from i
     (diagonal forced on). p: (N,) weights. Returns the row-stochastic A
-    with A[k, i] = p_i adj[k, i] / sum_j p_j adj[k, j]."""
+    with A[k, i] = p_i adj[k, i] / sum_j p_j adj[k, j]. With ``active``
+    an absent client's row is e_k (it holds its params) and an available
+    client renormalizes over its available peers."""
     w = eq4_weights_unnormalized(adj, p, active=active)
     return w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-12)
 
@@ -412,31 +420,36 @@ def count_neighbor_downloads(idx, active=None):
     """Realized model downloads encoded by neighbor lists ``idx`` (N, B):
     one per non-sentinel slot, as a 0-d int64 tensor (no host sync). It
     equals the off-diagonal edge count of the equivalent dense adjacency,
-    so dense and sparse comm accounting cannot drift."""
+    so dense and sparse comm accounting cannot drift. ``active`` ((N,)
+    bool) counts only available downloader/peer pairs."""
+    valid = idx >= 0
     if active is not None:
-        raise NotImplementedError(
-            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
-    return (idx >= 0).sum()
+        act = active.bool()
+        valid = valid & act[:, None] & act[idx.clamp(0, idx.shape[0] - 1)
+                                           .long()]
+    return valid.sum()
 
 
 def sparse_eq4_unnormalized(idx, p, active=None):
     """Neighbor-list counterpart of `eq4_weights_unnormalized`: returns
     ``(p, w)``, the (N,) fp32 self weights and the (N, B) fp32 peer
-    weights (``p[idx]``, 0 at empty slots) before row normalization."""
-    if active is not None:
-        raise NotImplementedError(
-            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
+    weights (``p[idx]``, 0 at empty or participation-masked slots)
+    before row normalization."""
     N = idx.shape[0]
     p = p.float()
-    w = (idx >= 0).float() * p[idx.clamp(0, N - 1).long()]
-    return p, w
+    safe = idx.clamp(0, N - 1).long()
+    w = (idx >= 0).float()
+    if active is not None:
+        act = active.float()
+        w = w * act[:, None] * act[safe]
+    return p, w * p[safe]
 
 
 def sparse_mixing_weights(idx, p, active=None):
     """Eq.-4 row weights in neighbor-list form: ``(self_w (N,), nbr_w
     (N, B))`` with ``self_w[k] + sum_b nbr_w[k, b] = 1``, exactly the
     nonzero entries of `mixing_matrix`'s row k (diagonal forced on,
-    p-weighted, normalized)."""
+    p-weighted, normalized; ``active`` as there)."""
     p, w = sparse_eq4_unnormalized(idx, p, active=active)
     denom = torch.clamp_min(p + w.sum(dim=1), 1e-12)
     return p / denom, w / denom[:, None]
@@ -466,17 +479,21 @@ def make_ggc_sparse(reward_fn: Callable, budget: int):
     bit for bit.
 
     Returns ``ggc(keys (K, 2), k_idx (K,), cand_idx (K, B), flat_w (N, P),
-    p (N,)) -> (K, B) int32``: each client's selected C_k, ascending, -1
-    padded."""
+    p (N,), active=None) -> (K, B) int32``: each client's selected C_k,
+    ascending, -1 padded. ``active`` ((N,) bool) leaves only available
+    candidates of available clients (an absent client selects nobody;
+    keeping its previous C_k is the caller's)."""
     step = greedy_decision_step(reward_fn)
 
     @torch.no_grad()
-    def ggc(keys, k_idx, cand_idx, flat_w, p):
+    def ggc(keys, k_idx, cand_idx, flat_w, p, active=None):
         N = flat_w.shape[0]
         K, B = cand_idx.shape
         dev = flat_w.device
         safe = cand_idx.clamp(0, N - 1).long()
         valid = (cand_idx >= 0) & (safe != k_idx[:, None])
+        if active is not None:
+            valid = valid & active[safe] & active[k_idx][:, None]
         # running sums start from the same masked (K, N) @ (N, P) launch
         # as the dense scan, so the probes start bitwise aligned
         hits = torch.zeros((K, N), dtype=torch.int64, device=dev)
@@ -512,14 +529,14 @@ def all_clients_graph_sparse(key, flat_w, p, cand_idx, reward_fn,
     """Sparse-representation graph construction for every client in one
     batch: candidates and selections are (N, B) neighbor lists, and each
     client's greedy probes only its <= B candidates. Selects what
-    `all_clients_graph` selects on the equivalent masks."""
-    if active is not None:
-        raise NotImplementedError(
-            "participation masks are not ported yet (ROADMAP Queue 1 item 8)")
+    `all_clients_graph` selects on the equivalent masks. ``active``
+    restricts the candidates to available peers (absent clients keep
+    their previous C_k: the caller's, as in the dense path)."""
     N = flat_w.shape[0]
     ggc = make_ggc_sparse(reward_fn, budget)
     k_idx = torch.arange(N, device=flat_w.device)
-    return ggc(_client_keys(key, N), k_idx, cand_idx, flat_w, p)
+    return ggc(_client_keys(key, N), k_idx, cand_idx, flat_w, p,
+               active=active)
 
 
 def all_clients_bggc_sparse(key, flat_w, p, reward_fn, budget: int):

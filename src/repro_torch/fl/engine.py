@@ -102,7 +102,15 @@ class FLEngine:
         ``split(split(key, N)[i], epochs)[e]`` and takes ``n // bs``
         minibatches, dropping the remainder; momentum starts from zero at
         every call (`repro.fl.engine.FLEngine.local_train`)."""
-        x, y = self.train_data
+        return self.local_train_with_labels(stacked, key, epochs,
+                                            self.train_data[1])
+
+    def local_train_with_labels(self, stacked: Params, key: torch.Tensor,
+                                epochs: int, ys: torch.Tensor):
+        """`local_train` on the (N, n_train) label table ``ys`` in place of
+        the clean labels (the label-flip attack): the same minibatches
+        from the same key."""
+        x, y = self.train_data[0], ys
         N, n = y.shape
         bs = self.batch_size
         nb = n // bs

@@ -68,26 +68,51 @@ def init_round_state(flat, key, *, hist_len: int = 0, aux=None) -> RoundState:
 
 def make_round_step(engine, *, tau: int,
                     aggregate: Optional[Callable] = None,
+                    local_train: Optional[Callable] = None,
+                    post_train: Optional[Callable] = None,
+                    participation_key: Optional[str] = None,
                     hist_len: int = 0):
     """Build ``round_step(state) -> state``.
 
-    tau:       local epochs per round
-    aggregate: (flat, aux, t) -> (flat, aux), the communication step
-               (mixing, graph refresh, comm accounting). Default: no
-               communication (local-only).
-    hist_len:  > 0 writes the validation accuracy into
-               ``state.val_hist[t % hist_len]`` (in place)
+    tau:         local epochs per round
+    aggregate:   (flat, aux, t, prev) -> (flat, aux), the communication
+                 step (mixing, graph refresh, comm accounting); ``prev``
+                 is the round-start panel ``state.flat``, the clipped mix
+                 rule's reference point. Default: no communication
+                 (local-only).
+    local_train: (stacked, key, epochs, *, aux, t) -> (stacked, loss) in
+                 place of ``engine.local_train``: the label-flip attack
+                 reads its round's schedule row from ``aux``
+    post_train:  (flat, prev, aux, t) -> flat, applied to the trained
+                 panel after the participation hold and before the
+                 aggregate: model poisoning rewrites the attacker's own
+                 rows, so an absent attacker still holds its round-start
+                 params
+    participation_key: aux key of a (rounds, N) bool availability
+                 schedule. Every client trains, then the absent ones hold
+                 their round-start params; an all-ones row selects the
+                 trained params everywhere, bit for bit
+    hist_len:    > 0 writes the validation accuracy into
+                 ``state.val_hist[t % hist_len]`` (in place)
     """
     agg = aggregate if aggregate is not None else \
-        (lambda flat, aux, t: (flat, aux))
+        (lambda flat, aux, t, prev: (flat, aux))
 
     def round_step(state: RoundState) -> RoundState:
         t = state.t
         stacked = engine.unflatten(state.flat)
         kt = prng.fold_in(state.key, t)
-        stacked, _ = engine.local_train(stacked, kt, epochs=tau)
+        if local_train is not None:
+            stacked, _ = local_train(stacked, kt, tau, aux=state.aux, t=t)
+        else:
+            stacked, _ = engine.local_train(stacked, kt, epochs=tau)
         flat = engine.flatten(stacked)
-        flat, aux = agg(flat, state.aux, t)
+        if participation_key is not None:
+            m = state.aux[participation_key][t]
+            flat = torch.where(m[:, None], flat, state.flat)
+        if post_train is not None:
+            flat = post_train(flat, state.flat, state.aux, t)
+        flat, aux = agg(flat, state.aux, t, state.flat)
         val_acc, _ = engine.eval_val(engine.unflatten(flat))
         improved = val_acc > state.best_val
         if hist_len:

@@ -13,7 +13,9 @@ Every other ``tests/test_torch_*.py`` imports this module before `repro`:
 Its own tests hold the port to its import rules: nothing under
 ``src/repro_torch/`` and not ``chip_smoke.py`` imports ``jax`` or
 `repro`; importing the port leaves ``jax`` out of ``sys.modules``; the
-port's copy of the synthetic data generator equals `repro.data`'s.
+port's copies of `repro`'s numpy modules (the synthetic data generator,
+the availability schedules, the adversary's host code) equal the
+originals; every DPFL setting of `repro` is ported.
 """
 import ast
 import os
@@ -160,6 +162,70 @@ def test_port_data_equals_repro_data(seed, image_shape):
             np.testing.assert_array_equal(getattr(a, name),
                                           getattr(b, name), err_msg=name)
         assert a.n_classes == b.n_classes
+
+
+def test_port_availability_is_a_copy_of_repro():
+    """`repro_torch.data.availability` is `repro.data.availability`
+    verbatim (numpy only; tests/test_torch_participation.py holds the
+    schedules equal too)."""
+    rel = Path("data") / "availability.py"
+    assert (ROOT / "src" / "repro_torch" / rel).read_text() == \
+        (ROOT / "src" / "repro" / rel).read_text()
+
+
+def _code(node):
+    """The AST of a def or class without its docstrings."""
+    node = ast.parse(ast.unparse(node)).body[0]
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if isinstance(body, list) and body and \
+                isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant) and \
+                isinstance(body[0].value.value, str):
+            sub.body = body[1:] or [ast.Pass()]
+    return ast.dump(node)
+
+
+def _defs(path: Path):
+    tree = ast.parse(path.read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = _code(node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node.value)
+    return out
+
+
+def test_port_adversary_host_code_is_a_copy_of_repro():
+    """The numpy host half of `repro_torch.fl.adversary` (the config,
+    the malicious set, the schedules, the derangement, the segregation
+    metrics) is `repro.fl.adversary`'s code, docstrings aside."""
+    rel = Path("fl") / "adversary.py"
+    ours = _defs(ROOT / "src" / "repro_torch" / rel)
+    theirs = _defs(ROOT / "src" / "repro" / rel)
+    for name in ("ATTACKS", "AdversaryConfig", "n_malicious",
+                 "malicious_mask", "attack_schedule", "label_permutation",
+                 "edge_rates", "segregation_history"):
+        assert ours[name] == theirs[name], name
+
+
+def test_every_dpfl_setting_is_ported():
+    """`_NOT_PORTED` is empty, and no raise under ``src/repro_torch/``
+    names ROADMAP Queue 1 items 8 or 10 (participation, adversaries and
+    robust mixing), which are ported."""
+    import re
+
+    from repro_torch.core import dpfl
+
+    assert dpfl._NOT_PORTED == ()
+    pattern = re.compile(r"item (8|10)\b")
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Raise):
+                assert not pattern.search(ast.unparse(node)), \
+                    f"{path}:{node.lineno} names a ported item"
 
 
 def test_jax_patch_lets_repro_import():

@@ -190,20 +190,28 @@ def test_history_flushes_every_k_rounds():
     np.testing.assert_array_equal(a.best_flat, b.best_flat)
 
 
-@pytest.mark.parametrize("override", [
-    dict(participation=object()),
-    dict(compression=CompressionConfig("topk"), adversary=object()),
-    dict(adversary=object()),
-    dict(graph_repr="sparse", participation=object()),
-    dict(mix_rule="trimmed"),
-    dict(random_graph=True, mix_rule="clipped"),
-    dict(graph_impl="other")], ids=lambda d: next(iter(d)))
-def test_unported_settings_raise(override):
-    """Settings still to port raise, alone or beside ported ones (the
-    case ids name the first setting of each)."""
+@pytest.mark.parametrize("override, error", [
+    (dict(participation=object()), TypeError),
+    (dict(compression=CompressionConfig("topk"), adversary=object()),
+     TypeError),
+    (dict(adversary=object()), TypeError),
+    (dict(graph_repr="sparse", participation=object()), TypeError),
+    (dict(mix_rule="median"), ValueError),
+    (dict(random_graph=True, mix_rule="clipped", clip_mult=0.0),
+     ValueError),
+    (dict(graph_impl="other"), NotImplementedError)],
+    ids=["participation", "compression", "adversary", "graph_repr",
+         "mix_rule", "random_graph", "graph_impl"])
+def test_unported_settings_raise(override, error):
+    """Settings the port does not run raise before any work, alone or
+    beside valid ones (the case ids name the first setting of each): a
+    config object that is not the port's own (TypeError), a mix rule or
+    rule parameter `repro` refuses too (ValueError), a graph_impl the
+    port lacks (NotImplementedError). Every DPFLConfig setting of
+    `repro` is ported (test_torch_common.py holds `_NOT_PORTED` empty)."""
     _, te = _engines("mlp")
     for run in (run_dpfl, run_dpfl_reference):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error):
             run(te, DPFLConfig(rounds=1, tau_init=1, tau_train=1, budget=2,
                                **override))
 

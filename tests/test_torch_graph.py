@@ -4,8 +4,9 @@ On the toy quadratic reward of tests/test_round_engine.py (its flat_w, p
 and target carried across as numpy), the port's GGC, BGGC and the
 literal Algorithm-2 oracle select exactly what `repro`'s select, for
 budgets 1-5 and several seeds, and equal each other (Theorem 1 in the
-port). `mixing_matrix` matches, and `all_clients_bggc` on the small MLP
-setting gives `repro`'s Omega."""
+port). `mixing_matrix` matches, with and without a participation mask,
+and `all_clients_bggc` on the small MLP setting gives `repro`'s
+Omega."""
 import test_torch_common as common  # noqa: F401  (jax patch, threads)
 
 import jax  # noqa: E402
@@ -110,9 +111,26 @@ def test_mixing_matrix_matches(seed):
 
 
 def test_mixing_matrix_participation_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tgraph.mixing_matrix(torch.ones((3, 3), dtype=torch.bool),
-                             torch.ones(3), active=torch.ones(3))
+    """Named for the refusal it once asserted: with ``active`` the port's
+    `mixing_matrix` and `eq4_weights_unnormalized` match `repro`'s
+    (rtol 1e-6, atol 1e-7); an absent client keeps only its own
+    weight."""
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        adj = rng.random((7, 7)) < 0.4
+        p = rng.random(7).astype(np.float32)
+        active = rng.random(7) < 0.6
+        for name in ("mixing_matrix", "eq4_weights_unnormalized"):
+            want = np.asarray(getattr(jgraph, name)(
+                jnp.asarray(adj), jnp.asarray(p),
+                active=jnp.asarray(active)))
+            got = getattr(tgraph, name)(torch.from_numpy(adj),
+                                        torch.from_numpy(p),
+                                        active=torch.from_numpy(active))
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-7)
+        np.testing.assert_array_equal(got.numpy()[~active],
+                                      np.diag(p)[~active])
 
 
 def test_all_clients_bggc_matches_repro_on_small_mlp():

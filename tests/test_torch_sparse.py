@@ -175,12 +175,24 @@ def test_mix_flat_sparse_matches_repro_and_dense_mix():
 
 
 def test_sparse_participation_not_ported():
-    idx = torch.zeros((3, 1), dtype=torch.int32)
-    for fn in (tgraph.count_neighbor_downloads,
-               lambda i, active: tgraph.sparse_mixing_weights(
-                   i, torch.ones(3), active=active)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn(idx, active=torch.ones(3, dtype=torch.bool))
+    """Named for the refusal it once asserted: with ``active`` the port's
+    `count_neighbor_downloads` (exactly), `sparse_eq4_unnormalized` and
+    `sparse_mixing_weights` (within 1e-6) match `repro`'s, on lists with
+    -1 slots."""
+    for seed in range(3):
+        adj = _budgeted_adjacency(_N, 3, seed)
+        active = np.random.default_rng(seed).random(_N) < 0.6
+        jidx = jgraph.neighbors_from_adjacency(jnp.asarray(adj), 3)
+        idx = torch.from_numpy(np.array(jidx))
+        jact, tact = jnp.asarray(active), torch.from_numpy(active)
+        assert int(tgraph.count_neighbor_downloads(idx, tact)) == \
+            int(jgraph.count_neighbor_downloads(jidx, jact))
+        for name in ("sparse_eq4_unnormalized", "sparse_mixing_weights"):
+            for got, want in zip(
+                    getattr(tgraph, name)(idx, _TP, active=tact),
+                    getattr(jgraph, name)(jidx, _JP, active=jact)):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           rtol=1e-6, atol=1e-6)
 
 
 # ----------------------------------------------------- greedy builders

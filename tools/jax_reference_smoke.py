@@ -5,13 +5,14 @@ accuracies and comm counters of each as one JSON line.
 ``chip_smoke.py``'s learning checks take their thresholds from these runs:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_reference_smoke.py \
-        [dense] [sparse] [topk] [sparse-topk]
+        [dense] [sparse] [topk] [sparse-topk] [dense-markov] \
+        [sparse-freerider-clipped] [topk-signflip-clipped] \
+        [dense-labelflip-trimmed]
 
-(no names: all four). The data and run settings (PaperCNN at its
+(no names: all eight). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
-``SMOKE_*`` constants, and the four variants its main-path runs: dense
-graphs without a codec, ``graph_repr="sparse"``, dense with the top-k
-codec (``topk_frac`` 0.1), and sparse with top-k. Keep the two in step.
+``SMOKE_*`` constants, and the variants are its main-path runs, read
+from its ``VARIANTS`` table and built here with `repro`'s config classes.
 """
 from __future__ import annotations
 
@@ -29,35 +30,50 @@ if not hasattr(type(batching.primitive_batchers), "__contains__"):
     type(batching.primitive_batchers).__contains__ = \
         lambda self, p: p in batching.fancy_primitive_batchers
 
+from pathlib import Path  # noqa: E402
+
 import numpy as np  # noqa: E402
 
 from repro.configs.paper_cnn import CNNConfig  # noqa: E402
-from repro.core import CompressionConfig, DPFLConfig, run_dpfl  # noqa: E402
+from repro.core import (AdversaryConfig, CompressionConfig,  # noqa: E402
+                        DPFLConfig, ParticipationConfig, run_dpfl)
 from repro.data import make_federated_classification  # noqa: E402
+from repro.fl.adversary import segregation_history  # noqa: E402
 from repro.fl.engine import FLEngine  # noqa: E402
 from repro.models.classifier import PaperCNN  # noqa: E402
 
-DATA = dict(seed=0, n_clients=32, n_clusters=4, partition="pathological",
-            classes_per_client=3, image_shape=(32, 32, 3), n_train=128,
-            n_val=32, n_test=64, noise=2.0, assign_level="cluster")
-RUN = dict(rounds=3, tau_init=2, tau_train=1, budget=4, seed=0)
-TOPK = CompressionConfig("topk", topk_frac=0.1)
-VARIANTS = {"dense": {}, "sparse": dict(graph_repr="sparse"),
-            "topk": dict(compression=TOPK),
-            "sparse-topk": dict(graph_repr="sparse", compression=TOPK)}
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the constants only; imports no port code)
+
+
+def config(name):
+    """`repro`'s DPFLConfig of chip_smoke.py's variant ``name``."""
+    spec = dict(chip_smoke.VARIANTS[name])
+    codec = spec.pop("codec", None)
+    if codec:
+        spec["compression"] = CompressionConfig(
+            codec, topk_frac=chip_smoke.TOPK_FRAC)
+    if "participation" in spec:
+        spec["participation"] = ParticipationConfig(**spec["participation"])
+    if "adversary" in spec:
+        spec["adversary"] = AdversaryConfig(**spec["adversary"])
+    return DPFLConfig(**chip_smoke.SMOKE_RUN, **spec)
 
 
 def main():
-    names = sys.argv[1:] or list(VARIANTS)
-    data = make_federated_classification(**DATA)
-    engine = FLEngine(PaperCNN(CNNConfig()), data, lr=0.01, batch_size=16)
+    names = sys.argv[1:] or list(chip_smoke.VARIANTS)
+    data = make_federated_classification(**chip_smoke.SMOKE_DATA)
+    engine = FLEngine(PaperCNN(CNNConfig()), data, lr=chip_smoke.SMOKE_LR,
+                      batch_size=chip_smoke.SMOKE_BATCH)
     for name in names:
         run_one(engine, name)
 
 
 def run_one(engine, name):
     t0 = time.perf_counter()
-    res = run_dpfl(engine, DPFLConfig(**RUN, **VARIANTS[name]))
+    res = run_dpfl(engine, config(name))
+    seg = (segregation_history(res.graph_history, res.malicious)
+           if res.malicious is not None else None)
     print(json.dumps({
         "variant": name,
         "mean_test_acc": float(np.mean(res.test_acc)),
@@ -66,6 +82,11 @@ def run_one(engine, name):
         "comm_downloads": res.comm_downloads,
         "comm_preprocess": res.comm_preprocess,
         "comm_bytes": res.comm_bytes,
+        "participation_per_round": (None if res.participation is None else
+                                    res.participation.sum(1).tolist()),
+        "malicious": (None if res.malicious is None else
+                      np.flatnonzero(res.malicious).tolist()),
+        "edge_rates": seg,
         "n_params": engine.n_params,
         "seconds": time.perf_counter() - t0,
         "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss

@@ -2,8 +2,9 @@
 
 Runs `repro_torch.core.dpfl.run_dpfl` on the configuration of
 ``chip_smoke.py`` (PaperCNN at its published width, 32 clients) in one
-of its main-path variants (dense; sparse; dense top-k; sparse top-k)
-once to warm up, then once under ``torch.profiler`` and prints one JSON
+of its main-path variants (``chip_smoke.VARIANTS``: dense; sparse; dense
+top-k; sparse top-k; dense-markov; sparse-freerider-clipped;
+topk-signflip-clipped; dense-labelflip-trimmed) once to warm up, then once under ``torch.profiler`` and prints one JSON
 line: the wall time, the summed device-kernel time and the device's idle
 share, the time of each phase (preprocessing vs the round loop, by
 CUDA-synced host clock), and the kernels that take the most device time,
@@ -25,13 +26,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke  # noqa: E402
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--variant", default="dense",
-                    choices=["dense", "sparse", "topk", "sparse-topk"])
+                    choices=list(chip_smoke.VARIANTS))
     args = ap.parse_args()
 
     import torch
@@ -41,7 +44,6 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("profile_dpfl: needs a CUDA card")
 
-    import chip_smoke
     from repro_torch.core import dpfl
 
     engine = chip_smoke.make_engine()
