@@ -30,6 +30,8 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    (recurrentgemma-9b's serve shape with the model's a and b,
    tests/test_kernels.py's three shapes with h0 and its case without,
    ragged S and W, one step with h0, fewer channels than one block);
+   then `prng.normal` (2**20 draws) on the card: the CPU's bits and
+   jax.random.normal's (`NORMAL_SHA256`);
 4. the port's main paths: Algorithm 1 through
    `repro_torch.core.dpfl.run_dpfl` on PaperCNN at its published width
    (32 clients, 3 rounds) in eight configurations (`VARIANTS`: dense
@@ -43,8 +45,15 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    graphs held, the malicious head-count) and a learning check; then
    the same entry point on a small input on the card and on the CPU
    (dense, sparse, top-k, int8, and dense and sparse under participation
-   with sign flippers clipped and with label flippers trimmed), which
-   must select the same graphs; then the serving path:
+   with sign flippers clipped, with label flippers trimmed and with noisy
+   free riders), which must select the same graphs; the dense run's best
+   models through the port's `CheckpointManager` and back bit for bit;
+   then the eleven Table-1 baselines, and FedAvg under markov outages
+   with the top-k codec, through `repro_torch.fl.baselines.run_baseline`
+   on the same engine (`BASELINE_RUNS`), each with the counts zeroed
+   just before and read just after (K1 once a round for pFedGraph, no
+   kernel in the others), every round under the no-sync fence, and a
+   learning check; then the serving path:
    `repro_torch.launch.serve.generate` on qwen3-0.6b at its full
    published config (28 layers, float32, random weights from a seed),
    batch 4, prompt 512, 32 new tokens, greedy, with the counts zeroed
@@ -124,6 +133,19 @@ VARIANTS = {
     "dense-labelflip-trimmed": dict(
         adversary=dict(attack="label_flip", fraction=0.25, seed=0),
         mix_rule="trimmed", trim_frac=0.2)}
+# The baseline runs (Table 1, `repro_torch.fl.baselines`) on the same
+# engine: each of the eleven methods once at BASELINE_RUN, then FedAvg
+# under markov outages with the top-k codec, so both branches of their
+# round loop (`baselines._loop`: the availability schedule, the codec
+# with its residual hold) run on the card. Values: (method, keyword
+# arguments of ParticipationConfig or None, codec or None).
+BASELINE_RUN = dict(rounds=3, tau=1, seed=0)
+BASELINE_RUNS = {name: (name, None, None) for name in (
+    "local", "fedavg", "fedavg_ft", "fedprox", "fedprox_ft", "apfl",
+    "perfedavg", "ditto", "fedrep", "knnper", "pfedgraph")}
+BASELINE_RUNS["fedavg-markov-topk"] = (
+    "fedavg", dict(rate=0.7, model="markov", mean_burst=3.0, seed=0),
+    "topk")
 # Learning check: the JAX reference on each configuration, on the CPU,
 # reaches a mean best-validation test accuracy of LEARN_REF
 # (`PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_reference_smoke.py`,
@@ -140,8 +162,27 @@ LEARN_REF = {"dense": 0.8583984375, "sparse": 0.8583984375,
              "dense-markov": 0.74267578125,
              "sparse-freerider-clipped": 0.64404296875,
              "topk-signflip-clipped": 0.55810546875,
-             "dense-labelflip-trimmed": 0.744140625}
+             "dense-labelflip-trimmed": 0.744140625,
+             # the baseline runs (the same command, jax 0.9.0 on x86-64's
+             # CPU; 12-25 s each): FedAvg's one global model sits below
+             # local training on this pathological split after three
+             # rounds, and at 10 % top-k under outages near chance
+             "local": 0.50830078125, "fedavg": 0.2822265625,
+             "fedavg_ft": 0.43603515625, "fedprox": 0.28662109375,
+             "fedprox_ft": 0.4541015625, "apfl": 0.46044921875,
+             "perfedavg": 0.34765625, "ditto": 0.48095703125,
+             "fedrep": 0.3798828125, "knnper": 0.48828125,
+             "pfedgraph": 0.4453125, "fedavg-markov-topk": 0.16650390625}
 LEARN_MARGIN = 0.1
+# prng.normal on the card: NORMAL_DRAWS draws from PRNGKey(3) must be the
+# CPU's bits and jax's: the SHA-256 of jax.random.normal(PRNGKey(3),
+# (2**20,)) as little-endian float32 bytes (jax 0.9.0 on x86-64's CPU)
+NORMAL_DRAWS = 1 << 20
+NORMAL_SHA256 = ("a3dc40feacf240c8ed4b4f59e2c8a1e0"
+                 "cbf1be7b9d3be8bcf82bd56f72775261")
+# the dense run's best models go through the port's CheckpointManager
+# here (git-ignored) and must come back bit for bit
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 # K1 shapes: (M, N, P, dtype, W a row-offset view) — the Eq.-4 mix, one
 # BGGC phase-1 batch, one client's set sum, a ragged P, bf16 W, and the
@@ -1289,10 +1330,10 @@ def check_small_input(torch):
     """The same entry point on a small input (MLP, 6 clients), on the card
     and on the CPU, without a codec (dense and sparse), with top-k and
     int8, and, dense and sparse, under participation with sign flippers
-    and the clipped rule and with label flippers and the trimmed rule
-    (free riding stays out: its noise is not bitwise across devices):
-    graphs and counters equal, models within fp noise. Returns the
-    best_flat max abs difference per run."""
+    and the clipped rule, with label flippers and the trimmed rule, and
+    with noisy free riders (their noise is the same bits on both): graphs
+    and counters equal, models within fp noise. Returns the best_flat max
+    abs difference per run."""
     import numpy as np
 
     from repro_torch.core.dpfl import DPFLConfig, run_dpfl
@@ -1320,7 +1361,10 @@ def check_small_input(torch):
             mix_rule="clipped"),
         "labelflip-trimmed": dict(
             adversary=AdversaryConfig("label_flip", fraction=0.34, seed=1),
-            mix_rule="trimmed")}
+            mix_rule="trimmed"),
+        "freerider": dict(
+            adversary=AdversaryConfig("free_rider", fraction=0.5, seed=3,
+                                      noise_scale=1.0))}
     for name, kw in robust.items():
         configs[f"dense {name}"] = DPFLConfig(**run, **kw)
         configs[f"sparse {name}"] = DPFLConfig(**run, **kw,
@@ -1345,6 +1389,127 @@ def check_small_input(torch):
             fail(f"small input, {name}: best_flat differs by "
                  f"{errs[name]}")
     return errs
+
+
+def check_normal(torch):
+    """`prng.normal` on the card: NORMAL_DRAWS draws from PRNGKey(3), the
+    same bits as on the CPU and as jax's (NORMAL_SHA256). Returns the
+    card's seconds for the draw."""
+    import hashlib
+
+    from repro_torch import prng
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = prng.normal(prng.PRNGKey(3, device="cuda"), (NORMAL_DRAWS,))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cpu = prng.normal(prng.PRNGKey(3), (NORMAL_DRAWS,))
+    differ = int((card.cpu().view(torch.int32)
+                  != cpu.view(torch.int32)).sum())
+    if differ:
+        fail(f"prng.normal: {differ} of {NORMAL_DRAWS} draws differ between "
+             f"the card and the CPU")
+    digest = hashlib.sha256(
+        cpu.numpy().astype("<f4").tobytes()).hexdigest()
+    if digest != NORMAL_SHA256:
+        fail(f"prng.normal: the draws are not jax.random.normal's (SHA-256 "
+             f"{digest})")
+    return seconds
+
+
+def run_baselines(torch, engine):
+    """Each of BASELINE_RUNS once on ``engine`` through
+    `repro_torch.fl.baselines.run_baseline`, with the kernel counts zeroed
+    just before and read just after. Every round must run under the
+    round engine's no-sync fence (sync debug mode "error", so a hidden
+    sync raises); K1 launches once a round for pFedGraph and nowhere
+    else; the per-client test accuracies are finite and their mean at
+    least the JAX reference's less LEARN_MARGIN. Returns {name: (mean
+    accuracy, wall seconds, launch counts)}."""
+    import numpy as np
+
+    from repro_torch.data import ParticipationConfig
+    from repro_torch.fl import baselines
+    from repro_torch.fl.compress import CompressionConfig
+
+    N = SMOKE_DATA["n_clients"]
+    fenced = []
+    run_rounds = baselines.run_rounds
+
+    def fenced_run_rounds(round_step, state, rounds, **kw):
+        def step(st):
+            if torch.cuda.get_sync_debug_mode() != 2:
+                fail(f"round {st.t} of a baseline ran outside the no-sync "
+                     f"fence")
+            fenced.append(st.t)
+            return round_step(st)
+        return run_rounds(step, state, rounds, **kw)
+
+    out = {}
+    baselines.run_rounds = fenced_run_rounds
+    try:
+        for name, (method, part, codec) in BASELINE_RUNS.items():
+            kw = dict(BASELINE_RUN)
+            if part is not None:
+                kw["participation"] = ParticipationConfig(**part)
+            if codec is not None:
+                kw["compression"] = CompressionConfig(codec,
+                                                      topk_frac=TOPK_FRAC)
+            fenced.clear()
+            torch.cuda.synchronize()
+            _zero_launches()
+            t0 = time.perf_counter()
+            res = baselines.run_baseline(method, engine, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _read_launches()
+            rounds = BASELINE_RUN["rounds"]
+            if fenced != list(range(rounds)):
+                fail(f"baseline {name}: fenced rounds {fenced}, expected "
+                     f"{rounds}")
+            want = {k: 0 for k in launches}
+            if method == "pfedgraph":
+                want["graph_mix"] = rounds
+            if launches != want:
+                fail(f"baseline {name}: kernel launches {launches}, "
+                     f"expected {want}")
+            acc = np.asarray(res["test_acc"])
+            if acc.shape != (N,) or not np.isfinite(acc).all():
+                fail(f"baseline {name}: test_acc is not a finite ({N},) "
+                     f"vector")
+            mean_acc = float(acc.mean())
+            if mean_acc < LEARN_REF[name] - LEARN_MARGIN:
+                fail(f"baseline {name}: mean test accuracy {mean_acc:.4f} "
+                     f"< {LEARN_REF[name] - LEARN_MARGIN:.4f} (JAX "
+                     f"reference {LEARN_REF[name]} less {LEARN_MARGIN})")
+            out[name] = (mean_acc, seconds, launches)
+    finally:
+        baselines.run_rounds = run_rounds
+    return out
+
+
+def check_checkpoint(torch, engine, res):
+    """The dense run's best models (``best_flat`` unflattened on the card)
+    through the port's ``CheckpointManager.keep_best``; ``restore_best``
+    must give them back on the card bit for bit. Returns the files'
+    bytes."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    best = engine.unflatten(torch.from_numpy(res.best_flat).to("cuda"))
+    mgr = CheckpointManager(str(CKPT_DIR))
+    if not mgr.keep_best(float(res.test_acc.mean()), best,
+                         {"acc_per_client": res.test_acc.tolist()}):
+        fail("checkpoint: keep_best refused the first model")
+    back = mgr.restore_best({k: torch.empty_like(v)
+                             for k, v in best.items()})
+    for k, v in best.items():
+        if back[k].device != v.device or not torch.equal(back[k], v):
+            fail(f"checkpoint: {k} did not come back bit for bit")
+    return sum(f.stat().st_size for f in CKPT_DIR.iterdir())
 
 
 def serve_kernels(cfg):
@@ -1578,6 +1743,9 @@ def main():
           f"{k6_bitwise} of them)")
     for case, err in zip(K6_CASES, k6_errs):
         print(f"  K6 {case[0]}: max abs err {err:.3g}")
+    normal_s = check_normal(torch)
+    print(f"prng.normal: {NORMAL_DRAWS} draws from PRNGKey(3) on the card in "
+          f"{normal_s:.3f} s, the CPU's bits and jax.random.normal's")
 
     # ---- 4. the main paths
     import numpy as np
@@ -1594,6 +1762,7 @@ def main():
                                    omega_dense)
         if omega_dense is None:
             omega_dense = res.omega.astype(bool)
+            dense_res = res
         launches[variant] = counts
         if res.malicious is not None:
             seg = segregation_history(res.graph_history, res.malicious)
@@ -1614,9 +1783,22 @@ def main():
               f"{res.comm_bytes}, mean test acc {mean_acc:.4f} (JAX "
               f"reference {LEARN_REF[variant]}), mean val acc per round "
               f"{[round(float(v.mean()), 4) for v in res.val_acc_history]}")
+    nbytes = check_checkpoint(torch, engine, dense_res)
+    print(f"checkpoint: the dense run's best models ({engine.n_params} "
+          f"parameters x {SMOKE_DATA['n_clients']} clients) through "
+          f"CheckpointManager.keep_best ({nbytes} bytes under "
+          f"{CKPT_DIR.relative_to(ROOT)}), restore_best bit for bit")
     small = check_small_input(torch)
     print(f"small input: card and CPU select the same graphs (best_flat "
           f"max abs diff {small})")
+    for name, (mean_acc, seconds, counts) in run_baselines(
+            torch, engine).items():
+        launches[f"baseline {name}"] = counts
+        print(f"baseline {name}: PaperCNN P={engine.n_params} N="
+              f"{SMOKE_DATA['n_clients']} rounds={BASELINE_RUN['rounds']} "
+              f"tau={BASELINE_RUN['tau']}: {seconds:.3f} s wall, mean test "
+              f"acc {mean_acc:.4f} (JAX reference {LEARN_REF[name]}), "
+              f"launches {counts}, every round under the no-sync fence")
     B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     walls = {}
     for arch in SERVE_ARCHS:
@@ -1663,8 +1845,8 @@ def main():
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs and the three serve runs), with each run's counts beside
-    # them
+    # DPFL runs, the twelve baseline runs and the three serve runs), with
+    # each run's counts beside them
     def total(kname):
         return sum(c[kname] for c in launches.values())
 

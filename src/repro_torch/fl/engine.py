@@ -10,7 +10,7 @@ construction.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -25,9 +25,11 @@ Params = Dict[str, torch.Tensor]
 class FLEngine:
     def __init__(self, model, data, lr: float = 0.05, momentum: float = 0.9,
                  weight_decay: float = 1e-3, batch_size: int = 16,
-                 device=None):
+                 loss_fn: Optional[Callable] = None, device=None):
         """``device`` defaults to ``cuda``; nothing falls back to the CPU
-        when there is no GPU (pass ``device="cpu"`` to run there)."""
+        when there is no GPU (pass ``device="cpu"`` to run there).
+        ``loss_fn(params, batch)`` maps a client-stacked batch to (N,)
+        losses (default: the model's mean cross-entropy)."""
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             # IEEE fp32 everywhere: cuDNN would otherwise run the PaperCNN
@@ -41,7 +43,7 @@ class FLEngine:
         self.batch_size = min(batch_size, data.train_x.shape[1])
         self.opt: Optimizer = sgd(lr, momentum=momentum,
                                   weight_decay=weight_decay)
-        self.loss_fn: Callable = lambda p, b: _xent(model, p, b)
+        self.loss_fn: Callable = loss_fn or (lambda p, b: _xent(model, p, b))
         self.acc_fn: Callable = lambda p, b: _acc(model, p, b)
         self.p = self._put(data.p, torch.float32)
         # flat layout: leaves in sorted-key order (jax's ravel_pytree)
@@ -85,31 +87,39 @@ class FLEngine:
                 for k, part in zip(self._keys, parts)}
 
     # ------------------------------------------------------------ training
-    def _loss_and_grads(self, params: Params, batch):
+    def _loss_and_grads(self, params: Params, batch, loss_fn: Callable):
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
-            loss = self.loss_fn(leaves, batch)
+            loss = loss_fn(leaves, batch)
             # client parameters are disjoint, so the gradient of the sum
             # of per-client mean losses is each client's own gradient
             grads = torch.autograd.grad(loss.sum(),
                                         [leaves[k] for k in self._keys])
         return loss.detach(), dict(zip(self._keys, grads))
 
-    def local_train(self, stacked: Params, key: torch.Tensor, epochs: int):
+    def local_train(self, stacked: Params, key: torch.Tensor, epochs: int,
+                    loss_fn: Optional[Callable] = None):
         """``epochs`` seeded epochs of minibatch SGD on every client.
         Returns (stacked', (N,) mean loss). Client i shuffles epoch e with
         ``split(split(key, N)[i], epochs)[e]`` and takes ``n // bs``
         minibatches, dropping the remainder; momentum starts from zero at
-        every call (`repro.fl.engine.FLEngine.local_train`)."""
+        every call (`repro.fl.engine.FLEngine.local_train`). ``loss_fn``
+        (default ``self.loss_fn``) is the loss every step differentiates:
+        FedProx and Ditto add their proximal term there."""
         return self.local_train_with_labels(stacked, key, epochs,
-                                            self.train_data[1])
+                                            self.train_data[1], loss_fn)
+
+    # `repro`'s name for the same call (the un-jitted local train)
+    train_fn = local_train
 
     def local_train_with_labels(self, stacked: Params, key: torch.Tensor,
-                                epochs: int, ys: torch.Tensor):
+                                epochs: int, ys: torch.Tensor,
+                                loss_fn: Optional[Callable] = None):
         """`local_train` on the (N, n_train) label table ``ys`` in place of
         the clean labels (the label-flip attack): the same minibatches
         from the same key."""
+        loss_fn = self.loss_fn if loss_fn is None else loss_fn
         x, y = self.train_data[0], ys
         N, n = y.shape
         bs = self.batch_size
@@ -126,7 +136,7 @@ class FLEngine:
             for b in range(nb):
                 sl = slice(b * bs, (b + 1) * bs)
                 loss, grads = self._loss_and_grads(
-                    params, {"x": xe[:, sl], "y": ye[:, sl]})
+                    params, {"x": xe[:, sl], "y": ye[:, sl]}, loss_fn)
                 updates, opt_state = self.opt.update(grads, opt_state,
                                                      params)
                 params = {k: params[k] + updates[k] for k in self._keys}

@@ -70,6 +70,7 @@ def make_round_step(engine, *, tau: int,
                     aggregate: Optional[Callable] = None,
                     local_train: Optional[Callable] = None,
                     post_train: Optional[Callable] = None,
+                    eval_flat: Optional[Callable] = None,
                     participation_key: Optional[str] = None,
                     hist_len: int = 0):
     """Build ``round_step(state) -> state``.
@@ -88,6 +89,9 @@ def make_round_step(engine, *, tau: int,
                  aggregate: model poisoning rewrites the attacker's own
                  rows, so an absent attacker still holds its round-start
                  params
+    eval_flat:   (flat, aux) -> (N, P), the model that is validated and
+                 kept in ``best_flat`` (APFL's mixture, Ditto's personal
+                 models). Default: the aggregated ``flat`` itself
     participation_key: aux key of a (rounds, N) bool availability
                  schedule. Every client trains, then the absent ones hold
                  their round-start params; an all-ones row selects the
@@ -113,7 +117,8 @@ def make_round_step(engine, *, tau: int,
         if post_train is not None:
             flat = post_train(flat, state.flat, state.aux, t)
         flat, aux = agg(flat, state.aux, t, state.flat)
-        val_acc, _ = engine.eval_val(engine.unflatten(flat))
+        ev = eval_flat(flat, aux) if eval_flat is not None else flat
+        val_acc, _ = engine.eval_val(engine.unflatten(ev))
         improved = val_acc > state.best_val
         if hist_len:
             state.val_hist[t % hist_len] = val_acc
@@ -122,7 +127,7 @@ def make_round_step(engine, *, tau: int,
             key=state.key,
             flat=flat,
             best_val=torch.where(improved, val_acc, state.best_val),
-            best_flat=torch.where(improved[:, None], flat, state.best_flat),
+            best_flat=torch.where(improved[:, None], ev, state.best_flat),
             val_hist=state.val_hist,
             aux=aux)
 

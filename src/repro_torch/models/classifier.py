@@ -12,7 +12,9 @@ stack of G input batches, ``x`` of shape (G, B, ...), and returns
 (G, B, n_classes): G is the clients during local training and the
 clients times the greedy's reward probes during a GGC refresh. The G
 convolutions run as one grouped convolution (``groups=G``), the dense
-layers as batched matmuls.
+layers as batched matmuls. ``features`` is the penultimate activations
+(kNN-Per's embedding), and ``logits`` is the output head on them;
+``HEAD_KEYS`` names the head that FedRep keeps local.
 """
 from __future__ import annotations
 
@@ -72,8 +74,10 @@ class PaperCNN:
             "out_b": zeros(c.n_classes),
         }
 
-    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """x: (G, B, H, W, C) float32 (NHWC per model)."""
+    def features(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Penultimate activations (G, B, fc2): the convs, pools and both
+        hidden dense layers; x: (G, B, H, W, C) float32 (NHWC per
+        model)."""
         G, B = x.shape[:2]
         # NHWC -> one NCHW batch whose channels are the G models' inputs
         h = x.permute(1, 0, 4, 2, 3).reshape(B, G * x.shape[4], x.shape[2],
@@ -87,8 +91,15 @@ class PaperCNN:
         h = h.reshape(B, G, c2, h.shape[2], h.shape[3])
         h = h.permute(1, 0, 3, 4, 2).reshape(G, B, -1)
         h = F.relu(_dense(h, params["fc1_w"], params["fc1_b"]))
-        h = F.relu(_dense(h, params["fc2_w"], params["fc2_b"]))
-        return _dense(h, params["out_w"], params["out_b"])
+        return F.relu(_dense(h, params["fc2_w"], params["fc2_b"]))
+
+    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """x: (G, B, H, W, C) float32 (NHWC per model)."""
+        return _dense(self.features(params, x), params["out_w"],
+                      params["out_b"])
+
+    # body/head split used by FedRep
+    HEAD_KEYS = ("out_w", "out_b")
 
 
 class MLP:
@@ -113,11 +124,17 @@ class MLP:
             "out_b": zeros(self.n_classes),
         }
 
+    def features(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Penultimate activations (G, B, hidden); x: (G, B, in_dim)."""
+        h = F.relu(_dense(x, params["w1"], params["b1"]))
+        return F.relu(_dense(h, params["w2"], params["b2"]))
+
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """x: (G, B, in_dim)."""
-        h = F.relu(_dense(x, params["w1"], params["b1"]))
-        h = F.relu(_dense(h, params["w2"], params["b2"]))
-        return _dense(h, params["out_w"], params["out_b"])
+        return _dense(self.features(params, x), params["out_w"],
+                      params["out_b"])
+
+    HEAD_KEYS = ("out_w", "out_b")
 
 
 def xent_loss(model, params: Params, batch) -> torch.Tensor:

@@ -10,8 +10,10 @@ by floating-point noise. The spec is jax 0.9's own source with
   ``_threefry2x32_lowering`` (the hash), ``_threefry_split_foldlike``,
   ``threefry_fold_in``, ``_threefry_random_bits_partitionable``
   (32-bit bits are ``bits1 ^ bits2``) and ``iota_2x32_shape``;
-* ``jax/_src/random.py`` ``_uniform``, ``_randint`` and ``permutation``
-  -> ``_shuffle`` (stable sorts on fresh 32-bit keys).
+* ``jax/_src/random.py`` ``_uniform``, ``_normal_real``, ``_randint``
+  and ``permutation`` -> ``_shuffle`` (stable sorts on fresh 32-bit keys);
+* for ``normal``, XLA's float32 ``erf_inv`` as jaxlib 0.9 compiles it for
+  the CPU (`erf_inv`).
 
 A key is a uint32 pair held in an int64 tensor of shape ``(..., 2)``;
 every add and rotate is masked with ``& 0xFFFFFFFF``. Every function
@@ -141,15 +143,137 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
                  torch.float32)
 
 
+def _f32(c: float) -> float:
+    return float(np.float32(c))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a hardware fused multiply-add.
+    The product of two float32 values is exact in float64; the float64 sum
+    is made round-to-odd from its TwoSum error, so that its rounding to
+    float32 is the only one that counts. Every op is IEEE on the CPU and on
+    CUDA, so both give the same bits. ``b`` and ``c`` are float32 tensors
+    or Python floats holding float32 values."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
+    cd = c.double() if isinstance(c, torch.Tensor) else c
+    s = p + cd
+    z = s - p
+    err = (p - (s - z)) + (cd - z)
+    bits = s.view(torch.int64)
+    # rounded away from zero: truncate one ulp toward zero, then set the
+    # last bit (round to odd)
+    odd = torch.where((err < 0) != (s < 0), bits - 1, bits) | 1
+    return torch.where(err != 0, odd, bits).view(torch.float64).float()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt of x >= 0. ``torch.sqrt`` on the CPU
+    misses by an ulp on about 0.6 % of float32 inputs (and of float64
+    ones), so the float64 root is rounded to float32 and then moved to the
+    neighbour whose midpoint test says so; the midpoints and their squares
+    are exact in float64."""
+    c = torch.sqrt(x.double()).float()
+    up = torch.nextafter(c, torch.full_like(c, math.inf))
+    down = torch.nextafter(c, torch.zeros_like(c))
+    xd, cd = x.double(), c.double()
+    hi = (cd + up.double()) * 0.5
+    lo = (cd + down.double()) * 0.5
+    c = torch.where(xd > hi * hi, up, c)
+    return torch.where(xd < lo * lo, down, c)
+
+
+# XLA:CPU's float32 log (Eigen's Cephes polynomial: x in [sqrt(1/2) - 1,
+# sqrt(2) - 1] after the exponent split), as jaxlib 0.9's LLVM IR and
+# x86 code for ``jax.random.normal`` compute it, fused multiply-adds
+# included
+_SQRTHF = _f32(0.707106781186547524)
+_LOG_P = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+    -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+    2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LOG_Q1 = _f32(-2.12194440e-4)
+_LOG_Q2 = 0.693359375
+_MIN_NORMAL = _f32(1.17549435e-38)
+# XLA's log1p below sqrt(2) - 1: y - y^2/2 + y^3 N(y)/D(y) (Cephes)
+_LOG1P_SMALL = _f32(0.41421356237309504880)
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+# Giles' erf_inv: for w < 5 in w - 2.5, else in sqrt(w) - 3
+_ERFINV_LO = tuple(_f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    2.1858087e-04, -1.25372503e-03, -4.17768164e-03, 0.246640727,
+    1.50140941))
+_ERFINV_HI = tuple(_f32(c) for c in (
+    -2.00214257e-04, 1.00950558e-04, 1.34934322e-03, -3.67342844e-03,
+    5.73950773e-03, -7.6224613e-03, 9.43887047e-03, 1.00167406,
+    2.83297682))
+
+
+def _log(v: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log for finite v > 0."""
+    bits = torch.clamp_min(v, _MIN_NORMAL).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # [1/2, 1)
+    small = m < _SQRTHF
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.float()
+    z = x * x
+    x3 = z * x
+    p = [_fma(_fma(torch.full_like(x, _LOG_P[i]), x, _LOG_P[i + 1]), x,
+              _LOG_P[i + 2]) for i in (0, 3, 6)]
+    y = _fma(_fma(_fma(p[0], x3, p[1]), x3, p[2]), x3, e * _LOG_Q1)
+    return _fma(e, _LOG_Q2, _fma(z, -0.5, x) + y)
+
+
+def _log1p(y: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log1p for y > -1."""
+    y2 = y * y
+    den = torch.ones_like(y)
+    for c in _LOG1P_DEN:
+        den = _fma(den, y, c)
+    num = torch.full_like(y, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(num, y, c)
+    small = y + _fma(y2, -0.5, (y * y2) * (num / den))
+    return torch.where(y.abs() < _LOG1P_SMALL, small, _log(y + 1.0))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``jax.lax.erf_inv`` bit for bit (XLA:CPU): Giles' two
+    polynomials in w = -log1p(-x^2), each Horner step one fused
+    multiply-add, on XLA's own log1p and log; +-1 -> +-inf. Built only
+    from integer views, IEEE adds, products, quotients and roots, each its
+    own kernel, so the card gives the CPU's bits (``torch.log``,
+    ``torch.log1p`` and ``torch.erfinv`` differ between the two)."""
+    l = _log1p(-(x * x))
+    central = l > -5.0
+    t = torch.where(central, -2.5 - l, _sqrt(-l) - 3.0)
+
+    def coeff(i):
+        return torch.where(central, torch.full_like(t, _ERFINV_LO[i]),
+                           torch.full_like(t, _ERFINV_HI[i]))
+
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_LO)):
+        p = _fma(p, t, coeff(i))
+    p = torch.where(x.abs() == 1.0, torch.full_like(p, math.inf), p)
+    return x * p
+
+
 def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """float32 ``jax.random.normal``: sqrt(2) * erfinv(u), u uniform on
-    (-1, 1). ``torch.erfinv`` and XLA's ``erf_inv`` are different
-    polynomials, so values may differ from jax by a few ulps; parity tests
-    carry the JAX init across (`repro_torch.interop`) instead."""
+    """float32 ``jax.random.normal`` bit for bit: sqrt(2) * erf_inv(u), u
+    uniform on (-1, 1)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     span = float(np.float32(1.0) - np.float32(lo))
-    sqrt2 = np.float32(np.sqrt(2))
-    return _draw(key, shape, lambda bits: torch.erfinv(
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    return _draw(key, shape, lambda bits: erf_inv(
         _uniform_from_bits(bits, lo, span)) * sqrt2, torch.float32)
 
 

@@ -2,15 +2,14 @@
 
 The host schedules (malicious set, attack schedule, label derangement)
 and `edge_rates` equal `repro`'s exactly; `poison_update` bit for bit;
-`wire_view` within atol 1e-6, rtol 1e-6 at noise_scale 1 (the port's
-``prng.normal`` and ``jax.random.normal`` use different erfinv
-polynomials: a few ulps) and bit for bit at noise_scale 0. The label-flip
+`wire_view` bit for bit at noise_scale 1 and 0 (the port's
+``prng.normal`` is ``jax.random.normal``'s bits). The label-flip
 local train matches `repro`'s ``local_train_with_labels`` within rtol
 1e-4, atol 1e-5 (tests/test_torch_engine.py's tolerance). Whole runs of
 each attack under each mix rule give `repro`'s Omega, graphs, downloads
 and malicious set, with tests/test_torch_dpfl.py's tolerances on the
-models (free riding at noise_scale 0, the bitwise path; at 1.0 only its
-invariants are checked), and equal the port's `run_dpfl_reference`.
+models (free riding at noise_scale 0 and, dense and sparse, at 1.0),
+and equal the port's `run_dpfl_reference`.
 ``fraction=0.0`` is the adversary-free run bit for bit."""
 import test_torch_common as common  # noqa: F401  (jax patch, threads)
 
@@ -112,10 +111,7 @@ def test_wire_view_matches_repro(noise_scale):
                                          jadv.adv_base_key(2), rnd))
         got = tadv.wire_view(t, torch.from_numpy(flat), torch.from_numpy(row),
                              tadv.adv_base_key(2), rnd).numpy()
-        if noise_scale == 0.0:
-            np.testing.assert_array_equal(got, want)
-        else:
-            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got[~row], flat[~row])
     assert tadv.free_rider_active(t)
     assert not tadv.free_rider_active(tadv.AdversaryConfig("free_rider"))
@@ -226,10 +222,28 @@ def test_sparse_attack_runs_match_repro(setting):
 
 
 @pytest.mark.parametrize("graph_repr", ["dense", "sparse"])
+def test_noisy_free_rider_matches_repro(graph_repr):
+    """noise_scale 1, whole runs: the noise is ``jax.random.normal``'s
+    bits, so the port gives `repro`'s Omega, graphs, downloads and
+    malicious set, with the models within tests/test_torch_dpfl.py's
+    tolerances."""
+    je, te = _engines("mlp")
+    j, t = _cfgs("free_rider", fraction=0.5, seed=3, noise_scale=1.0)
+    kw = dict(RUN, graph_repr=graph_repr)
+    log = _RewardLog(te)
+    try:
+        want = jrun(je, JConfig(**kw, adversary=j))
+        got = run_dpfl(te, DPFLConfig(**kw, adversary=t))
+    finally:
+        del te.make_reward_fn
+    _assert_same_run(want, got, kw, log, f"{graph_repr}: port vs repro")
+    np.testing.assert_array_equal(got.malicious, want.malicious)
+
+
+@pytest.mark.parametrize("graph_repr", ["dense", "sparse"])
 def test_noisy_free_rider_invariants(graph_repr):
-    """noise_scale 1: the noise differs from jax's by a few ulps, so only
-    the invariants are held: engine equals reference, graphs stay in
-    Omega within the budget, the malicious set is `repro`'s."""
+    """noise_scale 1: engine equals reference, graphs stay in Omega
+    within the budget, the malicious set is `repro`'s."""
     _, te = _engines("mlp")
     j, t = _cfgs("free_rider", fraction=0.5, seed=3, noise_scale=1.0)
     kw = dict(RUN, graph_repr=graph_repr, adversary=t)

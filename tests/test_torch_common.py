@@ -11,11 +11,12 @@ Every other ``tests/test_torch_*.py`` imports this module before `repro`:
 * torch is held to 2 threads, since the suite runs several workers.
 
 Its own tests hold the port to its import rules: nothing under
-``src/repro_torch/`` and not ``chip_smoke.py`` imports ``jax`` or
-`repro`; importing the port leaves ``jax`` out of ``sys.modules``; the
-port's copies of `repro`'s numpy modules (the synthetic data generator,
-the availability schedules, the adversary's host code) equal the
-originals; every DPFL setting of `repro` is ported.
+``src/repro_torch/``, not ``chip_smoke.py`` and not the port's drivers
+(``examples/*_torch.py``) imports ``jax`` or `repro`; importing the port
+leaves ``jax`` out of ``sys.modules``; the port's copies of `repro`'s
+numpy modules (the synthetic data generator, the availability schedules,
+the adversary's host code) equal the originals; every DPFL setting of
+`repro` is ported.
 """
 import ast
 import os
@@ -109,7 +110,7 @@ def carry_init(je, te):
 # ------------------------------------------------------ the port's checks
 
 _PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imports(path: Path):

@@ -1,18 +1,21 @@
-"""Run the JAX reference (`repro.core.dpfl.run_dpfl`) on the configurations
-that ``chip_smoke.py`` drives through the port, on the CPU, and print the
-accuracies and comm counters of each as one JSON line.
+"""Run the JAX reference on the configurations that ``chip_smoke.py``
+drives through the port, on the CPU, and print the accuracies (and, for
+DPFL, the comm counters) of each as one JSON line.
 
 ``chip_smoke.py``'s learning checks take their thresholds from these runs:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_reference_smoke.py \
         [dense] [sparse] [topk] [sparse-topk] [dense-markov] \
         [sparse-freerider-clipped] [topk-signflip-clipped] \
-        [dense-labelflip-trimmed]
+        [dense-labelflip-trimmed] [local] [fedavg] ... [pfedgraph] \
+        [fedavg-markov-topk]
 
-(no names: all eight). The data and run settings (PaperCNN at its
+(no names: all twenty). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
-``SMOKE_*`` constants, and the variants are its main-path runs, read
-from its ``VARIANTS`` table and built here with `repro`'s config classes.
+``SMOKE_*`` constants. A DPFL variant is one of its ``VARIANTS``, run by
+`repro.core.dpfl.run_dpfl`; a baseline run is one of its
+``BASELINE_RUNS``, run by `repro.fl.baselines.run_baseline` at
+``BASELINE_RUN``. Both are built here with `repro`'s config classes.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro.core import (AdversaryConfig, CompressionConfig,  # noqa: E402
                         DPFLConfig, ParticipationConfig, run_dpfl)
 from repro.data import make_federated_classification  # noqa: E402
 from repro.fl.adversary import segregation_history  # noqa: E402
+from repro.fl.baselines import run_baseline  # noqa: E402
 from repro.fl.engine import FLEngine  # noqa: E402
 from repro.models.classifier import PaperCNN  # noqa: E402
 
@@ -61,12 +65,36 @@ def config(name):
 
 
 def main():
-    names = sys.argv[1:] or list(chip_smoke.VARIANTS)
+    names = sys.argv[1:] or (list(chip_smoke.VARIANTS)
+                             + list(chip_smoke.BASELINE_RUNS))
     data = make_federated_classification(**chip_smoke.SMOKE_DATA)
     engine = FLEngine(PaperCNN(CNNConfig()), data, lr=chip_smoke.SMOKE_LR,
                       batch_size=chip_smoke.SMOKE_BATCH)
     for name in names:
-        run_one(engine, name)
+        if name in chip_smoke.BASELINE_RUNS:
+            run_baseline_one(engine, name)
+        else:
+            run_one(engine, name)
+
+
+def run_baseline_one(engine, name):
+    method, part, codec = chip_smoke.BASELINE_RUNS[name]
+    kw = dict(chip_smoke.BASELINE_RUN)
+    if part is not None:
+        kw["participation"] = ParticipationConfig(**part)
+    if codec is not None:
+        kw["compression"] = CompressionConfig(
+            codec, topk_frac=chip_smoke.TOPK_FRAC)
+    t0 = time.perf_counter()
+    out = run_baseline(method, engine, **kw)
+    print(json.dumps({
+        "baseline": name,
+        "mean_test_acc": float(np.mean(out["test_acc"])),
+        "n_params": engine.n_params,
+        "seconds": time.perf_counter() - t0,
+        "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        / 1024,
+    }), flush=True)
 
 
 def run_one(engine, name):
