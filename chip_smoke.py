@@ -348,6 +348,47 @@ K6_CASES = [("serve", 4, 512, 4096, "model", False),
             ("S = 1, h0", 4, 1, 4096, "model", True),
             ("B W under one block", 1, 33, 40, "kernels", False)]
 K6_TOL = 1e-4   # tests/test_kernels.py (atol)
+# K4 backward cases: (name, B, Sq, Sk, Hq, Hkv, hd, causal, window). The
+# first is the train run's (qwen3-0.6b, batch 8, sequence 512); then
+# recurrentgemma-9b's head (hd 256, one KV head) at a window of 64,
+# h2o-danube-1.8b's (hd 80, 32/8 heads) at a window, a ragged S that no
+# tile of 32 or 64 divides, Sq < Sk (keys no row sees), non-causal
+K4_BWD_CASES = [("train", 8, 512, 512, 16, 8, 128, True, None),
+                ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, True,
+                 64),
+                ("hd 80, 32/8 heads, window 128", 2, 384, 384, 32, 8, 80,
+                 True, 128),
+                ("ragged S = 200", 2, 200, 200, 16, 8, 128, True, None),
+                ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, True, None),
+                ("non-causal", 2, 256, 256, 16, 8, 128, False, None)]
+# each of dq, dk, dv against the plain version's, as a share of that
+# gradient's largest element (tests/test_torch_cuda.py): fp32 sums over
+# up to 512 keys (queries and heads) in another order than cuBLAS's
+K4_BWD_TOL = 1e-4
+# the forward's row log-sum-exp against torch.logsumexp of the plain
+# scores (atol = rtol)
+K4_LSE_TOL = 1e-5
+# The training path: `repro_torch.launch.train.main` at qwen3-0.6b's
+# published config (28 layers, float32), batch 8, sequence 512, 10 steps
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "10", "--batch", "8",
+              "--seq", "512"]
+# Card against CPU and against JAX: qwen3-0.6b at full width cut to its
+# first two layers (the full embedding, tied head and final norm), the
+# training loop (`launch.train.train`) for 3 steps at batch 2, sequence
+# 128, lr 3e-4, from the init of PRNGKey(0)
+CROSS_TRAIN = dict(arch="qwen3-0.6b", n_layers=2, batch=2, seq=128, steps=3,
+                   lr=3e-4)
+# the JAX reference's losses of that run (tools/jax_reference_smoke.py
+# train-cross, on the CPU)
+CROSS_TRAIN_JAX_LOSSES = [12.067048072814941, 12.131933212280273,
+                          12.170770645141602]
+# losses (atol) and step-0 gradients (each leaf as a share of its
+# largest element): fp32 sums over 151,936 logits and 256 positions in
+# other orders (card, CPU, XLA)
+CROSS_TRAIN_LOSS_TOL = 1e-4
+CROSS_TRAIN_GRAD_TOL = 1e-4
+# the DPFL mix of that model's weights: 4 clients
+DPFL_MIX_CLIENTS = 4
 
 # (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
 # on the tensor cores), NVIDIA data sheets. A row's bound takes the rate
@@ -802,6 +843,138 @@ def time_k4(torch, inputs, errs, rates):
     return rows
 
 
+def k4_bwd_inputs(torch):
+    """Seeded (name, causal, window, q, k, v, dout) on the card for every
+    K4 backward case, q and k scaled by 0.5 as in k4_inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for name, B, Sq, Sk, Hq, Hkv, hd, causal, window in K4_BWD_CASES:
+        def draw(S, H, scale):
+            return torch.randn((B, S, H, hd), generator=gen,
+                               device="cuda") * scale
+        out.append((name, causal, window, draw(Sq, Hq, 0.5),
+                    draw(Sk, Hkv, 0.5), draw(Sk, Hkv, 1.0),
+                    draw(Sq, Hq, 1.0)))
+    return out
+
+
+def lse_ref(torch, q, k, causal, window):
+    """(B, Hq, Sq) torch.logsumexp of the plain scaled scores, masked as
+    K4 masks them (aligned positions, -1e30)."""
+    rep = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q,
+                     k.repeat_interleave(rep, dim=2)) / math.sqrt(q.shape[3])
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None]
+    mask = torch.ones_like(i == j)
+    if causal:
+        mask = mask & (j <= i)
+    if window is not None:
+        mask = mask & (j > i - window)
+    return torch.logsumexp(torch.where(mask, s, -1e30), dim=-1)
+
+
+def check_k4_bwd(torch, inputs):
+    """In every K4 backward case: the forward with its log-sum-exp gives
+    the same out bits as without it, and the LSE within K4_LSE_TOL of
+    `lse_ref`; the backward's dq, dk and dv within K4_BWD_TOL of the plain
+    version's (`ref.flash_attention_bwd_ref`), each as a share of that
+    gradient's largest element; a repeated call bit for bit. Returns per
+    case (max abs err over the three gradients, the largest share, the
+    LSE's max abs err)."""
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    out_rows = []
+    for name, causal, window, q, k, v, dout in inputs:
+        kw = dict(causal=causal, window=window)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+        if not torch.equal(out, k4.flash_attention(q, k, v, **kw)):
+            fail(f"K4 {name}: the forward with its LSE gave other out bits "
+                 f"than without")
+        lse_err = _close(torch, f"K4 {name} LSE", lse,
+                         lse_ref(torch, q, k, causal, window), K4_LSE_TOL)
+        got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        err = share = 0.0
+        for label, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = w.abs().max().clamp_min(1e-30)
+            _close(torch, f"K4 backward {name} {label} / max |{label}|",
+                   g / scale, w / scale, K4_BWD_TOL, 0.0)
+            diff = (g - w).abs().max()
+            err = max(err, diff.item())
+            share = max(share, (diff / scale).item())
+        again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K4 backward {name}: a repeated call gave other bits")
+        out_rows.append((err, share, lse_err))
+    return out_rows
+
+
+def k4_bwd_work(q, k, window):
+    """(bytes, flops) K4's backward must at least move and do: q, k, v,
+    out and dout read once, lse read once, dq, dk and dv written once;
+    10 hd flops (five products) per visible (query, key) pair of every
+    head."""
+    nbytes, flops = k4_work(q, k, window)
+    B, Sq, Hq, _ = q.shape
+    # k4_work counts q, k, v and out: add dout, lse, dq, dk and dv
+    nbytes += q.element_size() * (2 * q.numel() + 2 * k.numel() +
+                                  B * Hq * Sq)
+    return nbytes, flops // 4 * 10
+
+
+def time_k4_bwd(torch, inputs, errs, rates):
+    """K4's backward at the train shape (the first case), its plain
+    version (which runs the plain forward under autograd, then its
+    backward) and the yardstick, SDPA's backward (``is_causal``,
+    ``enable_gqa`` on (B, H, S, hd) views, its forward run once and its
+    backward repeated), beside the bound; and the forward with and
+    without the LSE. Returns the row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    name, causal, window, q, k, v, dout = inputs[0]
+    kw = dict(causal=causal, window=window)
+    out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+    ms = time_ms(lambda: k4.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                **kw), torch)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
+                                                           **kw), torch)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                       enable_gqa=True)
+    dt = dout.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dt,
+                                                 retain_graph=True), torch)
+    lib_grads = torch.autograd.grad(o, leaves, dt)
+    got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    lib_diff = max((a.transpose(1, 2) - b).abs().max().item()
+                   for a, b in zip(lib_grads, got))
+    fwd_ms = time_ms(lambda: k4.flash_attention(q, k, v, **kw), torch)
+    fwd_lse_ms = time_ms(lambda: k4.flash_attention_with_lse(q, k, v, **kw),
+                         torch)
+    nbytes, flops = k4_bwd_work(q, k, window)
+    bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+    B, S, Hq, hd = q.shape
+    print(f"  K4 backward {name} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}) "
+          f"float32 err {errs[0][0]:.3g} kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s, three launches)  plain "
+          f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms (diff "
+          f"{lib_diff:.3g})  bound {bound_ms:.4f} ms ({bound_by}); forward "
+          f"at this shape {fwd_ms:.4f} ms, with its LSE {fwd_lse_ms:.4f} ms")
+    return dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
+                window=window, dtype="float32", max_abs_err=errs[0][0],
+                tol=K4_BWD_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_max_abs_diff=lib_diff, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, flops=flops,
+                tflops=flops / ms / 1e9, forward_ms=fwd_ms,
+                forward_lse_ms=fwd_lse_ms)
+
+
 def k5_inputs(torch):
     """Seeded (name, chunk, x, dlogA, B, C, h0) on the card for every K5
     case: x, B, C normal * 0.3, and dlogA -|normal| * 0.1 ("kernels", as
@@ -1044,7 +1217,7 @@ def time_k6(torch, inputs, errs, rates):
 #: the kernels redesigned for Hopper: their ptxas report is printed in
 #: full, and a spill fails the run
 REDESIGNED = ("graph_mix", "sparse_graph_mix", "compressed_graph_mix",
-              "flash_attention", "ssd")
+              "flash_attention", "flash_attention_bwd", "ssd")
 
 
 def ptxas_report(log):
@@ -1113,10 +1286,11 @@ def sass_mma_counts(path):
 
 
 def report_build(built):
-    """Print each kernel's ptxas use; for the redesigned kernels every
-    entry function (registers, spills, static shared memory), failing on
-    a spill; and K4's SASS: its bf16 kernels must run on the tensor cores
-    (HMMA or HGMMA) and its fp32 kernels must not."""
+    """Print each kernel's ptxas use; for the redesigned kernels (and K4's
+    backward) every entry function (registers, spills, static shared
+    memory), failing on a spill; and K4's SASS: its bf16 kernels must run
+    on the tensor cores (HMMA or HGMMA) and its fp32 kernels, the
+    backward's 33 included, must not."""
     from repro_torch.kernels import _build
 
     for kname, b in sorted(built.items()):
@@ -1152,6 +1326,14 @@ def report_build(built):
           f"kernels (min HMMA {min(h for h, _ in bf16.values())} a kernel); "
           f"HMMA {sum(h for h, _ in f32.values())}, HGMMA "
           f"{sum(g for _, g in f32.values())} in its 16 fp32 kernels")
+    bwd = sass_mma_counts(_build.library_path("flash_attention_bwd"))
+    if len(bwd) != 33:
+        fail(f"K4 backward SASS: {len(bwd)} kernels, expected 33 (D, and "
+             f"dK/dV and dQ at 16 head sizes)")
+    if any(h + g for h, g in bwd.values()):
+        fail("K4 backward SASS: a kernel runs on the tensor cores (fp32 "
+             "only, no TF32)")
+    print(f"K4 backward SASS: no HMMA or HGMMA in its {len(bwd)} kernels")
 
 
 def _kernel_modules():
@@ -1165,7 +1347,8 @@ def _kernel_modules():
     return {"graph_mix": k1.graph_mix,
             "sparse_graph_mix": k2.sparse_graph_mix,
             "compressed_graph_mix": k3.compressed_graph_mix,
-            "flash_attention": k4.flash_attention, "ssd": k5.ssd,
+            "flash_attention": k4.flash_attention,
+            "flash_attention_bwd": k4.flash_attention_bwd, "ssd": k5.ssd,
             "rglru_scan": k6.rglru_scan}
 
 
@@ -1248,7 +1431,8 @@ def expected_launches(variant, N, B, rounds):
     return {"graph_mix": k1,
             "sparse_graph_mix": 1 + round_mixes if sparse else 0,
             "compressed_graph_mix": round_mixes if topk and not sparse else 0,
-            "flash_attention": 0, "ssd": 0, "rglru_scan": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0,
+            "rglru_scan": 0}
 
 
 def check_main_path(res, engine, cfg, variant, launches, omega_dense):
@@ -1657,6 +1841,172 @@ def check_cross(torch, cfg, model, params):
     return diff, seconds, n_layers
 
 
+def train_launches(cfg, steps):
+    """The launches of each port kernel that ``steps`` train steps of a
+    dense ``cfg`` must make: under remat "full" each layer's forward runs
+    twice a step (the loss, then its recompute in the backward pass), so
+    K4's forward launches 2 n_layers a step and its backward n_layers;
+    every other kernel none."""
+    want = {name: 0 for name in _kernel_modules()}
+    want["flash_attention"] = 2 * cfg.n_layers * steps
+    want["flash_attention_bwd"] = cfg.n_layers * steps
+    return want
+
+
+def run_train(torch):
+    """The training path once: `repro_torch.launch.train.main(TRAIN_ARGV)`
+    with every kernel count zeroed just before and read just after
+    (`train_launches`); every loss finite and the last below the first.
+    Then AdamW alone (its update and the weights' addition, on gradients
+    of the weights' shapes) three times, by the host clock around
+    synchronized calls. Returns a dict of the run's numbers."""
+    from repro_torch.launch import train
+
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    run = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = run.model.cfg
+    want = train_launches(cfg, steps)
+    if launches != want:
+        fail(f"train {cfg.name}: kernel launches {launches}, expected {want}")
+    if len(run.losses) != steps or \
+            not all(math.isfinite(x) for x in run.losses):
+        fail(f"train {cfg.name}: losses {run.losses}")
+    if not run.losses[-1] < run.losses[0]:
+        fail(f"train {cfg.name}: the last loss {run.losses[-1]} is not "
+             f"below the first {run.losses[0]}")
+    params = dict(run.model.named_parameters())
+    grads = {k: torch.full_like(p, 1e-3) for k, p in params.items()}
+    opt_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        updates, run.opt_state = run.optimizer.update(grads, run.opt_state,
+                                                      params)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.add_(updates[k])
+        torch.cuda.synchronize()
+        opt_times.append(time.perf_counter() - t0)
+        del updates
+    warm = statistics.median(run.step_seconds[2:])
+    return dict(arch=cfg.name, n_params=run.n_params, steps=steps,
+                losses=run.losses, step_seconds=run.step_seconds,
+                warm_step_s=warm, optimizer_s=statistics.median(opt_times),
+                optimizer_share=statistics.median(opt_times) / warm,
+                peak_bytes=peak, launches=launches, seconds=seconds)
+
+
+def check_cross_train(torch):
+    """CROSS_TRAIN on the card and by the port on the CPU (the card's init
+    copied to the host before any step): the step-0 gradients within
+    CROSS_TRAIN_GRAD_TOL (each leaf as a share of its largest element),
+    then 3 steps of the training loop (`launch.train.train`) on each, the
+    card's launches `train_launches` and the CPU's none, the losses within
+    CROSS_TRAIN_LOSS_TOL of each other and of the JAX reference's
+    (CROSS_TRAIN_JAX_LOSSES). Returns (card losses, CPU losses, the
+    largest gradient share, the card's launches, the card's trained
+    weights, CPU seconds)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    c = CROSS_TRAIN
+    if CROSS_TRAIN_JAX_LOSSES is None or \
+            len(CROSS_TRAIN_JAX_LOSSES) != c["steps"]:
+        fail("no JAX reference losses for CROSS_TRAIN: run "
+             "tools/jax_reference_smoke.py train-cross")
+    cfg = get_config(c["arch"]).replace(n_layers=c["n_layers"],
+                                        dtype="float32")
+    card = build_model(cfg, device="meta", loss_chunks=4)
+    params = card.init(prng.PRNGKey(0, device="cuda"))
+    cpu = build_model(cfg, device="meta", loss_chunks=4)
+    cpu.load_state_dict({k: v.to("cpu", copy=True)
+                         for k, v in params.items()}, assign=True)
+    corpus = train.lm_corpus(cfg, c["batch"], c["seq"])
+    first = corpus[train.batch_rows(corpus.shape[0], c["batch"], 1)[0]]
+    grads = {}
+    for side, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        loss, _ = model.loss({"tokens": torch.from_numpy(first).to(dev)})
+        grads[side] = torch.autograd.grad(loss, list(model.parameters()))
+    share = 0.0
+    for (name, _), g, w in zip(card.named_parameters(), grads["card"],
+                               grads["cpu"]):
+        s = ((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)
+             ).item()
+        if not s <= CROSS_TRAIN_GRAD_TOL:
+            fail(f"train card against CPU: step-0 gradient of {name} "
+                 f"differs by {s} of its largest element")
+        share = max(share, s)
+    del grads
+    kw = dict(steps=c["steps"], batch=c["batch"], lr=c["lr"], log_every=1)
+    _zero_launches()
+    on_card = train.train(card, corpus, **kw)
+    torch.cuda.synchronize()
+    n_card = _read_launches()
+    t0 = time.perf_counter()
+    on_cpu = train.train(cpu, corpus, **kw)
+    seconds = time.perf_counter() - t0
+    n_cpu = {k: v - n_card[k] for k, v in _read_launches().items()}
+    want = train_launches(cfg, c["steps"])
+    if n_card != want or any(n_cpu.values()):
+        fail(f"train card against CPU: launches {n_card} on the card "
+             f"(expected {want}), {n_cpu} on the CPU")
+    for label, other in (("the CPU", on_cpu.losses),
+                         ("JAX", CROSS_TRAIN_JAX_LOSSES)):
+        diff = max(abs(a - b) for a, b in zip(on_card.losses, other))
+        if not diff <= CROSS_TRAIN_LOSS_TOL:
+            fail(f"train card against {label}: losses {on_card.losses} and "
+                 f"{other} differ by {diff} > {CROSS_TRAIN_LOSS_TOL}")
+    return (on_card.losses, on_cpu.losses, share, n_card,
+            dict(card.named_parameters()), seconds)
+
+
+def check_dpfl_mix(torch, params):
+    """`make_dpfl_mix` on DPFL_MIX_CLIENTS client copies of ``params``
+    (client c's copy plus 0.01 c seeded normal noise, so the mix moves
+    them) under a seeded row-stochastic A, with the kernel counts zeroed
+    just before and read just after: K1 once per leaf and nothing else,
+    every leaf within TOL["float32"] of K1's plain version. Returns (the
+    launches, the largest error, the mix's seconds)."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch.steps import make_dpfl_mix
+
+    C = DPFL_MIX_CLIENTS
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    A = torch.rand((C, C), generator=gen, device="cuda")
+    A = A / A.sum(dim=1, keepdim=True)
+    with torch.no_grad():
+        stacked = {k: torch.stack([v + 0.01 * c * torch.randn(
+            v.shape, generator=gen, device="cuda") for c in range(C)])
+            for k, v in params.items()}
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    mixed = make_dpfl_mix(A)(stacked)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    want = {name: 0 for name in _kernel_modules()}
+    want["graph_mix"] = len(stacked)
+    if launches != want:
+        fail(f"DPFL mix: launches {launches}, expected {want}")
+    err = 0.0
+    for k, w in stacked.items():
+        plain = ref.graph_mix_ref(A, w.reshape(C, -1)).reshape(w.shape)
+        err = max(err, _close(torch, f"DPFL mix {k}", mixed[k], plain,
+                              TOL["float32"]))
+    return launches, err, seconds
+
+
 def _kernel_row(name, source, replaces, launches, rows):
     main = rows[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -1729,6 +2079,17 @@ def main():
     print(f"K4 bf16 against the fp32 plain version: within atol "
           f"{K4_BF16_FP32_TOL[0]} rtol {K4_BF16_FP32_TOL[1]} in every case, "
           f"at most {max(t[1] for t in k4_fp32 if t):.3f} of the limit")
+    k4b_in = k4_bwd_inputs(torch)
+    k4b_errs = check_k4_bwd(torch, k4b_in)
+    print(f"K4 backward agrees with its plain version in {len(k4b_in)} "
+          f"cases (dq, dk, dv within {K4_BWD_TOL} of each one's largest "
+          f"element), the same bits on a repeated call; the forward with "
+          f"its LSE gives the same out bits as without, its LSE within "
+          f"{K4_LSE_TOL} of torch.logsumexp of the plain scores")
+    for case, (err, share, lse_err) in zip(K4_BWD_CASES, k4b_errs):
+        print(f"  K4 backward {case[0]}: max abs err {err:.3g} "
+              f"({share:.3g} of the largest element); LSE max abs err "
+              f"{lse_err:.3g}")
     k5_in = k5_inputs(torch)
     k5_errs = check_k5(torch, k5_in)
     print(f"K5 agrees with its plain version in {len(k5_in)} cases (max abs "
@@ -1830,6 +2191,37 @@ def main():
         torch.cuda.empty_cache()
     print("serve walls, second call (prefill ms, decode ms/step): " +
           ", ".join(f"{a} {p:.3f}, {d:.3f}" for a, (p, d) in walls.items()))
+    tr = run_train(torch)
+    launches[f"train {tr['arch']}"] = tr["launches"]
+    print(f"train {tr['arch']} float32 B=8 S=512, {tr['steps']} steps, "
+          f"{tr['n_params']} weights: losses "
+          f"{[round(x, 4) for x in tr['losses']]}, step walls (s) "
+          f"{[round(x, 4) for x in tr['step_seconds']]}, warm step "
+          f"{tr['warm_step_s']:.4f} s (median of steps 2-9), AdamW alone "
+          f"{tr['optimizer_s']:.4f} s ({tr['optimizer_share']:.3f} of a "
+          f"step), peak allocated {tr['peak_bytes']} bytes, launches "
+          f"{tr['launches']} "
+          f"({tr['launches']['flash_attention'] // tr['steps']} K4 forward "
+          f"and {tr['launches']['flash_attention_bwd'] // tr['steps']} "
+          f"backward a step), run {tr['seconds']:.1f} s with init and "
+          f"corpus")
+    torch.cuda.empty_cache()
+    (card_losses, cpu_losses, grad_share, n_cross, cross_params,
+     cpu_s) = check_cross_train(torch)
+    launches["train cross (card)"] = n_cross
+    print(f"train card against CPU and JAX ({CROSS_TRAIN}): losses card "
+          f"{card_losses}, CPU {cpu_losses}, JAX {CROSS_TRAIN_JAX_LOSSES} "
+          f"(tol {CROSS_TRAIN_LOSS_TOL}); step-0 gradients within "
+          f"{grad_share:.3g} of each leaf's largest element (tol "
+          f"{CROSS_TRAIN_GRAD_TOL}); CPU side {cpu_s:.1f} s")
+    n_mix, mix_err, mix_s = check_dpfl_mix(torch, cross_params)
+    launches["dpfl mix"] = n_mix
+    print(f"DPFL mix: make_dpfl_mix of {DPFL_MIX_CLIENTS} client copies of "
+          f"that model ({len(cross_params)} leaves) in {mix_s * 1e3:.3f} ms, "
+          f"K1 launches {n_mix['graph_mix']} (one a leaf), max abs err "
+          f"{mix_err:.3g} against K1's plain version")
+    del cross_params
+    torch.cuda.empty_cache()
 
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle
@@ -1837,6 +2229,7 @@ def main():
     k2_rows = time_k2(torch, k2_in, k2_errs, rates)
     k3_rows = time_k3(torch, k3_in, k3_errs, rates)
     k4_rows = time_k4(torch, k4_in, k4_errs, rates)
+    k4b_row = time_k4_bwd(torch, k4b_in, k4b_errs, rates)
     k5_rows = time_k5(torch, k5_in, k5_errs, rates)
     k6_rows = time_k6(torch, k6_in, k6_errs, rates)
     print("clocks.sm, power.draw after timing: " + subprocess.run(
@@ -1845,7 +2238,8 @@ def main():
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs, the twelve baseline runs and the three serve runs), with
+    # DPFL runs, the twelve baseline runs, the three serve runs, the train
+    # run, the card side of the cross train run and the DPFL mix), with
     # each run's counts beside them
     def total(kname):
         return sum(c[kname] for c in launches.values())
@@ -1866,6 +2260,15 @@ def main():
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:96",
                     total("flash_attention"), k4_rows),
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:96 (its "
+                     "function's gradient; no Pallas counterpart)",
+         "launches": total("flash_attention_bwd"),
+         "max_abs_err": max(e for e, _, _ in k4b_errs),
+         "ms": k4b_row["ms"], "plain_ms": k4b_row["plain_ms"],
+         "bound_ms": k4b_row["bound_ms"], "bound_by": k4b_row["bound_by"],
+         "library_ms": k4b_row["library_ms"], "shapes": [k4b_row]},
         _kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
                     "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows),
         _kernel_row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",

@@ -71,6 +71,17 @@ def mixing_matrix(adj, p, active=None):
 
 
 @exchange_site(charges="caller")
+def mix_pytree(A, stacked_params):
+    """w_k <- sum_i A[k, i] w_i on a client-stacked dict of (C, ...) leaves
+    (Eq. 4): each leaf viewed as (C, P) through the Eq.-4 mixing matmul
+    (`kernels.ops.graph_mix`) in fp32, cast back to its dtype."""
+    A = A.float().contiguous()
+    return {k: _kops.graph_mix(A, w.reshape(w.shape[0], -1).float()
+                               .contiguous()).reshape(w.shape).to(w.dtype)
+            for k, w in stacked_params.items()}
+
+
+@exchange_site(charges="caller")
 def mix_flat(A, flat_w):
     """(N, P) client-stacked flattened params through the Eq.-4 mixing
     matmul (`kernels.ops.graph_mix`)."""

@@ -1,9 +1,11 @@
 """Synthetic heterogeneous federated datasets (numpy).
 
-A copy of `repro.data.synthetic`'s ``FederatedData`` and
-``make_federated_classification``: clients in ``n_clusters`` hidden
-clusters, each cluster with its own class-conditional Gaussian
-prototypes, and label skew from a Dirichlet, pathological or iid split.
+A copy of `repro.data.synthetic`'s ``FederatedData``,
+``make_federated_classification`` and ``make_lm_token_data``: clients in
+``n_clusters`` hidden clusters, each cluster with its own class-
+conditional Gaussian prototypes, and label skew from a Dirichlet,
+pathological or iid split; and per-cluster bigram token corpora for
+LM training (`repro_torch.launch.train`).
 The same seed gives the same arrays in both packages (tested), so the
 port and the reference train on identical data.
 """
@@ -151,3 +153,24 @@ def make_federated_classification(
         p = sizes.astype(float) / sizes.sum()
     return FederatedData(*tr, *va, *te, p=p, cluster=cluster_of,
                          n_classes=n_classes)
+
+
+def make_lm_token_data(seed: int, n_clients: int, vocab: int, seq_len: int,
+                       n_seqs: int, n_clusters: int = 2):
+    """Synthetic LM corpora: per-cluster bigram transition tables (used by
+    the LM-scale DPFL examples and the end-to-end training entry point)."""
+    rng = np.random.default_rng(seed)
+    tables = rng.dirichlet([0.05] * vocab, size=(n_clusters, vocab))
+    cluster_of = np.arange(n_clients) % n_clusters
+    out = np.zeros((n_clients, n_seqs, seq_len + 1), np.int32)
+    for i in range(n_clients):
+        t = tables[cluster_of[i]]
+        x = rng.integers(0, vocab, size=n_seqs)
+        seq = [x]
+        for _ in range(seq_len):
+            # vectorized categorical draw per sequence
+            u = rng.random((n_seqs, 1))
+            nxt = (t[seq[-1]].cumsum(1) > u).argmax(1)
+            seq.append(nxt.astype(np.int64))
+        out[i] = np.stack(seq, 1).astype(np.int32)
+    return out, cluster_of

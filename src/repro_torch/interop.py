@@ -5,8 +5,9 @@ dict in ``ravel_pytree`` order (sorted keys), each raveled in its JAX
 layout (HWIO conv weights, (in, out) dense weights). So a row of a
 (N, P) table of one package is the same model in the other, and weights
 cross as numpy arrays with no reshuffling. An LM's stacked layer tree
-becomes the port's per-layer state dict (`lm_params_from_jax`). Takes
-numpy, not JAX arrays: this module imports no JAX.
+becomes the port's per-layer state dict (`lm_params_from_jax`), and back
+(`lm_params_to_jax`). Takes and gives numpy, not JAX arrays: this module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .models.lm import hybrid_layout
+from .models.lm import hybrid_layout, hybrid_segments
 
 
 def params_from_jax(params: Mapping[str, np.ndarray],
@@ -90,4 +91,58 @@ def lm_params_from_jax(params: Mapping, cfg, device=None
                              f"{a.shape[0]} rows for {cfg.n_layers} layers")
         for i in range(cfg.n_layers):
             out[f"layers.{i}.{name}"] = put(a[i], name)
+    return out
+
+
+def lm_params_to_jax(state: Mapping[str, torch.Tensor], cfg
+                     ) -> Dict[str, object]:
+    """The inverse of `lm_params_from_jax`: a state dict of the port's
+    `DecoderLM` -> `repro`'s ``DecoderLM`` parameter tree, every leaf a
+    float32 numpy array on the host: "tok_embed", "final_norm",
+    ["lm_head"], and ``"layers"`` (dense, SSM) holding each per-layer
+    leaf stacked over the layers, or ``"segments"`` (hybrid) holding
+    ``[si][f"b{bi}"]`` leaves stacked over the groups. Saved with
+    `repro_torch.checkpoint.save_pytree`, it is a file that
+    `repro.checkpoint.load_pytree` reads into `repro`'s tree."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
+        raise NotImplementedError(f"lm_params_to_jax: the {cfg.family} "
+                                  f"family is not ported")
+
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    def nest(leaves: Dict[str, np.ndarray]) -> Dict:
+        tree: Dict = {}
+        for name, a in leaves.items():
+            *path, last = name.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = a
+        return tree
+
+    out: Dict[str, object] = {k: arr(v) for k, v in state.items()
+                              if not k.startswith("layers.")}
+    per_layer: Dict[int, Dict[str, torch.Tensor]] = {}
+    for k, v in state.items():
+        if k.startswith("layers."):
+            _, i, name = k.split(".", 2)
+            per_layer.setdefault(int(i), {})[name] = v
+    if cfg.family == "hybrid":
+        layout = hybrid_layout(cfg)
+        segs = [dict() for _ in hybrid_segments(cfg)]
+        for i, (si, g, bi, _) in enumerate(layout):
+            block = segs[si].setdefault(f"b{bi}", {})
+            for name, v in per_layer[i].items():
+                block.setdefault(name, []).append(arr(v))
+        out["segments"] = [{b: nest({n: np.stack(rows)
+                                     for n, rows in block.items()})
+                            for b, block in seg.items()} for seg in segs]
+        return out
+    if sorted(per_layer) != list(range(cfg.n_layers)):
+        raise ValueError(f"lm_params_to_jax: layers {sorted(per_layer)} "
+                         f"for {cfg.n_layers} layers")
+    out["layers"] = nest({name: np.stack([arr(per_layer[i][name])
+                                          for i in range(cfg.n_layers)])
+                          for name in per_layer[0]})
     return out

@@ -30,6 +30,7 @@ SOURCES = {"graph_mix": "graph_mix.cu",
            "sparse_graph_mix": "sparse_graph_mix.cu",
            "compressed_graph_mix": "compressed_graph_mix.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssd": "ssd.cu",
            "rglru_scan": "rglru_scan.cu"}
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")

@@ -11,7 +11,11 @@
 // paths keep the Pallas kernel's online softmax in fp32: masked scores
 // are -1e30, each tile rescales by exp(m_prev - m_new), and the output
 // divides by max(l, 1e-30). Each sum runs in a fixed order without
-// atomics, so a repeated call gives the same bits.
+// atomics, so a repeated call gives the same bits. Given an lse pointer
+// (training), each row's natural log-sum-exp m + log(l) also goes to a
+// (B, Hq, Sq) fp32 table, which the backward (flash_attention_bwd.cu)
+// reads; given none (serving), nothing else changes. What both kernels
+// share with the backward is in flash_attention.cuh.
 //
 // What bounds it: operations. At the serve shape of qwen3-0.6b (B 4,
 // S 512, Hq 16, Hkv 8, hd 128, causal) the work is 4*B*Hq*hd*S(S+1)/2 =
@@ -67,45 +71,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;            // four warps
-constexpr int kBQ = 64;                  // query rows per block
-constexpr float kNegInf = -1e30f;        // the Pallas kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-struct Strides {
-  int64_t b, s, h;  // of q, k or v, in elements; the last axis is 1
-};
-
-struct Problem {
-  int Sq, Sk, Hq, rep, causal, window;
-  float scale;
-  Strides qs, ks, vs;
-};
-
-// ---- cp.async and tensor-core primitives (sm_80 and later)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zero-filled when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// ---- tensor-core primitives (sm_80 and later)
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile(
@@ -138,54 +111,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- shared by both paths
-
-// rows [r0, r0 + ROWS) of one (b, head) slice of q, k or v into shared
-// memory at `pitch` elements a row; rows at or past S are zero-filled
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, int pitch, const T* base,
-                                          int64_t stride_s, int r0, int S) {
-  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
-  constexpr int kPerRow = HD / kChunk;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kChunk;
-    const bool in = r0 + r < S;
-    const T* src = base + (in ? (r0 + r) * stride_s + c : 0);
-    cp_async16(dst + r * pitch + c, src, in);
-  }
-}
-
-__device__ __forceinline__ bool visible(int qp, int kp, const Problem& p) {
-  return kp < p.Sk && (!p.causal || kp <= qp) &&
-         (p.window <= 0 || kp > qp - p.window);
-}
-
-// whether keys [k0, k0 + bk) hold a pair that some row of [q0, q0 + kBQ)
-// must not see
-__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, int bk,
-                                                const Problem& p) {
-  return k0 + bk > p.Sk || (p.causal && k0 + bk - 1 > q0) ||
-         (p.window > 0 && k0 <= q0 + kBQ - 1 - p.window);
-}
-
-// the block's query tile and the key tiles its rows can see
-struct Span {
-  int q0, k_first, n_tiles;
-};
-
-template <int BK>
-__device__ __forceinline__ Span block_span(const Problem& p) {
-  const int qt = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x)
-                          : static_cast<int>(blockIdx.x);
-  const int q0 = qt * kBQ;
-  const int q_end = min(q0 + kBQ, p.Sq);
-  const int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int hi = p.causal ? min(p.Sk, q_end) : p.Sk;
-  const int k_first = (lo / BK) * BK;
-  return {q0, k_first, (hi - k_first + BK - 1) / BK};
-}
-
 // ---- bf16: mma.sync on the tensor cores
 
 template <int HD>
@@ -200,7 +125,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, Problem p) {
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, Problem p) {
   using Tiles = Bf16Tiles<HD>;
   constexpr int BK = Tiles::kBK;
   constexpr int PITCH = Tiles::kPitch;
@@ -341,6 +267,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = row_a + i * 8;
     if (row >= p.Sq) continue;
+    if (lse != nullptr && tq == 0)  // m is in base 2
+      lse[(static_cast<int64_t>(b) * p.Hq + h) * p.Sq + row] =
+          m[i] * kLn2 + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow =
         out + ((static_cast<int64_t>(b) * p.Sq + row) * p.Hq + h) * HD;
@@ -373,7 +302,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, Problem p) {
+                           float* __restrict__ out,
+                           float* __restrict__ lse, Problem p) {
   using Tiles = F32Tiles<HD>;
   constexpr int BK = Tiles::kBK;
   constexpr int PITCH = Tiles::kPitch;
@@ -543,10 +473,17 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     }
   }
 
-  // out[b, row, h, :] = acc / max(l, 1e-30), contiguous (B, Sq, Hq, hd)
+  // out[b, row, h, :] = acc / max(l, 1e-30), contiguous (B, Sq, Hq, hd);
+  // lse[b, h, row] = m + log(l) when asked for
   if (skg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) l_s[srg * 4 + i] = l[i];
+    for (int i = 0; i < 4; ++i) {
+      l_s[srg * 4 + i] = l[i];
+      const int row = span.q0 + srg * 4 + i;
+      if (lse != nullptr && row < p.Sq)
+        lse[(static_cast<int64_t>(b) * p.Hq + h) * p.Sq + row] =
+            m[i] + logf(l[i]);
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -571,7 +508,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
 template <int HD>
 cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
-                      void* out, int B, const Problem& p,
+                      void* out, float* lse, int B, const Problem& p,
                       cudaStream_t stream) {
   if (bf16) {
     const int bytes = Bf16Tiles<HD>::kBytes;
@@ -587,7 +524,7 @@ cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), p);
+        static_cast<__nv_bfloat16*>(out), lse, p);
   } else {
     const int bytes = F32Tiles<HD>::kBytes;
     if (bytes > 48 * 1024) {
@@ -600,14 +537,14 @@ cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
                     static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
     flash_attention_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), p);
+        static_cast<const float*>(v), static_cast<float*>(out), lse, p);
   }
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(bool bf16, const void* q, const void* k, const void* v,
-                     void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                     int hd, const long long* strides, int causal,
+                     void* out, void* lse, int B, int Sq, int Sk, int Hq,
+                     int Hkv, int hd, const long long* strides, int causal,
                      int window, float scale, int device, void* stream) {
   // this library carries its own (static) CUDA runtime, whose current
   // device is set here to the one the tensors live on
@@ -626,7 +563,8 @@ cudaError_t dispatch(bool bf16, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_CASE(N) \
   case N:          \
-    return launch_hd<16 * N>(bf16, q, k, v, out, B, p, s);
+    return launch_hd<16 * N>(bf16, q, k, v, out, static_cast<float*>(lse), \
+                             B, p, s);
   if (hd % 16) return cudaErrorInvalidValue;
   switch (hd / 16) {
     FA_CASE(1)
@@ -657,29 +595,32 @@ cudaError_t dispatch(bool bf16, const void* q, const void* k, const void* v,
 // the name; `strides` holds the (b, s, h) strides of q, k and v in
 // elements (nine values; the head axis has stride 1); every base address
 // and every stride of a dimension longer than 1 is 16-byte aligned; out
-// is contiguous (B, Sq, Hq, hd). hd is a multiple of 16 up to 256, Hq a
-// multiple of Hkv; window <= 0 means none. The launch goes on `stream`.
+// is contiguous (B, Sq, Hq, hd). lse is null, or a contiguous fp32
+// (B, Hq, Sq) that gets each row's natural log-sum-exp of its scaled,
+// masked scores (what the backward, flash_attention_bwd.cu, reads). hd
+// is a multiple of 16 up to 256, Hq a multiple of Hkv; window <= 0 means
+// none. The launch goes on `stream`.
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Sk, int Hq, int Hkv, int hd,
-                                   const long long* strides, int causal,
-                                   int window, float scale, int device,
-                                   void* stream) {
-  return static_cast<int>(dispatch(false, q, k, v, out, B, Sq, Sk, Hq, Hkv,
-                                   hd, strides, causal, window, scale,
-                                   device, stream));
+                                   const void* v, void* out, void* lse,
+                                   int B, int Sq, int Sk, int Hq, int Hkv,
+                                   int hd, const long long* strides,
+                                   int causal, int window, float scale,
+                                   int device, void* stream) {
+  return static_cast<int>(dispatch(false, q, k, v, out, lse, B, Sq, Sk, Hq,
+                                   Hkv, hd, strides, causal, window,
+                                   scale, device, stream));
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int Sq,
-                                    int Sk, int Hq, int Hkv, int hd,
-                                    const long long* strides, int causal,
-                                    int window, float scale, int device,
-                                    void* stream) {
-  return static_cast<int>(dispatch(true, q, k, v, out, B, Sq, Sk, Hq, Hkv,
-                                   hd, strides, causal, window, scale,
-                                   device, stream));
+                                    const void* v, void* out, void* lse,
+                                    int B, int Sq, int Sk, int Hq, int Hkv,
+                                    int hd, const long long* strides,
+                                    int causal, int window, float scale,
+                                    int device, void* stream) {
+  return static_cast<int>(dispatch(true, q, k, v, out, lse, B, Sq, Sk, Hq,
+                                   Hkv, hd, strides, causal, window,
+                                   scale, device, stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

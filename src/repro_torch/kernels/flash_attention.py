@@ -1,16 +1,23 @@
-"""CUDA kernel wrapper for causal grouped-query flash attention (K4).
+"""CUDA kernel wrappers for causal grouped-query flash attention (K4) and
+its backward.
 
 Computes attention over aligned positions (query row i and key j sit at
 positions i and j): row i sees keys j <= i (causal) and j > i - window.
 q is (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), in `repro`'s layout.
-Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py::
+The forward ports the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``; the kernel itself, its bound and its design are
 described in ``csrc/flash_attention.cu``. Its plain version is
-`repro_torch.kernels.ref.flash_attention_ref`.
+`repro_torch.kernels.ref.flash_attention_ref`. On fp32 inputs that
+require grad, `flash_attention` is a ``torch.autograd.Function``: its
+forward also writes each row's log-sum-exp, and its backward is
+`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``, which has no
+Pallas counterpart: `repro` differentiates its plain attention), whose
+plain version is `repro_torch.kernels.ref.flash_attention_bwd_ref`.
 
-The wrapper launches the kernel on CUDA tensors, or raises: it never
-falls back to the plain version (`repro_torch.kernels.ops.flash_attention`
-picks the plain version for CPU tensors only).
+The wrappers launch their kernels on CUDA tensors, or raise: they never
+fall back to a plain version (`repro_torch.kernels.ops.flash_attention`
+picks the plain version, which autograd differentiates, for CPU tensors
+only).
 """
 from __future__ import annotations
 
@@ -24,11 +31,13 @@ from . import _build
 
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-             ctypes.c_void_p)
+# q, k, v, out, lse; B, Sq, Sk, Hq, Hkv, hd; strides; causal, window,
+# scale, device; stream
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 +
+             (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+              ctypes.c_int, ctypes.c_void_p))
+# q, k, v, out, dout, lse, delta, dq, dk, dv; then as the forward's
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + _ARGTYPES[5:])
 MAX_HEAD_DIM = 256
 #: bytes of each cp.async copy (and ldmatrix row) of the kernel
 ALIGN = 16
@@ -55,27 +64,18 @@ def alignment_error(name: str, address: int, shape, strides,
 
 
 def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """K4 has no backward (nor has the Pallas kernel): refuse inputs that
-    require grad rather than return a result autograd cannot follow."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
+    """K4's backward takes fp32 only: refuse other inputs that require
+    grad rather than return a result autograd cannot follow."""
+    if q.dtype != torch.float32 and (q.requires_grad or k.requires_grad
+                                     or v.requires_grad):
         raise NotImplementedError(
-            "flash_attention has no backward: LM training is ROADMAP "
-            "Queue 1 item 14d; call it under torch.no_grad() or "
-            "torch.inference_mode()")
+            f"flash_attention has no {q.dtype} backward (fp32 only): bf16 "
+            f"LM training is ROADMAP Queue 1 item 14d-3; call it under "
+            f"torch.no_grad() or torch.inference_mode()")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), one dtype (fp32 or bf16)
-    on one CUDA device, the last axis contiguous (other strides are read
-    as they are, and must be 16-byte aligned: `alignment_error`). hd is
-    a multiple of 16 up to 256 and Hq a multiple of Hkv. Returns (B, Sq,
-    Hq, hd) in q's dtype. Refuses inputs where a query row sees no key
-    (Sk = 0, or Sq > Sk + window - 1): there the plain version averages
-    every key, which a kernel that skips masked tiles does not compute.
-    Adds one to ``flash_attention.launches`` per kernel launch."""
-    check_no_grad(q, k, v)
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
+    """(B, Sq, Sk, Hq, Hkv, hd) of inputs the kernels take, or raise."""
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share one dtype, "
                         f"float32 or bfloat16, got {q.dtype}, {k.dtype} "
@@ -111,22 +111,143 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               t.element_size())
         if err:
             raise ValueError(err)
+    return B, Sq, Sk, Hq, Hkv, hd
+
+
+def _strides(q, k, v):
+    return (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                     for i in range(3)))
+
+
+def _forward(q, k, v, causal, window, with_lse):
+    """Launch the forward; returns (out, lse or None). lse is the (B, Hq,
+    Sq) fp32 log-sum-exp of each row's scaled, masked scores."""
+    B, Sq, Sk, Hq, Hkv, hd = _check(q, k, v, window)
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if B == 0 or Sq == 0 or Hq == 0:
-        return out
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
-                                        for i in range(3)))
+        return out, lse
+    strides = _strides(q, k, v)
     lib_fn = _build.entry("flash_attention", _SYMBOLS[q.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check("flash_attention", lib_fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        Hq, Hkv, hd, ctypes.addressof(strides), int(causal),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+        ctypes.addressof(strides), int(causal),
         0 if window is None else int(window), 1.0 / math.sqrt(hd),
         q.device.index, stream))
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
-#: kernel launches since the last reset (a plain int; chip_smoke.py zeroes
-#: it before driving the main path and reads it after)
+class _Attention(torch.autograd.Function):
+    """K4 under autograd: the forward saves q, k, v, out and the row
+    log-sum-exps; the backward is `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), one dtype (fp32 or bf16)
+    on one CUDA device, the last axis contiguous (other strides are read
+    as they are, and must be 16-byte aligned: `alignment_error`). hd is
+    a multiple of 16 up to 256 and Hq a multiple of Hkv. Returns (B, Sq,
+    Hq, hd) in q's dtype. Refuses inputs where a query row sees no key
+    (Sk = 0, or Sq > Sk + window - 1): there the plain version averages
+    every key, which a kernel that skips masked tiles does not compute.
+    fp32 inputs that require grad (grad mode on) go through the
+    autograd Function, whose backward launches `flash_attention_bwd`;
+    bf16 ones raise (`check_no_grad`). Adds one to
+    ``flash_attention.launches`` per kernel launch (under activation
+    recompute, ``torch.utils.checkpoint``, the forward launches again in
+    the backward pass)."""
+    check_no_grad(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None):
+    """The forward launch the autograd Function makes, outside autograd:
+    (out, lse), lse the (B, Hq, Sq) fp32 natural log-sum-exp of each
+    row's scaled, masked scores. Adds one to ``flash_attention.launches``."""
+    return _forward(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """dq, dk, dv of `flash_attention` at (q, k, v) for the gradient
+    ``dout`` of its output: fp32 only, q, k and v as the forward takes
+    them, ``out`` and ``lse`` the forward's (`flash_attention_with_lse`),
+    dout (B, Sq, Hq, hd) (copied if not contiguous and 16-byte aligned).
+    Returns contiguous fp32 (B, Sq, Hq, hd), (B, Sk, Hkv, hd) twice. One
+    call launches three kernels (the row sums D = rowsum(dout * out), then
+    dk and dv, then dq) and adds one to ``flash_attention_bwd.launches``."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: fp32 only, got {q.dtype} "
+                        f"(bf16 training is ROADMAP Queue 1 item 14d-3)")
+    B, Sq, Sk, Hq, Hkv, hd = _check(q, k, v, window)
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (B, Hq, Sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be fp32 on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+    if not (out.is_contiguous() and lse.is_contiguous()) or \
+            out.data_ptr() % ALIGN:
+        raise ValueError("flash_attention_bwd: out and lse must be the "
+                         "forward's (contiguous, aligned)")
+    dout = dout.contiguous()
+    if dout.data_ptr() % ALIGN:
+        dout = dout.clone()
+    dq = torch.empty_like(dout)
+    dk = torch.empty((B, Sk, Hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v)
+    lib_fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_f32",
+                          _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check("flash_attention_bwd", lib_fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+        ctypes.addressof(strides), int(causal),
+        0 if window is None else int(window), 1.0 / math.sqrt(hd),
+        q.device.index, stream))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: kernel launches since the last reset (plain ints; chip_smoke.py zeroes
+#: them before driving the main path and reads them after): forward
+#: launches (the autograd Function's included), and backward calls (three
+#: kernels each)
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

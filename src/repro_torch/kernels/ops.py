@@ -64,9 +64,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention over aligned positions, optional sliding
     window: q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), output in q's
-    dtype (`repro.kernels.ops.flash_attention`). Raises
-    ``NotImplementedError`` for inputs that require grad, on either
-    device: the kernel has no backward."""
+    dtype (`repro.kernels.ops.flash_attention`). Differentiable in fp32:
+    on CPU tensors autograd differentiates the plain version, on CUDA
+    tensors the kernel's backward runs (`kernels.flash_attention`).
+    Raises ``NotImplementedError`` for bf16 inputs that require grad, on
+    either device: the kernel's backward takes fp32 only."""
     _k4.check_no_grad(q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -81,7 +83,7 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     dlogA (b, l, h), B and C (b, l, n), h0 (b, h, p, n) or None; returns
     (y (b, l, h, p), h_last (b, h, p, n)) (`repro.kernels.ops.ssd`).
     Raises ``NotImplementedError`` for inputs that require grad, on
-    either device: the kernel has no backward."""
+    either device: the kernel has no backward yet."""
     _k5.check_no_grad(x, dlogA, B, C, h0)
     if _on_cpu(x, dlogA, B, C, *(() if h0 is None else (h0,))):
         return ref.ssd_ref(x, dlogA, B, C, chunk, h0)
@@ -95,7 +97,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     (B, S, W) float32, h0 (B, W) or None; returns (h (B, S, W), h_last
     (B, W)) (`repro.kernels.rglru_scan.rglru_scan`, whose oracle `repro`'s
     model runs). Raises ``NotImplementedError`` for inputs that require
-    grad, on either device: the kernel has no backward."""
+    grad, on either device: the kernel has no backward yet."""
     _k6.check_no_grad(a, b, h0)
     if _on_cpu(a, b, *(() if h0 is None else (h0,))):
         return ref.linear_scan_ref(a, b, h0)

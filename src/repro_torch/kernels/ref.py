@@ -103,6 +103,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          window=window, q_chunk=1 << 30)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K4's backward: (dq, dk, dv), the gradients of
+    `flash_attention_ref` at (q, k, v) for the output gradient ``dout``,
+    by ``torch.autograd.grad``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """x: (..., L) -> (..., L, L) with out[i, j] = sum_{j<k<=i} x[k] (the
     difference of inclusive cumulative sums); -inf above the diagonal

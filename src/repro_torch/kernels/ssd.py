@@ -155,8 +155,9 @@ def check_no_grad(*tensors: Optional[torch.Tensor]):
     require grad rather than return a result autograd cannot follow."""
     if any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "ssd has no backward: LM training is ROADMAP Queue 1 item 14d; "
-            "call it under torch.no_grad() or torch.inference_mode()")
+            "ssd has no backward yet: SSM and hybrid LM training is ROADMAP "
+            "Queue 1 item 14d-2; call it under torch.no_grad() or "
+            "torch.inference_mode()")
 
 
 def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,

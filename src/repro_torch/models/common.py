@@ -1,6 +1,7 @@
 """Shared neural building blocks of the LM substrate (port of
 `repro.models.common`): init, RMS norm, rotary embeddings, the plain
-grouped-query attention and the SwiGLU MLP.
+grouped-query attention, the SwiGLU MLP and the chunked next-token
+cross-entropy.
 
 Each computes what its `repro` counterpart computes, in the same layouts
 (heads as (B, S, H, hd), dense weights as (in, out)), so weights and
@@ -130,3 +131,36 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def swiglu(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
            wo: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+
+
+# --------------------------------------------------------------------- loss
+
+
+def chunked_softmax_xent(logits_fn, x: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor, n_chunks: int = 8):
+    """Next-token CE computed over sequence chunks to bound logits memory
+    (`repro.models.common.chunked_softmax_xent`).
+
+    logits_fn: (B, c, d) -> (B, c, V) (the unembedding); x: (B, S, d);
+    labels: (B, S) int; mask: (B, S) {0, 1} float or bool. One chunk
+    when S % n_chunks != 0. A Python loop over the chunks where `repro`
+    runs ``lax.scan``; under autograd each chunk's fp32 logits are kept
+    for the backward, as the scan keeps them.
+    Returns (mean_loss, total_weight), fp32 scalars.
+    """
+    B, S, _ = x.shape
+    if S % n_chunks != 0:
+        n_chunks = 1
+    c = S // n_chunks
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    wsum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xs, ls = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        ms = mask[:, i * c:(i + 1) * c].float()
+        logits = logits_fn(xs).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, ls[..., None].long())[..., 0]
+        nll = (lse - picked) * ms
+        tot = tot + nll.sum()
+        wsum = wsum + ms.sum()
+    return tot / torch.clamp(wsum, min=1.0), wsum

@@ -16,8 +16,11 @@ on the K4 kernel (`kernels.ops.flash_attention`), the SSM prefill's scan
 on the K5 kernel (`kernels.ops.ssd`) and the recurrent blocks' prefill
 on the K6 kernel (`kernels.ops.rglru_scan`); decode runs the plain
 ring-cache `attention_ref` and the plain one-token SSD or RG-LRU updates,
-as in `repro`, which has no decode kernel. The weights take no gradient:
-the LM serves here, and its training is ROADMAP Queue 1 item 14d.
+as in `repro`, which has no decode kernel. Serving runs under
+``torch.inference_mode()``. The weights take gradients: `DecoderLM.loss`
+trains the dense family, its attention forward and backward on the K4
+kernels; the SSM and hybrid families wait for backwards of K5 and K6
+(ROADMAP Queue 1 item 14d-2).
 """
 from __future__ import annotations
 
@@ -26,19 +29,23 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import prng
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .common import (NEG_INF, apply_rope, attention_ref, dense_init,
-                     embed_init, rms_norm, swiglu)
+from .common import (NEG_INF, apply_rope, attention_ref,
+                     chunked_softmax_xent, dense_init, embed_init, rms_norm,
+                     swiglu)
 from .rglru import init_rec_block, init_rec_cache, rec_block
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_dims
 
 Cache = Dict[str, torch.Tensor]
 
 #: families not ported yet -> the ROADMAP Queue 1 item that ports them
-UNPORTED_FAMILIES = {"moe": "14d", "vlm": "14d", "audio": "14d"}
+UNPORTED_FAMILIES = {"moe": "14d-4", "vlm": "14d-4", "audio": "14d-4"}
+#: families served but not trained yet -> the item that trains them
+UNTRAINED_FAMILIES = {"ssm": "14d-2", "hybrid": "14d-2"}
 
 
 def check_family(cfg: ArchConfig):
@@ -165,9 +172,8 @@ def init_dense_layer(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised weight that takes no gradient."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    """An uninitialised weight."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Attention(nn.Module):
@@ -282,13 +288,22 @@ class DecoderLM(nn.Module):
     allocated uninitialised on ``device`` (default cuda; "meta" allocates
     nothing); `init` draws them, or ``load_state_dict(params,
     assign=True)`` takes a state dict (`repro_torch.interop.
-    lm_params_from_jax`), without a copy, on that state's device."""
+    lm_params_from_jax`), without a copy, on that state's device.
+    ``remat`` and ``loss_chunks`` are `repro`'s: under "full" each layer
+    of `loss` runs under activation recompute
+    (``torch.utils.checkpoint``), "none" keeps every activation; the
+    loss's cross-entropy runs over ``loss_chunks`` chunks of the
+    sequence."""
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
-                 device=None):
+                 device=None, remat: str = "full", loss_chunks: int = 8):
         super().__init__()
         check_family(cfg)
+        if remat not in ("full", "none"):
+            raise ValueError(f"remat {remat!r} is not 'full' or 'none'")
         self.cfg = cfg
+        self.remat = remat
+        self.loss_chunks = loss_chunks
         self.window = cfg.attn_window
         if cfg.family == "hybrid" and cfg.local_window and \
                 self.window is None:
@@ -384,6 +399,19 @@ class DecoderLM(nn.Module):
                                None if caches is None else caches[i])
         return x, caches
 
+    def _apply_stack_train(self, x: torch.Tensor, q_pos: torch.Tensor):
+        """All layers, without caches, each under activation recompute when
+        ``remat`` is "full" and grad mode is on: its forward runs again in
+        the backward pass (a second K4 launch per attention layer)."""
+        remat = self.remat == "full" and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x, _ = checkpoint(self._block, layer, x, q_pos,
+                                  use_reentrant=False)
+            else:
+                x, _ = self._block(layer, x, q_pos)
+        return x
+
     def _apply_stack_prefill(self, x: torch.Tensor, q_pos: torch.Tensor,
                              cache_len: int):
         """Prefill pass that builds each layer's serving cache."""
@@ -404,6 +432,38 @@ class DecoderLM(nn.Module):
             mask = torch.arange(self.vp, device=x.device) < self.cfg.vocab_size
             logits = torch.where(mask, logits, NEG_INF)
         return logits
+
+    # ---------------------------------------------------------------- loss
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """batch: {"tokens": (B, T+1) int[, "mask": (B, T+1)]}. Next-token
+        cross-entropy over the T positions (weighted by ``mask[:, 1:]``),
+        plus ``router_aux_coef`` times the router loss, 0 for the dense
+        family (`repro`'s ``DecoderLM.loss``). Returns (loss, {"ce": ...,
+        "aux": ...}), fp32 scalars. With grad mode on, the SSM and hybrid
+        families raise ``NotImplementedError``: K5 and K6 have no backward
+        yet."""
+        cfg = self.cfg
+        if torch.is_grad_enabled() and cfg.family in UNTRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family needs "
+                f"backwards of the ssd and rglru_scan kernels (ROADMAP "
+                f"Queue 1 item {UNTRAINED_FAMILIES[cfg.family]}); its loss "
+                f"runs under torch.no_grad()")
+        tokens = batch["tokens"]
+        x = self._embed(tokens[:, :-1])
+        labels = tokens[:, 1:]
+        if "mask" in batch:
+            mask = batch["mask"][:, 1:].float()
+        else:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=x.device)
+        q_pos = torch.arange(x.shape[1], device=x.device)
+        x = self._apply_stack_train(x, q_pos)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        ce, _ = chunked_softmax_xent(self._logits, x, labels, mask,
+                                     n_chunks=self.loss_chunks)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, cache_len: int) -> List[Cache]:

@@ -15,8 +15,9 @@ Its own tests hold the port to its import rules: nothing under
 (``examples/*_torch.py``) imports ``jax`` or `repro`; importing the port
 leaves ``jax`` out of ``sys.modules``; the port's copies of `repro`'s
 numpy modules (the synthetic data generator, the availability schedules,
-the adversary's host code) equal the originals; every DPFL setting of
-`repro` is ported.
+the adversary's host code, the LM token corpus) equal the originals;
+every DPFL setting of `repro` is ported; no error names ROADMAP item
+14d, which is split into 14d-1 to 14d-4.
 """
 import ast
 import os
@@ -163,6 +164,40 @@ def test_port_data_equals_repro_data(seed, image_shape):
             np.testing.assert_array_equal(getattr(a, name),
                                           getattr(b, name), err_msg=name)
         assert a.n_classes == b.n_classes
+
+
+@pytest.mark.parametrize("seed,n_clients,vocab,seq_len,n_seqs,n_clusters", [
+    (0, 1, 64, 16, 8, 2), (3, 3, 97, 9, 5, 2), (1, 4, 40, 12, 6, 3)])
+def test_port_lm_token_data_equals_repro(seed, n_clients, vocab, seq_len,
+                                         n_seqs, n_clusters):
+    """`make_lm_token_data` is `repro`'s code, docstring aside, and draws
+    the same corpora and clusters."""
+    from repro.data import synthetic as jsynthetic
+
+    from repro_torch.data import make_lm_token_data
+
+    rel = Path("data") / "synthetic.py"
+    assert _defs(ROOT / "src" / "repro_torch" / rel)["make_lm_token_data"] \
+        == _defs(ROOT / "src" / "repro" / rel)["make_lm_token_data"]
+    kw = dict(seed=seed, n_clients=n_clients, vocab=vocab, seq_len=seq_len,
+              n_seqs=n_seqs, n_clusters=n_clusters)
+    (a, ca), (b, cb) = jsynthetic.make_lm_token_data(**kw), \
+        make_lm_token_data(**kw)
+    assert a.dtype == b.dtype == np.int32
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ca, cb)
+
+
+def test_no_raise_names_the_split_item_14d():
+    """ROADMAP Queue 1 item 14d is split: every refusal in the port names
+    one of 14d-1 to 14d-4 (14d-2 the SSM and hybrid training, 14d-3 bf16
+    training, 14d-4 the families not ported)."""
+    import re
+
+    pattern = re.compile(r"\b14d\b(?!-[1-4])")
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        text = path.read_text()
+        assert not pattern.search(text), f"{path} names item 14d"
 
 
 def test_port_availability_is_a_copy_of_repro():

@@ -437,8 +437,77 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         k4.flash_attention(q[..., :24], k[..., :24], v[..., :24])
     with pytest.raises(ValueError):
         k4.flash_attention(q, k[:, :2], v[:, :2], window=4)
-    with pytest.raises(NotImplementedError):
-        k4.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(NotImplementedError, match="14d-3"):
+        k4.flash_attention(q.bfloat16().requires_grad_(True), k.bfloat16(),
+                           v.bfloat16())
+
+
+# K4 backward cases: (B, Sq, Sk, Hq, Hkv, hd, causal, window): GQA at hd
+# 128, MQA at hd 256 with a window (one stage of (b) and (c)), hd 192
+# (one stage in (b), two in (c)), hd 80 with a window, a ragged S, Sq <
+# Sk causal (keys no row sees get zeros), non-causal with Sq != Sk, with
+# and without a window
+K4_BWD_SHAPES = [(2, 128, 128, 8, 4, 128, True, None),
+                 (1, 130, 130, 4, 1, 256, True, 64),
+                 (1, 70, 70, 2, 2, 192, True, None),
+                 (2, 100, 100, 8, 2, 80, True, 48),
+                 (2, 77, 77, 4, 2, 64, True, None),
+                 (1, 40, 90, 4, 2, 16, True, None),
+                 (1, 64, 96, 4, 2, 32, False, None),
+                 (1, 96, 64, 4, 2, 32, False, 40)]
+# each gradient against the plain version's, relative to its largest
+# element: fp32 sums over up to 130 keys (or queries and heads) in
+# another order than cuBLAS's
+K4_BWD_TOL = 1e-4
+
+
+def _lse_ref(q, k, causal, window):
+    """(B, Hq, Sq) logsumexp of the scaled, masked scores."""
+    rep = q.shape[2] // k.shape[2]
+    kk = k.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / q.shape[-1] ** 0.5
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None]
+    mask = torch.ones_like(i == j)
+    if causal:
+        mask = mask & (j <= i)
+    if window is not None:
+        mask = mask & (j > i - window)
+    return torch.logsumexp(torch.where(mask, s, -1e30), dim=-1)
+
+
+def test_flash_attention_backward_matches_plain_version(cuda):
+    for B, Sq, Sk, Hq, Hkv, hd, causal, window in K4_BWD_SHAPES:
+        q, k, v = _k4_inputs(B, Sq, Sk, Hq, Hkv, hd, "float32", cuda)
+        dout = torch.randn(q.shape, generator=torch.Generator(
+            device=cuda).manual_seed(1), device=cuda)
+        kw = dict(causal=causal, window=window)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+        assert torch.equal(out, k4.flash_attention(q, k, v, **kw))
+        torch.testing.assert_close(lse, _lse_ref(q, k, causal, window),
+                                   rtol=1e-5, atol=1e-5)
+        before = k4.flash_attention_bwd.launches
+        got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        assert k4.flash_attention_bwd.launches == before + 1
+        want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        for name, g, w in zip("qkv", got, want):
+            scale = w.abs().max().clamp_min(1e-30)
+            torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                       atol=K4_BWD_TOL, msg=f"d{name}")
+        # no atomics: the same bits from run to run
+        again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # autograd through ops.flash_attention runs the same launches
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = (k4.flash_attention.launches,
+                  k4.flash_attention_bwd.launches)
+        grads = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                    leaves, dout)
+        assert (k4.flash_attention.launches,
+                k4.flash_attention_bwd.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        assert all(torch.equal(a, b) for a, b in zip(grads, got))
 
 
 # K5 (b, l, H, p, n, chunk, dlogA, h0): chip_smoke.py's cases (the serve
@@ -614,3 +683,40 @@ def test_blocked_prng_draw_is_the_same_bits_on_the_card(cuda, monkeypatch):
     assert torch.equal(bits.cpu(), prng.random_bits(prng.PRNGKey(3),
                                                     (70, 9)))
     assert torch.equal(got.cpu(), want)
+
+
+def test_decoder_loss_gradients_on_the_card_match_the_cpu(cuda):
+    """Reduced qwen3-0.6b and h2o-danube-1.8b (window 32 under 48
+    positions) on the same weights: the loss and every gradient on the
+    card (K4 forward and backward) against the CPU's plain attention
+    (1e-4, relative to each gradient's largest element), with remat
+    "full" launching K4's forward twice a layer and its backward once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    for arch, S in (("qwen3-0.6b", 16), ("h2o-danube-1.8b", 48)):
+        cfg = get_config(arch).reduced().replace(dtype="float32")
+        cpu = build_model(cfg, device="meta", loss_chunks=4)
+        params = cpu.init(prng.PRNGKey(1))
+        card = build_model(cfg, device="meta", loss_chunks=4)
+        card.load_state_dict({k: t.to(cuda) for k, t in params.items()},
+                             assign=True)
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, S + 1)))
+        out = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+            before = (k4.flash_attention.launches,
+                      k4.flash_attention_bwd.launches)
+            loss, _ = model.loss({"tokens": tokens.to(dev)})
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out[name] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                         (k4.flash_attention.launches - before[0],
+                          k4.flash_attention_bwd.launches - before[1]))
+        assert out["cpu"][2] == (0, 0)
+        assert out["card"][2] == (2 * cfg.n_layers, cfg.n_layers)
+        torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=0,
+                                   atol=1e-5)
+        for g, w in zip(out["card"][1], out["cpu"][1]):
+            scale = w.abs().max().clamp_min(1e-30)
+            torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                       atol=1e-4)

@@ -3,10 +3,16 @@
 must match the Pallas kernel run in interpret mode at the shapes of
 tests/test_kernels.py (fp32 2e-5, bf16 3e-2, its tolerances) and
 `repro`'s reference at shapes the Pallas wrapper refuses (ragged S,
-Sq != Sk, S = 1). The CUDA kernel itself is held to its plain version
-on the card by tests/test_torch_cuda.py and by ``chip_smoke.py``."""
+Sq != Sk, S = 1). The backward's plain version,
+`ref.flash_attention_bwd_ref`, against ``jax.grad`` of `repro`'s
+reference (GQA, window, ragged, non-causal; 2e-5 relative to each
+gradient's largest element), and autograd through `ops.flash_attention`
+against it. The CUDA kernels themselves are held to their plain
+versions on the card by tests/test_torch_cuda.py and by
+``chip_smoke.py``."""
 import test_torch_common as common  # noqa: F401  (jax patch, threads)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -100,14 +106,29 @@ def test_plain_version_is_attention_ref_over_aligned_positions():
     np.testing.assert_allclose(got.numpy(), np.asarray(jwant), atol=2e-5)
 
 
-def test_flash_attention_refuses_inputs_that_require_grad():
-    q, k, v = _torch(*_qkv(1, 8, 8, 2, 1, 16))
-    for t in (q, k, v):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_refuses_inputs_that_require_grad(dtype):
+    """bf16 inputs that require grad are refused on either path (K4's
+    backward is fp32 only, item 14d-3); fp32 ones differentiate: on the
+    CPU autograd follows the plain version (`flash_attention_bwd_ref`'s
+    gradients), and the kernel wrapper launches or, on CPU tensors,
+    raises for the device."""
+    q, k, v = _torch(*_qkv(1, 8, 8, 2, 1, 16), dtype=getattr(torch, dtype))
+    for i, t in enumerate((q, k, v)):
         t.requires_grad_(True)
-        with pytest.raises(NotImplementedError):
-            ops.flash_attention(q, k, v)
-        with pytest.raises(NotImplementedError):
-            k4.flash_attention(q, k, v)
+        if dtype == "bfloat16":
+            with pytest.raises(NotImplementedError, match="item 14d-3"):
+                ops.flash_attention(q, k, v)
+            with pytest.raises(NotImplementedError, match="item 14d-3"):
+                k4.flash_attention(q, k, v)
+        else:
+            out = ops.flash_attention(q, k, v)
+            dout = torch.ones_like(out)
+            got, = torch.autograd.grad(out, t, dout)
+            assert torch.equal(got, ref.flash_attention_bwd_ref(
+                q, k, v, dout)[i])
+            with pytest.raises(ValueError, match="CUDA"):
+                k4.flash_attention(q, k, v)
         t.requires_grad_(False)
     with torch.no_grad():
         q.requires_grad_(True)
@@ -139,6 +160,55 @@ def test_kernel_wrapper_never_takes_the_plain_version():
     assert k4.flash_attention.launches == before
 
 
+# (B, Sq, Sk, Hq, Hkv, hd, causal, window): GQA, a window, ragged S,
+# Sq != Sk, and non-causal with and without a window
+BWD_SHAPES = [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 70, 70, 4, 1, 64, True, 24),
+    (2, 37, 37, 6, 3, 16, True, None),
+    (1, 40, 56, 4, 2, 32, True, None),
+    (1, 48, 48, 4, 2, 32, False, None),
+    (1, 48, 40, 2, 2, 16, False, 12),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,win", BWD_SHAPES)
+def test_backward_plain_version_matches_jax_grad(B, Sq, Sk, Hq, Hkv, hd,
+                                                 causal, win):
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, seed=4)
+    dout = np.random.default_rng(5).standard_normal(q.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal, window=win), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    got = ref.flash_attention_bwd_ref(*_torch(q, k, v, dout)[:3],
+                                      torch.from_numpy(dout), causal=causal,
+                                      window=win)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy() / np.abs(w).max(),
+                                   w / np.abs(w).max(), rtol=0, atol=2e-5,
+                                   err_msg=f"d{name}")
+
+
+def test_backward_wrapper_never_takes_the_plain_version():
+    """On CPU tensors the backward wrapper raises before any build, as do
+    bf16 inputs and shapes that do not match the forward's."""
+    q, k, v = _torch(*_qkv(1, 8, 8, 4, 2, 16))
+    out, lse = torch.zeros_like(q), torch.zeros((1, 4, 8))
+    before = k4.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.flash_attention_bwd(q, k, v, out, lse, out)
+    with pytest.raises(TypeError, match="fp32"):
+        k4.flash_attention_bwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                               out, lse, out)
+    with pytest.raises(ValueError, match="sees no key"):
+        k4.flash_attention_bwd(q, k[:, :2], v[:, :2], out, lse, out,
+                               window=4)
+    assert k4.flash_attention_bwd.launches == before
+
+
 def test_kernel_source_is_registered_for_nvcc():
     assert _build.SOURCES["flash_attention"] == "flash_attention.cu"
     assert (_build.CSRC / "flash_attention.cu").is_file()
@@ -147,3 +217,7 @@ def test_kernel_source_is_registered_for_nvcc():
                    "flash_attention_error_string"):
         assert f'extern "C" int {symbol}(' in src or \
             f'extern "C" const char* {symbol}(' in src
+    assert _build.SOURCES["flash_attention_bwd"] == "flash_attention_bwd.cu"
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert 'extern "C" int flash_attention_bwd_f32(' in src
+    assert 'extern "C" const char* flash_attention_bwd_error_string(' in src

@@ -341,14 +341,33 @@ def test_unported_families_raise(arch):
         lm_params_from_jax({}, cfg, device="cpu")
 
 
-def test_model_refuses_gradients_through_the_attention_kernel():
-    cfg = tconfigs.get_config("qwen3-0.6b").reduced()
+@pytest.mark.parametrize("case", ["bf16", "ssm", "hybrid", "fp32 dense"])
+def test_model_refuses_gradients_through_the_attention_kernel(case):
+    """The weights take gradients. What has no backward yet refuses them:
+    a bf16 model (K4's backward is fp32 only, item 14d-3) in the kernel
+    check, the SSM and hybrid families (K5 and K6, item 14d-2) in
+    `DecoderLM.loss`; an fp32 dense model's gradients flow, through the
+    plain attention on the CPU."""
+    arch = {"ssm": "mamba2-370m", "hybrid": "recurrentgemma-9b"}.get(
+        case, "qwen3-0.6b")
+    cfg = tconfigs.get_config(arch).reduced().replace(
+        dtype="bfloat16" if case == "bf16" else "float32")
     model = build_model(cfg, device="cpu")
     model.init(prng.PRNGKey(0))
-    assert not any(p.requires_grad for p in model.parameters())
-    model.layers[0].attn.wq.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model.prefill(torch.zeros((1, 4), dtype=torch.long))
+    assert all(p.requires_grad for p in model.parameters())
+    batch = {"tokens": torch.zeros((1, 9), dtype=torch.long)}
+    if case != "fp32 dense":
+        item = "14d-3" if case == "bf16" else "14d-2"
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            model.loss(batch)
+        with torch.no_grad():   # the forward alone still runs
+            assert torch.isfinite(model.loss(batch)[0])
+        return
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert all(torch.isfinite(g).all() for g in grads)
+    attn = dict(zip([n for n, _ in model.named_parameters()], grads))
+    assert attn["layers.0.attn.wq"].abs().max() > 0
 
 
 # ------------------------------------------------------ the serve entry

@@ -2,20 +2,25 @@
 drives through the port, on the CPU, and print the accuracies (and, for
 DPFL, the comm counters) of each as one JSON line.
 
-``chip_smoke.py``'s learning checks take their thresholds from these runs:
+``chip_smoke.py``'s learning checks take their thresholds from these runs,
+and its card-against-JAX train check its losses:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_reference_smoke.py \
         [dense] [sparse] [topk] [sparse-topk] [dense-markov] \
         [sparse-freerider-clipped] [topk-signflip-clipped] \
         [dense-labelflip-trimmed] [local] [fedavg] ... [pfedgraph] \
-        [fedavg-markov-topk]
+        [fedavg-markov-topk] [train-cross]
 
-(no names: all twenty). The data and run settings (PaperCNN at its
+(no names: all twenty-one). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
 ``SMOKE_*`` constants. A DPFL variant is one of its ``VARIANTS``, run by
 `repro.core.dpfl.run_dpfl`; a baseline run is one of its
 ``BASELINE_RUNS``, run by `repro.fl.baselines.run_baseline` at
 ``BASELINE_RUN``. Both are built here with `repro`'s config classes.
+"train-cross" is ``CROSS_TRAIN``: `repro.launch.train`'s loop (the same
+corpus, batches, AdamW and schedule) on qwen3-0.6b at full width cut to
+its first two layers, for ``CROSS_TRAIN_JAX_LOSSES`` (about 40 s and
+3 GiB).
 """
 from __future__ import annotations
 
@@ -66,15 +71,64 @@ def config(name):
 
 def main():
     names = sys.argv[1:] or (list(chip_smoke.VARIANTS)
-                             + list(chip_smoke.BASELINE_RUNS))
-    data = make_federated_classification(**chip_smoke.SMOKE_DATA)
-    engine = FLEngine(PaperCNN(CNNConfig()), data, lr=chip_smoke.SMOKE_LR,
-                      batch_size=chip_smoke.SMOKE_BATCH)
+                             + list(chip_smoke.BASELINE_RUNS)
+                             + ["train-cross"])
+    engine = None
     for name in names:
+        if name == "train-cross":
+            run_train_cross()
+            continue
+        if engine is None:
+            data = make_federated_classification(**chip_smoke.SMOKE_DATA)
+            engine = FLEngine(PaperCNN(CNNConfig()), data,
+                              lr=chip_smoke.SMOKE_LR,
+                              batch_size=chip_smoke.SMOKE_BATCH)
         if name in chip_smoke.BASELINE_RUNS:
             run_baseline_one(engine, name)
         else:
             run_one(engine, name)
+
+
+def run_train_cross():
+    """`repro.launch.train.main`'s loop on chip_smoke.CROSS_TRAIN's cut
+    config: the init of PRNGKey(0), loss_chunks 4, the same corpus and
+    batches, ``adamw(warmup_cosine(lr, 10, steps))``, the jitted step."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.data import make_lm_token_data
+    from repro.launch.steps import make_train_step
+    from repro.models import build_model
+    from repro.optim import adamw, warmup_cosine
+
+    c = chip_smoke.CROSS_TRAIN
+    t0 = time.perf_counter()
+    cfg = get_config(c["arch"]).replace(n_layers=c["n_layers"],
+                                        dtype="float32")
+    model = build_model(cfg, loss_chunks=4)
+    params = model.init(jax.random.PRNGKey(0))
+    tokens, _ = make_lm_token_data(
+        seed=0, n_clients=1, vocab=min(cfg.vocab_size, 4096),
+        seq_len=c["seq"], n_seqs=max(c["batch"] * 8, 64))
+    corpus = jnp.asarray(tokens[0])
+    optimizer = adamw(warmup_cosine(c["lr"], 10, c["steps"]))
+    opt_state = optimizer.init(params)
+    step_fn = jax.jit(make_train_step(model, optimizer))
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(c["steps"]):
+        idx = rng.integers(0, corpus.shape[0], c["batch"])
+        params, opt_state, loss = step_fn(params, opt_state,
+                                          {"tokens": corpus[idx]})
+        losses.append(float(loss))
+    print(json.dumps({
+        "train": "cross", "config": c, "losses": losses,
+        "n_params": int(sum(x.size for x in jax.tree.leaves(params))),
+        "seconds": time.perf_counter() - t0,
+        "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        / 1024,
+    }), flush=True)
 
 
 def run_baseline_one(engine, name):

@@ -1,0 +1,147 @@
+"""Where the time of the port's training step goes on the card.
+
+Builds qwen3-0.6b at its published config in float32, as
+``chip_smoke.py``'s train run does (``TRAIN_ARGV``: batch 8, sequence
+512), runs two warm-up steps of `repro_torch.launch.train`'s step
+(`make_train_step` under AdamW and ``warmup_cosine``), then profiles one
+step under ``torch.profiler`` with its three phases marked (the loss's
+forward, the backward pass with its recompute, AdamW and the update of
+the weights) and prints one JSON line: the step's wall time (host clock,
+the card synchronised), each phase's host wall and device-kernel time
+(the backward's: the step's less the other two),
+the summed device-kernel time and the device's idle share, the kernel
+launches, the TOP kernels that take the most device time, and the
+port's kernels (K4's forward ``flash_attention_f32_kernel`` and its
+backward's three ``flash_attention_bwd_*_kernel``), each by name.
+
+    python3 tools/profile_train.py
+
+Needs a CUDA card; imports no JAX.
+"""
+from __future__ import annotations
+
+import json
+import re
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+TOP = 10
+PHASES = ("forward", "backward", "optimizer")
+PORT_KERNELS = (r"\bflash_attention_f32_kernel\b",
+                r"\bflash_attention_bwd_[a-z]+_kernel\b")
+
+
+def main():
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_train: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    argv = chip_smoke.TRAIN_ARGV
+
+    def flag(name):
+        return argv[argv.index(name) + 1]
+    cfg = get_config(flag("--arch")).replace(dtype="float32")
+    B, S, steps = int(flag("--batch")), int(flag("--seq")), int(
+        flag("--steps"))
+    model = build_model(cfg, device="meta", loss_chunks=4)
+    model.init(prng.PRNGKey(0, device="cuda"))
+    corpus = torch.from_numpy(train.lm_corpus(cfg, B, S)).cuda()
+    rows = train.batch_rows(corpus.shape[0], B, 3)
+    params = dict(model.named_parameters())
+    optimizer = adamw(warmup_cosine(3e-4, 10, steps))
+    state = optimizer.init(params)
+    walls = {}
+
+    def step(idx, profiled=False):
+        batch = {"tokens": corpus[torch.from_numpy(idx).cuda()]}
+
+        def phase(name, fn):
+            if not profiled:
+                return fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function(name):
+                out = fn()
+                torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            return out
+        loss, _ = phase("forward", lambda: model.loss(batch))
+        grads = phase("backward", lambda: torch.autograd.grad(
+            loss, list(params.values())))
+
+        def update():
+            nonlocal state
+            updates, state = optimizer.update(dict(zip(params, grads)),
+                                              state, params)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.add_(updates[k])
+        phase("optimizer", update)
+        return loss
+
+    for idx in rows[:2]:
+        step(idx)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(rows[2], profiled=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    # device events: the kernels (and memsets, copies), and each phase's
+    # range as the profiler marks it on the device (a user annotation
+    # spanning the kernels its thread launched: the backward pass runs
+    # on autograd's device thread, so it has none; it is the rest)
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and ev.self_device_time_total > 0]
+    kernels = sorted((ev.self_device_time_total, ev.key, ev.count)
+                     for ev in events if ev.key not in PHASES)[::-1]
+    device_s = sum(r[0] for r in kernels) / 1e6
+    ranges = {ev.key: ev.self_device_time_total / 1e6 for ev in events
+              if ev.key in ("forward", "optimizer")}
+    ranges["backward"] = device_s - sum(ranges.values())
+    smi = chip_smoke.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+    def rec(us, k, n):
+        return {"name": k[:90], "device_ms": us / 1e3, "calls": n,
+                "share_of_device": us / 1e6 / device_s}
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "arch": cfg.name, "batch": B, "seq": S, "remat": model.remat,
+        "step_wall_s": wall,
+        "phases": {p: {"wall_s": walls[p], "device_kernel_s": ranges.get(p)}
+                   for p in PHASES},
+        "port_kernel_s": sum(r[0] for r in kernels if any(
+            re.search(p, r[1]) for p in PORT_KERNELS)) / 1e6,
+        "device_kernel_s": device_s,
+        "device_idle_share": 1.0 - device_s / wall,
+        "kernel_launches": sum(r[2] for r in kernels),
+        "top_kernels": [rec(*r) for r in kernels[:TOP]],
+        "port_kernel": [rec(*r) for r in kernels
+                        if any(re.search(p, r[1]) for p in PORT_KERNELS)],
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated()}))
+
+
+if __name__ == "__main__":
+    main()
