@@ -349,18 +349,32 @@ K6_CASES = [("serve", 4, 512, 4096, "model", False),
             ("B W under one block", 1, 33, 40, "kernels", False)]
 K6_TOL = 1e-4   # tests/test_kernels.py (atol)
 # K4 backward cases: (name, B, Sq, Sk, Hq, Hkv, hd, causal, window). The
-# first is the train run's (qwen3-0.6b, batch 8, sequence 512); then
-# recurrentgemma-9b's head (hd 256, one KV head) at a window of 64,
-# h2o-danube-1.8b's (hd 80, 32/8 heads) at a window, a ragged S that no
-# tile of 32 or 64 divides, Sq < Sk (keys no row sees), non-causal
+# first is the train run's (qwen3-0.6b, batch 8, sequence 512, one head
+# split); the second recurrentgemma-9b's at the same batch and sequence
+# (hd 256, one KV head, its window of 2,048: 8 splits of the group); then
+# its head at a window of 64 (16 splits), h2o-danube-1.8b's (hd 80, 32/8
+# heads) at a window, a ragged S that no tile of 32 or 64 divides, Sq <
+# Sk (keys no row sees), non-causal, hd 176 (the first head size with one
+# stage of Q and dO) at a window, hd 224 non-causal with Sq < Sk, and S
+# 4096 at a window of 512, whose scratch walks the keys in 4 slabs (query
+# tiles that see no key of the first)
 K4_BWD_CASES = [("train", 8, 512, 512, 16, 8, 128, True, None),
+                ("hybrid", 4, 512, 512, 16, 1, 256, True, 2048),
                 ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, True,
                  64),
                 ("hd 80, 32/8 heads, window 128", 2, 384, 384, 32, 8, 80,
                  True, 128),
                 ("ragged S = 200", 2, 200, 200, 16, 8, 128, True, None),
                 ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, True, None),
-                ("non-causal", 2, 256, 256, 16, 8, 128, False, None)]
+                ("non-causal", 2, 256, 256, 16, 8, 128, False, None),
+                ("hd 176, 8/2 heads, window 100", 2, 300, 300, 8, 2, 176,
+                 True, 100),
+                ("hd 224, non-causal, Sq 200, Sk 260", 1, 200, 260, 8, 1,
+                 224, False, None),
+                ("S 4096, window 512, 4 slabs", 1, 4096, 4096, 16, 4, 64,
+                 True, 512)]
+# the K4 backward cases timed: the train run's and recurrentgemma-9b's
+K4_BWD_TIMED = ("train", "hybrid")
 # each of dq, dk, dv against the plain version's, as a share of that
 # gradient's largest element (tests/test_torch_cuda.py): fp32 sums over
 # up to 512 keys (queries and heads) in another order than cuBLAS's
@@ -881,12 +895,15 @@ def check_k4_bwd(torch, inputs):
     version's (`ref.flash_attention_bwd_ref`), each as a share of that
     gradient's largest element; a repeated call bit for bit. Returns per
     case (max abs err over the three gradients, the largest share, the
-    LSE's max abs err)."""
+    LSE's max abs err, the launch plan's head splits and slabs)."""
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import ref
 
     out_rows = []
     for name, causal, window, q, k, v, dout in inputs:
+        (B, Sq, Hq, hd), (Sk, Hkv) = q.shape, k.shape[1:3]
+        plan = k4.backward_plan(B, Sq, Sk, Hq, Hkv, hd,
+                                k4._sm_count(q.device.index))
         kw = dict(causal=causal, window=window)
         out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
         if not torch.equal(out, k4.flash_attention(q, k, v, **kw)):
@@ -907,7 +924,7 @@ def check_k4_bwd(torch, inputs):
         again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"K4 backward {name}: a repeated call gave other bits")
-        out_rows.append((err, share, lse_err))
+        out_rows.append((err, share, lse_err, plan.splits, plan.n_slabs))
     return out_rows
 
 
@@ -924,55 +941,96 @@ def k4_bwd_work(q, k, window):
     return nbytes, flops // 4 * 10
 
 
+def k4_bwd_split_ms(fn, torch):
+    """Mean device time (ms) a call of each of K4's backward kernels in
+    ``fn()`` (D, dK/dV, dQ and the split sum where it runs), from
+    torch.profiler's kernel records matched by name, over 20 calls made
+    as `time_ms` makes them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time_ms(fn, torch, reps=reps, warmup=0)
+    out = {}
+    for ev in prof.key_averages():
+        m = re.search(r"\bflash_attention_bwd_(delta|dkdv|dq|reduce)_kernel\b",
+                      ev.key)
+        if m and ev.device_type == DeviceType.CUDA:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + \
+                ev.self_device_time_total / reps / 1e3
+    if not {"delta", "dkdv", "dq"} <= set(out):
+        fail(f"K4 backward: the profiler recorded the kernels {sorted(out)}")
+    return out
+
+
 def time_k4_bwd(torch, inputs, errs, rates):
-    """K4's backward at the train shape (the first case), its plain
-    version (which runs the plain forward under autograd, then its
-    backward) and the yardstick, SDPA's backward (``is_causal``,
+    """K4's backward at the K4_BWD_TIMED shapes (the train run's first),
+    its plain version (which runs the plain forward under autograd, then
+    its backward) and the yardstick, SDPA's backward (``is_causal``,
     ``enable_gqa`` on (B, H, S, hd) views, its forward run once and its
-    backward repeated), beside the bound; and the forward with and
-    without the LSE. Returns the row."""
+    backward repeated; the hybrid's window of 2048 does not bind at 512
+    positions), beside the bound; each kernel's device time from the
+    profiler; and the forward with and without the LSE. Returns the
+    rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import ref
 
-    name, causal, window, q, k, v, dout = inputs[0]
-    kw = dict(causal=causal, window=window)
-    out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
-    ms = time_ms(lambda: k4.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                **kw), torch)
-    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
-                                                           **kw), torch)
-    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
-              for t in (q, k, v)]
-    o = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                       enable_gqa=True)
-    dt = dout.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dt,
-                                                 retain_graph=True), torch)
-    lib_grads = torch.autograd.grad(o, leaves, dt)
-    got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    lib_diff = max((a.transpose(1, 2) - b).abs().max().item()
-                   for a, b in zip(lib_grads, got))
-    fwd_ms = time_ms(lambda: k4.flash_attention(q, k, v, **kw), torch)
-    fwd_lse_ms = time_ms(lambda: k4.flash_attention_with_lse(q, k, v, **kw),
-                         torch)
-    nbytes, flops = k4_bwd_work(q, k, window)
-    bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
-    B, S, Hq, hd = q.shape
-    print(f"  K4 backward {name} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}) "
-          f"float32 err {errs[0][0]:.3g} kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.2f} TFLOP/s, three launches)  plain "
-          f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms (diff "
-          f"{lib_diff:.3g})  bound {bound_ms:.4f} ms ({bound_by}); forward "
-          f"at this shape {fwd_ms:.4f} ms, with its LSE {fwd_lse_ms:.4f} ms")
-    return dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
-                window=window, dtype="float32", max_abs_err=errs[0][0],
-                tol=K4_BWD_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_max_abs_diff=lib_diff, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, flops=flops,
-                tflops=flops / ms / 1e9, forward_ms=fwd_ms,
-                forward_lse_ms=fwd_lse_ms)
+    rows = []
+    for (name, causal, window, q, k, v, dout), err in zip(inputs, errs):
+        if name not in K4_BWD_TIMED:
+            continue
+        kw = dict(causal=causal, window=window)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+
+        def bwd():
+            return k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        ms = time_ms(bwd, torch)
+        split = k4_bwd_split_ms(bwd, torch)
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, dout, **kw), torch)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=True)
+        dt = dout.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o, leaves, dt, retain_graph=True), torch)
+        lib_grads = torch.autograd.grad(o, leaves, dt)
+        lib_diff = max((a.transpose(1, 2) - b).abs().max().item()
+                       for a, b in zip(lib_grads, bwd()))
+        del o, leaves, lib_grads
+        fwd_ms = time_ms(lambda: k4.flash_attention(q, k, v, **kw), torch)
+        fwd_lse_ms = time_ms(lambda: k4.flash_attention_with_lse(
+            q, k, v, **kw), torch)
+        nbytes, flops = k4_bwd_work(q, k, window)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+        B, S, Hq, hd = q.shape
+        plan = k4.backward_plan(B, S, k.shape[1], Hq, k.shape[2], hd,
+                                k4._sm_count(q.device.index))
+        print(f"  K4 backward {name} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}, "
+              f"window {window}) float32 err {err[0]:.3g} kernel {ms:.4f} "
+              f"ms ({flops / ms / 1e9:.2f} TFLOP/s; " + ", ".join(
+                  f"{kname} {t:.4f}" for kname, t in split.items()) +
+              f" ms a call; {plan.splits} head splits, {plan.n_slabs} "
+              f"slabs, scratch {plan.scratch_bytes()} bytes)  plain "
+              f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms (diff "
+              f"{lib_diff:.3g})  bound {bound_ms:.4f} ms ({bound_by}); "
+              f"forward at this shape {fwd_ms:.4f} ms, with its LSE "
+              f"{fwd_lse_ms:.4f} ms")
+        rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
+                         window=window, dtype="float32", max_abs_err=err[0],
+                         tol=K4_BWD_TOL, ms=ms, kernel_ms=split,
+                         splits=plan.splits, slabs=plan.n_slabs,
+                         scratch_bytes=plan.scratch_bytes(),
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_max_abs_diff=lib_diff, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         tflops=flops / ms / 1e9, forward_ms=fwd_ms,
+                         forward_lse_ms=fwd_lse_ms))
+    return rows
 
 
 def k5_inputs(torch):
@@ -1290,7 +1348,7 @@ def report_build(built):
     backward) every entry function (registers, spills, static shared
     memory), failing on a spill; and K4's SASS: its bf16 kernels must run
     on the tensor cores (HMMA or HGMMA) and its fp32 kernels, the
-    backward's 33 included, must not."""
+    backward's 34 included, must not."""
     from repro_torch.kernels import _build
 
     for kname, b in sorted(built.items()):
@@ -1327,9 +1385,9 @@ def report_build(built):
           f"HMMA {sum(h for h, _ in f32.values())}, HGMMA "
           f"{sum(g for _, g in f32.values())} in its 16 fp32 kernels")
     bwd = sass_mma_counts(_build.library_path("flash_attention_bwd"))
-    if len(bwd) != 33:
-        fail(f"K4 backward SASS: {len(bwd)} kernels, expected 33 (D, and "
-             f"dK/dV and dQ at 16 head sizes)")
+    if len(bwd) != 34:
+        fail(f"K4 backward SASS: {len(bwd)} kernels, expected 34 (D, "
+             f"dK/dV and dQ at 16 head sizes, the split sum)")
     if any(h + g for h, g in bwd.values()):
         fail("K4 backward SASS: a kernel runs on the tensor cores (fp32 "
              "only, no TF32)")
@@ -2086,10 +2144,11 @@ def main():
           f"element), the same bits on a repeated call; the forward with "
           f"its LSE gives the same out bits as without, its LSE within "
           f"{K4_LSE_TOL} of torch.logsumexp of the plain scores")
-    for case, (err, share, lse_err) in zip(K4_BWD_CASES, k4b_errs):
+    for case, (err, share, lse_err, splits, slabs) in zip(K4_BWD_CASES,
+                                                          k4b_errs):
         print(f"  K4 backward {case[0]}: max abs err {err:.3g} "
               f"({share:.3g} of the largest element); LSE max abs err "
-              f"{lse_err:.3g}")
+              f"{lse_err:.3g}; {splits} head splits, {slabs} slabs")
     k5_in = k5_inputs(torch)
     k5_errs = check_k5(torch, k5_in)
     print(f"K5 agrees with its plain version in {len(k5_in)} cases (max abs "
@@ -2229,7 +2288,7 @@ def main():
     k2_rows = time_k2(torch, k2_in, k2_errs, rates)
     k3_rows = time_k3(torch, k3_in, k3_errs, rates)
     k4_rows = time_k4(torch, k4_in, k4_errs, rates)
-    k4b_row = time_k4_bwd(torch, k4b_in, k4b_errs, rates)
+    k4b_rows = time_k4_bwd(torch, k4b_in, k4b_errs, rates)
     k5_rows = time_k5(torch, k5_in, k5_errs, rates)
     k6_rows = time_k6(torch, k6_in, k6_errs, rates)
     print("clocks.sm, power.draw after timing: " + subprocess.run(
@@ -2265,10 +2324,11 @@ def main():
          "replaces": "src/repro/kernels/flash_attention.py:96 (its "
                      "function's gradient; no Pallas counterpart)",
          "launches": total("flash_attention_bwd"),
-         "max_abs_err": max(e for e, _, _ in k4b_errs),
-         "ms": k4b_row["ms"], "plain_ms": k4b_row["plain_ms"],
-         "bound_ms": k4b_row["bound_ms"], "bound_by": k4b_row["bound_by"],
-         "library_ms": k4b_row["library_ms"], "shapes": [k4b_row]},
+         "max_abs_err": max(e[0] for e in k4b_errs),
+         "ms": k4b_rows[0]["ms"], "plain_ms": k4b_rows[0]["plain_ms"],
+         "bound_ms": k4b_rows[0]["bound_ms"],
+         "bound_by": k4b_rows[0]["bound_by"],
+         "library_ms": k4b_rows[0]["library_ms"], "shapes": k4b_rows},
         _kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
                     "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows),
         _kernel_row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",

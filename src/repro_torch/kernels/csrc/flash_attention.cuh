@@ -53,13 +53,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // rows [r0, r0 + ROWS) of one (b, head) slice of q, k, v (or a gradient
 // of the same layout) into shared memory at `pitch` elements a row; rows
-// at or past S are zero-filled
-template <typename T, int HD, int ROWS>
+// at or past S are zero-filled; a block of THREADS threads
+template <typename T, int HD, int ROWS, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile(T* dst, int pitch, const T* base,
                                           int64_t stride_s, int r0, int S) {
   constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
   constexpr int kPerRow = HD / kChunk;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * kChunk;
     const bool in = r0 + r < S;
@@ -86,19 +86,26 @@ struct Span {
   int q0, k_first, n_tiles;
 };
 
-// the tile of blockIdx.x (the last first when causal: the longest rows
-// start first, so the causal triangle's short tiles fill the tail of the
-// grid) and its key tiles of BK keys
+// query tile `tile` of `n_tiles` (the last first when causal: the longest
+// rows start first, so the causal triangle's short tiles fill the tail of
+// the grid) and its key tiles of BK keys
 template <int BK>
-__device__ __forceinline__ Span block_span(const Problem& p) {
-  const int qt = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x)
-                          : static_cast<int>(blockIdx.x);
+__device__ __forceinline__ Span block_span(const Problem& p, int tile,
+                                           int n_tiles) {
+  const int qt = p.causal ? n_tiles - 1 - tile : tile;
   const int q0 = qt * kBQ;
   const int q_end = min(q0 + kBQ, p.Sq);
   const int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int hi = p.causal ? min(p.Sk, q_end) : p.Sk;
   const int k_first = (lo / BK) * BK;
   return {q0, k_first, (hi - k_first + BK - 1) / BK};
+}
+
+// the query tile of blockIdx.x, of gridDim.x
+template <int BK>
+__device__ __forceinline__ Span block_span(const Problem& p) {
+  return block_span<BK>(p, static_cast<int>(blockIdx.x),
+                        static_cast<int>(gridDim.x));
 }
 
 }  // namespace

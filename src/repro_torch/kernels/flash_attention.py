@@ -22,8 +22,10 @@ only).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,11 +38,119 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 +
              (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
               ctypes.c_int, ctypes.c_void_p))
-# q, k, v, out, dout, lse, delta, dq, dk, dv; then as the forward's
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + _ARGTYPES[5:])
+# q, k, v, out, dout, lse, delta, dq, dk, dv, ds, part; B, Sq, Sk, Hq,
+# Hkv, hd; strides; causal, window, scale; plan; device; stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6 +
+                 (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p))
 MAX_HEAD_DIM = 256
 #: bytes of each cp.async copy (and ldmatrix row) of the kernel
 ALIGN = 16
+#: the backward's threads a block of (b) and of the split sum, query rows
+#: a tile, and the dynamic shared memory a block may take
+#: (csrc/flash_attention_bwd.cu's kBwdThreads, flash_attention.cuh's kBQ
+#: and kMaxSmem)
+BWD_THREADS = 256
+QUERY_TILE = 64
+MAX_SMEM = 232448
+#: the backward's scratch of scale dS^T holds at most this many bytes:
+#: longer key ranges are walked in slabs of keys
+BWD_SCRATCH_BYTES = 1 << 28
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How `flash_attention_bwd` launches its kernels at one shape
+    (csrc/flash_attention_bwd.cu's (a), (b), (c) and the split sum).
+
+    ``block_keys`` keys a (b) block and a tile of (c); ``splits`` blocks
+    share a GQA group's query heads in (b) (each its Hq / Hkv / splits
+    heads); ``slab_keys`` keys a pass of (b) and (c), ``n_slabs`` passes;
+    ``grids`` each launch's (x, y, z) in order, under "delta", "dkdv"
+    ((KV head, split), batch, key tile), "dq" (head, batch, query tile)
+    and "reduce" (the C entry derives each slab's from ``launch`` the
+    same way): the tile is the slowest axis, so the blocks with the most
+    work start first when causal; ``smem`` the dynamic shared bytes of
+    (b) and (c) and ``stages`` (b)'s Q/dO stages; ``scratch`` the shapes
+    of the fp32 scratch tensors ("ds", and "part" when splits > 1);
+    ``launch`` the ints the C entry takes."""
+    block_keys: int
+    splits: int
+    slab_keys: int
+    n_slabs: int
+    query_tiles: int
+    stages: int
+    grids: Dict[str, Tuple[Tuple[int, int, int], ...]]
+    smem: Dict[str, int]
+    scratch: Dict[str, Tuple[int, ...]]
+    launch: Tuple[int, ...]
+
+    def scratch_bytes(self) -> int:
+        return 4 * sum(math.prod(s) for s in self.scratch.values())
+
+
+def backward_block_keys(hd: int) -> int:
+    """Keys a (b) block takes at head size ``hd``: 64, or 32 above 128
+    (K, V and a stage of Q and dO must fit shared memory)."""
+    return 64 if hd <= 128 else 32
+
+
+def backward_smem(hd: int) -> Tuple[int, int, int]:
+    """((b)'s dynamic shared bytes, its Q/dO stages, (c)'s bytes), as
+    csrc/flash_attention_bwd.cu's KVTiles and QTiles lay them out: (b)
+    holds K and V tiles, P and dS, and one or two stages of Q and dO,
+    rows padded by 4 floats; (c) two stages of a scratch tile and a K
+    tile."""
+    bk, pitch = backward_block_keys(hd), hd + 4
+    fixed = 2 * bk * pitch + 2 * QUERY_TILE * (bk + 4)
+    stage = 2 * QUERY_TILE * pitch
+    stages = 2 if (fixed + 2 * stage) * 4 <= MAX_SMEM else 1
+    return ((fixed + stages * stage) * 4, stages,
+            2 * bk * (QUERY_TILE + 4 + pitch) * 4)
+
+
+def backward_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
+                  sms: int) -> BackwardPlan:
+    """The launch plan of `flash_attention_bwd` for these shapes on a
+    card of ``sms`` SMs. The scratch of scale dS^T, (B, Hq, query tiles,
+    slab keys, 64) fp32, stays within BWD_SCRATCH_BYTES unless one key
+    tile already exceeds it; the splits are the fewest (a divisor of Hq /
+    Hkv) that give (b)'s first pass two blocks an SM, else Hq / Hkv. Pure
+    arithmetic, so the CPU tests reach it."""
+    bk = backward_block_keys(hd)
+    rep = Hq // Hkv
+    n_qt = -(-Sq // QUERY_TILE)
+    key_tiles = -(-Sk // bk)
+    per_key = B * Hq * n_qt * QUERY_TILE * 4
+    slab = bk * max(1, min(key_tiles, BWD_SCRATCH_BYTES // (per_key * bk)))
+    n_slabs = -(-Sk // slab)
+    first = -(-min(slab, Sk) // bk) * Hkv * B
+    splits = next((d for d in range(1, rep + 1)
+                   if rep % d == 0 and first * d >= 2 * sms), rep)
+    dkdv_smem, stages, dq_smem = backward_smem(hd)
+    n4 = B * Sk * Hkv * hd // 4
+    reduce_blocks = max(1, min(-(-n4 // BWD_THREADS), 8 * sms))
+    grids = {
+        "delta": ((-(-B * Sq * Hq // 4), 1, 1),),
+        "dkdv": tuple((Hkv * splits, B, -(-min(slab, Sk - s * slab) // bk))
+                      for s in range(n_slabs)),
+        "dq": ((Hq, B, n_qt),) * n_slabs,
+        "reduce": ((reduce_blocks, 2, 1),) if splits > 1 else ()}
+    scratch = {"ds": (B, Hq, n_qt, slab, QUERY_TILE)}
+    if splits > 1:
+        scratch["part"] = (2, splits, B, Sk, Hkv, hd)
+    return BackwardPlan(
+        block_keys=bk, splits=splits, slab_keys=slab, n_slabs=n_slabs,
+        query_tiles=n_qt, stages=stages, grids=grids,
+        smem={"dkdv": dkdv_smem, "dq": dq_smem}, scratch=scratch,
+        launch=(bk, splits, slab, n_slabs, dkdv_smem, dq_smem,
+                reduce_blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def alignment_error(name: str, address: int, shape, strides,
@@ -202,8 +312,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them, ``out`` and ``lse`` the forward's (`flash_attention_with_lse`),
     dout (B, Sq, Hq, hd) (copied if not contiguous and 16-byte aligned).
     Returns contiguous fp32 (B, Sq, Hq, hd), (B, Sk, Hkv, hd) twice. One
-    call launches three kernels (the row sums D = rowsum(dout * out), then
-    dk and dv, then dq) and adds one to ``flash_attention_bwd.launches``."""
+    call launches the kernels of `backward_plan` (the row sums D =
+    rowsum(dout * out), then dk and dv with scale dS to a scratch and dq
+    from it, once per slab of keys, then the sum of the head splits where
+    there are several) and adds one to ``flash_attention_bwd.launches``.
+    The scratch (`BackwardPlan.scratch_bytes`) lives for the call."""
     if q.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: fp32 only, got {q.dtype} "
                         f"(bf16 training is ROADMAP Queue 1 item 14d-3)")
@@ -229,25 +342,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
+    plan = backward_plan(B, Sq, Sk, Hq, Hkv, hd, _sm_count(q.device.index))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    ds = torch.empty(plan.scratch["ds"], dtype=torch.float32,
+                     device=q.device)
+    part = torch.empty(plan.scratch["part"], dtype=torch.float32,
+                       device=q.device) if plan.splits > 1 else None
     strides = _strides(q, k, v)
+    launch = (ctypes.c_int * len(plan.launch))(*plan.launch)
     lib_fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_f32",
                           _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check("flash_attention_bwd", lib_fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+        dk.data_ptr(), dv.data_ptr(), ds.data_ptr(),
+        None if part is None else part.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
         ctypes.addressof(strides), int(causal),
         0 if window is None else int(window), 1.0 / math.sqrt(hd),
-        q.device.index, stream))
+        ctypes.addressof(launch), q.device.index, stream))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 #: kernel launches since the last reset (plain ints; chip_smoke.py zeroes
 #: them before driving the main path and reads them after): forward
-#: launches (the autograd Function's included), and backward calls (three
-#: kernels each)
+#: launches (the autograd Function's included), and backward calls (the
+#: kernels of `backward_plan` each)
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0

@@ -443,10 +443,13 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # K4 backward cases: (B, Sq, Sk, Hq, Hkv, hd, causal, window): GQA at hd
-# 128, MQA at hd 256 with a window (one stage of (b) and (c)), hd 192
-# (one stage in (b), two in (c)), hd 80 with a window, a ragged S, Sq <
-# Sk causal (keys no row sees get zeros), non-causal with Sq != Sk, with
-# and without a window
+# 128, MQA at hd 256 with a window (one Q/dO stage in (b); 4 head
+# splits), hd 192 (one stage), hd 80 with a window, a ragged S, Sq < Sk
+# causal (keys no row sees get zeros), non-causal with Sq != Sk, with and
+# without a window; then recurrentgemma-9b's training shape (hd 256, one
+# KV head, window 2,048: 8 splits), qwen3's heads at a ragged S 200 that
+# no key tile divides, hd 176 (the first one-stage size) at a window and
+# hd 224 non-causal with Sq < Sk
 K4_BWD_SHAPES = [(2, 128, 128, 8, 4, 128, True, None),
                  (1, 130, 130, 4, 1, 256, True, 64),
                  (1, 70, 70, 2, 2, 192, True, None),
@@ -454,7 +457,11 @@ K4_BWD_SHAPES = [(2, 128, 128, 8, 4, 128, True, None),
                  (2, 77, 77, 4, 2, 64, True, None),
                  (1, 40, 90, 4, 2, 16, True, None),
                  (1, 64, 96, 4, 2, 32, False, None),
-                 (1, 96, 64, 4, 2, 32, False, 40)]
+                 (1, 96, 64, 4, 2, 32, False, 40),
+                 (4, 512, 512, 16, 1, 256, True, 2048),
+                 (2, 200, 200, 16, 8, 128, True, None),
+                 (2, 300, 300, 8, 2, 176, True, 100),
+                 (1, 200, 260, 8, 1, 224, False, None)]
 # each gradient against the plain version's, relative to its largest
 # element: fp32 sums over up to 130 keys (or queries and heads) in
 # another order than cuBLAS's
@@ -508,6 +515,39 @@ def test_flash_attention_backward_matches_plain_version(cuda):
                 k4.flash_attention_bwd.launches) == (before[0] + 1,
                                                      before[1] + 1)
         assert all(torch.equal(a, b) for a, b in zip(grads, got))
+
+
+# K4 backward cases walked in slabs of `keys` keys (a scratch budget set
+# that small): a window whose late query tiles see no key of the first
+# slab, hd 176 non-causal with Sq < Sk (32-key tiles), GQA at hd 128
+K4_BWD_SLABS = [(1, 300, 300, 4, 2, 64, True, 100, 64),
+                (1, 200, 260, 4, 1, 176, False, None, 64),
+                (2, 256, 256, 8, 2, 128, True, None, 128)]
+
+
+@pytest.mark.parametrize("B, Sq, Sk, Hq, Hkv, hd, causal, window, keys",
+                         K4_BWD_SLABS)
+def test_flash_attention_backward_in_slabs_of_keys(cuda, monkeypatch, B, Sq,
+                                                   Sk, Hq, Hkv, hd, causal,
+                                                   window, keys):
+    n_qt = -(-Sq // k4.QUERY_TILE)
+    monkeypatch.setattr(k4, "BWD_SCRATCH_BYTES",
+                        B * Hq * n_qt * k4.QUERY_TILE * 4 * keys)
+    plan = k4.backward_plan(B, Sq, Sk, Hq, Hkv, hd, k4._sm_count(0))
+    assert plan.slab_keys == keys and plan.n_slabs > 1
+    q, k, v = _k4_inputs(B, Sq, Sk, Hq, Hkv, hd, "float32", cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    kw = dict(causal=causal, window=window)
+    out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+    got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    for name, g, w in zip("qkv", got, want):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K4_BWD_TOL, msg=f"d{name}")
+    again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 # K5 (b, l, H, p, n, chunk, dlogA, h0): chip_smoke.py's cases (the serve

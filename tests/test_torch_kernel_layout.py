@@ -6,9 +6,11 @@ clients on x and walks the P tiles on y with a stride; K3
 (`compressed_graph_mix`) groups each payload row by 256-column tile
 before its mix (`ref.bucket_payload_ref` is that pass's plain version);
 K4 (`flash_attention`) copies rows in 16-byte pieces and refuses an input
-it cannot copy so; K5 (`ssd`) splits the scan into three launches over
-(b, head, chunk) and 64-row tiles (`ssd.launch_plan`), and copies in
-16-byte pieces only where every row is aligned (`ssd.aligned16`). These
+it cannot copy so, and its backward launches by `backward_plan` (tiles,
+head splits, slabs of keys and the scratch between its passes); K5
+(`ssd`) splits the scan into three launches over (b, head, chunk) and
+64-row tiles (`ssd.launch_plan`), and copies in 16-byte pieces only
+where every row is aligned (`ssd.aligned16`). These
 are tested here without a card; the kernels
 themselves are held to their plain versions by tests/test_torch_cuda.py
 and ``chip_smoke.py``.
@@ -219,6 +221,298 @@ def test_flash_attention_alignment_rule(shape, strides, elt, offset,
         assert "data_ptr" in err and "aligned" in err
     else:
         assert f"{refused} stride" in err
+
+
+# K4 backward plans (B, Sq, Sk, Hq, Hkv, hd, causal, window, SMs,
+# scratch budget in keys or None): qwen3-0.6b's training shape (one split,
+# one slab), recurrentgemma-9b's (hd 256, one KV head: 8 splits), S 4096
+# (4 slabs at the default budget), a window over several slabs (query
+# tiles that see no key of the first), ragged S with Sq < Sk, non-causal
+# with a window, hd 160 and 176 (two Q/dO stages and one), one SM (one
+# split)
+K4_BWD_PLANS = [(8, 512, 512, 16, 8, 128, True, None, 132, None),
+                (4, 512, 512, 16, 1, 256, True, 2048, 132, None),
+                (1, 4096, 4096, 16, 4, 64, True, None, 132, None),
+                (1, 200, 200, 4, 1, 32, True, 48, 132, 64),
+                (2, 77, 130, 4, 2, 16, True, None, 132, 64),
+                (1, 130, 190, 2, 2, 16, False, 30, 132, 128),
+                (1, 96, 64, 4, 2, 160, False, None, 8, None),
+                (1, 100, 100, 4, 2, 176, True, 40, 8, 32),
+                (2, 100, 100, 4, 2, 80, True, None, 1, None)]
+
+
+def _k4_bwd_plan(monkeypatch, B, Sq, Sk, Hq, Hkv, hd, sms, keys):
+    """The plan, with a scratch budget of ``keys`` keys a slab where
+    given."""
+    if keys is not None:
+        monkeypatch.setattr(k4, "BWD_SCRATCH_BYTES", B * Hq * -(
+            -Sq // k4.QUERY_TILE) * k4.QUERY_TILE * 4 * keys)
+    return k4.backward_plan(B, Sq, Sk, Hq, Hkv, hd, sms)
+
+
+def _visible(Sq, Sk, causal, window):
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Sk)[None]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    return mask
+
+
+def _dkdv_tiles(k0, bk, Sq, Sk, causal, window):
+    """The query tiles a (b) block of keys [k0, k0 + bk) walks, as
+    csrc/flash_attention_bwd.cu computes them."""
+    T = k4.QUERY_TILE
+    k_end = min(k0 + bk, Sk)
+    q_lo = k0 if causal else 0
+    q_hi = min(Sq, k_end - 1 + min(window, Sq)) if window else Sq
+    q_first = q_lo // T * T
+    n_q = -(-(q_hi - q_first) // T) if q_hi > q_first else 0
+    return range(q_first // T, q_first // T + n_q)
+
+
+def _dq_tiles(qt, n_qt, bk, Sq, Sk, causal, window):
+    """The key tiles of query tile ``qt``'s band, as flash_attention.cuh's
+    block_span computes them for (c): (first key, tiles)."""
+    q0 = qt * k4.QUERY_TILE
+    q_end = min(q0 + k4.QUERY_TILE, Sq)
+    lo = max(0, q0 - window + 1) if window else 0
+    hi = min(Sk, q_end) if causal else Sk
+    k_first = lo // bk * bk
+    return k_first, -(-(hi - k_first) // bk)
+
+
+def _k4_bwd_blocks(plan, B, Sq, Sk, Hq, Hkv, causal, window):
+    """What each pass's blocks do: per slab, the (b) blocks' (b, key
+    tile, KV head, split, query heads, written (h, query tile) pairs) and
+    the (c) blocks' (b, h, query tile, key tiles read, add)."""
+    bk, rep, slab = plan.block_keys, Hq // Hkv, plan.slab_keys
+    heads = rep // plan.splits
+    passes = []
+    for s in range(plan.n_slabs):
+        lo = s * slab
+        gx, gy, gz = plan.grids["dkdv"][s]
+        dkdv = []
+        for z in range(gz):
+            k0 = lo + z * bk
+            tiles = _dkdv_tiles(k0, bk, Sq, Sk, causal, window)
+            for b in range(gy):
+                for x in range(gx):
+                    hk, split = divmod(x, plan.splits)
+                    hs = range(hk * rep + split * heads,
+                               hk * rep + (split + 1) * heads)
+                    dkdv.append((b, k0, hk, split, hs,
+                                 [(h, qt) for h in hs for qt in tiles]))
+        dq = []
+        gx, gy, gz = plan.grids["dq"][s]
+        for z in range(gz):
+            qt = gz - 1 - z if causal else z
+            k_first, n = _dq_tiles(qt, gz, bk, Sq, Sk, causal, window)
+            a, c = max(k_first, lo), min(k_first + n * bk, lo + slab)
+            for b in range(gy):
+                for h in range(gx):
+                    if a < c:
+                        dq.append((b, h, qt, list(range(a, c, bk)),
+                                   k_first < lo))
+        passes.append((lo, dkdv, dq))
+    return passes
+
+
+@pytest.mark.parametrize("B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, "
+                         "keys", K4_BWD_PLANS)
+def test_flash_attention_backward_plan_covers_every_tile_once(
+        monkeypatch, B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, keys):
+    """(b) covers every (key tile, KV head, batch) once per split and
+    every query head of a group in exactly one split; it writes the
+    scratch tile of every visible (query tile, key tile) pair once, inside
+    its slab, and (c) reads exactly the tiles its slab's (b) wrote; every
+    (query tile, head, batch) of (c) meets its whole band over the slabs,
+    writing dQ in the first slab it sees and adding in the later ones."""
+    plan = _k4_bwd_plan(monkeypatch, B, Sq, Sk, Hq, Hkv, hd, sms, keys)
+    bk, T, rep = plan.block_keys, k4.QUERY_TILE, Hq // Hkv
+    assert rep % plan.splits == 0 and plan.slab_keys % bk == 0
+    assert plan.n_slabs == -(-Sk // plan.slab_keys)
+    vis = _visible(Sq, Sk, causal, window)
+    want = {(qt, k0) for qt in range(plan.query_tiles)
+            for k0 in range(0, Sk, bk)
+            if vis[qt * T:(qt + 1) * T, k0:k0 + bk].any()}
+    kv_blocks, written = {}, {}
+    bands = {}
+    for lo, dkdv, dq in _k4_bwd_blocks(plan, B, Sq, Sk, Hq, Hkv, causal,
+                                       window):
+        in_slab = set()
+        for z, k0, hk, split, hs, pairs in dkdv:
+            assert lo <= k0 < min(lo + plan.slab_keys, Sk)
+            for h in hs:
+                key = (z, k0, h)
+                kv_blocks[key] = kv_blocks.get(key, 0) + 1
+            for h, qt in pairs:
+                w = (z, h, qt, k0)
+                written[w] = written.get(w, 0) + 1
+                in_slab.add(w)
+                assert k0 - lo + bk <= plan.slab_keys
+        read = set()
+        for z, h, qt, tiles, add in dq:
+            read |= {(z, h, qt, k0) for k0 in tiles}
+            band = bands.setdefault((z, h, qt), [])
+            assert add == bool(band)
+            band += tiles
+        assert read == in_slab
+    assert set(kv_blocks) == {(z, k0, h) for z in range(B)
+                              for k0 in range(0, Sk, bk) for h in range(Hq)}
+    assert set(kv_blocks.values()) == {1}
+    assert set(written.values()) == {1}
+    for z in range(B):
+        for h in range(Hq):
+            assert {(qt, k0) for (zz, hh, qt, k0) in written
+                    if (zz, hh) == (z, h)} == want
+    assert set(bands) == {(z, h, qt) for z in range(B) for h in range(Hq)
+                          for qt in range(plan.query_tiles)}
+    for (z, h, qt), tiles in bands.items():
+        assert tiles == sorted({k0 for q, k0 in want if q == qt})
+
+
+@pytest.mark.parametrize("hd", range(16, 257, 16))
+def test_flash_attention_backward_shared_memory_fits_every_head_size(hd):
+    """(b) and (c) fit a block's shared memory at every head size the
+    kernel takes, two (c) blocks an SM; (b) streams Q and dO through two
+    stages up to hd 112 and at hd 144 and 160, one at hd 128 and from hd
+    176, with 64 keys a block up to hd 128 and 32 above."""
+    dkdv, stages, dq = k4.backward_smem(hd)
+    assert dkdv <= k4.MAX_SMEM and 2 * dq <= k4.MAX_SMEM
+    assert stages == (2 if hd <= 112 or hd in (144, 160) else 1)
+    assert k4.backward_block_keys(hd) == (64 if hd <= 128 else 32)
+    plan = k4.backward_plan(1, 100, 100, 2, 1, hd, 132)
+    assert plan.smem == {"dkdv": dkdv, "dq": dq}
+    assert plan.launch[4:6] == (dkdv, dq)
+
+
+@pytest.mark.parametrize("B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, "
+                         "keys", K4_BWD_PLANS)
+def test_flash_attention_backward_scratch_bytes(monkeypatch, B, Sq, Sk, Hq,
+                                                Hkv, hd, causal, window, sms,
+                                                keys):
+    """The scratch is (B, Hq, query tiles, slab keys, 64) fp32 of scale
+    dS^T, within the budget unless one key tile exceeds it, plus (2,
+    splits, B, Sk, Hkv, hd) fp32 of partial dK and dV where a group is
+    split; the splits are the fewest that give two blocks an SM."""
+    plan = _k4_bwd_plan(monkeypatch, B, Sq, Sk, Hq, Hkv, hd, sms, keys)
+    T = k4.QUERY_TILE
+    n_qt = -(-Sq // T)
+    ds = B * Hq * n_qt * T * plan.slab_keys * 4
+    part = 2 * plan.splits * B * Sk * Hkv * hd * 4 if plan.splits > 1 else 0
+    assert plan.scratch_bytes() == ds + part
+    budget = (k4.BWD_SCRATCH_BYTES if keys is None
+              else B * Hq * n_qt * T * 4 * keys)
+    assert ds <= budget or plan.slab_keys == plan.block_keys
+    blocks = plan.grids["dkdv"][0][2] * Hkv * B
+    assert blocks * plan.splits >= 2 * sms or plan.splits == Hq // Hkv
+    assert all(blocks * d < 2 * sms for d in range(1, plan.splits)
+               if (Hq // Hkv) % d == 0)
+
+
+def test_flash_attention_backward_plan_at_the_two_training_shapes():
+    """qwen3-0.6b's training shape runs one split and one slab, 134 MB of
+    scratch; recurrentgemma-9b's (hd 256, one KV head) 8 splits (512 (b)
+    blocks for 132 SMs, against 64 for one split) and 101 MB."""
+    p = k4.backward_plan(8, 512, 512, 16, 8, 128, 132)
+    assert (p.block_keys, p.splits, p.n_slabs, p.stages) == (64, 1, 1, 1)
+    assert p.grids["dkdv"] == ((8, 8, 8),) and p.grids["reduce"] == ()
+    assert p.grids["dq"] == ((16, 8, 8),)
+    assert p.scratch_bytes() == 8 * 16 * 512 * 512 * 4
+    p = k4.backward_plan(4, 512, 512, 16, 1, 256, 132)
+    assert (p.block_keys, p.splits, p.n_slabs, p.stages) == (32, 8, 1, 1)
+    assert p.grids["dkdv"] == ((8, 4, 16),)
+    assert p.scratch_bytes() == 4 * (4 * 16 * 512 * 512 +
+                                     2 * 8 * 4 * 512 * 256)
+
+
+def _emulate_bwd(q, k, v, dout, causal, window, plan):
+    """dq, dk, dv by the plan's passes, tile by tile in float64, as the
+    kernels compute them: (b) writes scale dS^T into a scratch filled with
+    NaN and sums dK and dV (or a split's partials), (c) reads the
+    scratch's tiles, writing dQ or adding to it, and the splits are
+    summed in order."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep, bk, T = Hq // Hkv, plan.block_keys, k4.QUERY_TILE
+    scale = 1.0 / np.sqrt(hd)
+    q, k, v, dout = (t.double() for t in (q, k, v, dout))
+    vis = torch.from_numpy(_visible(Sq, Sk, causal, window))
+    kk, vv = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+    lse = torch.logsumexp(torch.where(vis, s, -1e30), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd",
+                       torch.where(vis, torch.exp(s - lse[..., None]), 0.0),
+                       vv)
+    delta = (dout * out).sum(-1).transpose(1, 2)
+    nq, nk = plan.query_tiles * T, -(-Sk // bk) * bk
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1]) +
+                                         t.shape[2:])], dim=1)
+    qp, gp, kp, vp = pad(q, nq), pad(dout, nq), pad(k, nk), pad(v, nk)
+    lp = torch.cat([lse, lse.new_zeros(B, Hq, nq - Sq)], dim=2)
+    dp_ = torch.cat([delta, delta.new_zeros(B, Hq, nq - Sq)], dim=2)
+    visp = torch.zeros((nq, nk), dtype=torch.bool)
+    visp[:Sq, :Sk] = vis
+    dq = torch.full((B, Sq, Hq, hd), float("nan"), dtype=torch.float64)
+    part = torch.zeros((2, plan.splits, B, Sk, Hkv, hd), dtype=torch.float64)
+    for lo, dkdv, dqb in _k4_bwd_blocks(plan, B, Sq, Sk, Hq, Hkv, causal,
+                                        window):
+        scratch = torch.full(plan.scratch["ds"], float("nan"),
+                             dtype=torch.float64)
+        for z, k0, hk, split, _, pairs in dkdv:
+            acc = torch.zeros((2, bk, hd), dtype=torch.float64)
+            kt, vt = kp[z, k0:k0 + bk, hk], vp[z, k0:k0 + bk, hk]
+            for h, qt in pairs:
+                rows = slice(qt * T, (qt + 1) * T)
+                qt_, gt = qp[z, rows, h], gp[z, rows, h]
+                p = torch.where(visp[rows, k0:k0 + bk],
+                                torch.exp(qt_ @ kt.T * scale -
+                                          lp[z, h, rows, None]), 0.0)
+                ds = p * (gt @ vt.T - dp_[z, h, rows, None])
+                scratch[z, h, qt, k0 - lo:k0 - lo + bk] = scale * ds.T
+                acc[0] += ds.T @ qt_
+                acc[1] += p.T @ gt
+            n = min(bk, Sk - k0)
+            part[0, split, z, k0:k0 + n, hk] = scale * acc[0, :n]
+            part[1, split, z, k0:k0 + n, hk] = acc[1, :n]
+        for z, h, qt, tiles, add in dqb:
+            acc = sum(scratch[z, h, qt, k0 - lo:k0 - lo + bk].T @
+                      kp[z, k0:k0 + bk, h // rep] for k0 in tiles)
+            n = min(T, Sq - qt * T)
+            rows = slice(qt * T, qt * T + n)
+            dq[z, rows, h] = dq[z, rows, h] + acc[:n] if add else acc[:n]
+    dk, dv = part[0, 0], part[1, 0]
+    for g in range(1, plan.splits):
+        dk, dv = dk + part[0, g], dv + part[1, g]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, "
+                         "keys", [c for c in K4_BWD_PLANS
+                                  if c[1] * c[2] * c[3] <= 200 * 200 * 4])
+def test_flash_attention_backward_plan_computes_the_gradients(
+        monkeypatch, B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, keys):
+    """The plan's passes, run in float64 through the scratch as the
+    kernels run them (slabs, splits, the dQ writes and adds), give the
+    plain version's gradients, and every dQ row is written."""
+    plan = _k4_bwd_plan(monkeypatch, B, Sq, Sk, Hq, Hkv, hd, sms, keys)
+    rng = np.random.default_rng(3)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                               (B, Sk, Hkv, hd), (B, Sq, Hq, hd)))
+    got = _emulate_bwd(q, k, v, dout, causal, window, plan)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window)
+    for name, g, w in zip("qkv", got, want):
+        assert not torch.isnan(g).any(), f"d{name}"
+        scale = w.abs().max()
+        torch.testing.assert_close(g.float() / scale, w / scale, rtol=0,
+                                   atol=2e-5, msg=f"d{name}")
 
 
 # K5 shapes (b, l, H, p, n, L, h0): the serve shape, eight chunks, one

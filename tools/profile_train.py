@@ -12,7 +12,8 @@ the card synchronised), each phase's host wall and device-kernel time
 the summed device-kernel time and the device's idle share, the kernel
 launches, the TOP kernels that take the most device time, and the
 port's kernels (K4's forward ``flash_attention_f32_kernel`` and its
-backward's three ``flash_attention_bwd_*_kernel``), each by name.
+backward's ``flash_attention_bwd_*_kernel``: D, dK/dV and dQ, and the
+sum of the head splits where a GQA group is split), each by name.
 
     python3 tools/profile_train.py
 
