@@ -30,6 +30,12 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    (recurrentgemma-9b's serve shape with the model's a and b,
    tests/test_kernels.py's three shapes with h0 and its case without,
    ragged S and W, one step with h0, fewer channels than one block);
+   K4's backward (K4_BWD_CASES), K5's backward (the mamba2-370m train
+   shape, h0 with dh_last, one chunk, eight chunks, views of one
+   projection, inputs off 16-byte alignment, p 128, two head groups;
+   the same bits on a repeat) and K6's backward (the recurrentgemma-9b
+   train shape, ragged S and W with and without h0 and dh_last, one
+   step; bit for bit);
    then `prng.normal` (2**20 draws) on the card: the CPU's bits and
    jax.random.normal's (`NORMAL_SHA256`);
 4. the port's main paths: Algorithm 1 through
@@ -67,7 +73,15 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    12 local-attention blocks, float32, 26.1 GB of weights; 26 K6 and 12
    K4 launches in the prefill, 0 in decode), whose card-against-CPU
    check runs the model's first five layers (two segments) with its
-   embedding, head and final norm (CROSS_LAYERS);
+   embedding, head and final norm (CROSS_LAYERS); then the training
+   path: `launch.train.main` on qwen3-0.6b (TRAIN_ARGV) and mamba2-370m
+   (TRAIN_SSM_ARGV) at their published configs, and recurrentgemma-9b at
+   full width on its first 6 layers (TRAIN_HYBRID) through
+   `launch.train.train`, each 10 steps with the counts zeroed just before
+   and read just after (each layer's kernel forward twice a step and its
+   backward once, under remat "full"), finite, falling losses; then each
+   family cut small on the card and on the CPU against JAX's losses
+   (CROSS_TRAINS), and the DPFL mix of the dense one's weights;
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function where there is one (none for K5
    and K6), K3's launches also alone, K5's three kernels by
@@ -382,23 +396,91 @@ K4_BWD_TOL = 1e-4
 # the forward's row log-sum-exp against torch.logsumexp of the plain
 # scores (atol = rtol)
 K4_LSE_TOL = 1e-5
+# K5 backward cases: (name, b, l, H, p, n, chunk, inputs, h0, dh_last,
+# layout), inputs and layout as in K5_CASES. The first is the train run's
+# (mamba2-370m, batch 8, sequence 512: two chunks, no h0, and no dh_last,
+# which the loss does not read); then h0 with a nonzero dh_last, one
+# chunk, eight chunks, x / B / C as views of one projection at the train
+# width, inputs off 16-byte alignment (p 10, one float in), p 128, and 9
+# heads (two head groups of the W blocks, the second of one head)
+K5_BWD_CASES = [
+    ("train", 8, 512, 32, 64, 128, 256, "model", False, False, None),
+    ("h0, dh_last", 2, 256, 4, 32, 16, 64, "kernels", True, True, None),
+    ("one chunk, h0, dh_last", 2, 64, 4, 32, 16, 64, "kernels", True, True,
+     None),
+    ("8 chunks, h0, dh_last", 1, 2048, 32, 64, 128, 256, "model", True, True,
+     None),
+    ("train, x/B/C views of xBC", 8, 512, 32, 64, 128, 256, "model", False,
+     False, "xBC"),
+    ("p 10, 4-byte copies", 2, 128, 3, 10, 12, 64, "model", True, True,
+     "offset"),
+    ("p 128, n 64, h0", 1, 256, 4, 128, 64, 128, "model", True, False, None),
+    ("9 heads, dh_last", 2, 192, 9, 16, 8, 64, "model", False, True, None)]
+K5_BWD_TIMED = ("train",)
+# each of dx, d dlogA, dB, dC and dh0 against the plain version's, as a
+# share of that gradient's largest element: fp32 sums over 256 positions
+# and 32 heads in other orders than autograd's; d dlogA's row and column
+# sums nearly cancel, so it is held to its largest element, not
+# elementwise (tests/test_torch_cuda.py)
+K5_BWD_TOL = 1e-4
+# K6 backward cases: (name, B, S, W, inputs, h0, dh_last), inputs as in
+# K6_CASES. The first is the train run's (recurrentgemma-9b, batch 4,
+# sequence 512, lru width 4096; no h0, and no dh_last); then ragged S and
+# W with and without h0 and dh_last, and one step
+K6_BWD_CASES = [("train", 4, 512, 4096, "model", False, False),
+                ("ragged S 200, W 100, h0, dh_last", 2, 200, 100, "kernels",
+                 True, True),
+                ("ragged, no h0", 2, 200, 100, "kernels", False, True),
+                ("ragged, no dh_last", 2, 200, 100, "kernels", True, False),
+                ("S = 1, h0, dh_last", 4, 1, 4096, "model", True, True)]
+K6_BWD_TIMED = ("train",)
+# the K6 backward rounds each product and sum in the plain version's
+# order (every sum has two terms): bit for bit, checked with torch.equal
 # The training path: `repro_torch.launch.train.main` at qwen3-0.6b's
 # published config (28 layers, float32), batch 8, sequence 512, 10 steps
 TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "10", "--batch", "8",
               "--seq", "512"]
-# Card against CPU and against JAX: qwen3-0.6b at full width cut to its
-# first two layers (the full embedding, tied head and final norm), the
-# training loop (`launch.train.train`) for 3 steps at batch 2, sequence
-# 128, lr 3e-4, from the init of PRNGKey(0)
-CROSS_TRAIN = dict(arch="qwen3-0.6b", n_layers=2, batch=2, seq=128, steps=3,
-                   lr=3e-4)
-# the JAX reference's losses of that run (tools/jax_reference_smoke.py
-# train-cross, on the CPU)
-CROSS_TRAIN_JAX_LOSSES = [12.067048072814941, 12.131933212280273,
-                          12.170770645141602]
+# and at mamba2-370m's (48 Mamba2 layers, float32), batch 8, sequence
+# 512 (two chunks of 256), 10 steps
+TRAIN_SSM_ARGV = ["--arch", "mamba2-370m", "--steps", "10", "--batch", "8",
+                  "--seq", "512"]
+# recurrentgemma-9b at full width cut in depth only: its first 6 layers
+# (two whole (rec, rec, attn) segments: 4 RG-LRU and 2 attention blocks)
+# with the full embedding, untied head and final norm, 2.81 B weights
+# (45 GB with gradients and AdamW's moments: the whole model's 104 GB
+# does not fit one card), batch 4, sequence 512, 10 steps, through
+# `launch.train.train` from the init of PRNGKey(0)
+TRAIN_HYBRID = dict(arch="recurrentgemma-9b", n_layers=6, batch=4, seq=512,
+                    steps=10, lr=3e-4)
+# Card against CPU and against JAX, each family on the training loop
+# (`launch.train.train`) for 3 steps at lr 3e-4 from the init of
+# PRNGKey(0), keyed by the tools/jax_reference_smoke.py name that runs it
+# in JAX: qwen3-0.6b at full width cut to its first two layers (the full
+# embedding, tied head and final norm), batch 2, sequence 128;
+# mamba2-370m at full width cut to two layers, batch 2, sequence 512 (two
+# chunks of 256, so the backward's reverse state pass runs); and
+# recurrentgemma-9b's reduced config (rec, rec, attn at width 256, its
+# window of 32 binding at 128 positions), batch 2, sequence 128: at full
+# width even three layers would hold some 40 GB of state on the JAX side
+CROSS_TRAINS = {
+    "train-cross": dict(arch="qwen3-0.6b", n_layers=2, batch=2, seq=128,
+                        steps=3, lr=3e-4),
+    "train-cross-ssm": dict(arch="mamba2-370m", n_layers=2, batch=2,
+                            seq=512, steps=3, lr=3e-4),
+    "train-cross-hybrid": dict(arch="recurrentgemma-9b", reduced=True,
+                               batch=2, seq=128, steps=3, lr=3e-4)}
+# the JAX reference's losses of those runs (tools/jax_reference_smoke.py
+# train-cross train-cross-ssm train-cross-hybrid, on the CPU)
+CROSS_TRAIN_JAX_LOSSES = {
+    "train-cross": [12.067048072814941, 12.131933212280273,
+                    12.170770645141602],
+    "train-cross-ssm": [11.39367389678955, 11.2791748046875,
+                        11.313643455505371],
+    "train-cross-hybrid": [6.733729362487793, 6.728228569030762,
+                           6.701728820800781]}
 # losses (atol) and step-0 gradients (each leaf as a share of its
-# largest element): fp32 sums over 151,936 logits and 256 positions in
-# other orders (card, CPU, XLA)
+# largest element): fp32 sums over the vocabulary's logits and the
+# positions in other orders (card, CPU, XLA)
 CROSS_TRAIN_LOSS_TOL = 1e-4
 CROSS_TRAIN_GRAD_TOL = 1e-4
 # the DPFL mix of that model's weights: 4 clients
@@ -941,26 +1023,21 @@ def k4_bwd_work(q, k, window):
     return nbytes, flops // 4 * 10
 
 
-def k4_bwd_split_ms(fn, torch):
-    """Mean device time (ms) a call of each of K4's backward kernels in
-    ``fn()`` (D, dK/dV, dQ and the split sum where it runs), from
-    torch.profiler's kernel records matched by name, over 20 calls made
-    as `time_ms` makes them."""
+def kernel_split_ms(fn, torch, pattern, reps: int = 20):
+    """Mean device time (ms) a call of each kernel in ``fn()`` whose name
+    matches ``pattern`` (its group 1 the key), from torch.profiler's
+    kernel records, over ``reps`` calls made as `time_ms` makes them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reps = 20
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time_ms(fn, torch, reps=reps, warmup=0)
     out = {}
     for ev in prof.key_averages():
-        m = re.search(r"\bflash_attention_bwd_(delta|dkdv|dq|reduce)_kernel\b",
-                      ev.key)
+        m = re.search(pattern, ev.key)
         if m and ev.device_type == DeviceType.CUDA:
             out[m.group(1)] = out.get(m.group(1), 0.0) + \
                 ev.self_device_time_total / reps / 1e3
-    if not {"delta", "dkdv", "dq"} <= set(out):
-        fail(f"K4 backward: the profiler recorded the kernels {sorted(out)}")
     return out
 
 
@@ -988,7 +1065,12 @@ def time_k4_bwd(torch, inputs, errs, rates):
         def bwd():
             return k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         ms = time_ms(bwd, torch)
-        split = k4_bwd_split_ms(bwd, torch)
+        split = kernel_split_ms(
+            bwd, torch,
+            r"\bflash_attention_bwd_(delta|dkdv|dq|reduce)_kernel\b")
+        if not {"delta", "dkdv", "dq"} <= set(split):
+            fail(f"K4 backward: the profiler recorded the kernels "
+                 f"{sorted(split)}")
         plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
             q, k, v, dout, **kw), torch)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True)
@@ -1111,26 +1193,6 @@ def k5_work(x, B, chunk, h0):
     return nbytes, flops
 
 
-def k5_pass_ms(fn, torch):
-    """Mean device time (ms) of each of K5's three kernels in ``fn()``,
-    from torch.profiler's kernel records matched by name, over 20 runs
-    made as `time_ms` makes them (cold L2, after a spin)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time_ms(fn, torch, reps=20, warmup=0)
-    out = {}
-    for ev in prof.key_averages():
-        m = re.search(r"\bssd_(chunk|pass|output)_kernel\b", ev.key)
-        if m and ev.device_type == DeviceType.CUDA:
-            out[m.group(1)] = ev.self_device_time_total / ev.count / 1e3
-    if sorted(out) != ["chunk", "output", "pass"]:
-        fail(f"K5: the profiler recorded the kernels {sorted(out)}, not "
-             f"ssd_chunk_kernel, ssd_pass_kernel and ssd_output_kernel")
-    return out
-
-
 def host_ms(fn, torch, reps: int = 20) -> float:
     """Median host time (ms) of one ``fn()``: its checks, allocations and
     launches, with the card held by a spin (about 25 ms) so that no call
@@ -1166,7 +1228,12 @@ def time_k5(torch, inputs, errs, rates):
         def op():
             return k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
         ms = time_ms(op, torch)
-        pass_ms = k5_pass_ms(op, torch)
+        pass_ms = kernel_split_ms(op, torch,
+                                  r"\bssd_(chunk|pass|output)_kernel\b")
+        if sorted(pass_ms) != ["chunk", "output", "pass"]:
+            fail(f"K5: the profiler recorded the kernels {sorted(pass_ms)}, "
+                 f"not ssd_chunk_kernel, ssd_pass_kernel and "
+                 f"ssd_output_kernel")
         wrapper_ms = host_ms(op, torch)
         plain_ms = time_ms(lambda: ref.ssd_ref(x, dlogA, B, C, chunk, h0),
                            torch)
@@ -1272,10 +1339,235 @@ def time_k6(torch, inputs, errs, rates):
     return rows
 
 
+def k5_bwd_inputs(torch):
+    """Seeded (name, chunk, x, dlogA, B, C, h0, dy, dh_last) on the card for
+    every K5 backward case: x, dlogA, B, C and h0 drawn and laid out as
+    `k5_inputs` draws them, dy normal, dh_last normal or None."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = []
+    for (name, b, l, H, p, n, chunk, kind, with_h0, with_dhl,
+         layout) in K5_BWD_CASES:
+        def draw(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        x = draw(b, l, H, p, scale=0.3)
+        if kind == "model":
+            dt = torch.nn.functional.softplus(draw(b, l, H))
+            x, dlogA = x * dt[..., None], -dt
+        else:
+            dlogA = -draw(b, l, H).abs() * 0.1
+        h0 = draw(b, H, p, n, scale=0.5) if with_h0 else None
+        B, C = draw(b, l, n, scale=0.3), draw(b, l, n, scale=0.3)
+        if layout is not None:
+            off = 1 if layout == "offset" else 0
+            width = H * p + 2 * n
+            buf = torch.empty(b * l * width + off, device="cuda")
+            xBC = buf[off:].view(b, l, width)
+            xBC.copy_(torch.cat([x.reshape(b, l, H * p), B, C], dim=-1))
+            x = xBC[..., :H * p].unflatten(-1, (H, p))
+            B, C = xBC[..., H * p:H * p + n], xBC[..., H * p + n:]
+        out.append((name, chunk, x, dlogA, B, C, h0, draw(b, l, H, p),
+                    draw(b, H, p, n) if with_dhl else None))
+    return out
+
+
+def check_k5_bwd(torch, inputs):
+    """K5's backward (from the forward's workspaces, `ssd_with_work`)
+    against its plain version (`ref.ssd_bwd_ref`) in every case, each of
+    dx, d dlogA, dB, dC and dh0 within K5_BWD_TOL of its largest element;
+    a repeated call bit for bit (no atomics); the 16-byte copies where
+    the case allows them. Returns per case (max abs err, largest
+    share)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k5
+
+    out = []
+    for (name, chunk, x, dlogA, B, C, h0, dy, dhl), case in zip(
+            inputs, K5_BWD_CASES):
+        _, _, cum, states = k5.ssd_with_work(x, dlogA, B, C, chunk=chunk,
+                                             h0=h0)
+        got = k5.ssd_bwd(x, dlogA, B, C, chunk, h0, dy, dhl, cum, states)
+        want = ref.ssd_bwd_ref(x, dlogA, B, C, chunk, h0, dy, dhl)
+        err = share = 0.0
+        for label, g, w in zip(("dx", "d dlogA", "dB", "dC", "dh0"), got,
+                               want):
+            if (g is None) != (w is None):
+                fail(f"K5 backward {name}: {label} is {g} against {w}")
+            if w is None:
+                continue
+            scale = w.abs().max().clamp_min(1e-30)
+            _close(torch, f"K5 backward {name} {label} / max |{label}|",
+                   g / scale, w / scale, K5_BWD_TOL, 0.0)
+            diff = (g - w).abs().max()
+            err = max(err, diff.item())
+            share = max(share, (diff / scale).item())
+        again = k5.ssd_bwd(x, dlogA, B, C, chunk, h0, dy, dhl, cum, states)
+        if not all(a is None or torch.equal(a, b_)
+                   for a, b_ in zip(got, again)):
+            fail(f"K5 backward {name}: a repeated call gave other bits")
+        vec = (k5.aligned16(x, (0, 1, 2)) and k5.aligned16(B, (0, 1)) and
+               k5.aligned16(C, (0, 1)))
+        if vec != (case[-1] != "offset" and x.shape[-1] % 4 == 0):
+            fail(f"K5 backward {name}: 16-byte copies {vec}, not as the "
+                 f"case says")
+        out.append((err, share))
+    return out
+
+
+def k5_bwd_work(x, B, chunk, h0, dhl, states):
+    """(bytes, flops) K5's backward must at least move and do: x, B, C,
+    dy, the forward's cum and states (and dh_last) read once; dx, d
+    dlogA, dB and dC (and dh0) written once; `ssd.backward_flops`."""
+    from repro_torch.kernels import ssd as k5
+
+    b, l, H, p = x.shape
+    n = B.shape[-1]
+    state = b * H * p * n
+    nbytes = 4 * (3 * x.numel() + 4 * B.numel() + 2 * b * l * H +
+                  states.numel() + (state if dhl is not None else 0) +
+                  (state if h0 is not None else 0))
+    flops = k5.backward_flops(b, l, H, p, n, min(chunk, l), h0 is not None,
+                              dhl is not None)["total"]
+    return nbytes, flops
+
+
+def time_k5_bwd(torch, inputs, errs, rates):
+    """K5's backward (its four launches) at the K5_BWD_TIMED shapes, each
+    kernel's device time from the profiler, and its plain version
+    (autograd through `ssd_ref`), beside the bound. No single PyTorch
+    call computes the gradient of a chunked SSD scan, so no library
+    time. Returns the rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k5
+
+    rows = []
+    for (name, chunk, x, dlogA, B, C, h0, dy, dhl), err in zip(inputs,
+                                                                errs):
+        if name not in K5_BWD_TIMED:
+            continue
+        _, _, cum, states = k5.ssd_with_work(x, dlogA, B, C, chunk=chunk,
+                                             h0=h0)
+
+        def bwd():
+            return k5.ssd_bwd(x, dlogA, B, C, chunk, h0, dy, dhl, cum,
+                              states)
+        ms = time_ms(bwd, torch)
+        split = kernel_split_ms(
+            bwd, torch, r"\bssd_bwd_(chunk|pass|main|final)_kernel\b")
+        if sorted(split) != ["chunk", "final", "main", "pass"]:
+            fail(f"K5 backward: the profiler recorded the kernels "
+                 f"{sorted(split)}")
+        plain_ms = time_ms(lambda: ref.ssd_bwd_ref(
+            x, dlogA, B, C, chunk, h0, dy, dhl), torch, reps=20, warmup=3)
+        nbytes, flops = k5_bwd_work(x, B, chunk, h0, dhl, states)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+        b, l, H, p = x.shape
+        n = B.shape[-1]
+        plan = k5.backward_plan(b, l, H, p, n, min(chunk, l))
+        rows.append(dict(case=name, b=b, l=l, H=H, p=p, n=n, chunk=chunk,
+                         dtype="float32", max_abs_err=err[0],
+                         max_share=err[1], tol=K5_BWD_TOL, ms=ms,
+                         kernel_ms=split, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         tflops=flops / ms / 1e9,
+                         scratch_bytes=plan.scratch_bytes()))
+        print(f"  K5 backward {name} ({b}, {l}, {H}, {p}, {n}, chunk "
+              f"{chunk}) err {err[0]:.3g} ({err[1]:.3g} of the largest) "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the "
+              f"least {flops / 1e9:.3f} GFLOP; " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items()) +
+              f" ms a call; scratch {plan.scratch_bytes()} bytes)  plain "
+              f"{plain_ms:.4f} ms  library none  bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+    return rows
+
+
+def k6_bwd_inputs(torch):
+    """Seeded (name, a, b, h0, dy, dh_last) on the card for every K6
+    backward case, a and b drawn as `k6_inputs` draws them."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = []
+    for name, B, S, W, kind, with_h0, with_dhl in K6_BWD_CASES:
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        if kind == "model":
+            u = torch.rand((W,), generator=gen, device="cuda") * 0.099 + 0.9
+            a = u ** torch.sigmoid(draw(B, S, W))
+            b = torch.sqrt(1.0 - a * a) * torch.sigmoid(draw(B, S, W)) * \
+                draw(B, S, W)
+        else:
+            a = torch.sigmoid(draw(B, S, W)) * 0.2 + 0.79
+            b = draw(B, S, W) * 0.1
+        out.append((name, a, b, draw(B, W) if with_h0 else None,
+                    draw(B, S, W), draw(B, W) if with_dhl else None))
+    return out
+
+
+def check_k6_bwd(torch, inputs):
+    """K6's backward (from the forward's output h) against its plain
+    version (`ref.linear_scan_bwd_ref`) in every case, bit for bit (da,
+    db and dh0); returns the max abs error per case (0)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as k6
+
+    errs = []
+    for name, a, b, h0, dy, dhl in inputs:
+        h, _ = k6.rglru_scan(a, b, h0)
+        got = k6.rglru_scan_bwd(a, h, h0, dy, dhl)
+        want = ref.linear_scan_bwd_ref(a, b, h0, dy, dhl)
+        err = 0.0
+        for label, g, w in zip(("da", "db", "dh0"), got, want):
+            if (g is None) != (w is None):
+                fail(f"K6 backward {name}: {label} is {g} against {w}")
+            if w is None:
+                continue
+            torch.cuda.synchronize()
+            err = max(err, (g - w).abs().max().item())
+            if not torch.equal(g, w):
+                fail(f"K6 backward {name}: {label} differs from the plain "
+                     f"version's (max abs err {err}), not bit for bit")
+        errs.append(err)
+    return errs
+
+
+def time_k6_bwd(torch, inputs, errs, rates):
+    """K6's backward and its plain version (autograd through the S-step
+    loop) at the K6_BWD_TIMED shapes, beside the bound: a, h and dy read
+    once, da and db written once (20 bytes an element), three flops an
+    element. No single PyTorch call computes it. Returns the rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as k6
+
+    rows = []
+    for (name, a, b, h0, dy, dhl), err in zip(inputs, errs):
+        if name not in K6_BWD_TIMED:
+            continue
+        h, _ = k6.rglru_scan(a, b, h0)
+        ms = time_ms(lambda: k6.rglru_scan_bwd(a, h, h0, dy, dhl), torch)
+        plain_ms = time_ms(lambda: ref.linear_scan_bwd_ref(
+            a, b, h0, dy, dhl), torch, reps=5, warmup=1)
+        B, S, W = a.shape
+        nbytes = 4 * (5 * a.numel() + B * W * ((h0 is not None) * 2 +
+                                               (dhl is not None)))
+        flops = 3 * a.numel()
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+        rows.append(dict(case=name, B=B, S=S, W=W, dtype="float32",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         gbytes_per_s=nbytes / ms / 1e6))
+        print(f"  K6 backward {name} ({B}, {S}, {W}) err {err:.3g} kernel "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)  plain "
+              f"{plain_ms:.4f} ms  library none  bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+    return rows
+
+
 #: the kernels redesigned for Hopper: their ptxas report is printed in
 #: full, and a spill fails the run
 REDESIGNED = ("graph_mix", "sparse_graph_mix", "compressed_graph_mix",
-              "flash_attention", "flash_attention_bwd", "ssd")
+              "flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd",
+              "rglru_scan_bwd")
 
 
 def ptxas_report(log):
@@ -1407,7 +1699,8 @@ def _kernel_modules():
             "compressed_graph_mix": k3.compressed_graph_mix,
             "flash_attention": k4.flash_attention,
             "flash_attention_bwd": k4.flash_attention_bwd, "ssd": k5.ssd,
-            "rglru_scan": k6.rglru_scan}
+            "ssd_bwd": k5.ssd_bwd, "rglru_scan": k6.rglru_scan,
+            "rglru_scan_bwd": k6.rglru_scan_bwd}
 
 
 def _zero_launches():
@@ -1486,11 +1779,12 @@ def expected_launches(variant, N, B, rounds):
     k1 = math.ceil(N / B) + rounds
     if not sparse:
         k1 += 1 + (0 if topk else round_mixes)
-    return {"graph_mix": k1,
-            "sparse_graph_mix": 1 + round_mixes if sparse else 0,
-            "compressed_graph_mix": round_mixes if topk and not sparse else 0,
-            "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0,
-            "rglru_scan": 0}
+    want = {name: 0 for name in _kernel_modules()}
+    want.update(graph_mix=k1,
+                sparse_graph_mix=1 + round_mixes if sparse else 0,
+                compressed_graph_mix=round_mixes if topk and not sparse
+                else 0)
+    return want
 
 
 def check_main_path(res, engine, cfg, variant, launches, omega_dense):
@@ -1756,20 +2050,11 @@ def check_checkpoint(torch, engine, res):
 
 def serve_kernels(cfg):
     """The launches of each port kernel that one prefill of ``cfg`` must
-    make, counted from the config alone: one K4 per attention layer, one
-    K5 per Mamba2 layer, one K6 per RG-LRU layer (a hybrid model's layers
-    follow its pattern unit cyclically: `repro`'s segments); every other
-    kernel none."""
+    make, counted from the config alone: one launch of each layer's
+    kernel (`layer_kernels`); every other kernel none."""
     want = {name: 0 for name in _kernel_modules()}
-    if cfg.family == "ssm":
-        want["ssd"] = cfg.n_layers
-    elif cfg.family == "hybrid":
-        unit = cfg.hybrid_pattern
-        kinds = [unit[i % len(unit)] for i in range(cfg.n_layers)]
-        want["rglru_scan"] = kinds.count("rec")
-        want["flash_attention"] = cfg.n_layers - kinds.count("rec")
-    else:
-        want["flash_attention"] = cfg.n_layers
+    for kname in layer_kernels(cfg):
+        want[kname] += 1
     return want
 
 
@@ -1899,33 +2184,67 @@ def check_cross(torch, cfg, model, params):
     return diff, seconds, n_layers
 
 
+def layer_kernels(cfg):
+    """Per layer of ``cfg``, in order, the port kernel its prefill runs:
+    K4 (attention), K5 (Mamba2) or K6 (RG-LRU); a hybrid model's layers
+    follow its pattern unit cyclically (`repro`'s segments)."""
+    if cfg.family == "ssm":
+        return ["ssd"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        unit = cfg.hybrid_pattern
+        return ["rglru_scan" if unit[i % len(unit)] == "rec"
+                else "flash_attention" for i in range(cfg.n_layers)]
+    return ["flash_attention"] * cfg.n_layers
+
+
 def train_launches(cfg, steps):
-    """The launches of each port kernel that ``steps`` train steps of a
-    dense ``cfg`` must make: under remat "full" each layer's forward runs
-    twice a step (the loss, then its recompute in the backward pass), so
-    K4's forward launches 2 n_layers a step and its backward n_layers;
-    every other kernel none."""
+    """The launches of each port kernel that ``steps`` train steps of
+    ``cfg`` must make, counted from its layer kinds (`layer_kernels`):
+    under remat "full" each layer's forward runs twice a step (the loss,
+    then its recompute in the backward pass), so its kernel's forward
+    launches twice a layer and step and its backward once; every other
+    kernel none."""
     want = {name: 0 for name in _kernel_modules()}
-    want["flash_attention"] = 2 * cfg.n_layers * steps
-    want["flash_attention_bwd"] = cfg.n_layers * steps
+    for kname in layer_kernels(cfg):
+        want[kname] += 2 * steps
+        want[kname + "_bwd"] += steps
     return want
 
 
-def run_train(torch):
-    """The training path once: `repro_torch.launch.train.main(TRAIN_ARGV)`
-    with every kernel count zeroed just before and read just after
-    (`train_launches`); every loss finite and the last below the first.
+def run_train(torch, argv=None, cut=None):
+    """The training path once, with every kernel count zeroed just before
+    and read just after (`train_launches`): `repro_torch.launch.train.
+    main(argv)`, or for ``cut`` (TRAIN_HYBRID) the config cut to its
+    first ``n_layers`` layers, its init of PRNGKey(0) on the card and
+    `launch.train.train`; every loss finite and the last below the first.
     Then AdamW alone (its update and the weights' addition, on gradients
     of the weights' shapes) three times, by the host clock around
     synchronized calls. Returns a dict of the run's numbers."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
+    from repro_torch.models import build_model
 
-    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    run = train.main(TRAIN_ARGV)
+    if cut is None:
+        steps = int(argv[argv.index("--steps") + 1])
+        batch, seq = (int(argv[argv.index(f) + 1])
+                      for f in ("--batch", "--seq"))
+        run = train.main(argv)
+    else:
+        steps, batch, seq = cut["steps"], cut["batch"], cut["seq"]
+        cfg = get_config(cut["arch"]).replace(n_layers=cut["n_layers"],
+                                              dtype="float32")
+        model = build_model(cfg, device="meta", loss_chunks=4)
+        model.init(prng.PRNGKey(0, device="cuda"))
+        print(f"arch={cfg.name} cut to {cfg.n_layers} layers params="
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+        run = train.train(model, train.lm_corpus(cfg, batch, seq),
+                          steps=steps, batch=batch, lr=cut["lr"])
+        del model
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _read_launches()
@@ -1954,36 +2273,57 @@ def run_train(torch):
         torch.cuda.synchronize()
         opt_times.append(time.perf_counter() - t0)
         del updates
+    del grads, params
     warm = statistics.median(run.step_seconds[2:])
-    return dict(arch=cfg.name, n_params=run.n_params, steps=steps,
-                losses=run.losses, step_seconds=run.step_seconds,
-                warm_step_s=warm, optimizer_s=statistics.median(opt_times),
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
+                n_params=run.n_params, steps=steps, losses=run.losses,
+                step_seconds=run.step_seconds, warm_step_s=warm,
+                optimizer_s=statistics.median(opt_times),
                 optimizer_share=statistics.median(opt_times) / warm,
                 peak_bytes=peak, launches=launches, seconds=seconds)
 
 
-def check_cross_train(torch):
-    """CROSS_TRAIN on the card and by the port on the CPU (the card's init
-    copied to the host before any step): the step-0 gradients within
-    CROSS_TRAIN_GRAD_TOL (each leaf as a share of its largest element),
-    then 3 steps of the training loop (`launch.train.train`) on each, the
-    card's launches `train_launches` and the CPU's none, the losses within
-    CROSS_TRAIN_LOSS_TOL of each other and of the JAX reference's
-    (CROSS_TRAIN_JAX_LOSSES). Returns (card losses, CPU losses, the
-    largest gradient share, the card's launches, the card's trained
-    weights, CPU seconds)."""
+def print_train(tr):
+    per_step = ", ".join(
+        f"{n // tr['steps']} {k}" for k, n in tr["launches"].items() if n)
+    print(f"train {tr['arch']} ({tr['n_layers']} layers) float32 "
+          f"B={tr['batch']} S={tr['seq']}, {tr['steps']} steps, "
+          f"{tr['n_params']} weights: losses "
+          f"{[round(x, 4) for x in tr['losses']]}, step walls (s) "
+          f"{[round(x, 4) for x in tr['step_seconds']]}, warm step "
+          f"{tr['warm_step_s']:.4f} s (median of steps 2-9), AdamW alone "
+          f"{tr['optimizer_s']:.4f} s ({tr['optimizer_share']:.3f} of a "
+          f"step), peak allocated {tr['peak_bytes']} bytes, launches "
+          f"{tr['launches']} ({per_step} a step), run {tr['seconds']:.1f} "
+          f"s with init and corpus")
+
+
+def check_cross_train(torch, name):
+    """CROSS_TRAINS[name] on the card and by the port on the CPU (the
+    card's init copied to the host before any step): the step-0
+    gradients within CROSS_TRAIN_GRAD_TOL (each leaf as a share of its
+    largest element), then 3 steps of the training loop
+    (`launch.train.train`) on each, the card's launches `train_launches`
+    and the CPU's none, the losses within CROSS_TRAIN_LOSS_TOL of each
+    other and of the JAX reference's (CROSS_TRAIN_JAX_LOSSES[name]).
+    Returns (card losses, CPU losses, the largest gradient share, the
+    card's launches, the card's trained weights, CPU seconds)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import build_model
 
-    c = CROSS_TRAIN
-    if CROSS_TRAIN_JAX_LOSSES is None or \
-            len(CROSS_TRAIN_JAX_LOSSES) != c["steps"]:
-        fail("no JAX reference losses for CROSS_TRAIN: run "
-             "tools/jax_reference_smoke.py train-cross")
-    cfg = get_config(c["arch"]).replace(n_layers=c["n_layers"],
-                                        dtype="float32")
+    c = CROSS_TRAINS[name]
+    jax_losses = CROSS_TRAIN_JAX_LOSSES[name]
+    if jax_losses is None or len(jax_losses) != c["steps"]:
+        fail(f"no JAX reference losses for {name}: run "
+             f"tools/jax_reference_smoke.py {name}")
+    cfg = get_config(c["arch"])
+    if c.get("reduced"):
+        cfg = cfg.reduced()
+    if "n_layers" in c:
+        cfg = cfg.replace(n_layers=c["n_layers"])
+    cfg = cfg.replace(dtype="float32")
     card = build_model(cfg, device="meta", loss_chunks=4)
     params = card.init(prng.PRNGKey(0, device="cuda"))
     cpu = build_model(cfg, device="meta", loss_chunks=4)
@@ -1996,14 +2336,14 @@ def check_cross_train(torch):
         loss, _ = model.loss({"tokens": torch.from_numpy(first).to(dev)})
         grads[side] = torch.autograd.grad(loss, list(model.parameters()))
     share = 0.0
-    for (name, _), g, w in zip(card.named_parameters(), grads["card"],
-                               grads["cpu"]):
-        s = ((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)
-             ).item()
-        if not s <= CROSS_TRAIN_GRAD_TOL:
-            fail(f"train card against CPU: step-0 gradient of {name} "
-                 f"differs by {s} of its largest element")
-        share = max(share, s)
+    for (pname, _), g, w in zip(card.named_parameters(), grads["card"],
+                                grads["cpu"]):
+        sh = ((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)
+              ).item()
+        if not sh <= CROSS_TRAIN_GRAD_TOL:
+            fail(f"{name} card against CPU: step-0 gradient of {pname} "
+                 f"differs by {sh} of its largest element")
+        share = max(share, sh)
     del grads
     kw = dict(steps=c["steps"], batch=c["batch"], lr=c["lr"], log_every=1)
     _zero_launches()
@@ -2016,14 +2356,13 @@ def check_cross_train(torch):
     n_cpu = {k: v - n_card[k] for k, v in _read_launches().items()}
     want = train_launches(cfg, c["steps"])
     if n_card != want or any(n_cpu.values()):
-        fail(f"train card against CPU: launches {n_card} on the card "
+        fail(f"{name} card against CPU: launches {n_card} on the card "
              f"(expected {want}), {n_cpu} on the CPU")
-    for label, other in (("the CPU", on_cpu.losses),
-                         ("JAX", CROSS_TRAIN_JAX_LOSSES)):
+    for label, other in (("the CPU", on_cpu.losses), ("JAX", jax_losses)):
         diff = max(abs(a - b) for a, b in zip(on_card.losses, other))
         if not diff <= CROSS_TRAIN_LOSS_TOL:
-            fail(f"train card against {label}: losses {on_card.losses} and "
-                 f"{other} differ by {diff} > {CROSS_TRAIN_LOSS_TOL}")
+            fail(f"{name} card against {label}: losses {on_card.losses} "
+                 f"and {other} differ by {diff} > {CROSS_TRAIN_LOSS_TOL}")
     return (on_card.losses, on_cpu.losses, share, n_card,
             dict(card.named_parameters()), seconds)
 
@@ -2163,6 +2502,19 @@ def main():
           f"{k6_bitwise} of them)")
     for case, err in zip(K6_CASES, k6_errs):
         print(f"  K6 {case[0]}: max abs err {err:.3g}")
+    k5b_in = k5_bwd_inputs(torch)
+    k5b_errs = check_k5_bwd(torch, k5b_in)
+    print(f"K5 backward agrees with its plain version in {len(k5b_in)} "
+          f"cases (dx, d dlogA, dB, dC, dh0 within {K5_BWD_TOL} of each "
+          f"one's largest element), the same bits on a repeated call")
+    for case, (err, share) in zip(K5_BWD_CASES, k5b_errs):
+        print(f"  K5 backward {case[0]}: max abs err {err:.3g} ({share:.3g} "
+              f"of the largest element)")
+    k6b_in = k6_bwd_inputs(torch)
+    k6b_errs = check_k6_bwd(torch, k6b_in)
+    print(f"K6 backward agrees with its plain version bit for bit in "
+          f"{len(k6b_in)} cases (" + ", ".join(c[0] for c in K6_BWD_CASES) +
+          ")")
     normal_s = check_normal(torch)
     print(f"prng.normal: {NORMAL_DRAWS} draws from PRNGKey(3) on the card in "
           f"{normal_s:.3f} s, the CPU's bits and jax.random.normal's")
@@ -2250,29 +2602,26 @@ def main():
         torch.cuda.empty_cache()
     print("serve walls, second call (prefill ms, decode ms/step): " +
           ", ".join(f"{a} {p:.3f}, {d:.3f}" for a, (p, d) in walls.items()))
-    tr = run_train(torch)
-    launches[f"train {tr['arch']}"] = tr["launches"]
-    print(f"train {tr['arch']} float32 B=8 S=512, {tr['steps']} steps, "
-          f"{tr['n_params']} weights: losses "
-          f"{[round(x, 4) for x in tr['losses']]}, step walls (s) "
-          f"{[round(x, 4) for x in tr['step_seconds']]}, warm step "
-          f"{tr['warm_step_s']:.4f} s (median of steps 2-9), AdamW alone "
-          f"{tr['optimizer_s']:.4f} s ({tr['optimizer_share']:.3f} of a "
-          f"step), peak allocated {tr['peak_bytes']} bytes, launches "
-          f"{tr['launches']} "
-          f"({tr['launches']['flash_attention'] // tr['steps']} K4 forward "
-          f"and {tr['launches']['flash_attention_bwd'] // tr['steps']} "
-          f"backward a step), run {tr['seconds']:.1f} s with init and "
-          f"corpus")
-    torch.cuda.empty_cache()
-    (card_losses, cpu_losses, grad_share, n_cross, cross_params,
-     cpu_s) = check_cross_train(torch)
-    launches["train cross (card)"] = n_cross
-    print(f"train card against CPU and JAX ({CROSS_TRAIN}): losses card "
-          f"{card_losses}, CPU {cpu_losses}, JAX {CROSS_TRAIN_JAX_LOSSES} "
-          f"(tol {CROSS_TRAIN_LOSS_TOL}); step-0 gradients within "
-          f"{grad_share:.3g} of each leaf's largest element (tol "
-          f"{CROSS_TRAIN_GRAD_TOL}); CPU side {cpu_s:.1f} s")
+    for kw in (dict(argv=TRAIN_ARGV), dict(argv=TRAIN_SSM_ARGV),
+               dict(cut=TRAIN_HYBRID)):
+        tr = run_train(torch, **kw)
+        launches[f"train {tr['arch']}"] = tr["launches"]
+        print_train(tr)
+        torch.cuda.empty_cache()
+    for name in CROSS_TRAINS:
+        (card_losses, cpu_losses, grad_share, n_cross, params,
+         cpu_s) = check_cross_train(torch, name)
+        launches[f"{name} (card)"] = n_cross
+        print(f"{name} card against CPU and JAX ({CROSS_TRAINS[name]}): "
+              f"losses card {card_losses}, CPU {cpu_losses}, JAX "
+              f"{CROSS_TRAIN_JAX_LOSSES[name]} (tol {CROSS_TRAIN_LOSS_TOL}); "
+              f"step-0 gradients within {grad_share:.3g} of each leaf's "
+              f"largest element (tol {CROSS_TRAIN_GRAD_TOL}); launches "
+              f"{n_cross}; CPU side {cpu_s:.1f} s")
+        if name == "train-cross":
+            cross_params = params
+        del params
+        torch.cuda.empty_cache()
     n_mix, mix_err, mix_s = check_dpfl_mix(torch, cross_params)
     launches["dpfl mix"] = n_mix
     print(f"DPFL mix: make_dpfl_mix of {DPFL_MIX_CLIENTS} client copies of "
@@ -2291,15 +2640,18 @@ def main():
     k4b_rows = time_k4_bwd(torch, k4b_in, k4b_errs, rates)
     k5_rows = time_k5(torch, k5_in, k5_errs, rates)
     k6_rows = time_k6(torch, k6_in, k6_errs, rates)
+    k5b_rows = time_k5_bwd(torch, k5b_in, k5b_errs, rates)
+    k6b_rows = time_k6_bwd(torch, k6b_in, k6b_errs, rates)
+    del k5b_in, k6b_in
     print("clocks.sm, power.draw after timing: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs, the twelve baseline runs, the three serve runs, the train
-    # run, the card side of the cross train run and the DPFL mix), with
-    # each run's counts beside them
+    # DPFL runs, the twelve baseline runs, the three serve runs, the three
+    # train runs, the card sides of the three cross train runs and the DPFL
+    # mix), with each run's counts beside them
     def total(kname):
         return sum(c[kname] for c in launches.values())
 
@@ -2333,7 +2685,18 @@ def main():
                     "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows),
         _kernel_row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
                     "src/repro/kernels/rglru_scan.py:60",
-                    total("rglru_scan"), k6_rows)]
+                    total("rglru_scan"), k6_rows),
+        _kernel_row("ssd_bwd", "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                    "src/repro/kernels/ssd.py:83 (its function's gradient; "
+                    "no Pallas counterpart)", total("ssd_bwd"), k5b_rows),
+        _kernel_row("rglru_scan_bwd",
+                    "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+                    "src/repro/kernels/rglru_scan.py:60 (its function's "
+                    "gradient; no Pallas counterpart)",
+                    total("rglru_scan_bwd"), k6b_rows)]
+    # the backwards' errors over every case, not the timed one's alone
+    rows[-2]["max_abs_err"] = max(e[0] for e in k5b_errs)
+    rows[-1]["max_abs_err"] = max(k6b_errs)
     for row in rows:
         row["launches_by_run"] = {v: c[row["name"]]
                                   for v, c in launches.items()}

@@ -32,7 +32,9 @@ SOURCES = {"graph_mix": "graph_mix.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssd": "ssd.cu",
-           "rglru_scan": "rglru_scan.cu"}
+           "ssd_bwd": "ssd_bwd.cu",
+           "rglru_scan": "rglru_scan.cu",
+           "rglru_scan_bwd": "rglru_scan_bwd.cu"}
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

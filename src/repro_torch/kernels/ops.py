@@ -82,9 +82,9 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     """The Mamba2 chunked SSD scan: x (b, l, h, p) already scaled by dt,
     dlogA (b, l, h), B and C (b, l, n), h0 (b, h, p, n) or None; returns
     (y (b, l, h, p), h_last (b, h, p, n)) (`repro.kernels.ops.ssd`).
-    Raises ``NotImplementedError`` for inputs that require grad, on
-    either device: the kernel has no backward yet."""
-    _k5.check_no_grad(x, dlogA, B, C, h0)
+    Differentiable in fp32: on CPU tensors autograd differentiates the
+    plain version, on CUDA tensors the kernel's backward runs
+    (`kernels.ssd`)."""
     if _on_cpu(x, dlogA, B, C, *(() if h0 is None else (h0,))):
         return ref.ssd_ref(x, dlogA, B, C, chunk, h0)
     return _k5.ssd(x, dlogA, B, C, chunk=chunk, h0=h0)
@@ -96,9 +96,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` over axis 1: a, b
     (B, S, W) float32, h0 (B, W) or None; returns (h (B, S, W), h_last
     (B, W)) (`repro.kernels.rglru_scan.rglru_scan`, whose oracle `repro`'s
-    model runs). Raises ``NotImplementedError`` for inputs that require
-    grad, on either device: the kernel has no backward yet."""
-    _k6.check_no_grad(a, b, h0)
+    model runs). Differentiable: on CPU tensors autograd differentiates
+    the plain version, on CUDA tensors the kernel's backward runs
+    (`kernels.rglru_scan`)."""
     if _on_cpu(a, b, *(() if h0 is None else (h0,))):
         return ref.linear_scan_ref(a, b, h0)
     return _k6.rglru_scan(a, b, h0)

@@ -176,6 +176,27 @@ def ssd_ref(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     return (Y_diag + Y_off).reshape(b, l, h, p), hprev
 
 
+def ssd_bwd_ref(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, chunk: int, h0: Optional[torch.Tensor],
+                dy: torch.Tensor, dh_last: Optional[torch.Tensor]
+                ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The plain version of K5's backward: (dx, d dlogA, dB, dC, dh0), the
+    gradients of `ssd_ref` at (x, dlogA, B, C, h0) for the output
+    gradients ``dy`` (of y) and ``dh_last`` (of h_last; None is zero), by
+    ``torch.autograd.grad``. dh0 is None when h0 is."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dlogA, B, C)]
+        h = None if h0 is None else h0.detach().requires_grad_(True)
+        y, h_last = ssd_ref(*ins, chunk, h)
+        outs, grads = [y], [dy]
+        if dh_last is not None:
+            outs.append(h_last)
+            grads.append(dh_last)
+        leaves = ins + ([] if h is None else [h])
+        got = torch.autograd.grad(outs, leaves, grads)
+    return tuple(got) + ((None,) if h is None else ())
+
+
 def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
                     h0: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,3 +218,27 @@ def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out, out[:, -1]
+
+
+def linear_scan_bwd_ref(a: torch.Tensor, b: torch.Tensor,
+                        h0: Optional[torch.Tensor], dy: torch.Tensor,
+                        dh_last: Optional[torch.Tensor]
+                        ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The plain version of K6's backward: (da, db, dh0), the gradients of
+    `linear_scan_ref` at (a, b, h0) for the output gradients ``dy`` (of
+    h) and ``dh_last`` (None is zero), by ``torch.autograd.grad``. dh0 is
+    None when h0 is. Autograd runs the recurrence backward in time, g_t =
+    dy_t + a_{t+1} g_{t+1} (g_{S-1} = dy_{S-1} + dh_last), da_t = g_t
+    h_{t-1}, db_t = g_t, dh0 = a_0 g_0: each product and sum rounded once,
+    and each sum of two terms, so in no order that could differ."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (a, b)]
+        h = None if h0 is None else h0.detach().requires_grad_(True)
+        out, h_last = linear_scan_ref(*ins, h)
+        outs, grads = [out], [dy]
+        if dh_last is not None:
+            outs.append(h_last)
+            grads.append(dh_last)
+        leaves = ins + ([] if h is None else [h])
+        got = torch.autograd.grad(outs, leaves, grads)
+    return tuple(got) + ((None,) if h is None else ())

@@ -1,4 +1,5 @@
-"""CUDA kernel wrapper for the Mamba2 chunked SSD scan (K5).
+"""CUDA kernel wrappers for the Mamba2 chunked SSD scan (K5) and its
+backward.
 
 Computes what `repro_torch.kernels.ref.ssd_ref` computes: x (b, l, h, p)
 already scaled by dt, dlogA (b, l, h), B and C (b, l, n) shared by every
@@ -25,9 +26,16 @@ x, B and C are read in place through their strides. Where each has a
 16-byte pieces, else in 4-byte pieces (`aligned16`): a misaligned input
 is neither refused nor copied on the host.
 
-The wrapper launches the kernels on CUDA tensors, or raises: it never
-falls back to the plain version (`repro_torch.kernels.ops.ssd` picks the
-plain version for CPU tensors only).
+On inputs that require grad (grad mode on), `ssd` is a
+``torch.autograd.Function``: its forward keeps the workspaces ``cum`` and
+``states`` (16.8 MB at mamba2-370m's train shape), and its backward is
+`ssd_bwd` (``csrc/ssd_bwd.cu``, four launches with the grids and shared
+memory of `backward_plan`; no Pallas counterpart: `repro` differentiates
+its oracle), whose plain version is `repro_torch.kernels.ref.ssd_bwd_ref`.
+
+The wrappers launch their kernels on CUDA tensors, or raise: they never
+fall back to a plain version (`repro_torch.kernels.ops.ssd` picks the
+plain version, which autograd differentiates, for CPU tensors only).
 """
 from __future__ import annotations
 
@@ -52,6 +60,16 @@ THREADS = 128        # a block of ssd_chunk_kernel or ssd_output_kernel
 PASS_THREADS = 256   # a block of ssd_pass_kernel
 TILE = 64            # rows of a query or key tile
 PASS_VALUES = 8      # state values a thread of ssd_pass_kernel carries
+# the backward's: x, B, C, dy, dh_last, cum, states; dx, d dlogA, dB, dC,
+# dh0; the workspaces (an array of pointers); b, l, H, p, n, L, groups,
+# has_h0, vec; strides; grid; device; stream
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9 + (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+#: heads whose W a block of the backward sums (csrc/ssd_bwd.cu kGroupHeads)
+BWD_GROUP_HEADS = 8
+#: the backward's workspaces, in the order the C entry takes them
+BWD_WORKSPACES = ("dst", "sc", "bt", "lam", "wp", "mp", "vs", "ws", "sv",
+                  "lw")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,22 +160,103 @@ def kernel_flops(b: int, l: int, H: int, p: int, n: int, L: int,
             "total": scores + states + intra + carried}
 
 
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """The launches of one backward (``csrc/ssd_bwd.cu``): p padded to
+    ``pw``, ``nc`` chunks of ``nt`` 64-row tiles and ``ntri`` causal tile
+    pairs, ``groups`` head groups of `BWD_GROUP_HEADS`, ``ny`` pass blocks
+    a (b, head); per kernel its grid and its dynamic shared memory in
+    bytes; the workspace shapes (float32, in `BWD_WORKSPACES` order);
+    ``launch``, the eight launch values ``ssd_bwd_f32`` takes."""
+    pw: int
+    nc: int
+    nt: int
+    ntri: int
+    groups: int
+    ny: int
+    grids: dict
+    smem: dict
+    workspace: dict
+    launch: tuple
+
+    def scratch_bytes(self) -> int:
+        """Bytes of the workspaces, each at a 16-byte boundary."""
+        return sum(-(-math.prod(s) // 4) * 16
+                   for s in self.workspace.values())
+
+
+def backward_plan(b: int, l: int, H: int, p: int, n: int,
+                  L: int) -> BackwardPlan:
+    """The four launches of a backward of these shapes (L the chunk
+    length, l a multiple of it), as ``csrc/ssd_bwd.cu`` decodes them:
+    ``chunk`` (b H nc dh_in blocks, then b nc ntri score blocks),
+    ``pass`` ((b H, ny)), ``main`` (b H nc nt dx blocks, then b nc ntri
+    groups W blocks), ``final`` (2 b nc nt dC / dB blocks, then b H nc
+    d dlogA blocks); each kernel's shared memory (what it carves out);
+    the workspaces. Raises ``ValueError`` where a grid would exceed
+    CUDA's extent."""
+    pw = 64 if p <= 64 else 128
+    nc = l // L
+    nt = -(-L // TILE)
+    ntri = nt * (nt + 1) // 2
+    groups = -(-H // BWD_GROUP_HEADS)
+    ny = -(-n * pw // (PASS_THREADS * PASS_VALUES))
+    grids = {"chunk": (b * H * nc + b * nc * ntri, 1), "pass": (b * H, ny),
+             "main": (b * H * nc * nt + b * nc * ntri * groups, 1),
+             "final": (2 * b * nc * nt + b * H * nc, 1)}
+    for name, (gx, _) in grids.items():
+        if gx > MAX_GRID_X:
+            raise ValueError(f"ssd_bwd: the {name} kernel's grid of {gx} "
+                             f"blocks is more than CUDA takes ({MAX_GRID_X})")
+    T, N, warps = TILE, MAX_STATE, THREADS // 32
+    gp, cp, sp, fp = T + 4, N + 4, T + 8, pw + 4
+    red = max(2 * T * gp + 2 * T * pw + 3 * T, (T + N) * fp)
+    smem = {"chunk": 4 * max(2 * T * N + 2 * T * pw, 2 * T * cp),
+            "main": 4 * max(red + T, 2 * T * fp + T * sp + 2 * T + warps * T),
+            "final": 4 * max(T * gp + T * N, warps)}
+    work = {"dst": (b, nc, H, n, pw), "sc": (b, nc, ntri, T, T),
+            "bt": (b, nc, nt, n, T), "lam": (b, H, nc, ny),
+            "wp": (b, nc, groups, ntri, T, T), "mp": (b, nc, ntri, H, 2, T),
+            "vs": (b, l, H, n), "ws": (b, l, H, n), "sv": (b, H, l),
+            "lw": (b, H, nc, nt)}
+    return BackwardPlan(
+        pw=pw, nc=nc, nt=nt, ntri=ntri, groups=groups, ny=ny, grids=grids,
+        smem=smem, workspace={k: work[k] for k in BWD_WORKSPACES},
+        launch=(grids["chunk"][0], smem["chunk"], *grids["pass"],
+                grids["main"][0], smem["main"], grids["final"][0],
+                smem["final"]))
+
+
+def backward_flops(b: int, l: int, H: int, p: int, n: int, L: int,
+                   with_h0: bool, with_dh_last: bool) -> dict:
+    """The least flops of K5's backward (2 per multiply-add), by part:
+    per head, dx's scores times dy and W's dy . x over the causal pairs;
+    the (L, p, n) products of dx's state term and w in every chunk a
+    gradient leaves (all but the last without dh_last), of v in every
+    chunk a state enters (all but the first without h0), and of the
+    chunk's dh_in term in every chunk whose dh_in is needed (all but the
+    first without h0); once per (b, chunk), the scores and the W products
+    of dB and dC (B and C are shared by the heads)."""
+    nc = l // L
+    pairs = L * (L + 1) // 2
+    g_chunks = nc - 1 + int(with_dh_last)
+    h_chunks = nc - 1 + int(with_h0)
+    state = b * H * L * 2 * n * p
+    parts = {"scores": b * nc * pairs * 2 * n,
+             "dx": b * H * nc * pairs * 2 * p,
+             "W": b * H * nc * pairs * 2 * p,
+             "dx_state": state * g_chunks, "w": state * g_chunks,
+             "v": state * h_chunks, "dh_in": state * h_chunks,
+             "dB_dC": 2 * b * nc * pairs * 2 * n}
+    return {**parts, "total": sum(parts.values())}
+
+
 def aligned16(t: torch.Tensor, dims) -> bool:
     """Whether ``t``'s base address and its strides along ``dims`` (those
     of extent > 1) are multiples of 16 bytes: the kernels' 16-byte
     copies need both."""
     return t.data_ptr() % 16 == 0 and all(
         t.stride(d) % 4 == 0 for d in dims if t.shape[d] > 1)
-
-
-def check_no_grad(*tensors: Optional[torch.Tensor]):
-    """K5 has no backward (nor has the Pallas kernel): refuse inputs that
-    require grad rather than return a result autograd cannot follow."""
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssd has no backward yet: SSM and hybrid LM training is ROADMAP "
-            "Queue 1 item 14d-2; call it under torch.no_grad() or "
-            "torch.inference_mode()")
 
 
 def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
@@ -170,10 +269,31 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     p <= 128; n a multiple of 4 up to 128; l a multiple of L = min(chunk,
     l). Returns (y (b, l, h, p), h_last (b, h, p, n)), float32. bf16 is
     refused: the model casts the scan's inputs to float32
-    (``csrc/ssd.cu``). The workspaces hold about b l (H + (L + 64) / 2 +
-    n + H n pw / L) floats: 11 MB at mamba2-370m's serve shape. Adds one
-    to ``ssd.launches`` per op (three kernel launches)."""
-    check_no_grad(x, dlogA, B, C, h0)
+    (``csrc/ssd.cu``; bf16 training is ROADMAP item 14d-3). The
+    workspaces hold about b l (H + (L + 64) / 2 + n + H n pw / L) floats:
+    11 MB at mamba2-370m's serve shape. Inputs that require grad (grad
+    mode on) go through the autograd Function, whose backward launches
+    `ssd_bwd`. Adds one to ``ssd.launches`` per op (three kernel
+    launches; under activation recompute the forward runs again in the
+    backward pass)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dlogA, B, C, h0)):
+        return _Scan.apply(x, dlogA, B, C, h0, chunk)
+    return _forward(x, dlogA, B, C, chunk, h0)[:2]
+
+
+def ssd_with_work(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, chunk: int = 256,
+                  h0: Optional[torch.Tensor] = None):
+    """The forward launch the autograd Function makes, outside autograd:
+    (y, h_last, cum, states), the last two the workspaces `ssd_bwd`
+    takes (``cum`` (b, H, l), ``states`` (b, nc, H, n, pw), slot c the
+    state entering chunk c). Adds one to ``ssd.launches``."""
+    return _forward(x, dlogA, B, C, chunk, h0)
+
+
+def _check(x, dlogA, B, C, chunk, h0):
+    """(b, l, H, p, n, L) of inputs the kernels take, or raise."""
     tensors = (x, dlogA, B, C) + (() if h0 is None else (h0,))
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"ssd: x, dlogA, B, C and h0 must be float32, got "
@@ -202,7 +322,7 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     if n % 4 or not 0 < n <= MAX_STATE:
         raise ValueError(f"ssd: state {n} is not a multiple of 4 up to "
                          f"{MAX_STATE}")
-    plan = launch_plan(b, l, H, p, n, L)
+    launch_plan(b, l, H, p, n, L)   # raises for a grid past CUDA's
     if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
         raise ValueError("ssd: the last axis of x, B and C must be "
                          "contiguous")
@@ -210,11 +330,19 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
                                       for t in tensors):
         raise ValueError(f"ssd kernel needs every input on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
+    return b, l, H, p, n, L
+
+
+def _forward(x, dlogA, B, C, chunk, h0):
+    """Launch the forward; returns (y, h_last, cum, states), the last two
+    None where there is no block to launch."""
+    b, l, H, p, n, L = _check(x, dlogA, B, C, chunk, h0)
+    plan = launch_plan(b, l, H, p, n, L)
     dev = x.device
     y = torch.empty((b, l, H, p), dtype=x.dtype, device=dev)
     h_last = torch.empty((b, H, p, n), dtype=x.dtype, device=dev)
     if y.numel() == 0:   # b or H is 0: no block to launch
-        return y, h_last
+        return y, h_last, None, None
     # one allocation for the four workspaces, each at a 16-byte boundary
     sizes = [math.prod(plan.workspace[k])
              for k in ("cum", "scores", "ct", "states")]
@@ -237,10 +365,105 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
         b, l, H, p, n, L, vec, strides, (ctypes.c_int * 6)(*plan.launch),
         dev.index, stream))
     ssd.launches += 1
-    return y, h_last
+    return (y, h_last, work[starts[0]:starts[0] + sizes[0]].view(
+        plan.workspace["cum"]), work[starts[3]:starts[3] + sizes[3]].view(
+        plan.workspace["states"]))
 
 
-#: ops since the last reset, one per three-launch op (a plain int;
-#: chip_smoke.py zeroes it before driving the main path and reads it
-#: after)
+class _Scan(torch.autograd.Function):
+    """K5 under autograd: the forward saves x, dlogA, B and C (as the views
+    they arrive as), h0 and its workspaces ``cum`` and ``states``; the
+    backward is `ssd_bwd`. An unused h_last arrives as None (no zeros are
+    made for it)."""
+
+    @staticmethod
+    def forward(ctx, x, dlogA, B, C, h0, chunk):
+        y, h_last, cum, states = _forward(x, dlogA, B, C, chunk, h0)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dlogA, B, C, h0, cum, states)
+        ctx.chunk = chunk
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dlogA, B, C, h0, cum, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_bwd(x, dlogA, B, C, ctx.chunk, h0, dy, dh_last, cum,
+                        states)
+        return grads + (None,)
+
+
+def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, chunk: int, h0: Optional[torch.Tensor],
+            dy: torch.Tensor, dh_last: Optional[torch.Tensor],
+            cum: torch.Tensor, states: torch.Tensor
+            ) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dx, d dlogA, dB, dC, dh0) of `ssd` at (x, dlogA, B, C, h0) for the
+    gradients ``dy`` (b, l, h, p) of y and ``dh_last`` (b, h, p, n) of
+    h_last (None: zeros, with no launch to make them): x, dlogA, B, C and
+    h0 as the forward took them (dlogA is checked, not read), ``cum`` and
+    ``states`` its workspaces (`ssd_with_work`). dy and dh_last are copied
+    if not contiguous. Returns contiguous float32 tensors of the inputs'
+    shapes; dh0 is None when h0 is. One call launches the four kernels of
+    `backward_plan` and adds one to ``ssd_bwd.launches``; its workspaces
+    (`BackwardPlan.scratch_bytes`: 169 MB at mamba2-370m's train shape)
+    live for the call."""
+    b, l, H, p, n, L = _check(x, dlogA, B, C, chunk, h0)
+    plan = backward_plan(b, l, H, p, n, L)
+    dev = x.device
+    for name, t, shape in (("dy", dy, (b, l, H, p)),
+                           ("dh_last", dh_last, (b, H, p, n)),
+                           ("cum", cum, plan.workspace["sv"]),
+                           ("states", states, (b, plan.nc, H, n, plan.pw))):
+        if t is not None and (tuple(t.shape) != shape or
+                              t.dtype != torch.float32 or t.device != dev):
+            raise ValueError(f"ssd_bwd: {name} must be float32 {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if not (cum.is_contiguous() and states.is_contiguous()):
+        raise ValueError("ssd_bwd: cum and states must be the forward's "
+                         "(contiguous)")
+    dx = torch.empty((b, l, H, p), dtype=x.dtype, device=dev)
+    ddlogA = torch.empty((b, l, H), dtype=x.dtype, device=dev)
+    dB = torch.empty((b, l, n), dtype=x.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    dh0 = torch.empty((b, H, p, n), dtype=x.dtype, device=dev) \
+        if h0 is not None else None
+    if dx.numel() == 0:   # b or H is 0: no block to launch
+        return dx, ddlogA, dB.zero_(), dC.zero_(), dh0
+    dy = dy.contiguous()
+    dhl = None if dh_last is None else dh_last.contiguous()
+    sizes = [math.prod(plan.workspace[k]) for k in BWD_WORKSPACES]
+    starts = [sum(-(-m // 4) * 4 for m in sizes[:i])
+              for i in range(len(sizes))]
+    work = torch.empty(starts[-1] + sizes[-1], dtype=torch.float32,
+                       device=dev)
+    ptrs = (ctypes.c_void_p * len(starts))(
+        *(work.data_ptr() + 4 * i for i in starts))
+    vec = int(aligned16(x, (0, 1, 2)) and aligned16(B, (0, 1)) and
+              aligned16(C, (0, 1)) and aligned16(dy, (0, 1, 2)))
+    strides = (ctypes.c_longlong * 7)(
+        x.stride(0), x.stride(1), x.stride(2), B.stride(0), B.stride(1),
+        C.stride(0), C.stride(1))
+    grid = (ctypes.c_int * 8)(*plan.launch)
+    lib_fn = _build.entry("ssd_bwd", "ssd_bwd_f32", _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check("ssd_bwd", lib_fn(
+        x.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+        None if dhl is None else dhl.data_ptr(), cum.data_ptr(),
+        states.data_ptr(), dx.data_ptr(), ddlogA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+        ctypes.addressof(ptrs), b, l, H, p, n, L, plan.groups,
+        int(h0 is not None), vec, ctypes.addressof(strides),
+        ctypes.addressof(grid), dev.index, stream))
+    ssd_bwd.launches += 1
+    return dx, ddlogA, dB, dC, dh0
+
+
+#: ops since the last reset (plain ints; chip_smoke.py zeroes them before
+#: driving the main path and reads them after): one per three-launch
+#: forward (the autograd Function's included), one per four-launch
+#: backward
 ssd.launches = 0
+ssd_bwd.launches = 0

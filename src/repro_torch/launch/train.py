@@ -9,13 +9,13 @@ computes what `repro.launch.train` computes from the same seed: the init
 of ``PRNGKey(0)`` (bit for bit, `repro_torch.prng`), the same corpus
 (``make_lm_token_data(seed=0, ...)``), the same batches
 (``np.random.default_rng(0)``), the same schedule, and the same log
-lines. On the card each attention layer's forward and backward run on
-the K4 kernels, each layer under activation recompute (remat "full", as
-`repro`'s model), so K4's forward launches twice a layer and step and
-its backward once. The dense family trains; the SSM and hybrid families
-raise ``NotImplementedError`` at the first step (`DecoderLM.loss`, ROADMAP
-Queue 1 item 14d-2), the families not ported when the model is built
-(14d-4). Checkpoints hold `repro`'s stacked tree
+lines. On the card each layer runs under activation recompute (remat
+"full", as `repro`'s model), its kernel's forward twice a step and its
+backward once: K4 in the attention layers (dense and hybrid), K5 in the
+Mamba2 layers (SSM), K6 in the RG-LRU layers (hybrid). The dense, SSM
+and hybrid families train; the families not ported raise
+``NotImplementedError`` when the model is built (ROADMAP Queue 1 item
+14d-4). Checkpoints hold `repro`'s stacked tree
 (`repro_torch.interop.lm_params_to_jax`), which `repro.checkpoint` reads.
 """
 from __future__ import annotations

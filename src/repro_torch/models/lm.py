@@ -18,9 +18,9 @@ on the K6 kernel (`kernels.ops.rglru_scan`); decode runs the plain
 ring-cache `attention_ref` and the plain one-token SSD or RG-LRU updates,
 as in `repro`, which has no decode kernel. Serving runs under
 ``torch.inference_mode()``. The weights take gradients: `DecoderLM.loss`
-trains the dense family, its attention forward and backward on the K4
-kernels; the SSM and hybrid families wait for backwards of K5 and K6
-(ROADMAP Queue 1 item 14d-2).
+trains the dense, SSM and hybrid families, each kernel's forward and
+backward on the card (K4's, K5's and K6's backwards behind their
+autograd Functions).
 """
 from __future__ import annotations
 
@@ -44,8 +44,6 @@ Cache = Dict[str, torch.Tensor]
 
 #: families not ported yet -> the ROADMAP Queue 1 item that ports them
 UNPORTED_FAMILIES = {"moe": "14d-4", "vlm": "14d-4", "audio": "14d-4"}
-#: families served but not trained yet -> the item that trains them
-UNTRAINED_FAMILIES = {"ssm": "14d-2", "hybrid": "14d-2"}
 
 
 def check_family(cfg: ArchConfig):
@@ -439,16 +437,8 @@ class DecoderLM(nn.Module):
         cross-entropy over the T positions (weighted by ``mask[:, 1:]``),
         plus ``router_aux_coef`` times the router loss, 0 for the dense
         family (`repro`'s ``DecoderLM.loss``). Returns (loss, {"ce": ...,
-        "aux": ...}), fp32 scalars. With grad mode on, the SSM and hybrid
-        families raise ``NotImplementedError``: K5 and K6 have no backward
-        yet."""
+        "aux": ...}), fp32 scalars."""
         cfg = self.cfg
-        if torch.is_grad_enabled() and cfg.family in UNTRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family needs "
-                f"backwards of the ssd and rglru_scan kernels (ROADMAP "
-                f"Queue 1 item {UNTRAINED_FAMILIES[cfg.family]}); its loss "
-                f"runs under torch.no_grad()")
         tokens = batch["tokens"]
         x = self._embed(tokens[:, :-1])
         labels = tokens[:, 1:]

@@ -662,8 +662,8 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         k5.ssd(x, dA, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm,
                chunk=32)
-    with pytest.raises(NotImplementedError):
-        k5.ssd(x.requires_grad_(True), dA, Bm, Cm, chunk=32)
+    with pytest.raises(TypeError):   # no bf16 backward: fp32 only
+        k5.ssd(x.bfloat16().requires_grad_(True), dA, Bm, Cm, chunk=32)
 
 
 # K6 cases (B, S, W, h0): chip_smoke.py's phase 3 without the serve
@@ -709,8 +709,153 @@ def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
         k6.rglru_scan(a, b, h0[:, :4])
     with pytest.raises(ValueError):
         k6.rglru_scan(a[:, :0], b[:, :0])
-    with pytest.raises(NotImplementedError):
-        k6.rglru_scan(a.requires_grad_(True), b)
+    with pytest.raises(TypeError):   # no bf16 backward: fp32 only
+        k6.rglru_scan(a.bfloat16().requires_grad_(True), b.bfloat16())
+
+
+# K5 backward cases (b, l, H, p, n, chunk, dlogA, h0, dh_last): the train
+# run's shape at batch 2, the test_kernels shapes with h0 and dh_last,
+# one chunk, eight chunks, a ragged chunk, p 128, p 24 with n 4, and 9
+# heads (two head groups of the W blocks, the second of one head)
+K5_BWD_SHAPES = [(2, 512, 32, 64, 128, 256, "model", False, False),
+                 (2, 256, 4, 32, 16, 64, "kernels", True, True),
+                 (1, 64, 1, 64, 32, 64, "kernels", False, True),
+                 (1, 2048, 8, 64, 128, 256, "model", True, True),
+                 (2, 100, 8, 64, 128, 256, "model", False, False),
+                 (1, 256, 4, 128, 64, 128, "model", True, False),
+                 (2, 192, 3, 24, 4, 64, "model", True, True),
+                 (2, 192, 9, 16, 8, 64, "model", False, True)]
+# each gradient against the plain version's as a share of its largest
+# element: fp32 sums over up to 256 positions and the heads in another
+# order than autograd's; d dlogA's row and column sums nearly cancel, so
+# it is held to its largest element, not elementwise (as chip_smoke.py)
+K5_BWD_TOL = 1e-4
+
+
+def _k5_bwd_check(x, dA, Bm, Cm, chunk, h0, dy, dhl, want_inputs=None):
+    """K5's backward (from the forward's workspaces) against its plain
+    version on ``want_inputs`` (default the same tensors), each gradient
+    within K5_BWD_TOL of its largest element, and a repeat bit for bit."""
+    before = k5.ssd_bwd.launches
+    _, _, cum, states = k5.ssd_with_work(x, dA, Bm, Cm, chunk=chunk, h0=h0)
+    got = k5.ssd_bwd(x, dA, Bm, Cm, chunk, h0, dy, dhl, cum, states)
+    torch.cuda.synchronize()
+    assert k5.ssd_bwd.launches == before + 1
+    wx, wdA, wB, wC, wh0 = want_inputs or (x, dA, Bm, Cm, h0)
+    want = ref.ssd_bwd_ref(wx, wdA, wB, wC, chunk, wh0, dy, dhl)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and g.is_contiguous()
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K5_BWD_TOL)
+    again = k5.ssd_bwd(x, dA, Bm, Cm, chunk, h0, dy, dhl, cum, states)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_backward_matches_plain_version(cuda):
+    for b, l, H, p, n, chunk, dlogA, with_h0, with_dhl in K5_BWD_SHAPES:
+        x, dA, Bm, Cm, h0 = _k5_inputs(b, l, H, p, n, dlogA, with_h0, cuda)
+        rng = np.random.default_rng(1)
+        dy = torch.from_numpy(rng.standard_normal((b, l, H, p)).astype(
+            np.float32)).to(cuda)
+        dhl = torch.from_numpy(rng.standard_normal((b, H, p, n)).astype(
+            np.float32)).to(cuda) if with_dhl else None
+        _k5_bwd_check(x, dA, Bm, Cm, chunk, h0, dy, dhl)
+
+
+def test_ssd_backward_reads_views_and_misaligned_inputs(cuda):
+    """x, B and C as column slices of one projection at mamba2-370m's
+    widths (16-byte copies), and one float into their buffers at p 10
+    (4-byte copies), as the forward reads them."""
+    rng = np.random.default_rng(2)
+    for b, l, H, p, n, off in ((2, 512, 32, 64, 128, 0),
+                               (2, 128, 3, 10, 12, 1)):
+        x, dA, Bm, Cm, h0 = _k5_inputs(b, l, H, p, n, "model", True, cuda)
+        width = H * p + 2 * n
+        buf = torch.empty(b * l * width + off, device=cuda)
+        xBC = buf[off:].view(b, l, width)
+        xBC.copy_(torch.cat([x.reshape(b, l, H * p), Bm, Cm], dim=-1))
+        xv = xBC[..., :H * p].unflatten(-1, (H, p))
+        Bv, Cv = xBC[..., H * p:H * p + n], xBC[..., H * p + n:]
+        assert k5.aligned16(Bv, (0, 1)) == (off == 0)
+        dy = torch.from_numpy(rng.standard_normal((b, l, H, p)).astype(
+            np.float32)).to(cuda)
+        dhl = torch.from_numpy(rng.standard_normal((b, H, p, n)).astype(
+            np.float32)).to(cuda)
+        _k5_bwd_check(xv, dA, Bv, Cv, 64, h0, dy, dhl,
+                      want_inputs=(x, dA, Bm, Cm, h0))
+
+
+def test_ssd_autograd_function_gives_the_plain_gradients(cuda):
+    """Under autograd `ops.ssd` on CUDA tensors launches the forward once
+    and the backward once; an unused h_last costs nothing; the
+    gradients of x, dlogA, B, C and h0 are the plain version's."""
+    x, dA, Bm, Cm, h0 = _k5_inputs(2, 256, 4, 32, 16, "model", True, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dA, Bm, Cm, h0)]
+    before = (k5.ssd.launches, k5.ssd_bwd.launches)
+    y, _ = ops.ssd(*leaves[:4], chunk=64, h0=leaves[4])
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (k5.ssd.launches - before[0], k5.ssd_bwd.launches - before[1]) \
+        == (1, 1)
+    want = ref.ssd_bwd_ref(x, dA, Bm, Cm, 64, h0, dy, None)
+    for g, w in zip(got, want):
+        scale = w.abs().max()
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K5_BWD_TOL)
+    with torch.no_grad():   # serving never enters the Function
+        before = k5.ssd_bwd.launches
+        ops.ssd(*leaves[:4], chunk=64, h0=leaves[4])
+        assert k5.ssd_bwd.launches == before
+
+
+# K6 backward cases (B, S, W, h0, dh_last): the train shape, ragged S
+# and W, with and without h0 and dh_last, one step, and B W under one
+# block
+K6_BWD_SHAPES = [(4, 512, 4096, False, False), (2, 200, 100, True, True),
+                 (2, 200, 100, False, True), (2, 200, 100, True, False),
+                 (3, 64, 128, False, False), (4, 1, 300, True, True),
+                 (1, 33, 40, True, True)]
+
+
+def test_rglru_scan_backward_matches_plain_version(cuda):
+    """Bit for bit: each product and sum rounded in the plain version's
+    order, and every sum of two terms."""
+    rng = np.random.default_rng(3)
+    for B, S, W, with_h0, with_dhl in K6_BWD_SHAPES:
+        a, b, h0 = _k6_inputs(B, S, W, with_h0, cuda)
+        dh = torch.from_numpy(rng.standard_normal((B, S, W)).astype(
+            np.float32)).to(cuda)
+        dhl = torch.from_numpy(rng.standard_normal((B, W)).astype(
+            np.float32)).to(cuda) if with_dhl else None
+        h, _ = k6.rglru_scan(a, b, h0)
+        before = k6.rglru_scan_bwd.launches
+        got = k6.rglru_scan_bwd(a, h, h0, dh, dhl)
+        torch.cuda.synchronize()
+        assert k6.rglru_scan_bwd.launches == before + 1
+        want = ref.linear_scan_bwd_ref(a, b, h0, dh, dhl)
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+                continue
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+            assert torch.equal(g, w)
+
+
+def test_rglru_scan_autograd_function_gives_the_plain_gradients(cuda):
+    a, b, h0 = _k6_inputs(2, 200, 100, True, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    before = (k6.rglru_scan.launches, k6.rglru_scan_bwd.launches)
+    h, h_last = ops.rglru_scan(*leaves)
+    dh, dl = torch.randn_like(h), torch.randn_like(h_last)
+    got = torch.autograd.grad((h, h_last), leaves, (dh, dl))
+    assert (k6.rglru_scan.launches - before[0],
+            k6.rglru_scan_bwd.launches - before[1]) == (1, 1)
+    want = ref.linear_scan_bwd_ref(a, b, h0, dh, dl)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_blocked_prng_draw_is_the_same_bits_on_the_card(cuda, monkeypatch):
@@ -725,38 +870,54 @@ def test_blocked_prng_draw_is_the_same_bits_on_the_card(cuda, monkeypatch):
     assert torch.equal(got.cpu(), want)
 
 
-def test_decoder_loss_gradients_on_the_card_match_the_cpu(cuda):
-    """Reduced qwen3-0.6b and h2o-danube-1.8b (window 32 under 48
-    positions) on the same weights: the loss and every gradient on the
-    card (K4 forward and backward) against the CPU's plain attention
-    (1e-4, relative to each gradient's largest element), with remat
-    "full" launching K4's forward twice a layer and its backward once."""
+@pytest.mark.parametrize("arch, S, layers", [
+    ("qwen3-0.6b", 16, None), ("h2o-danube-1.8b", 48, None),
+    ("mamba2-370m", 512, 2), ("recurrentgemma-9b", 128, None)])
+def test_decoder_loss_gradients_on_the_card_match_the_cpu(cuda, arch, S,
+                                                          layers):
+    """Reduced qwen3-0.6b, h2o-danube-1.8b (window 32 under 48 positions)
+    and recurrentgemma-9b (rec, rec, attn; window 32 under 128), and
+    mamba2-370m at full width cut to 2 layers (two chunks of 256), on the
+    same weights: the loss and every gradient on the card (K4, K5 and K6
+    forward and backward) against the CPU's plain versions (1e-4,
+    relative to each gradient's largest element), with remat "full"
+    launching each kernel's forward twice a layer and its backward
+    once."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd as k5
     from repro_torch.models import build_model
 
-    for arch, S in (("qwen3-0.6b", 16), ("h2o-danube-1.8b", 48)):
-        cfg = get_config(arch).reduced().replace(dtype="float32")
-        cpu = build_model(cfg, device="meta", loss_chunks=4)
-        params = cpu.init(prng.PRNGKey(1))
-        card = build_model(cfg, device="meta", loss_chunks=4)
-        card.load_state_dict({k: t.to(cuda) for k, t in params.items()},
-                             assign=True)
-        tokens = torch.from_numpy(np.random.default_rng(3).integers(
-            0, cfg.vocab_size, (2, S + 1)))
-        out = {}
-        for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
-            before = (k4.flash_attention.launches,
-                      k4.flash_attention_bwd.launches)
-            loss, _ = model.loss({"tokens": tokens.to(dev)})
-            grads = torch.autograd.grad(loss, list(model.parameters()))
-            out[name] = (loss.detach().cpu(), [g.cpu() for g in grads],
-                         (k4.flash_attention.launches - before[0],
-                          k4.flash_attention_bwd.launches - before[1]))
-        assert out["cpu"][2] == (0, 0)
-        assert out["card"][2] == (2 * cfg.n_layers, cfg.n_layers)
-        torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=0,
-                                   atol=1e-5)
-        for g, w in zip(out["card"][1], out["cpu"][1]):
-            scale = w.abs().max().clamp_min(1e-30)
-            torch.testing.assert_close(g / scale, w / scale, rtol=0,
-                                       atol=1e-4)
+    wrappers = (k4.flash_attention, k4.flash_attention_bwd, k5.ssd,
+                k5.ssd_bwd, k6.rglru_scan, k6.rglru_scan_bwd)
+    cfg = get_config(arch)
+    cfg = (cfg.replace(n_layers=layers) if layers else cfg.reduced()
+           ).replace(dtype="float32")
+    # drawn on the card (a full-width draw is slow on the CPU), copied
+    card = build_model(cfg, device="meta", loss_chunks=4)
+    params = card.init(prng.PRNGKey(1, device=cuda))
+    cpu = build_model(cfg, device="meta", loss_chunks=4)
+    cpu.load_state_dict({k: t.to("cpu", copy=True)
+                         for k, t in params.items()}, assign=True)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, S + 1)))
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        before = [w.launches for w in wrappers]
+        loss, _ = model.loss({"tokens": tokens.to(dev)})
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[name] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                     [w.launches - n for w, n in zip(wrappers, before)])
+    kinds = [type(layer).__name__ for layer in card.layers]
+    per = {"DenseLayer": 0, "MambaLayer": 2, "RecLayer": 4}
+    want = [0] * 6
+    for kind in kinds:
+        want[per[kind]] += 2
+        want[per[kind] + 1] += 1
+    assert out["cpu"][2] == [0] * 6
+    assert out["card"][2] == want
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=0,
+                               atol=1e-5)
+    for g, w in zip(out["card"][1], out["cpu"][1]):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=1e-4)

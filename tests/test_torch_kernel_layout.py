@@ -10,7 +10,10 @@ it cannot copy so, and its backward launches by `backward_plan` (tiles,
 head splits, slabs of keys and the scratch between its passes); K5
 (`ssd`) splits the scan into three launches over (b, head, chunk) and
 64-row tiles (`ssd.launch_plan`), and copies in 16-byte pieces only
-where every row is aligned (`ssd.aligned16`). These
+where every row is aligned (`ssd.aligned16`); its backward launches by
+`ssd.backward_plan` (four launches, head groups, workspaces), run here in
+float64 through its block lists against the plain gradient; K6's
+backward takes `rglru_scan.backward_blocks` blocks. These
 are tested here without a card; the kernels
 themselves are held to their plain versions by tests/test_torch_cuda.py
 and ``chip_smoke.py``.
@@ -780,3 +783,378 @@ def test_ssd_kernel_flops_count_the_launched_blocks(b, l, H, p, n, L, h0):
                                  for w in range(k5.THREADS // 32))
     want["total"] = sum(want.values())
     assert k5.kernel_flops(b, l, H, p, n, L, h0) == want
+
+
+# ------------------------------------------------- K5's backward (ssd_bwd)
+
+def _bwd_blocks(plan, b, H):
+    """What each block of the backward's four launches takes, in block
+    order, as ``csrc/ssd_bwd.cu`` decodes ``blockIdx``: ``chunk``:
+    ("dstate", b, head, chunk), then ("scores", b, chunk, it, jt);
+    ``pass``: (b, head, y); ``main``: ("dx", b, head, chunk, jt), key tile
+    0 first, then ("W", b, chunk, it, jt, group); ``final``: ("dC" or
+    "dB", b, chunk, tile), then ("dlogA", b, head, chunk)."""
+    bh = b * H
+
+    def pair(tile):
+        it = 0
+        while (it + 1) * (it + 2) // 2 <= tile:
+            it += 1
+        return it, tile - it * (it + 1) // 2
+    out = {"chunk": [], "pass": [], "main": [], "final": []}
+    for blk in range(plan.grids["chunk"][0]):
+        if blk < bh * plan.nc:
+            i = blk % bh
+            out["chunk"].append(("dstate", i // H, i % H, blk // bh))
+        else:
+            j = blk - bh * plan.nc
+            bc = j // plan.ntri
+            out["chunk"].append(("scores", bc // plan.nc, bc % plan.nc,
+                                 *pair(j % plan.ntri)))
+    for x in range(plan.grids["pass"][0]):
+        for y in range(plan.grids["pass"][1]):
+            out["pass"].append((x // H, x % H, y))
+    per_tile = bh * plan.nc
+    for blk in range(plan.grids["main"][0]):
+        if blk < per_tile * plan.nt:
+            rest = blk % per_tile
+            out["main"].append(("dx", (rest % bh) // H, (rest % bh) % H,
+                                rest // bh, blk // per_tile))
+        else:
+            j = blk - per_tile * plan.nt
+            rest = j // plan.ntri
+            bc = rest // plan.groups
+            out["main"].append(("W", bc // plan.nc, bc % plan.nc,
+                                *pair(j % plan.ntri), rest % plan.groups))
+    for blk in range(plan.grids["final"][0]):
+        if blk < 2 * b * plan.nc * plan.nt:
+            rest = blk >> 1
+            bc = rest // plan.nt
+            out["final"].append(("dC" if blk % 2 == 0 else "dB",
+                                 bc // plan.nc, bc % plan.nc,
+                                 rest % plan.nt))
+        else:
+            j = blk - 2 * b * plan.nc * plan.nt
+            out["final"].append(("dlogA", (j % bh) // H, (j % bh) % H,
+                                 j // bh))
+    return out
+
+
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS)
+def test_ssd_backward_plan_covers_every_block_once(b, l, H, p, n, L, h0):
+    """Each kind of block of the backward takes its unit of work once:
+    every (b, head, chunk) for the dh_in terms, dx's key tiles and d
+    dlogA; every causal tile pair of every (b, chunk) for the scores,
+    and with every head group for W; every tile of every (b, chunk) for
+    dC and for dB; and dx's blocks run key tile 0 (the most query tiles)
+    first."""
+    plan = k5.backward_plan(b, l, H, p, n, L)
+    blocks = _bwd_blocks(plan, b, H)
+    heads = [(bi, hh, c) for bi in range(b) for hh in range(H)
+             for c in range(plan.nc)]
+    pairs = [(bi, c, it, jt) for bi in range(b) for c in range(plan.nc)
+             for it in range(plan.nt) for jt in range(it + 1)]
+    tiles = [(bi, c, t) for bi in range(b) for c in range(plan.nc)
+             for t in range(plan.nt)]
+    chunk, main, final = blocks["chunk"], blocks["main"], blocks["final"]
+    assert sorted(k[1:] for k in chunk if k[0] == "dstate") == sorted(heads)
+    assert sorted(k[1:] for k in chunk if k[0] == "scores") == sorted(pairs)
+    assert sorted(blocks["pass"]) == sorted(
+        (bi, hh, y) for bi in range(b) for hh in range(H)
+        for y in range(plan.ny))
+    dx = [k[1:] for k in main if k[0] == "dx"]
+    assert sorted(dx) == sorted(h + (t,) for h in heads
+                                for t in range(plan.nt))
+    assert [k[-1] for k in dx] == sorted(k[-1] for k in dx)
+    assert sorted(k[1:] for k in main if k[0] == "W") == sorted(
+        p_ + (g,) for p_ in pairs for g in range(plan.groups))
+    for kind in ("dC", "dB"):
+        assert sorted(k[1:] for k in final if k[0] == kind) == sorted(tiles)
+    assert sorted(k[1:] for k in final if k[0] == "dlogA") == sorted(heads)
+    assert plan.groups * k5.BWD_GROUP_HEADS >= H > \
+        (plan.groups - 1) * k5.BWD_GROUP_HEADS
+    # the pass blocks cover the (n, pw) transposed state
+    assert plan.ny * k5.PASS_THREADS * k5.PASS_VALUES >= n * plan.pw
+
+
+@pytest.mark.parametrize("p", [1, 64, 65, 128])
+def test_ssd_backward_shared_memory_fits_and_matches_the_carve_up(p):
+    """The shared memory each backward kernel launches with: what
+    ``csrc/ssd_bwd.cu`` carves out (the chunk kernel's C and dy tiles two
+    deep or its C and B score tiles; the main kernel's dx ring, prefix
+    sums and v / w tiles, then 64 floats, or the W block's dy, x and
+    score tiles; the final kernel's W and B / C tiles), within what a
+    block may opt in to on Hopper."""
+    plan = k5.backward_plan(1, 64, 1, p, 128, 64)
+    pw = plan.pw
+    ring = 2 * 64 * 68 + 2 * 64 * pw + 3 * 64
+    vw = (64 + 128) * (pw + 4)
+    w = 2 * 64 * (pw + 4) + 64 * 72 + 2 * 64 + 4 * 64
+    assert plan.smem == {
+        "chunk": 4 * max(2 * 64 * 128 + 2 * 64 * pw, 2 * 64 * 132),
+        "main": 4 * max(max(ring, vw) + 64, w),
+        "final": 4 * (64 * 68 + 64 * 128)}
+    assert max(plan.smem.values()) <= k5.MAX_SMEM
+    src = (_build_src("ssd_bwd.cu"))
+    for carve in ("float* y_s = c_s + 2 * kT * kN;  // [2][kT][PW]",
+                  "float* x_s = g_s + 2 * kT * kGP;  // [2][kT][PW]: X",
+                  "float* red_s = smem + dx_red_offset<PW>();  // [kT]",
+                  "float* m_s = a_s + kT * FP;  // [kN][FP]",
+                  "float* s_s = k_s + kT * FP;    // [kT][kSP]",
+                  "float* red_s = cj_s + kT;      // [kWarps][kT]",
+                  "float* m_s = w_s + kT * kGP;  // [kT][kN]",
+                  "constexpr int kGroupHeads = 8;", "kSP = kT + 8;"):
+        assert carve in src, carve
+
+
+def _build_src(name):
+    from repro_torch.kernels import _build
+    return (_build.CSRC / name).read_text()
+
+
+def test_ssd_backward_plan_at_the_train_shape():
+    """mamba2-370m at B 8, S 512: 672 / (256, 4) / 2,688 / 640 blocks, 4
+    head groups, and 169 MB of workspaces (`vs` and `ws`, 67 MB each,
+    the most); 9.01 GFLOP of least work without h0 or dh_last."""
+    plan = k5.backward_plan(8, 512, 32, 64, 128, 256)
+    assert plan.grids == {"chunk": (672, 1), "pass": (256, 4),
+                          "main": (2688, 1), "final": (640, 1)}
+    assert plan.groups == 4 and plan.ny == 4
+    assert plan.launch == (672, plan.smem["chunk"], 256, 4, 2688,
+                           plan.smem["main"], 640, plan.smem["final"])
+    assert plan.scratch_bytes() == 4 * sum(
+        -(-int(np.prod(s)) // 4) * 4 for s in plan.workspace.values())
+    assert 168e6 < plan.scratch_bytes() < 170e6
+    f = k5.backward_flops(8, 512, 32, 64, 128, 256, False, False)
+    assert f["total"] == sum(v for k, v in f.items() if k != "total")
+    assert 9.0e9 < f["total"] < 9.02e9
+    # h0 and dh_last add v, dh_in, dx's state term and w in one chunk each
+    g = k5.backward_flops(8, 512, 32, 64, 128, 256, True, True)
+    assert g["total"] - f["total"] == 4 * 8 * 32 * 256 * 2 * 128 * 64
+
+
+def test_ssd_backward_plan_refuses_a_grid_past_cuda_extent():
+    with pytest.raises(ValueError, match="grid"):
+        k5.backward_plan(2 ** 16, 2 ** 16, 2 ** 10, 64, 128, 64)
+
+
+def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
+    """The backward's four launches as ``csrc/ssd_bwd.cu`` splits them,
+    in float64 through the plan's block lists and workspace layouts
+    (workspace entries no block writes stay NaN, so a gap shows in the
+    result), from the forward's workspaces (`_emulate_ssd`'s cum and the
+    states entering each chunk). The decays are applied as the kernels
+    apply them: in dx, the state sums times e^{Lam - cum_jl}, the query
+    tiles' dy rows times e^{cum_i - cum_jl}, then the row factors
+    e^{cum_jl - cum_j} before the diagonal tile."""
+    b, l, H, p = x.shape
+    n = B.shape[-1]
+    T = k5.TILE
+    f64 = dict(dtype=torch.float64)
+    plan = k5.backward_plan(b, l, H, p, n, L)
+    nc, nt, pw = plan.nc, plan.nt, plan.pw
+    # the forward's workspaces
+    cum = torch.cumsum(dA.reshape(b, nc, L, H), 2).permute(0, 3, 1, 2) \
+        .reshape(b, H, l)
+    st = torch.zeros((b, nc, H, n, pw), **f64)
+    for bi in range(b):
+        for hh in range(H):
+            h = torch.zeros((n, pw), **f64)
+            if h0 is not None:
+                h[:, :p] = h0[bi, hh].T
+            for c in range(nc):
+                st[bi, c, hh] = h
+                t = slice(c * L, c * L + L)
+                cs = cum[bi, hh, t]
+                xd = x[bi, t, hh] * torch.exp(cs[-1] - cs)[:, None]
+                h = torch.exp(cs[-1]) * h
+                h[:, :p] += B[bi, t].T @ xd
+    w = {k: torch.full(s, float("nan"), **f64)
+         for k, s in plan.workspace.items()}
+    blocks = _bwd_blocks(plan, b, H)
+
+    def rows(t):
+        return min(T, L - t * T)
+    for blk in blocks["chunk"]:
+        if blk[0] == "dstate":
+            _, bi, hh, c = blk
+            if c == 0 and h0 is None:
+                continue
+            t = slice(c * L, c * L + L)
+            yd = dy[bi, t, hh] * torch.exp(cum[bi, hh, t])[:, None]
+            w["dst"][bi, c, hh] = 0.0
+            w["dst"][bi, c, hh, :, :p] = C[bi, t].T @ yd
+        else:
+            _, bi, c, it, jt = blk
+            i0, j0 = c * L + it * T, c * L + jt * T
+            g = torch.zeros((T, T), **f64)
+            g[:rows(it), :rows(jt)] = C[bi, i0:i0 + rows(it)] @ \
+                B[bi, j0:j0 + rows(jt)].T
+            w["sc"][bi, c, it * (it + 1) // 2 + jt] = g
+            if it == jt:
+                w["bt"][bi, c, jt] = 0.0
+                w["bt"][bi, c, jt, :, :rows(jt)] = B[bi, j0:j0 + rows(jt)].T
+    dh0 = None if h0 is None else torch.full(h0.shape, float("nan"), **f64)
+    for bi, hh, y in blocks["pass"]:
+        if y:
+            continue   # one emulated block carries a (b, head) whole
+        g = torch.zeros((n, pw), **f64)
+        if dhl is not None:
+            g[:, :p] = dhl[bi, hh].T
+        for c in reversed(range(nc)):
+            term = w["dst"][bi, c, hh].clone() if c > 0 or h0 is not None \
+                else torch.zeros((n, pw), **f64)
+            dec = torch.exp(cum[bi, hh, c * L + L - 1])
+            w["lam"][bi, hh, c] = 0.0
+            w["lam"][bi, hh, c, 0] = dec * (g * st[bi, c, hh]).sum()
+            w["dst"][bi, c, hh] = g
+            g = dec * g + term
+        if dh0 is not None:
+            dh0[bi, hh] = g[:, :p].T
+    dx = torch.full(x.shape, float("nan"), **f64)
+    for blk in blocks["main"]:
+        if blk[0] == "dx":
+            _, bi, hh, c, jt = blk
+            j0, rj = c * L + jt * T, rows(jt)
+            cq = cum[bi, hh, j0:j0 + rj]
+            lam, cl = cum[bi, hh, c * L + L - 1], cq[-1]
+            acc = torch.zeros((rj, p), **f64)
+            g = w["dst"][bi, c, hh, :, :p]
+            with_g = c < nc - 1 or dhl is not None
+            if with_g:
+                acc += w["bt"][bi, c, jt, :, :rj].T @ g
+                acc *= torch.exp(lam - cl)
+            for it in range(nt - 1, jt - 1, -1):
+                i0, ri = c * L + it * T, rows(it)
+                ci = cum[bi, hh, i0:i0 + ri]
+                S = w["sc"][bi, c, it * (it + 1) // 2 + jt, :ri, :rj]
+                yi = dy[bi, i0:i0 + ri, hh]
+                if it > jt:
+                    acc += S.T @ (torch.exp(ci - cl)[:, None] * yi)
+                    continue
+                acc *= torch.exp(cl - cq)[:, None]
+                D = torch.tril(S * torch.exp(ci[:, None] - cq[None, :]))
+                acc += D.T @ yi
+            dx[bi, j0:j0 + rj, hh] = acc
+            sv = torch.zeros(rj, **f64)
+            if c > 0 or h0 is not None:
+                v = dy[bi, j0:j0 + rj, hh] @ st[bi, c, hh, :, :p].T
+                w["vs"][bi, j0:j0 + rj, hh] = torch.exp(cq)[:, None] * v
+                sv += torch.exp(cq) * (C[bi, j0:j0 + rj] * v).sum(1)
+            lw = 0.0
+            if with_g:
+                wv = x[bi, j0:j0 + rj, hh] @ g.T
+                w["ws"][bi, j0:j0 + rj, hh] = torch.exp(lam - cq)[:, None] \
+                    * wv
+                term = torch.exp(lam - cq) * (B[bi, j0:j0 + rj] * wv).sum(1)
+                sv -= term
+                lw = term.sum()
+            w["sv"][bi, hh, j0:j0 + rj] = sv
+            w["lw"][bi, hh, c, jt] = lw
+        else:
+            _, bi, c, it, jt, grp = blk
+            i0, j0 = c * L + it * T, c * L + jt * T
+            ri, rj = rows(it), rows(jt)
+            tile = it * (it + 1) // 2 + jt
+            S = w["sc"][bi, c, tile, :ri, :rj]
+            acc = torch.zeros((T, T), **f64)
+            for hh in range(grp * k5.BWD_GROUP_HEADS,
+                            min(H, (grp + 1) * k5.BWD_GROUP_HEADS)):
+                ci = cum[bi, hh, i0:i0 + ri]
+                cj = cum[bi, hh, j0:j0 + rj]
+                P = dy[bi, i0:i0 + ri, hh] @ x[bi, j0:j0 + rj, hh].T
+                mask = torch.ones((ri, rj), dtype=torch.bool)
+                if it == jt:
+                    mask = torch.tril(mask)
+                W = torch.where(mask, P * torch.exp(ci[:, None] -
+                                                    cj[None, :]), 0.0)
+                acc[:ri, :rj] += W
+                M = S * W
+                if it == jt:
+                    M = torch.tril(M, -1)
+                w["mp"][bi, c, tile, hh] = 0.0
+                w["mp"][bi, c, tile, hh, 0, :ri] = M.sum(1)
+                w["mp"][bi, c, tile, hh, 1, :rj] = M.sum(0)
+            w["wp"][bi, c, grp, tile] = acc
+    dB = torch.full(B.shape, float("nan"), **f64)
+    dC = torch.full(C.shape, float("nan"), **f64)
+    ddA = torch.full(dA.shape, float("nan"), **f64)
+    for blk in blocks["final"]:
+        if blk[0] in ("dC", "dB"):
+            kind, bi, c, t = blk
+            t0, rt = c * L + t * T, rows(t)
+            acc = torch.zeros((rt, n), **f64)
+            us = range(t + 1) if kind == "dC" else range(t, nt)
+            for u in us:
+                u0, ru = c * L + u * T, rows(u)
+                tile = t * (t + 1) // 2 + u if kind == "dC" \
+                    else u * (u + 1) // 2 + t
+                W = w["wp"][bi, c, :, tile].sum(0)
+                if kind == "dC":
+                    acc += W[:rt, :ru] @ B[bi, u0:u0 + ru]
+                else:
+                    acc += W[:ru, :rt].T @ C[bi, u0:u0 + ru]
+            if kind == "dC" and (c > 0 or h0 is not None):
+                acc += w["vs"][bi, t0:t0 + rt].sum(1)
+            if kind == "dB" and (c < nc - 1 or dhl is not None):
+                acc += w["ws"][bi, t0:t0 + rt].sum(1)
+            (dC if kind == "dC" else dB)[bi, t0:t0 + rt] = acc
+        else:
+            _, bi, hh, c = blk
+            dc = w["sv"][bi, hh, c * L:c * L + L].clone()
+            for i in range(L):
+                t, r = divmod(i, T)
+                for jt in range(t + 1):
+                    dc[i] += w["mp"][bi, c, t * (t + 1) // 2 + jt, hh, 0, r]
+                for it in range(t, nt):
+                    dc[i] -= w["mp"][bi, c, it * (it + 1) // 2 + t, hh, 1, r]
+            dc[L - 1] += w["lam"][bi, hh, c].sum() + w["lw"][bi, hh, c].sum()
+            ddA[bi, c * L:c * L + L, hh] = torch.flip(
+                torch.cumsum(torch.flip(dc, [0]), 0), [0])
+    return dx, ddA, dB, dC, dh0
+
+
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS[1:] + [
+    (2, 192, 9, 16, 8, 64, False)])
+@pytest.mark.parametrize("dh_last", [False, True])
+def test_ssd_backward_plan_computes_the_gradients(b, l, H, p, n, L, h0,
+                                                  dh_last):
+    """The backward's split of the work, run in float64 through its block
+    lists, is the plain version's gradient (`ref.ssd_bwd_ref`): dx, d
+    dlogA, dB, dC and dh0, with and without dh_last; nothing is missed
+    or taken twice (9 heads: two head groups, the second of one head)."""
+    rng = np.random.default_rng(11)
+    dt = np.logaddexp(rng.standard_normal((b, l, H)), 0.0)
+    x = torch.from_numpy(rng.standard_normal((b, l, H, p)) * 0.3 * dt[
+        ..., None])
+    dA = torch.from_numpy(-dt)
+    Bm = torch.from_numpy(rng.standard_normal((b, l, n)) * 0.3)
+    Cm = torch.from_numpy(rng.standard_normal((b, l, n)) * 0.3)
+    h = torch.from_numpy(rng.standard_normal((b, H, p, n)) * 0.5) \
+        if h0 else None
+    dy = torch.from_numpy(rng.standard_normal((b, l, H, p)))
+    dhl = torch.from_numpy(rng.standard_normal((b, H, p, n))) \
+        if dh_last else None
+    got = _emulate_ssd_bwd(x, dA, Bm, Cm, L, h, dy, dhl)
+    want = ref.ssd_bwd_ref(x, dA, Bm, Cm, L, h, dy, dhl)
+    for name, g, wt in zip(("dx", "d dlogA", "dB", "dC", "dh0"), got, want):
+        if wt is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, wt, atol=1e-9, rtol=1e-9, msg=name)
+
+
+def test_rglru_scan_backward_blocks():
+    """K6's backward: one thread a channel, 128 a block (the C entry
+    refuses any other count): 128 blocks at recurrentgemma-9b's train
+    shape (B 4, W 4096), a ragged last block otherwise."""
+    from repro_torch.kernels import rglru_scan as k6
+
+    assert k6.backward_blocks(4, 4096) == 128
+    assert k6.backward_blocks(1, 40) == 1
+    assert k6.backward_blocks(2, 100) == 2
+    assert k6.backward_blocks(3, 128) == 3
+    assert k6.THREADS == 128
+    src = _build_src("rglru_scan_bwd.cu")
+    assert "constexpr int kThreads = 128;" in src
+    assert "blocks != (BW + kThreads - 1) / kThreads" in src

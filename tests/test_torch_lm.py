@@ -345,9 +345,9 @@ def test_unported_families_raise(arch):
 def test_model_refuses_gradients_through_the_attention_kernel(case):
     """The weights take gradients. What has no backward yet refuses them:
     a bf16 model (K4's backward is fp32 only, item 14d-3) in the kernel
-    check, the SSM and hybrid families (K5 and K6, item 14d-2) in
-    `DecoderLM.loss`; an fp32 dense model's gradients flow, through the
-    plain attention on the CPU."""
+    check. fp32 gradients flow on the CPU, through the plain attention
+    (dense), the plain SSD scan (SSM) and the plain RG-LRU recurrence and
+    attention (hybrid), into the leaves before each kernel."""
     arch = {"ssm": "mamba2-370m", "hybrid": "recurrentgemma-9b"}.get(
         case, "qwen3-0.6b")
     cfg = tconfigs.get_config(arch).reduced().replace(
@@ -356,9 +356,8 @@ def test_model_refuses_gradients_through_the_attention_kernel(case):
     model.init(prng.PRNGKey(0))
     assert all(p.requires_grad for p in model.parameters())
     batch = {"tokens": torch.zeros((1, 9), dtype=torch.long)}
-    if case != "fp32 dense":
-        item = "14d-3" if case == "bf16" else "14d-2"
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    if case == "bf16":
+        with pytest.raises(NotImplementedError, match="item 14d-3"):
             model.loss(batch)
         with torch.no_grad():   # the forward alone still runs
             assert torch.isfinite(model.loss(batch)[0])
@@ -366,8 +365,12 @@ def test_model_refuses_gradients_through_the_attention_kernel(case):
     loss, _ = model.loss(batch)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert all(torch.isfinite(g).all() for g in grads)
-    attn = dict(zip([n for n, _ in model.named_parameters()], grads))
-    assert attn["layers.0.attn.wq"].abs().max() > 0
+    by_name = dict(zip([n for n, _ in model.named_parameters()], grads))
+    leaves = {"fp32 dense": ["layers.0.attn.wq"],
+              "ssm": ["layers.0.A_log", "layers.0.dt_bias"],
+              "hybrid": ["layers.0.lam", "layers.0.wa", "layers.2.attn.wq"]}
+    for name in leaves[case]:
+        assert by_name[name].abs().max() > 0, name
 
 
 # ------------------------------------------------------ the serve entry

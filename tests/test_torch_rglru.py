@@ -121,6 +121,62 @@ def test_plain_version_matches_repro_at_ragged_shapes(with_h0):
                                atol=KERNEL_TOL)
 
 
+# K6's backward: the plain version against jax.vjp of `repro`'s oracle
+# (an associative scan, which sums in another order), each gradient as a
+# share of its largest element
+BWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("Bn,S,W,with_h0,with_dhl", [
+    (2, 200, 100, True, True), (2, 200, 100, False, True),
+    (3, 64, 128, True, False), (1, 128, 256, False, False),
+    (4, 1, 40, True, True)])
+def test_linear_scan_bwd_ref_matches_jax_vjp(Bn, S, W, with_h0, with_dhl):
+    a, b, h0 = _scan_inputs(Bn, S, W, seed=S + W)
+    rng = np.random.default_rng(W)
+    dy = rng.standard_normal((Bn, S, W)).astype(np.float32)
+    dhl = rng.standard_normal((Bn, W)).astype(np.float32) if with_dhl \
+        else None
+    args = [a, b] + ([h0] if with_h0 else [])
+    (h, hl), vjp = jax.vjp(jrglru.linear_scan_ref,
+                           *(jnp.asarray(x) for x in args))
+    want = vjp((jnp.asarray(dy), jnp.zeros_like(hl) if dhl is None
+                else jnp.asarray(dhl)))
+    got = ref.linear_scan_bwd_ref(_t(a), _t(b), _t(h0) if with_h0 else None,
+                                  _t(dy), None if dhl is None else _t(dhl))
+    assert len(got) == 3 and (got[2] is None) == (not with_h0)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, rtol=0,
+                                   atol=BWD_TOL)
+
+
+def test_linear_scan_bwd_ref_is_the_stepwise_recurrence():
+    """g_t = dy_t + a_{t+1} g_{t+1} (g_{S-1} = dy_{S-1} + dh_last), da_t =
+    g_t h_{t-1}, db_t = g_t, dh0 = a_0 g_0, each rounded once: what the
+    kernel computes, bit for bit; and `ops.rglru_scan` on CPU tensors is
+    differentiated so."""
+    a, b, h0 = (_t(x) for x in _scan_inputs(2, 50, 7, seed=9))
+    gen = torch.Generator().manual_seed(2)
+    dy, dl = torch.randn((2, 50, 7), generator=gen), torch.randn(
+        (2, 7), generator=gen)
+    h, _ = ref.linear_scan_ref(a, b, h0)
+    g = dl
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in reversed(range(50)):
+        g = dy[:, t] + g if t == 49 else dy[:, t] + a[:, t + 1] * g
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else h0)
+    want = (da, db, a[:, 0] * g)
+    got = ref.linear_scan_bwd_ref(a, b, h0, dy, dl)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    out = ops.rglru_scan(*leaves)
+    assert all(torch.equal(x, y) for x, y in zip(
+        torch.autograd.grad(out, leaves, (dy, dl)), want))
+
+
 def test_plain_version_matches_float64_recurrence():
     """The sequential float32 recurrence within a few float32 roundings of
     the same recurrence in float64, at the model's decays a in [0.3, 1)
@@ -181,8 +237,8 @@ def test_rglru_matches_repro(S, with_h0):
     v = rng.standard_normal((B, S, tcfg.lru_width)).astype(np.float32)
     h0 = rng.standard_normal((B, tcfg.lru_width)).astype(np.float32) \
         if with_h0 else None
-    # serving's mode: the layer's weights take gradients, K6 has no
-    # backward yet (ROADMAP item 14d-2)
+    # serving's mode: the layer's weights take gradients, and serving
+    # runs without autograd
     with torch.inference_mode():
         out, hl = trglru.rglru(_t(v), layer, None if h0 is None else _t(h0))
     jout, jhl = jrglru.rglru(jnp.asarray(v), jp,
@@ -454,17 +510,6 @@ def test_full_config_builds_on_meta_and_carries_repro_tree():
 # ------------------------------------------------------------ refusals
 
 
-def test_rglru_scan_refuses_inputs_that_require_grad():
-    a, b, h0 = (_t(x) for x in _scan_inputs(1, 8, 4))
-    for t in (a, b, h0):
-        t.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="no backward"):
-            ops.rglru_scan(a, b, h0)
-        with pytest.raises(NotImplementedError, match="14d-2"):
-            k6.rglru_scan(a, b, h0)
-        t.requires_grad_(False)
-
-
 def test_kernel_wrapper_never_takes_the_plain_version():
     """On CPU tensors the wrapper raises (ops picks the plain version by
     device); it refuses what the kernel does not take before any build."""
@@ -494,6 +539,27 @@ def test_kernel_source_is_registered_for_nvcc():
     assert 'extern "C" const char* rglru_scan_error_string(' in src
     assert "repro/kernels/rglru_scan.py::rglru_scan" in src
     assert "__fmul_rn" in src and "__fadd_rn" in src   # no FMA contraction
+
+
+def test_backward_source_is_registered_for_nvcc():
+    assert _build.SOURCES["rglru_scan_bwd"] == "rglru_scan_bwd.cu"
+    src = (_build.CSRC / "rglru_scan_bwd.cu").read_text()
+    assert 'extern "C" int rglru_scan_bwd_f32(' in src
+    assert 'extern "C" const char* rglru_scan_bwd_error_string(' in src
+    assert "repro/kernels/rglru_scan.py::rglru_scan" in src
+    assert "__fmul_rn" in src and "__fadd_rn" in src   # no FMA contraction
+    assert "constexpr int kU = 32;" in src   # the forward's load depth
+
+
+def test_backward_wrapper_never_takes_the_plain_version():
+    a, b, h0 = (_t(x) for x in _scan_inputs(2, 16, 8))
+    before = k6.rglru_scan_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        k6.rglru_scan_bwd(a, b, h0, torch.zeros_like(a), None)
+    with pytest.raises(TypeError):
+        k6.rglru_scan_bwd(a.bfloat16(), b.bfloat16(), None,
+                          torch.zeros_like(a), None)
+    assert k6.rglru_scan_bwd.launches == before
 
 
 def test_serve_main_on_cpu(capsys):

@@ -166,6 +166,62 @@ def test_ssd_ref_matches_repro(chunk, with_h0):
         tssm.ssd_ref(*(_t(a[:, :30]) for a in arrays), 16)
 
 
+# K5's backward: the plain version's gradients against jax.vjp of
+# `repro`'s oracle, each as a share of the gradient's largest element
+# (fp32 sums in other orders: measured at most 6.4e-7); d dlogA's row and
+# column terms nearly cancel, so it is held to its largest element too
+BWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,l,H,p,n,ch,with_h0,with_dhl,model_dt", [
+    (2, 96, 3, 8, 4, 32, True, True, False),     # three chunks
+    (2, 256, 4, 32, 16, 64, True, True, True),   # four, the model's dt
+    (1, 128, 2, 16, 8, 32, False, True, False),  # no h0
+    (2, 64, 16, 32, 16, 32, False, False, True),  # the reduced model's
+    (1, 64, 1, 64, 32, 64, True, False, False)])  # one chunk
+def test_ssd_bwd_ref_matches_jax_vjp(b, l, H, p, n, ch, with_h0, with_dhl,
+                                     model_dt):
+    x, dA, Bm, Cm = _scan_inputs(b, l, H, p, n, seed=l, model_dt=model_dt)
+    rng = np.random.default_rng(n)
+    h0 = (rng.standard_normal((b, H, p, n)) * 0.5).astype(np.float32) \
+        if with_h0 else None
+    dy = rng.standard_normal((b, l, H, p)).astype(np.float32)
+    dhl = rng.standard_normal((b, H, p, n)).astype(np.float32) \
+        if with_dhl else None
+    args = [x, dA, Bm, Cm] + ([] if h0 is None else [h0])
+
+    def f(*a):
+        return jssm.ssd_ref(*a[:4], ch, a[4] if len(a) > 4 else None)
+    (y, hl), vjp = jax.vjp(f, *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dy), jnp.zeros_like(hl) if dhl is None
+                else jnp.asarray(dhl)))
+    got = ref.ssd_bwd_ref(*(_t(a) for a in (x, dA, Bm, Cm)), ch,
+                          None if h0 is None else _t(h0), _t(dy),
+                          None if dhl is None else _t(dhl))
+    assert len(got) == 5 and (got[4] is None) == (h0 is None)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        assert tuple(g.shape) == w.shape
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, rtol=0,
+                                   atol=BWD_TOL)
+
+
+def test_ops_ssd_on_cpu_is_differentiated_as_the_plain_version():
+    """On CPU tensors `ops.ssd` is the plain version under autograd: its
+    gradients are `ssd_bwd_ref`'s bit for bit, and no kernel launches."""
+    x, dA, Bm, Cm = (_t(a) for a in _scan_inputs(2, 96, 3, 8, 4, seed=2))
+    h0 = _t(np.random.default_rng(3).standard_normal((2, 3, 8, 4)))
+    leaves = [t.clone().requires_grad_(True) for t in (x, dA, Bm, Cm, h0)]
+    dy = torch.randn((2, 96, 3, 8), generator=torch.Generator().manual_seed(1))
+    before = (k5.ssd.launches, k5.ssd_bwd.launches)
+    y, _ = ops.ssd(*leaves[:4], chunk=32, h0=leaves[4])
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (k5.ssd.launches, k5.ssd_bwd.launches) == before
+    want = ref.ssd_bwd_ref(x, dA, Bm, Cm, 32, h0, dy, None)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_ssd_decode_step_matches_repro():
     rng = np.random.default_rng(4)
     h = rng.standard_normal((2, 3, 8, 4)).astype(np.float32)
@@ -415,15 +471,38 @@ def test_full_config_builds_on_meta_and_carries_repro_tree():
 # ------------------------------------------------------------ refusals
 
 
-def test_ssd_refuses_inputs_that_require_grad():
-    arrays = [_t(a) for a in _scan_inputs(1, 8, 2, 4, 4)]
-    for t in arrays:
-        t.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="no backward"):
-            ops.ssd(*arrays, chunk=8)
-        with pytest.raises(NotImplementedError):
-            k5.ssd(*arrays, chunk=8)
-        t.requires_grad_(False)
+def test_backward_source_is_registered_for_nvcc():
+    assert _build.SOURCES["ssd_bwd"] == "ssd_bwd.cu"
+    src = (_build.CSRC / "ssd_bwd.cu").read_text()
+    assert 'extern "C" int ssd_bwd_f32(' in src
+    assert 'extern "C" const char* ssd_bwd_error_string(' in src
+    assert '#include "ssd.cuh"' in src
+    assert "repro/kernels/ssd.py::ssd" in src and "atomic" not in \
+        src.replace("no atomics", "")
+    # the four launches with the plan's grids and shared memory
+    for launch in ("static_cast<size_t>(grid[1])",
+                   "static_cast<size_t>(grid[5])",
+                   "static_cast<size_t>(grid[7])"):
+        assert launch in src
+    assert k5.BWD_WORKSPACES == ("dst", "sc", "bt", "lam", "wp", "mp", "vs",
+                                 "ws", "sv", "lw")
+
+
+def test_backward_wrapper_never_takes_the_plain_version():
+    """On CPU tensors `ssd_bwd` raises before any build (ops picks the
+    plain version, which autograd differentiates, by device)."""
+    x, dA, Bm, Cm = (_t(a) for a in _scan_inputs(1, 64, 2, 16, 8))
+    plan = k5.launch_plan(1, 64, 2, 16, 8, 32)
+    cum = torch.zeros(plan.workspace["cum"])
+    states = torch.zeros(plan.workspace["states"])
+    before = k5.ssd_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.ssd_bwd(x, dA, Bm, Cm, 32, None, torch.zeros_like(x), None, cum,
+                   states)
+    with pytest.raises(TypeError):
+        k5.ssd_bwd(x.bfloat16(), dA, Bm, Cm, 32, None, torch.zeros_like(x),
+                   None, cum, states)
+    assert k5.ssd_bwd.launches == before
 
 
 def test_kernel_wrapper_never_takes_the_plain_version():
@@ -462,7 +541,10 @@ def test_kernel_wrapper_never_takes_the_plain_version():
 
 def test_kernel_source_is_registered_for_nvcc():
     assert _build.SOURCES["ssd"] == "ssd.cu"
-    src = (_build.CSRC / "ssd.cu").read_text()
+    # the tile shapes and copies live in the header the backward shares
+    src = (_build.CSRC / "ssd.cu").read_text() + \
+        (_build.CSRC / "ssd.cuh").read_text()
+    assert '#include "ssd.cuh"' in src
     assert 'extern "C" int ssd_f32(' in src
     assert 'extern "C" const char* ssd_error_string(' in src
     assert "repro/kernels/ssd.py::ssd" in src

@@ -12,13 +12,14 @@ tolerance stated where it is not exact:
 * `chunked_softmax_xent` at 1 and 4 chunks, with a mask, and the fall
   back to one chunk when S % n_chunks != 0 (1e-6);
 * `DecoderLM.loss` and its gradients against
-  ``jax.value_and_grad(model.loss)`` on reduced qwen3-0.6b and
-  h2o-danube-1.8b (window 32 under 48 positions), and 3 steps of
-  `make_train_step` against `repro`'s jitted step (LOSS_TOL, GRAD_TOL,
-  PARAM_TOL);
+  ``jax.value_and_grad(model.loss)`` on reduced qwen3-0.6b,
+  h2o-danube-1.8b (window 32 under 48 positions), mamba2-370m (two SSM
+  chunks) and recurrentgemma-9b (rec, rec, attn; window 32 under 48),
+  and 3 steps of `make_train_step` against `repro`'s jitted step
+  (LOSS_TOL, GRAD_TOL, PARAM_TOL);
 * remat "full" equal to "none" bit for bit;
 * the entry point, `launch.train.main`, printing `repro.launch.train`'s loss
-  lines (the printed 4 decimals, within 1e-4);
+  lines (the printed 4 decimals, within 1e-4), dense, SSM and hybrid;
 * `make_dpfl_mix` and `mix_pytree` (1e-6);
 * a train checkpoint loading into `repro`'s tree, and back.
 """
@@ -68,7 +69,11 @@ GRAD_TOL = 2e-4
 LR = 3e-4
 PARAM_TOL = 1e-6
 PARAM_OUTLIERS = 1e-4
-ARCHS = {"qwen3-0.6b": 16, "h2o-danube-1.8b": 48}   # arch: sequence length
+# arch: sequence length. mamba2-370m's reduced chunk is 32, so 64
+# positions make two chunks (the state passed between them, and back);
+# recurrentgemma-9b's reduced window of 32 binds under 48
+ARCHS = {"qwen3-0.6b": 16, "h2o-danube-1.8b": 48, "mamba2-370m": 64,
+         "recurrentgemma-9b": 48}
 B = 2
 
 
@@ -318,9 +323,37 @@ def test_train_main_prints_repros_loss_lines(monkeypatch, capsys):
         p.numel() for p in run.model.parameters())
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-370m", "14d-2"),
-                                       ("recurrentgemma-9b", "14d-2"),
-                                       ("qwen3-moe-30b-a3b", "14d-4")])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_train_main_prints_repros_loss_lines_for_ssm_and_hybrid(
+        monkeypatch, capsys, arch):
+    """The SSM and hybrid families through the same entry point, at the
+    CLI's own sequence (128: four SSM chunks; the hybrid's window binds):
+    `repro.launch.train`'s loss lines, the K5 and K6 kernels never taken
+    on CPU tensors."""
+    from repro_torch.kernels import rglru_scan as k6
+    from repro_torch.kernels import ssd as k5
+
+    flags = ["--reduced", "--arch", arch, "--steps", "3", "--log-every",
+             "1"]
+    monkeypatch.setattr(sys, "argv", ["train", *flags])
+    jtrain.main()
+    want = capsys.readouterr().out
+    before = (k5.ssd.launches, k5.ssd_bwd.launches, k6.rglru_scan.launches,
+              k6.rglru_scan_bwd.launches, k4.flash_attention.launches)
+    run = ttrain.main(["--device", "cpu", *flags])
+    got = capsys.readouterr().out
+    assert (k5.ssd.launches, k5.ssd_bwd.launches, k6.rglru_scan.launches,
+            k6.rglru_scan_bwd.launches, k4.flash_attention.launches) == \
+        before
+    assert got.splitlines()[0] == want.splitlines()[0]   # arch, params
+    assert got.splitlines()[-1] == "done."
+    jl, tl = _loss_lines(want), _loss_lines(got)
+    assert [s for s, _ in tl] == [s for s, _ in jl] == [0, 1, 2]
+    for (_, a), (_, b), full in zip(tl, jl, run.losses):
+        assert abs(a - b) <= 1e-4 and abs(full - b) <= 5e-5 + 1e-5
+
+
+@pytest.mark.parametrize("arch,item", [("qwen3-moe-30b-a3b", "14d-4")])
 def test_train_main_refuses_families_it_cannot_train(arch, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ttrain.main(["--device", "cpu", "--reduced", "--arch", arch,

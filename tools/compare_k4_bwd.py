@@ -140,8 +140,9 @@ def main(argv=None):
         del want, got
         times = [(label, cs.time_ms(lambda: fns[label](
             q, k, v, out, lse, dout, **kw), torch)) for label in order]
-        split = {label: cs.k4_bwd_split_ms(lambda: f(
-            q, k, v, out, lse, dout, **kw), torch)
+        split = {label: cs.kernel_split_ms(lambda: f(
+            q, k, v, out, lse, dout, **kw), torch,
+            r"\bflash_attention_bwd_(delta|dkdv|dq|reduce)_kernel\b")
             for label, f in fns.items()}
         result["shapes"][name] = dict(shape=case[1:], max_share=shares,
                                       ms=times, kernel_ms=split)

@@ -9,18 +9,20 @@ and its card-against-JAX train check its losses:
         [dense] [sparse] [topk] [sparse-topk] [dense-markov] \
         [sparse-freerider-clipped] [topk-signflip-clipped] \
         [dense-labelflip-trimmed] [local] [fedavg] ... [pfedgraph] \
-        [fedavg-markov-topk] [train-cross]
+        [fedavg-markov-topk] [train-cross] [train-cross-ssm] \
+        [train-cross-hybrid]
 
-(no names: all twenty-one). The data and run settings (PaperCNN at its
+(no names: all twenty-three). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
 ``SMOKE_*`` constants. A DPFL variant is one of its ``VARIANTS``, run by
 `repro.core.dpfl.run_dpfl`; a baseline run is one of its
 ``BASELINE_RUNS``, run by `repro.fl.baselines.run_baseline` at
 ``BASELINE_RUN``. Both are built here with `repro`'s config classes.
-"train-cross" is ``CROSS_TRAIN``: `repro.launch.train`'s loop (the same
-corpus, batches, AdamW and schedule) on qwen3-0.6b at full width cut to
-its first two layers, for ``CROSS_TRAIN_JAX_LOSSES`` (about 40 s and
-3 GiB).
+"train-cross", "train-cross-ssm" and "train-cross-hybrid" are the runs of
+``CROSS_TRAINS``: `repro.launch.train`'s loop (the same corpus, batches,
+AdamW and schedule) on qwen3-0.6b and mamba2-370m at full width cut to
+their first two layers and on recurrentgemma-9b's reduced config, for
+``CROSS_TRAIN_JAX_LOSSES`` (about 40 s and 3 GiB for qwen3).
 """
 from __future__ import annotations
 
@@ -72,11 +74,11 @@ def config(name):
 def main():
     names = sys.argv[1:] or (list(chip_smoke.VARIANTS)
                              + list(chip_smoke.BASELINE_RUNS)
-                             + ["train-cross"])
+                             + list(chip_smoke.CROSS_TRAINS))
     engine = None
     for name in names:
-        if name == "train-cross":
-            run_train_cross()
+        if name in chip_smoke.CROSS_TRAINS:
+            run_train_cross(name)
             continue
         if engine is None:
             data = make_federated_classification(**chip_smoke.SMOKE_DATA)
@@ -89,10 +91,11 @@ def main():
             run_one(engine, name)
 
 
-def run_train_cross():
-    """`repro.launch.train.main`'s loop on chip_smoke.CROSS_TRAIN's cut
-    config: the init of PRNGKey(0), loss_chunks 4, the same corpus and
-    batches, ``adamw(warmup_cosine(lr, 10, steps))``, the jitted step."""
+def run_train_cross(name):
+    """`repro.launch.train.main`'s loop on chip_smoke.CROSS_TRAINS[name]'s
+    cut config: the init of PRNGKey(0), loss_chunks 4, the same corpus
+    and batches, ``adamw(warmup_cosine(lr, 10, steps))``, the jitted
+    step."""
     import jax
     import jax.numpy as jnp
 
@@ -102,10 +105,14 @@ def run_train_cross():
     from repro.models import build_model
     from repro.optim import adamw, warmup_cosine
 
-    c = chip_smoke.CROSS_TRAIN
+    c = chip_smoke.CROSS_TRAINS[name]
     t0 = time.perf_counter()
-    cfg = get_config(c["arch"]).replace(n_layers=c["n_layers"],
-                                        dtype="float32")
+    cfg = get_config(c["arch"])
+    if c.get("reduced"):
+        cfg = cfg.reduced()
+    if "n_layers" in c:
+        cfg = cfg.replace(n_layers=c["n_layers"])
+    cfg = cfg.replace(dtype="float32")
     model = build_model(cfg, loss_chunks=4)
     params = model.init(jax.random.PRNGKey(0))
     tokens, _ = make_lm_token_data(
@@ -123,7 +130,7 @@ def run_train_cross():
                                           {"tokens": corpus[idx]})
         losses.append(float(loss))
     print(json.dumps({
-        "train": "cross", "config": c, "losses": losses,
+        "train": name, "config": c, "losses": losses,
         "n_params": int(sum(x.size for x in jax.tree.leaves(params))),
         "seconds": time.perf_counter() - t0,
         "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss

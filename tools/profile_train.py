@@ -1,8 +1,11 @@
 """Where the time of the port's training step goes on the card.
 
-Builds qwen3-0.6b at its published config in float32, as
-``chip_smoke.py``'s train run does (``TRAIN_ARGV``: batch 8, sequence
-512), runs two warm-up steps of `repro_torch.launch.train`'s step
+Builds an arch at chip_smoke.py's train run's config in float32
+(``--arch qwen3-0.6b``, the default: ``TRAIN_ARGV``, batch 8, sequence
+512; ``--arch mamba2-370m``: ``TRAIN_SSM_ARGV``, the same batch and
+sequence; ``--arch recurrentgemma-9b``: ``TRAIN_HYBRID``, full width cut
+to its first ``--layers`` layers, 6 by default, batch 4, sequence 512),
+runs two warm-up steps of `repro_torch.launch.train`'s step
 (`make_train_step` under AdamW and ``warmup_cosine``), then profiles one
 step under ``torch.profiler`` with its three phases marked (the loss's
 forward, the backward pass with its recompute, AdamW and the update of
@@ -12,15 +15,17 @@ the card synchronised), each phase's host wall and device-kernel time
 the summed device-kernel time and the device's idle share, the kernel
 launches, the TOP kernels that take the most device time, and the
 port's kernels (K4's forward ``flash_attention_f32_kernel`` and its
-backward's ``flash_attention_bwd_*_kernel``: D, dK/dV and dQ, and the
-sum of the head splits where a GQA group is split), each by name.
+backward's ``flash_attention_bwd_*_kernel``; K5's ``ssd_*_kernel`` and
+its backward's ``ssd_bwd_*_kernel``; K6's ``rglru_scan_kernel`` and
+``rglru_scan_bwd_kernel``), each by name.
 
-    python3 tools/profile_train.py
+    python3 tools/profile_train.py [--arch ARCH] [--layers N]
 
 Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import sys
@@ -34,7 +39,9 @@ sys.path.insert(0, str(ROOT))
 TOP = 10
 PHASES = ("forward", "backward", "optimizer")
 PORT_KERNELS = (r"\bflash_attention_f32_kernel\b",
-                r"\bflash_attention_bwd_[a-z]+_kernel\b")
+                r"\bflash_attention_bwd_[a-z]+_kernel\b",
+                r"\bssd_(bwd_)?[a-z]+_kernel\b",
+                r"\brglru_scan_(bwd_)?kernel\b")
 
 
 def main():
@@ -53,13 +60,28 @@ def main():
         sys.exit("profile_train: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    argv = chip_smoke.TRAIN_ARGV
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=("qwen3-0.6b", "mamba2-370m",
+                             "recurrentgemma-9b"))
+    ap.add_argument("--layers", type=int,
+                    default=chip_smoke.TRAIN_HYBRID["n_layers"],
+                    help="recurrentgemma-9b's cut (its first N layers)")
+    args = ap.parse_args()
+    if args.arch == "recurrentgemma-9b":
+        cut = chip_smoke.TRAIN_HYBRID
+        cfg = get_config(args.arch).replace(n_layers=args.layers,
+                                            dtype="float32")
+        B, S, steps = cut["batch"], cut["seq"], cut["steps"]
+    else:
+        argv = (chip_smoke.TRAIN_ARGV if args.arch == "qwen3-0.6b"
+                else chip_smoke.TRAIN_SSM_ARGV)
 
-    def flag(name):
-        return argv[argv.index(name) + 1]
-    cfg = get_config(flag("--arch")).replace(dtype="float32")
-    B, S, steps = int(flag("--batch")), int(flag("--seq")), int(
-        flag("--steps"))
+        def flag(name):
+            return argv[argv.index(name) + 1]
+        cfg = get_config(flag("--arch")).replace(dtype="float32")
+        B, S, steps = int(flag("--batch")), int(flag("--seq")), int(
+            flag("--steps"))
     model = build_model(cfg, device="meta", loss_chunks=4)
     model.init(prng.PRNGKey(0, device="cuda"))
     corpus = torch.from_numpy(train.lm_corpus(cfg, B, S)).cuda()
@@ -129,7 +151,8 @@ def main():
                 "share_of_device": us / 1e6 / device_s}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "arch": cfg.name, "batch": B, "seq": S, "remat": model.remat,
+        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S,
+        "remat": model.remat,
         "step_wall_s": wall,
         "phases": {p: {"wall_s": walls[p], "device_kernel_s": ranges.get(p)}
                    for p in PHASES},
