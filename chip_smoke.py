@@ -401,8 +401,11 @@ K4_LSE_TOL = 1e-5
 # (mamba2-370m, batch 8, sequence 512: two chunks, no h0, and no dh_last,
 # which the loss does not read); then h0 with a nonzero dh_last, one
 # chunk, eight chunks, x / B / C as views of one projection at the train
-# width, inputs off 16-byte alignment (p 10, one float in), p 128, and 9
-# heads (two head groups of the W blocks, the second of one head)
+# width, inputs off 16-byte alignment (p 10, one float in), p 128, 9
+# heads (a dx block of one head; second W and state head groups of one
+# head) and 17 (three groups). The train case and the 8-chunk
+# one are timed: the design is held to many chunks with a state at both
+# ends as well as to the train run's two
 K5_BWD_CASES = [
     ("train", 8, 512, 32, 64, 128, 256, "model", False, False, None),
     ("h0, dh_last", 2, 256, 4, 32, 16, 64, "kernels", True, True, None),
@@ -415,8 +418,12 @@ K5_BWD_CASES = [
     ("p 10, 4-byte copies", 2, 128, 3, 10, 12, 64, "model", True, True,
      "offset"),
     ("p 128, n 64, h0", 1, 256, 4, 128, 64, 128, "model", True, False, None),
-    ("9 heads, dh_last", 2, 192, 9, 16, 8, 64, "model", False, True, None)]
-K5_BWD_TIMED = ("train",)
+    ("9 heads, dh_last", 2, 192, 9, 16, 8, 64, "model", False, True, None),
+    ("17 heads, h0, dh_last", 1, 192, 17, 8, 8, 64, "model", True, True,
+     None)]
+K5_BWD_TIMED = ("train", "8 chunks, h0, dh_last")
+# the backward's six kernels, by the profiler's names (group 1 the key)
+K5_BWD_KERNELS = r"\bssd_bwd_(chunk|pass|state|dx|w|final)_kernel\b"
 # each of dx, d dlogA, dB, dC and dh0 against the plain version's, as a
 # share of that gradient's largest element: fp32 sums over 256 positions
 # and 32 heads in other orders than autograd's; d dlogA's row and column
@@ -1431,11 +1438,11 @@ def k5_bwd_work(x, B, chunk, h0, dhl, states):
 
 
 def time_k5_bwd(torch, inputs, errs, rates):
-    """K5's backward (its four launches) at the K5_BWD_TIMED shapes, each
-    kernel's device time from the profiler, and its plain version
-    (autograd through `ssd_ref`), beside the bound. No single PyTorch
-    call computes the gradient of a chunked SSD scan, so no library
-    time. Returns the rows."""
+    """K5's backward (its six launches) at the K5_BWD_TIMED shapes, each
+    kernel's device time from the profiler, the wrapper's host time a
+    call, and its plain version (autograd through `ssd_ref`), beside the
+    bound. No single PyTorch call computes the gradient of a chunked SSD
+    scan, so no library time. Returns the rows."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as k5
 
@@ -1451,11 +1458,11 @@ def time_k5_bwd(torch, inputs, errs, rates):
             return k5.ssd_bwd(x, dlogA, B, C, chunk, h0, dy, dhl, cum,
                               states)
         ms = time_ms(bwd, torch)
-        split = kernel_split_ms(
-            bwd, torch, r"\bssd_bwd_(chunk|pass|main|final)_kernel\b")
-        if sorted(split) != ["chunk", "final", "main", "pass"]:
+        split = kernel_split_ms(bwd, torch, K5_BWD_KERNELS)
+        if sorted(split) != ["chunk", "dx", "final", "pass", "state", "w"]:
             fail(f"K5 backward: the profiler recorded the kernels "
                  f"{sorted(split)}")
+        host = host_ms(bwd, torch)
         plain_ms = time_ms(lambda: ref.ssd_bwd_ref(
             x, dlogA, B, C, chunk, h0, dy, dhl), torch, reps=20, warmup=3)
         nbytes, flops = k5_bwd_work(x, B, chunk, h0, dhl, states)
@@ -1466,7 +1473,7 @@ def time_k5_bwd(torch, inputs, errs, rates):
         rows.append(dict(case=name, b=b, l=l, H=H, p=p, n=n, chunk=chunk,
                          dtype="float32", max_abs_err=err[0],
                          max_share=err[1], tol=K5_BWD_TOL, ms=ms,
-                         kernel_ms=split, plain_ms=plain_ms,
+                         kernel_ms=split, host_ms=host, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bound_ms,
                          bound_by=bound_by, bytes=nbytes, flops=flops,
                          tflops=flops / ms / 1e9,
@@ -1476,7 +1483,8 @@ def time_k5_bwd(torch, inputs, errs, rates):
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the "
               f"least {flops / 1e9:.3f} GFLOP; " + ", ".join(
                   f"{k} {v:.4f}" for k, v in split.items()) +
-              f" ms a call; scratch {plan.scratch_bytes()} bytes)  plain "
+              f" ms a call; host {host:.4f} ms; scratch "
+              f"{plan.scratch_bytes()} bytes)  plain "
               f"{plain_ms:.4f} ms  library none  bound {bound_ms:.4f} ms "
               f"({bound_by})")
     return rows
@@ -1640,7 +1648,7 @@ def report_build(built):
     backward) every entry function (registers, spills, static shared
     memory), failing on a spill; and K4's SASS: its bf16 kernels must run
     on the tensor cores (HMMA or HGMMA) and its fp32 kernels, the
-    backward's 34 included, must not."""
+    backward's 34 included, must not; nor may K5's backward's 11."""
     from repro_torch.kernels import _build
 
     for kname, b in sorted(built.items()):
@@ -1684,6 +1692,14 @@ def report_build(built):
         fail("K4 backward SASS: a kernel runs on the tensor cores (fp32 "
              "only, no TF32)")
     print(f"K4 backward SASS: no HMMA or HGMMA in its {len(bwd)} kernels")
+    k5b = sass_mma_counts(_build.library_path("ssd_bwd"))
+    if len(k5b) != 11:
+        fail(f"K5 backward SASS: {len(k5b)} kernels, expected 11 (chunk, "
+             f"pass, state, dx and W at p's two paddings, final)")
+    if any(h + g for h, g in k5b.values()):
+        fail("K5 backward SASS: a kernel runs on the tensor cores (IEEE "
+             "fp32 fmaf only, no TF32)")
+    print(f"K5 backward SASS: no HMMA or HGMMA in its {len(k5b)} kernels")
 
 
 def _kernel_modules():

@@ -26,7 +26,7 @@
 //
 // What bounds it: operations. At the train shape of mamba2-370m (b 8,
 // l 512, h 32, p 64, n 128, chunk 256, no h0, no dh_last) the least work
-// is 9.01 GFLOP (ssd.py::backward_work): per head, dx's scores times dy
+// is 9.01 GFLOP (ssd.py::backward_flops): per head, dx's scores times dy
 // and W's dy . x over the causal pairs (2.16 each), and one (L, p, n)
 // product each for dx's state term, v, w and the chunk's dh_in term where
 // a state enters or leaves (1.07 each); once per (b, chunk), since B and C
@@ -34,7 +34,7 @@
 // dC (0.40). Against some 127 MB of inputs and outputs that is above the
 // H100's fp32 ridge: 0.134 ms at 67 TFLOP/s.
 //
-// What the design does about it: four launches on one stream, the chunks
+// What the design does about it: six launches on one stream, the chunks
 // and heads in parallel, the grids and shared memory of ssd.py::
 // backward_plan:
 //  1. ssd_bwd_chunk_kernel. Per (b, head, chunk) the chunk's own dh_in
@@ -45,29 +45,50 @@
 //  2. ssd_bwd_pass_kernel walks the chunks backward: slot c of `dst`
 //     becomes g of chunk c, g <- e^{Lam} g + term; the last is dh0. Each
 //     block's share of e^{Lam} <g, h_in> goes to `lam`.
-//  3. ssd_bwd_main_kernel. Blocks of two kinds. Per (b, head, chunk, key
-//     tile) dx: the forward's output blocks with the roles of query and
-//     key swapped (state tiles of B^T and g^T first, then the query
-//     tiles after this one with dy scaled by e^{cum_i - cum_jl}, jl the
-//     tile's last row, then the sums times e^{cum_jl - cum_j} and the
-//     diagonal tile decayed in place); then the tile's v and w, (64, p)
-//     by (p, n) products, whose e^{cum} and e^{Lam - cum} multiples go to
-//     `vs` and `ws` (b, l, h, n) for the head sums, and whose dots with C
-//     and B to `sv` (dcum's state terms) and `lw` (d Lam's). Per (b,
-//     chunk, causal tile pair, group of 8 heads) W summed over the
-//     group's heads in order into `wp`, and per head the row and column
-//     sums of M (the diagonal left out: it cancels) into `mp`.
-//  4. ssd_bwd_final_kernel. Per (b, chunk, tile) dC (rows i: the groups'
-//     W tiles summed in order, transposed, times B) and dB (rows j: W
-//     times C), each then plus its head sum of `vs` or `ws`; the n-wide
-//     products are taken once per (b, chunk), not per head. Per (b, head,
-//     chunk) dcum from `sv`, `mp`, `lam` and `lw` in a fixed order, then
-//     its suffix sum into d dlogA.
+//  3. Three kernels of 256 threads, at most 128 registers a thread at
+//     p <= 64 so that two blocks (16 warps) share an SM; each block kind
+//     is its own kernel, since in one kernel their registers' union
+//     spilled. Each walks its heads two stages deep (cp.async), one or
+//     two barriers a head:
+//     - ssd_bwd_state_kernel, per (b, chunk, 64-row tile, group of 8
+//       heads, 64 columns of n) and kind: dC's state term
+//       sum_h e^{cum_h,i} v_h,i where a state enters the chunk, dB's
+//       sum_h e^{Lam_h - cum_h,j} w_h,j where a gradient leaves it, a
+//       (64, p) by (p, 64) product per head, summed over the group's heads
+//       in registers and written once into `sd` (2, groups, b, l, n), so
+//       no per-head (b, l, H, n) v or w goes through device memory (at
+//       the train shape that would be 268 MB written and read). Per head
+//       the rows' dots with C or B over the block's columns into `sv`
+//       (dcum's state terms, and d Lam's share).
+//     - ssd_bwd_dx_kernel, per (b, chunk, key tile, pair of heads): the
+//       forward's output blocks with the roles of query and key swapped,
+//       the halves of the block taking one head each and sharing every
+//       staged tile of B^T (the state term, then the sums times
+//       e^{Lam - cum_jl}, jl the tile's last row) and of scores (the query
+//       tiles after this one, each half's dy scaled by its head's
+//       e^{cum_i - cum_jl}; then its sums times e^{cum_jl - cum_j}; then
+//       the diagonal tile, decayed for both heads in one pass: half 0's in
+//       place, half 1's into the free stage). Each thread owns 4 rows by
+//       PW / 8 columns.
+//     - ssd_bwd_w_kernel, per (b, chunk, causal tile pair, group of 8
+//       heads): per head one (64, 64) product dy_i . x_j, its p split
+//       between the halves (4 x 8 register tiles, the halves' sums then
+//       exchanged through shared memory), decayed (off the diagonal as
+//       e^{cum_i - cum_r} e^{cum_r - cum_j}, r the key tile's last row,
+//       both <= 1) and masked, summed over the group in order into `wp`;
+//       per head the row and column sums of M = S W (the diagonal left
+//       out: it cancels) into `mp`.
+//  4. ssd_bwd_final_kernel. Per (b, chunk, tile, 64 columns of n) dC (rows
+//     i: the groups' W tiles summed in order, transposed, times B) and dB
+//     (rows j: W times C), each plus its rows of `sd`, the groups in
+//     order; the n-wide products are taken once per (b, chunk), not per
+//     head. Per (b, head, chunk) dcum from `sv`, `mp` and `lam` in a
+//     fixed order, then its suffix sum into d dlogA.
 // Tiles arrive by cp.async (16-byte pieces where x, B, C and dy allow it,
 // else 4-byte ones: the wrapper's `vec`), one or two stages deep. What
-// still costs beyond the bound: every head's dx blocks read the same score
-// tiles, the W blocks read dy and x once per tile pair, the head sums read
-// `vs` and `ws` (134 MB at the train shape), and each launch's tail.
+// still costs beyond the bound (PERF.md): the three pass-3 kernels run
+// their 64 x 64 products at 30-40 % of the fp32 rate, and W's diagonal
+// pairs compute the masked half.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,8 +96,15 @@
 
 namespace {
 
-constexpr int kGroupHeads = 8;  // heads a W block sums (ssd.py::BWD_GROUP_HEADS)
-constexpr int kSP = kT + 8;     // padded row of a W block's score tile
+// heads a W block sums (ssd.py::BWD_GROUP_HEADS), and a state block
+// (ssd.py::BWD_STATE_HEADS)
+constexpr int kGroupHeads = 8;
+constexpr int kStateHeads = 8;
+constexpr int kMainThreads = 256;  // a block of the state, dx and W kernels
+constexpr int kHalf = 128;         // threads of a half
+constexpr int kNH = 64;  // columns of n a state or dC / dB block takes
+constexpr int kSP = kT + 8;        // padded row of a W block's score tile
+constexpr int kXP = kT + 8;        // padded row of the halves' exchange tile
 
 struct Args {
   const float* x;
@@ -97,14 +125,17 @@ struct Args {
   float* lam;        // (b, H, nc, ny): pass 2's share of d Lam
   float* wp;         // (b, nc, G, ntri, kT, kT): W per head group
   float* mp;         // (b, nc, ntri, H, 2, kT): M's row and column sums
-  float* vs;         // (b, l, H, n): e^{cum_i} v_i
-  float* ws;         // (b, l, H, n): e^{Lam - cum_j} w_j
-  float* sv;         // (b, H, l): dcum's state terms, then dcum
-  float* lw;         // (b, H, nc, nt): the dx blocks' share of d Lam
+  float* sd;         // (2, SG, b, l, n): dC's and dB's state terms summed
+                     // over each group of kStateHeads heads
+  float* sv;         // (b, H, l, 2, nh): dcum's state terms by kind and
+                     // column block; then dcum (slot 0)
   int b, l, L, H, p, n;
   int nc, nt, ntri;
-  int G;        // head groups, ceil(H / kGroupHeads)
+  int G;        // W's head groups, ceil(H / kGroupHeads)
+  int SG;       // the state blocks' head groups, ceil(H / kStateHeads)
   int ny;       // pass 2's blocks per (b, head)
+  int nh;       // blocks of kNH columns of n
+  int hp;       // head pairs, ceil(H / 2)
   int has_h0;   // the forward had an h0 (slot 0 of st holds it)
   int vec;      // x, B, C and dy copied in 16-byte pieces (1) or 4-byte (0)
   int64_t xb, xl, xh;  // strides of x, in elements (the p axis is 1)
@@ -124,6 +155,31 @@ __device__ __forceinline__ bool has_g(const Args& a, int c) {
 // row stride of dy, in elements
 __device__ __forceinline__ int64_t dy_row(const Args& a) {
   return static_cast<int64_t>(a.H) * a.p;
+}
+
+// load_tile (ssd.cuh) for NT threads, this one thread `t` of them
+template <int W, int NT>
+__device__ __forceinline__ void load_rows(float* dst, int pitch,
+                                          const float* src, int64_t rs,
+                                          int rows, int cols, bool vec,
+                                          int t) {
+  if (vec) {
+    constexpr int kPieces = W / 4;
+    for (int i = t; i < kT * kPieces; i += NT) {
+      const int r = i / kPieces;
+      const int c = (i - r * kPieces) * 4;
+      const int left = r < rows ? min(4, cols - c) : 0;
+      const int bytes = left > 0 ? 4 * left : 0;
+      cp_async16(dst + r * pitch + c, bytes ? src + r * rs + c : src, bytes);
+    }
+  } else {
+    for (int i = t; i < kT * W; i += NT) {
+      const int r = i / W;
+      const int c = i - r * W;
+      const bool in = r < rows && c < cols;
+      cp_async4(dst + r * pitch + c, in ? src + r * rs + c : src, in);
+    }
+  }
 }
 
 // ---- pass 1
@@ -398,52 +454,213 @@ __global__ void __launch_bounds__(kPassThreads) ssd_bwd_pass_kernel(Args a) {
 
 // ---- pass 3
 
-// the shared memory a dx block carves out: its two-stage ring, the key
-// and query prefix sums, and, after the ring, its v and w tiles; then 64
-// floats for the per-row shares of d Lam
+// one (kind, b, chunk, tile t, group of kStateHeads heads, block q of kNH
+// columns of n): kind 0 (where a state enters the chunk) sum_h e^{cum_h,i}
+// v_h,i with v_h,i = h_in,h^T dy_h,i; kind 1 (where a gradient leaves it)
+// sum_h e^{Lam_h - cum_h,j} w_h,j with w_h,j = g_h^T x_h,j; the group's
+// heads in order, in registers, into the group's slot of `sd`. Per head a
+// (64, p) by (p, 64) product, dy or x rows by rows of h_in^T or g^T (both
+// row-major, rows padded to PW + 4 floats), two stages deep, one barrier
+// a head; then each row's dot with C_i (kind 0) or B_j (kind 1), held in
+// registers, over the block's columns into `sv`. Each thread owns 4 rows
+// (ty + 16 r) by 4 columns (tx + 16 cc).
 template <int PW>
-__host__ __device__ constexpr int dx_red_offset() {
-  return 2 * kT * kGP + 2 * kT * PW + 3 * kT > (kT + kN) * (PW + 4)
-             ? 2 * kT * kGP + 2 * kT * PW + 3 * kT
-             : (kT + kN) * (PW + 4);
+__device__ __forceinline__ void state_block(const Args& a, int blk,
+                                            float* smem) {
+  constexpr int FP = PW + 4;
+  constexpr int kStage = 2 * kT * FP + kT;  // A, M and the rows' cum
+  const int q = blk % a.nh;
+  int rest = blk / a.nh;
+  const int t = rest % a.nt;
+  rest /= a.nt;
+  const int sg = rest % a.SG;
+  rest /= a.SG;
+  const int kind = rest & 1;
+  const int bc = rest >> 1;
+  const int bi = bc / a.nc, c = bc - bi * a.nc;
+  if (kind == 0 ? !has_h(a, c) : !has_g(a, c)) return;
+  const int h_lo = sg * kStateHeads;
+  const int h_end = min(a.H, h_lo + kStateHeads);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int t0 = t * kT;
+  const int rows = min(kT, a.L - t0);
+  const int col0 = q * kNH;
+  const int cols = min(kNH, a.n - col0);
+  const bool vec = a.vec != 0;
+  const int64_t c0 = static_cast<int64_t>(c) * a.L;
+  const int64_t yl = dy_row(a);
+  const int64_t slot = static_cast<int64_t>(a.n) * PW;  // a head's slot
+  const float* slots = (kind == 0 ? a.st : a.dst) +
+                       static_cast<int64_t>(bc) * a.H * slot + col0 * PW;
+  const float* cumc = a.cum + static_cast<int64_t>(bi) * a.H * a.l + c0;
+
+  auto load = [&](int h, int s) {
+    float* as = smem + s * kStage;
+    float* ms = as + kT * FP;
+    float* cs = ms + kT * FP;
+    if (kind == 0)
+      load_rows<PW, kMainThreads>(
+          as, FP,
+          a.dy + (bi * static_cast<int64_t>(a.l) + c0 + t0) * yl +
+              static_cast<int64_t>(h) * a.p,
+          yl, rows, a.p, vec, tid);
+    else
+      load_rows<PW, kMainThreads>(
+          as, FP, a.x + bi * a.xb + h * a.xh + (c0 + t0) * a.xl, a.xl, rows,
+          a.p, vec, tid);
+    load_rows<PW, kMainThreads>(ms, FP, slots + h * slot, PW, cols, PW, true,
+                                tid);
+    if (tid < kT) {
+      const float* cum = cumc + static_cast<int64_t>(h) * a.l + t0;
+      const bool in = tid < rows;
+      cp_async4(cs + tid, in ? cum + tid : cum, in);
+    }
+    cp_async_commit();
+  };
+  load(h_lo, 0);
+  // this thread's C (kind 0) or B (kind 1) values
+  float cv[4][4];
+  {
+    const float* m = kind == 0 ? a.C + bi * a.cb : a.B + bi * a.bb;
+    const int64_t ms = kind == 0 ? a.cl : a.bl;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 16 * r;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int col = tx + 16 * cc;
+        cv[r][cc] = (i < rows && col < cols)
+                        ? m[(c0 + t0 + i) * ms + col0 + col]
+                        : 0.0f;
+      }
+    }
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) acc[r][cc] = 0.0f;
+  for (int h = h_lo; h < h_end; ++h) {
+    const int s = (h - h_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // head h is in; stage s ^ 1 is free
+    if (h + 1 < h_end) load(h + 1, s ^ 1);
+    const float* as = smem + s * kStage;
+    const float* ms = as + kT * FP;
+    const float* cs = ms + kT * FP;
+    float f[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) f[r][cc] = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < PW; k += 4) {
+      float4 av[4], mv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        av[r] = *reinterpret_cast<const float4*>(as + (ty + 16 * r) * FP + k);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        mv[cc] =
+            *reinterpret_cast<const float4*>(ms + (tx + 16 * cc) * FP + k);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          float u = f[r][cc];
+          u = fmaf(av[r].x, mv[cc].x, u);
+          u = fmaf(av[r].y, mv[cc].y, u);
+          u = fmaf(av[r].z, mv[cc].z, u);
+          f[r][cc] = fmaf(av[r].w, mv[cc].w, u);
+        }
+    }
+    const float lam =
+        kind == 0 ? 0.0f : cumc[static_cast<int64_t>(h) * a.l + a.L - 1];
+    float dot[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 16 * r;
+      const float scale =
+          i < rows ? (kind == 0 ? expf(cs[i]) : expf(lam - cs[i])) : 0.0f;
+      dot[r] = 0.0f;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float u = scale * f[r][cc];
+        dot[r] = fmaf(u, cv[r][cc], dot[r]);
+        acc[r][cc] += u;
+      }
+    }
+    // each row's dot over its 16 column threads (lanes of one warp)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 4);
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 8);
+    }
+    if (tx == 0) {
+      float* svp = a.sv + ((static_cast<int64_t>(bi) * a.H + h) * a.l + c0 +
+                           t0) * 2 * a.nh + kind * a.nh + q;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ty + 16 * r;
+        if (i < rows) svp[i * 2 * a.nh] = dot[r];
+      }
+    }
+  }
+  float* out = a.sd + (((static_cast<int64_t>(kind) * a.SG + sg) * a.b + bi) *
+                           a.l + c0 + t0) * a.n + col0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ty + 16 * r;
+    if (i >= rows) continue;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int col = tx + 16 * cc;
+      if (col < cols) out[i * a.n + col] = acc[r][cc];
+    }
+  }
 }
 
-// one (b, head, chunk, key tile jt): dx_j for the tile's rows, the mirror
-// of the forward's output block. It walks a sequence of 64-row tiles
-// through one two-stage ring, each a (64, 64) matrix A, k-major, and a
-// (64, PW) matrix X, whose product it adds into the rows' sums: first,
+// one (b, chunk, key tile jt, pair of heads): dx_j for the tile's rows,
+// the mirror of the forward's output block, half 0 (threads 0-127) for
+// head 2 pair, half 1 for head 2 pair + 1 (none past H). It walks a
+// sequence of 64-row tiles through one two-stage ring, each a (64, 64)
+// matrix A, k-major, that the halves share, and per half a (64, PW)
+// matrix X, whose product the half adds into its rows' sums: first,
 // where a gradient leaves the chunk, the state term e^{Lam - cum_j} g B_j
 // as ceil(n / 64) tiles of B^T and g^T (rows of n), the sums then scaled
 // by e^{Lam - cum_jl} (jl the tile's last row); then the query tiles
 // nt - 1 .. jt + 1, scores S[i][j] and dy rows scaled by e^{cum_i -
 // cum_jl} in shared memory (both exponents <= 0, 0 past L); then the sums
-// times e^{cum_jl - cum_j}, and the diagonal tile, decayed and masked in
-// place (each warp's rows j start at its first, so its keys before it are
-// skipped). Each thread owns 4 rows (rg * 4 + r) by PW / 8 columns.
-// Then the tile's v_j = h_in^T dy_j and w_j = g^T x_j, (64, p) by (p, n)
-// products with both operands row-major (rows padded to PW + 4 floats),
-// in two halves of 64 columns of n, each thread 4 rows (ty + 16 r) by 8
-// columns (tx + 8 cc) of a half.
+// times e^{cum_jl - cum_j}, and the diagonal tile, decayed and masked for
+// each head (each warp's rows j start at its first, so its keys before it
+// are skipped). Each thread owns 4 rows (rg * 4 + r) by PW / 8 columns.
 template <int PW>
 __device__ __forceinline__ void dx_block(const Args& a, int blk,
                                          float* smem) {
   constexpr int QC = PW / 32;
   constexpr int XF = PW / 4;
-  constexpr int FP = PW + 4;
-  float* g_s = smem;               // [2][kT][kGP]: A, k-major
-  float* x_s = g_s + 2 * kT * kGP;  // [2][kT][PW]: X
-  float* cq_s = x_s + 2 * kT * PW;  // [kT]: cum of the key rows j
-  float* ck_s = cq_s + kT;          // [2][kT]: cum of each tile's rows
-  float* red_s = smem + dx_red_offset<PW>();  // [kT]
+  float* g_s = smem;                // [2][kT][kGP]: A, k-major, by stage
+  float* x_s = g_s + 2 * kT * kGP;  // [2][2][kT][PW]: X, by stage and half
+  float* ck_s = x_s + 4 * kT * PW;  // [2][2][kT]: cum of each tile's rows
+  float* cq_s = ck_s + 4 * kT;      // [2][kT]: cum of the key rows j
 
-  const int bh = a.b * a.H;
-  const int per_tile = bh * a.nc;
+  const int per_tile = a.b * a.nc * a.hp;
   const int jt = blk / per_tile;  // key tile 0, the heaviest, first
-  const int rest = blk % per_tile;
-  const int c = rest / bh;
-  const int bi = (rest % bh) / a.H, hh = (rest % bh) % a.H;
+  int rest = blk % per_tile;
+  const int c = rest / (a.b * a.hp);
+  rest %= a.b * a.hp;
+  const int bi = rest / a.hp;
+  const int h0 = (rest % a.hp) * 2;
+  const bool pair = h0 + 1 < a.H;  // the block has a second head
   const int tid = threadIdx.x;
-  const int cg = tid % 8, rg = tid / 8;
+  const int half = tid / kHalf, ht = tid % kHalf;
+  const int hh = half == 0 || pair ? h0 + half : h0;
+  const bool active = half == 0 || pair;
+  const int cg = ht % 8, rg = ht / 8;
   const int j0 = jt * kT;
   const int rows_j = min(kT, a.L - j0);
   const bool vec = a.vec != 0;
@@ -459,31 +676,38 @@ __device__ __forceinline__ void dx_block(const Args& a, int blk,
   const float* dyc = a.dy + (bi * static_cast<int64_t>(a.l) + c0) * yl +
                      static_cast<int64_t>(hh) * a.p;
   const float* slot_g = a.dst + (bc * a.H + hh) * a.n * PW;
-  const float* slot_h = a.st + (bc * a.H + hh) * a.n * PW;
 
-  auto load = [&](int t, int st) {
-    float* gd = g_s + st * kT * kGP;
-    float* xd = x_s + st * kT * PW;
+  auto load = [&](int t, int s) {
+    float* gd = g_s + s * kT * kGP;
+    float* xd = x_s + (s * 2 + half) * kT * PW;
     if (t < nk) {  // the workspaces' rows are 16-byte aligned
       const int k0 = t * kT;
-      load_tile<kT>(gd, kGP, a.bt + ((bc * a.nt + jt) * a.n + k0) * kT, kT,
-                    a.n - k0, kT, true);
-      load_tile<PW>(xd, PW, slot_g + k0 * PW, PW, a.n - k0, PW, true);
+      load_rows<kT, kMainThreads>(
+          gd, kGP, a.bt + ((bc * a.nt + jt) * a.n + k0) * kT, kT, a.n - k0,
+          kT, true, tid);
+      if (active)
+        load_rows<PW, kHalf>(xd, PW, slot_g + k0 * PW, PW, a.n - k0, PW,
+                             true, ht);
     } else {
       const int it = t < nk + nq ? a.nt - 1 - (t - nk) : jt;
       const int i0 = it * kT;
-      load_tile<kT>(gd, kGP,
-                    a.sc + (bc * a.ntri + it * (it + 1) / 2 + jt) * kT * kT,
-                    kT, kT, kT, true);
-      load_tile<PW>(xd, PW, dyc + i0 * yl, yl, a.L - i0, a.p, vec);
-      if (tid < kT) {
-        const bool in = i0 + tid < a.L;
-        cp_async4(ck_s + st * kT + tid, in ? cumc + i0 + tid : cumc, in);
+      load_rows<kT, kMainThreads>(
+          gd, kGP, a.sc + (bc * a.ntri + it * (it + 1) / 2 + jt) * kT * kT,
+          kT, kT, kT, true, tid);
+      if (active) {
+        load_rows<PW, kHalf>(xd, PW, dyc + i0 * yl, yl, a.L - i0, a.p, vec,
+                             ht);
+        if (ht < kT) {
+          const bool in = i0 + ht < a.L;
+          cp_async4(ck_s + (s * 2 + half) * kT + ht,
+                    in ? cumc + i0 + ht : cumc, in);
+        }
       }
     }
     cp_async_commit();
   };
-  if (tid < kT) cq_s[tid] = tid < rows_j ? cumc[j0 + tid] : 0.0f;
+  if (ht < kT)
+    cq_s[half * kT + ht] = active && ht < rows_j ? cumc[j0 + ht] : 0.0f;
   load(0, 0);
   const float lam = cumc[a.L - 1];
 
@@ -494,20 +718,20 @@ __device__ __forceinline__ void dx_block(const Args& a, int blk,
     for (int e = 0; e < 4 * QC; ++e) acc[r][e] = 0.0f;
   // this warp's 16 rows j begin at row_begin: on the diagonal tile no
   // query row before it sees them
-  const int row_begin = (tid / 32) * 16;
+  const int row_begin = (ht / 32) * 16;
+  const float* cq = cq_s + half * kT;
 
   for (int t = 0; t < tiles; ++t) {
-    const int st = t & 1;
+    const int s = t & 1;
     cp_async_wait_all();
-    __syncthreads();  // tile t is in; stage st ^ 1 is free
-    if (t + 1 < tiles) load(t + 1, st ^ 1);
-    float* gt = g_s + st * kT * kGP;
-    float* xt = x_s + st * kT * PW;
+    __syncthreads();  // tile t is in; stage s ^ 1 is free
+    if (t + 1 < tiles) load(t + 1, s ^ 1);
+    const float* gt = g_s + s * kT * kGP;
+    float* xt = x_s + (s * 2 + half) * kT * PW;
     int kmin = 0;
     int kmax = min(kT, a.n - t * kT);  // a state tile: n rows
     if (t >= nk) {
-      const float* ck = ck_s + st * kT;
-      const float cl = cq_s[rows_j - 1];  // cum of the tile's last row
+      const float cl = cq[rows_j - 1];  // cum of the tile's last row
       if (t == nk && nk > 0) {
         const float d = expf(lam - cl);  // the state sums times e^{Lam - cl}
 #pragma unroll
@@ -517,19 +741,22 @@ __device__ __forceinline__ void dx_block(const Args& a, int blk,
       }
       if (t < nk + nq) {
         const int i0 = (a.nt - 1 - (t - nk)) * kT;
-        // dy_i *= e^{cum_i - cl}: float4 tid % XF of rows tid / XF + m
-        // kThreads / XF; rows past L are zeros
+        const float* ck = ck_s + (s * 2 + half) * kT;
+        // dy_i *= e^{cum_i - cl}: float4 ht % XF of rows ht / XF + m
+        // kHalf / XF; rows past L are zeros
+        if (active) {
 #pragma unroll
-        for (int m = 0; m < kT * XF / kThreads; ++m) {
-          const int i = tid / XF + m * (kThreads / XF);
-          float4* xv = reinterpret_cast<float4*>(xt + i * PW) + tid % XF;
-          const float d = i0 + i < a.L ? expf(ck[i] - cl) : 0.0f;
-          float4 v = *xv;
-          v.x *= d;
-          v.y *= d;
-          v.z *= d;
-          v.w *= d;
-          *xv = v;
+          for (int m = 0; m < kT * XF / kHalf; ++m) {
+            const int i = ht / XF + m * (kHalf / XF);
+            float4* xv = reinterpret_cast<float4*>(xt + i * PW) + ht % XF;
+            const float d = i0 + i < a.L ? expf(ck[i] - cl) : 0.0f;
+            float4 v = *xv;
+            v.x *= d;
+            v.y *= d;
+            v.z *= d;
+            v.w *= d;
+            *xv = v;
+          }
         }
         kmax = kT;
       } else {
@@ -537,52 +764,67 @@ __device__ __forceinline__ void dx_block(const Args& a, int blk,
           // the sums so far times e^{cl - cum_j}
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            const float u = expf(cl - cq_s[rg * 4 + r]);
+            const float u = expf(cl - cq[rg * 4 + r]);
 #pragma unroll
             for (int e = 0; e < 4 * QC; ++e) acc[r][e] *= u;
           }
         }
-        // S[i][j] of key columns j in [jb 32, jb 32 + 32), decayed and
-        // masked in place
+        // S[i][j] of key columns j in [jb 16, jb 16 + 16), decayed and
+        // masked for head h0 in place and for head h0 + 1 into stage s ^ 1
+        // (free: the diagonal is the last tile)
         const int i = tid % kT, jb = tid / kT;
-        const float ci = ck[i];
+        const float* ck0 = ck_s + (s * 2) * kT;
+        const float* ck1 = ck0 + kT;
+        const float c0i = ck0[i], c1i = ck1[i];
+        float* g0 = g_s + s * kT * kGP;
+        float* g1 = g_s + (s ^ 1) * kT * kGP;
+        const bool row = i < rows_j;
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const int j = jb * 32 + 4 * m;
-          float4* gv = reinterpret_cast<float4*>(gt + i * kGP + j);
-          float4 v = *gv;
-          const bool row = i < rows_j;
-          v.x = (row && j <= i) ? v.x * expf(ci - cq_s[j]) : 0.0f;
-          v.y = (row && j + 1 <= i) ? v.y * expf(ci - cq_s[j + 1]) : 0.0f;
-          v.z = (row && j + 2 <= i) ? v.z * expf(ci - cq_s[j + 2]) : 0.0f;
-          v.w = (row && j + 3 <= i) ? v.w * expf(ci - cq_s[j + 3]) : 0.0f;
-          *gv = v;
+        for (int m = 0; m < 4; ++m) {
+          const int j = jb * 16 + 4 * m;
+          const float4 v = *reinterpret_cast<const float4*>(g0 + i * kGP + j);
+          const float sv[4] = {v.x, v.y, v.z, v.w};
+          float o0[4], o1[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool in = row && j + e <= i;
+            o0[e] = in ? sv[e] * expf(c0i - cq_s[j + e]) : 0.0f;
+            o1[e] = (in && pair) ? sv[e] * expf(c1i - cq_s[kT + j + e])
+                                 : 0.0f;
+          }
+          *reinterpret_cast<float4*>(g0 + i * kGP + j) =
+              make_float4(o0[0], o0[1], o0[2], o0[3]);
+          *reinterpret_cast<float4*>(g1 + i * kGP + j) =
+              make_float4(o1[0], o1[1], o1[2], o1[3]);
         }
         kmin = row_begin;
         kmax = kT;
+        gt = half == 0 ? g0 : g1;
       }
       __syncthreads();
     }
+    if (!active) continue;
     const float* gc = gt + rg * 4;
     const float* xc = xt + cg * 4;
 #pragma unroll 4
     for (int k = kmin; k < kmax; ++k) {
       const float4 sv = *reinterpret_cast<const float4*>(gc + k * kGP);
-      const float s[4] = {sv.x, sv.y, sv.z, sv.w};
+      const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
-      for (int q = 0; q < QC; ++q) {
+      for (int qq = 0; qq < QC; ++qq) {
         const float4 xv =
-            *reinterpret_cast<const float4*>(xc + k * PW + q * 32);
+            *reinterpret_cast<const float4*>(xc + k * PW + qq * 32);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          acc[r][4 * q + 0] = fmaf(s[r], xv.x, acc[r][4 * q + 0]);
-          acc[r][4 * q + 1] = fmaf(s[r], xv.y, acc[r][4 * q + 1]);
-          acc[r][4 * q + 2] = fmaf(s[r], xv.z, acc[r][4 * q + 2]);
-          acc[r][4 * q + 3] = fmaf(s[r], xv.w, acc[r][4 * q + 3]);
+          acc[r][4 * qq + 0] = fmaf(s4[r], xv.x, acc[r][4 * qq + 0]);
+          acc[r][4 * qq + 1] = fmaf(s4[r], xv.y, acc[r][4 * qq + 1]);
+          acc[r][4 * qq + 2] = fmaf(s4[r], xv.z, acc[r][4 * qq + 2]);
+          acc[r][4 * qq + 3] = fmaf(s4[r], xv.w, acc[r][4 * qq + 3]);
         }
       }
     }
   }
+  if (!active) return;
 
   const int64_t row_el = static_cast<int64_t>(a.H) * a.p;
   float* dxp = a.dx + (bi * static_cast<int64_t>(a.l) + c0 + j0) * row_el +
@@ -593,153 +835,47 @@ __device__ __forceinline__ void dx_block(const Args& a, int blk,
     if (j >= rows_j) continue;
     float* drow = dxp + j * row_el;
 #pragma unroll
-    for (int q = 0; q < QC; ++q) {
-      const int col = (cg + 8 * q) * 4;
+    for (int qq = 0; qq < QC; ++qq) {
+      const int col = (cg + 8 * qq) * 4;
       if (a.p % 4 == 0) {
         if (col < a.p)
           *reinterpret_cast<float4*>(drow + col) =
-              make_float4(acc[r][4 * q], acc[r][4 * q + 1],
-                          acc[r][4 * q + 2], acc[r][4 * q + 3]);
+              make_float4(acc[r][4 * qq], acc[r][4 * qq + 1],
+                          acc[r][4 * qq + 2], acc[r][4 * qq + 3]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (col + e < a.p) drow[col + e] = acc[r][4 * q + e];
+          if (col + e < a.p) drow[col + e] = acc[r][4 * qq + e];
       }
     }
-  }
-
-  // v_j = h_in^T dy_j (phase 0) and w_j = g^T x_j (phase 1) of the tile's
-  // rows: rows j = ty + 16 r, columns k = tx + 8 cc of n
-  const int tx = tid % 8, ty = tid / 8;
-  float* a_s = smem;           // [kT][FP]: dy or x rows
-  float* m_s = a_s + kT * FP;  // [kN][FP]: h_in^T or g^T, rows of n
-  float sv_r[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // dcum's state terms
-  float lw_r[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // d Lam's share
-  for (int phase = 0; phase < 2; ++phase) {
-    if (phase == 0 ? !has_h(a, c) : !with_g) continue;
-    __syncthreads();  // the ring (or the last phase's tiles) is done
-    if (phase == 0)
-      load_tile<PW>(a_s, FP, dyc + j0 * yl, yl, rows_j, a.p, vec);
-    else
-      load_tile<PW>(a_s, FP,
-                    a.x + bi * a.xb + hh * a.xh + (c0 + j0) * a.xl, a.xl,
-                    rows_j, a.p, vec);
-    const float* slot = phase == 0 ? slot_h : slot_g;
-    load_tile<PW>(m_s, FP, slot, PW, a.n, PW, true);
-    if (a.n > kT)
-      load_tile<PW>(m_s + kT * FP, FP, slot + kT * PW, PW, a.n - kT, PW, true);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    // the n columns in two halves of 64, each thread 8 columns a half
-    float dots[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float* out = phase == 0 ? a.vs : a.ws;
-    for (int half = 0; half < 2; ++half) {
-      const int col0 = half * 64;
-      if (col0 >= a.n) break;
-      float f[4][8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) f[r][cc] = 0.0f;
-#pragma unroll 2
-      for (int k = 0; k < PW; k += 4) {
-        float4 av[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          av[r] = *reinterpret_cast<const float4*>(a_s + (ty + 16 * r) * FP +
-                                                   k);
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) {
-          const float4 bv = *reinterpret_cast<const float4*>(
-              m_s + (col0 + tx + 8 * cc) * FP + k);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            float t = f[r][cc];
-            t = fmaf(av[r].x, bv.x, t);
-            t = fmaf(av[r].y, bv.y, t);
-            t = fmaf(av[r].z, bv.z, t);
-            f[r][cc] = fmaf(av[r].w, bv.w, t);
-          }
-        }
-      }
-      // e^{cum_j} v_j into vs (phase 0), e^{Lam - cum_j} w_j into ws
-      // (phase 1); the dots with C_j or B_j summed over the columns
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = ty + 16 * r;
-        if (j >= rows_j) continue;
-        const float cj = cumc[j0 + j];
-        const float scale = phase == 0 ? expf(cj) : expf(lam - cj);
-        const int64_t row = bi * static_cast<int64_t>(a.l) + c0 + j0 + j;
-        const float* vrow = phase == 0
-                                ? a.C + bi * a.cb + (c0 + j0 + j) * a.cl
-                                : a.B + bi * a.bb + (c0 + j0 + j) * a.bl;
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) {
-          const int col = col0 + tx + 8 * cc;
-          if (col < a.n) {
-            dots[r] = fmaf(f[r][cc], vrow[col], dots[r]);
-            out[(row * a.H + hh) * a.n + col] = scale * f[r][cc];
-          }
-        }
-      }
-    }
-    // e^{cum_j} C_j . v_j into dcum_j (phase 0); e^{Lam - cum_j} B_j . w_j
-    // out of dcum_j and into d Lam (phase 1)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = ty + 16 * r;
-      const bool in = j < rows_j;
-      const float cj = in ? cumc[j0 + j] : 0.0f;
-      const float scale = in ? (phase == 0 ? expf(cj) : expf(lam - cj))
-                             : 0.0f;
-      float dot = dots[r];
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-      const float term = scale * dot;
-      if (phase == 0) {
-        sv_r[r] += term;
-      } else {
-        sv_r[r] -= term;
-        lw_r[r] = term;
-      }
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = ty + 16 * r;
-      if (j < rows_j) a.sv[head * a.l + c0 + j0 + j] = sv_r[r];
-      red_s[j] = j < rows_j ? lw_r[r] : 0.0f;
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int j = 0; j < kT; ++j) s += red_s[j];
-    a.lw[(head * a.nc + c) * a.nt + jt] = s;
   }
 }
 
 // one (b, chunk, causal tile pair it >= jt, group of kGroupHeads heads):
-// per head the (64, 64) products dy_i . x_j of the pair (both operands
-// row-major, rows padded to PW + 4 floats), decayed by e^{cum_i - cum_j}
-// and masked (j <= i, rows before L), added over the group's heads in
-// order into W; and per head the row and column sums of M = S W, the
-// diagonal left out, into mp (rows: over the tx lanes by xor shuffles;
-// columns: over each warp's rows by xor shuffles, then the warps in turn).
+// the pair's scores staged once; then per head, two stages deep, the
+// (64, 64) products dy_i . x_j of the pair (both operands row-major, rows
+// padded to PW + 4 floats), their p split between the block's halves
+// (each thread 4 rows (ty + 16 r) by 8 columns (tx + 8 cc) over half of
+// p, then the halves' sums exchanged so that each thread holds 2 of its
+// rows whole: half 0 rows 0-31, half 1 rows 32-63), decayed by
+// e^{cum_i - cum_j} (off the diagonal as the row factor e^{cum_i - cum_r}
+// times the column factor e^{cum_r - cum_j}, r the key tile's last row:
+// both <= 1) and masked (j <= i, rows before L), added over the group's
+// heads in order into W; and per head the row and column sums of M = S W,
+// the diagonal left out, into mp (rows: over the tx lanes by xor
+// shuffles; columns: over each warp's row groups by xor shuffles, then
+// the warps in turn).
 template <int PW>
 __device__ __forceinline__ void w_block(const Args& a, int blk,
                                         float* smem) {
   constexpr int FP = PW + 4;
-  float* q_s = smem;             // [kT][FP]: dy rows of the query tile
-  float* k_s = q_s + kT * FP;    // [kT][FP]: x rows of the key tile
-  float* s_s = k_s + kT * FP;    // [kT][kSP]: the pair's scores
-  float* ci_s = s_s + kT * kSP;  // [kT]
-  float* cj_s = ci_s + kT;       // [kT]
-  float* red_s = cj_s + kT;      // [kWarps][kT]
+  constexpr int kStage = 2 * kT * FP + 2 * kT;  // dy, x and both rows' cum
+  constexpr int kMainWarps = kMainThreads / 32;
+  constexpr int KH = PW / 2;                    // p a half takes
+  float* s_s = smem;                      // [kT][kSP]: the pair's scores
+  float* red_s = s_s + kT * kSP;          // [kMainWarps][kT]: column sums
+  float* x_s = red_s + kMainWarps * kT;   // [kT][kXP]: the halves' exchange
+  float* ring = x_s + kT * kXP;           // [2][kStage]
   const int tile = blk % a.ntri;
   const int rest = blk / a.ntri;
   const int grp = rest % a.G;
@@ -748,95 +884,136 @@ __device__ __forceinline__ void w_block(const Args& a, int blk,
   int it = 0;
   while ((it + 1) * (it + 2) / 2 <= tile) ++it;
   const int jt = tile - it * (it + 1) / 2;
+  const bool diag = it == jt;
   const int i0 = it * kT, j0 = jt * kT;
   const int rows_i = min(kT, a.L - i0), rows_j = min(kT, a.L - j0);
   const int tid = threadIdx.x;
-  const int tx = tid % 8, ty = tid / 8;
+  const int kh = tid / kHalf, ht = tid % kHalf;
+  const int tx = ht % 8, ty = ht / 8;
   const int lane = tid & 31, warp = tid >> 5;
   const bool vec = a.vec != 0;
   const int64_t c0 = static_cast<int64_t>(c) * a.L;
   const int64_t yl = dy_row(a);
+  const int h_lo = grp * kGroupHeads;
+  const int h_end = min(a.H, h_lo + kGroupHeads);
 
-  const float* sct = a.sc + (static_cast<int64_t>(bc) * a.ntri + tile) * kT *
-                                kT;
-  for (int e = tid; e < kT * kT / 4; e += kThreads) {
-    const int i = e / (kT / 4), j = (e % (kT / 4)) * 4;
-    *reinterpret_cast<float4*>(s_s + i * kSP + j) =
-        *reinterpret_cast<const float4*>(sct + i * kT + j);
-  }
-  float wacc[4][8];
+  auto load = [&](int h, int s) {
+    float* qd = ring + s * kStage;
+    float* kd = qd + kT * FP;
+    float* cd = kd + kT * FP;
+    load_rows<PW, kMainThreads>(
+        qd, FP,
+        a.dy + (bi * static_cast<int64_t>(a.l) + c0 + i0) * yl +
+            static_cast<int64_t>(h) * a.p,
+        yl, rows_i, a.p, vec, tid);
+    load_rows<PW, kMainThreads>(
+        kd, FP, a.x + bi * a.xb + h * a.xh + (c0 + j0) * a.xl, a.xl, rows_j,
+        a.p, vec, tid);
+    const float* cum =
+        a.cum + (static_cast<int64_t>(bi) * a.H + h) * a.l + c0;
+    if (tid < 2 * kT) {  // the query rows' cum, then the key rows'
+      const int r = tid % kT;
+      const int r0 = tid < kT ? i0 : j0;
+      const bool in = r < (tid < kT ? rows_i : rows_j);
+      cp_async4(cd + tid, in ? cum + r0 + r : cum, in);
+    }
+    cp_async_commit();
+  };
+  load_rows<kT, kMainThreads>(
+      s_s, kSP, a.sc + (static_cast<int64_t>(bc) * a.ntri + tile) * kT * kT,
+      kT, kT, kT, true, tid);
+  load(h_lo, 0);  // one group with the scores
+
+  float wacc[2][8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc) wacc[r][cc] = 0.0f;
-  const int h_end = min(a.H, (grp + 1) * kGroupHeads);
-  for (int h = grp * kGroupHeads; h < h_end; ++h) {
-    __syncthreads();  // the last head is done with the tiles and red_s
-    load_tile<PW>(q_s, FP,
-                  a.dy + (bi * static_cast<int64_t>(a.l) + c0 + i0) * yl +
-                      static_cast<int64_t>(h) * a.p,
-                  yl, rows_i, a.p, vec);
-    load_tile<PW>(k_s, FP, a.x + bi * a.xb + h * a.xh + (c0 + j0) * a.xl,
-                  a.xl, rows_j, a.p, vec);
-    cp_async_commit();
-    const float* cum = a.cum + (static_cast<int64_t>(bi) * a.H + h) * a.l +
-                       c0;
-    if (tid < kT) {
-      ci_s[tid] = tid < rows_i ? cum[i0 + tid] : 0.0f;
-      cj_s[tid] = tid < rows_j ? cum[j0 + tid] : 0.0f;
-    }
+  for (int h = h_lo; h < h_end; ++h) {
+    const int s = (h - h_lo) & 1;
     cp_async_wait_all();
-    __syncthreads();
+    __syncthreads();  // head h is in; stage s ^ 1, x_s and red_s are free
+    if (h + 1 < h_end) load(h + 1, s ^ 1);
+    const float* q_s = ring + s * kStage + kh * KH;
+    const float* k_s = ring + s * kStage + kT * FP + kh * KH;
+    const float* ci_s = ring + s * kStage + 2 * kT * FP;
+    const float* cj_s = ci_s + kT;
     float pr[4][8];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int cc = 0; cc < 8; ++cc) pr[r][cc] = 0.0f;
-#pragma unroll 2
-    for (int k = 0; k < PW; k += 4) {
-      float4 qv[4], kv[8];
+#pragma unroll 1
+    for (int k = 0; k < KH; k += 4) {
+      float4 qv[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         qv[r] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * r) * FP + k);
 #pragma unroll
-      for (int cc = 0; cc < 8; ++cc)
-        kv[cc] = *reinterpret_cast<const float4*>(k_s + (tx + 8 * cc) * FP + k);
+      for (int cc = 0; cc < 8; ++cc) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(k_s + (tx + 8 * cc) * FP + k);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) {
-          float t = pr[r][cc];
-          t = fmaf(qv[r].x, kv[cc].x, t);
-          t = fmaf(qv[r].y, kv[cc].y, t);
-          t = fmaf(qv[r].z, kv[cc].z, t);
-          pr[r][cc] = fmaf(qv[r].w, kv[cc].w, t);
+        for (int r = 0; r < 4; ++r) {
+          float u = pr[r][cc];
+          u = fmaf(qv[r].x, kv.x, u);
+          u = fmaf(qv[r].y, kv.y, u);
+          u = fmaf(qv[r].z, kv.z, u);
+          pr[r][cc] = fmaf(qv[r].w, kv.w, u);
         }
+      }
     }
-    float rs[4], cs[8];
+    // the rows the other half keeps, through x_s
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc)
+        x_s[(ty + 16 * (2 * (1 - kh) + rr)) * kXP + tx + 8 * cc] =
+            kh ? pr[rr][cc] : pr[2 + rr][cc];
+    __syncthreads();
+    // the factors off the diagonal (0 past L)
+    const float cr = cj_s[rows_j - 1];
+    float fi[2], fj[8];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = ty + 16 * (2 * kh + rr);
+      fi[rr] = (!diag && i < rows_i) ? expf(ci_s[i] - cr) : 0.0f;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc) {
+      const int j = tx + 8 * cc;
+      fj[cc] = (!diag && j < rows_j) ? expf(cr - cj_s[j]) : 0.0f;
+    }
+    float rs[2], cs[8];
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc) cs[cc] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ty + 16 * r;
-      const float ci = ci_s[i];
-      rs[r] = 0.0f;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = ty + 16 * (2 * kh + rr);
+      rs[rr] = 0.0f;
 #pragma unroll
       for (int cc = 0; cc < 8; ++cc) {
         const int j = tx + 8 * cc;
-        const bool in = i < rows_i && j < rows_j && (it > jt || j <= i);
-        const float w = in ? pr[r][cc] * expf(ci - cj_s[j]) : 0.0f;
-        wacc[r][cc] += w;
-        const float m =
-            (it > jt || j < i) ? s_s[i * kSP + j] * w : 0.0f;
-        rs[r] += m;
+        const float own = kh ? pr[2 + rr][cc] : pr[rr][cc];  // half 0's first
+        const float p = kh ? x_s[i * kXP + j] + own : own + x_s[i * kXP + j];
+        float w;
+        if (diag) {
+          const bool in = i < rows_i && j <= i;
+          w = in ? p * expf(ci_s[i] - cj_s[j]) : 0.0f;
+        } else {
+          w = p * fi[rr] * fj[cc];
+        }
+        wacc[rr][cc] += w;
+        const float m = (!diag || j < i) ? s_s[i * kSP + j] * w : 0.0f;
+        rs[rr] += m;
         cs[cc] += m;
       }
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 4);
+    for (int rr = 0; rr < 2; ++rr) {
+      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 1);
+      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 2);
+      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 4);
     }
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc) {
@@ -847,7 +1024,7 @@ __device__ __forceinline__ void w_block(const Args& a, int blk,
                            2 * kT;
     if (tx == 0) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) mp[ty + 16 * r] = rs[r];
+      for (int rr = 0; rr < 2; ++rr) mp[ty + 16 * (2 * kh + rr)] = rs[rr];
     }
     if (lane < 8) {
 #pragma unroll
@@ -857,52 +1034,71 @@ __device__ __forceinline__ void w_block(const Args& a, int blk,
     if (tid < kT) {
       float v = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red_s[w * kT + tid];
+      for (int w = 0; w < kMainWarps; ++w) v += red_s[w * kT + tid];
       mp[kT + tid] = v;
     }
   }
   float* out = a.wp + ((static_cast<int64_t>(bc) * a.G + grp) * a.ntri +
                        tile) * kT * kT;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc)
-      out[(ty + 16 * r) * kT + tx + 8 * cc] = wacc[r][cc];
+      out[(ty + 16 * (2 * kh + rr)) * kT + tx + 8 * cc] = wacc[rr][cc];
 }
 
-// pass 3. Blocks [0, b H nc nt): dx, block i taking key tile i / (b H nc)
-// (tile 0, the heaviest, first) of chunk (i % (b H nc)) / (b H) of
-// (b, head) i % (b H); the b nc ntri G blocks after them: W, block j
-// taking tile pair j % ntri of group (j / ntri) % G of (b, chunk)
-// j / (ntri G).
+// pass 3, three kernels of 256 threads, each block kind its own kernel so
+// that each gets its own registers (at most 128 a thread at p <= 64: two
+// blocks, 16 warps, an SM; in one kernel their union spilled). State
+// blocks: block i takes column block i % nh of tile (i / nh) % nt, head
+// group (i / (nh nt)) % SG and kind (i / (nh nt SG)) % 2 of (b, chunk)
+// i / (2 nh nt SG) (a kind with no state in the chunk returns). dx
+// blocks: block j takes key tile j / (b nc hp) (tile 0, the heaviest,
+// first) of chunk (j % (b nc hp)) / (b hp) of b (j % (b hp)) / hp and head
+// pair j % hp. W blocks: block k takes tile pair k % ntri of group
+// (k / ntri) % G of (b, chunk) k / (ntri G).
 template <int PW>
-__global__ void __launch_bounds__(kThreads, PW <= 64 ? 2 : 1)
-    ssd_bwd_main_kernel(Args a) {
+__global__ void __launch_bounds__(kMainThreads, PW <= 64 ? 2 : 1)
+    ssd_bwd_state_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int dx_blocks = a.b * a.H * a.nc * a.nt;
-  const int blk = static_cast<int>(blockIdx.x);
-  if (blk < dx_blocks)
-    dx_block<PW>(a, blk, smem);
-  else
-    w_block<PW>(a, blk - dx_blocks, smem);
+  state_block<PW>(a, static_cast<int>(blockIdx.x),
+                  reinterpret_cast<float*>(smem4));
+}
+
+template <int PW>
+__global__ void __launch_bounds__(kMainThreads, PW <= 64 ? 2 : 1)
+    ssd_bwd_dx_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  dx_block<PW>(a, static_cast<int>(blockIdx.x),
+               reinterpret_cast<float*>(smem4));
+}
+
+template <int PW>
+__global__ void __launch_bounds__(kMainThreads, PW <= 64 ? 2 : 1)
+    ssd_bwd_w_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  w_block<PW>(a, static_cast<int>(blockIdx.x),
+              reinterpret_cast<float*>(smem4));
 }
 
 // ---- pass 4
 
-// one (b, chunk, tile t) of dC (which 0: rows i of query tile t, the
-// groups' W tiles (t, u), u <= t, summed in order and transposed in
-// shared memory, times B's rows of tile u) or of dB (which 1: rows j of
-// key tile t, W tiles (u, t), u >= t, times C's rows of tile u); then its
-// head sum of vs (dC, where a state enters the chunk) or ws (dB, where a
-// gradient leaves it), heads in order. Each thread owns 4 rows (rg * 4 +
-// r) by 4 float4s of n ((cg + 8 q) * 4).
+// one (b, chunk, tile t, block q of kNH columns of n) of dC (which 0: rows
+// i of query tile t, the groups' W tiles (t, u), u <= t, summed in order
+// and transposed in shared memory, times B's rows of tile u) or of dB
+// (which 1: rows j of key tile t, W tiles (u, t), u >= t, times C's rows
+// of tile u); then its rows of `sd`, the head groups in order (dC, where a
+// state enters the chunk; dB, where a gradient leaves it). Each thread
+// owns 4 rows (rg * 4 + r) by 2 float4s of the block's columns
+// ((cg + 8 q2) * 4).
 __device__ __forceinline__ void bc_block(const Args& a, int blk,
                                          float* smem) {
-  float* w_s = smem;           // [kT][kGP]: W, k-major
-  float* m_s = w_s + kT * kGP;  // [kT][kN]: B or C rows
+  float* w_s = smem;            // [kT][kGP]: W, k-major
+  float* m_s = w_s + kT * kGP;  // [kT][kNH]: B or C rows, the block's columns
   const int which = blk & 1;
-  const int rest = blk >> 1;
+  int rest = blk >> 1;
+  const int q = rest % a.nh;
+  rest /= a.nh;
   const int t = rest % a.nt;
   const int bc = rest / a.nt;
   const int bi = bc / a.nc, c = bc - bi * a.nc;
@@ -910,40 +1106,56 @@ __device__ __forceinline__ void bc_block(const Args& a, int blk,
   const int cg = tid % 8, rg = tid / 8;
   const int t0 = t * kT;
   const int rows = min(kT, a.L - t0);
+  const int col0 = q * kNH;
+  const int cols = min(kNH, a.n - col0);
   const bool vec = a.vec != 0;
   const int64_t c0 = static_cast<int64_t>(c) * a.L;
   const int64_t gstride = static_cast<int64_t>(a.ntri) * kT * kT;
   const float* wbase = a.wp + static_cast<int64_t>(bc) * a.G * gstride;
 
-  float acc[4][16];
+  float acc[4][8];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[r][e] = 0.0f;
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.0f;
   const int u_lo = which == 0 ? 0 : t;
   const int u_hi = which == 0 ? t : a.nt - 1;
   for (int u = u_lo; u <= u_hi; ++u) {
     const int pair = which == 0 ? t * (t + 1) / 2 + u : u * (u + 1) / 2 + t;
     __syncthreads();  // the last tile is done
     if (which == 0)
-      load_tile<kN>(m_s, kN, a.B + bi * a.bb + (c0 + u * kT) * a.bl, a.bl,
-                    a.L - u * kT, a.n, vec);
+      load_tile<kNH>(m_s, kNH, a.B + bi * a.bb + (c0 + u * kT) * a.bl + col0,
+                     a.bl, a.L - u * kT, cols, vec);
     else
-      load_tile<kN>(m_s, kN, a.C + bi * a.cb + (c0 + u * kT) * a.cl, a.cl,
-                    a.L - u * kT, a.n, vec);
+      load_tile<kNH>(m_s, kNH, a.C + bi * a.cb + (c0 + u * kT) * a.cl + col0,
+                     a.cl, a.L - u * kT, cols, vec);
     cp_async_commit();
-    const float* wt = wbase + static_cast<int64_t>(pair) * kT * kT;
-    for (int e = tid; e < kT * kT / 4; e += kThreads) {
-      const int i = e / (kT / 4), j = (e % (kT / 4)) * 4;
-      float4 v = *reinterpret_cast<const float4*>(wt + i * kT + j);
-      for (int g = 1; g < a.G; ++g) {
-        const float4 o =
-            *reinterpret_cast<const float4*>(wt + g * gstride + i * kT + j);
-        v.x += o.x;
-        v.y += o.y;
-        v.z += o.z;
-        v.w += o.w;
+    // the groups' W tiles summed in order, each group's 8 float4s a thread
+    // loaded together
+    const float4* wt = reinterpret_cast<const float4*>(
+        wbase + static_cast<int64_t>(pair) * kT * kT);
+    constexpr int kPer = kT * kT / 4 / kThreads;
+    float4 ws[kPer];
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) ws[m] = wt[tid + m * kThreads];
+    for (int g = 1; g < a.G; ++g) {
+      float4 o[kPer];
+#pragma unroll
+      for (int m = 0; m < kPer; ++m)
+        o[m] = wt[g * gstride / 4 + tid + m * kThreads];
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) {
+        ws[m].x += o[m].x;
+        ws[m].y += o[m].y;
+        ws[m].z += o[m].z;
+        ws[m].w += o[m].w;
       }
+    }
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int e = tid + m * kThreads;
+      const int i = e / (kT / 4), j = (e % (kT / 4)) * 4;
+      const float4 v = ws[m];
       if (which == 0) {  // k = j: transposed
         w_s[(j + 0) * kGP + i] = v.x;
         w_s[(j + 1) * kGP + i] = v.y;
@@ -962,54 +1174,74 @@ __device__ __forceinline__ void bc_block(const Args& a, int blk,
       const float4 sv = *reinterpret_cast<const float4*>(wc + k * kGP);
       const float s[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q2 = 0; q2 < 2; ++q2) {
         const float4 mv =
-            *reinterpret_cast<const float4*>(mc + k * kN + q * 32);
+            *reinterpret_cast<const float4*>(mc + k * kNH + q2 * 32);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          acc[r][4 * q + 0] = fmaf(s[r], mv.x, acc[r][4 * q + 0]);
-          acc[r][4 * q + 1] = fmaf(s[r], mv.y, acc[r][4 * q + 1]);
-          acc[r][4 * q + 2] = fmaf(s[r], mv.z, acc[r][4 * q + 2]);
-          acc[r][4 * q + 3] = fmaf(s[r], mv.w, acc[r][4 * q + 3]);
+          acc[r][4 * q2 + 0] = fmaf(s[r], mv.x, acc[r][4 * q2 + 0]);
+          acc[r][4 * q2 + 1] = fmaf(s[r], mv.y, acc[r][4 * q2 + 1]);
+          acc[r][4 * q2 + 2] = fmaf(s[r], mv.z, acc[r][4 * q2 + 2]);
+          acc[r][4 * q2 + 3] = fmaf(s[r], mv.w, acc[r][4 * q2 + 3]);
         }
       }
     }
   }
-  const bool heads = which == 0 ? has_h(a, c) : has_g(a, c);
-  const float* hsum = which == 0 ? a.vs : a.ws;
+  // the rows of sd, the head groups in order, each group's loaded together
+  const bool state = which == 0 ? has_h(a, c) : has_g(a, c);
   float* out = which == 0 ? a.dC : a.dB;
+  const int64_t part = static_cast<int64_t>(a.b) * a.l * a.n;  // a group's
+  const float* sd = a.sd + static_cast<int64_t>(which) * a.SG * part;
+  const int64_t row0 = (bi * static_cast<int64_t>(a.l) + c0 + t0) * a.n +
+                       col0;
+  if (state) {
+    for (int g = 0; g < a.SG; ++g) {
+      float4 v[4][2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q2 = 0; q2 < 2; ++q2) {
+          const int i = rg * 4 + r, col = (cg + 8 * q2) * 4;
+          v[r][q2] = i < rows && col < cols
+                         ? *reinterpret_cast<const float4*>(
+                               sd + g * part + row0 + i * a.n + col)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q2 = 0; q2 < 2; ++q2) {
+          acc[r][4 * q2 + 0] += v[r][q2].x;
+          acc[r][4 * q2 + 1] += v[r][q2].y;
+          acc[r][4 * q2 + 2] += v[r][q2].z;
+          acc[r][4 * q2 + 3] += v[r][q2].w;
+        }
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = rg * 4 + r;
     if (i >= rows) continue;
-    const int64_t row = bi * static_cast<int64_t>(a.l) + c0 + t0 + i;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = (cg + 8 * q) * 4;
-      if (col >= a.n) continue;
-      float4 o = make_float4(acc[r][4 * q], acc[r][4 * q + 1],
-                             acc[r][4 * q + 2], acc[r][4 * q + 3]);
-      if (heads) {
-        for (int h = 0; h < a.H; ++h) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              hsum + (row * a.H + h) * a.n + col);
-          o.x += v.x;
-          o.y += v.y;
-          o.z += v.z;
-          o.w += v.w;
-        }
-      }
-      *reinterpret_cast<float4*>(out + row * a.n + col) = o;
+    for (int q2 = 0; q2 < 2; ++q2) {
+      const int col = (cg + 8 * q2) * 4;
+      if (col < cols)
+        *reinterpret_cast<float4*>(out + row0 + i * a.n + col) =
+            make_float4(acc[r][4 * q2], acc[r][4 * q2 + 1],
+                        acc[r][4 * q2 + 2], acc[r][4 * q2 + 3]);
     }
   }
 }
 
-// one (b, head, chunk): dcum_i = sv_i (the state terms) + M's row sums of
-// the pairs (tile(i), jt <= tile(i)) - its column sums of the pairs
-// (it >= tile(i), tile(i)), and for the last row d Lam (lam's ny shares,
-// then lw's nt), in this order; written over sv, then suffix-summed within
-// the chunk into d dlogA (segments of kThreads steps from the chunk's
-// end, a shuffle scan in each warp, the warps' totals added in order).
+// one (b, head, chunk): dcum_i = the state terms (`sv`: kind 0's column
+// blocks in order where a state enters, less kind 1's where a gradient
+// leaves) + M's row sums of the pairs (tile(i), jt <= tile(i)) - its
+// column sums of the pairs (it >= tile(i), tile(i)), and for the last row
+// d Lam (lam's ny shares, then the chunk's kind-1 terms: each thread its
+// rows in order, the lanes by xor shuffles, the warps in turn), in this
+// order; written over slot 0 of sv, then suffix-summed within the chunk
+// into d dlogA (segments of kThreads steps from the chunk's end, a shuffle
+// scan in each warp, the warps' totals added in order).
 __device__ __forceinline__ void dlogA_block(const Args& a, int blk,
                                             float* smem) {
   float* warp_s = smem;  // [kWarps]
@@ -1020,27 +1252,47 @@ __device__ __forceinline__ void dlogA_block(const Args& a, int blk,
   const int64_t bc = static_cast<int64_t>(bi) * a.nc + c;
   const int64_t c0 = static_cast<int64_t>(c) * a.L;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* dc = a.sv + head * a.l + c0;
-  float dlam = 0.0f;
-  for (int y = 0; y < a.ny; ++y) dlam += a.lam[(head * a.nc + c) * a.ny + y];
-  for (int t = 0; t < a.nt; ++t) dlam += a.lw[(head * a.nc + c) * a.nt + t];
+  const int sw = 2 * a.nh;  // sv's row stride
+  float* dc = a.sv + (head * a.l + c0) * sw;
+  const bool with_h = has_h(a, c), with_g = has_g(a, c);
+  float wsum = 0.0f;
   for (int i = threadIdx.x; i < a.L; i += kThreads) {
     const int t = i / kT, r = i % kT;
-    float v = dc[i];
+    float v = 0.0f;
+    if (with_h)
+      for (int q = 0; q < a.nh; ++q) v += dc[i * sw + q];
+    if (with_g) {
+      float w = 0.0f;
+      for (int q = 0; q < a.nh; ++q) w += dc[i * sw + a.nh + q];
+      v -= w;
+      wsum += w;
+    }
     for (int jt = 0; jt <= t; ++jt)
       v += a.mp[((bc * a.ntri + t * (t + 1) / 2 + jt) * a.H + hh) * 2 * kT +
                 r];
     for (int it = t; it < a.nt; ++it)
       v -= a.mp[((bc * a.ntri + it * (it + 1) / 2 + t) * a.H + hh) * 2 * kT +
                 kT + r];
-    if (i == a.L - 1) v += dlam;
-    dc[i] = v;
+    dc[i * sw] = v;
   }
-  __syncthreads();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    wsum += __shfl_xor_sync(0xffffffffu, wsum, off);
+  if (lane == 0) warp_s[warp] = wsum;
+  __syncthreads();  // the warps' totals, and dc, are written
+  if (threadIdx.x == 0) {
+    float dlam = 0.0f;
+    for (int y = 0; y < a.ny; ++y)
+      dlam += a.lam[(head * a.nc + c) * a.ny + y];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) dlam += warp_s[w];
+    dc[(a.L - 1) * sw] += dlam;
+  }
+  __syncthreads();  // dc's last row is final; warp_s is free
   float carry = 0.0f;
   for (int s0 = 0; s0 < a.L; s0 += kThreads) {
     const int k = a.L - 1 - (s0 + static_cast<int>(threadIdx.x));
-    float v = k >= 0 ? dc[k] : 0.0f;
+    float v = k >= 0 ? dc[k * sw] : 0.0f;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float t = __shfl_up_sync(0xffffffffu, v, off);
@@ -1061,14 +1313,14 @@ __device__ __forceinline__ void dlogA_block(const Args& a, int blk,
   }
 }
 
-// pass 4. Blocks [0, 2 b nc nt): dC and dB, block i taking tile
-// (i / 2) % nt of (b, chunk) i / (2 nt), dC for even i; the b H nc blocks
-// after them: d dlogA, block j taking chunk j / (b H) of (b, head)
-// j % (b H).
+// pass 4. Blocks [0, 2 nh b nc nt): dC and dB, block i taking column block
+// (i / 2) % nh of tile (i / (2 nh)) % nt of (b, chunk) i / (2 nh nt), dC
+// for even i; the b H nc blocks after them: d dlogA, block j taking chunk
+// j / (b H) of (b, head) j % (b H).
 __global__ void __launch_bounds__(kThreads) ssd_bwd_final_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int bc_blocks = 2 * a.b * a.nc * a.nt;
+  const int bc_blocks = 2 * a.nh * a.b * a.nc * a.nt;
   const int blk = static_cast<int>(blockIdx.x);
   if (blk < bc_blocks)
     bc_block(a, blk, smem);
@@ -1076,7 +1328,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_final_kernel(Args a) {
     dlogA_block(a, blk - bc_blocks, smem);
 }
 
-// opt the three large kernels in to the device's largest dynamic shared
+// opt the five large kernels in to the device's largest dynamic shared
 // memory and carveout (the wrapper sizes each launch: ssd.py::
 // backward_plan), once per device
 template <int PW>
@@ -1088,9 +1340,11 @@ cudaError_t configure(int device) {
   cudaError_t err = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  const void* kernels[3] = {
+  const void* kernels[5] = {
       reinterpret_cast<const void*>(&ssd_bwd_chunk_kernel<PW>),
-      reinterpret_cast<const void*>(&ssd_bwd_main_kernel<PW>),
+      reinterpret_cast<const void*>(&ssd_bwd_state_kernel<PW>),
+      reinterpret_cast<const void*>(&ssd_bwd_dx_kernel<PW>),
+      reinterpret_cast<const void*>(&ssd_bwd_w_kernel<PW>),
       reinterpret_cast<const void*>(&ssd_bwd_final_kernel)};
   for (const void* k : kernels) {
     err = cudaFuncSetAttribute(k,
@@ -1105,7 +1359,7 @@ cudaError_t configure(int device) {
   return cudaSuccess;
 }
 
-// the four launches on one stream, with the wrapper's grids and dynamic
+// the six launches on one stream, with the wrapper's grids and dynamic
 // shared memory (ssd.py::backward_plan)
 template <int PW>
 cudaError_t launch(const Args& a, const int* grid, int device,
@@ -1121,12 +1375,20 @@ cudaError_t launch(const Args& a, const int* grid, int device,
                             kPassThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_main_kernel<PW><<<static_cast<unsigned>(grid[4]), kThreads,
-                            static_cast<size_t>(grid[5]), stream>>>(a);
+  ssd_bwd_state_kernel<PW><<<static_cast<unsigned>(grid[4]), kMainThreads,
+                             static_cast<size_t>(grid[5]), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_final_kernel<<<static_cast<unsigned>(grid[6]), kThreads,
-                         static_cast<size_t>(grid[7]), stream>>>(a);
+  ssd_bwd_dx_kernel<PW><<<static_cast<unsigned>(grid[6]), kMainThreads,
+                          static_cast<size_t>(grid[7]), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_w_kernel<PW><<<static_cast<unsigned>(grid[8]), kMainThreads,
+                         static_cast<size_t>(grid[9]), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_final_kernel<<<static_cast<unsigned>(grid[10]), kThreads,
+                         static_cast<size_t>(grid[11]), stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1139,12 +1401,12 @@ cudaError_t launch(const Args& a, const int* grid, int device,
 // null (zeros); cum and states the forward's workspaces (ssd.py::
 // launch_plan), the states after its pass (slot c the state entering
 // chunk c). Outputs, contiguous: dx (b, l, h, p), d dlogA (b, l, h), dB
-// and dC (b, l, n), dh0 (b, h, p, n) or null (not wanted). The ten
+// and dC (b, l, n), dh0 (b, h, p, n) or null (not wanted). The eight
 // workspaces as ssd.py::backward_plan shapes them, in its order (dst, sc,
-// bt, lam, wp, mp, vs, ws, sv, lw). has_h0: the forward had an h0. vec:
-// x, B, C and dy have 16-byte aligned base addresses and row strides.
-// grid: ssd.py::backward_plan's launch values, each kernel's blocks (the
-// pass's as x, y) and dynamic shared memory in bytes. Returns the first
+// bt, lam, wp, mp, sd, sv). has_h0: the forward had an h0. vec: x, B, C
+// and dy have 16-byte aligned base addresses and row strides. grid:
+// ssd.py::backward_plan's launch values, each kernel's blocks (the pass's
+// as x, y) and dynamic shared memory in bytes. Returns the first
 // cudaGetLastError() that is not cudaSuccess (cudaErrorInvalidValue for
 // shapes or a plan out of range).
 extern "C" int ssd_bwd_f32(const void* x, const void* B, const void* C,
@@ -1161,13 +1423,17 @@ extern "C" int ssd_bwd_f32(const void* x, const void* B, const void* C,
   const int pw = p <= 64 ? 64 : 128;
   const int ny = (n * pw + kPassThreads * kPassVals - 1) /
                  (kPassThreads * kPassVals);
+  const int nh = (n + kNH - 1) / kNH;
+  const int hp = (H + 1) / 2;
+  const int sg = (H + kStateHeads - 1) / kStateHeads;
+  const int nc = L >= 1 ? l / L : 0;
   if (L < 1 || l % L != 0 || p < 1 || p > 128 || n < 4 || n > kN ||
       n % 4 != 0 || groups != (H + kGroupHeads - 1) / kGroupHeads ||
       grid[2] != b * H || grid[3] != ny ||
-      grid[0] != b * H * (l / L) + b * (l / L) * nt * (nt + 1) / 2 ||
-      grid[4] != b * H * (l / L) * nt +
-                     b * (l / L) * nt * (nt + 1) / 2 * groups ||
-      grid[6] != 2 * b * (l / L) * nt + b * H * (l / L))
+      grid[0] != b * H * nc + b * nc * nt * (nt + 1) / 2 ||
+      grid[4] != 2 * b * nc * nt * sg * nh || grid[6] != b * nc * nt * hp ||
+      grid[8] != b * nc * nt * (nt + 1) / 2 * groups ||
+      grid[10] != 2 * nh * b * nc * nt + b * H * nc)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = static_cast<const float*>(x);
@@ -1188,21 +1454,22 @@ extern "C" int ssd_bwd_f32(const void* x, const void* B, const void* C,
   a.lam = static_cast<float*>(work[3]);
   a.wp = static_cast<float*>(work[4]);
   a.mp = static_cast<float*>(work[5]);
-  a.vs = static_cast<float*>(work[6]);
-  a.ws = static_cast<float*>(work[7]);
-  a.sv = static_cast<float*>(work[8]);
-  a.lw = static_cast<float*>(work[9]);
+  a.sd = static_cast<float*>(work[6]);
+  a.sv = static_cast<float*>(work[7]);
   a.b = b;
   a.l = l;
   a.L = L;
   a.H = H;
   a.p = p;
   a.n = n;
-  a.nc = l / L;
+  a.nc = nc;
   a.nt = nt;
   a.ntri = nt * (nt + 1) / 2;
   a.G = groups;
+  a.SG = sg;
   a.ny = ny;
+  a.nh = nh;
+  a.hp = hp;
   a.has_h0 = has_h0;
   a.vec = vec;
   a.xb = strides[0];

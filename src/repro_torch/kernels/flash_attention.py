@@ -180,8 +180,9 @@ def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                                      or v.requires_grad):
         raise NotImplementedError(
             f"flash_attention has no {q.dtype} backward (fp32 only): bf16 "
-            f"LM training is ROADMAP Queue 1 item 14d-3; call it under "
-            f"torch.no_grad() or torch.inference_mode()")
+            f"LM training is ROADMAP item 14d-3 (speed work after the "
+            f"port); call it under torch.no_grad() or "
+            f"torch.inference_mode()")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
@@ -319,7 +320,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The scratch (`BackwardPlan.scratch_bytes`) lives for the call."""
     if q.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: fp32 only, got {q.dtype} "
-                        f"(bf16 training is ROADMAP Queue 1 item 14d-3)")
+                        f"(bf16 training is ROADMAP item 14d-3)")
     B, Sq, Sk, Hq, Hkv, hd = _check(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != (B, Hq, Sq):

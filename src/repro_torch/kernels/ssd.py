@@ -29,9 +29,12 @@ is neither refused nor copied on the host.
 On inputs that require grad (grad mode on), `ssd` is a
 ``torch.autograd.Function``: its forward keeps the workspaces ``cum`` and
 ``states`` (16.8 MB at mamba2-370m's train shape), and its backward is
-`ssd_bwd` (``csrc/ssd_bwd.cu``, four launches with the grids and shared
-memory of `backward_plan`; no Pallas counterpart: `repro` differentiates
-its oracle), whose plain version is `repro_torch.kernels.ref.ssd_bwd_ref`.
+`ssd_bwd` (``csrc/ssd_bwd.cu``, six launches with the grids and shared
+memory of `backward_plan`: dh_in terms and scores; the reverse state
+pass; the state terms of dC and dB summed over groups of heads; dx, two
+heads a block; W per group of heads; dC, dB and d dlogA. No Pallas
+counterpart: `repro` differentiates its oracle), whose plain version is
+`repro_torch.kernels.ref.ssd_bwd_ref`.
 
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to a plain version (`repro_torch.kernels.ops.ssd` picks the
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -67,9 +71,17 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9 + (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 #: heads whose W a block of the backward sums (csrc/ssd_bwd.cu kGroupHeads)
 BWD_GROUP_HEADS = 8
+#: heads whose state terms a state block of the backward sums
+#: (csrc/ssd_bwd.cu kStateHeads)
+BWD_STATE_HEADS = 8
+#: a block of the backward's state, dx and W kernels (a dx block's two
+#: halves of 128 threads take one head each of a pair)
+BWD_MAIN_THREADS = 256
+#: columns of n a state block, or a dC / dB block of the final kernel,
+#: takes (csrc/ssd_bwd.cu kNH)
+BWD_COLS = 64
 #: the backward's workspaces, in the order the C entry takes them
-BWD_WORKSPACES = ("dst", "sc", "bt", "lam", "wp", "mp", "vs", "ws", "sv",
-                  "lw")
+BWD_WORKSPACES = ("dst", "sc", "bt", "lam", "wp", "mp", "sd", "sv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +119,7 @@ def smem_bytes(p: int) -> dict:
     return {"chunk": 4 * max(state, scores), "output": 4 * output}
 
 
+@functools.lru_cache(maxsize=64)
 def launch_plan(b: int, l: int, H: int, p: int, n: int, L: int) -> Plan:
     """The three launches for an op of these shapes (L the chunk length,
     l a multiple of it): grids as ``(x, y)``, shared memory, and the
@@ -165,15 +178,20 @@ class BackwardPlan:
     """The launches of one backward (``csrc/ssd_bwd.cu``): p padded to
     ``pw``, ``nc`` chunks of ``nt`` 64-row tiles and ``ntri`` causal tile
     pairs, ``groups`` head groups of `BWD_GROUP_HEADS`, ``ny`` pass blocks
-    a (b, head); per kernel its grid and its dynamic shared memory in
-    bytes; the workspace shapes (float32, in `BWD_WORKSPACES` order);
-    ``launch``, the eight launch values ``ssd_bwd_f32`` takes."""
+    a (b, head), ``nh`` blocks of `BWD_COLS` columns of n, ``hp`` head
+    pairs, ``sg`` head groups of `BWD_STATE_HEADS`; per kernel its grid
+    and its dynamic shared memory in bytes; the workspace shapes
+    (float32, in `BWD_WORKSPACES` order); ``launch``, the twelve launch
+    values ``ssd_bwd_f32`` takes."""
     pw: int
     nc: int
     nt: int
     ntri: int
     groups: int
     ny: int
+    nh: int
+    hp: int
+    sg: int
     grids: dict
     smem: dict
     workspace: dict
@@ -185,46 +203,74 @@ class BackwardPlan:
                    for s in self.workspace.values())
 
 
+def backward_smem(p: int) -> dict:
+    """Dynamic shared memory, in bytes, that a block of each backward
+    kernel is launched with: what ``csrc/ssd_bwd.cu`` carves out, which
+    depends on p's padding alone. ``chunk``: the larger of a dh_in block's
+    C and dy tiles two stages deep and a scores block's C and B tiles;
+    ``state``: two stages of a dy or x tile, a tile of h_in^T or g^T rows
+    and the rows' cum; ``dx``: two stages of one shared A tile and each
+    half's X tile and cum, the halves' key cum; ``w``: the pair's score
+    tile, the warps' column sums, the tile the halves exchange, two stages
+    of dy and x tiles with both rows' cum; ``final``: a dC / dB block's W
+    tile and B or C rows."""
+    pw = 64 if p <= 64 else 128
+    T, N, warps = TILE, MAX_STATE, THREADS // 32
+    gp, cp, fp = T + 4, N + 4, pw + 4
+    state = 2 * (2 * T * fp + T)
+    dx = 2 * T * gp + 4 * T * pw + 4 * T + 2 * T
+    w = 2 * T * (T + 8) + (BWD_MAIN_THREADS // 32) * T + \
+        2 * (2 * T * fp + 2 * T)
+    return {"chunk": 4 * max(2 * T * N + 2 * T * pw, 2 * T * cp),
+            "state": 4 * state, "dx": 4 * dx, "w": 4 * w,
+            "final": 4 * max(T * gp + T * BWD_COLS, warps)}
+
+
+@functools.lru_cache(maxsize=64)
 def backward_plan(b: int, l: int, H: int, p: int, n: int,
                   L: int) -> BackwardPlan:
-    """The four launches of a backward of these shapes (L the chunk
+    """The six launches of a backward of these shapes (L the chunk
     length, l a multiple of it), as ``csrc/ssd_bwd.cu`` decodes them:
     ``chunk`` (b H nc dh_in blocks, then b nc ntri score blocks),
-    ``pass`` ((b H, ny)), ``main`` (b H nc nt dx blocks, then b nc ntri
-    groups W blocks), ``final`` (2 b nc nt dC / dB blocks, then b H nc
-    d dlogA blocks); each kernel's shared memory (what it carves out);
-    the workspaces. Raises ``ValueError`` where a grid would exceed
-    CUDA's extent."""
+    ``pass`` ((b H, ny)), ``state`` (2 b nc nt sg nh blocks), ``dx`` (b nc
+    nt hp blocks), ``w`` (b nc ntri groups blocks), ``final`` (2 nh b nc
+    nt dC / dB blocks, then b H nc d dlogA blocks); each kernel's
+    shared memory (`backward_smem`); the workspaces, none of them
+    (b, l, H, n): ``sd`` (2, sg, b, l, n) holds dC's and dB's state
+    terms summed over each group of `BWD_STATE_HEADS` heads, ``sv``
+    (b, H, l, 2, nh) each head's dcum state terms by kind and column
+    block. Raises ``ValueError``
+    where a grid would exceed CUDA's extent."""
     pw = 64 if p <= 64 else 128
     nc = l // L
     nt = -(-L // TILE)
     ntri = nt * (nt + 1) // 2
     groups = -(-H // BWD_GROUP_HEADS)
     ny = -(-n * pw // (PASS_THREADS * PASS_VALUES))
+    nh = -(-n // BWD_COLS)
+    hp = -(-H // 2)
+    sg = -(-H // BWD_STATE_HEADS)
     grids = {"chunk": (b * H * nc + b * nc * ntri, 1), "pass": (b * H, ny),
-             "main": (b * H * nc * nt + b * nc * ntri * groups, 1),
-             "final": (2 * b * nc * nt + b * H * nc, 1)}
+             "state": (2 * b * nc * nt * sg * nh, 1),
+             "dx": (b * nc * nt * hp, 1), "w": (b * nc * ntri * groups, 1),
+             "final": (2 * nh * b * nc * nt + b * H * nc, 1)}
     for name, (gx, _) in grids.items():
         if gx > MAX_GRID_X:
             raise ValueError(f"ssd_bwd: the {name} kernel's grid of {gx} "
                              f"blocks is more than CUDA takes ({MAX_GRID_X})")
-    T, N, warps = TILE, MAX_STATE, THREADS // 32
-    gp, cp, sp, fp = T + 4, N + 4, T + 8, pw + 4
-    red = max(2 * T * gp + 2 * T * pw + 3 * T, (T + N) * fp)
-    smem = {"chunk": 4 * max(2 * T * N + 2 * T * pw, 2 * T * cp),
-            "main": 4 * max(red + T, 2 * T * fp + T * sp + 2 * T + warps * T),
-            "final": 4 * max(T * gp + T * N, warps)}
+    T = TILE
+    smem = backward_smem(p)
     work = {"dst": (b, nc, H, n, pw), "sc": (b, nc, ntri, T, T),
             "bt": (b, nc, nt, n, T), "lam": (b, H, nc, ny),
             "wp": (b, nc, groups, ntri, T, T), "mp": (b, nc, ntri, H, 2, T),
-            "vs": (b, l, H, n), "ws": (b, l, H, n), "sv": (b, H, l),
-            "lw": (b, H, nc, nt)}
+            "sd": (2, sg, b, l, n), "sv": (b, H, l, 2, nh)}
     return BackwardPlan(
-        pw=pw, nc=nc, nt=nt, ntri=ntri, groups=groups, ny=ny, grids=grids,
-        smem=smem, workspace={k: work[k] for k in BWD_WORKSPACES},
+        pw=pw, nc=nc, nt=nt, ntri=ntri, groups=groups, ny=ny, nh=nh, hp=hp,
+        sg=sg, grids=grids, smem=smem,
+        workspace={k: work[k] for k in BWD_WORKSPACES},
         launch=(grids["chunk"][0], smem["chunk"], *grids["pass"],
-                grids["main"][0], smem["main"], grids["final"][0],
-                smem["final"]))
+                *(v for k in ("state", "dx", "w", "final")
+                  for v in (grids[k][0], smem[k]))))
 
 
 def backward_flops(b: int, l: int, H: int, p: int, n: int, L: int,
@@ -405,16 +451,16 @@ def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     h0 as the forward took them (dlogA is checked, not read), ``cum`` and
     ``states`` its workspaces (`ssd_with_work`). dy and dh_last are copied
     if not contiguous. Returns contiguous float32 tensors of the inputs'
-    shapes; dh0 is None when h0 is. One call launches the four kernels of
+    shapes; dh0 is None when h0 is. One call launches the six kernels of
     `backward_plan` and adds one to ``ssd_bwd.launches``; its workspaces
-    (`BackwardPlan.scratch_bytes`: 169 MB at mamba2-370m's train shape)
+    (`BackwardPlan.scratch_bytes`: 53 MB at mamba2-370m's train shape)
     live for the call."""
     b, l, H, p, n, L = _check(x, dlogA, B, C, chunk, h0)
     plan = backward_plan(b, l, H, p, n, L)
     dev = x.device
     for name, t, shape in (("dy", dy, (b, l, H, p)),
                            ("dh_last", dh_last, (b, H, p, n)),
-                           ("cum", cum, plan.workspace["sv"]),
+                           ("cum", cum, (b, H, l)),
                            ("states", states, (b, plan.nc, H, n, plan.pw))):
         if t is not None and (tuple(t.shape) != shape or
                               t.dtype != torch.float32 or t.device != dev):
@@ -446,7 +492,7 @@ def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     strides = (ctypes.c_longlong * 7)(
         x.stride(0), x.stride(1), x.stride(2), B.stride(0), B.stride(1),
         C.stride(0), C.stride(1))
-    grid = (ctypes.c_int * 8)(*plan.launch)
+    grid = (ctypes.c_int * len(plan.launch))(*plan.launch)
     lib_fn = _build.entry("ssd_bwd", "ssd_bwd_f32", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check("ssd_bwd", lib_fn(
@@ -463,7 +509,7 @@ def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
 
 #: ops since the last reset (plain ints; chip_smoke.py zeroes them before
 #: driving the main path and reads them after): one per three-launch
-#: forward (the autograd Function's included), one per four-launch
+#: forward (the autograd Function's included), one per six-launch
 #: backward
 ssd.launches = 0
 ssd_bwd.launches = 0

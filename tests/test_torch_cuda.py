@@ -715,8 +715,10 @@ def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
 
 # K5 backward cases (b, l, H, p, n, chunk, dlogA, h0, dh_last): the train
 # run's shape at batch 2, the test_kernels shapes with h0 and dh_last,
-# one chunk, eight chunks, a ragged chunk, p 128, p 24 with n 4, and 9
-# heads (two head groups of the W blocks, the second of one head)
+# one chunk, eight chunks, a ragged chunk, p 128, p 24 with n 4, 9 heads
+# (a dx block of one head; second W and state head groups of one head),
+# 17 heads (three groups), one head, and n 100 with a ragged chunk of 80
+# (a column block of 36)
 K5_BWD_SHAPES = [(2, 512, 32, 64, 128, 256, "model", False, False),
                  (2, 256, 4, 32, 16, 64, "kernels", True, True),
                  (1, 64, 1, 64, 32, 64, "kernels", False, True),
@@ -724,7 +726,10 @@ K5_BWD_SHAPES = [(2, 512, 32, 64, 128, 256, "model", False, False),
                  (2, 100, 8, 64, 128, 256, "model", False, False),
                  (1, 256, 4, 128, 64, 128, "model", True, False),
                  (2, 192, 3, 24, 4, 64, "model", True, True),
-                 (2, 192, 9, 16, 8, 64, "model", False, True)]
+                 (2, 192, 9, 16, 8, 64, "model", False, True),
+                 (1, 192, 17, 8, 8, 64, "model", True, True),
+                 (1, 128, 1, 32, 16, 64, "kernels", True, False),
+                 (1, 160, 2, 24, 100, 80, "model", True, True)]
 # each gradient against the plain version's as a share of its largest
 # element: fp32 sums over up to 256 positions and the heads in another
 # order than autograd's; d dlogA's row and column sums nearly cancel, so

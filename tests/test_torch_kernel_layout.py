@@ -11,7 +11,7 @@ head splits, slabs of keys and the scratch between its passes); K5
 (`ssd`) splits the scan into three launches over (b, head, chunk) and
 64-row tiles (`ssd.launch_plan`), and copies in 16-byte pieces only
 where every row is aligned (`ssd.aligned16`); its backward launches by
-`ssd.backward_plan` (four launches, head groups, workspaces), run here in
+`ssd.backward_plan` (six launches, head groups, workspaces), run here in
 float64 through its block lists against the plain gradient; K6's
 backward takes `rglru_scan.backward_blocks` blocks. These
 are tested here without a card; the kernels
@@ -787,92 +787,118 @@ def test_ssd_kernel_flops_count_the_launched_blocks(b, l, H, p, n, L, h0):
 
 # ------------------------------------------------- K5's backward (ssd_bwd)
 
+# shapes for the backward's plan beside K5_PLANS: one head (a dx block
+# with an empty second half), 3 heads (one pair and a single), 17 heads
+# (a second W group of one head), n 100 (a ragged second column block)
+K5_BWD_PLANS = [(1, 128, 1, 32, 16, 64, True),
+                (2, 128, 3, 16, 12, 128, False),
+                (1, 192, 17, 8, 8, 64, True),
+                (1, 160, 2, 24, 100, 80, True)]
+
+
 def _bwd_blocks(plan, b, H):
-    """What each block of the backward's four launches takes, in block
+    """What each block of the backward's six launches takes, in block
     order, as ``csrc/ssd_bwd.cu`` decodes ``blockIdx``: ``chunk``:
     ("dstate", b, head, chunk), then ("scores", b, chunk, it, jt);
-    ``pass``: (b, head, y); ``main``: ("dx", b, head, chunk, jt), key tile
-    0 first, then ("W", b, chunk, it, jt, group); ``final``: ("dC" or
-    "dB", b, chunk, tile), then ("dlogA", b, head, chunk)."""
+    ``pass``: (b, head, y); ``state``: (kind, b, chunk, tile, head group,
+    column block); ``dx``: (b, chunk, jt, (heads of the pair)), key tile 0
+    first; ``w``: (b, chunk, it, jt, group); ``final``: ("dC" or "dB", b,
+    chunk, tile, column block), then ("dlogA", b, head, chunk)."""
     bh = b * H
+    nc, nt, nh, hp, sg = plan.nc, plan.nt, plan.nh, plan.hp, plan.sg
 
     def pair(tile):
         it = 0
         while (it + 1) * (it + 2) // 2 <= tile:
             it += 1
         return it, tile - it * (it + 1) // 2
-    out = {"chunk": [], "pass": [], "main": [], "final": []}
+    out = {"chunk": [], "pass": [], "state": [], "dx": [], "w": [],
+           "final": []}
     for blk in range(plan.grids["chunk"][0]):
-        if blk < bh * plan.nc:
+        if blk < bh * nc:
             i = blk % bh
             out["chunk"].append(("dstate", i // H, i % H, blk // bh))
         else:
-            j = blk - bh * plan.nc
+            j = blk - bh * nc
             bc = j // plan.ntri
-            out["chunk"].append(("scores", bc // plan.nc, bc % plan.nc,
+            out["chunk"].append(("scores", bc // nc, bc % nc,
                                  *pair(j % plan.ntri)))
     for x in range(plan.grids["pass"][0]):
         for y in range(plan.grids["pass"][1]):
             out["pass"].append((x // H, x % H, y))
-    per_tile = bh * plan.nc
-    for blk in range(plan.grids["main"][0]):
-        if blk < per_tile * plan.nt:
-            rest = blk % per_tile
-            out["main"].append(("dx", (rest % bh) // H, (rest % bh) % H,
-                                rest // bh, blk // per_tile))
-        else:
-            j = blk - per_tile * plan.nt
-            rest = j // plan.ntri
-            bc = rest // plan.groups
-            out["main"].append(("W", bc // plan.nc, bc % plan.nc,
-                                *pair(j % plan.ntri), rest % plan.groups))
+    for blk in range(plan.grids["state"][0]):
+        q, rest = blk % nh, blk // nh
+        t, rest = rest % nt, rest // nt
+        g, rest = rest % sg, rest // sg
+        kind, bc = rest % 2, rest // 2
+        out["state"].append((kind, bc // nc, bc % nc, t, g, q))
+    for j in range(plan.grids["dx"][0]):
+        jt, rest = j // (b * nc * hp), j % (b * nc * hp)
+        c, rest = rest // (b * hp), rest % (b * hp)
+        h0 = (rest % hp) * 2
+        out["dx"].append((rest // hp, c, jt, tuple(range(h0, min(h0 + 2, H)))))
+    for j in range(plan.grids["w"][0]):
+        rest = j // plan.ntri
+        bc = rest // plan.groups
+        out["w"].append((bc // nc, bc % nc, *pair(j % plan.ntri),
+                         rest % plan.groups))
+    n_bc = 2 * nh * b * nc * nt
     for blk in range(plan.grids["final"][0]):
-        if blk < 2 * b * plan.nc * plan.nt:
+        if blk < n_bc:
             rest = blk >> 1
-            bc = rest // plan.nt
+            q, rest = rest % nh, rest // nh
+            t, bc = rest % nt, rest // nt
             out["final"].append(("dC" if blk % 2 == 0 else "dB",
-                                 bc // plan.nc, bc % plan.nc,
-                                 rest % plan.nt))
+                                 bc // nc, bc % nc, t, q))
         else:
-            j = blk - 2 * b * plan.nc * plan.nt
+            j = blk - n_bc
             out["final"].append(("dlogA", (j % bh) // H, (j % bh) % H,
                                  j // bh))
     return out
 
 
-@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS)
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS + K5_BWD_PLANS)
 def test_ssd_backward_plan_covers_every_block_once(b, l, H, p, n, L, h0):
     """Each kind of block of the backward takes its unit of work once:
-    every (b, head, chunk) for the dh_in terms, dx's key tiles and d
-    dlogA; every causal tile pair of every (b, chunk) for the scores,
-    and with every head group for W; every tile of every (b, chunk) for
-    dC and for dB; and dx's blocks run key tile 0 (the most query tiles)
-    first."""
+    every (b, head, chunk) for the dh_in terms and d dlogA; every (b,
+    chunk, tile, column block) for dC and dB, and with every group of 8
+    heads for each kind of state block; every (b, head, chunk, key tile)
+    for dx, two heads a block (the last alone where H is odd), key tile
+    0 (the most query tiles) first; every causal tile pair of every (b,
+    chunk) for the scores, and with every group of 8 heads for W."""
     plan = k5.backward_plan(b, l, H, p, n, L)
     blocks = _bwd_blocks(plan, b, H)
     heads = [(bi, hh, c) for bi in range(b) for hh in range(H)
              for c in range(plan.nc)]
     pairs = [(bi, c, it, jt) for bi in range(b) for c in range(plan.nc)
              for it in range(plan.nt) for jt in range(it + 1)]
-    tiles = [(bi, c, t) for bi in range(b) for c in range(plan.nc)
-             for t in range(plan.nt)]
-    chunk, main, final = blocks["chunk"], blocks["main"], blocks["final"]
+    tiles = [(bi, c, t, q) for bi in range(b) for c in range(plan.nc)
+             for t in range(plan.nt) for q in range(plan.nh)]
+    chunk, final = blocks["chunk"], blocks["final"]
     assert sorted(k[1:] for k in chunk if k[0] == "dstate") == sorted(heads)
     assert sorted(k[1:] for k in chunk if k[0] == "scores") == sorted(pairs)
     assert sorted(blocks["pass"]) == sorted(
         (bi, hh, y) for bi in range(b) for hh in range(H)
         for y in range(plan.ny))
-    dx = [k[1:] for k in main if k[0] == "dx"]
-    assert sorted(dx) == sorted(h + (t,) for h in heads
-                                for t in range(plan.nt))
-    assert [k[-1] for k in dx] == sorted(k[-1] for k in dx)
-    assert sorted(k[1:] for k in main if k[0] == "W") == sorted(
+    for kind in (0, 1):
+        assert sorted(k[1:] for k in blocks["state"] if k[0] == kind) == \
+            sorted(t[:3] + (g, t[3]) for t in tiles for g in range(plan.sg))
+    dx = blocks["dx"]
+    assert all(len(hs) == (2 if hs[0] + 1 < H else 1) for *_, hs in dx)
+    assert sorted((bi, hh, c, jt) for bi, c, jt, hs in dx for hh in hs) == \
+        sorted(h + (t,) for h in heads for t in range(plan.nt))
+    assert [k[2] for k in dx] == sorted(k[2] for k in dx)
+    assert sorted(blocks["w"]) == sorted(
         p_ + (g,) for p_ in pairs for g in range(plan.groups))
     for kind in ("dC", "dB"):
         assert sorted(k[1:] for k in final if k[0] == kind) == sorted(tiles)
     assert sorted(k[1:] for k in final if k[0] == "dlogA") == sorted(heads)
     assert plan.groups * k5.BWD_GROUP_HEADS >= H > \
         (plan.groups - 1) * k5.BWD_GROUP_HEADS
+    assert plan.hp == -(-H // 2) and plan.nh * k5.BWD_COLS >= n > \
+        (plan.nh - 1) * k5.BWD_COLS
+    assert plan.sg * k5.BWD_STATE_HEADS >= H > \
+        (plan.sg - 1) * k5.BWD_STATE_HEADS
     # the pass blocks cover the (n, pw) transposed state
     assert plan.ny * k5.PASS_THREADS * k5.PASS_VALUES >= n * plan.pw
 
@@ -881,30 +907,48 @@ def test_ssd_backward_plan_covers_every_block_once(b, l, H, p, n, L, h0):
 def test_ssd_backward_shared_memory_fits_and_matches_the_carve_up(p):
     """The shared memory each backward kernel launches with: what
     ``csrc/ssd_bwd.cu`` carves out (the chunk kernel's C and dy tiles two
-    deep or its C and B score tiles; the main kernel's dx ring, prefix
-    sums and v / w tiles, then 64 floats, or the W block's dy, x and
-    score tiles; the final kernel's W and B / C tiles), within what a
-    block may opt in to on Hopper."""
+    deep or its C and B score tiles; the main kernel's state block (dy or
+    x and h_in^T or g^T tiles with their rows' cum, two stages), dx block
+    (the shared A tiles and each half's X tiles and cum, two stages; the
+    halves' key cum) or W block (the pair's score tile, the warps' column
+    sums, the tile its halves exchange, two stages of dy and x tiles with
+    both rows' cum); the final
+    kernel's W tile
+    and 64 columns of B or C), within what a block may opt in to on
+    Hopper; at p <= 64 two main blocks (16 warps) fit an SM's 228 KB."""
     plan = k5.backward_plan(1, 64, 1, p, 128, 64)
     pw = plan.pw
-    ring = 2 * 64 * 68 + 2 * 64 * pw + 3 * 64
-    vw = (64 + 128) * (pw + 4)
-    w = 2 * 64 * (pw + 4) + 64 * 72 + 2 * 64 + 4 * 64
+    fp = pw + 4
+    state = 2 * (2 * 64 * fp + 64)
+    dx = 2 * 64 * 68 + 4 * 64 * pw + 4 * 64 + 2 * 64
+    w = 64 * 72 + 8 * 64 + 64 * 72 + 2 * (2 * 64 * fp + 2 * 64)
     assert plan.smem == {
         "chunk": 4 * max(2 * 64 * 128 + 2 * 64 * pw, 2 * 64 * 132),
-        "main": 4 * max(max(ring, vw) + 64, w),
-        "final": 4 * (64 * 68 + 64 * 128)}
+        "state": 4 * state, "dx": 4 * dx, "w": 4 * w,
+        "final": 4 * (64 * 68 + 64 * 64)}
     assert max(plan.smem.values()) <= k5.MAX_SMEM
-    src = (_build_src("ssd_bwd.cu"))
+    if pw == 64:   # 1 KB of each block's is the system's
+        for kind in ("state", "dx", "w"):
+            assert 2 * (plan.smem[kind] + 1024) <= 228 * 1024
+    src = _build_src("ssd_bwd.cu")
     for carve in ("float* y_s = c_s + 2 * kT * kN;  // [2][kT][PW]",
-                  "float* x_s = g_s + 2 * kT * kGP;  // [2][kT][PW]: X",
-                  "float* red_s = smem + dx_red_offset<PW>();  // [kT]",
-                  "float* m_s = a_s + kT * FP;  // [kN][FP]",
-                  "float* s_s = k_s + kT * FP;    // [kT][kSP]",
-                  "float* red_s = cj_s + kT;      // [kWarps][kT]",
-                  "float* m_s = w_s + kT * kGP;  // [kT][kN]",
-                  "constexpr int kGroupHeads = 8;", "kSP = kT + 8;"):
+                  "constexpr int kStage = 2 * kT * FP + kT;",
+                  "float* x_s = g_s + 2 * kT * kGP;  // [2][2][kT][PW]",
+                  "float* ck_s = x_s + 4 * kT * PW;  // [2][2][kT]",
+                  "float* cq_s = ck_s + 4 * kT;      // [2][kT]",
+                  "constexpr int kStage = 2 * kT * FP + 2 * kT;",
+                  "float* red_s = s_s + kT * kSP;",
+                  "float* x_s = red_s + kMainWarps * kT;",
+                  "float* ring = x_s + kT * kXP;",
+                  "kSP = kT + 8;", "kXP = kT + 8;",
+                  "float* m_s = w_s + kT * kGP;  // [kT][kNH]",
+                  "constexpr int kGroupHeads = 8;",
+                  "constexpr int kStateHeads = 8;",
+                  "constexpr int kMainThreads = 256;",
+                  "constexpr int kNH = 64;",
+                  "__launch_bounds__(kMainThreads, PW <= 64 ? 2 : 1)"):
         assert carve in src, carve
+    assert k5.BWD_MAIN_THREADS == 256 and k5.BWD_COLS == 64
 
 
 def _build_src(name):
@@ -913,18 +957,30 @@ def _build_src(name):
 
 
 def test_ssd_backward_plan_at_the_train_shape():
-    """mamba2-370m at B 8, S 512: 672 / (256, 4) / 2,688 / 640 blocks, 4
-    head groups, and 169 MB of workspaces (`vs` and `ws`, 67 MB each,
-    the most); 9.01 GFLOP of least work without h0 or dh_last."""
+    """mamba2-370m at B 8, S 512: 672 / (256, 4) / 1,024 state (half of
+    them with no state to sum) / 1,024 dx / 640 W / 768 blocks, 4 head
+    groups of 8 for W and for the state terms, 16 head pairs, and
+    53 MB of workspaces, the largest `dst` and `sd` (16.8 MB each): no
+    (b, l, H, n) head-sum workspace (134 MB of them at this shape);
+    9.01 GFLOP of least work without h0 or dh_last."""
     plan = k5.backward_plan(8, 512, 32, 64, 128, 256)
     assert plan.grids == {"chunk": (672, 1), "pass": (256, 4),
-                          "main": (2688, 1), "final": (640, 1)}
-    assert plan.groups == 4 and plan.ny == 4
-    assert plan.launch == (672, plan.smem["chunk"], 256, 4, 2688,
-                           plan.smem["main"], 640, plan.smem["final"])
+                          "state": (1024, 1), "dx": (1024, 1), "w": (640, 1),
+                          "final": (768, 1)}
+    assert (plan.groups, plan.ny, plan.nh, plan.hp, plan.sg) == \
+        (4, 4, 2, 16, 4)
+    assert plan.launch == (672, plan.smem["chunk"], 256, 4,
+                           1024, plan.smem["state"], 1024, plan.smem["dx"],
+                           640, plan.smem["w"], 768, plan.smem["final"])
     assert plan.scratch_bytes() == 4 * sum(
         -(-int(np.prod(s)) // 4) * 4 for s in plan.workspace.values())
-    assert 168e6 < plan.scratch_bytes() < 170e6
+    assert 53e6 < plan.scratch_bytes() < 54e6
+    assert np.prod(plan.workspace["dst"]) == np.prod(plan.workspace["sd"])
+    assert max(np.prod(s) for s in plan.workspace.values()) == \
+        np.prod(plan.workspace["dst"])
+    assert (8, 512, 32, 128) not in plan.workspace.values()
+    assert plan.workspace["sd"] == (2, 4, 8, 512, 128)
+    assert plan.workspace["sv"] == (8, 32, 512, 2, 2)
     f = k5.backward_flops(8, 512, 32, 64, 128, 256, False, False)
     assert f["total"] == sum(v for k, v in f.items() if k != "total")
     assert 9.0e9 < f["total"] < 9.02e9
@@ -933,23 +989,42 @@ def test_ssd_backward_plan_at_the_train_shape():
     assert g["total"] - f["total"] == 4 * 8 * 32 * 256 * 2 * 128 * 64
 
 
+@pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS + K5_BWD_PLANS)
+def test_ssd_backward_plan_has_no_per_head_state_workspace(b, l, H, p, n, L,
+                                                          h0):
+    """The head sums of dC's and dB's state terms never go through a
+    (b, l, H, n) workspace: ``sd`` holds them summed over groups of 8
+    heads, (2, sg, b, l, n), and per head only dcum's state terms (b, H,
+    l, 2, nh) are kept."""
+    plan = k5.backward_plan(b, l, H, p, n, L)
+    assert set(plan.workspace) == set(k5.BWD_WORKSPACES)
+    assert "vs" not in plan.workspace and "ws" not in plan.workspace
+    assert plan.workspace["sd"] == (2, plan.sg, b, l, n)
+    assert plan.workspace["sv"] == (b, H, l, 2, plan.nh)
+    per_head = [s for s in plan.workspace.values()
+                if len(s) == 4 and s[:3] == (b, l, H)]
+    assert per_head == []
+    assert np.prod(plan.workspace["sd"]) <= 2 * -(-H // 8) * b * l * n
+
+
 def test_ssd_backward_plan_refuses_a_grid_past_cuda_extent():
     with pytest.raises(ValueError, match="grid"):
         k5.backward_plan(2 ** 16, 2 ** 16, 2 ** 10, 64, 128, 64)
 
 
 def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
-    """The backward's four launches as ``csrc/ssd_bwd.cu`` splits them,
+    """The backward's six launches as ``csrc/ssd_bwd.cu`` splits them,
     in float64 through the plan's block lists and workspace layouts
     (workspace entries no block writes stay NaN, so a gap shows in the
     result), from the forward's workspaces (`_emulate_ssd`'s cum and the
     states entering each chunk). The decays are applied as the kernels
     apply them: in dx, the state sums times e^{Lam - cum_jl}, the query
     tiles' dy rows times e^{cum_i - cum_jl}, then the row factors
-    e^{cum_jl - cum_j} before the diagonal tile."""
+    e^{cum_jl - cum_j} before the diagonal tile; in W off the diagonal,
+    the row and column factors around the key tile's last row."""
     b, l, H, p = x.shape
     n = B.shape[-1]
-    T = k5.TILE
+    T, NH = k5.TILE, k5.BWD_COLS
     f64 = dict(dtype=torch.float64)
     plan = k5.backward_plan(b, l, H, p, n, L)
     nc, nt, pw = plan.nc, plan.nt, plan.pw
@@ -975,6 +1050,12 @@ def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
 
     def rows(t):
         return min(T, L - t * T)
+
+    def has_h(c):
+        return c > 0 or h0 is not None
+
+    def has_g(c):
+        return c < nc - 1 or dhl is not None
     for blk in blocks["chunk"]:
         if blk[0] == "dstate":
             _, bi, hh, c = blk
@@ -1012,45 +1093,56 @@ def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
         if dh0 is not None:
             dh0[bi, hh] = g[:, :p].T
     dx = torch.full(x.shape, float("nan"), **f64)
-    for blk in blocks["main"]:
-        if blk[0] == "dx":
-            _, bi, hh, c, jt = blk
-            j0, rj = c * L + jt * T, rows(jt)
-            cq = cum[bi, hh, j0:j0 + rj]
-            lam, cl = cum[bi, hh, c * L + L - 1], cq[-1]
-            acc = torch.zeros((rj, p), **f64)
-            g = w["dst"][bi, c, hh, :, :p]
-            with_g = c < nc - 1 or dhl is not None
-            if with_g:
-                acc += w["bt"][bi, c, jt, :, :rj].T @ g
-                acc *= torch.exp(lam - cl)
-            for it in range(nt - 1, jt - 1, -1):
-                i0, ri = c * L + it * T, rows(it)
-                ci = cum[bi, hh, i0:i0 + ri]
-                S = w["sc"][bi, c, it * (it + 1) // 2 + jt, :ri, :rj]
-                yi = dy[bi, i0:i0 + ri, hh]
-                if it > jt:
-                    acc += S.T @ (torch.exp(ci - cl)[:, None] * yi)
-                    continue
-                acc *= torch.exp(cl - cq)[:, None]
-                D = torch.tril(S * torch.exp(ci[:, None] - cq[None, :]))
-                acc += D.T @ yi
-            dx[bi, j0:j0 + rj, hh] = acc
-            sv = torch.zeros(rj, **f64)
-            if c > 0 or h0 is not None:
-                v = dy[bi, j0:j0 + rj, hh] @ st[bi, c, hh, :, :p].T
-                w["vs"][bi, j0:j0 + rj, hh] = torch.exp(cq)[:, None] * v
-                sv += torch.exp(cq) * (C[bi, j0:j0 + rj] * v).sum(1)
-            lw = 0.0
-            if with_g:
-                wv = x[bi, j0:j0 + rj, hh] @ g.T
-                w["ws"][bi, j0:j0 + rj, hh] = torch.exp(lam - cq)[:, None] \
-                    * wv
-                term = torch.exp(lam - cq) * (B[bi, j0:j0 + rj] * wv).sum(1)
-                sv -= term
-                lw = term.sum()
-            w["sv"][bi, hh, j0:j0 + rj] = sv
-            w["lw"][bi, hh, c, jt] = lw
+    main = [("state",) + k for k in blocks["state"]] + \
+        [("dx",) + k for k in blocks["dx"]] + [("W",) + k for k in blocks["w"]]
+    for blk in main:
+        if blk[0] == "state":
+            _, kind, bi, c, t, sgi, q = blk
+            if not (has_h(c) if kind == 0 else has_g(c)):
+                continue
+            t0, rt = c * L + t * T, rows(t)
+            cols = slice(q * NH, min(n, q * NH + NH))
+            acc = 0.0
+            for hh in range(sgi * k5.BWD_STATE_HEADS,
+                            min(H, (sgi + 1) * k5.BWD_STATE_HEADS)):
+                cs = cum[bi, hh, t0:t0 + rt]
+                if kind == 0:
+                    f = dy[bi, t0:t0 + rt, hh] @ \
+                        st[bi, c, hh, cols, :p].T
+                    u = torch.exp(cs)[:, None] * f
+                    m = C[bi, t0:t0 + rt, cols]
+                else:
+                    f = x[bi, t0:t0 + rt, hh] @ \
+                        w["dst"][bi, c, hh, cols, :p].T
+                    lam = cum[bi, hh, c * L + L - 1]
+                    u = torch.exp(lam - cs)[:, None] * f
+                    m = B[bi, t0:t0 + rt, cols]
+                w["sv"][bi, hh, t0:t0 + rt, kind, q] = (u * m).sum(1)
+                acc = acc + u
+            w["sd"][kind, sgi, bi, t0:t0 + rt, cols] = acc
+        elif blk[0] == "dx":
+            _, bi, c, jt, hs = blk
+            for hh in hs:
+                j0, rj = c * L + jt * T, rows(jt)
+                cq = cum[bi, hh, j0:j0 + rj]
+                lam, cl = cum[bi, hh, c * L + L - 1], cq[-1]
+                acc = torch.zeros((rj, p), **f64)
+                if has_g(c):
+                    acc += w["bt"][bi, c, jt, :, :rj].T @ \
+                        w["dst"][bi, c, hh, :, :p]
+                    acc *= torch.exp(lam - cl)
+                for it in range(nt - 1, jt - 1, -1):
+                    i0, ri = c * L + it * T, rows(it)
+                    ci = cum[bi, hh, i0:i0 + ri]
+                    S = w["sc"][bi, c, it * (it + 1) // 2 + jt, :ri, :rj]
+                    yi = dy[bi, i0:i0 + ri, hh]
+                    if it > jt:
+                        acc += S.T @ (torch.exp(ci - cl)[:, None] * yi)
+                        continue
+                    acc *= torch.exp(cl - cq)[:, None]
+                    D = torch.tril(S * torch.exp(ci[:, None] - cq[None, :]))
+                    acc += D.T @ yi
+                dx[bi, j0:j0 + rj, hh] = acc
         else:
             _, bi, c, it, jt, grp = blk
             i0, j0 = c * L + it * T, c * L + jt * T
@@ -1058,20 +1150,22 @@ def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
             tile = it * (it + 1) // 2 + jt
             S = w["sc"][bi, c, tile, :ri, :rj]
             acc = torch.zeros((T, T), **f64)
-            for hh in range(grp * k5.BWD_GROUP_HEADS,
-                            min(H, (grp + 1) * k5.BWD_GROUP_HEADS)):
+            group = range(grp * k5.BWD_GROUP_HEADS,
+                          min(H, (grp + 1) * k5.BWD_GROUP_HEADS))
+            for hh in group:
                 ci = cum[bi, hh, i0:i0 + ri]
                 cj = cum[bi, hh, j0:j0 + rj]
                 P = dy[bi, i0:i0 + ri, hh] @ x[bi, j0:j0 + rj, hh].T
-                mask = torch.ones((ri, rj), dtype=torch.bool)
                 if it == jt:
-                    mask = torch.tril(mask)
-                W = torch.where(mask, P * torch.exp(ci[:, None] -
-                                                    cj[None, :]), 0.0)
+                    W = torch.where(torch.ones((ri, rj), dtype=torch.bool)
+                                    .tril(), P * torch.exp(
+                                        ci[:, None] - cj[None, :]), 0.0)
+                    M = torch.tril(S * W, -1)
+                else:
+                    W = P * torch.exp(ci - cj[-1])[:, None] * \
+                        torch.exp(cj[-1] - cj)[None, :]
+                    M = S * W
                 acc[:ri, :rj] += W
-                M = S * W
-                if it == jt:
-                    M = torch.tril(M, -1)
                 w["mp"][bi, c, tile, hh] = 0.0
                 w["mp"][bi, c, tile, hh, 0, :ri] = M.sum(1)
                 w["mp"][bi, c, tile, hh, 1, :rj] = M.sum(0)
@@ -1081,9 +1175,10 @@ def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
     ddA = torch.full(dA.shape, float("nan"), **f64)
     for blk in blocks["final"]:
         if blk[0] in ("dC", "dB"):
-            kind, bi, c, t = blk
+            kind, bi, c, t, q = blk
             t0, rt = c * L + t * T, rows(t)
-            acc = torch.zeros((rt, n), **f64)
+            cols = slice(q * NH, min(n, q * NH + NH))
+            acc = torch.zeros((rt, cols.stop - cols.start), **f64)
             us = range(t + 1) if kind == "dC" else range(t, nt)
             for u in us:
                 u0, ru = c * L + u * T, rows(u)
@@ -1091,38 +1186,47 @@ def _emulate_ssd_bwd(x, dA, B, C, L, h0, dy, dhl):
                     else u * (u + 1) // 2 + t
                 W = w["wp"][bi, c, :, tile].sum(0)
                 if kind == "dC":
-                    acc += W[:rt, :ru] @ B[bi, u0:u0 + ru]
+                    acc += W[:rt, :ru] @ B[bi, u0:u0 + ru, cols]
                 else:
-                    acc += W[:ru, :rt].T @ C[bi, u0:u0 + ru]
-            if kind == "dC" and (c > 0 or h0 is not None):
-                acc += w["vs"][bi, t0:t0 + rt].sum(1)
-            if kind == "dB" and (c < nc - 1 or dhl is not None):
-                acc += w["ws"][bi, t0:t0 + rt].sum(1)
-            (dC if kind == "dC" else dB)[bi, t0:t0 + rt] = acc
+                    acc += W[:ru, :rt].T @ C[bi, u0:u0 + ru, cols]
+            if kind == "dC" and has_h(c):
+                acc += w["sd"][0, :, bi, t0:t0 + rt, cols].sum(0)
+            if kind == "dB" and has_g(c):
+                acc += w["sd"][1, :, bi, t0:t0 + rt, cols].sum(0)
+            (dC if kind == "dC" else dB)[bi, t0:t0 + rt, cols] = acc
         else:
             _, bi, hh, c = blk
-            dc = w["sv"][bi, hh, c * L:c * L + L].clone()
+            sv = w["sv"][bi, hh, c * L:c * L + L]
+            dc = torch.zeros(L, **f64)
+            wsum = 0.0
+            if has_h(c):
+                dc += sv[:, 0].sum(1)
+            if has_g(c):
+                dc -= sv[:, 1].sum(1)
+                wsum = sv[:, 1].sum()
             for i in range(L):
                 t, r = divmod(i, T)
                 for jt in range(t + 1):
                     dc[i] += w["mp"][bi, c, t * (t + 1) // 2 + jt, hh, 0, r]
                 for it in range(t, nt):
                     dc[i] -= w["mp"][bi, c, it * (it + 1) // 2 + t, hh, 1, r]
-            dc[L - 1] += w["lam"][bi, hh, c].sum() + w["lw"][bi, hh, c].sum()
+            dc[L - 1] += w["lam"][bi, hh, c].sum() + wsum
             ddA[bi, c * L:c * L + L, hh] = torch.flip(
                 torch.cumsum(torch.flip(dc, [0]), 0), [0])
     return dx, ddA, dB, dC, dh0
 
 
 @pytest.mark.parametrize("b, l, H, p, n, L, h0", K5_PLANS[1:] + [
-    (2, 192, 9, 16, 8, 64, False)])
+    (2, 192, 9, 16, 8, 64, False)] + K5_BWD_PLANS)
 @pytest.mark.parametrize("dh_last", [False, True])
 def test_ssd_backward_plan_computes_the_gradients(b, l, H, p, n, L, h0,
                                                   dh_last):
     """The backward's split of the work, run in float64 through its block
     lists, is the plain version's gradient (`ref.ssd_bwd_ref`): dx, d
     dlogA, dB, dC and dh0, with and without dh_last; nothing is missed
-    or taken twice (9 heads: two head groups, the second of one head)."""
+    or taken twice (9 heads: a dx block of one head, a second W group
+    and state group of one head; 17 heads: three groups, a pair of one
+    head; 1 and 3 heads; n 100: a ragged column block)."""
     rng = np.random.default_rng(11)
     dt = np.logaddexp(rng.standard_normal((b, l, H)), 0.0)
     x = torch.from_numpy(rng.standard_normal((b, l, H, p)) * 0.3 * dt[

@@ -479,13 +479,15 @@ def test_backward_source_is_registered_for_nvcc():
     assert '#include "ssd.cuh"' in src
     assert "repro/kernels/ssd.py::ssd" in src and "atomic" not in \
         src.replace("no atomics", "")
-    # the four launches with the plan's grids and shared memory
+    # the six launches with the plan's grids and shared memory
     for launch in ("static_cast<size_t>(grid[1])",
                    "static_cast<size_t>(grid[5])",
-                   "static_cast<size_t>(grid[7])"):
+                   "static_cast<size_t>(grid[7])",
+                   "static_cast<size_t>(grid[9])",
+                   "static_cast<size_t>(grid[11])"):
         assert launch in src
-    assert k5.BWD_WORKSPACES == ("dst", "sc", "bt", "lam", "wp", "mp", "vs",
-                                 "ws", "sv", "lw")
+    assert k5.BWD_WORKSPACES == ("dst", "sc", "bt", "lam", "wp", "mp", "sd",
+                                 "sv")
 
 
 def test_backward_wrapper_never_takes_the_plain_version():
