@@ -35,7 +35,10 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    projection, inputs off 16-byte alignment, p 128, two head groups;
    the same bits on a repeat) and K6's backward (the recurrentgemma-9b
    train shape, ragged S and W with and without h0 and dh_last, one
-   step; bit for bit);
+   step; bit for bit); K4 under ``torch.func.vmap`` over clients
+   (K4_VMAP_CASES, the lm-dpfl example's head_dim 32 among them: one
+   launch on the folded batch, forward and backward, bit for bit the
+   per-client launches);
    then `prng.normal` (2**20 draws) on the card: the CPU's bits and
    jax.random.normal's (`NORMAL_SHA256`);
 4. the port's main paths: Algorithm 1 through
@@ -81,7 +84,20 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    and read just after (each layer's kernel forward twice a step and its
    backward once, under remat "full"), finite, falling losses; then each
    family cut small on the card and on the CPU against JAX's losses
-   (CROSS_TRAINS), and the DPFL mix of the dense one's weights;
+   (CROSS_TRAINS), and the DPFL mix of the dense one's weights; then
+   the LM examples: `examples/lm_dpfl_torch.py` (Algorithm 1 over qwen3
+   clients, their loss and accuracy vmapped over the clients) in its
+   own setting on the card and on the CPU, which must select the same
+   graphs with the same accuracies and the best models' validation
+   losses within CROSS_TRAIN_LOSS_TOL, then at qwen3-0.6b's published widths on 2 layers and 4
+   clients (LM_DPFL_FULL), each with the counts zeroed just before and
+   read just after (K4 once a layer per vmapped call, its backward once
+   a layer per local step, K1 as in the dense run: `lm_dpfl_launches`),
+   every round under the no-sync fence; and
+   `examples/serve_personalized_torch.py` on the whole published
+   qwen3-0.6b (PERSONALIZED_RUN: 3 clients' weights, 4 requests of 512
+   tokens, 32 new; 28 K4 launches in the prefill, 0 in decode), each
+   request's tokens those of `generate` on its own client's weights;
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function where there is one (none for K5
    and K6), K3's launches also alone, K5's three kernels by
@@ -492,6 +508,34 @@ CROSS_TRAIN_LOSS_TOL = 1e-4
 CROSS_TRAIN_GRAD_TOL = 1e-4
 # the DPFL mix of that model's weights: 4 clients
 DPFL_MIX_CLIENTS = 4
+# The LM examples (examples/lm_dpfl_torch.py, serve_personalized_torch.py)
+# run K4 under torch.func.vmap over the clients, folded into its batch
+# axis. K4 vmapped, (name, clients, B, S, Hq, Hkv, hd) in fp32: at
+# qwen3-0.6b's heads (16 query and 8 KV heads of 128) lm-dpfl's local
+# step at full width (4 clients of batch 8, 32 tokens) and the
+# personalized prefill (4 requests of one 512-token prompt); at the
+# example's reduced qwen3 (2/2 heads of 32, a body of its own in K4's
+# forward and backward) its local step (6 clients of batch 8) and its
+# reward call (4 probe models for each of 6 clients, 12 sequences each)
+K4_VMAP_CASES = (("lm-dpfl", 4, 8, 32, 16, 8, 128),
+                 ("personalized prefill", 4, 1, 512, 16, 8, 128),
+                 ("lm-dpfl example local step", 6, 8, 32, 2, 2, 32),
+                 ("lm-dpfl example reward", 24, 12, 32, 2, 2, 32))
+# lm-dpfl at qwen3-0.6b's published widths (d_model 1024, 16/8 heads of
+# 128, d_ff 3072, vocab 151,936, qk-norm, tied), cut to 2 of its 28
+# layers and 4 clients (2 a corpus cluster; the example has 6): P =
+# 187,045,376 (748 MB) a client, and the dense greedy's (N, 4, P) probes
+# with some seven (N, P) temporaries take about 33 GB beside the round's
+# 18 at N = 4 (about 49 + 27 GB at 6). The corpus keeps the example's 256
+# token ids: its bigram tables are vocab^2 entries (369 GB at the model's
+# vocabulary)
+LM_DPFL_FULL = dict(arch="qwen3-0.6b", n_layers=2, clients=4)
+# personalized serving on the whole published qwen3-0.6b (28 layers,
+# float32): the example's 3 clients (weights drawn from split(PRNGKey(0),
+# 3)) and its 4 requests' clients, each request a 512-token prompt drawn
+# from a seed, 32 new tokens
+PERSONALIZED_RUN = dict(arch="qwen3-0.6b", prompt_len=512, new_tokens=32,
+                        seed=3)
 
 # (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
 # on the tensor cores), NVIDIA data sheets. A row's bound takes the rate
@@ -2420,6 +2464,373 @@ def check_dpfl_mix(torch, params):
     return launches, err, seconds
 
 
+def check_k4_vmap(torch):
+    """K4 under ``torch.func.vmap`` over the clients in every
+    K4_VMAP_CASES case, through `ops.flash_attention` (the LM's call)
+    without grad and under autograd: one forward launch per vmapped call
+    and one backward call (the client axis folded into the batch axis);
+    the output, and dq, dk and dv, bit for bit those of per-client
+    launches; the output within TOL["float32"] of the plain version, and
+    each gradient, as a share of its largest element (as check_k4_bwd
+    holds them), within TOL["float32"] of the plain backward's. Returns
+    per case (max abs err of the output, the largest gradient share)."""
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ops, ref
+
+    def counts():
+        return k4.flash_attention.launches, k4.flash_attention_bwd.launches
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    vf = torch.func.vmap(ops.flash_attention)
+    rows = []
+    for name, N, B, S, Hq, Hkv, hd in K4_VMAP_CASES:
+        def draw(H, scale):
+            return torch.randn((N, B, S, H, hd), generator=gen,
+                               device="cuda") * scale
+        q, k, v, dout = draw(Hq, 0.5), draw(Hkv, 0.5), draw(Hkv, 1.0), \
+            draw(Hq, 1.0)
+
+        def fold(t):
+            return t.flatten(0, 1)
+        before = counts()
+        with torch.no_grad():
+            out = vf(q, k, v)
+        torch.cuda.synchronize()
+        if counts() != (before[0] + 1, before[1]):
+            fail(f"K4 vmapped {name}: launches {counts()} from {before}, "
+                 f"expected one forward")
+        with torch.no_grad():
+            each = torch.stack([ops.flash_attention(q[i], k[i], v[i])
+                                for i in range(N)])
+        if not torch.equal(out, each):
+            fail(f"K4 vmapped {name}: not bit for bit the per-client "
+                 f"launches")
+        err = _close(torch, f"K4 vmapped {name}", out, ref.flash_attention_ref(
+            fold(q), fold(k), fold(v)).unflatten(0, (N, B)), TOL["float32"])
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = counts()
+        out_g = vf(*leaves)
+        grads = torch.autograd.grad(out_g, leaves, dout)
+        torch.cuda.synchronize()
+        if counts() != (before[0] + 1, before[1] + 1):
+            fail(f"K4 vmapped {name} under autograd: launches {counts()} "
+                 f"from {before}, expected one forward and one backward")
+        if not torch.equal(out_g, out):
+            fail(f"K4 vmapped {name}: the forward with its LSE gave other "
+                 f"bits than without")
+        each = []
+        for i in range(N):
+            li = [t[i].clone().requires_grad_(True) for t in (q, k, v)]
+            each.append(torch.autograd.grad(ops.flash_attention(*li), li,
+                                            dout[i]))
+        plain = ref.flash_attention_bwd_ref(fold(q), fold(k), fold(v),
+                                            fold(dout))
+        share = 0.0
+        for j, label in enumerate(("dq", "dk", "dv")):
+            if not torch.equal(grads[j], torch.stack([e[j] for e in each])):
+                fail(f"K4 vmapped {name}: {label} not bit for bit the "
+                     f"per-client launches'")
+            w = plain[j].unflatten(0, (N, B))
+            scale = w.abs().max().clamp_min(1e-30)
+            _close(torch, f"K4 vmapped {name} {label} / max |{label}|",
+                   grads[j] / scale, w / scale, TOL["float32"])
+            share = max(share, ((grads[j] - w).abs().max() / scale).item())
+        rows.append((err, share))
+    return rows
+
+
+def lm_dpfl_launches(n_layers, N, nb, cfg):
+    """The launches of one `run_dpfl` of the LM example over N clients of
+    ``n_layers`` attention layers, ``nb`` minibatches an epoch: every
+    vmapped call over the clients launches K4 once a layer on the folded
+    batch. Local steps (nb a local epoch: tau_init, then tau_train a
+    round) run its forward and backward; the reward (one vmapped forward
+    of the 4N probe models per greedy position: N positions in BGGC and
+    in each round's GGC) and the evaluations (accuracy and loss each:
+    eval_val every round, eval_test once) its forward. K1 as in the dense
+    PaperCNN run (`expected_launches`)."""
+    steps = nb * (cfg.tau_init + cfg.rounds * cfg.tau_train)
+    forwards = steps + N * (1 + cfg.rounds) + 2 * (cfg.rounds + 1)
+    want = expected_launches("dense", N, cfg.budget, cfg.rounds)
+    want.update(flash_attention=n_layers * forwards,
+                flash_attention_bwd=n_layers * steps)
+    return want
+
+
+def _spans(torch, timed):
+    """``(start, end)`` CUDA events around a call, appended to ``timed``
+    (no sync: read after the run with `_span_ms`); a no-op off the card."""
+    def around(fn, *args, **kw):
+        if timed is None:
+            return fn(*args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        timed.append((start, end))
+        return out
+    return around
+
+
+def _span_ms(spans):
+    return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def _greedy_margins(torch, graph, spans):
+    """Patch ``graph.greedy_decision_step`` so that every decision records
+    |u - a/(a+b)| a client (the coin flip against its probability; 1
+    where a + b = 0, which is no coin flip), as device tensors, and, on
+    the card, the span of each decision step and of its reward call into
+    ``spans["greedy"]`` and ``spans["reward"]``; returns (the list the
+    margins go to, the function that undoes the patch)."""
+    inner = graph.greedy_decision_step
+    margins = []
+
+    def recording(reward_fn):
+        last = {}
+
+        def reward(probes, k_idx):
+            last["r"] = _spans(torch, spans["reward"])(reward_fn, probes,
+                                                      k_idx)
+            return last["r"]
+        step = inner(reward)
+
+        def rec_step(carry, j, w_j, *, u, **kw):
+            out = _spans(torch, spans["greedy"])(step, carry, j, w_j, u=u,
+                                                 **kw)
+            r = last["r"]
+            a = (r[:, 1] - r[:, 0]).clamp_min(0.0)
+            b = (r[:, 3] - r[:, 2]).clamp_min(0.0)
+            margins.append(torch.where(a + b > 0, (u - a / (a + b)).abs(),
+                                       1.0))
+            return out
+        return rec_step
+
+    graph.greedy_decision_step = recording
+
+    def undo():
+        graph.greedy_decision_step = inner
+    return margins, undo
+
+
+def run_lm_dpfl(torch, cfg, n_clients, device):
+    """The LM example (`examples/lm_dpfl_torch.py`: its corpus, engine and
+    `DPFLConfig`) over ``n_clients`` clients of ``cfg`` on ``device`` once,
+    with the kernel counts zeroed just before and read just after, every
+    round under the no-sync fence (a hidden sync raises; a round outside
+    the fence fails), each local step's (N,) losses and each greedy
+    decision's |u - a/(a+b)| recorded, and on the card the device spans
+    (CUDA events, read after the run) of the local steps, the greedy's
+    decision steps and their reward calls. Returns a dict of the run."""
+    import lm_dpfl_torch as ex
+
+    from repro_torch.core import DPFLConfig, dpfl, graph
+
+    engine, cluster_of = ex.lm_engine(cfg, n_clients, device)
+    run = DPFLConfig(**ex.RUN)
+    losses, fenced = [], []
+    spans = {k: [] if device == "cuda" else None
+             for k in ("local steps", "greedy", "reward")}
+    loss_and_grads = engine._loss_and_grads
+
+    def recording(params, batch, loss_fn):
+        loss, grads = _spans(torch, spans["local steps"])(
+            loss_and_grads, params, batch, loss_fn)
+        losses.append(loss)
+        return loss, grads
+
+    engine._loss_and_grads = recording
+    run_rounds = dpfl.run_rounds
+
+    def fenced_run_rounds(round_step, state, rounds, **kw):
+        def step(st):
+            if device == "cuda" and torch.cuda.get_sync_debug_mode() != 2:
+                fail(f"round {st.t} of lm-dpfl ran outside the no-sync "
+                     f"fence")
+            fenced.append(st.t)
+            return round_step(st)
+        return run_rounds(step, state, rounds, **kw)
+
+    dpfl.run_rounds = fenced_run_rounds
+    margins, undo = _greedy_margins(torch, graph, spans)
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = dpfl.run_dpfl(engine, run)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        dpfl.run_rounds = run_rounds
+        undo()
+    if fenced != list(range(run.rounds)):
+        fail(f"lm-dpfl {cfg.name} on {device}: fenced rounds {fenced}")
+    nb = engine.data.train_x.shape[1] // engine.batch_size
+    return dict(
+        res=res, run=run, engine=engine, cluster_of=cluster_of,
+        split=ex.graph_split(res.graph_history[-1], cluster_of),
+        launches=launches, seconds=seconds, nb=nb,
+        want=lm_dpfl_launches(cfg.n_layers, n_clients, nb, run),
+        losses=torch.stack(losses).cpu(),
+        margin=torch.cat(margins).min().item(),
+        peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
+        span_ms={k: _span_ms(v) for k, v in spans.items() if v is not None})
+
+
+def check_lm_dpfl_cross(torch):
+    """The LM example's own setting (its reduced qwen3, 6 clients) on the
+    card and on the CPU: the same Omega and graphs (a greedy near-tie
+    that split them would show as a small |u - a/(a+b)|, printed before
+    failing), equal test and validation accuracies, the best models'
+    validation losses within CROSS_TRAIN_LOSS_TOL (the card-against-
+    reference loss tolerance of the training runs), the card's launches
+    `lm_dpfl_launches` and the CPU's none. Returns (card run, CPU run),
+    the card's with the losses' largest difference as "val_loss_err"."""
+    import lm_dpfl_torch as ex
+    import numpy as np
+
+    card = run_lm_dpfl(torch, ex.example_config(), ex.CLIENTS, "cuda")
+    cpu = run_lm_dpfl(torch, ex.example_config(), ex.CLIENTS, "cpu")
+    if card["launches"] != card["want"] or any(cpu["launches"].values()):
+        fail(f"lm-dpfl card against CPU: launches {card['launches']} on the "
+             f"card (expected {card['want']}), {cpu['launches']} on the CPU")
+    a, b = card["res"], cpu["res"]
+    same = np.array_equal(a.omega, b.omega) and \
+        len(a.graph_history) == len(b.graph_history) and \
+        all(np.array_equal(x, y) for x, y in zip(a.graph_history,
+                                                 b.graph_history))
+    if not same:
+        fail(f"lm-dpfl card against CPU: other graphs; smallest greedy "
+             f"|u - a/(a+b)| card {card['margin']:.3g}, CPU "
+             f"{cpu['margin']:.3g}")
+    # accuracies are fractions of counts: equal
+    if not np.array_equal(a.test_acc, b.test_acc) or \
+            len(a.val_acc_history) != len(b.val_acc_history) or \
+            not all(np.array_equal(x, y) for x, y in
+                    zip(a.val_acc_history, b.val_acc_history)):
+        fail(f"lm-dpfl card against CPU: test acc {a.test_acc} and "
+             f"{b.test_acc}, val acc {a.val_acc_history} and "
+             f"{b.val_acc_history}")
+    val_loss = [r["engine"].eval_val(r["engine"].unflatten(torch.as_tensor(
+        r["res"].best_flat, device=r["engine"].device)))[1].cpu()
+        for r in (card, cpu)]
+    card["val_loss_err"] = (val_loss[0] - val_loss[1]).abs().max().item()
+    if not card["val_loss_err"] <= CROSS_TRAIN_LOSS_TOL:
+        fail(f"lm-dpfl card against CPU: the best models' validation "
+             f"losses {val_loss[0].tolist()} and {val_loss[1].tolist()} "
+             f"differ by {card['val_loss_err']:.3g} (tol "
+             f"{CROSS_TRAIN_LOSS_TOL})")
+    return card, cpu
+
+
+def check_lm_dpfl_full(torch):
+    """lm-dpfl at LM_DPFL_FULL (full width, 2 layers, 4 clients) on the
+    card: launches `lm_dpfl_launches`, finite local losses and the mean
+    loss of the first step after tau_init below the first step's, Omega
+    and every round's graph within the budget (self edge included, each
+    graph inside Omega). Returns the run (`run_lm_dpfl`)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    c = LM_DPFL_FULL
+    cfg = get_config(c["arch"]).replace(n_layers=c["n_layers"],
+                                        dtype="float32")
+    out = run_lm_dpfl(torch, cfg, c["clients"], "cuda")
+    res, run, losses = out["res"], out["run"], out["losses"]
+    if out["launches"] != out["want"]:
+        fail(f"lm-dpfl {cfg.name}: launches {out['launches']}, expected "
+             f"{out['want']}")
+    first = out["nb"] * run.tau_init
+    if not torch.isfinite(losses).all() or \
+            not losses[first].mean() < losses[0].mean():
+        fail(f"lm-dpfl {cfg.name}: step losses {losses.mean(1).tolist()} "
+             f"(the mean after tau_init, step {first}, must be below the "
+             f"first step's)")
+    N = c["clients"]
+    for label, adj in [("Omega", res.omega)] + [
+            (f"round {t}", g) for t, g in enumerate(res.graph_history)]:
+        adj = np.asarray(adj, bool)
+        if adj.shape != (N, N) or not adj.diagonal().all() or \
+                (adj.sum(1) > run.budget + 1).any() or \
+                (adj & ~np.asarray(res.omega, bool)).any():
+            fail(f"lm-dpfl {cfg.name}: {label}'s graph {adj.astype(int)} "
+                 f"is not within the budget {run.budget} and Omega")
+    if not np.isfinite(res.test_acc).all():
+        fail(f"lm-dpfl {cfg.name}: test accuracies {res.test_acc}")
+    return out
+
+
+def run_personalized(torch):
+    """Personalized serving at PERSONALIZED_RUN (`examples/
+    serve_personalized_torch.py` on the whole published model): the
+    stacked init, then `serve_personalized` with the kernel counts zeroed
+    just before and read just after (one K4 launch per layer, all in the
+    prefill: `personalized_prefill` alone is counted the same way, so
+    decode's are the difference, none), a second call with the same
+    tokens, requests 0 and 2 apart, and each request's tokens equal to
+    `generate` on its own client's weights alone. Returns a dict."""
+    import serve_personalized_torch as ex
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import build_model
+
+    c = PERSONALIZED_RUN
+    cfg = get_config(c["arch"]).replace(dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="meta", remat="none")
+    stacked = ex.stacked_init(model, ex.CLIENTS, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    client_ids = torch.tensor([r for r, _ in ex.REQUESTS], device="cuda")
+    R, S, new = len(ex.REQUESTS), c["prompt_len"], c["new_tokens"]
+    prompts = make_prompts(cfg.vocab_size, R, S, c["seed"], "cuda")
+    want = serve_kernels(cfg)
+    _zero_launches()
+    first = ex.serve_personalized(model, stacked, client_ids, prompts, new)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _zero_launches()
+    params = {k: v[client_ids] for k, v in stacked.items()}
+    ex.personalized_prefill(model, params, prompts, new)
+    torch.cuda.synchronize()
+    n_prefill = _read_launches()
+    del params
+    if launches != want or n_prefill != want:
+        fail(f"personalized {cfg.name}: launches {launches}, in the prefill "
+             f"alone {n_prefill}, expected {want} in the prefill and none "
+             f"in decode")
+    again = ex.serve_personalized(model, stacked, client_ids, prompts, new)
+    if tuple(first.tokens.shape) != (R, new) or \
+            not torch.isfinite(first.prefill_logits).all():
+        fail(f"personalized {cfg.name}: tokens {tuple(first.tokens.shape)}")
+    if not torch.equal(again.tokens, first.tokens):
+        fail(f"personalized {cfg.name}: a second call gave other tokens")
+    if torch.equal(first.tokens[0], first.tokens[2]):
+        fail(f"personalized {cfg.name}: requests 0 and 2 (clients 0 and 2) "
+             f"gave the same tokens")
+    alone = build_model(cfg, device="meta")
+    for r, cid in enumerate(client_ids.tolist()):
+        own = {k: v[cid] for k, v in stacked.items()}
+        gen = generate(alone, own, prompts[r:r + 1], new)
+        if not torch.equal(gen.tokens[0], first.tokens[r]):
+            fail(f"personalized {cfg.name}: request {r} gave "
+                 f"{first.tokens[r].tolist()}, generate on client {cid}'s "
+                 f"weights alone {gen.tokens[0].tolist()}")
+    return dict(cfg=cfg, launches=launches, first=first, again=again,
+                init_s=init_s, n_weights=sum(v[0].numel()
+                                             for v in stacked.values()),
+                peak=torch.cuda.max_memory_allocated())
+
+
 def _kernel_row(name, source, replaces, launches, rows):
     main = rows[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -2440,6 +2851,7 @@ def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "examples"))
     # the plain versions and the yardstick matmul run in IEEE fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2504,6 +2916,14 @@ def main():
         print(f"  K4 backward {case[0]}: max abs err {err:.3g} "
               f"({share:.3g} of the largest element); LSE max abs err "
               f"{lse_err:.3g}; {splits} head splits, {slabs} slabs")
+    for (name, N, B, S, Hq, Hkv, hd), (err, share) in zip(
+            K4_VMAP_CASES, check_k4_vmap(torch)):
+        print(f"K4 under torch.func.vmap, {name} ({N} clients x ({B}, {S}, "
+              f"{Hq}, {Hkv}, {hd}) fp32): one forward launch and one backward "
+              f"call on the folded batch, bit for bit the per-client "
+              f"launches; against the plain version max abs err {err:.3g}, "
+              f"gradients within {share:.3g} of their largest element (tol "
+              f"{TOL['float32']})")
     k5_in = k5_inputs(torch)
     k5_errs = check_k5(torch, k5_in)
     print(f"K5 agrees with its plain version in {len(k5_in)} cases (max abs "
@@ -2646,6 +3066,56 @@ def main():
           f"{mix_err:.3g} against K1's plain version")
     del cross_params
     torch.cuda.empty_cache()
+    card, cpu = check_lm_dpfl_cross(torch)
+    launches["lm-dpfl (card)"] = card["launches"]
+    print(f"lm-dpfl card against CPU (the example: reduced qwen3, "
+          f"{len(card['cluster_of'])} clients, {card['run']}): the same "
+          f"Omega and graphs; smallest greedy |u - a/(a+b)| card "
+          f"{card['margin']:.3g}, CPU {cpu['margin']:.3g}; the same test "
+          f"acc {card['res'].test_acc.tolist()} and val acc history; best "
+          f"models' val losses {card['val_loss_err']:.3g} apart (tol "
+          f"{CROSS_TRAIN_LOSS_TOL}); launches {card['launches']}; "
+          f"card {card['seconds']:.3f} s, CPU {cpu['seconds']:.3f} s")
+    del card, cpu
+    full = check_lm_dpfl_full(torch)
+    launches["lm-dpfl full width"] = full["launches"]
+    same, cross = full["split"]
+    print(f"lm-dpfl {LM_DPFL_FULL}: P={full['engine'].n_params} per client, "
+          f"{full['run']}: {full['seconds']:.3f} s wall incl. init and "
+          f"preprocessing, peak allocated {full['peak']} bytes, launches "
+          f"{full['launches']}; mean step losses "
+          f"{[round(x, 4) for x in full['losses'].mean(1).tolist()]}; "
+          f"Omega {full['res'].omega.astype(int).tolist()}; graph edges "
+          f"within corpus-cluster {same:.2f} vs across {cross:.2f}; next-"
+          f"token test acc {full['res'].test_acc.tolist()}; smallest greedy "
+          f"|u - a/(a+b)| {full['margin']:.3g}; every round under the "
+          f"no-sync fence; device spans (ms, CUDA events): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in full["span_ms"].items()))
+    del full
+    torch.cuda.empty_cache()
+    pers = run_personalized(torch)
+    launches["serve personalized"] = pers["launches"]
+    R = pers["first"].tokens.shape[0]
+    n_new = PERSONALIZED_RUN["new_tokens"]
+    for label, g in (("first call", pers["first"]),
+                     ("second call", pers["again"])):
+        print(f"serve personalized {PERSONALIZED_RUN['arch']} float32 "
+              f"({pers['n_weights']} weights x 3 clients, drawn in "
+              f"{pers['init_s']:.2f} s) R={R} S="
+              f"{PERSONALIZED_RUN['prompt_len']} new={n_new} ({label}): "
+              f"the requests' weights gathered in "
+              f"{g.gather_seconds * 1e3:.3f} ms, prefill "
+              f"{g.prefill_seconds * 1e3:.3f} ms wall, decode {n_new - 1} "
+              f"steps {g.decode_seconds * 1e3:.3f} ms wall "
+              f"({g.decode_seconds / (n_new - 1) * 1e3:.3f} ms/step)")
+    print(f"serve personalized: launches {pers['launches']} (all in the "
+          f"prefill), the same tokens on a second call, each request's "
+          f"tokens those of generate on its client's weights alone, "
+          f"requests 0 and 2 apart; sample "
+          f"{pers['first'].tokens[:, :6].tolist()}; peak allocated "
+          f"{pers['peak']} bytes")
+    del pers
+    torch.cuda.empty_cache()
 
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle
@@ -2666,8 +3136,9 @@ def main():
 
     # ---- 6. results: launches summed over the main-path runs (the eight
     # DPFL runs, the twelve baseline runs, the three serve runs, the three
-    # train runs, the card sides of the three cross train runs and the DPFL
-    # mix), with each run's counts beside them
+    # train runs, the card sides of the three cross train runs, the DPFL
+    # mix, the two lm-dpfl runs on the card and the personalized serve),
+    # with each run's counts beside them
     def total(kname):
         return sum(c[kname] for c in launches.values())
 

@@ -5,7 +5,14 @@ axis. Local training is one batched forward and backward over the N
 clients per minibatch (grouped convolutions, batched matmuls); the
 graph ops work on the flat (N, P) table, whose layout is `repro`'s
 (`repro_torch.interop`). Data is uploaded to the device once, at
-construction.
+construction: float features as float32, token ids as int64.
+
+``loss_fn`` and ``acc_fn`` take client-stacked params and batches and
+return (N,) values. `repro` vmaps a one-client function over the clients
+instead; `vmap_clients` is that bridge here (``torch.func.vmap`` over
+``torch.func.functional_call``), and it is how a one-client LM loss or
+accuracy (``fn(module, batch)``) becomes the stacked contract. The engine
+itself knows one contract only.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from .. import prng
 from ..models.classifier import accuracy as _acc
@@ -22,14 +30,72 @@ from ..optim import Optimizer, sgd
 Params = Dict[str, torch.Tensor]
 
 
+class _ClientCall(nn.Module):
+    """``fn(module, batch)`` as a module's forward, so that
+    ``functional_call`` can swap ``module``'s weights for one client's."""
+
+    def __init__(self, module: nn.Module, fn: Callable):
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self, batch, *args):
+        return self.fn(self.module, batch, *args)
+
+
+def vmap_clients(module: nn.Module, fn: Callable) -> Callable:
+    """The one-client ``fn(module, batch, *args)`` (``module`` carrying
+    one client's weights) over stacked clients:
+    ``stacked_fn(params, batch, *args)``, with ``params`` keyed as
+    ``module.state_dict()`` with a leading client axis and ``batch`` a
+    pytree of tensors with the same leading axis, returns ``fn``'s
+    outputs stacked on that axis; ``args`` reach every client as they
+    are (a decode step's host position). It is ``torch.func.vmap`` over
+    ``torch.func.functional_call`` of ``fn``, what `repro`'s ``jax.vmap
+    (lambda p, x, y: ...)`` is. For a scalar ``fn`` (a loss, an
+    accuracy) it is the engine's stacked contract, (N,) values, and
+    gradients reach ``params`` through plain autograd (`FLEngine` takes
+    ``torch.autograd.grad`` of the sum). K4 runs under the vmap on the
+    folded client and batch axes (`repro_torch.kernels.flash_attention`).
+
+    A module under activation recompute (a `DecoderLM` built with
+    ``remat="full"``) is refused: ``torch.utils.checkpoint`` under vmap
+    fails in the backward ("tensor may have escaped from inside a
+    function being vmapped"). Build models for DPFL with
+    ``remat="none"``; remat changes no value."""
+    if getattr(module, "remat", None) == "full":
+        raise ValueError(
+            "vmap_clients: the module runs its layers under activation "
+            "recompute (remat='full'), and torch.utils.checkpoint under "
+            "torch.func.vmap fails in the backward; build it with "
+            "remat='none'")
+    call = _ClientCall(module, fn)
+
+    def one(params: Params, batch, *args):
+        return torch.func.functional_call(
+            call, {f"module.{k}": v for k, v in params.items()},
+            (batch,) + args)
+
+    def stacked_fn(params: Params, batch, *args):
+        return torch.func.vmap(one, in_dims=(0, 0) + (None,) * len(args))(
+            params, batch, *args)
+
+    return stacked_fn
+
+
 class FLEngine:
     def __init__(self, model, data, lr: float = 0.05, momentum: float = 0.9,
                  weight_decay: float = 1e-3, batch_size: int = 16,
-                 loss_fn: Optional[Callable] = None, device=None):
+                 loss_fn: Optional[Callable] = None,
+                 acc_fn: Optional[Callable] = None, device=None):
         """``device`` defaults to ``cuda``; nothing falls back to the CPU
         when there is no GPU (pass ``device="cpu"`` to run there).
-        ``loss_fn(params, batch)`` maps a client-stacked batch to (N,)
-        losses (default: the model's mean cross-entropy)."""
+        ``loss_fn(params, batch)`` and ``acc_fn(params, batch)`` map
+        client-stacked params and batches to (N,) losses and accuracies
+        (defaults: the classifier's mean cross-entropy and accuracy); a
+        one-client function goes through `vmap_clients` first.
+        `eval_val` and `eval_test` (so `run_dpfl`'s validation and test
+        accuracies) use ``acc_fn``."""
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             # IEEE fp32 everywhere: cuDNN would otherwise run the PaperCNN
@@ -44,23 +110,33 @@ class FLEngine:
         self.opt: Optimizer = sgd(lr, momentum=momentum,
                                   weight_decay=weight_decay)
         self.loss_fn: Callable = loss_fn or (lambda p, b: _xent(model, p, b))
-        self.acc_fn: Callable = lambda p, b: _acc(model, p, b)
+        self.acc_fn: Callable = acc_fn or (lambda p, b: _acc(model, p, b))
         self.p = self._put(data.p, torch.float32)
-        # flat layout: leaves in sorted-key order (jax's ravel_pytree)
-        example = model.init(prng.PRNGKey(0))
+        # flat layout: leaves in sorted-key order (jax's ravel_pytree), read
+        # from a module's own state dict (no draw; a `DecoderLM.init` would
+        # also re-point its weights), else from an init drawn on the device
+        example = (model.state_dict() if isinstance(model, nn.Module)
+                   else model.init(prng.PRNGKey(0, device=self.device)))
         self._keys = sorted(example)
         self._shapes = {k: tuple(example[k].shape) for k in self._keys}
         self._sizes = [math.prod(self._shapes[k]) for k in self._keys]
         self.n_params = sum(self._sizes)
-        self.train_data = (self._put(data.train_x, torch.float32),
+        self.train_data = (self._put_x(data.train_x),
                            self._put(data.train_y, torch.int64))
-        self.val_data = (self._put(data.val_x, torch.float32),
+        self.val_data = (self._put_x(data.val_x),
                          self._put(data.val_y, torch.int64))
-        self.test_data = (self._put(data.test_x, torch.float32),
+        self.test_data = (self._put_x(data.test_x),
                           self._put(data.test_y, torch.int64))
 
     def _put(self, arr, dtype):
         return torch.as_tensor(arr).to(device=self.device, dtype=dtype)
+
+    def _put_x(self, arr):
+        """Features as float32; integer data (token ids) as int64, as
+        `repro` keeps the array's dtype."""
+        t = torch.as_tensor(arr)
+        return self._put(t, torch.float32 if t.is_floating_point()
+                         else torch.int64)
 
     # ------------------------------------------------------------ plumbing
     def init_clients(self, key: torch.Tensor) -> Params:

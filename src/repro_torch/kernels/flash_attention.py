@@ -252,24 +252,93 @@ def _forward(q, k, v, causal, window, with_lse):
     return out, lse
 
 
+def _fold(info, in_dims, *tensors):
+    """The vmap rule's fold: each tensor's vmapped dimension moved to the
+    front (an unbatched tensor broadcast to the vmap's size) and merged
+    into the batch axis, (N, B, ...) to (N * B, ...), so one launch
+    serves every vmapped slice. A view where the layout allows it; the
+    kernel's checks see the folded tensor as any other."""
+    n = info.batch_size
+
+    def one(t, dim):
+        t = t.expand((n,) + t.shape) if dim is None else t.movedim(dim, 0)
+        return t.reshape((n * t.shape[1],) + t.shape[2:])
+    return tuple(one(t, d) for t, d in zip(tensors, in_dims))
+
+
+def _unfold(info, t):
+    """(N * B, ...) back to (N, B, ...), the vmapped dimension first."""
+    return t.unflatten(0, (info.batch_size, -1))
+
+
 class _Attention(torch.autograd.Function):
-    """K4 under autograd: the forward saves q, k, v, out and the row
-    log-sum-exps; the backward is `flash_attention_bwd`."""
+    """K4 under autograd: the forward launches with the row log-sum-exps
+    and saves q, k, v, out and lse; the backward is
+    `flash_attention_bwd`. A vmapped call reaches it in two ways: through
+    `_Forward`'s vmap rule, on the folded (real) tensors, when every
+    input is batched (a batched tensor reports no ``requires_grad``: the
+    LM clients' attention); or directly, with its own vmap rule below,
+    when an unbatched input requires grad (a k or v shared by every
+    vmapped slice). Either way one forward launch and one backward call
+    serve the folded batch, and the backward is recorded on it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(q, k, v, causal, window):
+        return _forward(q, k, v, causal, window, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return out
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
                                          causal=ctx.causal,
                                          window=ctx.window)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        out, lse = _Attention.apply(*_fold(info, in_dims[:3], q, k, v),
+                                    causal, window)
+        return (_unfold(info, out), _unfold(info, lse)), (0, 0)
+
+
+class _Forward(torch.autograd.Function):
+    """K4's forward without its LSE, for calls that take no gradient
+    inside a ``torch.func`` transform (evaluation and the reward probes
+    of the LM clients, the personalized prefill): one launch, as
+    `_forward`. Under ``torch.func.vmap`` a batched tensor reports no
+    ``requires_grad`` whatever the tensor under it needs, so a vmapped
+    call whose unbatched inputs need no gradient comes here: the rule
+    folds the vmapped dimension into the batch axis (`_fold`) and hands
+    the folded tensors, which do report it, back to `flash_attention`. A call that trains thus
+    records `_Attention` on the folded batch, one that does not launches
+    this forward on it, and no batched tensor reaches ``data_ptr()``."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return _forward(q, k, v, causal, window, with_lse=False)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise RuntimeError("flash_attention: a gradient reached the "
+                           "no-grad launch")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        out = flash_attention(*_fold(info, in_dims[:3], q, k, v),
+                              causal=causal, window=window)
+        return _unfold(info, out), 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -284,14 +353,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     every key, which a kernel that skips masked tiles does not compute.
     fp32 inputs that require grad (grad mode on) go through the
     autograd Function, whose backward launches `flash_attention_bwd`;
-    bf16 ones raise (`check_no_grad`). Adds one to
-    ``flash_attention.launches`` per kernel launch (under activation
-    recompute, ``torch.utils.checkpoint``, the forward launches again in
-    the backward pass)."""
+    bf16 ones raise (`check_no_grad`). Other calls launch the forward
+    directly, or, inside a ``torch.func`` transform (``vmap``), through
+    `_Forward`, whose vmap rule folds the vmapped axis into the batch
+    axis. Adds one to ``flash_attention.launches`` per kernel launch
+    (under activation recompute, ``torch.utils.checkpoint``, the forward
+    launches again in the backward pass)."""
     check_no_grad(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _Attention.apply(q, k, v, causal, window)
+        return _Attention.apply(q, k, v, causal, window)[0]
+    if torch._C._are_functorch_transforms_active():
+        return _Forward.apply(q, k, v, causal, window)
     return _forward(q, k, v, causal, window, with_lse=False)[0]
 
 

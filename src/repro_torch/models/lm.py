@@ -105,11 +105,13 @@ def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
         if cache_len is not None:
             cache = cache_from_prefill(k, v, q_pos, cache_len, window)
     else:
+        # an indexed assignment (index_put_) has a batching rule, which
+        # index_copy_ has not: a decode under torch.func.vmap writes the
+        # ring without the per-slice fallback
         slot = q_pos % cache["k"].shape[1]
-        cache["k"].index_copy_(1, slot, k)
-        cache["v"].index_copy_(1, slot, v)
-        cache["pos"].index_copy_(
-            1, slot, q_pos.to(cache["pos"].dtype)[None].expand(B, S))
+        cache["k"][:, slot] = k
+        cache["v"][:, slot] = v
+        cache["pos"][:, slot] = q_pos.to(cache["pos"].dtype)
         out = attention_ref(q, cache["k"], cache["v"], q_pos, cache["pos"],
                             causal=True, window=window)
     return out.reshape(B, S, Hq * hd) @ p.wo, cache

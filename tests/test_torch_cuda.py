@@ -550,6 +550,58 @@ def test_flash_attention_backward_in_slabs_of_keys(cuda, monkeypatch, B, Sq,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# K4 under torch.func.vmap over clients: (clients, B, S, Hq, Hkv, hd),
+# lm-dpfl's local step at qwen3-0.6b width and the personalized prefill,
+# the lm-dpfl example's local step and reward call (2/2 heads of 32; all
+# chip_smoke.py's K4_VMAP_CASES), then GQA 4/1 with hd 64 at a ragged S
+K4_VMAP_SHAPES = [(4, 8, 32, 16, 8, 128), (4, 1, 512, 16, 8, 128),
+                  (6, 8, 32, 2, 2, 32), (24, 12, 32, 2, 2, 32),
+                  (3, 2, 200, 4, 1, 64)]
+
+
+@pytest.mark.parametrize("N, B, S, Hq, Hkv, hd", K4_VMAP_SHAPES)
+def test_flash_attention_under_vmap_folds_the_clients(cuda, N, B, S, Hq,
+                                                      Hkv, hd):
+    """One forward launch (and one backward call under autograd) on the
+    folded (N * B) batch, bit for bit the per-client launches, within
+    1e-5 of the plain version (the gradients as a share of their largest
+    element)."""
+    q, k, v = (t.unflatten(0, (N, B)) for t in _k4_inputs(
+        N * B, S, S, Hq, Hkv, hd, "float32", cuda))
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)
+    f = torch.func.vmap(ops.flash_attention)
+
+    def counts():
+        return k4.flash_attention.launches, k4.flash_attention_bwd.launches
+    before = counts()
+    with torch.no_grad():
+        out = f(q, k, v)
+    assert counts() == (before[0] + 1, before[1])
+    with torch.no_grad():
+        each = torch.stack([ops.flash_attention(q[i], k[i], v[i])
+                            for i in range(N)])
+    assert torch.equal(out, each)
+    torch.testing.assert_close(out, ref.flash_attention_ref(
+        q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1)).unflatten(
+        0, (N, B)), rtol=1e-5, atol=1e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = counts()
+    got = torch.autograd.grad(f(*leaves), leaves, dout)
+    assert counts() == (before[0] + 1, before[1] + 1)
+    want = ref.flash_attention_bwd_ref(q.flatten(0, 1), k.flatten(0, 1),
+                                       v.flatten(0, 1), dout.flatten(0, 1))
+    for i in range(N):
+        li = [t[i].clone().requires_grad_(True) for t in (q, k, v)]
+        gi = torch.autograd.grad(ops.flash_attention(*li), li, dout[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(got, gi))
+    for name, g, w in zip("qkv", got, want):
+        w = w.unflatten(0, (N, B))
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-5,
+                                   msg=f"d{name}")
+
+
 # K5 (b, l, H, p, n, chunk, dlogA, h0): chip_smoke.py's cases (the serve
 # shape of mamba2-370m with the model's dt, tests/test_kernels.py's three
 # shapes, a single ragged chunk, an h0, p 128), then eight chunks at the

@@ -8,9 +8,13 @@ topk-signflip-clipped; dense-labelflip-trimmed) once to warm up, then once under
 line: the wall time, the summed device-kernel time and the device's idle
 share, the time of each phase (preprocessing vs the round loop, by
 CUDA-synced host clock), and the kernels that take the most device time,
-the port's own kernels among them.
+the port's own kernels among them. With ``--lm`` it runs the LM example
+instead (``examples/lm_dpfl_torch.py`` at ``chip_smoke.LM_DPFL_FULL``:
+qwen3-0.6b's widths on 2 layers, 4 clients, the example's
+`DPFLConfig`), its init included in the preprocessing.
 
     python3 tools/profile_dpfl.py [--rounds 3] [--variant dense]
+    python3 tools/profile_dpfl.py --lm
 
 Needs a CUDA card; imports no JAX.
 """
@@ -25,6 +29,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "examples"))
 
 import chip_smoke  # noqa: E402
 
@@ -35,6 +40,9 @@ def main():
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--variant", default="dense",
                     choices=list(chip_smoke.VARIANTS))
+    ap.add_argument("--lm", action="store_true",
+                    help="the LM example at chip_smoke.LM_DPFL_FULL (its "
+                         "own rounds; --rounds and --variant unused)")
     args = ap.parse_args()
 
     import torch
@@ -46,10 +54,23 @@ def main():
 
     from repro_torch.core import dpfl
 
-    engine = chip_smoke.make_engine()
-    cfg = chip_smoke.smoke_config(args.variant,
-                             **dict(chip_smoke.SMOKE_RUN,
-                                    rounds=args.rounds))
+    if args.lm:
+        import lm_dpfl_torch as ex
+
+        from repro_torch.configs import get_config
+
+        c = chip_smoke.LM_DPFL_FULL
+        engine, _ = ex.lm_engine(
+            get_config(c["arch"]).replace(n_layers=c["n_layers"],
+                                          dtype="float32"),
+            c["clients"], "cuda")
+        cfg = dpfl.DPFLConfig(**ex.RUN)
+        args.variant, args.rounds = f"lm {c}", cfg.rounds
+    else:
+        engine = chip_smoke.make_engine()
+        cfg = chip_smoke.smoke_config(args.variant,
+                                      **dict(chip_smoke.SMOKE_RUN,
+                                             rounds=args.rounds))
 
     # phase split by the host clock, each phase ending in a synchronize
     phases = {}
@@ -95,10 +116,11 @@ def main():
                         for us, k, n in rows[:args.top]],
         # the port's kernels: graph_mix, sparse_graph_mix and
         # compressed_graph_mix (its bucketing pass and its mix, two
-        # kernels whose names both hold "graph_mix")
+        # kernels whose names both hold "graph_mix"), and K4's forward
+        # and backward kernels in the LM run
         "port_kernels": [{"name": k[:90], "device_ms": us / 1e3,
                           "calls": n} for us, k, n in rows
-                         if "graph_mix" in k],
+                         if "graph_mix" in k or "flash_attention" in k],
     }))
 
 
