@@ -21,7 +21,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    K4 flash_attention (the serve shape in fp32 and bf16, MQA with a
    window, h2o-danube's hd 80, recurrentgemma's hd 256 with one KV
    head at a window of 64 and at its serve shape with the window of
-   2048, ragged S, S = 1, Sq != Sk), K5 ssd (mamba2-370m's serve
+   2048, internvl2-2b's serve shape (S 768: 256 vision positions and
+   512 tokens) and qwen3-moe-30b-a3b's (32/4 heads), ragged S, S = 1,
+   Sq != Sk), K5 ssd (mamba2-370m's serve
    shape with the model's dt, tests/test_kernels.py's three shapes, the
    reduced model's, one ragged chunk, h0, p 128, eight chunks at the
    serve width, B and C as views of the model's xBC projection, h0 with
@@ -76,11 +78,22 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    12 local-attention blocks, float32, 26.1 GB of weights; 26 K6 and 12
    K4 launches in the prefill, 0 in decode), whose card-against-CPU
    check runs the model's first five layers (two segments) with its
-   embedding, head and final norm (CROSS_LAYERS); then the training
+   embedding, head and final norm (CROSS_LAYERS); then internvl2-2b at
+   its full published config (24 layers behind 256 vision embeddings
+   drawn from a seed; 24 K4 launches in the prefill, 0 in decode; card
+   against CPU on its first 4 layers) and qwen3-moe-30b-a3b at full
+   width on its first 8 of 48 layers (SERVE_LAYERS: 8 K4 launches in
+   the prefill, 0 in decode, its experts plain batched products; the
+   same logits bits on a second call; the smallest router gap and the
+   copies its capacity drops; card against CPU on its first 2 layers);
+   then the training
    path: `launch.train.main` on qwen3-0.6b (TRAIN_ARGV) and mamba2-370m
-   (TRAIN_SSM_ARGV) at their published configs, and recurrentgemma-9b at
-   full width on its first 6 layers (TRAIN_HYBRID) through
-   `launch.train.train`, each 10 steps with the counts zeroed just before
+   (TRAIN_SSM_ARGV) at their published configs, and through
+   `launch.train.train` internvl2-2b whole (TRAIN_VLM: seeded vision
+   embeddings) and recurrentgemma-9b and qwen3-moe-30b-a3b at full width
+   on their first 6 and 2 layers (TRAIN_HYBRID, TRAIN_MOE; the moe run's
+   router loss printed), each 10 steps with the counts zeroed just
+   before
    and read just after (each layer's kernel forward twice a step and its
    backward once, under remat "full"), finite, falling losses; then each
    family cut small on the card and on the CPU against JAX's losses
@@ -111,6 +124,8 @@ without the port's sources beside it. Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import re
@@ -252,6 +267,11 @@ K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, None, "float32"),
              "float32"),
             ("hybrid serve, hd 256, Hkv 1, window 2048", 4, 512, 512, 16, 1,
              256, 2048, "float32"),
+            # internvl2-2b's prefill (256 vision positions and a 512-token
+            # prompt) and qwen3-moe-30b-a3b's (32/4 heads: GQA ratio 8)
+            ("vlm serve, S 768", 4, 768, 768, 16, 8, 128, None, "float32"),
+            ("moe serve, 32/4 heads", 4, 512, 512, 32, 4, 128, None,
+             "float32"),
             ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "float32"),
             ("S = 1", 4, 1, 1, 16, 8, 128, None, "float32"),
             ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32"),
@@ -273,19 +293,31 @@ K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 # most 2^-8 of each p), an error that scales with |v|, not with the
 # output, so it shows in rows whose output is near 0
 K4_BF16_FP32_TOL = (2.0 ** -7, 2.0 ** -6)
-# The serving paths: qwen3-0.6b (dense, K4), mamba2-370m (SSM, K5) and
+# The serving paths: qwen3-0.6b (dense, K4), mamba2-370m (SSM, K5),
 # recurrentgemma-9b (hybrid: K6 in its recurrent blocks, K4 in its
-# attention blocks) at their published configs, in float32 as
-# `repro.launch.serve` runs them
-SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "recurrentgemma-9b")
+# attention blocks), internvl2-2b (vlm: dense layers, K4, behind 256
+# vision embeddings drawn from a seed) and qwen3-moe-30b-a3b (moe: K4 and
+# the experts' plain batched products) at their published configs, in
+# float32 as `repro.launch.serve` runs them
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "recurrentgemma-9b",
+               "internvl2-2b", "qwen3-moe-30b-a3b")
 SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
+# served at full width on their first layers: qwen3-moe-30b-a3b's 48
+# layers hold 30.5 B weights (122 GB in fp32, more than the card); its
+# first 8 with the embedding, head and final norm are 5.61 B (22.4 GB)
+SERVE_LAYERS = {"qwen3-moe-30b-a3b": 8}
+# the seed of the vlm's vision embeddings (unit normals, B x 256 x 2048)
+VISION_SEED = 5
 CROSS_RUN = dict(batch=1, prompt_len=128, new_tokens=8)
 # Card against CPU at a stated reduction: recurrentgemma-9b's 26.1 GB of
 # weights are run on the CPU as the model's first five layers (rec, rec,
 # attn, then the (rec, rec) remainder segment, so both segments run) with
 # its embedding, head and final norm: 10.4 GB copied to the host, nothing
-# drawn anew. The other serve models run whole.
-CROSS_LAYERS = {"recurrentgemma-9b": 5}
+# drawn anew. internvl2-2b runs its first 4 of 24 layers (2.4 GB with its
+# embedding and head) and qwen3-moe-30b-a3b its first 2 (7.5 GB). The
+# other serve models run whole.
+CROSS_LAYERS = {"recurrentgemma-9b": 5, "internvl2-2b": 4,
+                "qwen3-moe-30b-a3b": 2}
 # Card against CPU on the same weights: last-position prefill logits
 # (qwen3's std 0.64) within CROSS_TOL. A CPU rehearsal at full width with 2 and 4
 # layers (B 1, S 128, float32) put two summation orders (the prompt alone
@@ -390,6 +422,10 @@ K6_TOL = 1e-4   # tests/test_kernels.py (atol)
 # tiles that see no key of the first)
 K4_BWD_CASES = [("train", 8, 512, 512, 16, 8, 128, True, None),
                 ("hybrid", 4, 512, 512, 16, 1, 256, True, 2048),
+                # internvl2-2b's train step (B 8, 256 vision positions and
+                # 512 tokens) and qwen3-moe-30b-a3b's (B 4, 32/4 heads)
+                ("vlm train", 8, 768, 768, 16, 8, 128, True, None),
+                ("moe train", 4, 512, 512, 32, 4, 128, True, None),
                 ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, True,
                  64),
                 ("hd 80, 32/8 heads, window 128", 2, 384, 384, 32, 8, 80,
@@ -403,8 +439,9 @@ K4_BWD_CASES = [("train", 8, 512, 512, 16, 8, 128, True, None),
                  224, False, None),
                 ("S 4096, window 512, 4 slabs", 1, 4096, 4096, 16, 4, 64,
                  True, 512)]
-# the K4 backward cases timed: the train run's and recurrentgemma-9b's
-K4_BWD_TIMED = ("train", "hybrid")
+# the K4 backward cases timed: the train runs' (qwen3-0.6b,
+# recurrentgemma-9b, internvl2-2b, qwen3-moe-30b-a3b)
+K4_BWD_TIMED = ("train", "hybrid", "vlm train", "moe train")
 # each of dq, dk, dv against the plain version's, as a share of that
 # gradient's largest element (tests/test_torch_cuda.py): fp32 sums over
 # up to 512 keys (queries and heads) in another order than cuBLAS's
@@ -475,6 +512,19 @@ TRAIN_SSM_ARGV = ["--arch", "mamba2-370m", "--steps", "10", "--batch", "8",
 # `launch.train.train` from the init of PRNGKey(0)
 TRAIN_HYBRID = dict(arch="recurrentgemma-9b", n_layers=6, batch=4, seq=512,
                     steps=10, lr=3e-4)
+# internvl2-2b whole (24 layers, 1.89 B weights: 30 GB with gradients and
+# AdamW's moments), batch 8, sequence 512 behind 256 vision embeddings
+# (768 positions) from `make_vision`, the same at every step, 10 steps,
+# through `launch.train.train`. Not `main`'s zero embeddings: at this
+# depth they give non-finite gradients in `repro` as in the port (each
+# RMS norm of a zero row scales its gradient by 1/sqrt(1e-6), and 48
+# norms overflow fp32; tests/test_torch_lm_families.py)
+TRAIN_VLM = dict(arch="internvl2-2b", n_layers=24, batch=8, seq=512,
+                 steps=10, lr=3e-4)
+# qwen3-moe-30b-a3b at full width on its first 2 layers (1.87 B weights,
+# 29.9 GB with gradients and moments), batch 4, sequence 512, 10 steps
+TRAIN_MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=2, batch=4, seq=512,
+                 steps=10, lr=3e-4)
 # Card against CPU and against JAX, each family on the training loop
 # (`launch.train.train`) for 3 steps at lr 3e-4 from the init of
 # PRNGKey(0), keyed by the tools/jax_reference_smoke.py name that runs it
@@ -491,16 +541,30 @@ CROSS_TRAINS = {
     "train-cross-ssm": dict(arch="mamba2-370m", n_layers=2, batch=2,
                             seq=512, steps=3, lr=3e-4),
     "train-cross-hybrid": dict(arch="recurrentgemma-9b", reduced=True,
-                               batch=2, seq=128, steps=3, lr=3e-4)}
+                               batch=2, seq=128, steps=3, lr=3e-4),
+    # internvl2-2b at full width cut to two layers (its 256 zero vision
+    # embeddings before the 128 tokens, as `launch.train` feeds them),
+    # and qwen3-moe-30b-a3b's reduced config (4 experts top 2 at width
+    # 256), whose capacity of 160 copies an expert drops copies of the
+    # 512 that B 2, S 128 route
+    "train-cross-vlm": dict(arch="internvl2-2b", n_layers=2, batch=2,
+                            seq=128, steps=3, lr=3e-4),
+    "train-cross-moe": dict(arch="qwen3-moe-30b-a3b", reduced=True,
+                            batch=2, seq=128, steps=3, lr=3e-4)}
 # the JAX reference's losses of those runs (tools/jax_reference_smoke.py
-# train-cross train-cross-ssm train-cross-hybrid, on the CPU)
+# train-cross train-cross-ssm train-cross-hybrid train-cross-vlm
+# train-cross-moe, on the CPU)
 CROSS_TRAIN_JAX_LOSSES = {
     "train-cross": [12.067048072814941, 12.131933212280273,
                     12.170770645141602],
     "train-cross-ssm": [11.39367389678955, 11.2791748046875,
                         11.313643455505371],
     "train-cross-hybrid": [6.733729362487793, 6.728228569030762,
-                           6.701728820800781]}
+                           6.701728820800781],
+    "train-cross-vlm": [11.865507125854492, 12.00423812866211,
+                        11.906243324279785],
+    "train-cross-moe": [6.785251140594482, 6.8302788734436035,
+                        6.734958171844482]}
 # losses (atol) and step-0 gradients (each leaf as a share of its
 # largest element): fp32 sums over the vocabulary's logits and the
 # positions in other orders (card, CPU, XLA)
@@ -947,8 +1011,8 @@ def time_k4(torch, inputs, errs, rates):
     """K4, its plain version and the yardstick
     (`scaled_dot_product_attention` with ``is_causal`` and ``enable_gqa``
     on (B, H, S, hd) views) timed at qwen3-0.6b's serve shape, fp32 and
-    bf16, and at recurrentgemma-9b's, beside the bound; returns the
-    rows."""
+    bf16, and at recurrentgemma-9b's, internvl2-2b's and
+    qwen3-moe-30b-a3b's, beside the bound; returns the rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k4
@@ -1098,7 +1162,8 @@ def time_k4_bwd(torch, inputs, errs, rates):
     its backward) and the yardstick, SDPA's backward (``is_causal``,
     ``enable_gqa`` on (B, H, S, hd) views, its forward run once and its
     backward repeated; the hybrid's window of 2048 does not bind at 512
-    positions), beside the bound; each kernel's device time from the
+    positions), beside the bound (the train runs' shapes: qwen3-0.6b,
+    recurrentgemma-9b, internvl2-2b, qwen3-moe-30b-a3b); each kernel's device time from the
     profiler; and the forward with and without the LSE. Returns the
     rows."""
     import torch.nn.functional as F
@@ -2119,7 +2184,8 @@ def serve_kernels(cfg):
 
 
 def serve_model(torch, arch):
-    """``arch`` (one of SERVE_ARCHS) at its published config in float32,
+    """``arch`` (one of SERVE_ARCHS) at its published config in float32
+    (cut to its first SERVE_LAYERS[arch] layers where it has an entry),
     built on "meta" and its weights drawn from seed 0 on the card (so
     they exist once: recurrentgemma-9b's are 26.1 GB); returns (cfg,
     model, params)."""
@@ -2128,6 +2194,9 @@ def serve_model(torch, arch):
     from repro_torch.models import build_model
 
     cfg = get_config(arch).replace(dtype="float32")
+    full_layers = cfg.n_layers
+    if arch in SERVE_LAYERS:
+        cfg = cfg.replace(n_layers=SERVE_LAYERS[arch])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")
@@ -2145,37 +2214,100 @@ def serve_model(torch, arch):
         if cfg.family == "hybrid":
             shape += (f", pattern {cfg.hybrid_pattern}, lru width "
                       f"{cfg.lru_width}, window {cfg.local_window}")
-    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {shape}, "
+        if cfg.family == "moe":
+            shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                     f"{cfg.resolved_head_dim}, {cfg.n_experts} experts top "
+                     f"{cfg.topk} of d_ff {cfg.d_expert_ff}")
+        if cfg.family == "vlm":
+            shape += f", {cfg.n_vision_tokens} vision positions"
+    cut = "" if full_layers == cfg.n_layers else \
+        f" (the first of its {full_layers})"
+    print(f"{arch}: {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
+          f"{shape}, "
           f"vocab {cfg.vocab_size}: {n} float32 weights, drawn on the card "
           f"in {seconds:.2f} s; max_memory_allocated after init "
           f"{torch.cuda.max_memory_allocated()} bytes")
     return cfg, model, params
 
 
+def make_vision(torch, cfg, batch, device="cuda"):
+    """A vlm's vision embeddings (batch, n_vision_tokens, d_model), unit
+    normals from VISION_SEED on ``device``; None for another family."""
+    if cfg.family != "vlm":
+        return None
+    gen = torch.Generator(device=device).manual_seed(VISION_SEED)
+    return torch.randn((batch, cfg.n_vision_tokens, cfg.d_model),
+                       generator=gen, device=device)
+
+
+def moe_routing(torch, model, fn):
+    """``fn()`` with a forward hook on every MoE block of ``model`` that
+    keeps, on the device (no sync: decode runs under the no-sync fence),
+    each call's token count, smallest gap between the k-th and (k+1)-th
+    router probability and the copies its capacity drops (a forward
+    recomputed under remat is a call too). Returns (fn's result, {"gap":
+    the smallest gap, "prefill": (dropped, copies), "decode": (dropped,
+    copies)}, summed over the layers and calls, a call of more than one
+    token a prefill; None for a model without MoE blocks)."""
+    from repro_torch.models import moe
+
+    rec = []
+
+    @torch.no_grad()   # saves nothing for a backward (or a recompute)
+    def hook(mod, args, out):
+        x, cfg = args[0], args[1]
+        x2 = x.reshape(-1, x.shape[-1])
+        probs = moe.router_probs(x2, mod.router)
+        _, idx = moe.top_k(probs, cfg.topk)
+        rec.append((x.shape[1], x2.shape[0] * cfg.topk,
+                    moe.router_gap(probs, cfg.topk),
+                    moe.dropped_copies(idx, cfg.n_experts)))
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, moe.MoE)]
+    try:
+        out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    if not rec:
+        return out, None
+    stats = {"gap": min(float(r[2]) for r in rec)}
+    for phase, keep in (("prefill", lambda s: s > 1),
+                        ("decode", lambda s: s == 1)):
+        rows = [r for r in rec if keep(r[0])]
+        stats[phase] = (sum(int(r[3]) for r in rows),
+                        sum(r[1] for r in rows))
+    return out, stats
+
+
 def run_serve(torch, cfg, model, params):
-    """The serving path once through `generate` with every kernel count
-    zeroed just before and read just after (`serve_kernels`: one launch
-    per layer of the layer's kernel, K4, K5 or K6, and no other kernel);
-    then `generate`'s prefill phase alone, counted the same way, so the
-    decode loop's launches are the difference (none); then a second call,
-    which must give the same tokens. Returns (launches, each launched
-    kernel's (prefill, decode) launches, the first call's Generation, the
-    second's)."""
+    """The serving path once through `generate` (a vlm's vision
+    embeddings from `make_vision`) with every kernel count zeroed just
+    before and read just after (`serve_kernels`: one launch per layer of
+    the layer's kernel, K4, K5 or K6, and no other kernel); then
+    `generate`'s prefill phase alone, counted the same way, so the decode
+    loop's launches are the difference (none); then a second call, which
+    must give the same tokens (and, for a moe model, the same logits bit
+    for bit), and for a moe model a third, its routing observed
+    (`moe_routing`). Returns (launches, each launched kernel's (prefill,
+    decode) launches, the first call's Generation, the second's, the
+    routing statistics or None)."""
     from repro_torch.launch.serve import generate, make_prompts, prefill
 
     want = serve_kernels(cfg)
     B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")
+    vision = make_vision(torch, cfg, B)
     torch.cuda.synchronize()
     _zero_launches()
-    gen = generate(model, params, prompts, new)
+    gen = generate(model, params, prompts, new, vision=vision)
     torch.cuda.synchronize()
     launches = _read_launches()
     if launches != want:
         fail(f"serve {cfg.name}: kernel launches {launches}, expected "
              f"{want}")
     _zero_launches()
-    prefill(model, prompts, new)
+    prefill(model, prompts, new, vision)
     torch.cuda.synchronize()
     n_prefill = _read_launches()
     split = {k: (n_prefill[k], launches[k] - n_prefill[k])
@@ -2194,10 +2326,17 @@ def run_serve(torch, cfg, model, params):
                 not torch.isfinite(logits).all():
             fail(f"serve {cfg.name}: {name} not a finite "
                  f"{(B, cfg.vocab_size)} table")
-    again = generate(model, params, prompts, new)
+    again = generate(model, params, prompts, new, vision=vision)
     if not torch.equal(again.tokens, gen.tokens):
         fail(f"serve {cfg.name}: a second call gave other tokens")
-    return launches, split, gen, again
+    if cfg.family == "moe" and not (
+            torch.equal(again.prefill_logits, gen.prefill_logits)
+            and torch.equal(again.last_logits, gen.last_logits)):
+        fail(f"serve {cfg.name}: a second call gave other logits bits")
+    # a third call, its MoE routing observed (`moe_routing`)
+    _, routing = moe_routing(torch, model, lambda: generate(
+        model, params, prompts, new, vision=vision))
+    return launches, split, gen, again, routing
 
 
 def check_cross(torch, cfg, model, params):
@@ -2207,7 +2346,8 @@ def check_cross(torch, cfg, model, params):
     CROSS_TOL, so the family's kernels (K4, K5, K6) are held against the
     plain path inside the model. A model in CROSS_LAYERS runs cut to its
     first layers, on both sides, with its embedding, head and final norm.
-    Returns (max abs logits difference, CPU seconds, layers run)."""
+    Returns (max abs logits difference, CPU seconds, layers run, the card
+    side's routing statistics, `moe_routing`: None without MoE layers)."""
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models import build_model
 
@@ -2221,14 +2361,16 @@ def check_cross(torch, cfg, model, params):
     want = serve_kernels(cfg)
     B, S, new = (CROSS_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
     prompts = make_prompts(cfg.vocab_size, B, S, 1, "cuda")
+    vision = make_vision(torch, cfg, B)
     _zero_launches()
-    card = generate(model, params, prompts, new)
+    card, routing = moe_routing(torch, model, lambda: generate(
+        model, params, prompts, new, vision=vision))
     torch.cuda.synchronize()
     n_card = _read_launches()
     t0 = time.perf_counter()
     cpu_params = {k: v.cpu() for k, v in params.items()}
     cpu = generate(build_model(cfg, device="meta"), cpu_params, prompts.cpu(),
-                   new)
+                   new, vision=None if vision is None else vision.cpu())
     seconds = time.perf_counter() - t0
     n_cpu = {k: v - n_card[k] for k, v in _read_launches().items()}
     if n_card != want or any(n_cpu.values()):
@@ -2241,20 +2383,24 @@ def check_cross(torch, cfg, model, params):
     if not torch.equal(card.tokens.cpu(), cpu.tokens):
         fail(f"{cfg.name} card against CPU: tokens {card.tokens.tolist()} "
              f"!= {cpu.tokens.tolist()}")
-    return diff, seconds, n_layers
+    return diff, seconds, n_layers, routing
 
 
 def layer_kernels(cfg):
     """Per layer of ``cfg``, in order, the port kernel its prefill runs:
-    K4 (attention), K5 (Mamba2) or K6 (RG-LRU); a hybrid model's layers
-    follow its pattern unit cyclically (`repro`'s segments)."""
+    K4 (the attention of a dense, vlm or moe layer; a moe layer's experts
+    are plain batched products), K5 (Mamba2) or K6 (RG-LRU); a hybrid
+    model's layers follow its pattern unit cyclically (`repro`'s
+    segments)."""
     if cfg.family == "ssm":
         return ["ssd"] * cfg.n_layers
     if cfg.family == "hybrid":
         unit = cfg.hybrid_pattern
         return ["rglru_scan" if unit[i % len(unit)] == "rec"
                 else "flash_attention" for i in range(cfg.n_layers)]
-    return ["flash_attention"] * cfg.n_layers
+    if cfg.family in ("dense", "vlm", "moe"):
+        return ["flash_attention"] * cfg.n_layers
+    fail(f"layer_kernels: no port path for the {cfg.family} family")
 
 
 def train_launches(cfg, steps):
@@ -2271,12 +2417,36 @@ def train_launches(cfg, steps):
     return want
 
 
+@contextlib.contextmanager
+def record_aux(model):
+    """Within the block, ``model.loss`` (an attribute of the instance,
+    which the train step looks up at each call) keeps each call's router
+    loss, detached, on the device (no sync), in the list it yields. The
+    wrapper is removed on leaving: it refers to the model, which refers
+    to it, and that cycle would keep the weights on the card until the
+    garbage collector ran."""
+    seen = []
+    loss = model.loss
+
+    def wrapped(batch):
+        out = loss(batch)
+        seen.append(out[1]["aux"].detach())
+        return out
+    model.loss = wrapped
+    try:
+        yield seen
+    finally:
+        del model.loss
+
+
 def run_train(torch, argv=None, cut=None):
     """The training path once, with every kernel count zeroed just before
     and read just after (`train_launches`): `repro_torch.launch.train.
-    main(argv)`, or for ``cut`` (TRAIN_HYBRID) the config cut to its
-    first ``n_layers`` layers, its init of PRNGKey(0) on the card and
-    `launch.train.train`; every loss finite and the last below the first.
+    main(argv)`, or for ``cut`` (TRAIN_HYBRID, TRAIN_VLM, TRAIN_MOE) the
+    config cut to its first ``n_layers`` layers, its init of PRNGKey(0)
+    on the card and `launch.train.train` (a vlm's vision embeddings from
+    `make_vision`; a moe model's router loss of each step kept,
+    `record_aux`); every loss finite and the last below the first.
     Then AdamW alone (its update and the weights' addition, on gradients
     of the weights' shapes) three times, by the host clock around
     synchronized calls. Returns a dict of the run's numbers."""
@@ -2289,6 +2459,7 @@ def run_train(torch, argv=None, cut=None):
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
+    aux = None
     if cut is None:
         steps = int(argv[argv.index("--steps") + 1])
         batch, seq = (int(argv[argv.index(f) + 1])
@@ -2300,14 +2471,18 @@ def run_train(torch, argv=None, cut=None):
                                               dtype="float32")
         model = build_model(cfg, device="meta", loss_chunks=4)
         model.init(prng.PRNGKey(0, device="cuda"))
-        print(f"arch={cfg.name} cut to {cfg.n_layers} layers params="
+        print(f"arch={cfg.name} ({cfg.n_layers} layers) params="
               f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
-        run = train.train(model, train.lm_corpus(cfg, batch, seq),
-                          steps=steps, batch=batch, lr=cut["lr"])
+        with (record_aux(model) if cfg.family == "moe"
+              else contextlib.nullcontext()) as aux:
+            run = train.train(model, train.lm_corpus(cfg, batch, seq),
+                              steps=steps, batch=batch, lr=cut["lr"],
+                              vision=make_vision(torch, cfg, batch))
         del model
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _read_launches()
+    aux = None if aux is None else [float(a) for a in aux]
     peak = torch.cuda.max_memory_allocated()
     cfg = run.model.cfg
     want = train_launches(cfg, steps)
@@ -2336,18 +2511,22 @@ def run_train(torch, argv=None, cut=None):
     del grads, params
     warm = statistics.median(run.step_seconds[2:])
     return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
+                vision=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
                 n_params=run.n_params, steps=steps, losses=run.losses,
                 step_seconds=run.step_seconds, warm_step_s=warm,
                 optimizer_s=statistics.median(opt_times),
                 optimizer_share=statistics.median(opt_times) / warm,
-                peak_bytes=peak, launches=launches, seconds=seconds)
+                peak_bytes=peak, launches=launches, seconds=seconds,
+                aux=aux)
 
 
 def print_train(tr):
     per_step = ", ".join(
         f"{n // tr['steps']} {k}" for k, n in tr["launches"].items() if n)
     print(f"train {tr['arch']} ({tr['n_layers']} layers) float32 "
-          f"B={tr['batch']} S={tr['seq']}, {tr['steps']} steps, "
+          f"B={tr['batch']} S={tr['seq']}"
+          + (f" + {tr['vision']} vision" if tr["vision"] else "") +
+          f", {tr['steps']} steps, "
           f"{tr['n_params']} weights: losses "
           f"{[round(x, 4) for x in tr['losses']]}, step walls (s) "
           f"{[round(x, 4) for x in tr['step_seconds']]}, warm step "
@@ -2355,7 +2534,9 @@ def print_train(tr):
           f"{tr['optimizer_s']:.4f} s ({tr['optimizer_share']:.3f} of a "
           f"step), peak allocated {tr['peak_bytes']} bytes, launches "
           f"{tr['launches']} ({per_step} a step), run {tr['seconds']:.1f} "
-          f"s with init and corpus")
+          f"s with init and corpus" + ("" if tr["aux"] is None else
+                                       f"; router loss of each step "
+                                       f"{[round(a, 6) for a in tr['aux']]}"))
 
 
 def check_cross_train(torch, name):
@@ -2393,8 +2574,18 @@ def check_cross_train(torch, name):
     first = corpus[train.batch_rows(corpus.shape[0], c["batch"], 1)[0]]
     grads = {}
     for side, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
-        loss, _ = model.loss({"tokens": torch.from_numpy(first).to(dev)})
-        grads[side] = torch.autograd.grad(loss, list(model.parameters()))
+        batch = {"tokens": torch.from_numpy(first).to(dev)}
+        if cfg.family == "vlm":   # `launch.train`'s zero vision embeddings
+            batch["vision"] = torch.zeros(
+                (c["batch"], cfg.n_vision_tokens, cfg.d_model), device=dev)
+
+        def step0():
+            loss, _ = model.loss(batch)
+            return torch.autograd.grad(loss, list(model.parameters()))
+        grads[side], routing = moe_routing(torch, model, step0)
+        if side == "card" and routing is not None and \
+                not routing["prefill"][0]:
+            fail(f"{name}: the capacity dropped no copy at step 0")
     share = 0.0
     for (pname, _), g, w in zip(card.named_parameters(), grads["card"],
                                 grads["cpu"]):
@@ -3013,10 +3204,13 @@ def main():
         # one model on the card at a time
         cfg, model, params = serve_model(torch, arch)
         run = f"serve {arch}"
-        launches[run], split, gen, again = run_serve(torch, cfg, model,
-                                                     params)
+        launches[run], split, gen, again, routing = run_serve(
+            torch, cfg, model, params)
+        Nv = cfg.n_vision_tokens if cfg.family == "vlm" else 0
         for label, g in (("first call", gen), ("second call", again)):
-            print(f"serve {arch} float32 B={B} S={S} new={new} ({label}): "
+            print(f"serve {arch} float32 B={B} S={S}"
+                  + (f" + {Nv} vision" if Nv else "") +
+                  f" new={new} ({label}): "
                   f"prefill {g.prefill_seconds * 1e3:.3f} ms wall "
                   f"({B * S / g.prefill_seconds:.1f} prompt tok/s), decode "
                   f"{new - 1} steps {g.decode_seconds * 1e3:.3f} ms wall "
@@ -3025,24 +3219,41 @@ def main():
         walls[arch] = (again.prefill_seconds * 1e3,
                        again.decode_seconds / (new - 1) * 1e3)
         print(f"serve {arch}: launches {launches[run]}, (prefill, decode) "
-              f"{split}, same tokens on a second call; sample "
+              f"{split}, same tokens on a second call"
+              + (" (and the same logits bits)" if cfg.family == "moe"
+                 else "") + f"; sample "
               f"{gen.tokens[0, :8].tolist()}; max_memory_allocated after "
               f"the serve runs {torch.cuda.max_memory_allocated()} bytes")
-        diff, cpu_s, layers = check_cross(torch, cfg, model, params)
+        if routing is not None:
+            print(f"serve {arch} routing: smallest gap between the "
+                  f"{cfg.topk}th and {cfg.topk + 1}th router probability "
+                  f"{routing['gap']:.3g}; copies dropped by the capacity "
+                  + ", ".join(f"{ph} {d} of {n} ({d / n:.4f})" for ph, (d, n)
+                              in ((k, routing[k]) for k in
+                                  ("prefill", "decode"))) +
+                  " over its layers; decode under the no-sync fence")
+        diff, cpu_s, layers, routing = check_cross(torch, cfg, model, params)
         print(f"card against CPU ({arch}, {layers} of {cfg.n_layers} "
               f"layers, B={CROSS_RUN['batch']} S={CROSS_RUN['prompt_len']} "
               f"new={CROSS_RUN['new_tokens']}): same tokens, prefill logits "
               f"max abs diff {diff:.3g} (tol {CROSS_TOL}), CPU side "
-              f"{cpu_s:.1f} s")
+              f"{cpu_s:.1f} s" + ("" if routing is None else
+                                  f"; smallest router gap on the card "
+                                  f"{routing['gap']:.3g}"))
         del model, params, gen, again
         torch.cuda.empty_cache()
     print("serve walls, second call (prefill ms, decode ms/step): " +
           ", ".join(f"{a} {p:.3f}, {d:.3f}" for a, (p, d) in walls.items()))
     for kw in (dict(argv=TRAIN_ARGV), dict(argv=TRAIN_SSM_ARGV),
-               dict(cut=TRAIN_HYBRID)):
+               dict(cut=TRAIN_HYBRID), dict(cut=TRAIN_VLM),
+               dict(cut=TRAIN_MOE)):
         tr = run_train(torch, **kw)
         launches[f"train {tr['arch']}"] = tr["launches"]
         print_train(tr)
+        # the first model trained under activation recompute stays in a
+        # reference cycle (frames of torch.utils.checkpoint's first call)
+        # until the collector runs: free its weights before the next run
+        gc.collect()
         torch.cuda.empty_cache()
     for name in CROSS_TRAINS:
         (card_losses, cpu_losses, grad_share, n_cross, params,
@@ -3065,6 +3276,7 @@ def main():
           f"K1 launches {n_mix['graph_mix']} (one a leaf), max abs err "
           f"{mix_err:.3g} against K1's plain version")
     del cross_params
+    gc.collect()
     torch.cuda.empty_cache()
     card, cpu = check_lm_dpfl_cross(torch)
     launches["lm-dpfl (card)"] = card["launches"]
@@ -3135,8 +3347,8 @@ def main():
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs, the twelve baseline runs, the three serve runs, the three
-    # train runs, the card sides of the three cross train runs, the DPFL
+    # DPFL runs, the twelve baseline runs, the five serve runs, the five
+    # train runs, the card sides of the five cross train runs, the DPFL
     # mix, the two lm-dpfl runs on the card and the personalized serve),
     # with each run's counts beside them
     def total(kname):

@@ -37,28 +37,35 @@ def flat_from_jax(flat: np.ndarray, device=None) -> torch.Tensor:
                         device=device)
 
 
-#: per family, the layer leaves that are float32 in `repro` whatever
-#: ``cfg.dtype``: the Mamba2 block's scalars
-#: (`repro.models.ssm.init_mamba_block`) and the RG-LRU block's gate
-#: weights and decay (`repro.models.rglru.init_rec_block`)
+#: per family, the layer leaves (dotted paths within a layer) that are
+#: float32 in `repro` whatever ``cfg.dtype``: the Mamba2 block's scalars
+#: (`repro.models.ssm.init_mamba_block`), the RG-LRU block's gate
+#: weights and decay (`repro.models.rglru.init_rec_block`) and the MoE
+#: router (`repro.models.moe.init_moe`)
 FLOAT32_LEAVES = {"ssm": ("A_log", "D", "dt_bias"),
-                  "hybrid": ("wa", "ba", "wx", "bx", "lam")}
+                  "hybrid": ("wa", "ba", "wx", "bx", "lam"),
+                  "moe": ("moe.router",)}
+#: the families whose trees `lm_params_from_jax` and `lm_params_to_jax`
+#: carry: vlm's tree is the dense one, moe's stacks its layers as dense
+#: does, with a "moe" subtree in place of the MLP
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def lm_params_from_jax(params: Mapping, cfg, device=None
                        ) -> Dict[str, torch.Tensor]:
-    """A `repro` ``DecoderLM`` parameter tree of the dense, SSM or hybrid
-    family, as numpy arrays -> the state dict of the port's
-    `repro_torch.models.lm.DecoderLM` ("tok_embed", "final_norm",
-    ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq", ...,
-    "layers.{i}.in_proj", ...), in ``cfg.dtype`` on ``device`` (default
-    cuda), except the leaves that `repro` keeps in float32 whatever the
-    dtype (`FLOAT32_LEAVES`). Dense and SSM trees stack every leaf under
-    ``"layers"`` over a leading n_layers axis; a hybrid tree's leaf
+    """A `repro` ``DecoderLM`` parameter tree of the dense, moe, vlm, SSM
+    or hybrid family (`LM_FAMILIES`), as numpy arrays -> the state dict of
+    the port's `repro_torch.models.lm.DecoderLM` ("tok_embed",
+    "final_norm", ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq",
+    ..., "layers.{i}.moe.router", ..., "layers.{i}.in_proj", ...), in
+    ``cfg.dtype`` on ``device`` (default cuda), except the leaves that
+    `repro` keeps in float32 whatever the dtype (`FLOAT32_LEAVES`).
+    Dense, moe, vlm and SSM trees stack every leaf under ``"layers"``
+    over a leading n_layers axis; a hybrid tree's leaf
     ``params["segments"][si][f"b{bi}"][name][g]`` becomes
     ``layers.{i}.{name}`` for the layer i at (si, g, bi)
     (`repro_torch.models.lm.hybrid_layout`)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(f"lm_params_from_jax: the {cfg.family} "
                                   f"family is not ported")
     device = torch.device("cuda") if device is None else torch.device(device)
@@ -99,12 +106,12 @@ def lm_params_to_jax(state: Mapping[str, torch.Tensor], cfg
     """The inverse of `lm_params_from_jax`: a state dict of the port's
     `DecoderLM` -> `repro`'s ``DecoderLM`` parameter tree, every leaf a
     float32 numpy array on the host: "tok_embed", "final_norm",
-    ["lm_head"], and ``"layers"`` (dense, SSM) holding each per-layer
+    ["lm_head"], and ``"layers"`` (dense, moe, vlm, SSM) holding each
     leaf stacked over the layers, or ``"segments"`` (hybrid) holding
     ``[si][f"b{bi}"]`` leaves stacked over the groups. Saved with
     `repro_torch.checkpoint.save_pytree`, it is a file that
     `repro.checkpoint.load_pytree` reads into `repro`'s tree."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(f"lm_params_to_jax: the {cfg.family} "
                                   f"family is not ported")
 

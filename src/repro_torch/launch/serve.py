@@ -1,5 +1,6 @@
 """Batched serving: prefill of a batch of prompts, then a decode
-loop (port of `repro.launch.serve`, dense, SSM and hybrid families).
+loop (port of `repro.launch.serve`, dense, moe, vlm, SSM and hybrid
+families).
 Reduced config by default; runs on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -9,10 +10,14 @@ Every prefill attention runs on the K4 kernel, every prefill SSD scan on
 the K5 kernel and every prefill RG-LRU recurrence on the K6 kernel on
 the card (their plain versions on the CPU); decode runs the plain
 ring-cache attention and the plain one-token SSD or RG-LRU updates, as
-in `repro`. The decode loop keeps the tokens on the device and makes no
-device-to-host copy (``set_sync_debug_mode("error")`` on CUDA). The CLI
-draws its weights, prompts and samples from ``PRNGKey(0)`` as `repro`'s
-does, so the same flags give `repro`'s prompts.
+in `repro`. The MoE layers' experts are plain batched products. A vlm
+model's Nv vision embeddings run before the prompt, so its caches hold
+Nv + S + new_tokens positions and decode starts at Nv + S. The decode
+loop keeps the tokens on the device and makes no device-to-host copy
+(``set_sync_debug_mode("error")`` on CUDA). The CLI draws its weights,
+prompts and samples from ``PRNGKey(0)`` as `repro`'s does, so the same
+flags give `repro`'s prompts; a vlm model's vision embeddings are zeros,
+as in `repro`'s CLI.
 """
 from __future__ import annotations
 
@@ -59,13 +64,24 @@ def _next_token(logits: torch.Tensor, temperature: float,
     return (logits / temperature + gumbel).argmax(-1, keepdim=True), key
 
 
+def vision_positions(model, vision: Optional[torch.Tensor]) -> int:
+    """How many positions a vlm model's ``vision`` (B, Nv, d) takes
+    before the prompt: Nv, or 0 for no vision or another family (which
+    ignores it, as `repro`'s does)."""
+    if vision is None or model.cfg.family != "vlm":
+        return 0
+    return vision.shape[1]
+
+
 @torch.inference_mode()
-def prefill(model, prompts: torch.Tensor, new_tokens: int):
-    """The first phase of `generate`: ``prompts`` (B, S) into the model's
-    caches (rings of S + new_tokens slots, or SSM states). Returns
-    (last-position logits, the greedy first token (B, 1), caches)."""
-    logits, caches = model.prefill(prompts,
-                                   cache_len=prompts.shape[1] + new_tokens)
+def prefill(model, prompts: torch.Tensor, new_tokens: int,
+            vision: Optional[torch.Tensor] = None):
+    """The first phase of `generate`: a vlm model's ``vision`` embeddings
+    (B, Nv, d), then ``prompts`` (B, S), into the model's caches (rings of
+    Nv + S + new_tokens slots, or SSM states). Returns (last-position
+    logits, the greedy first token (B, 1), caches)."""
+    total = vision_positions(model, vision) + prompts.shape[1] + new_tokens
+    logits, caches = model.prefill(prompts, vision=vision, cache_len=total)
     return logits, logits.argmax(-1, keepdim=True), caches
 
 
@@ -88,11 +104,14 @@ def decode(model, caches, tok: torch.Tensor, pos: int, steps: int, *,
 
 def generate(model, params: Optional[Dict[str, torch.Tensor]],
              prompts: torch.Tensor, new_tokens: int, *,
+             vision: Optional[torch.Tensor] = None,
              temperature: float = 0.0,
              key: Optional[torch.Tensor] = None) -> Generation:
-    """`prefill`, the first token greedy from its logits, then `decode` of
-    ``new_tokens - 1`` more (greedy, or Gumbel-max at ``temperature`` with
-    ``key``, a `repro_torch.prng` key on the model's device). ``params``
+    """`prefill` (of a vlm model's ``vision`` embeddings and the prompts),
+    the first token greedy from its logits, then `decode` of
+    ``new_tokens - 1`` more from position Nv + S (greedy, or Gumbel-max
+    at ``temperature`` with ``key``, a `repro_torch.prng` key on the
+    model's device). ``params``
     is a state dict of ``model`` (`DecoderLM.init`,
     `repro_torch.interop.lm_params_from_jax`), bound to it without a copy
     (None keeps the model's own). Runs under ``torch.inference_mode()``."""
@@ -105,12 +124,14 @@ def generate(model, params: Optional[Dict[str, torch.Tensor]],
     device = prompts.device
     _sync(device)
     t0 = time.perf_counter()
-    prefill_logits, tok, caches = prefill(model, prompts, new_tokens)
+    prefill_logits, tok, caches = prefill(model, prompts, new_tokens,
+                                          vision)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tokens, last = decode(model, caches, tok, prompts.shape[1],
-                          new_tokens - 1, temperature=temperature, key=key)
+    start = vision_positions(model, vision) + prompts.shape[1]
+    tokens, last = decode(model, caches, tok, start, new_tokens - 1,
+                          temperature=temperature, key=key)
     _sync(device)
     t_decode = time.perf_counter() - t0
     return Generation(torch.cat([tok, tokens], dim=1), prefill_logits,
@@ -156,7 +177,12 @@ def main(argv=None):
     B, S = args.batch, args.prompt_len
     # `repro`'s prompts: jax.random.randint(key, (B, S), 0, vocab)
     prompts = prng.randint(key, (B, S), 0, cfg.vocab_size)
-    gen = generate(model, params, prompts, args.new_tokens,
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.zeros((B, cfg.n_vision_tokens, cfg.d_model),
+                             device=device)
+        S += cfg.n_vision_tokens
+    gen = generate(model, params, prompts, args.new_tokens, vision=vision,
                    temperature=args.temperature, key=key)
     n = args.new_tokens - 1
     print(f"prefill B={B} S={S}: {gen.prefill_seconds * 1e3:.1f} ms")

@@ -4,8 +4,10 @@ and `make_dpfl_mix`).
 
 The model owns its weights (`repro_torch.models.lm.DecoderLM`), so a step
 takes no params argument, and a maker no config: the model is a
-`DecoderLM` of the dense, SSM or hybrid family, which has no audio or vlm
-branch.
+`DecoderLM` of the dense, moe, vlm, SSM or hybrid family. A vlm batch
+carries its "vision" embeddings, which the loss and the prefill run
+before the tokens; the audio family (`repro`'s encoder-decoder) is not
+ported.
 """
 from __future__ import annotations
 
@@ -46,10 +48,12 @@ def make_train_step(model, optimizer, grad_dtype=None):
 
 
 def make_prefill_step(model):
-    """step(batch, cache_len=None) -> (last-position logits, caches)."""
+    """step(batch, cache_len=None) -> (last-position logits, caches), a
+    vlm batch's "vision" embeddings before its tokens."""
 
     def step(batch, cache_len=None):
-        return model.prefill(batch["tokens"], cache_len=cache_len)
+        return model.prefill(batch["tokens"], vision=batch.get("vision"),
+                             cache_len=cache_len)
     return step
 
 

@@ -11,11 +11,13 @@ of ``PRNGKey(0)`` (bit for bit, `repro_torch.prng`), the same corpus
 (``np.random.default_rng(0)``), the same schedule, and the same log
 lines. On the card each layer runs under activation recompute (remat
 "full", as `repro`'s model), its kernel's forward twice a step and its
-backward once: K4 in the attention layers (dense and hybrid), K5 in the
-Mamba2 layers (SSM), K6 in the RG-LRU layers (hybrid). The dense, SSM
-and hybrid families train; the families not ported raise
+backward once: K4 in the attention layers (dense, moe, vlm and hybrid),
+K5 in the Mamba2 layers (SSM), K6 in the RG-LRU layers (hybrid). The
+dense, moe, vlm, SSM and hybrid families train: a moe model's loss adds
+its router's load-balance loss, a vlm model's batches carry zero vision
+embeddings before the tokens, as in `repro`. The audio family raises
 ``NotImplementedError`` when the model is built (ROADMAP Queue 1 item
-14d-4). Checkpoints hold `repro`'s stacked tree
+14d-4, part 5). Checkpoints hold `repro`'s stacked tree
 (`repro_torch.interop.lm_params_to_jax`), which `repro.checkpoint` reads.
 """
 from __future__ import annotations
@@ -69,12 +71,17 @@ def batch_rows(n_seqs: int, batch: int, steps: int) -> List[np.ndarray]:
 
 
 def train(model, corpus: np.ndarray, *, steps: int, batch: int, lr: float,
-          ckpt_dir: str = "", ckpt_every: int = 25,
-          log_every: int = 5) -> TrainRun:
+          ckpt_dir: str = "", ckpt_every: int = 25, log_every: int = 5,
+          vision: Optional[torch.Tensor] = None) -> TrainRun:
     """`repro.launch.train`'s loop on ``model`` (initialised, on its
     device) from ``corpus`` (`lm_corpus`): AdamW under
-    ``warmup_cosine(lr, 10, steps)``, `repro`'s batches (`batch_rows`) and
-    log lines, a checkpoint every ``ckpt_every`` steps."""
+    ``warmup_cosine(lr, 10, steps)``, `repro`'s batches (`batch_rows`)
+    and log lines, a checkpoint every ``ckpt_every`` steps. A vlm
+    model's batches carry ``vision`` (batch, n_vision_tokens, d_model)
+    before the tokens at every step, zeros by default, as `repro`'s loop
+    feeds them. (At internvl2-2b's full depth zero embeddings give
+    non-finite gradients, in `repro` too: each RMS norm of a zero row
+    scales its gradient by 1/sqrt(eps), and 48 norms overflow fp32.)"""
     device = model.tok_embed.device
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
@@ -87,8 +94,12 @@ def train(model, corpus: np.ndarray, *, steps: int, batch: int, lr: float,
     t0 = time.time()
     for step, idx in enumerate(batch_rows(corpus.shape[0], batch, steps)):
         t_step = time.perf_counter()
-        opt_state, loss = step_fn(
-            opt_state, {"tokens": tokens[torch.from_numpy(idx).to(device)]})
+        batch_t = {"tokens": tokens[torch.from_numpy(idx).to(device)]}
+        if cfg.family == "vlm":
+            batch_t["vision"] = torch.zeros(
+                (batch, cfg.n_vision_tokens, cfg.d_model), device=device) \
+                if vision is None else vision
+        opt_state, loss = step_fn(opt_state, batch_t)
         losses.append(float(loss))
         walls.append(time.perf_counter() - t_step)
         if step % log_every == 0 or step == steps - 1:

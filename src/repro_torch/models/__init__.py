@@ -1,5 +1,6 @@
-"""Model zoo: the DPFL classifiers and, for the dense, SSM and hybrid
-families, the decoder-only LM built from its config (`build_model`)."""
+"""Model zoo: the DPFL classifiers and, for the dense, moe, vlm, SSM and
+hybrid families, the decoder-only LM built from its config
+(`build_model`)."""
 from ..configs.base import ArchConfig
 from .classifier import MLP, PaperCNN, accuracy, xent_loss
 from .common import dense_init
@@ -7,9 +8,10 @@ from .lm import DecoderLM
 
 
 def build_model(cfg: ArchConfig, device=None, **kw) -> DecoderLM:
-    """`repro.models.build_model` for the families the port serves (dense,
-    SSM and hybrid); the others raise ``NotImplementedError`` naming their
-    ROADMAP item."""
+    """`repro.models.build_model` for the families the port serves and
+    trains (dense, moe, vlm, SSM and hybrid); the audio family (`repro`'s
+    ``WhisperModel``) raises ``NotImplementedError`` naming ROADMAP item
+    14d-4, part 5."""
     return DecoderLM(cfg, device=device, **kw)
 
 

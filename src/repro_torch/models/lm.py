@@ -1,14 +1,16 @@
-"""Decoder-only language model, dense, SSM and hybrid families (port of
-`repro.models.lm`): GQA with optional qk-norm, rotary embeddings, sliding
-windows, ring-buffer KV caches, SwiGLU MLPs, Mamba2 (SSD) blocks, RG-LRU
+"""Decoder-only language model, dense, MoE, VLM, SSM and hybrid families
+(port of `repro.models.lm`): GQA with optional qk-norm, rotary
+embeddings, sliding windows, ring-buffer KV caches, SwiGLU MLPs, top-k
+MoE blocks (`repro_torch.models.moe`), a prefix of precomputed vision
+embeddings (vlm, whose layers are dense), Mamba2 (SSD) blocks, RG-LRU
 recurrent blocks interleaved with local attention (Griffin) and a tied
 or separate output head.
 
 `DecoderLM` is an ``nn.Module`` that owns its weights: one `DenseLayer`,
-`MambaLayer` or `RecLayer` module per layer, in execution order, each
-holding `repro`'s per-layer leaves under `repro`'s names and layouts
-((in, out) dense weights). Its state dict is `repro`'s stacked tree split
-by layer ("layers.3.attn.wq" is row 3 of
+`MoELayer`, `MambaLayer` or `RecLayer` module per layer, in execution
+order, each holding `repro`'s per-layer leaves under `repro`'s names and
+layouts ((in, out) dense weights). Its state dict is `repro`'s stacked
+tree split by layer ("layers.3.attn.wq" is row 3 of
 ``params["layers"]["attn"]["wq"]``; a hybrid model's layer i is group g
 of block bi of segment si, `hybrid_layout`;
 `repro_torch.interop.lm_params_from_jax`). The prefill's attention runs
@@ -16,11 +18,13 @@ on the K4 kernel (`kernels.ops.flash_attention`), the SSM prefill's scan
 on the K5 kernel (`kernels.ops.ssd`) and the recurrent blocks' prefill
 on the K6 kernel (`kernels.ops.rglru_scan`); decode runs the plain
 ring-cache `attention_ref` and the plain one-token SSD or RG-LRU updates,
-as in `repro`, which has no decode kernel. Serving runs under
+as in `repro`, which has no decode kernel. The MoE blocks are plain
+batched products, as in `repro`. Serving runs under
 ``torch.inference_mode()``. The weights take gradients: `DecoderLM.loss`
-trains the dense, SSM and hybrid families, each kernel's forward and
-backward on the card (K4's, K5's and K6's backwards behind their
-autograd Functions).
+trains every family here, each kernel's forward and backward on the card
+(K4's, K5's and K6's backwards behind their autograd Functions), the
+router's load-balance loss summed over the MoE layers. The audio family
+(`repro.models.whisper`) is not ported (`UNPORTED_FAMILIES`).
 """
 from __future__ import annotations
 
@@ -37,21 +41,23 @@ from ..kernels import ops
 from .common import (NEG_INF, apply_rope, attention_ref,
                      chunked_softmax_xent, dense_init, embed_init, rms_norm,
                      swiglu)
+from .moe import MoE, init_moe
 from .rglru import init_rec_block, init_rec_cache, rec_block
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_dims
 
 Cache = Dict[str, torch.Tensor]
 
 #: families not ported yet -> the ROADMAP Queue 1 item that ports them
-UNPORTED_FAMILIES = {"moe": "14d-4", "vlm": "14d-4", "audio": "14d-4"}
+UNPORTED_FAMILIES = {"audio": "14d-4"}
 
 
 def check_family(cfg: ArchConfig):
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item {UNPORTED_FAMILIES[cfg.family]}); the "
-            f"port serves the dense, SSM and hybrid families")
+            f"(ROADMAP Queue 1 item {UNPORTED_FAMILIES[cfg.family]}, part "
+            f"5); the port serves the dense, moe, vlm, SSM and hybrid "
+            f"families")
 
 
 # ----------------------------------------------------------------- attention
@@ -171,6 +177,18 @@ def init_dense_layer(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
     }
 
 
+def init_moe_layer(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
+    """`repro`'s MoE-layer init for ``key``, on the key's device."""
+    d = cfg.d_model
+    ks = prng.split(key, 2)
+    return {
+        "ln1": torch.ones((d,), dtype=dtype, device=key.device),
+        "attn": init_attn(ks[0], cfg, dtype),
+        "ln2": torch.ones((d,), dtype=dtype, device=key.device),
+        "moe": init_moe(ks[1], cfg, dtype),
+    }
+
+
 def _weight(shape, dtype, device) -> nn.Parameter:
     """An uninitialised weight."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
@@ -207,6 +225,20 @@ class DenseLayer(nn.Module):
         self.wi_gate = _weight((d, cfg.d_ff), dtype, device)
         self.wi_up = _weight((d, cfg.d_ff), dtype, device)
         self.wo_mlp = _weight((cfg.d_ff, d), dtype, device)
+
+
+class MoELayer(nn.Module):
+    """One MoE layer's weights: ln1, attn, ln2 and the experts (`MoE`:
+    moe.router (d, E) float32, moe.we_gate, moe.we_up (E, d, f) and
+    moe.we_down (E, f, d))."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _weight((d,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = _weight((d,), dtype, device)
+        self.moe = MoE(cfg, dtype, device)
 
 
 class MambaLayer(nn.Module):
@@ -284,26 +316,32 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense, SSM or hybrid family. The weights are
-    allocated uninitialised on ``device`` (default cuda; "meta" allocates
-    nothing); `init` draws them, or ``load_state_dict(params,
-    assign=True)`` takes a state dict (`repro_torch.interop.
-    lm_params_from_jax`), without a copy, on that state's device.
-    ``remat`` and ``loss_chunks`` are `repro`'s: under "full" each layer
-    of `loss` runs under activation recompute
-    (``torch.utils.checkpoint``), "none" keeps every activation; the
-    loss's cross-entropy runs over ``loss_chunks`` chunks of the
-    sequence."""
+    """Decoder-only LM of the dense, moe, vlm, SSM or hybrid family. The
+    weights are allocated uninitialised on ``device`` (default cuda;
+    "meta" allocates nothing); `init` draws them, or
+    ``load_state_dict(params, assign=True)`` takes a state dict
+    (`repro_torch.interop.lm_params_from_jax`), without a copy, on that
+    state's device. ``remat``, ``loss_chunks`` and ``moe_impl`` are
+    `repro`'s: under "full" each layer of `loss` runs under activation
+    recompute (``torch.utils.checkpoint``), "none" keeps every
+    activation; the loss's cross-entropy runs over ``loss_chunks`` chunks
+    of the sequence; the MoE layers dispatch by capacity ("capacity") or
+    dropless ("ragged", `repro_torch.models.moe`)."""
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
-                 device=None, remat: str = "full", loss_chunks: int = 8):
+                 device=None, remat: str = "full", loss_chunks: int = 8,
+                 moe_impl: str = "capacity"):
         super().__init__()
         check_family(cfg)
         if remat not in ("full", "none"):
             raise ValueError(f"remat {remat!r} is not 'full' or 'none'")
+        if moe_impl not in ("capacity", "ragged"):
+            raise ValueError(f"moe_impl {moe_impl!r} is not 'capacity' or "
+                             f"'ragged'")
         self.cfg = cfg
         self.remat = remat
         self.loss_chunks = loss_chunks
+        self.moe_impl = moe_impl
         self.window = cfg.attn_window
         if cfg.family == "hybrid" and cfg.local_window and \
                 self.window is None:
@@ -321,8 +359,8 @@ class DecoderLM(nn.Module):
             layers = [RecLayer if kind == "rec" else DenseLayer
                       for *_, kind in hybrid_layout(cfg)]
         else:
-            layers = [MambaLayer if cfg.family == "ssm" else DenseLayer
-                      ] * cfg.n_layers
+            layers = [{"ssm": MambaLayer, "moe": MoELayer}.get(
+                cfg.family, DenseLayer)] * cfg.n_layers
         self.layers = nn.ModuleList(layer(cfg, self.dtype, device)
                                     for layer in layers)
 
@@ -356,8 +394,9 @@ class DecoderLM(nn.Module):
                 params.update(_flatten(layer_init(keys[g], cfg, dtype),
                                        f"layers.{i}."))
         else:
-            layer_init = init_mamba_block if cfg.family == "ssm" \
-                else init_dense_layer
+            layer_init = {"ssm": init_mamba_block,
+                          "moe": init_moe_layer}.get(cfg.family,
+                                                     init_dense_layer)
             keys = prng.split(ks[2], cfg.n_layers)
             for i in range(cfg.n_layers):
                 params.update(_flatten(layer_init(keys[i], cfg, dtype),
@@ -370,54 +409,58 @@ class DecoderLM(nn.Module):
                cache: Optional[Cache] = None,
                cache_len: Optional[int] = None):
         """One layer (`repro`'s ``_block``): a Mamba2 or RG-LRU block, whose
-        cache does not depend on ``cache_len`` or the positions, or a dense
-        block."""
+        cache does not depend on ``cache_len`` or the positions, a dense
+        or an MoE block. Returns (x, cache, the router's load-balance
+        loss: an fp32 scalar for an MoE block, else None)."""
         if isinstance(layer, MambaLayer):
-            return mamba_block(layer, x, self.cfg, cache)
+            return (*mamba_block(layer, x, self.cfg, cache), None)
         if isinstance(layer, RecLayer):
-            return rec_block(layer, x, self.cfg, cache)
-        return self._dense_block(layer, x, q_pos, cache, cache_len)
-
-    def _dense_block(self, layer: DenseLayer, x: torch.Tensor,
-                     q_pos: torch.Tensor, cache: Optional[Cache] = None,
-                     cache_len: Optional[int] = None):
+            return (*rec_block(layer, x, self.cfg, cache), None)
         cfg = self.cfg
         h, cache = attn_apply(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
                               cfg, q_pos, cache, self.window,
                               cache_len=cache_len)
         x = x + h
-        x = x + swiglu(rms_norm(x, layer.ln2, cfg.norm_eps), layer.wi_gate,
-                       layer.wi_up, layer.wo_mlp)
-        return x, cache
+        xn = rms_norm(x, layer.ln2, cfg.norm_eps)
+        if isinstance(layer, MoELayer):
+            mo, aux = layer.moe(xn, cfg, self.moe_impl)
+            return x + mo, cache, aux
+        return x + swiglu(xn, layer.wi_gate, layer.wi_up, layer.wo_mlp), \
+            cache, None
 
     def _apply_stack(self, x: torch.Tensor, q_pos: torch.Tensor,
                      caches: Optional[List[Cache]] = None):
         """Run all layers, with one cache per layer (updated in place) or
         none. Returns (x, caches)."""
         for i, layer in enumerate(self.layers):
-            x, _ = self._block(layer, x, q_pos,
-                               None if caches is None else caches[i])
+            x, _, _ = self._block(layer, x, q_pos,
+                                  None if caches is None else caches[i])
         return x, caches
 
     def _apply_stack_train(self, x: torch.Tensor, q_pos: torch.Tensor):
         """All layers, without caches, each under activation recompute when
         ``remat`` is "full" and grad mode is on: its forward runs again in
-        the backward pass (a second K4 launch per attention layer)."""
+        the backward pass (a second K4 launch per attention layer).
+        Returns (x, the MoE layers' load-balance losses summed in layer
+        order from an fp32 0, as `repro`'s scan carries them)."""
         remat = self.remat == "full" and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             if remat:
-                x, _ = checkpoint(self._block, layer, x, q_pos,
-                                  use_reentrant=False)
+                x, _, a = checkpoint(self._block, layer, x, q_pos,
+                                     use_reentrant=False)
             else:
-                x, _ = self._block(layer, x, q_pos)
-        return x
+                x, _, a = self._block(layer, x, q_pos)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _apply_stack_prefill(self, x: torch.Tensor, q_pos: torch.Tensor,
                              cache_len: int):
         """Prefill pass that builds each layer's serving cache."""
         caches = []
         for layer in self.layers:
-            x, cache = self._block(layer, x, q_pos, cache_len=cache_len)
+            x, cache, _ = self._block(layer, x, q_pos, cache_len=cache_len)
             caches.append(cache)
         return x, caches
 
@@ -435,11 +478,15 @@ class DecoderLM(nn.Module):
 
     # ---------------------------------------------------------------- loss
     def loss(self, batch: Dict[str, torch.Tensor]):
-        """batch: {"tokens": (B, T+1) int[, "mask": (B, T+1)]}. Next-token
-        cross-entropy over the T positions (weighted by ``mask[:, 1:]``),
-        plus ``router_aux_coef`` times the router loss, 0 for the dense
-        family (`repro`'s ``DecoderLM.loss``). Returns (loss, {"ce": ...,
-        "aux": ...}), fp32 scalars."""
+        """batch: {"tokens": (B, T+1) int[, "mask": (B, T+1)][, "vision":
+        (B, Nv, d), the vlm family's]}. Next-token cross-entropy over the
+        T positions (weighted by ``mask[:, 1:]``), plus
+        ``router_aux_coef`` times the router's load-balance loss summed
+        over the MoE layers (0 without them), `repro`'s
+        ``DecoderLM.loss``. A vlm model runs the vision embeddings (cast
+        to the model's dtype) before the tokens, their positions with
+        label 0 and mask 0. Returns (loss, {"ce": ..., "aux": ...}), fp32
+        scalars."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(tokens[:, :-1])
@@ -449,12 +496,17 @@ class DecoderLM(nn.Module):
         else:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=x.device)
+        if cfg.family == "vlm":
+            vis = batch["vision"].to(x.dtype)
+            B, Nv = vis.shape[0], vis.shape[1]
+            x = torch.cat([vis, x], dim=1)
+            labels = torch.cat([labels.new_zeros((B, Nv)), labels], dim=1)
+            mask = torch.cat([mask.new_zeros((B, Nv)), mask], dim=1)
         q_pos = torch.arange(x.shape[1], device=x.device)
-        x = self._apply_stack_train(x, q_pos)
+        x, aux = self._apply_stack_train(x, q_pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         ce, _ = chunked_softmax_xent(self._logits, x, labels, mask,
                                      n_chunks=self.loss_chunks)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
@@ -474,13 +526,20 @@ class DecoderLM(nn.Module):
                                    self.window, device)
         return [one(layer) for layer in self.layers]
 
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
-        """tokens: (B, S). Returns (last-position logits (B, V), one cache
-        per layer: a ring (attention) or the SSM or RG-LRU state and conv
-        rows, which ``cache_len`` does not size). An SSM or hybrid prompt
-        shorter than ``ssm_conv - 1`` tokens raises ``ValueError``
-        (`mamba_block`, `rec_block`)."""
+    def prefill(self, tokens: torch.Tensor,
+                vision: Optional[torch.Tensor] = None,
+                cache_len: Optional[int] = None):
+        """tokens: (B, S); a vlm model's ``vision`` (B, Nv, d) runs first,
+        at positions 0..Nv-1 (the tokens then at Nv..Nv+S-1; other
+        families ignore it, as `repro`'s). Returns (last-position logits
+        (B, V), one cache per layer: a ring of ``cache_len`` slots
+        (attention; default all the positions) or the SSM or RG-LRU state
+        and conv rows, which ``cache_len`` does not size). An SSM or
+        hybrid prompt shorter than ``ssm_conv - 1`` tokens raises
+        ``ValueError`` (`mamba_block`, `rec_block`)."""
         x = self._embed(tokens)
+        if self.cfg.family == "vlm" and vision is not None:
+            x = torch.cat([vision.to(x.dtype), x], dim=1)
         S = x.shape[1]
         q_pos = torch.arange(S, device=x.device)
         x, caches = self._apply_stack_prefill(x, q_pos, cache_len or S)

@@ -978,3 +978,133 @@ def test_decoder_loss_gradients_on_the_card_match_the_cpu(cuda, arch, S,
         scale = w.abs().max().clamp_min(1e-30)
         torch.testing.assert_close(g / scale, w / scale, rtol=0,
                                    atol=1e-4)
+
+
+# K4 at the vlm and moe families' shapes: internvl2-2b serves B 4 at S 768
+# (256 vision positions and 512 tokens) and trains B 8 at the same S;
+# qwen3-moe-30b-a3b serves and trains B 4 at S 512 with 32/4 heads (GQA
+# ratio 8). (B, S, Hq, Hkv, hd)
+K4_FAMILY_FWD = [(4, 768, 16, 8, 128), (4, 512, 32, 4, 128)]
+K4_FAMILY_BWD = [(8, 768, 16, 8, 128), (4, 512, 32, 4, 128)]
+
+
+@pytest.mark.parametrize("B, S, Hq, Hkv, hd", K4_FAMILY_FWD,
+                         ids=["vlm serve", "moe serve"])
+def test_flash_attention_kernel_at_the_vlm_and_moe_serve_shapes(
+        cuda, B, S, Hq, Hkv, hd):
+    q, k, v = _k4_inputs(B, S, S, Hq, Hkv, hd, "float32", cuda)
+    before = k4.flash_attention.launches
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert k4.flash_attention.launches == before + 1
+    tol = K4_TOL["float32"]
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("B, S, Hq, Hkv, hd", K4_FAMILY_BWD,
+                         ids=["vlm train", "moe train"])
+def test_flash_attention_backward_at_the_vlm_and_moe_train_shapes(
+        cuda, B, S, Hq, Hkv, hd):
+    q, k, v = _k4_inputs(B, S, S, Hq, Hkv, hd, "float32", cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    out, lse = k4.flash_attention_with_lse(q, k, v)
+    before = k4.flash_attention_bwd.launches
+    got = k4.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert k4.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, dout)
+    for name, g, w in zip("qkv", got, want):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K4_BWD_TOL, msg=f"d{name}")
+    again = k4.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "internvl2-2b"])
+def test_moe_and_vlm_serve_repeat_bit_for_bit_and_match_the_cpu(cuda, arch):
+    """Reduced qwen3-moe-30b-a3b (4 experts top 2) and internvl2-2b (8
+    seeded vision embeddings before the prompt) served twice on the card
+    through
+    `generate`, its decode under the no-sync fence: the same logits and
+    tokens bit for bit, one K4 launch a layer in the prefill and none in
+    decode; and the CPU's plain path on the same weights gives the same
+    tokens, its prefill logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="meta")
+    params = model.init(prng.PRNGKey(2, device=cuda))
+    prompts = serve.make_prompts(cfg.vocab_size, 4, 64, 0, cuda)
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.randn((4, cfg.n_vision_tokens, cfg.d_model),
+                             generator=torch.Generator(device=cuda)
+                             .manual_seed(5), device=cuda)
+    before = k4.flash_attention.launches
+    gen = serve.generate(model, params, prompts, 12, vision=vision)
+    torch.cuda.synchronize()
+    assert k4.flash_attention.launches == before + cfg.n_layers
+    again = serve.generate(model, params, prompts, 12, vision=vision)
+    assert torch.equal(gen.tokens, again.tokens)
+    assert torch.equal(gen.prefill_logits, again.prefill_logits)
+    assert torch.equal(gen.last_logits, again.last_logits)
+    cpu = serve.generate(build_model(cfg, device="meta"),
+                         {k: t.cpu() for k, t in params.items()},
+                         prompts.cpu(), 12,
+                         vision=None if vision is None else vision.cpu())
+    torch.testing.assert_close(gen.prefill_logits.cpu(), cpu.prefill_logits,
+                               rtol=0, atol=1e-4)
+    assert torch.equal(gen.tokens.cpu(), cpu.tokens)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "internvl2-2b"])
+def test_moe_and_vlm_loss_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced qwen3-moe-30b-a3b and internvl2-2b (seeded vision
+    embeddings) on the same weights: the loss, the router's aux and every
+    gradient on the card (K4 forward and backward) against the CPU's
+    plain versions (1e-4 of each gradient's largest element), K4's
+    forward twice a layer and its backward once under remat "full"; a
+    second call on the card gives the same loss and aux bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    card = build_model(cfg, device="meta", loss_chunks=4)
+    params = card.init(prng.PRNGKey(1, device=cuda))
+    cpu = build_model(cfg, device="meta", loss_chunks=4)
+    cpu.load_state_dict({k: t.to("cpu", copy=True)
+                         for k, t in params.items()}, assign=True)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 65)))}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda),
+                             ("again", card, cuda)):
+        before = (k4.flash_attention.launches,
+                  k4.flash_attention_bwd.launches)
+        loss, aux = model.loss({k: t.to(dev) for k, t in batch.items()})
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[name] = (loss.detach().cpu(), aux["aux"].detach().cpu(),
+                     [g.cpu() for g in grads],
+                     (k4.flash_attention.launches - before[0],
+                      k4.flash_attention_bwd.launches - before[1]))
+    assert out["cpu"][3] == (0, 0)
+    assert out["card"][3] == (2 * cfg.n_layers, cfg.n_layers)
+    assert torch.equal(out["card"][0], out["again"][0])
+    assert torch.equal(out["card"][1], out["again"][1])
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(out["card"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)
+    for g, w in zip(out["card"][2], out["cpu"][2]):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)

@@ -10,19 +10,21 @@ and its card-against-JAX train check its losses:
         [sparse-freerider-clipped] [topk-signflip-clipped] \
         [dense-labelflip-trimmed] [local] [fedavg] ... [pfedgraph] \
         [fedavg-markov-topk] [train-cross] [train-cross-ssm] \
-        [train-cross-hybrid]
+        [train-cross-hybrid] [train-cross-vlm] [train-cross-moe]
 
-(no names: all twenty-three). The data and run settings (PaperCNN at its
+(no names: all twenty-five). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
 ``SMOKE_*`` constants. A DPFL variant is one of its ``VARIANTS``, run by
 `repro.core.dpfl.run_dpfl`; a baseline run is one of its
 ``BASELINE_RUNS``, run by `repro.fl.baselines.run_baseline` at
 ``BASELINE_RUN``. Both are built here with `repro`'s config classes.
-"train-cross", "train-cross-ssm" and "train-cross-hybrid" are the runs of
-``CROSS_TRAINS``: `repro.launch.train`'s loop (the same corpus, batches,
-AdamW and schedule) on qwen3-0.6b and mamba2-370m at full width cut to
-their first two layers and on recurrentgemma-9b's reduced config, for
-``CROSS_TRAIN_JAX_LOSSES`` (about 40 s and 3 GiB for qwen3).
+The "train-cross*" names are the runs of ``CROSS_TRAINS``:
+`repro.launch.train`'s loop (the same corpus, batches, AdamW and
+schedule, a vlm's batches with zero vision embeddings) on qwen3-0.6b,
+mamba2-370m and internvl2-2b at full width cut to their first two
+layers and on recurrentgemma-9b's and qwen3-moe-30b-a3b's reduced
+configs, for ``CROSS_TRAIN_JAX_LOSSES`` (about 40 s and 3 GiB for
+qwen3).
 """
 from __future__ import annotations
 
@@ -126,8 +128,11 @@ def run_train_cross(name):
     losses = []
     for _ in range(c["steps"]):
         idx = rng.integers(0, corpus.shape[0], c["batch"])
-        params, opt_state, loss = step_fn(params, opt_state,
-                                          {"tokens": corpus[idx]})
+        batch = {"tokens": corpus[idx]}
+        if cfg.family == "vlm":
+            batch["vision"] = jnp.zeros(
+                (c["batch"], cfg.n_vision_tokens, cfg.d_model))
+        params, opt_state, loss = step_fn(params, opt_state, batch)
         losses.append(float(loss))
     print(json.dumps({
         "train": name, "config": c, "losses": losses,

@@ -1,10 +1,12 @@
 """Where the time of the port's serving path goes on the card.
 
-Builds one of ``chip_smoke.py``'s serve models (qwen3-0.6b, the
-default, mamba2-370m or recurrentgemma-9b) at its published config in
-float32 and serves
-it as ``chip_smoke.py`` does (its ``SERVE_RUN``: batch 4, prompt 512, 32
-new tokens, greedy), runs `repro_torch.launch.serve.generate` once to
+Builds one of ``chip_smoke.py``'s serve models (``SERVE_ARCHS``:
+qwen3-0.6b, the default, mamba2-370m, recurrentgemma-9b, internvl2-2b
+or qwen3-moe-30b-a3b, the last on its first ``SERVE_LAYERS`` layers) at
+its published config in float32 and serves it as ``chip_smoke.py`` does
+(its ``SERVE_RUN``: batch 4, prompt 512, 32 new tokens, greedy; the
+vlm's 256 vision embeddings from ``chip_smoke.make_vision`` before the
+prompt), runs `repro_torch.launch.serve.generate` once to
 warm up, then profiles its two phases, `serve.prefill` and
 `serve.decode`, apart under ``torch.profiler`` and prints one JSON line
 per phase: the wall time (host clock, the card synchronised), the summed
@@ -23,7 +25,8 @@ prefill of ``serve.prefill`` and the personalized one (the requests'
 weights gathered beforehand) at the same batch and prompt: one more
 JSON line of their walls and medians.
 
-    python3 tools/profile_serve.py [--arch mamba2-370m|recurrentgemma-9b]
+    python3 tools/profile_serve.py [--arch mamba2-370m|recurrentgemma-9b|
+                                    internvl2-2b|qwen3-moe-30b-a3b]
     python3 tools/profile_serve.py --personalized
 
 Needs a CUDA card; imports no JAX.
@@ -100,17 +103,19 @@ def main(argv=None):
     B, S, new = (chip_smoke.SERVE_RUN[k]
                  for k in ("batch", "prompt_len", "new_tokens"))
     prompts = serve.make_prompts(cfg.vocab_size, B, S, 0, "cuda")
-    serve.generate(model, params, prompts, new)         # warm-up
+    vision = chip_smoke.make_vision(torch, cfg, B)
+    Nv = serve.vision_positions(model, vision)
+    serve.generate(model, params, prompts, new, vision=vision)   # warm-up
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, tok, caches = serve.prefill(model, prompts, new)
+        _, tok, caches = serve.prefill(model, prompts, new, vision)
         torch.cuda.synchronize()
         prefill_wall = time.perf_counter() - t0
     with profile(activities=acts) as prof_d:
         t0 = time.perf_counter()
-        serve.decode(model, caches, tok, S, new - 1)
+        serve.decode(model, caches, tok, Nv + S, new - 1)
         torch.cuda.synchronize()
         decode_wall = time.perf_counter() - t0
     smi = chip_smoke.subprocess.run(
@@ -118,7 +123,8 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     common = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "arch": arch, "batch": B, "prompt_len": S}
+              "arch": arch, "n_layers": cfg.n_layers, "batch": B,
+              "prompt_len": S, "vision_positions": Nv}
     print(json.dumps({**common, "phase": "prefill",
                       "prompt_tok_per_s": B * S / prefill_wall,
                       **_phase(prof, prefill_wall, port_kernels)}))

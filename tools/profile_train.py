@@ -3,8 +3,13 @@
 Builds an arch at chip_smoke.py's train run's config in float32
 (``--arch qwen3-0.6b``, the default: ``TRAIN_ARGV``, batch 8, sequence
 512; ``--arch mamba2-370m``: ``TRAIN_SSM_ARGV``, the same batch and
-sequence; ``--arch recurrentgemma-9b``: ``TRAIN_HYBRID``, full width cut
-to its first ``--layers`` layers, 6 by default, batch 4, sequence 512),
+sequence; ``--arch internvl2-2b``: ``TRAIN_VLM``, whole, the same batch
+and sequence behind chip_smoke's 256 seeded vision embeddings
+(``make_vision``); ``--arch recurrentgemma-9b``: ``TRAIN_HYBRID``, full
+width cut to its first ``--layers`` layers, 6 by default, batch 4,
+sequence 512;
+``--arch qwen3-moe-30b-a3b``: ``TRAIN_MOE``, full width cut to its first
+2 layers (``--layers`` sets it), batch 4, sequence 512),
 runs two warm-up steps of `repro_torch.launch.train`'s step
 (`make_train_step` under AdamW and ``warmup_cosine``), then profiles one
 step under ``torch.profiler`` with its three phases marked (the loss's
@@ -61,21 +66,25 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    cuts = {"recurrentgemma-9b": chip_smoke.TRAIN_HYBRID,
+            "internvl2-2b": chip_smoke.TRAIN_VLM,
+            "qwen3-moe-30b-a3b": chip_smoke.TRAIN_MOE}
+    argvs = {"qwen3-0.6b": chip_smoke.TRAIN_ARGV,
+             "mamba2-370m": chip_smoke.TRAIN_SSM_ARGV}
     ap.add_argument("--arch", default="qwen3-0.6b",
-                    choices=("qwen3-0.6b", "mamba2-370m",
-                             "recurrentgemma-9b"))
-    ap.add_argument("--layers", type=int,
-                    default=chip_smoke.TRAIN_HYBRID["n_layers"],
-                    help="recurrentgemma-9b's cut (its first N layers)")
+                    choices=tuple(argvs) + tuple(cuts))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the cut of recurrentgemma-9b, internvl2-2b or "
+                         "qwen3-moe-30b-a3b (its first N layers; default "
+                         "chip_smoke's)")
     args = ap.parse_args()
-    if args.arch == "recurrentgemma-9b":
-        cut = chip_smoke.TRAIN_HYBRID
-        cfg = get_config(args.arch).replace(n_layers=args.layers,
-                                            dtype="float32")
+    if args.arch in cuts:
+        cut = cuts[args.arch]
+        cfg = get_config(args.arch).replace(
+            n_layers=args.layers or cut["n_layers"], dtype="float32")
         B, S, steps = cut["batch"], cut["seq"], cut["steps"]
     else:
-        argv = (chip_smoke.TRAIN_ARGV if args.arch == "qwen3-0.6b"
-                else chip_smoke.TRAIN_SSM_ARGV)
+        argv = argvs[args.arch]
 
         def flag(name):
             return argv[argv.index(name) + 1]
@@ -93,6 +102,8 @@ def main():
 
     def step(idx, profiled=False):
         batch = {"tokens": corpus[torch.from_numpy(idx).cuda()]}
+        if vision is not None:
+            batch["vision"] = vision
 
         def phase(name, fn):
             if not profiled:
@@ -118,6 +129,8 @@ def main():
         phase("optimizer", update)
         return loss
 
+    vision = chip_smoke.make_vision(torch, cfg, B)
+    batch_vision = 0 if vision is None else vision.shape[1]
     for idx in rows[:2]:
         step(idx)
     torch.cuda.synchronize()
@@ -152,6 +165,7 @@ def main():
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S,
+        "vision_positions": batch_vision,
         "remat": model.remat,
         "step_wall_s": wall,
         "phases": {p: {"wall_s": walls[p], "device_kernel_s": ranges.get(p)}
