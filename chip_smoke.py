@@ -23,7 +23,10 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    head at a window of 64 and at its serve shape with the window of
    2048, internvl2-2b's serve shape (S 768: 256 vision positions and
    512 tokens) and qwen3-moe-30b-a3b's (32/4 heads), ragged S, S = 1,
-   Sq != Sk), K5 ssd (mamba2-370m's serve
+   Sq != Sk, and whisper-medium's: its encoder non-causal over 1,500
+   frames in fp32 and bf16, its cross-attention at Sq 224 and Sq 1
+   against them, its decoder's causal self-attention), K5 ssd
+   (mamba2-370m's serve
    shape with the model's dt, tests/test_kernels.py's three shapes, the
    reduced model's, one ragged chunk, h0, p 128, eight chunks at the
    serve width, B and C as views of the model's xBC projection, h0 with
@@ -85,14 +88,22 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    width on its first 8 of 48 layers (SERVE_LAYERS: 8 K4 launches in
    the prefill, 0 in decode, its experts plain batched products; the
    same logits bits on a second call; the smallest router gap and the
-   copies its capacity drops; card against CPU on its first 2 layers);
+   copies its capacity drops; card against CPU on its first 2 layers)
+   and whisper-medium at its published config (24 encoder and 24 decoder
+   layers behind 1,500 frames drawn from a seed, prompt 224; 72 K4
+   launches in the prefill, non-causal over the frames, causal in the
+   decoder, non-causal in each cross-attention, and 24 in each decode
+   step, where the cross-attention runs again; card against CPU on its
+   first 2 encoder and 2 decoder layers, prompt 64);
    then the training
    path: `launch.train.main` on qwen3-0.6b (TRAIN_ARGV) and mamba2-370m
    (TRAIN_SSM_ARGV) at their published configs, and through
    `launch.train.train` internvl2-2b whole (TRAIN_VLM: seeded vision
    embeddings) and recurrentgemma-9b and qwen3-moe-30b-a3b at full width
    on their first 6 and 2 layers (TRAIN_HYBRID, TRAIN_MOE; the moe run's
-   router loss printed), each 10 steps with the counts zeroed just
+   router loss printed), and whisper-medium whole (TRAIN_AUDIO: B 8,
+   448 tokens after 1,500 seeded frames; 144 K4 forward and 72 backward
+   launches a step), each 10 steps with the counts zeroed just
    before
    and read just after (each layer's kernel forward twice a step and its
    backward once, under remat "full"), finite, falling losses; then each
@@ -257,35 +268,58 @@ K1_SHAPES = [(32, 32, PAPER_CNN_PARAMS, "float32", False),
              (32, 32, 62004, "bfloat16", True)]
 K1_TIMED = 6   # the first six shapes
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}   # tests/test_kernels.py
-# K4 cases: (name, B, Sq, Sk, Hq, Hkv, hd, window, dtype); the first is
-# the serve run's prefill attention (qwen3-0.6b, batch 4, prompt 512)
-K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, None, "float32"),
-            ("serve bf16", 4, 512, 512, 16, 8, 128, None, "bfloat16"),
-            ("MQA, window 96", 1, 256, 256, 4, 1, 64, 96, "float32"),
-            ("hd 80, window 128", 2, 384, 384, 32, 8, 80, 128, "float32"),
-            ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, 64,
+# K4 cases: (name, B, Sq, Sk, Hq, Hkv, hd, causal, window, dtype); the
+# first is the serve run's prefill attention (qwen3-0.6b, batch 4,
+# prompt 512)
+K4_CASES = [("serve", 4, 512, 512, 16, 8, 128, True, None, "float32"),
+            ("serve bf16", 4, 512, 512, 16, 8, 128, True, None, "bfloat16"),
+            ("MQA, window 96", 1, 256, 256, 4, 1, 64, True, 96, "float32"),
+            ("hd 80, window 128", 2, 384, 384, 32, 8, 80, True, 128,
+             "float32"),
+            ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, True, 64,
              "float32"),
             ("hybrid serve, hd 256, Hkv 1, window 2048", 4, 512, 512, 16, 1,
-             256, 2048, "float32"),
+             256, True, 2048, "float32"),
             # internvl2-2b's prefill (256 vision positions and a 512-token
             # prompt) and qwen3-moe-30b-a3b's (32/4 heads: GQA ratio 8)
-            ("vlm serve, S 768", 4, 768, 768, 16, 8, 128, None, "float32"),
-            ("moe serve, 32/4 heads", 4, 512, 512, 32, 4, 128, None,
+            ("vlm serve, S 768", 4, 768, 768, 16, 8, 128, True, None,
              "float32"),
-            ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "float32"),
-            ("S = 1", 4, 1, 1, 16, 8, 128, None, "float32"),
-            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "float32"),
+            ("moe serve, 32/4 heads", 4, 512, 512, 32, 4, 128, True, None,
+             "float32"),
+            ("ragged S = 200", 2, 200, 200, 16, 8, 128, True, None, "float32"),
+            ("S = 1", 4, 1, 1, 16, 8, 128, True, None, "float32"),
+            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, True, None, "float32"),
             # bf16 twins: the tensor-core path at every edge, and its
             # timing row at the hybrid shape
-            ("MQA, window 96", 1, 256, 256, 4, 1, 64, 96, "bfloat16"),
-            ("hd 80, window 128", 2, 384, 384, 32, 8, 80, 128, "bfloat16"),
-            ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, 64,
+            ("MQA, window 96", 1, 256, 256, 4, 1, 64, True, 96, "bfloat16"),
+            ("hd 80, window 128", 2, 384, 384, 32, 8, 80, True, 128,
+             "bfloat16"),
+            ("hd 256, Hkv 1, window 64", 1, 256, 256, 16, 1, 256, True, 64,
              "bfloat16"),
             ("hybrid serve, hd 256, Hkv 1, window 2048", 4, 512, 512, 16, 1,
-             256, 2048, "bfloat16"),
-            ("ragged S = 200", 2, 200, 200, 16, 8, 128, None, "bfloat16"),
-            ("S = 1", 4, 1, 1, 16, 8, 128, None, "bfloat16"),
-            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, None, "bfloat16")]
+             256, True, 2048, "bfloat16"),
+            ("ragged S = 200", 2, 200, 200, 16, 8, 128, True, None,
+             "bfloat16"),
+            ("S = 1", 4, 1, 1, 16, 8, 128, True, None, "bfloat16"),
+            ("Sq 128, Sk 256", 2, 128, 256, 16, 8, 128, True, None,
+             "bfloat16"),
+            # whisper-medium (16 heads of 64, MHA): its encoder's
+            # non-causal self-attention over 1,500 frames at the serve
+            # run's B 4 (1,500 = 23 tiles of 64 and 28: a ragged last key
+            # tile), with its bf16 twin; the cross-attention of the
+            # 224-token prompt and of a decode step (one valid row in its
+            # query tile) against the frames; the decoder's causal
+            # self-attention
+            ("whisper encoder serve, non-causal", 4, 1500, 1500, 16, 16, 64,
+             False, None, "float32"),
+            ("whisper encoder serve, non-causal", 4, 1500, 1500, 16, 16, 64,
+             False, None, "bfloat16"),
+            ("whisper cross, Sq 224, Sk 1500", 4, 224, 1500, 16, 16, 64,
+             False, None, "float32"),
+            ("whisper serve decode cross, Sq 1, Sk 1500", 4, 1, 1500, 16,
+             16, 64, False, None, "float32"),
+            ("whisper decoder self, S 224", 4, 224, 224, 16, 16, 64, True,
+             None, "float32")]
 K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 # bf16 K4 also against the fp32 plain version on the same bf16 inputs,
 # (atol, rtol): rtol 2^-6, two bf16 ulps, for the output's own rounding
@@ -297,27 +331,37 @@ K4_BF16_FP32_TOL = (2.0 ** -7, 2.0 ** -6)
 # recurrentgemma-9b (hybrid: K6 in its recurrent blocks, K4 in its
 # attention blocks), internvl2-2b (vlm: dense layers, K4, behind 256
 # vision embeddings drawn from a seed) and qwen3-moe-30b-a3b (moe: K4 and
-# the experts' plain batched products) at their published configs, in
-# float32 as `repro.launch.serve` runs them
+# the experts' plain batched products) and whisper-medium (audio: K4 in
+# its encoder, non-causal over 1,500 frames drawn from a seed, and in its
+# decoder's causal self-attention and non-causal cross-attention, decode
+# too) at their published configs, in float32 as `repro.launch.serve`
+# runs them
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "recurrentgemma-9b",
-               "internvl2-2b", "qwen3-moe-30b-a3b")
+               "internvl2-2b", "qwen3-moe-30b-a3b", "whisper-medium")
 SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
+# whisper-medium's prompt: 224 tokens, about the most previous text that
+# openai/whisper's decoding keeps (half of its 448 text positions)
+SERVE_PROMPT = {"whisper-medium": 224}
 # served at full width on their first layers: qwen3-moe-30b-a3b's 48
 # layers hold 30.5 B weights (122 GB in fp32, more than the card); its
 # first 8 with the embedding, head and final norm are 5.61 B (22.4 GB)
 SERVE_LAYERS = {"qwen3-moe-30b-a3b": 8}
 # the seed of the vlm's vision embeddings (unit normals, B x 256 x 2048)
 VISION_SEED = 5
+# the seed of the audio model's frames (unit normals, B x 1500 x 1024)
+FRAMES_SEED = 6
 CROSS_RUN = dict(batch=1, prompt_len=128, new_tokens=8)
+CROSS_PROMPT = {"whisper-medium": 64}
 # Card against CPU at a stated reduction: recurrentgemma-9b's 26.1 GB of
 # weights are run on the CPU as the model's first five layers (rec, rec,
 # attn, then the (rec, rec) remainder segment, so both segments run) with
 # its embedding, head and final norm: 10.4 GB copied to the host, nothing
 # drawn anew. internvl2-2b runs its first 4 of 24 layers (2.4 GB with its
-# embedding and head) and qwen3-moe-30b-a3b its first 2 (7.5 GB). The
-# other serve models run whole.
+# embedding and head) and qwen3-moe-30b-a3b its first 2 (7.5 GB);
+# whisper-medium its first 2 encoder and 2 decoder layers with its
+# embedding and norms (prompt 64). The other serve models run whole.
 CROSS_LAYERS = {"recurrentgemma-9b": 5, "internvl2-2b": 4,
-                "qwen3-moe-30b-a3b": 2}
+                "qwen3-moe-30b-a3b": 2, "whisper-medium": 2}
 # Card against CPU on the same weights: last-position prefill logits
 # (qwen3's std 0.64) within CROSS_TOL. A CPU rehearsal at full width with 2 and 4
 # layers (B 1, S 128, float32) put two summation orders (the prompt alone
@@ -438,10 +482,23 @@ K4_BWD_CASES = [("train", 8, 512, 512, 16, 8, 128, True, None),
                 ("hd 224, non-causal, Sq 200, Sk 260", 1, 200, 260, 8, 1,
                  224, False, None),
                 ("S 4096, window 512, 4 slabs", 1, 4096, 4096, 16, 4, 64,
-                 True, 512)]
+                 True, 512),
+                # whisper-medium's train step (B 8, 448 tokens, 16 heads of
+                # 64): the encoder's non-causal self-attention over 1,500
+                # frames (5 slabs of 320 keys, the last 220, a ragged
+                # tile), the cross-attention (slabs of 1,152 and 348
+                # keys), the decoder's causal self-attention (one slab)
+                ("whisper encoder train, non-causal", 8, 1500, 1500, 16, 16,
+                 64, False, None),
+                ("whisper cross train, non-causal", 8, 448, 1500, 16, 16, 64,
+                 False, None),
+                ("whisper decoder self train", 8, 448, 448, 16, 16, 64, True,
+                 None)]
 # the K4 backward cases timed: the train runs' (qwen3-0.6b,
-# recurrentgemma-9b, internvl2-2b, qwen3-moe-30b-a3b)
-K4_BWD_TIMED = ("train", "hybrid", "vlm train", "moe train")
+# recurrentgemma-9b, internvl2-2b, qwen3-moe-30b-a3b, whisper-medium's
+# encoder)
+K4_BWD_TIMED = ("train", "hybrid", "vlm train", "moe train",
+                "whisper encoder train, non-causal")
 # each of dq, dk, dv against the plain version's, as a share of that
 # gradient's largest element (tests/test_torch_cuda.py): fp32 sums over
 # up to 512 keys (queries and heads) in another order than cuBLAS's
@@ -525,6 +582,13 @@ TRAIN_VLM = dict(arch="internvl2-2b", n_layers=24, batch=8, seq=512,
 # 29.9 GB with gradients and moments), batch 4, sequence 512, 10 steps
 TRAIN_MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=2, batch=4, seq=512,
                  steps=10, lr=3e-4)
+# whisper-medium whole (24 encoder and 24 decoder layers, 758 M weights:
+# 12.1 GB with gradients and AdamW's moments), batch 8, sequence 448
+# (whisper's 448 text positions: tokens (8, 449)) after 1,500 frames from
+# `make_frames`, the same at every step, 10 steps, through
+# `launch.train.train`
+TRAIN_AUDIO = dict(arch="whisper-medium", n_layers=24, batch=8, seq=448,
+                   steps=10, lr=3e-4)
 # Card against CPU and against JAX, each family on the training loop
 # (`launch.train.train`) for 3 steps at lr 3e-4 from the init of
 # PRNGKey(0), keyed by the tools/jax_reference_smoke.py name that runs it
@@ -550,10 +614,15 @@ CROSS_TRAINS = {
     "train-cross-vlm": dict(arch="internvl2-2b", n_layers=2, batch=2,
                             seq=128, steps=3, lr=3e-4),
     "train-cross-moe": dict(arch="qwen3-moe-30b-a3b", reduced=True,
-                            batch=2, seq=128, steps=3, lr=3e-4)}
+                            batch=2, seq=128, steps=3, lr=3e-4),
+    # whisper-medium at full width cut to 2 encoder and 2 decoder layers,
+    # its 1,500 zero frames as `launch.train` feeds them
+    "train-cross-audio": dict(arch="whisper-medium", n_layers=2,
+                              n_enc_layers=2, batch=2, seq=128, steps=3,
+                              lr=3e-4)}
 # the JAX reference's losses of those runs (tools/jax_reference_smoke.py
 # train-cross train-cross-ssm train-cross-hybrid train-cross-vlm
-# train-cross-moe, on the CPU)
+# train-cross-moe train-cross-audio, on the CPU)
 CROSS_TRAIN_JAX_LOSSES = {
     "train-cross": [12.067048072814941, 12.131933212280273,
                     12.170770645141602],
@@ -564,7 +633,9 @@ CROSS_TRAIN_JAX_LOSSES = {
     "train-cross-vlm": [11.865507125854492, 12.00423812866211,
                         11.906243324279785],
     "train-cross-moe": [6.785251140594482, 6.8302788734436035,
-                        6.734958171844482]}
+                        6.734958171844482],
+    "train-cross-audio": [11.074835777282715, 11.003856658935547,
+                          10.927026748657227]}
 # losses (atol) and step-0 gradients (each leaf as a share of its
 # largest element): fp32 sums over the vocabulary's logits and the
 # positions in other orders (card, CPU, XLA)
@@ -948,16 +1019,16 @@ def time_k3(torch, inputs, errs, rates):
 
 
 def k4_inputs(torch):
-    """Seeded (name, dtype, window, q, k, v) on the card for every K4 case,
-    q and k scaled by 0.5 as in tests/test_kernels.py."""
+    """Seeded (name, dtype, causal, window, q, k, v) on the card for every
+    K4 case, q and k scaled by 0.5 as in tests/test_kernels.py."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
-    for name, B, Sq, Sk, Hq, Hkv, hd, window, dt in K4_CASES:
+    for name, B, Sq, Sk, Hq, Hkv, hd, causal, window, dt in K4_CASES:
         def draw(S, H, scale):
             return (torch.randn((B, S, H, hd), generator=gen, device="cuda")
                     * scale).to(getattr(torch, dt))
-        out.append((name, dt, window, draw(Sq, Hq, 0.5), draw(Sk, Hkv, 0.5),
-                    draw(Sk, Hkv, 1.0)))
+        out.append((name, dt, causal, window, draw(Sq, Hq, 0.5),
+                    draw(Sk, Hkv, 0.5), draw(Sk, Hkv, 1.0)))
     return out
 
 
@@ -973,18 +1044,19 @@ def check_k4(torch, inputs):
 
     atol, rtol = K4_BF16_FP32_TOL
     errs, against_fp32 = [], []
-    for name, dt, window, q, k, v in inputs:
-        got = k4.flash_attention(q, k, v, window=window)
+    for name, dt, causal, window, q, k, v in inputs:
+        kw = dict(causal=causal, window=window)
+        got = k4.flash_attention(q, k, v, **kw)
         errs.append(_close(torch, f"K4 {name} {dt}", got,
-                           ref.flash_attention_ref(q, k, v, window=window),
+                           ref.flash_attention_ref(q, k, v, **kw),
                            K4_TOL[dt]))
-        if not torch.equal(got, k4.flash_attention(q, k, v, window=window)):
+        if not torch.equal(got, k4.flash_attention(q, k, v, **kw)):
             fail(f"K4 {name} {dt}: a repeated call gave other bits")
         if dt == "float32":
             against_fp32.append(None)
             continue
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                       window=window)
+                                       **kw)
         err = _close(torch, f"K4 {name} bf16 against fp32", got.float(),
                      want, atol, rtol)
         share = ((got.float() - want).abs() / (atol + rtol * want.abs())
@@ -993,60 +1065,65 @@ def check_k4(torch, inputs):
     return errs, against_fp32
 
 
-def k4_work(q, k, window):
+def k4_work(q, k, causal, window):
     """(bytes, flops) K4 must at least move and do: q, k, v read once and
     out written once; 4 hd flops (two products) per visible (query, key)
-    pair of every head, counted from the mask of these shapes."""
+    pair of every head, counted from the mask of these shapes (row i sees
+    keys j <= i when causal, j > i - window under a window: non-causal
+    with no window, every row all Sk keys, 4 B Hq Sq Sk hd)."""
     B, Sq, Hq, hd = q.shape
     Sk = k.shape[1]
     pairs = 0
     for i in range(Sq):
         lo = 0 if window is None else max(0, i - window + 1)
-        pairs += max(0, min(i, Sk - 1) - lo + 1)
+        hi = min(i, Sk - 1) if causal else Sk - 1
+        pairs += max(0, hi - lo + 1)
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     return nbytes, 4 * B * Hq * hd * pairs
 
 
 def time_k4(torch, inputs, errs, rates):
     """K4, its plain version and the yardstick
-    (`scaled_dot_product_attention` with ``is_causal`` and ``enable_gqa``
-    on (B, H, S, hd) views) timed at qwen3-0.6b's serve shape, fp32 and
-    bf16, and at recurrentgemma-9b's, internvl2-2b's and
-    qwen3-moe-30b-a3b's, beside the bound; returns the rows."""
+    (`scaled_dot_product_attention` with the case's ``is_causal`` and
+    ``enable_gqa`` on (B, H, S, hd) views) timed at qwen3-0.6b's serve
+    shape, fp32 and bf16, at recurrentgemma-9b's, internvl2-2b's and
+    qwen3-moe-30b-a3b's, and at whisper-medium's encoder (non-causal,
+    fp32 and bf16) and its decode step's cross-attention (one query row
+    against 1,500 keys), beside the bound; returns the rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import ref
 
     rows = []
-    for (name, dt, window, q, k, v), err in zip(inputs, errs):
+    for (name, dt, causal, window, q, k, v), err in zip(inputs, errs):
         if "serve" not in name:
             continue
         # the hybrid's window of 2048 does not bind at 512 positions, so
         # the causal SDPA computes the same function there
-        ms = time_ms(lambda: k4.flash_attention(q, k, v, window=window),
-                     torch)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(
-            q, k, v, window=window), torch)
+        kw = dict(causal=causal, window=window)
+        ms = time_ms(lambda: k4.flash_attention(q, k, v, **kw), torch)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                           torch)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), torch)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), torch)
         lib_err = (F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
-            .float() - k4.flash_attention(q, k, v, window=window).float()
+            qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
+            .float() - k4.flash_attention(q, k, v, **kw).float()
         ).abs().max().item()
-        nbytes, flops = k4_work(q, k, window)
+        nbytes, flops = k4_work(q, k, causal, window)
         bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
         B, S, Hq, hd = q.shape
-        rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
-                         window=window,
+        rows.append(dict(case=name, B=B, S=S, Sk=k.shape[1], Hq=Hq,
+                         Hkv=k.shape[2], hd=hd, causal=causal, window=window,
                          dtype=dt, max_abs_err=err, tol=K4_TOL[dt], ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          library_max_abs_diff=lib_err, bound_ms=bound_ms,
                          bound_by=bound_by, bytes=nbytes, flops=flops,
                          tflops=flops / ms / 1e9))
-        print(f"  K4 {name:<10} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}, window "
-              f"{window}) "
+        print(f"  K4 {name:<10} ({B}, {S}, {k.shape[1]}, {Hq}, {k.shape[2]}, "
+              f"{hd}, causal {causal}, window {window}) "
               f"{dt:<8} err {err:.3g} kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} ms  "
               f"sdpa {lib_ms:.4f} ms (diff {lib_err:.3g})  bound "
@@ -1125,12 +1202,12 @@ def check_k4_bwd(torch, inputs):
     return out_rows
 
 
-def k4_bwd_work(q, k, window):
+def k4_bwd_work(q, k, causal, window):
     """(bytes, flops) K4's backward must at least move and do: q, k, v,
     out and dout read once, lse read once, dq, dk and dv written once;
     10 hd flops (five products) per visible (query, key) pair of every
-    head."""
-    nbytes, flops = k4_work(q, k, window)
+    head (non-causal with no window: 10 B Hq hd Sq Sk)."""
+    nbytes, flops = k4_work(q, k, causal, window)
     B, Sq, Hq, _ = q.shape
     # k4_work counts q, k, v and out: add dout, lse, dq, dk and dv
     nbytes += q.element_size() * (2 * q.numel() + 2 * k.numel() +
@@ -1159,11 +1236,12 @@ def kernel_split_ms(fn, torch, pattern, reps: int = 20):
 def time_k4_bwd(torch, inputs, errs, rates):
     """K4's backward at the K4_BWD_TIMED shapes (the train run's first),
     its plain version (which runs the plain forward under autograd, then
-    its backward) and the yardstick, SDPA's backward (``is_causal``,
-    ``enable_gqa`` on (B, H, S, hd) views, its forward run once and its
-    backward repeated; the hybrid's window of 2048 does not bind at 512
-    positions), beside the bound (the train runs' shapes: qwen3-0.6b,
-    recurrentgemma-9b, internvl2-2b, qwen3-moe-30b-a3b); each kernel's device time from the
+    its backward) and the yardstick, SDPA's backward (the case's
+    ``is_causal``, ``enable_gqa`` on (B, H, S, hd) views, its forward run
+    once and its backward repeated; the hybrid's window of 2048 does not
+    bind at 512 positions), beside the bound (the train runs' shapes:
+    qwen3-0.6b, recurrentgemma-9b, internvl2-2b, qwen3-moe-30b-a3b,
+    whisper-medium's encoder); each kernel's device time from the
     profiler; and the forward with and without the LSE. Returns the
     rows."""
     import torch.nn.functional as F
@@ -1191,7 +1269,7 @@ def time_k4_bwd(torch, inputs, errs, rates):
             q, k, v, dout, **kw), torch)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v)]
-        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                            enable_gqa=True)
         dt = dout.transpose(1, 2)
         lib_ms = time_ms(lambda: torch.autograd.grad(
@@ -1203,14 +1281,15 @@ def time_k4_bwd(torch, inputs, errs, rates):
         fwd_ms = time_ms(lambda: k4.flash_attention(q, k, v, **kw), torch)
         fwd_lse_ms = time_ms(lambda: k4.flash_attention_with_lse(
             q, k, v, **kw), torch)
-        nbytes, flops = k4_bwd_work(q, k, window)
+        nbytes, flops = k4_bwd_work(q, k, causal, window)
         bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         B, S, Hq, hd = q.shape
         plan = k4.backward_plan(B, S, k.shape[1], Hq, k.shape[2], hd,
                                 k4._sm_count(q.device.index))
         print(f"  K4 backward {name} ({B}, {S}, {Hq}, {k.shape[2]}, {hd}, "
-              f"window {window}) float32 err {err[0]:.3g} kernel {ms:.4f} "
-              f"ms ({flops / ms / 1e9:.2f} TFLOP/s; " + ", ".join(
+              f"causal {causal}, window {window}) float32 err "
+              f"{err[0]:.3g} kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s; " + ", ".join(
                   f"{kname} {t:.4f}" for kname, t in split.items()) +
               f" ms a call; {plan.splits} head splits, {plan.n_slabs} "
               f"slabs, scratch {plan.scratch_bytes()} bytes)  plain "
@@ -1219,7 +1298,8 @@ def time_k4_bwd(torch, inputs, errs, rates):
               f"forward at this shape {fwd_ms:.4f} ms, with its LSE "
               f"{fwd_lse_ms:.4f} ms")
         rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
-                         window=window, dtype="float32", max_abs_err=err[0],
+                         causal=causal, window=window, dtype="float32",
+                         max_abs_err=err[0],
                          tol=K4_BWD_TOL, ms=ms, kernel_ms=split,
                          splits=plan.splits, slabs=plan.n_slabs,
                          scratch_bytes=plan.scratch_bytes(),
@@ -2183,6 +2263,37 @@ def serve_kernels(cfg):
     return want
 
 
+def decode_kernels(cfg, steps):
+    """The launches of each port kernel that ``steps`` decode steps of
+    ``cfg`` must make: an audio model's cross-attention, K4 once a
+    decoder layer and step (the ring's self-attention is plain); no
+    kernel in any other family's decode."""
+    want = {name: 0 for name in _kernel_modules()}
+    if cfg.family == "audio":
+        want["flash_attention"] = steps * cfg.n_layers
+    return want
+
+
+def generate_kernels(cfg, new_tokens):
+    """The launches of `generate` with ``new_tokens``: the prefill's
+    (`serve_kernels`) and those of its new_tokens - 1 decode steps
+    (`decode_kernels`)."""
+    decode = decode_kernels(cfg, new_tokens - 1)
+    return {k: n + decode[k] for k, n in serve_kernels(cfg).items()}
+
+
+def cut_layers(cfg, params, n_layers):
+    """``cfg`` and its state dict ``params`` cut to their first
+    ``n_layers`` layers (an audio model's first n_layers encoder and
+    decoder layers), the embedding, head and norms kept."""
+    stacks = ("enc_layers", "dec_layers", "layers")
+    cfg = cfg.replace(n_layers=n_layers, **(
+        {"n_enc_layers": n_layers} if cfg.family == "audio" else {}))
+    return cfg, {k: v for k, v in params.items()
+                 if k.split(".")[0] not in stacks
+                 or int(k.split(".")[1]) < n_layers}
+
+
 def serve_model(torch, arch):
     """``arch`` (one of SERVE_ARCHS) at its published config in float32
     (cut to its first SERVE_LAYERS[arch] layers where it has an entry),
@@ -2195,6 +2306,10 @@ def serve_model(torch, arch):
 
     cfg = get_config(arch).replace(dtype="float32")
     full_layers = cfg.n_layers
+    layers = f"{cfg.n_layers} layers"
+    if cfg.family == "audio":
+        layers = (f"{cfg.n_enc_layers} encoder and {cfg.n_layers} decoder "
+                  f"layers")
     if arch in SERVE_LAYERS:
         cfg = cfg.replace(n_layers=SERVE_LAYERS[arch])
     torch.cuda.reset_peak_memory_stats()
@@ -2220,9 +2335,11 @@ def serve_model(torch, arch):
                      f"{cfg.topk} of d_ff {cfg.d_expert_ff}")
         if cfg.family == "vlm":
             shape += f", {cfg.n_vision_tokens} vision positions"
+        if cfg.family == "audio":
+            shape += f", {cfg.n_audio_frames} frames"
     cut = "" if full_layers == cfg.n_layers else \
         f" (the first of its {full_layers})"
-    print(f"{arch}: {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
+    print(f"{arch}: {layers}{cut}, d_model {cfg.d_model}, "
           f"{shape}, "
           f"vocab {cfg.vocab_size}: {n} float32 weights, drawn on the card "
           f"in {seconds:.2f} s; max_memory_allocated after init "
@@ -2237,6 +2354,16 @@ def make_vision(torch, cfg, batch, device="cuda"):
         return None
     gen = torch.Generator(device=device).manual_seed(VISION_SEED)
     return torch.randn((batch, cfg.n_vision_tokens, cfg.d_model),
+                       generator=gen, device=device)
+
+
+def make_frames(torch, cfg, batch, device="cuda"):
+    """An audio model's frames (batch, n_audio_frames, d_model), unit
+    normals from FRAMES_SEED on ``device``; None for another family."""
+    if cfg.family != "audio":
+        return None
+    gen = torch.Generator(device=device).manual_seed(FRAMES_SEED)
+    return torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
                        generator=gen, device=device)
 
 
@@ -2282,11 +2409,14 @@ def moe_routing(torch, model, fn):
 
 def run_serve(torch, cfg, model, params):
     """The serving path once through `generate` (a vlm's vision
-    embeddings from `make_vision`) with every kernel count zeroed just
-    before and read just after (`serve_kernels`: one launch per layer of
-    the layer's kernel, K4, K5 or K6, and no other kernel); then
+    embeddings from `make_vision`, an audio model's frames from
+    `make_frames`, its prompt SERVE_PROMPT's) with every kernel count
+    zeroed just before and read just after (`generate_kernels`: one
+    launch per layer of the layer's kernel, K4, K5 or K6, in the prefill
+    and no other kernel; an audio model's K4 three times a layer pair in
+    the prefill and once a decoder layer in each decode step); then
     `generate`'s prefill phase alone, counted the same way, so the decode
-    loop's launches are the difference (none); then a second call, which
+    loop's launches are the difference; then a second call, which
     must give the same tokens (and, for a moe model, the same logits bit
     for bit), and for a moe model a third, its routing observed
     (`moe_routing`). Returns (launches, each launched kernel's (prefill,
@@ -2294,27 +2424,31 @@ def run_serve(torch, cfg, model, params):
     routing statistics or None)."""
     from repro_torch.launch.serve import generate, make_prompts, prefill
 
-    want = serve_kernels(cfg)
-    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
+    B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
+    S = SERVE_PROMPT.get(cfg.name, SERVE_RUN["prompt_len"])
+    want = generate_kernels(cfg, new)
+    want_split = {k: (n, decode_kernels(cfg, new - 1)[k])
+                  for k, n in serve_kernels(cfg).items() if want[k]}
     prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")
     vision = make_vision(torch, cfg, B)
+    frames = make_frames(torch, cfg, B)
     torch.cuda.synchronize()
     _zero_launches()
-    gen = generate(model, params, prompts, new, vision=vision)
+    gen = generate(model, params, prompts, new, vision=vision, frames=frames)
     torch.cuda.synchronize()
     launches = _read_launches()
     if launches != want:
         fail(f"serve {cfg.name}: kernel launches {launches}, expected "
              f"{want}")
     _zero_launches()
-    prefill(model, prompts, new, vision)
+    prefill(model, prompts, new, vision, frames)
     torch.cuda.synchronize()
     n_prefill = _read_launches()
     split = {k: (n_prefill[k], launches[k] - n_prefill[k])
              for k, n in want.items() if n}
-    if split != {k: (n, 0) for k, n in want.items() if n}:
+    if split != want_split:
         fail(f"serve {cfg.name}: launches (prefill, decode) {split}, "
-             f"expected {want} in the prefill and none in decode")
+             f"expected {want_split}")
     if tuple(gen.tokens.shape) != (B, new):
         fail(f"serve {cfg.name}: tokens {tuple(gen.tokens.shape)}, expected "
              f"{(B, new)}")
@@ -2326,7 +2460,8 @@ def run_serve(torch, cfg, model, params):
                 not torch.isfinite(logits).all():
             fail(f"serve {cfg.name}: {name} not a finite "
                  f"{(B, cfg.vocab_size)} table")
-    again = generate(model, params, prompts, new, vision=vision)
+    again = generate(model, params, prompts, new, vision=vision,
+                     frames=frames)
     if not torch.equal(again.tokens, gen.tokens):
         fail(f"serve {cfg.name}: a second call gave other tokens")
     if cfg.family == "moe" and not (
@@ -2335,7 +2470,7 @@ def run_serve(torch, cfg, model, params):
         fail(f"serve {cfg.name}: a second call gave other logits bits")
     # a third call, its MoE routing observed (`moe_routing`)
     _, routing = moe_routing(torch, model, lambda: generate(
-        model, params, prompts, new, vision=vision))
+        model, params, prompts, new, vision=vision, frames=frames))
     return launches, split, gen, again, routing
 
 
@@ -2347,30 +2482,31 @@ def check_cross(torch, cfg, model, params):
     plain path inside the model. A model in CROSS_LAYERS runs cut to its
     first layers, on both sides, with its embedding, head and final norm.
     Returns (max abs logits difference, CPU seconds, layers run, the card
-    side's routing statistics, `moe_routing`: None without MoE layers)."""
+    side's routing statistics, `moe_routing`: None without MoE layers,
+    the prompt's length)."""
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models import build_model
 
     n_layers = CROSS_LAYERS.get(cfg.name, cfg.n_layers)
     if n_layers != cfg.n_layers:
-        cfg = cfg.replace(n_layers=n_layers)
-        params = {k: v for k, v in params.items()
-                  if not k.startswith("layers.")
-                  or int(k.split(".")[1]) < n_layers}
+        cfg, params = cut_layers(cfg, params, n_layers)
         model = build_model(cfg, device="meta")
-    want = serve_kernels(cfg)
-    B, S, new = (CROSS_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
+    B, new = CROSS_RUN["batch"], CROSS_RUN["new_tokens"]
+    S = CROSS_PROMPT.get(cfg.name, CROSS_RUN["prompt_len"])
+    want = generate_kernels(cfg, new)
     prompts = make_prompts(cfg.vocab_size, B, S, 1, "cuda")
     vision = make_vision(torch, cfg, B)
+    frames = make_frames(torch, cfg, B)
     _zero_launches()
     card, routing = moe_routing(torch, model, lambda: generate(
-        model, params, prompts, new, vision=vision))
+        model, params, prompts, new, vision=vision, frames=frames))
     torch.cuda.synchronize()
     n_card = _read_launches()
     t0 = time.perf_counter()
     cpu_params = {k: v.cpu() for k, v in params.items()}
     cpu = generate(build_model(cfg, device="meta"), cpu_params, prompts.cpu(),
-                   new, vision=None if vision is None else vision.cpu())
+                   new, vision=None if vision is None else vision.cpu(),
+                   frames=None if frames is None else frames.cpu())
     seconds = time.perf_counter() - t0
     n_cpu = {k: v - n_card[k] for k, v in _read_launches().items()}
     if n_card != want or any(n_cpu.values()):
@@ -2383,7 +2519,7 @@ def check_cross(torch, cfg, model, params):
     if not torch.equal(card.tokens.cpu(), cpu.tokens):
         fail(f"{cfg.name} card against CPU: tokens {card.tokens.tolist()} "
              f"!= {cpu.tokens.tolist()}")
-    return diff, seconds, n_layers, routing
+    return diff, seconds, n_layers, routing, S
 
 
 def layer_kernels(cfg):
@@ -2391,7 +2527,11 @@ def layer_kernels(cfg):
     K4 (the attention of a dense, vlm or moe layer; a moe layer's experts
     are plain batched products), K5 (Mamba2) or K6 (RG-LRU); a hybrid
     model's layers follow its pattern unit cyclically (`repro`'s
-    segments)."""
+    segments). An audio model's entries are its attentions, each a K4
+    launch: one an encoder layer, then two a decoder layer (self and
+    cross)."""
+    if cfg.family == "audio":
+        return ["flash_attention"] * (cfg.n_enc_layers + 2 * cfg.n_layers)
     if cfg.family == "ssm":
         return ["ssd"] * cfg.n_layers
     if cfg.family == "hybrid":
@@ -2442,10 +2582,11 @@ def record_aux(model):
 def run_train(torch, argv=None, cut=None):
     """The training path once, with every kernel count zeroed just before
     and read just after (`train_launches`): `repro_torch.launch.train.
-    main(argv)`, or for ``cut`` (TRAIN_HYBRID, TRAIN_VLM, TRAIN_MOE) the
-    config cut to its first ``n_layers`` layers, its init of PRNGKey(0)
-    on the card and `launch.train.train` (a vlm's vision embeddings from
-    `make_vision`; a moe model's router loss of each step kept,
+    main(argv)`, or for ``cut`` (TRAIN_HYBRID, TRAIN_VLM, TRAIN_MOE,
+    TRAIN_AUDIO) the config cut to its first ``n_layers`` layers, its init
+    of PRNGKey(0) on the card and `launch.train.train` (a vlm's vision
+    embeddings from `make_vision`, an audio model's frames from
+    `make_frames`; a moe model's router loss of each step kept,
     `record_aux`); every loss finite and the last below the first.
     Then AdamW alone (its update and the weights' addition, on gradients
     of the weights' shapes) three times, by the host clock around
@@ -2467,8 +2608,10 @@ def run_train(torch, argv=None, cut=None):
         run = train.main(argv)
     else:
         steps, batch, seq = cut["steps"], cut["batch"], cut["seq"]
-        cfg = get_config(cut["arch"]).replace(n_layers=cut["n_layers"],
-                                              dtype="float32")
+        cfg = get_config(cut["arch"]).replace(dtype="float32")
+        cfg = cfg.replace(n_layers=cut["n_layers"], **(
+            {"n_enc_layers": cut["n_layers"]} if cfg.family == "audio"
+            else {}))
         model = build_model(cfg, device="meta", loss_chunks=4)
         model.init(prng.PRNGKey(0, device="cuda"))
         print(f"arch={cfg.name} ({cfg.n_layers} layers) params="
@@ -2477,7 +2620,8 @@ def run_train(torch, argv=None, cut=None):
               else contextlib.nullcontext()) as aux:
             run = train.train(model, train.lm_corpus(cfg, batch, seq),
                               steps=steps, batch=batch, lr=cut["lr"],
-                              vision=make_vision(torch, cfg, batch))
+                              vision=make_vision(torch, cfg, batch),
+                              frames=make_frames(torch, cfg, batch))
         del model
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2512,6 +2656,7 @@ def run_train(torch, argv=None, cut=None):
     warm = statistics.median(run.step_seconds[2:])
     return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
                 vision=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
+                frames=cfg.n_audio_frames if cfg.family == "audio" else 0,
                 n_params=run.n_params, steps=steps, losses=run.losses,
                 step_seconds=run.step_seconds, warm_step_s=warm,
                 optimizer_s=statistics.median(opt_times),
@@ -2523,9 +2668,12 @@ def run_train(torch, argv=None, cut=None):
 def print_train(tr):
     per_step = ", ".join(
         f"{n // tr['steps']} {k}" for k, n in tr["launches"].items() if n)
-    print(f"train {tr['arch']} ({tr['n_layers']} layers) float32 "
+    layers = f"{tr['n_layers']}" + (" encoder and decoder" if tr["frames"]
+                                    else "")
+    print(f"train {tr['arch']} ({layers} layers) float32 "
           f"B={tr['batch']} S={tr['seq']}"
-          + (f" + {tr['vision']} vision" if tr["vision"] else "") +
+          + (f" + {tr['vision']} vision" if tr["vision"] else "")
+          + (f" after {tr['frames']} frames" if tr["frames"] else "") +
           f", {tr['steps']} steps, "
           f"{tr['n_params']} weights: losses "
           f"{[round(x, 4) for x in tr['losses']]}, step walls (s) "
@@ -2562,9 +2710,8 @@ def check_cross_train(torch, name):
     cfg = get_config(c["arch"])
     if c.get("reduced"):
         cfg = cfg.reduced()
-    if "n_layers" in c:
-        cfg = cfg.replace(n_layers=c["n_layers"])
-    cfg = cfg.replace(dtype="float32")
+    cfg = cfg.replace(dtype="float32", **{
+        k: c[k] for k in ("n_layers", "n_enc_layers") if k in c})
     card = build_model(cfg, device="meta", loss_chunks=4)
     params = card.init(prng.PRNGKey(0, device="cuda"))
     cpu = build_model(cfg, device="meta", loss_chunks=4)
@@ -2578,6 +2725,9 @@ def check_cross_train(torch, name):
         if cfg.family == "vlm":   # `launch.train`'s zero vision embeddings
             batch["vision"] = torch.zeros(
                 (c["batch"], cfg.n_vision_tokens, cfg.d_model), device=dev)
+        if cfg.family == "audio":   # and its zero frames
+            batch["frames"] = torch.zeros(
+                (c["batch"], cfg.n_audio_frames, cfg.d_model), device=dev)
 
         def step0():
             loss, _ = model.loss(batch)
@@ -3198,7 +3348,7 @@ def main():
               f"tau={BASELINE_RUN['tau']}: {seconds:.3f} s wall, mean test "
               f"acc {mean_acc:.4f} (JAX reference {LEARN_REF[name]}), "
               f"launches {counts}, every round under the no-sync fence")
-    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len", "new_tokens"))
+    B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
     walls = {}
     for arch in SERVE_ARCHS:
         # one model on the card at a time
@@ -3206,10 +3356,13 @@ def main():
         run = f"serve {arch}"
         launches[run], split, gen, again, routing = run_serve(
             torch, cfg, model, params)
+        S = SERVE_PROMPT.get(arch, SERVE_RUN["prompt_len"])
         Nv = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+        T = cfg.n_audio_frames if cfg.family == "audio" else 0
         for label, g in (("first call", gen), ("second call", again)):
             print(f"serve {arch} float32 B={B} S={S}"
-                  + (f" + {Nv} vision" if Nv else "") +
+                  + (f" + {Nv} vision" if Nv else "")
+                  + (f" after {T} frames" if T else "") +
                   f" new={new} ({label}): "
                   f"prefill {g.prefill_seconds * 1e3:.3f} ms wall "
                   f"({B * S / g.prefill_seconds:.1f} prompt tok/s), decode "
@@ -3224,6 +3377,18 @@ def main():
                  else "") + f"; sample "
               f"{gen.tokens[0, :8].tolist()}; max_memory_allocated after "
               f"the serve runs {torch.cuda.max_memory_allocated()} bytes")
+        if T:
+            # `repro`'s decode recomputes the cross-attention's K and V
+            # from the encoder's output at every step: 2 (B T d)(2 H hd)
+            # flops a decoder layer
+            cross_kv = 2 * B * T * cfg.d_model * 2 * cfg.n_heads * \
+                cfg.resolved_head_dim * cfg.n_layers
+            step_ms = again.decode_seconds / (new - 1) * 1e3
+            print(f"serve {arch}: the cross K/V recompute of a decode step "
+                  f"is {cross_kv} flops, {cross_kv / rates[1] * 1e3:.3f} ms "
+                  f"at the card's fp32 rate against {step_ms:.3f} ms a "
+                  f"step; the encoder's output and the rings stay on the "
+                  f"card between steps")
         if routing is not None:
             print(f"serve {arch} routing: smallest gap between the "
                   f"{cfg.topk}th and {cfg.topk + 1}th router probability "
@@ -3232,9 +3397,11 @@ def main():
                               in ((k, routing[k]) for k in
                                   ("prefill", "decode"))) +
                   " over its layers; decode under the no-sync fence")
-        diff, cpu_s, layers, routing = check_cross(torch, cfg, model, params)
+        diff, cpu_s, layers, routing, cross_S = check_cross(torch, cfg, model,
+                                                            params)
         print(f"card against CPU ({arch}, {layers} of {cfg.n_layers} "
-              f"layers, B={CROSS_RUN['batch']} S={CROSS_RUN['prompt_len']} "
+              + ("encoder and decoder " if T else "") +
+              f"layers, B={CROSS_RUN['batch']} S={cross_S} "
               f"new={CROSS_RUN['new_tokens']}): same tokens, prefill logits "
               f"max abs diff {diff:.3g} (tol {CROSS_TOL}), CPU side "
               f"{cpu_s:.1f} s" + ("" if routing is None else
@@ -3246,7 +3413,7 @@ def main():
           ", ".join(f"{a} {p:.3f}, {d:.3f}" for a, (p, d) in walls.items()))
     for kw in (dict(argv=TRAIN_ARGV), dict(argv=TRAIN_SSM_ARGV),
                dict(cut=TRAIN_HYBRID), dict(cut=TRAIN_VLM),
-               dict(cut=TRAIN_MOE)):
+               dict(cut=TRAIN_MOE), dict(cut=TRAIN_AUDIO)):
         tr = run_train(torch, **kw)
         launches[f"train {tr['arch']}"] = tr["launches"]
         print_train(tr)
@@ -3347,8 +3514,8 @@ def main():
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs, the twelve baseline runs, the five serve runs, the five
-    # train runs, the card sides of the five cross train runs, the DPFL
+    # DPFL runs, the twelve baseline runs, the six serve runs, the six
+    # train runs, the card sides of the six cross train runs, the DPFL
     # mix, the two lm-dpfl runs on the card and the personalized serve),
     # with each run's counts beside them
     def total(kname):

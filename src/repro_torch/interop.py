@@ -6,7 +6,8 @@ layout (HWIO conv weights, (in, out) dense weights). So a row of a
 (N, P) table of one package is the same model in the other, and weights
 cross as numpy arrays with no reshuffling. An LM's stacked layer tree
 becomes the port's per-layer state dict (`lm_params_from_jax`), and back
-(`lm_params_to_jax`). Takes and gives numpy, not JAX arrays: this module
+(`lm_params_to_jax`); so do the audio family's encoder and decoder
+stacks. Takes and gives numpy, not JAX arrays: this module
 imports no JAX.
 """
 from __future__ import annotations
@@ -47,21 +48,43 @@ FLOAT32_LEAVES = {"ssm": ("A_log", "D", "dt_bias"),
                   "moe": ("moe.router",)}
 #: the families whose trees `lm_params_from_jax` and `lm_params_to_jax`
 #: carry: vlm's tree is the dense one, moe's stacks its layers as dense
-#: does, with a "moe" subtree in place of the MLP
-LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+#: does, with a "moe" subtree in place of the MLP, audio's stacks its
+#: encoder and decoder layers apart
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
+
+def _stacks(cfg) -> Dict[str, int]:
+    """The stacked subtrees of ``cfg``'s family and their rows: an audio
+    tree's "enc_layers" (n_enc_layers) and "dec_layers" (n_layers),
+    another's "layers" (n_layers); a hybrid tree's "segments" are laid
+    out by `hybrid_layout`."""
+    if cfg.family == "audio":
+        return {"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
+    return {"layers": cfg.n_layers}
+
+
+def _leaves(tree: Mapping, prefix: str = ""):
+    """(dotted path, numpy array) of each leaf of a nested mapping."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            yield from _leaves(leaf, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", np.asarray(leaf)
 
 
 def lm_params_from_jax(params: Mapping, cfg, device=None
                        ) -> Dict[str, torch.Tensor]:
-    """A `repro` ``DecoderLM`` parameter tree of the dense, moe, vlm, SSM
-    or hybrid family (`LM_FAMILIES`), as numpy arrays -> the state dict of
-    the port's `repro_torch.models.lm.DecoderLM` ("tok_embed",
-    "final_norm", ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq",
-    ..., "layers.{i}.moe.router", ..., "layers.{i}.in_proj", ...), in
-    ``cfg.dtype`` on ``device`` (default cuda), except the leaves that
-    `repro` keeps in float32 whatever the dtype (`FLOAT32_LEAVES`).
-    Dense, moe, vlm and SSM trees stack every leaf under ``"layers"``
-    over a leading n_layers axis; a hybrid tree's leaf
+    """A `repro` LM parameter tree of any family (`LM_FAMILIES`), as numpy
+    arrays -> the state dict of the port's model
+    (`repro_torch.models.build_model`: "tok_embed", "final_norm",
+    ["lm_head"], "layers.{i}.ln1", "layers.{i}.attn.wq", ...,
+    "layers.{i}.moe.router", ..., "layers.{i}.in_proj", ...; audio's
+    "enc_layers.{i}.attn.wq", "dec_layers.{i}.cross_attn.wk",
+    "enc_norm.w", ...), in ``cfg.dtype`` on ``device`` (default cuda),
+    except the leaves that `repro` keeps in float32 whatever the dtype
+    (`FLOAT32_LEAVES`). Dense, moe, vlm and SSM trees stack every leaf
+    under ``"layers"`` over a leading n_layers axis, audio's under
+    ``"enc_layers"`` and ``"dec_layers"``; a hybrid tree's leaf
     ``params["segments"][si][f"b{bi}"][name][g]`` becomes
     ``layers.{i}.{name}`` for the layer i at (si, g, bi)
     (`repro_torch.models.lm.hybrid_layout`)."""
@@ -77,37 +100,33 @@ def lm_params_from_jax(params: Mapping, cfg, device=None
         return torch.tensor(np.asarray(a, np.float32), device=device,
                             dtype=torch.float32 if keep else dtype)
 
-    def leaves(tree, prefix=""):
-        for name, leaf in tree.items():
-            if isinstance(leaf, Mapping):
-                yield from leaves(leaf, f"{prefix}{name}.")
-            else:
-                yield f"{prefix}{name}", np.asarray(leaf)
-
-    stacks = "segments" if cfg.family == "hybrid" else "layers"
-    out = {name: put(a) for name, a in params.items() if name != stacks}
+    stacks = {"segments": None} if cfg.family == "hybrid" else _stacks(cfg)
+    out = {name: put(a) for name, a in _leaves(
+        {k: v for k, v in params.items() if k not in stacks})}
     if cfg.family == "hybrid":
         segs = params["segments"]
         for i, (si, g, bi, _) in enumerate(hybrid_layout(cfg)):
-            for name, a in leaves(segs[si][f"b{bi}"]):
+            for name, a in _leaves(segs[si][f"b{bi}"]):
                 out[f"layers.{i}.{name}"] = put(a[g], name)
         return out
-    for name, a in leaves(params["layers"]):
-        if a.shape[0] != cfg.n_layers:
-            raise ValueError(f"lm_params_from_jax: layers.{name} has "
-                             f"{a.shape[0]} rows for {cfg.n_layers} layers")
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = put(a[i], name)
+    for stack, n in stacks.items():
+        for name, a in _leaves(params[stack]):
+            if a.shape[0] != n:
+                raise ValueError(f"lm_params_from_jax: {stack}.{name} has "
+                                 f"{a.shape[0]} rows for {n} layers")
+            for i in range(n):
+                out[f"{stack}.{i}.{name}"] = put(a[i], name)
     return out
 
 
 def lm_params_to_jax(state: Mapping[str, torch.Tensor], cfg
                      ) -> Dict[str, object]:
     """The inverse of `lm_params_from_jax`: a state dict of the port's
-    `DecoderLM` -> `repro`'s ``DecoderLM`` parameter tree, every leaf a
-    float32 numpy array on the host: "tok_embed", "final_norm",
-    ["lm_head"], and ``"layers"`` (dense, moe, vlm, SSM) holding each
-    leaf stacked over the layers, or ``"segments"`` (hybrid) holding
+    model -> `repro`'s LM parameter tree, every leaf a float32 numpy
+    array on the host: "tok_embed", "final_norm", ["lm_head"], and
+    ``"layers"`` (dense, moe, vlm, SSM) holding each leaf stacked over
+    the layers, ``"enc_layers"`` and ``"dec_layers"`` with the "enc_norm"
+    and "dec_norm" subtrees (audio), or ``"segments"`` (hybrid) holding
     ``[si][f"b{bi}"]`` leaves stacked over the groups. Saved with
     `repro_torch.checkpoint.save_pytree`, it is a file that
     `repro.checkpoint.load_pytree` reads into `repro`'s tree."""
@@ -128,28 +147,35 @@ def lm_params_to_jax(state: Mapping[str, torch.Tensor], cfg
             node[last] = a
         return tree
 
-    out: Dict[str, object] = {k: arr(v) for k, v in state.items()
-                              if not k.startswith("layers.")}
-    per_layer: Dict[int, Dict[str, torch.Tensor]] = {}
+    stacks = _stacks(cfg)
+    per_layer: Dict[str, Dict[int, Dict[str, torch.Tensor]]] = {
+        stack: {} for stack in stacks}
+    top = {}
     for k, v in state.items():
-        if k.startswith("layers."):
-            _, i, name = k.split(".", 2)
-            per_layer.setdefault(int(i), {})[name] = v
+        stack, _, rest = k.partition(".")
+        if stack in stacks:
+            i, name = rest.split(".", 1)
+            per_layer[stack].setdefault(int(i), {})[name] = v
+        else:
+            top[k] = arr(v)
+    out: Dict[str, object] = nest(top)
     if cfg.family == "hybrid":
         layout = hybrid_layout(cfg)
         segs = [dict() for _ in hybrid_segments(cfg)]
         for i, (si, g, bi, _) in enumerate(layout):
             block = segs[si].setdefault(f"b{bi}", {})
-            for name, v in per_layer[i].items():
+            for name, v in per_layer["layers"][i].items():
                 block.setdefault(name, []).append(arr(v))
         out["segments"] = [{b: nest({n: np.stack(rows)
                                      for n, rows in block.items()})
                             for b, block in seg.items()} for seg in segs]
         return out
-    if sorted(per_layer) != list(range(cfg.n_layers)):
-        raise ValueError(f"lm_params_to_jax: layers {sorted(per_layer)} "
-                         f"for {cfg.n_layers} layers")
-    out["layers"] = nest({name: np.stack([arr(per_layer[i][name])
-                                          for i in range(cfg.n_layers)])
-                          for name in per_layer[0]})
+    for stack, n in stacks.items():
+        rows = per_layer[stack]
+        if sorted(rows) != list(range(n)):
+            raise ValueError(f"lm_params_to_jax: {stack} {sorted(rows)} "
+                             f"for {n} layers")
+        out[stack] = nest({name: np.stack([arr(rows[i][name])
+                                           for i in range(n)])
+                           for name in rows[0]})
     return out

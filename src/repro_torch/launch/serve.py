@@ -1,6 +1,5 @@
 """Batched serving: prefill of a batch of prompts, then a decode
-loop (port of `repro.launch.serve`, dense, moe, vlm, SSM and hybrid
-families).
+loop (port of `repro.launch.serve`, every LM family).
 Reduced config by default; runs on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -12,12 +11,15 @@ the card (their plain versions on the CPU); decode runs the plain
 ring-cache attention and the plain one-token SSD or RG-LRU updates, as
 in `repro`. The MoE layers' experts are plain batched products. A vlm
 model's Nv vision embeddings run before the prompt, so its caches hold
-Nv + S + new_tokens positions and decode starts at Nv + S. The decode
+Nv + S + new_tokens positions and decode starts at Nv + S. An audio
+model (whisper) encodes its frames in the prefill (K4 non-causal over
+them, K4 causal in its decoder's self-attention, K4 non-causal in each
+cross-attention, in decode too) and carries (enc_out, caches). The decode
 loop keeps the tokens on the device and makes no device-to-host copy
 (``set_sync_debug_mode("error")`` on CUDA). The CLI draws its weights,
 prompts and samples from ``PRNGKey(0)`` as `repro`'s does, so the same
 flags give `repro`'s prompts; a vlm model's vision embeddings are zeros,
-as in `repro`'s CLI.
+as in `repro`'s CLI, and an audio model's frames zeros too.
 """
 from __future__ import annotations
 
@@ -75,13 +77,23 @@ def vision_positions(model, vision: Optional[torch.Tensor]) -> int:
 
 @torch.inference_mode()
 def prefill(model, prompts: torch.Tensor, new_tokens: int,
-            vision: Optional[torch.Tensor] = None):
+            vision: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None):
     """The first phase of `generate`: a vlm model's ``vision`` embeddings
     (B, Nv, d), then ``prompts`` (B, S), into the model's caches (rings of
-    Nv + S + new_tokens slots, or SSM states). Returns (last-position
-    logits, the greedy first token (B, 1), caches)."""
+    Nv + S + new_tokens slots, or SSM states); an audio model's
+    ``frames`` (B, T, d) encoded first, its caches (enc_out, rings).
+    Returns (last-position logits, the greedy first token (B, 1),
+    caches)."""
     total = vision_positions(model, vision) + prompts.shape[1] + new_tokens
-    logits, caches = model.prefill(prompts, vision=vision, cache_len=total)
+    if model.cfg.family == "audio":
+        if frames is None:
+            raise ValueError(f"{model.cfg.name}: an audio model's prefill "
+                             f"needs frames")
+        logits, caches = model.prefill(prompts, frames, cache_len=total)
+    else:
+        logits, caches = model.prefill(prompts, vision=vision,
+                                       cache_len=total)
     return logits, logits.argmax(-1, keepdim=True), caches
 
 
@@ -105,9 +117,11 @@ def decode(model, caches, tok: torch.Tensor, pos: int, steps: int, *,
 def generate(model, params: Optional[Dict[str, torch.Tensor]],
              prompts: torch.Tensor, new_tokens: int, *,
              vision: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None,
              temperature: float = 0.0,
              key: Optional[torch.Tensor] = None) -> Generation:
-    """`prefill` (of a vlm model's ``vision`` embeddings and the prompts),
+    """`prefill` (of a vlm model's ``vision`` embeddings and the prompts,
+    or an audio model's ``frames`` and the prompts),
     the first token greedy from its logits, then `decode` of
     ``new_tokens - 1`` more from position Nv + S (greedy, or Gumbel-max
     at ``temperature`` with ``key``, a `repro_torch.prng` key on the
@@ -125,7 +139,7 @@ def generate(model, params: Optional[Dict[str, torch.Tensor]],
     _sync(device)
     t0 = time.perf_counter()
     prefill_logits, tok, caches = prefill(model, prompts, new_tokens,
-                                          vision)
+                                          vision, frames)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -177,13 +191,16 @@ def main(argv=None):
     B, S = args.batch, args.prompt_len
     # `repro`'s prompts: jax.random.randint(key, (B, S), 0, vocab)
     prompts = prng.randint(key, (B, S), 0, cfg.vocab_size)
-    vision = None
+    vision = frames = None
     if cfg.family == "vlm":
         vision = torch.zeros((B, cfg.n_vision_tokens, cfg.d_model),
                              device=device)
         S += cfg.n_vision_tokens
+    if cfg.family == "audio":
+        frames = torch.zeros((B, cfg.n_audio_frames, cfg.d_model),
+                             device=device)
     gen = generate(model, params, prompts, args.new_tokens, vision=vision,
-                   temperature=args.temperature, key=key)
+                   frames=frames, temperature=args.temperature, key=key)
     n = args.new_tokens - 1
     print(f"prefill B={B} S={S}: {gen.prefill_seconds * 1e3:.1f} ms")
     print(f"decoded {n} steps x {B} seqs in {gen.decode_seconds:.2f}s "

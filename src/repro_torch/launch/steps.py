@@ -1,13 +1,14 @@
-"""Step functions of the entry points (port of `repro.launch.steps`: the
-decoder-only `make_train_step`, `make_prefill_step`, `make_decode_step`,
-and `make_dpfl_mix`).
+"""Step functions of the entry points (port of `repro.launch.steps`:
+`make_train_step`, `make_prefill_step`, `make_decode_step`, and
+`make_dpfl_mix`).
 
-The model owns its weights (`repro_torch.models.lm.DecoderLM`), so a step
+The model owns its weights (`repro_torch.models.build_model`), so a step
 takes no params argument, and a maker no config: the model is a
-`DecoderLM` of the dense, moe, vlm, SSM or hybrid family. A vlm batch
-carries its "vision" embeddings, which the loss and the prefill run
-before the tokens; the audio family (`repro`'s encoder-decoder) is not
-ported.
+`DecoderLM` of the dense, moe, vlm, SSM or hybrid family, or the audio
+family's `WhisperModel`. A vlm batch carries its "vision" embeddings,
+which the loss and the prefill run before the tokens; an audio batch its
+"frames", which they encode, and an audio decode step takes the
+encoder's output beside the caches, as `repro`'s.
 """
 from __future__ import annotations
 
@@ -49,7 +50,13 @@ def make_train_step(model, optimizer, grad_dtype=None):
 
 def make_prefill_step(model):
     """step(batch, cache_len=None) -> (last-position logits, caches), a
-    vlm batch's "vision" embeddings before its tokens."""
+    vlm batch's "vision" embeddings before its tokens; for the audio
+    family -> (logits, (enc_out, caches)) from the batch's "frames"."""
+    if model.cfg.family == "audio":
+        def step(batch, cache_len=None):
+            return model.prefill(batch["tokens"], batch["frames"],
+                                 cache_len=cache_len)
+        return step
 
     def step(batch, cache_len=None):
         return model.prefill(batch["tokens"], vision=batch.get("vision"),
@@ -59,7 +66,15 @@ def make_prefill_step(model):
 
 def make_decode_step(model):
     """step(caches, token, pos) -> (logits, caches), caches written in
-    place (a ring slot, or the SSM or RG-LRU state and conv rows)."""
+    place (a ring slot, or the SSM or RG-LRU state and conv rows); for
+    the audio family step(enc_out, caches, token, pos) -> (logits,
+    caches), as `repro`'s."""
+    if model.cfg.family == "audio":
+        def step(enc_out, caches, token, pos: int):
+            logits, (_, caches) = model.decode_step((enc_out, caches), token,
+                                                    pos)
+            return logits, caches
+        return step
 
     def step(caches, token, pos: int):
         return model.decode_step(caches, token, pos)

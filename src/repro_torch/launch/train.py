@@ -11,13 +11,13 @@ of ``PRNGKey(0)`` (bit for bit, `repro_torch.prng`), the same corpus
 (``np.random.default_rng(0)``), the same schedule, and the same log
 lines. On the card each layer runs under activation recompute (remat
 "full", as `repro`'s model), its kernel's forward twice a step and its
-backward once: K4 in the attention layers (dense, moe, vlm and hybrid),
-K5 in the Mamba2 layers (SSM), K6 in the RG-LRU layers (hybrid). The
-dense, moe, vlm, SSM and hybrid families train: a moe model's loss adds
-its router's load-balance loss, a vlm model's batches carry zero vision
-embeddings before the tokens, as in `repro`. The audio family raises
-``NotImplementedError`` when the model is built (ROADMAP Queue 1 item
-14d-4, part 5). Checkpoints hold `repro`'s stacked tree
+backward once: K4 in the attention layers (dense, moe, vlm, hybrid and
+audio: the encoder's, the decoder's self- and cross-attention), K5 in
+the Mamba2 layers (SSM), K6 in the RG-LRU layers (hybrid). Every family
+trains: a moe model's loss adds its router's load-balance loss, a vlm
+model's batches carry zero vision embeddings before the tokens and an
+audio model's zero frames, as in `repro`. Checkpoints hold `repro`'s
+stacked tree
 (`repro_torch.interop.lm_params_to_jax`), which `repro.checkpoint` reads.
 """
 from __future__ import annotations
@@ -72,7 +72,8 @@ def batch_rows(n_seqs: int, batch: int, steps: int) -> List[np.ndarray]:
 
 def train(model, corpus: np.ndarray, *, steps: int, batch: int, lr: float,
           ckpt_dir: str = "", ckpt_every: int = 25, log_every: int = 5,
-          vision: Optional[torch.Tensor] = None) -> TrainRun:
+          vision: Optional[torch.Tensor] = None,
+          frames: Optional[torch.Tensor] = None) -> TrainRun:
     """`repro.launch.train`'s loop on ``model`` (initialised, on its
     device) from ``corpus`` (`lm_corpus`): AdamW under
     ``warmup_cosine(lr, 10, steps)``, `repro`'s batches (`batch_rows`)
@@ -81,7 +82,10 @@ def train(model, corpus: np.ndarray, *, steps: int, batch: int, lr: float,
     before the tokens at every step, zeros by default, as `repro`'s loop
     feeds them. (At internvl2-2b's full depth zero embeddings give
     non-finite gradients, in `repro` too: each RMS norm of a zero row
-    scales its gradient by 1/sqrt(eps), and 48 norms overflow fp32.)"""
+    scales its gradient by 1/sqrt(eps), and 48 norms overflow fp32.) An
+    audio model's batches carry ``frames`` (batch, n_audio_frames,
+    d_model), zeros by default, as `repro`'s loop feeds them (the
+    sinusoidal positions keep every encoder row nonzero)."""
     device = model.tok_embed.device
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
@@ -99,6 +103,10 @@ def train(model, corpus: np.ndarray, *, steps: int, batch: int, lr: float,
             batch_t["vision"] = torch.zeros(
                 (batch, cfg.n_vision_tokens, cfg.d_model), device=device) \
                 if vision is None else vision
+        if cfg.family == "audio":
+            batch_t["frames"] = torch.zeros(
+                (batch, cfg.n_audio_frames, cfg.d_model), device=device) \
+                if frames is None else frames
         opt_state, loss = step_fn(opt_state, batch_t)
         losses.append(float(loss))
         walls.append(time.perf_counter() - t_step)

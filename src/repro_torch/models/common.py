@@ -1,7 +1,8 @@
 """Shared neural building blocks of the LM substrate (port of
 `repro.models.common`): init, RMS norm, rotary embeddings, the plain
 grouped-query attention, the SwiGLU MLP and the chunked next-token
-cross-entropy.
+cross-entropy; for the audio family (`repro_torch.models.whisper`) the
+LayerNorm, the sinusoidal positions and the tanh GELU.
 
 Each computes what its `repro` counterpart computes, in the same layouts
 (heads as (B, S, H, hd), dense weights as (in, out)), so weights and
@@ -50,6 +51,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """`repro.models.common.layer_norm`: over the last axis in fp32, the
+    mean, then the mean of the squared centred values (two passes, as
+    `repro` computes them, not ``F.layer_norm``'s one-pass statistics),
+    scaled and shifted, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    xc = x - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    x = xc * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------- rope
 
 
@@ -70,6 +86,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------- sinusoidal positions
+
+#: XLA:CPU's float32 exp (jaxlib 0.9; its LLVM IR and the fused
+#: multiply-adds of the compiled object): the input clamped to [LO, HI],
+#: n = floor(x log2 e + 1/2) in [-127, 127], x - n ln 2 in two parts, a
+#: degree-5 polynomial, times 2^n
+_EXP_CLAMP = (-87.80000305175781, 88.80000305175781)
+_EXP_LOG2E = 1.4426950216293335
+_EXP_LN2 = (0.693359375, -0.00021219444170128554)
+_EXP_POLY = (0.00019875691214110702, 0.001398199936375022,
+             0.008333452045917511, 0.04166579619050026, 0.1666666567325592,
+             0.5)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp with the bits of XLA:CPU's, on the CPU and on CUDA
+    (each fused multiply-add rounded once, `prng._fma`). ``torch.exp``
+    differs from it by an ulp on some inputs, and the sinusoidal
+    frequencies multiply that error by the position (1,499 at whisper's
+    frames): 1.2e-4 in the embedding."""
+    x = x.float().clamp(*_EXP_CLAMP)
+    n = torch.floor(prng._fma(x, _EXP_LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = prng._fma(-n, _EXP_LN2[0], x)
+    r = prng._fma(-n, _EXP_LN2[1], r)
+    y = prng._fma(r, _EXP_POLY[0], _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        y = prng._fma(y, r, c)
+    y = prng._fma(y, r * r, r) + 1.0
+    # 2^n from its exponent bits, as XLA builds it
+    return y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """`repro.models.common.sinusoidal_positions`: positions (..., S) ->
+    (..., S, d_model) float32, [sin(p f), cos(p f)] with frequencies
+    f_i = exp(-i ln(10000) / max(half - 1, 1)). The frequencies take
+    XLA's exp bits (`xla_exp`); sin and cos are computed in float64 and
+    rounded, within an ulp of the C library's float32 ones that `repro`
+    calls."""
+    half = d_model // 2
+    arg = -torch.arange(half, dtype=torch.float32, device=positions.device) \
+        * (math.log(10000.0) / max(half - 1, 1))
+    ang = (positions[..., None].float() * xla_exp(arg)).double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 
 
 # ----------------------------------------------------------------- attention
@@ -131,6 +194,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def swiglu(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
            wo: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: x/2 (1 + tanh(sqrt(2/pi)
+    (x + 0.044715 x^3))), one fused op."""
+    return F.gelu(x, approximate="tanh")
 
 
 # --------------------------------------------------------------------- loss

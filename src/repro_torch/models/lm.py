@@ -24,7 +24,7 @@ batched products, as in `repro`. Serving runs under
 trains every family here, each kernel's forward and backward on the card
 (K4's, K5's and K6's backwards behind their autograd Functions), the
 router's load-balance loss summed over the MoE layers. The audio family
-(`repro.models.whisper`) is not ported (`UNPORTED_FAMILIES`).
+(`repro.models.whisper`) is `repro_torch.models.whisper`.
 """
 from __future__ import annotations
 
@@ -46,19 +46,6 @@ from .rglru import init_rec_block, init_rec_cache, rec_block
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_dims
 
 Cache = Dict[str, torch.Tensor]
-
-#: families not ported yet -> the ROADMAP Queue 1 item that ports them
-UNPORTED_FAMILIES = {"audio": "14d-4"}
-
-
-def check_family(cfg: ArchConfig):
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item {UNPORTED_FAMILIES[cfg.family]}, part "
-            f"5); the port serves the dense, moe, vlm, SSM and hybrid "
-            f"families")
-
 
 # ----------------------------------------------------------------- attention
 
@@ -332,7 +319,6 @@ class DecoderLM(nn.Module):
                  device=None, remat: str = "full", loss_chunks: int = 8,
                  moe_impl: str = "capacity"):
         super().__init__()
-        check_family(cfg)
         if remat not in ("full", "none"):
             raise ValueError(f"remat {remat!r} is not 'full' or 'none'")
         if moe_impl not in ("capacity", "ragged"):

@@ -1108,3 +1108,122 @@ def test_moe_and_vlm_loss_gradients_on_the_card_match_the_cpu(cuda, arch):
     for g, w in zip(out["card"][2], out["cpu"][2]):
         scale = w.abs().max().clamp_min(1e-30)
         torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+
+# whisper-medium's attention (16 heads of 64, MHA): the encoder's
+# non-causal self-attention over 1,500 frames (serve B 4), the
+# cross-attention of a 224-token prompt and of a decode step against
+# them, the decoder's causal self-attention; (B, Sq, Sk, causal, dtype)
+K4_WHISPER_FWD = [(4, 1500, 1500, False, "float32"),
+                  (4, 1500, 1500, False, "bfloat16"),
+                  (4, 224, 1500, False, "float32"),
+                  (4, 1, 1500, False, "float32"),
+                  (4, 224, 224, True, "float32")]
+# its train step's (B 8, 448 tokens): the encoder (5 slabs of 320 keys),
+# the cross-attention (slabs of 1,152 and 348) and the decoder's causal
+# self-attention (one slab); (B, Sq, Sk, causal)
+K4_WHISPER_BWD = [(8, 1500, 1500, False), (8, 448, 1500, False),
+                  (8, 448, 448, True)]
+
+
+@pytest.mark.parametrize("B, Sq, Sk, causal, dtype", K4_WHISPER_FWD,
+                         ids=["encoder", "encoder bf16", "cross",
+                              "decode cross", "decoder self"])
+def test_flash_attention_kernel_at_whisper_serve_shapes(cuda, B, Sq, Sk,
+                                                        causal, dtype):
+    q, k, v = _k4_inputs(B, Sq, Sk, 16, 16, 64, dtype, cuda)
+    before = k4.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k4.flash_attention.launches == before + 1
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
+        rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        atol, rtol = K4_BF16_FP32_TOL
+        torch.testing.assert_close(got.float(), ref.flash_attention_ref(
+            q.float(), k.float(), v.float(), causal=causal), rtol=rtol,
+            atol=atol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("B, Sq, Sk, causal", K4_WHISPER_BWD,
+                         ids=["encoder", "cross", "decoder self"])
+def test_flash_attention_backward_at_whisper_train_shapes(cuda, B, Sq, Sk,
+                                                          causal):
+    plan = k4.backward_plan(B, Sq, Sk, 16, 16, 64, k4._sm_count(0))
+    assert plan.n_slabs == {(1500, 1500): 5, (448, 1500): 2,
+                            (448, 448): 1}[(Sq, Sk)]
+    q, k, v = _k4_inputs(B, Sq, Sk, 16, 16, 64, "float32", cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    out, lse = k4.flash_attention_with_lse(q, k, v, causal=causal)
+    got = k4.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K4_BWD_TOL, msg=f"d{name}")
+    del want
+    again = k4.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_whisper_serves_and_trains_on_the_card_as_on_the_cpu(cuda):
+    """Reduced whisper-medium on the same weights, seeded frames: served
+    twice through `generate` (3 K4 launches a layer pair in the prefill,
+    one a decoder layer in each decode step under the no-sync fence; the
+    same bits) and on the CPU (the same tokens, prefill logits within
+    1e-4); the loss's gradients on the card within 1e-4 of each
+    gradient's largest element of the CPU's, K4's forward 2 x 6 and its
+    backward 6 times under remat "full"."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper-medium").reduced()
+    L = cfg.n_layers + 2 * cfg.n_layers   # encoder, self and cross
+    model = build_model(cfg, device="meta", loss_chunks=4)
+    params = model.init(prng.PRNGKey(2, device=cuda))
+    prompts = serve.make_prompts(cfg.vocab_size, 4, 24, 0, cuda)
+    frames = torch.randn((4, cfg.n_audio_frames, cfg.d_model),
+                         generator=torch.Generator(device=cuda).manual_seed(5),
+                         device=cuda)
+    before = k4.flash_attention.launches
+    serve.prefill(model, prompts, 12, frames=frames)
+    torch.cuda.synchronize()
+    assert k4.flash_attention.launches == before + L
+    before = k4.flash_attention.launches
+    gen = serve.generate(model, params, prompts, 12, frames=frames)
+    torch.cuda.synchronize()
+    assert k4.flash_attention.launches == before + L + 11 * cfg.n_layers
+    again = serve.generate(model, params, prompts, 12, frames=frames)
+    assert torch.equal(gen.tokens, again.tokens)
+    assert torch.equal(gen.last_logits, again.last_logits)
+    cpu_params = {k: t.to("cpu", copy=True) for k, t in params.items()}
+    cpu = build_model(cfg, device="meta", loss_chunks=4)
+    cpu_gen = serve.generate(cpu, cpu_params, prompts.cpu(), 12,
+                             frames=frames.cpu())
+    torch.testing.assert_close(gen.prefill_logits.cpu(),
+                               cpu_gen.prefill_logits, rtol=0, atol=1e-4)
+    assert torch.equal(gen.tokens.cpu(), cpu_gen.tokens)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 33)))
+    grads = {}
+    for side, m, dev in (("cpu", cpu, "cpu"), ("card", model, cuda)):
+        before = (k4.flash_attention.launches,
+                  k4.flash_attention_bwd.launches)
+        loss, _ = m.loss({"tokens": tokens.to(dev),
+                          "frames": frames[:2].to(dev)})
+        grads[side] = [g.cpu() for g in torch.autograd.grad(
+            loss, list(m.parameters()))]
+        torch.cuda.synchronize()
+        launches = (k4.flash_attention.launches - before[0],
+                    k4.flash_attention_bwd.launches - before[1])
+        assert launches == ((0, 0) if side == "cpu" else (2 * L, L))
+    for (name, _), g, w in zip(model.named_parameters(), grads["card"],
+                               grads["cpu"]):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K4_BWD_TOL, msg=name)

@@ -241,7 +241,12 @@ K4_BWD_PLANS = [(8, 512, 512, 16, 8, 128, True, None, 132, None),
                 (1, 130, 190, 2, 2, 16, False, 30, 132, 128),
                 (1, 96, 64, 4, 2, 160, False, None, 8, None),
                 (1, 100, 100, 4, 2, 176, True, 40, 8, 32),
-                (2, 100, 100, 4, 2, 80, True, None, 1, None)]
+                (2, 100, 100, 4, 2, 80, True, None, 1, None),
+                # whisper's non-causal shapes cut in batch and heads: 50
+                # queries against 1,500 keys (the cross-attention's), in
+                # slabs of 320 keys (the encoder's at its train shape):
+                # 5 slabs, the last of 220 keys ending in a ragged tile
+                (1, 50, 1500, 2, 1, 64, False, None, 132, 320)]
 
 
 def _k4_bwd_plan(monkeypatch, B, Sq, Sk, Hq, Hkv, hd, sms, keys):
@@ -430,6 +435,27 @@ def test_flash_attention_backward_plan_at_the_two_training_shapes():
     assert p.grids["dkdv"] == ((8, 4, 16),)
     assert p.scratch_bytes() == 4 * (4 * 16 * 512 * 512 +
                                      2 * 8 * 4 * 512 * 256)
+
+
+def test_flash_attention_backward_plans_of_whisper_training():
+    """whisper-medium's train step (B 8, 448 tokens, 1,500 frames, 16
+    heads of 64, MHA): the encoder's non-causal self-attention walks 5
+    slabs of 320 keys (the last 220) with 240 MiB of scratch, the
+    cross-attention slabs of 1,152 and 348 keys with 252 MiB, the
+    decoder's causal self-attention one slab; one split each."""
+    p = k4.backward_plan(8, 1500, 1500, 16, 16, 64, 132)
+    assert (p.block_keys, p.splits, p.slab_keys, p.n_slabs) == (64, 1, 320, 5)
+    assert p.grids["dkdv"] == ((16, 8, 5),) * 4 + ((16, 8, 4),)
+    assert p.grids["dq"] == ((16, 8, 24),) * 5
+    assert 1500 - 4 * 320 == 220 and p.scratch_bytes() == 240 << 20
+    p = k4.backward_plan(8, 448, 1500, 16, 16, 64, 132)
+    assert (p.splits, p.slab_keys, p.n_slabs) == (1, 1152, 2)
+    assert p.grids["dkdv"] == ((16, 8, 18), (16, 8, 6))
+    assert 1500 - 1152 == 348 and p.scratch_bytes() == 252 << 20
+    p = k4.backward_plan(8, 448, 448, 16, 16, 64, 132)
+    assert (p.splits, p.slab_keys, p.n_slabs) == (1, 448, 1)
+    assert p.grids["dkdv"] == ((16, 8, 7),)
+    assert p.scratch["ds"] == (8, 16, 7, 448, 64)
 
 
 def _emulate_bwd(q, k, v, dout, causal, window, plan):

@@ -329,18 +329,6 @@ def test_vocab_pad_mask_and_separate_head():
 # --------------------------------------------------------- what raises
 
 
-@pytest.mark.parametrize("arch", [a for a in sorted(tconfigs.REGISTRY)
-                                  if tconfigs.REGISTRY[a].family
-                                  in tlm.UNPORTED_FAMILIES])
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get_config(arch).reduced()
-    item = tlm.UNPORTED_FAMILIES[cfg.family]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(cfg, device="meta")
-    with pytest.raises(NotImplementedError):
-        lm_params_from_jax({}, cfg, device="cpu")
-
-
 @pytest.mark.parametrize("case", ["bf16", "ssm", "hybrid", "fp32 dense"])
 def test_model_refuses_gradients_through_the_attention_kernel(case):
     """The weights take gradients. What has no backward yet refuses them:

@@ -353,13 +353,6 @@ def test_train_main_prints_repros_loss_lines_for_ssm_and_hybrid(
         assert abs(a - b) <= 1e-4 and abs(full - b) <= 5e-5 + 1e-5
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-medium", "14d-4")])
-def test_train_main_refuses_families_it_cannot_train(arch, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ttrain.main(["--device", "cpu", "--reduced", "--arch", arch,
-                     "--steps", "1"])
-
-
 def test_train_checkpoints_load_into_repro_and_back(tmp_path):
     """`launch.train`'s checkpoint is `repro`'s stacked tree:
     `repro.checkpoint` loads it into a tree like `repro`'s init, equal to

@@ -10,9 +10,10 @@ and its card-against-JAX train check its losses:
         [sparse-freerider-clipped] [topk-signflip-clipped] \
         [dense-labelflip-trimmed] [local] [fedavg] ... [pfedgraph] \
         [fedavg-markov-topk] [train-cross] [train-cross-ssm] \
-        [train-cross-hybrid] [train-cross-vlm] [train-cross-moe]
+        [train-cross-hybrid] [train-cross-vlm] [train-cross-moe] \
+        [train-cross-audio]
 
-(no names: all twenty-five). The data and run settings (PaperCNN at its
+(no names: all twenty-six). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
 ``SMOKE_*`` constants. A DPFL variant is one of its ``VARIANTS``, run by
 `repro.core.dpfl.run_dpfl`; a baseline run is one of its
@@ -20,11 +21,12 @@ published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
 ``BASELINE_RUN``. Both are built here with `repro`'s config classes.
 The "train-cross*" names are the runs of ``CROSS_TRAINS``:
 `repro.launch.train`'s loop (the same corpus, batches, AdamW and
-schedule, a vlm's batches with zero vision embeddings) on qwen3-0.6b,
-mamba2-370m and internvl2-2b at full width cut to their first two
-layers and on recurrentgemma-9b's and qwen3-moe-30b-a3b's reduced
-configs, for ``CROSS_TRAIN_JAX_LOSSES`` (about 40 s and 3 GiB for
-qwen3).
+schedule, a vlm's batches with zero vision embeddings, an audio model's
+with zero frames) on qwen3-0.6b, mamba2-370m and internvl2-2b at full
+width cut to their first two layers, whisper-medium at full width cut to
+two encoder and two decoder layers, and on recurrentgemma-9b's and
+qwen3-moe-30b-a3b's reduced configs, for ``CROSS_TRAIN_JAX_LOSSES``
+(about 40 s and 3 GiB for qwen3).
 """
 from __future__ import annotations
 
@@ -112,8 +114,8 @@ def run_train_cross(name):
     cfg = get_config(c["arch"])
     if c.get("reduced"):
         cfg = cfg.reduced()
-    if "n_layers" in c:
-        cfg = cfg.replace(n_layers=c["n_layers"])
+    cfg = cfg.replace(**{k: c[k] for k in ("n_layers", "n_enc_layers")
+                         if k in c})
     cfg = cfg.replace(dtype="float32")
     model = build_model(cfg, loss_chunks=4)
     params = model.init(jax.random.PRNGKey(0))
@@ -132,6 +134,9 @@ def run_train_cross(name):
         if cfg.family == "vlm":
             batch["vision"] = jnp.zeros(
                 (c["batch"], cfg.n_vision_tokens, cfg.d_model))
+        if cfg.family == "audio":
+            batch["frames"] = jnp.zeros(
+                (c["batch"], cfg.n_audio_frames, cfg.d_model))
         params, opt_state, loss = step_fn(params, opt_state, batch)
         losses.append(float(loss))
     print(json.dumps({

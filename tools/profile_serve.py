@@ -1,12 +1,14 @@
 """Where the time of the port's serving path goes on the card.
 
 Builds one of ``chip_smoke.py``'s serve models (``SERVE_ARCHS``:
-qwen3-0.6b, the default, mamba2-370m, recurrentgemma-9b, internvl2-2b
-or qwen3-moe-30b-a3b, the last on its first ``SERVE_LAYERS`` layers) at
-its published config in float32 and serves it as ``chip_smoke.py`` does
-(its ``SERVE_RUN``: batch 4, prompt 512, 32 new tokens, greedy; the
-vlm's 256 vision embeddings from ``chip_smoke.make_vision`` before the
-prompt), runs `repro_torch.launch.serve.generate` once to
+qwen3-0.6b, the default, mamba2-370m, recurrentgemma-9b, internvl2-2b,
+qwen3-moe-30b-a3b, on its first ``SERVE_LAYERS`` layers, or
+whisper-medium) at its published config in float32 and serves it as
+``chip_smoke.py`` does (its ``SERVE_RUN``: batch 4, prompt 512, 32 new
+tokens, greedy; the vlm's 256 vision embeddings from
+``chip_smoke.make_vision`` before the prompt; whisper's 1,500 frames
+from ``chip_smoke.make_frames`` and its prompt of ``SERVE_PROMPT``'s 224
+tokens), runs `repro_torch.launch.serve.generate` once to
 warm up, then profiles its two phases, `serve.prefill` and
 `serve.decode`, apart under ``torch.profiler`` and prints one JSON line
 per phase: the wall time (host clock, the card synchronised), the summed
@@ -14,7 +16,11 @@ device-kernel time and the device's idle share, the kernel launches (per
 step in decode), the TOP kernels that take the most device time, and the
 port's kernels of the family (K4 ``flash_attention``, K5 ``ssd``'s three
 launches, K6 ``rglru_scan``), each by name, with their shares of the
-phase's device time.
+phase's device time, and the device time split into the fp32 GEMMs
+(cuBLAS kernels, "gemm" in the name), the port's kernels and the rest.
+For whisper the decode line also holds the cross-attention's K/V
+recompute (``enc_out @ wk`` and ``@ wv`` of every decoder layer, what
+each step recomputes as `repro` does), timed alone by CUDA events.
 
 With ``--personalized`` it profiles the personalized serve instead
 (``examples/serve_personalized_torch.py`` at
@@ -26,7 +32,8 @@ weights gathered beforehand) at the same batch and prompt: one more
 JSON line of their walls and medians.
 
     python3 tools/profile_serve.py [--arch mamba2-370m|recurrentgemma-9b|
-                                    internvl2-2b|qwen3-moe-30b-a3b]
+                                    internvl2-2b|qwen3-moe-30b-a3b|
+                                    whisper-medium]
     python3 tools/profile_serve.py --personalized
 
 Needs a CUDA card; imports no JAX.
@@ -47,6 +54,7 @@ sys.path.insert(0, str(ROOT / "examples"))
 
 TOP = 8
 TURNS = 5
+GEMM = r"gemm"
 
 
 def _phase(prof, wall, port_kernels):
@@ -61,7 +69,12 @@ def _phase(prof, wall, port_kernels):
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
+    port_s = sum(r[0] for r in rows if any(re.search(p, r[1])
+                                           for p in port_kernels)) / 1e6
+    gemm_s = sum(r[0] for r in rows if re.search(GEMM, r[1])) / 1e6
     return {"wall_s": wall, "device_kernel_s": device_s,
+            "device_split_s": {"gemm": gemm_s, "port_kernels": port_s,
+                               "other": device_s - gemm_s - port_s},
             "device_idle_share": 1.0 - device_s / wall,
             "kernel_launches": sum(r[2] for r in rows),
             "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
@@ -100,17 +113,19 @@ def main(argv=None):
     # launches (K5: ssd_chunk_kernel, ssd_pass_kernel, ssd_output_kernel)
     port_kernels = [rf"\b{name}(_[a-z0-9]+)?_kernel\b" for name, n
                     in chip_smoke.serve_kernels(cfg).items() if n]
-    B, S, new = (chip_smoke.SERVE_RUN[k]
-                 for k in ("batch", "prompt_len", "new_tokens"))
+    B, new = chip_smoke.SERVE_RUN["batch"], chip_smoke.SERVE_RUN["new_tokens"]
+    S = chip_smoke.SERVE_PROMPT.get(arch, chip_smoke.SERVE_RUN["prompt_len"])
     prompts = serve.make_prompts(cfg.vocab_size, B, S, 0, "cuda")
     vision = chip_smoke.make_vision(torch, cfg, B)
+    frames = chip_smoke.make_frames(torch, cfg, B)
     Nv = serve.vision_positions(model, vision)
-    serve.generate(model, params, prompts, new, vision=vision)   # warm-up
+    serve.generate(model, params, prompts, new, vision=vision,
+                   frames=frames)   # warm-up
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, tok, caches = serve.prefill(model, prompts, new, vision)
+        _, tok, caches = serve.prefill(model, prompts, new, vision, frames)
         torch.cuda.synchronize()
         prefill_wall = time.perf_counter() - t0
     with profile(activities=acts) as prof_d:
@@ -129,11 +144,35 @@ def main(argv=None):
                       "prompt_tok_per_s": B * S / prefill_wall,
                       **_phase(prof, prefill_wall, port_kernels)}))
     decode = _phase(prof_d, decode_wall, port_kernels)
+    if cfg.family == "audio":
+        decode["cross_kv_recompute_ms_per_step"] = cross_kv_ms(
+            torch, model, caches[0])
     print(json.dumps({**common, "phase": "decode", "steps": new - 1,
                       "ms_per_step": decode_wall / (new - 1) * 1e3,
                       "tok_per_s": (new - 1) * B / decode_wall,
                       "launches_per_step": decode["kernel_launches"]
                       / (new - 1), **decode}))
+
+
+def cross_kv_ms(torch, model, enc_out, reps: int = 10):
+    """Device time (CUDA events, mean of ``reps``) of what a whisper
+    decode step recomputes beside its token's work: the cross-attention's
+    K and V, ``enc_out @ wk`` and ``enc_out @ wv`` of every decoder
+    layer."""
+    def once():
+        for layer in model.dec_layers:
+            enc_out @ layer.cross_attn.wk
+            enc_out @ layer.cross_attn.wv
+    with torch.inference_mode():
+        once()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            once()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def personalized(torch):

@@ -9,7 +9,10 @@ and sequence behind chip_smoke's 256 seeded vision embeddings
 width cut to its first ``--layers`` layers, 6 by default, batch 4,
 sequence 512;
 ``--arch qwen3-moe-30b-a3b``: ``TRAIN_MOE``, full width cut to its first
-2 layers (``--layers`` sets it), batch 4, sequence 512),
+2 layers (``--layers`` sets it), batch 4, sequence 512; ``--arch
+whisper-medium``: ``TRAIN_AUDIO``, whole (``--layers`` cuts its encoder
+and decoder alike), batch 8, sequence 448 after chip_smoke's 1,500
+seeded frames (``make_frames``)),
 runs two warm-up steps of `repro_torch.launch.train`'s step
 (`make_train_step` under AdamW and ``warmup_cosine``), then profiles one
 step under ``torch.profiler`` with its three phases marked (the loss's
@@ -22,7 +25,9 @@ launches, the TOP kernels that take the most device time, and the
 port's kernels (K4's forward ``flash_attention_f32_kernel`` and its
 backward's ``flash_attention_bwd_*_kernel``; K5's ``ssd_*_kernel`` and
 its backward's ``ssd_bwd_*_kernel``; K6's ``rglru_scan_kernel`` and
-``rglru_scan_bwd_kernel``), each by name.
+``rglru_scan_bwd_kernel``), each by name, and the device time split into
+the fp32 GEMMs (cuBLAS kernels, "gemm" in the name), the port's kernels
+and the rest.
 
     python3 tools/profile_train.py [--arch ARCH] [--layers N]
 
@@ -68,20 +73,24 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     cuts = {"recurrentgemma-9b": chip_smoke.TRAIN_HYBRID,
             "internvl2-2b": chip_smoke.TRAIN_VLM,
-            "qwen3-moe-30b-a3b": chip_smoke.TRAIN_MOE}
+            "qwen3-moe-30b-a3b": chip_smoke.TRAIN_MOE,
+            "whisper-medium": chip_smoke.TRAIN_AUDIO}
     argvs = {"qwen3-0.6b": chip_smoke.TRAIN_ARGV,
              "mamba2-370m": chip_smoke.TRAIN_SSM_ARGV}
     ap.add_argument("--arch", default="qwen3-0.6b",
                     choices=tuple(argvs) + tuple(cuts))
     ap.add_argument("--layers", type=int, default=None,
-                    help="the cut of recurrentgemma-9b, internvl2-2b or "
-                         "qwen3-moe-30b-a3b (its first N layers; default "
-                         "chip_smoke's)")
+                    help="the cut of recurrentgemma-9b, internvl2-2b, "
+                         "qwen3-moe-30b-a3b or whisper-medium (its first N "
+                         "layers, whisper's N encoder and N decoder "
+                         "layers; default chip_smoke's)")
     args = ap.parse_args()
     if args.arch in cuts:
         cut = cuts[args.arch]
         cfg = get_config(args.arch).replace(
             n_layers=args.layers or cut["n_layers"], dtype="float32")
+        if cfg.family == "audio" and args.layers:
+            cfg = cfg.replace(n_enc_layers=args.layers)
         B, S, steps = cut["batch"], cut["seq"], cut["steps"]
     else:
         argv = argvs[args.arch]
@@ -104,6 +113,8 @@ def main():
         batch = {"tokens": corpus[torch.from_numpy(idx).cuda()]}
         if vision is not None:
             batch["vision"] = vision
+        if frames is not None:
+            batch["frames"] = frames
 
         def phase(name, fn):
             if not profiled:
@@ -130,6 +141,7 @@ def main():
         return loss
 
     vision = chip_smoke.make_vision(torch, cfg, B)
+    frames = chip_smoke.make_frames(torch, cfg, B)
     batch_vision = 0 if vision is None else vision.shape[1]
     for idx in rows[:2]:
         step(idx)
@@ -159,6 +171,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
 
+    port_s = sum(r[0] for r in kernels if any(
+        re.search(p, r[1]) for p in PORT_KERNELS)) / 1e6
+    gemm_s = sum(r[0] for r in kernels if re.search(r"gemm", r[1])) / 1e6
+
     def rec(us, k, n):
         return {"name": k[:90], "device_ms": us / 1e3, "calls": n,
                 "share_of_device": us / 1e6 / device_s}
@@ -166,13 +182,15 @@ def main():
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S,
         "vision_positions": batch_vision,
+        "frames": 0 if frames is None else frames.shape[1],
         "remat": model.remat,
         "step_wall_s": wall,
         "phases": {p: {"wall_s": walls[p], "device_kernel_s": ranges.get(p)}
                    for p in PHASES},
-        "port_kernel_s": sum(r[0] for r in kernels if any(
-            re.search(p, r[1]) for p in PORT_KERNELS)) / 1e6,
+        "port_kernel_s": port_s,
         "device_kernel_s": device_s,
+        "device_split_s": {"gemm": gemm_s, "port_kernels": port_s,
+                           "other": device_s - gemm_s - port_s},
         "device_idle_share": 1.0 - device_s / wall,
         "kernel_launches": sum(r[2] for r in kernels),
         "top_kernels": [rec(*r) for r in kernels[:TOP]],
