@@ -67,7 +67,21 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    on the same engine (`BASELINE_RUNS`), each with the counts zeroed
    just before and read just after (K1 once a round for pFedGraph, no
    kernel in the others), every round under the no-sync fence, and a
-   learning check; then the serving path:
+   learning check; then the same runs on client meshes of processes
+   that share the card (`repro_torch.launch.mesh`, gloo; SHARD_MESHES:
+   2 ranks of 16 clients, and 2 x 2 ranks of 8 crossing the pod axis):
+   a random-graph dense run and the dense, sparse and top-k variants
+   (SHARD_RUNS), each rank's K1-K3 launches against `shard_launches`,
+   every round under the no-sync fence, the counters equal to the
+   single-device runs', the random-graph, dense and top-k runs bit for
+   bit against single-device runs whose forwards and backwards take the
+   shard's client count at a time (``FLEngine._client_chunk``;
+   SHARD_BITWISE), each rotated K2 mix of the sparse run and a seeded
+   int8 rotation within 1e-5 of the plain mix of the same inputs over
+   the gathered table, the single-device random-graph run repeated bit
+   for bit, with the transport table and the smallest greedy margin;
+   then the serving
+   path:
    `repro_torch.launch.serve.generate` on qwen3-0.6b at its full
    published config (28 layers, float32, random weights from a seed),
    batch 4, prompt 512, 32 new tokens, greedy, with the counts zeroed
@@ -230,6 +244,26 @@ LEARN_REF = {"dense": 0.8583984375, "sparse": 0.8583984375,
              "fedrep": 0.3798828125, "knnper": 0.48828125,
              "pfedgraph": 0.4453125, "fedavg-markov-topk": 0.16650390625}
 LEARN_MARGIN = 0.1
+# The sharded phase: the main path's width (SMOKE_DATA, SMOKE_RUN) on
+# client meshes (pods, ranks a pod) of processes sharing the card, gloo
+# between them. Runs: the random-graph dense run (no greedy decision, so
+# the same bits as a single-device run of the same per-launch client
+# count) and three of VARIANTS.
+SHARD_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+SHARD_RUNS = ("dense-random", "dense", "sparse", "topk")
+# the runs held bit for bit against a single-device run that takes the
+# shard's client count at a time (FLEngine._client_chunk): cuDNN picks
+# its grouped-convolution algorithms by the group count, so the plain
+# single-device run, all 32 clients at a time, parts from the sharded
+# one in the last bits of local training, and the greedy's near-ties
+# may then part the graphs. The neighbor-list run has no such twin: its
+# rotation adds the peers in visit order, so each of its rotated mixes
+# is held within TOL["float32"] of the plain mix of the same inputs over
+# the all-gathered table instead (`rotation_error`).
+SHARD_BITWISE = ("dense-random", "dense", "topk")
+# the card's name and power limit as nvidia-smi gives them (set in main,
+# printed beside every number of the sharded phase)
+SMI = ""
 # prng.normal on the card: NORMAL_DRAWS draws from PRNGKey(3) must be the
 # CPU's bits and jax's: the SHA-256 of jax.random.normal(PRNGKey(3),
 # (2**20,)) as little-endian float32 bytes (jax 0.9.0 on x86-64's CPU)
@@ -377,6 +411,13 @@ K2_CASES = [("main", 32, 4, PAPER_CNN_PARAMS, "float32", "lists", False),
             ("main, W_peers=dec", 32, 4, PAPER_CNN_PARAMS, "float32",
              "lists", True),
             ("main bf16", 32, 4, PAPER_CNN_PARAMS, "bfloat16", "lists", True),
+            # a visiting panel of the sharded rotation (SHARD_MESHES:
+            # n_loc 16 and 8): (n_loc, P) peers, the slots naming other
+            # shards masked to -1, rows of none, zero self weights
+            ("rotation panel, 1x2", 16, 4, PAPER_CNN_PARAMS, "float32",
+             "panel", True),
+            ("rotation panel, 2x2", 8, 4, PAPER_CNN_PARAMS, "float32",
+             "panel", True),
             ("sentinel slots", 16, 4, 2100, "float32", "random", True),
             ("all-sentinel rows", 6, 3, 40, "float32", "sentinel", True),
             ("duplicate indices", 16, 4, 2100, "float32", "zeros", True),
@@ -825,6 +866,12 @@ def k2_inputs(torch):
             idx = torch.randint(-1, N, (N, B), generator=gen, device="cuda")
         elif table == "zeros":
             idx = torch.zeros((N, B), dtype=torch.int64, device="cuda")
+        elif table == "panel":
+            # about half the slots on this panel, row 0 with none
+            idx = torch.randint(0, N, (N, B), generator=gen, device="cuda")
+            off = torch.rand((N, B), generator=gen, device="cuda") < 0.5
+            off[0] = True
+            idx = torch.where(off, -1, idx)
         else:
             idx = torch.full((N, B), -1, dtype=torch.int64, device="cuda")
         idx = idx.to(torch.int32)
@@ -833,6 +880,8 @@ def k2_inputs(torch):
         nw = torch.where(idx >= 0, nw, 0.0)
         denom = sw + nw.sum(dim=1)
         sw, nw = sw / denom, nw / denom[:, None]
+        if table == "panel":
+            sw = torch.zeros_like(sw)     # the self term is offset 0's
         dtype = getattr(torch, dt)
         W = torch.randn((N, P), generator=gen, device="cuda").to(dtype)
         Wp = (torch.randn((N, P), generator=gen, device="cuda").to(dtype)
@@ -1992,12 +2041,14 @@ def expected_launches(variant, N, B, rounds):
     return want
 
 
-def check_main_path(res, engine, cfg, variant, launches, omega_dense):
+def check_main_path(res, engine, cfg, variant, launches, omega_dense,
+                    want=None):
     """The invariants of a refresh_period=1 run; returns the mean test
     accuracy. Preprocessing sees every client and no attack, so every
     run's Omega is the dense run's. Each round downloads Omega among the
     clients available that round; a client absent in round t keeps its
-    C_k of round t - 1 (Omega's in round 0)."""
+    C_k of round t - 1 (Omega's in round 0). ``want``: the launches
+    expected (default `expected_launches`)."""
     import numpy as np
 
     from repro_torch.fl.adversary import n_malicious
@@ -2006,7 +2057,8 @@ def check_main_path(res, engine, cfg, variant, launches, omega_dense):
     N = SMOKE_DATA["n_clients"]
     P = engine.n_params
     B = cfg.budget
-    want = expected_launches(variant, N, B, cfg.rounds)
+    if want is None:
+        want = expected_launches(variant, N, B, cfg.rounds)
     if launches != want:
         fail(f"{variant}: kernel launches on the main path {launches}, "
              f"expected {want}")
@@ -2228,6 +2280,342 @@ def run_baselines(torch, engine):
     finally:
         baselines.run_rounds = run_rounds
     return out
+
+
+def shard_config(run):
+    """The DPFLConfig of a sharded run: SHARD_RUNS' "dense-random" is the
+    dense variant on the Fig.-3 random graph."""
+    if run == "dense-random":
+        return smoke_config("dense", **SMOKE_RUN, random_graph=True)
+    return smoke_config(run, **SMOKE_RUN)
+
+
+def shard_launches(run, N, B, rounds, shards):
+    """Each rank's launches in a sharded run: the single-device counts
+    (`expected_launches`), since a rank makes every launch of the
+    single-device run on its row block (BGGC's phase 1 streams all N
+    peers in batches of B either way), except that the rotation
+    launches K2 once per visiting panel, ``shards`` times a mix. The
+    random graph runs no greedy: K1 mixes once in preprocessing and
+    once a round."""
+    want = {name: 0 for name in _kernel_modules()}
+    if run == "dense-random":
+        want["graph_mix"] = 1 + rounds
+        return want
+    want = expected_launches(run, N, B, rounds)
+    want["sparse_graph_mix"] *= shards
+    return want
+
+
+def _spy_sparse_mixes(torch, ops, calls):
+    """Keep a copy of the inputs and the output of each sharded call of
+    `ops.sparse_graph_mix` (the rotation) in ``calls``; returns undo."""
+    orig = ops.sparse_graph_mix
+
+    def spy(self_w, nbr_w, nbr_idx, W_self, W_peers=None, *,
+            peer_parts=None, peer_decode=None, mesh=None,
+            client_axes=None):
+        out = orig(self_w, nbr_w, nbr_idx, W_self, W_peers,
+                   peer_parts=peer_parts, peer_decode=peer_decode,
+                   mesh=mesh, client_axes=client_axes)
+        if mesh is not None:
+            keep = [t.clone() for t in (self_w, nbr_w, nbr_idx, W_self)]
+            if peer_parts is None:
+                peer_parts = (W_self if W_peers is None else W_peers,)
+            calls.append((keep, tuple(t.clone() for t in peer_parts),
+                          peer_decode, mesh, client_axes, out.clone()))
+        return out
+
+    ops.sparse_graph_mix = spy
+    return lambda: setattr(ops, "sparse_graph_mix", orig)
+
+
+def rotation_error(call) -> float:
+    """The largest |gap| of one rank's rotated K2 mix (a `_spy_sparse_mixes`
+    record) from the plain mix (`ref.sparse_graph_mix_ref`) of the same
+    inputs over the all-gathered, decoded peer table."""
+    from repro_torch.kernels import ref
+    from repro_torch.sharding import collectives as coll
+
+    (sw, nw, idx, W_self), parts, decode, mesh, axes, out = call
+    whole = [coll.all_gather_rows(t, mesh, axes) for t in parts]
+    peers = whole[0] if decode is None else decode(*whole)
+    want = ref.sparse_graph_mix_ref(sw, nw, idx, W_self, peers)
+    return float((out.float() - want.float()).abs().max())
+
+
+def rotation_case(torch, engine, mesh):
+    """A seeded rotation at the sharded shapes (N clients, B slots, P
+    PaperCNN weights, this rank's rows) through an int8 codec's parts
+    and decode, lists with -1 slots and a row of none, and zero self
+    weights on a quarter of the rows; returns its `_spy_sparse_mixes`
+    record."""
+    from repro_torch.kernels import ops
+
+    N, B, P = engine.data.n_clients, SMOKE_RUN["budget"], engine.n_params
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(-1, N, (N, B), generator=gen, device="cuda")
+    idx[0] = -1
+    sw = torch.rand((N,), generator=gen, device="cuda")
+    sw[1::4] = 0.0
+    nw = torch.where(idx >= 0, torch.rand((N, B), generator=gen,
+                                          device="cuda"), 0.0)
+    denom = (sw + nw.sum(dim=1)).clamp_min(1e-12)
+    sw, nw = sw / denom, nw / denom[:, None]
+    W = torch.randn((N, P), generator=gen, device="cuda")
+    q = torch.randint(-127, 128, (N, P), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand((N,), generator=gen, device="cuda") / 127
+    r = engine.rows
+    calls = []
+    undo = _spy_sparse_mixes(torch, ops, calls)
+    try:
+        ops.sparse_graph_mix(
+            sw[r].contiguous(), nw[r].contiguous(),
+            idx[r].to(torch.int32).contiguous(), W[r].contiguous(),
+            peer_parts=(q[r].contiguous(), scale[r].contiguous()),
+            peer_decode=lambda qq, ss: qq.float() * ss[:, None],
+            mesh=mesh, client_axes=engine.client_axes)
+    finally:
+        undo()
+    return calls[0]
+
+
+def sharded_rank(mesh, device, runs):
+    """One rank of the sharded phase: the engine of `make_engine` cut to
+    this rank's clients, then each run of ``runs`` through `run_dpfl`
+    with the kernel counts zeroed just before and read just after, every
+    round checked to start under the no-sync fence and every greedy
+    decision's |u - a/(a+b)| recorded, and each rotated K2 mix held
+    against the plain mix of its inputs over the all-gathered table
+    (`rotation_error`, after the run's counts are read). Returns, whole
+    on every rank: each run's results, every rank's launches and walls,
+    the smallest margin, the collectives' calls and bytes, the largest
+    rotation error over the ranks (per run, and of `rotation_case`), and
+    each rank's device, TF32 switches and cuDNN determinism."""
+    import torch
+
+    from repro_torch.core import dpfl, graph
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import collectives as coll
+
+    engine = make_engine().shard_clients(mesh)
+    state = torch.tensor([[torch.cuda.current_device(),
+                           int(torch.backends.cuda.matmul.allow_tf32),
+                           int(torch.backends.cudnn.allow_tf32),
+                           int(torch.backends.cudnn.deterministic)]],
+                         device=device)
+    out = {"ranks": engine.whole(state).tolist(), "runs": {},
+           "device_type": mesh.device_type}
+    fenced = []
+    run_rounds = dpfl.run_rounds
+
+    def fenced_run_rounds(round_step, st, rounds, **kw):
+        def step(s):
+            if torch.cuda.get_sync_debug_mode() != 2:
+                fail(f"round {s.t} of a sharded run ran outside the "
+                     f"no-sync fence")
+            fenced.append(s.t)
+            return round_step(s)
+        return run_rounds(step, st, rounds, **kw)
+
+    dpfl.run_rounds = fenced_run_rounds
+    calls = []
+    undo_spy = _spy_sparse_mixes(torch, ops, calls)
+    try:
+        for run in runs:
+            cfg = shard_config(run)
+            margins, undo = _greedy_margins(
+                torch, graph, {"greedy": None, "reward": None})
+            fenced.clear()
+            calls.clear()
+            coll.reset_counts()
+            torch.cuda.synchronize()
+            _zero_launches()
+            t0 = time.perf_counter()
+            try:
+                res = dpfl.run_dpfl(engine, cfg)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            if fenced != list(range(cfg.rounds)):
+                fail(f"sharded {run}: fenced rounds {fenced}")
+            names = sorted(launches)
+            per_rank = engine.whole(torch.tensor(
+                [[launches[k] for k in names]], device=device)).tolist()
+            margin = torch.cat(margins).min()[None] if margins else \
+                torch.ones(1, device=device)
+            walls = engine.whole(torch.tensor([wall], device=device))
+            out["runs"][run] = dict(
+                res=res, wall=walls.tolist(),
+                launches=[dict(zip(names, r)) for r in per_rank],
+                margin=float(engine.whole(margin).min()),
+                collectives={k: list(v) for k, v in coll.counts.items()})
+            # every rank makes the same number of mixes
+            errs = torch.tensor([[rotation_error(c) for c in calls]],
+                                device=device)
+            out["runs"][run]["rotation"] = (
+                len(calls), float(engine.whole(errs).max())
+                if calls else None)
+            calls.clear()
+    finally:
+        undo_spy()
+        dpfl.run_rounds = run_rounds
+    err = torch.tensor([rotation_error(rotation_case(torch, engine, mesh))],
+                       device=device)
+    out["rotation_case"] = float(engine.whole(err).max())
+    return out
+
+
+def _same_run(a, b) -> bool:
+    """Two DPFLResults bit for bit: models, accuracies, graphs, counters."""
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+        "best_flat", "test_acc", "omega", "val_acc_history",
+        "graph_history")) and all(getattr(a, k) == getattr(b, k) for k in (
+            "comm_downloads", "comm_preprocess", "comm_bytes"))
+
+
+def run_sharded(torch, engine, single):
+    """The sharded phase (SHARD_MESHES x SHARD_RUNS), each mesh one
+    `run_on_client_mesh` launch on the card; ``single`` holds the
+    single-device card runs of VARIANTS. The single-device random-graph
+    run is made twice (the same bits, with cuDNN's deterministic
+    algorithms, which `FLEngine` turns on), and each run of
+    SHARD_BITWISE once more per mesh with ``_client_chunk`` the shard's
+    client count, which the sharded run must equal bit for bit; each
+    rotated mix of a sharded run, and a seeded int8 rotation, must be
+    within TOL["float32"] of the plain mix over the gathered table.
+    Returns
+    {run label: launches, summed over the ranks} for the kernels line."""
+    import numpy as np
+
+    from repro_torch.core.dpfl import run_dpfl
+    from repro_torch.launch.mesh import run_on_client_mesh
+    from repro_torch.sharding.collectives import TRANSPORT
+
+    print(f"sharded phase: transport {{(backend, op): how a CUDA tensor "
+          f"crosses ranks}} {TRANSPORT} (gloo takes CUDA tensors in "
+          f"all_gather; its send/recv takes CPU ones, through pinned host "
+          f"buffers); {SMI}")
+    N, B, rounds = SMOKE_DATA["n_clients"], SMOKE_RUN["budget"], \
+        SMOKE_RUN["rounds"]
+    launches = {}
+
+    def single_run(run, label, chunk=None):
+        engine._client_chunk = chunk
+        try:
+            _zero_launches()
+            res = run_dpfl(engine, shard_config(run))
+            launches[label] = _read_launches()
+        finally:
+            engine._client_chunk = None
+        return res
+
+    plain = dict(single, **{"dense-random": single_run(
+        "dense-random", "single-device dense-random")})
+    if not _same_run(plain["dense-random"], single_run(
+            "dense-random", "single-device dense-random, repeated")):
+        fail("the single-device dense-random run did not repeat its bits")
+    print("single-device dense-random: the same bits on a repeat")
+    for mesh_name, (pods, per_pod) in SHARD_MESHES.items():
+        world = pods * per_pod
+        n_loc = N // world
+        twins = {run: single_run(run, f"single-device {run} client_chunk "
+                                      f"{n_loc}", n_loc)
+                 for run in SHARD_BITWISE}
+        t0 = time.perf_counter()
+        out = run_on_client_mesh(sharded_rank, world, pods=pods,
+                                 device="cuda:0", args=(SHARD_RUNS,))
+        launch_s = time.perf_counter() - t0
+        print(f"sharded {mesh_name}: {world} ranks of {n_loc} clients on "
+              f"a {out['device_type']} DeviceMesh, (current device, "
+              f"matmul TF32, cuDNN TF32, cuDNN deterministic) per rank "
+              f"{out['ranks']}; the launch incl. spawn, CUDA init and "
+              f"every run {launch_s:.3f} s; {SMI}")
+        if any(r[1:] != [0, 0, 1] for r in out["ranks"]):
+            fail(f"sharded {mesh_name}: a rank left TF32 on or cuDNN's "
+                 f"deterministic algorithms off")
+        if not out["rotation_case"] <= TOL["float32"]:
+            fail(f"sharded {mesh_name}: the seeded int8 rotation is "
+                 f"{out['rotation_case']} from the plain mix over the "
+                 f"gathered table (tolerance {TOL['float32']})")
+        print(f"sharded {mesh_name}: a seeded rotation at ({n_loc}, {B}, "
+              f"{PAPER_CNN_PARAMS}) a rank, int8 parts decoded on each "
+              f"visiting panel, -1 slots, a row of none, zero self "
+              f"weights: max abs err {out['rotation_case']:.3g} against "
+              f"the plain mix over the gathered table (tolerance "
+              f"{TOL['float32']})")
+        for run in SHARD_RUNS:
+            got = out["runs"][run]
+            res, cfg, ref = got["res"], shard_config(run), plain[run]
+            want = shard_launches(run, N, B, rounds, world)
+            for r, counts in enumerate(got["launches"]):
+                if counts != want:
+                    fail(f"sharded {mesh_name} {run} rank {r}: launches "
+                         f"{counts}, expected {want}")
+            launches[f"sharded {mesh_name} {run}"] = {
+                k: sum(c[k] for c in got["launches"]) for k in want}
+            # each rotated mix against the plain mix of its own inputs
+            mixes, rot_err = got["rotation"]
+            if mixes != want["sparse_graph_mix"] // world:
+                fail(f"sharded {mesh_name} {run}: {mixes} rotated mixes "
+                     f"held, expected {want['sparse_graph_mix'] // world}")
+            if mixes and not rot_err <= TOL["float32"]:
+                fail(f"sharded {mesh_name} {run}: a rotated K2 mix is "
+                     f"{rot_err} from the plain mix of its inputs over "
+                     f"the gathered table (tolerance {TOL['float32']})")
+            rotation = (f"its {mixes} rotated mixes within {rot_err:.3g} "
+                        f"of the plain mix of their inputs over the "
+                        f"gathered table (tolerance {TOL['float32']}); "
+                        if mixes else "")
+            if (res.comm_downloads, res.comm_preprocess, res.comm_bytes) \
+                    != (ref.comm_downloads, ref.comm_preprocess,
+                        ref.comm_bytes):
+                fail(f"sharded {mesh_name} {run}: counters differ from "
+                     f"the single-device run's")
+            same_graphs = np.array_equal(res.omega, ref.omega) and all(
+                np.array_equal(a, b) for a, b in zip(res.graph_history,
+                                                     ref.graph_history))
+            if run in twins:
+                if not _same_run(res, twins[run]):
+                    fail(f"sharded {mesh_name} {run}: not bit for bit the "
+                         f"single-device run with client_chunk {n_loc}")
+                twin = (f"bit for bit the single-device run with "
+                        f"client_chunk {n_loc} (best_flat, test_acc, val "
+                        f"acc history, Omega, graphs, counters)")
+            else:
+                twin = ("no single-device twin (the rotation adds in "
+                        "visit order)")
+            if run == "dense-random":
+                # the random graph: Omega and every graph are fixed
+                if not same_graphs:
+                    fail(f"sharded {mesh_name} {run}: graphs differ from "
+                         f"the single-device run's")
+                mean_acc = float(np.mean(res.test_acc))
+            else:
+                mean_acc = check_main_path(res, engine, cfg, run, want,
+                                           None, want=want)
+            print(f"sharded {mesh_name} {run}: wall per rank (s) "
+                  f"{[round(w, 3) for w in got['wall']]}; launches per "
+                  f"rank {_nonzero(got['launches'][0])} as expected; "
+                  f"{rotation}collectives of rank 0 (calls, bytes sent) "
+                  f"{got['collectives']}; {twin}; against the plain "
+                  f"single-device run: counters equal, Omega and graphs "
+                  f"{'equal' if same_graphs else 'differ'}, best_flat max "
+                  f"abs diff "
+                  f"{np.abs(res.best_flat - ref.best_flat).max():.3g}, "
+                  f"mean test acc {mean_acc:.4f} against "
+                  f"{np.mean(ref.test_acc):.4f}; smallest greedy "
+                  f"|u - a/(a+b)| {got['margin']:.3g}; {SMI}")
+    return launches
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def check_checkpoint(torch, engine, res):
@@ -3203,6 +3591,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    global SMI
+    SMI = smi
     device_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {device_name}  count {torch.cuda.device_count()}")
@@ -3303,6 +3693,7 @@ def main():
 
     engine = make_engine()
     launches = {}
+    single = {}
     omega_dense = None
     for variant in VARIANTS:
         res, cfg, counts, seconds, peak = run_main_path(torch, engine,
@@ -3313,6 +3704,8 @@ def main():
             omega_dense = res.omega.astype(bool)
             dense_res = res
         launches[variant] = counts
+        if variant in SHARD_RUNS:
+            single[variant] = res
         if res.malicious is not None:
             seg = segregation_history(res.graph_history, res.malicious)
             print(f"run_dpfl {variant}: malicious clients "
@@ -3348,6 +3741,8 @@ def main():
               f"tau={BASELINE_RUN['tau']}: {seconds:.3f} s wall, mean test "
               f"acc {mean_acc:.4f} (JAX reference {LEARN_REF[name]}), "
               f"launches {counts}, every round under the no-sync fence")
+    launches.update(run_sharded(torch, engine, single))
+    del single
     B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
     walls = {}
     for arch in SERVE_ARCHS:
@@ -3514,7 +3909,8 @@ def main():
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs, the twelve baseline runs, the six serve runs, the six
+    # DPFL runs, the twelve baseline runs, the eight sharded runs summed
+    # over their ranks, the six serve runs, the six
     # train runs, the card sides of the six cross train runs, the DPFL
     # mix, the two lm-dpfl runs on the card and the personalized serve),
     # with each run's counts beside them

@@ -1,8 +1,8 @@
 """DPFL — Algorithm 1 (Decentralized Personalized Federated Learning),
-port of `repro.core.dpfl` on one device: dense (N, N) or sparse (N, B)
-neighbor-list graphs, the Fig.-3 random graph, the codecs of
-`fl.compress`, partial participation, adversarial clients and the
-robust mix rules of `fl.robust`.
+port of `repro.core.dpfl`: dense (N, N) or sparse (N, B) neighbor-list
+graphs, the Fig.-3 random graph, the codecs of `fl.compress`, partial
+participation, adversarial clients and the robust mix rules of
+`fl.robust`, on one device or on a client mesh.
 
 Preprocess: same-init local models, tau_init local epochs, BGGC (or the
 random graph) builds the budgeted candidate graph Omega, one Eq.-4 mix
@@ -34,6 +34,18 @@ device and leave it once, at the end (or every ``history_every``
 rounds). `run_dpfl_reference` is the host-driven loop, kept as the
 engine's equivalence oracle. Both derive every key as `repro` does, so
 on the same init they make the same random choices.
+
+On an engine sharded over a client mesh (`FLEngine.shard_clients`, one
+process per shard) `run_dpfl` runs on each rank's rows of every client
+table: the graphs, Omega, the residuals, the histories and the
+counters. Local training and evaluation stay on the shard; three things
+cross ranks, as in `repro` (DESIGN.md §8): the Eq.-4 mix, the GGC/BGGC
+refresh and the compressed exchange. The availability and attack
+schedules and the malicious set stay whole on every rank. Each rank
+counts its own clients' downloads, integers summed over the shards at
+the end, so the counters are the single-device counters; the histories
+are gathered at each flush and the results at the end, never per round.
+Every rank returns the same whole `DPFLResult`.
 """
 from __future__ import annotations
 
@@ -52,7 +64,11 @@ from ..fl import robust as _robust
 from ..fl.adversary import AdversaryConfig
 from ..fl.engine import FLEngine
 from ..fl.robust import MIX_RULES
-from ..fl.round_engine import init_round_state, make_round_step, run_rounds
+from ..fl.round_engine import (init_round_state, make_round_step,
+                               round_state_shardings, run_rounds)
+from ..kernels import ops as _kops
+from ..sharding import collectives as _coll
+from ..sharding.rows import eye_rows
 from .graph import (all_clients_bggc, all_clients_bggc_sparse,
                     all_clients_graph, all_clients_graph_sparse,
                     count_neighbor_downloads, eq4_weights_unnormalized,
@@ -263,9 +279,10 @@ def _preprocess(engine: FLEngine, cfg: DPFLConfig, reward_fn, budget: int):
     (or random) candidate graph Omega, one Eq.-4 mix over Omega. Shared by
     the engine and the reference loops, so both start from the same
     (omega, flat). Omega is (N, N) bool, or (N, B) int32 lists when
-    sparse."""
+    sparse: the engine's rows of it, as of ``flat``."""
     N = engine.data.n_clients
     p = engine.p
+    mesh, ca, row0 = engine.mesh, engine.client_axes, engine.rows.start
     key = prng.PRNGKey(cfg.seed, device=engine.device)
     k_init, k_pre, k_graph, k_train = prng.split(key, 4)
 
@@ -274,17 +291,23 @@ def _preprocess(engine: FLEngine, cfg: DPFLConfig, reward_fn, budget: int):
     flat = engine.flatten(stacked)
     sparse = _sparse(cfg)
     if cfg.random_graph:
-        omega = _random_graph(cfg, N, budget, sparse, engine.device)
+        omega = _random_graph(cfg, N, budget, sparse,
+                              engine.device)[engine.rows].contiguous()
     elif sparse:
-        omega = all_clients_bggc_sparse(k_graph, flat, p, reward_fn, budget)
+        omega = all_clients_bggc_sparse(k_graph, flat, p, reward_fn, budget,
+                                        mesh=mesh, client_axes=ca)
     else:
-        cand = torch.ones((N, N), dtype=torch.bool, device=engine.device)
-        omega = all_clients_bggc(k_graph, flat, p, cand, reward_fn, budget)
+        cand = torch.ones((engine.n_local, N), dtype=torch.bool,
+                          device=engine.device)
+        omega = all_clients_bggc(k_graph, flat, p, cand, reward_fn, budget,
+                                 mesh=mesh, client_axes=ca)
     if sparse:
-        self_w, nbr_w = sparse_mixing_weights(omega, p)
-        flat = mix_flat_sparse(self_w, nbr_w, omega, flat)
+        self_w, nbr_w = sparse_mixing_weights(omega, p, row0=row0)
+        flat = mix_flat_sparse(self_w, nbr_w, omega, flat, mesh=mesh,
+                               client_axes=ca)
     else:
-        flat = mix_flat(mixing_matrix(omega, p), flat)
+        flat = mix_flat(mixing_matrix(omega, p, row0=row0), flat,
+                        mesh=mesh, client_axes=ca)
     return omega, flat, k_graph, k_train
 
 
@@ -320,84 +343,110 @@ def _round_aux(engine: FLEngine, cfg: DPFLConfig, flat, result):
     return aux
 
 
-def _wire(cfg: DPFLConfig, flat, aux, t):
-    """The peer-visible upload table of round t: ``flat`` with the active
-    free riders' stale, noisy uploads in their rows."""
+def _wire(cfg: DPFLConfig, flat, aux, t, rows: slice):
+    """The peer-visible upload table of round t: ``flat`` (the ``rows``
+    of the clients) with the active free riders' stale, noisy uploads in
+    their rows."""
     if not _adversary.free_rider_active(cfg.adversary):
         return flat
-    return _adversary.wire_view(cfg.adversary, flat, aux["adv"]["sched"][t],
-                                aux["adv"]["key"], t)
+    return _adversary.wire_view(cfg.adversary, flat,
+                                aux["adv"]["sched"][t][rows],
+                                aux["adv"]["key"], t, row0=rows.start)
 
 
-def _exchange(comp, wire, aux, t, active):
+def _exchange(comp, wire, aux, t, active, mesh=None, client_axes=None):
     """The transmit side of round t under codec ``comp`` (None: no codec):
     ``(recv, payload, new_ef)``, the table peers receive (what the GGC
     refresh probes and the off-diagonal mix reads: the decoded payloads,
     or the wire table itself), the wire payload and the new residuals
-    (an absent client transmits nothing, so its residual holds)."""
+    (an absent client transmits nothing, so its residual holds).
+    ``active`` is the availability of ``wire``'s rows."""
     if comp is None:
         return wire, None, None
     payload, dec, new_ef = _compress.compress_exchange(
-        comp, wire, aux.get("ef"), prng.fold_in(aux["k_comp"], t))
+        comp, wire, aux.get("ef"), prng.fold_in(aux["k_comp"], t),
+        mesh=mesh, client_axes=client_axes)
     if new_ef is not None and active is not None:
         new_ef = torch.where(active[:, None], new_ef, aux["ef"])
     return dec, payload, new_ef
 
 
-def _realized_downloads(adj, active):
-    """Downloads of one round over (N, N) graph ``adj``: an available
-    client downloads its available peers (never itself). Without a mask,
-    ``sum(adj) - N``, the same integer as an all-ones mask gives."""
-    N = adj.shape[0]
+def _realized_downloads(adj, active, row0: int = 0):
+    """Downloads of one round over (N, N) graph ``adj`` (or its row block
+    from row ``row0``): an available client downloads its available peers
+    (never itself). Without a mask, ``sum(adj) - N``, the same integer as
+    an all-ones mask gives."""
+    m, n = adj.shape
     if active is None:
-        return adj.sum() - N
-    off = adj & ~torch.eye(N, dtype=torch.bool, device=adj.device)
-    return (off & active[:, None] & active[None, :]).sum()
+        return adj.sum() - m
+    off = adj & ~eye_rows(m, n, row0, adj.device)
+    return (off & active[row0:row0 + m, None] & active[None, :]).sum()
 
 
-def _make_mix(cfg: DPFLConfig, p, sparse: bool):
+def _make_mix(cfg: DPFLConfig, p, sparse: bool, mesh=None,
+              client_axes=None, row0: int = 0):
     """The Eq.-4 mix of one round under ``cfg``'s codec, rule and
     adversary: ``mix(g, flat, recv, payload, prev, active)`` with ``g``
     the round's (N, N) graph or (N, B) lists, ``recv`` the table peers
     receive and ``prev`` the round-start panel (the clipped rule's
-    reference point). The self term always reads ``flat``."""
+    reference point). The self term always reads ``flat``. Under
+    ``mesh`` every table is the rank's rows (from ``row0``) and
+    ``active`` whole: the dense robust rules read the all-gathered
+    ``recv``, the neighbor-list ones its rotated rows
+    (`kernels.ops.sparse_peer_rows`)."""
     comp = _compress.normalize(cfg.compression)
     fr = _adversary.free_rider_active(cfg.adversary)
     rule = _mix_rule(cfg)
+    kw = dict(mesh=mesh, client_axes=client_axes)
+
+    def whole(recv):
+        return recv if mesh is None else \
+            _coll.all_gather_rows(recv, mesh, client_axes)
+
+    def peer_rows(nbr, recv):
+        if mesh is None:
+            return recv[nbr.clamp(0, recv.shape[0] - 1).long()]
+        return _kops.sparse_peer_rows(nbr, recv, **kw)
 
     def mix_dense(adj, flat, recv, payload, prev, active):
         if rule == "trimmed":
-            w = eq4_weights_unnormalized(adj, p, active=active)
-            return _robust.trimmed_mix_dense(w, flat, recv, cfg.trim_frac)
-        A = mixing_matrix(adj, p, active=active)
+            w = eq4_weights_unnormalized(adj, p, active=active, row0=row0)
+            return _robust.trimmed_mix_dense(w, flat, whole(recv),
+                                             cfg.trim_frac, row0)
+        A = mixing_matrix(adj, p, active=active, row0=row0)
         if rule == "clipped":
-            A = _robust.clipped_matrix(
-                A, _robust.clip_factors(recv, flat, prev, cfg.clip_mult))
+            A = _robust.clipped_matrix(A, _robust.clip_factors(
+                whole(recv), flat, prev, cfg.clip_mult), row0)
         if comp is not None:
-            return _compress.mix_compressed(comp, A, flat, payload, recv)
+            return _compress.mix_compressed(comp, A, flat, payload, recv,
+                                            **kw)
         if fr:
             # peers mix the wire table, the self term the exact local row
-            eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-            return mix_flat(A * (1.0 - eye), recv) \
-                + torch.diagonal(A)[:, None] * flat
-        return mix_flat(A, flat)
+            m, n = A.shape
+            diag = A.gather(1, torch.arange(row0, row0 + m,
+                                            device=A.device)[:, None])
+            off = A * (1.0 - eye_rows(m, n, row0, A.device).to(A.dtype))
+            return mix_flat(off, recv, **kw) + diag * flat
+        return mix_flat(A, flat, **kw)
 
     def mix_sparse(nbr, flat, recv, payload, prev, active):
         if rule == "trimmed":
-            p_un, w_un = sparse_eq4_unnormalized(nbr, p, active=active)
-            return _robust.trimmed_mix_sparse(p_un, w_un, nbr, flat, recv,
-                                              cfg.trim_frac)
-        self_w, nbr_w = sparse_mixing_weights(nbr, p, active=active)
+            p_un, w_un = sparse_eq4_unnormalized(nbr, p, active=active,
+                                                 row0=row0)
+            return _robust.trimmed_mix_sparse(
+                p_un, w_un, nbr, flat, recv, cfg.trim_frac,
+                nbr_rows=None if mesh is None else peer_rows(nbr, recv))
+        self_w, nbr_w = sparse_mixing_weights(nbr, p, active=active,
+                                              row0=row0)
         if rule == "clipped":
-            safe = nbr.clamp(0, flat.shape[0] - 1).long()
-            gamma = _robust.clip_factors_sparse(recv[safe], flat, prev,
-                                                cfg.clip_mult)
+            gamma = _robust.clip_factors_sparse(peer_rows(nbr, recv), flat,
+                                                prev, cfg.clip_mult)
             self_w, nbr_w = _robust.clipped_sparse_weights(self_w, nbr_w,
                                                            gamma)
         if comp is not None:
             return _compress.sparse_mix_compressed(comp, self_w, nbr_w, nbr,
-                                                   flat, payload, recv)
-        return mix_flat_sparse(self_w, nbr_w, nbr, flat, peers=recv)
+                                                   flat, payload, recv, **kw)
+        return mix_flat_sparse(self_w, nbr_w, nbr, flat, peers=recv, **kw)
 
     return mix_sparse if sparse else mix_dense
 
@@ -411,11 +460,13 @@ def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
     ``cfg.mix_rule`` and the comm-download counter. Omega, the current
     graph, the keys, the schedules, the residuals and the counters are
     read from ``aux``; the counters and the graph history are written in
-    place."""
+    place. Under a client mesh every graph and table is the rank's rows
+    and the counter its clients' downloads."""
     p = engine.p
     comp = _compress.normalize(cfg.compression)
     part = cfg.participation is not None
-    mix = _make_mix(cfg, p, sparse=False)
+    mesh, ca, rows = engine.mesh, engine.client_axes, engine.rows
+    mix = _make_mix(cfg, p, False, mesh, ca, rows.start)
 
     # bare @exchange_site: this aggregate charges its own downloads, the
     # aux["comm"] counter below
@@ -423,22 +474,25 @@ def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
     def aggregate(flat, aux, t, prev):
         adj, omega = aux["adj"], aux["omega"]
         active = aux["part"][t] if part else None
-        recv, payload, new_ef = _exchange(comp, _wire(cfg, flat, aux, t),
-                                          aux, t, active)
+        mine = None if active is None else active[rows]
+        recv, payload, new_ef = _exchange(
+            comp, _wire(cfg, flat, aux, t, rows), aux, t, mine, mesh, ca)
         refresh = not cfg.random_graph and t % cfg.refresh_period == 0
         # line 9 needs all of Omega_k; aggregation-only rounds download
         # the currently selected C_k (the random graph: Omega itself);
         # only available downloader/peer pairs move models
-        comm_t = _realized_downloads(omega if refresh else adj, active)
+        comm_t = _realized_downloads(omega if refresh else adj, active,
+                                     rows.start)
         new_adj = adj
         if refresh:
             cand = omega if active is None else omega & active[None, :]
             new_adj = all_clients_graph(
                 prng.fold_in(aux["k_graph"], 1000 + t), recv, p, cand,
-                reward_fn, budget, impl=cfg.graph_impl)
+                reward_fn, budget, impl=cfg.graph_impl, mesh=mesh,
+                client_axes=ca)
             if active is not None:
                 # absent clients keep their previous C_k
-                new_adj = torch.where(active[:, None], new_adj, adj)
+                new_adj = torch.where(mine[:, None], new_adj, adj)
         mixed = mix(new_adj, flat, recv, payload, prev, active)
         aux["comm"][t] = comm_t
         if hist_len:
@@ -464,7 +518,8 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
     p = engine.p
     comp = _compress.normalize(cfg.compression)
     part = cfg.participation is not None
-    mix = _make_mix(cfg, p, sparse=True)
+    mesh, ca, rows = engine.mesh, engine.client_axes, engine.rows
+    mix = _make_mix(cfg, p, True, mesh, ca, rows.start)
 
     # bare @exchange_site: this aggregate charges its own downloads, the
     # aux["comm"] counter below
@@ -472,18 +527,20 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
     def aggregate(flat, aux, t, prev):
         nbr, omega = aux["nbr"], aux["omega_nbr"]
         active = aux["part"][t] if part else None
-        recv, payload, new_ef = _exchange(comp, _wire(cfg, flat, aux, t),
-                                          aux, t, active)
+        mine = None if active is None else active[rows]
+        recv, payload, new_ef = _exchange(
+            comp, _wire(cfg, flat, aux, t, rows), aux, t, mine, mesh, ca)
         refresh = not cfg.random_graph and t % cfg.refresh_period == 0
-        comm_t = count_neighbor_downloads(omega if refresh else nbr, active)
+        comm_t = count_neighbor_downloads(omega if refresh else nbr, active,
+                                          rows.start)
         new_nbr = nbr
         if refresh:
             new_nbr = all_clients_graph_sparse(
                 prng.fold_in(aux["k_graph"], 1000 + t), recv, p, omega,
-                reward_fn, budget, active=active)
+                reward_fn, budget, active=active, mesh=mesh, client_axes=ca)
             if active is not None:
                 # absent clients keep their previous C_k lists
-                new_nbr = torch.where(active[:, None], new_nbr, nbr)
+                new_nbr = torch.where(mine[:, None], new_nbr, nbr)
         mixed = mix(new_nbr, flat, recv, payload, prev, active)
         aux["comm"][t] = comm_t
         if hist_len:
@@ -503,8 +560,35 @@ def _hist_len(cfg: DPFLConfig) -> int:
             if cfg.history_every else cfg.rounds)
 
 
+def _dpfl_aux_specs(hist_len: int, participation: bool = False,
+                    comp=None, sparse: bool = False,
+                    adversary: bool = False) -> dict:
+    """Which leaves of the DPFL aux are client rows under a client mesh,
+    as the axis their clients lie on (None: whole on every rank;
+    `repro.core.dpfl._dpfl_aux_specs`): the graph, Omega and the
+    error-feedback residuals on axis 0, the graph history on axis 1. The
+    keys and the counter (each rank's partial count) are not, and
+    neither are the participation and attack schedules, which every rank
+    holds whole (a rank reads peers' availability)."""
+    specs = {"nbr": 0, "omega_nbr": 0} if sparse else {"adj": 0,
+                                                      "omega": 0}
+    specs.update(k_graph=None, comm=None)
+    if hist_len:
+        specs["graph_hist"] = 1
+    if participation:
+        specs["part"] = None
+    if comp is not None:
+        specs["k_comp"] = None
+        if _compress.uses_ef(comp):
+            specs["ef"] = 0
+    if adversary:
+        specs["adv"] = {"sched": None, "key": None}
+    return specs
+
+
 def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
-    """Algorithm 1 on the device-resident round engine."""
+    """Algorithm 1 on the device-resident round engine (on a client mesh
+    when the engine is sharded: every rank returns the same result)."""
     _check_ported(cfg)
     N = engine.data.n_clients
     budget = _budget(cfg, N)
@@ -512,11 +596,12 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     dev = engine.device
     sparse = _sparse(cfg)
     adv = cfg.adversary
+    n_loc = engine.n_local
 
     # ---- preprocess (Alg. 1 lines 1-5)
     omega, flat, k_graph, k_train = _preprocess(engine, cfg, reward_fn,
                                                 budget)
-    result = DPFLResult(test_acc=None, omega=_omega_np(omega, N, sparse))
+    result = DPFLResult(test_acc=None)
     result.comm_preprocess = _comm_preprocess(cfg, N, budget)
 
     # ---- training loop (Alg. 1 lines 6-12)
@@ -529,12 +614,12 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
         aux.update(nbr=omega, omega_nbr=omega)
         if hist_len:
             aux["graph_hist"] = torch.full(
-                (hist_len, N, _nbr_width(N, budget)), -1,
+                (hist_len, n_loc, _nbr_width(N, budget)), -1,
                 dtype=torch.int32, device=dev)
     else:
         aux.update(adj=omega, omega=omega)
         if hist_len:
-            aux["graph_hist"] = torch.zeros((hist_len, N, N),
+            aux["graph_hist"] = torch.zeros((hist_len, n_loc, N),
                                             dtype=torch.bool, device=dev)
     make_agg = _make_dpfl_aggregate_sparse if sparse else _make_dpfl_aggregate
     round_step = make_round_step(
@@ -542,40 +627,58 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
         aggregate=make_agg(engine, cfg, reward_fn, budget, hist_len),
         local_train=(_adversary.make_adv_local_train(engine, adv)
                      if adv is not None else None),
-        post_train=(_adversary.make_post_train(adv)
+        post_train=(_adversary.make_post_train(adv, engine.rows)
                     if adv is not None else None),
         participation_key="part" if "part" in aux else None,
         hist_len=hist_len)
     state = init_round_state(flat, k_train, hist_len=hist_len, aux=aux)
+    # the client axis of each leaf: what the flushes and the end gather
+    spec = round_state_shardings(hist_len=hist_len, aux_specs=_dpfl_aux_specs(
+        hist_len, "part" in aux, _compress.normalize(cfg.compression),
+        sparse, adv is not None))
+    g_key = "omega_nbr" if sparse else "omega"
 
     def flush_histories(st, k):
-        # the only device-to-host copies of the round loop; copied, since
-        # the buffers are reused (and .cpu() of a CPU tensor is no copy).
-        # Sparse histories leave as (N, B) lists and become (N, N)
-        # adjacencies here
-        result.val_acc_history.extend(st.val_hist[:k].cpu().numpy().copy())
-        hist = st.aux["graph_hist"][:k].cpu().numpy().copy()
+        # the only device-to-host copies of the round loop (under a mesh,
+        # its only gathers of histories); copied, since the buffers are
+        # reused (and .cpu() of a CPU tensor is no copy). Sparse
+        # histories leave as (N, B) lists and become (N, N) adjacencies
+        # here
+        result.val_acc_history.extend(engine.whole(
+            st.val_hist[:k], spec.val_hist).cpu().numpy().copy())
+        hist = engine.whole(st.aux["graph_hist"][:k],
+                            spec.aux["graph_hist"]).cpu().numpy()
         result.graph_history.extend(
-            [_nbr_to_adj_np(h, N) for h in hist] if sparse else hist)
+            [_nbr_to_adj_np(h, N) for h in hist] if sparse else hist.copy())
 
     state = run_rounds(
         round_step, state, cfg.rounds,
         on_flush=flush_histories if hist_len else None,
         flush_every=hist_len if (hist_len and cfg.history_every) else 0)
 
-    result.comm_downloads = [int(c) for c in state.aux["comm"].tolist()]
+    # each rank counted its own clients' downloads: integers, summed over
+    # the shards in any order
+    comm = engine.whole(state.aux["comm"][None]).sum(dim=0)
+    result.comm_downloads = [int(c) for c in comm.tolist()]
     _fill_comm_bytes(result, cfg, engine.n_params)
     test_acc, _ = engine.eval_test(engine.unflatten(state.best_flat))
-    result.test_acc = test_acc.cpu().numpy()
-    result.best_flat = state.best_flat.cpu().numpy()
+    result.test_acc = engine.whole(test_acc).cpu().numpy()
+    result.best_flat = engine.whole(state.best_flat,
+                                    spec.best_flat).cpu().numpy()
+    result.omega = _omega_np(engine.whole(omega, spec.aux[g_key]), N,
+                             sparse)
     return result
 
 
 def run_dpfl_reference(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     """The host-driven round loop (per-round host-side comm accounting and
     history copies), step by step as `repro.core.dpfl.run_dpfl_reference`.
-    The equivalence oracle of `run_dpfl`."""
+    The equivalence oracle of `run_dpfl`, on one device: a sharded
+    engine raises ``ValueError``."""
     _check_ported(cfg)
+    if engine.mesh is not None:
+        raise ValueError("run_dpfl_reference runs on one device; "
+                         "run_dpfl runs a sharded engine")
     N = engine.data.n_clients
     budget = _budget(cfg, N)
     reward_fn = engine.make_reward_fn()
@@ -621,8 +724,8 @@ def run_dpfl_reference(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
             # model poisoning after the hold (identity for label_flip)
             flat = _adversary.poison_update(adv, flat, prev_flat,
                                             aux["adv"]["sched"][t])
-        recv, payload, new_ef = _exchange(comp, _wire(cfg, flat, aux, t),
-                                          aux, t, active)
+        recv, payload, new_ef = _exchange(
+            comp, _wire(cfg, flat, aux, t, engine.rows), aux, t, active)
         if new_ef is not None:
             aux["ef"] = new_ef
         refresh = not cfg.random_graph and t % cfg.refresh_period == 0

@@ -27,8 +27,15 @@ through `kernels.ops.sparse_graph_mix`.
 Partial participation (``active=``, an (N,) bool availability row)
 restricts the Eq.-4 weights, the download counts and the sparse greedy's
 candidates to available clients; the dense refresh takes ``omega &
-active[None, :]`` from its caller. Not ported yet: the client-mesh
-paths (ROADMAP Queue 1 item 12).
+active[None, :]`` from its caller.
+
+Under a client mesh (``mesh=`` / ``client_axes=``, `repro_torch.launch.
+mesh`) each rank holds its block of graph rows (``row0`` its first
+global row, in the functions that take a row block): the builders
+gather the peer panels once and run the greedy on the rank's clients
+only, with their global ids and keys, and the mixes run their row
+blocks through `kernels.ops`' mesh paths. ``active``, ``p`` and keys
+stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -39,34 +46,38 @@ import torch
 from .. import prng
 from ..analysis.registry import exchange_site
 from ..kernels import ops as _kops
+from ..sharding import collectives as _coll
+from ..sharding.rows import eye_rows, first_row, mesh_kw
 
 
 # ------------------------------------------------------------------ mixing
 
 
-def eq4_weights_unnormalized(adj, p, active=None):
+def eq4_weights_unnormalized(adj, p, active=None, row0: int = 0):
     """The Eq.-4 member weights before row normalization: (N, N) fp32
     with entry ``p_i`` where k receives from i (diagonal forced on), 0
     elsewhere. ``active`` ((N,) bool) zeroes the rows and columns of
     absent clients before the diagonal is forced on; multiplying by 1.0
     is exact, so an all-ones mask changes no bit. The robust rules
-    (`fl.robust`) take this unnormalized form."""
+    (`fl.robust`) take this unnormalized form. ``adj`` may be the row
+    block of rows ``row0 ...`` (a rank's, under a client mesh)."""
     adj = adj.float()
-    n = adj.shape[0]
+    m, n = adj.shape
     if active is not None:
         act = active.float()
-        adj = adj * act[:, None] * act[None, :]
-    adj = torch.maximum(adj, torch.eye(n, dtype=adj.dtype, device=adj.device))
+        adj = adj * act[row0:row0 + m, None] * act[None, :]
+    adj = torch.maximum(adj, eye_rows(m, n, row0, adj.device).float())
     return adj * p[None, :]
 
 
-def mixing_matrix(adj, p, active=None):
+def mixing_matrix(adj, p, active=None, row0: int = 0):
     """adj: (N, N) bool/float, adj[k, i] = 1 iff k receives from i
     (diagonal forced on). p: (N,) weights. Returns the row-stochastic A
     with A[k, i] = p_i adj[k, i] / sum_j p_j adj[k, j]. With ``active``
     an absent client's row is e_k (it holds its params) and an available
-    client renormalizes over its available peers."""
-    w = eq4_weights_unnormalized(adj, p, active=active)
+    client renormalizes over its available peers. ``adj`` may be a row
+    block starting at row ``row0``."""
+    w = eq4_weights_unnormalized(adj, p, active=active, row0=row0)
     return w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-12)
 
 
@@ -82,10 +93,13 @@ def mix_pytree(A, stacked_params):
 
 
 @exchange_site(charges="caller")
-def mix_flat(A, flat_w):
+def mix_flat(A, flat_w, *, mesh=None, client_axes=None):
     """(N, P) client-stacked flattened params through the Eq.-4 mixing
-    matmul (`kernels.ops.graph_mix`)."""
-    return _kops.graph_mix(A.contiguous(), flat_w.contiguous())
+    matmul (`kernels.ops.graph_mix`). Under ``mesh``, A is the rank's
+    (n_loc, N) row block and ``flat_w`` its (n_loc, P) rows: each rank
+    gathers the peer panels it mixes with."""
+    return _kops.graph_mix(A.contiguous(), flat_w.contiguous(),
+                           **mesh_kw(mesh, client_axes))
 
 
 @exchange_site(charges="caller")
@@ -328,17 +342,28 @@ def make_ggc_heterogeneous(reward_fn: Callable, max_budget: int):
     return ggc
 
 
-def _client_keys(key, N: int):
-    """Client k's graph key: ``fold_in(key, k)``, for all k at once."""
-    return prng.fold_in(key, torch.arange(N, device=key.device))
+@exchange_site(charges="caller")
+def _graph_inputs(key, flat_w, mesh=None, client_axes=None):
+    """``(keys, k_idx, peers)`` of a graph build: the clients whose rows
+    it selects (global ids ``k_idx``, keys ``fold_in(key, k)``) and the
+    (N, P) peer panel their greedy probes. All N clients and ``flat_w``
+    itself; under ``mesh`` this rank's rows and the panel gathered once
+    from every shard (`repro.core.graph._shard_clients_graph`)."""
+    n, peers = flat_w.shape[0], flat_w
+    if mesh is not None:
+        peers = _coll.all_gather_rows(flat_w, mesh, client_axes)
+    row0 = first_row(mesh, client_axes, n)
+    k_idx = torch.arange(row0, row0 + n, device=flat_w.device)
+    return prng.fold_in(key, k_idx), k_idx, peers
 
 
 def all_clients_graph(key, flat_w, p, cand_masks, reward_fn, budget,
-                      impl: str = "ggc"):
+                      impl: str = "ggc", mesh=None, client_axes=None):
     """Graph construction for every client in one batch. cand_masks:
     (N, N) bool, row k = Omega_k. Returns the (N, N) bool adjacency,
-    adj[k, i] = 1 iff i is selected for k (diagonal True)."""
-    N = flat_w.shape[0]
+    adj[k, i] = 1 iff i is selected for k (diagonal True). Under
+    ``mesh``, ``flat_w`` and ``cand_masks`` are the rank's rows and so is
+    the result."""
     if impl == "naive":
         ggc = make_ggc_naive(reward_fn, budget)
     elif impl == "ggc":
@@ -346,31 +371,34 @@ def all_clients_graph(key, flat_w, p, cand_masks, reward_fn, budget,
     else:
         raise NotImplementedError(f"graph_impl {impl!r} is not ported "
                                   f"(the port has 'ggc' and 'naive')")
-    k_idx = torch.arange(N, device=flat_w.device)
-    return ggc(_client_keys(key, N), k_idx, cand_masks, flat_w, p)
+    keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
+    return ggc(keys, k_idx, cand_masks, peers, p)
 
 
-def all_clients_bggc(key, flat_w, p, cand_masks, reward_fn, budget):
+def all_clients_bggc(key, flat_w, p, cand_masks, reward_fn, budget,
+                     mesh=None, client_axes=None):
     """Batched-GGC preprocessing for every client in one batch (same
-    ``fold_in(key, k)`` streams as `all_clients_graph`)."""
-    N = flat_w.shape[0]
+    ``fold_in(key, k)`` streams as `all_clients_graph`; ``mesh`` as
+    there)."""
     bggc = make_bggc(reward_fn, budget)
-    k_idx = torch.arange(N, device=flat_w.device)
-    return bggc(_client_keys(key, N), k_idx, cand_masks, flat_w, p)
+    keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
+    return bggc(keys, k_idx, cand_masks, peers, p)
 
 
 def all_clients_graph_heterogeneous(key, flat_w, p, cand_masks, reward_fn,
-                                    budgets, reachability=None):
+                                    budgets, reachability=None, mesh=None,
+                                    client_axes=None):
     """Per-client budgets and an optional communicability restriction
     (both from the paper's §Limitations). budgets: (N,) int; reachability:
-    (N, N) bool, client k may only ever talk to reachable peers."""
-    N = flat_w.shape[0]
+    (N, N) bool, client k may only ever talk to reachable peers. Under
+    ``mesh``, ``flat_w``, ``cand_masks`` and ``reachability`` are the
+    rank's rows, ``budgets`` whole."""
     if reachability is not None:
         cand_masks = cand_masks & reachability
     budgets = torch.as_tensor(budgets, device=flat_w.device).long()
     ggc = make_ggc_heterogeneous(reward_fn, int(budgets.max()))
-    k_idx = torch.arange(N, device=flat_w.device)
-    return ggc(_client_keys(key, N), k_idx, cand_masks, flat_w, p, budgets)
+    keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
+    return ggc(keys, k_idx, cand_masks, peers, p, budgets[k_idx])
 
 
 # ------------------------------------------------- sparse neighbor lists
@@ -406,78 +434,83 @@ def mask_to_neighbors(mask, k_idx, budget: int):
     return _lists(off[None, :], budget)[0]
 
 
-def neighbors_from_adjacency(adj, budget: int):
+def neighbors_from_adjacency(adj, budget: int, row0: int = 0):
     """(N, N) bool adjacency -> (N, budget) int32 neighbor lists, row k =
     `mask_to_neighbors` of row k. Inverse of `adjacency_from_neighbors`
-    whenever every row has <= budget peers."""
-    N, n = adj.shape
-    rows = torch.arange(N, device=adj.device)[:, None]
-    off = adj.bool() & (torch.arange(n, device=adj.device)[None, :] != rows)
-    return _lists(off, budget)
+    whenever every row has <= budget peers. ``adj`` may be a row block
+    starting at row ``row0``."""
+    m, n = adj.shape
+    return _lists(adj.bool() & ~eye_rows(m, n, row0, adj.device), budget)
 
 
-def adjacency_from_neighbors(idx, n: int):
+def adjacency_from_neighbors(idx, n: int, row0: int = 0):
     """(N, B) int32 neighbor lists -> (N, n) bool adjacency with the
-    diagonal forced True (every client collaborates with itself)."""
-    N = idx.shape[0]
+    diagonal forced True (every client collaborates with itself); the
+    lists of rows ``row0 ...`` give that row block."""
+    m = idx.shape[0]
     valid = idx >= 0
-    hits = torch.zeros((N, n), dtype=torch.int64, device=idx.device)
+    hits = torch.zeros((m, n), dtype=torch.int64, device=idx.device)
     hits.scatter_add_(1, idx.clamp(0, n - 1).long(), valid.long())
-    eye = torch.eye(N, n, dtype=torch.bool, device=idx.device)
-    return (hits > 0) | eye
+    return (hits > 0) | eye_rows(m, n, row0, idx.device)
 
 
-def count_neighbor_downloads(idx, active=None):
+def count_neighbor_downloads(idx, active=None, row0: int = 0):
     """Realized model downloads encoded by neighbor lists ``idx`` (N, B):
     one per non-sentinel slot, as a 0-d int64 tensor (no host sync). It
     equals the off-diagonal edge count of the equivalent dense adjacency,
     so dense and sparse comm accounting cannot drift. ``active`` ((N,)
-    bool) counts only available downloader/peer pairs."""
+    bool) counts only available downloader/peer pairs. The lists of a
+    row block (rows ``row0 ...``) count that block's downloads."""
     valid = idx >= 0
     if active is not None:
         act = active.bool()
-        valid = valid & act[:, None] & act[idx.clamp(0, idx.shape[0] - 1)
-                                           .long()]
+        m, N = idx.shape[0], act.shape[0]
+        valid = valid & act[row0:row0 + m, None] \
+            & act[idx.clamp(0, N - 1).long()]
     return valid.sum()
 
 
-def sparse_eq4_unnormalized(idx, p, active=None):
+def sparse_eq4_unnormalized(idx, p, active=None, row0: int = 0):
     """Neighbor-list counterpart of `eq4_weights_unnormalized`: returns
     ``(p, w)``, the (N,) fp32 self weights and the (N, B) fp32 peer
     weights (``p[idx]``, 0 at empty or participation-masked slots)
-    before row normalization."""
-    N = idx.shape[0]
+    before row normalization. The lists may be a row block starting at
+    row ``row0`` (``p`` and ``active`` whole)."""
+    m, N = idx.shape[0], p.shape[0]
     p = p.float()
     safe = idx.clamp(0, N - 1).long()
     w = (idx >= 0).float()
     if active is not None:
         act = active.float()
-        w = w * act[:, None] * act[safe]
-    return p, w * p[safe]
+        w = w * act[row0:row0 + m, None] * act[safe]
+    return p[row0:row0 + m], w * p[safe]
 
 
-def sparse_mixing_weights(idx, p, active=None):
+def sparse_mixing_weights(idx, p, active=None, row0: int = 0):
     """Eq.-4 row weights in neighbor-list form: ``(self_w (N,), nbr_w
     (N, B))`` with ``self_w[k] + sum_b nbr_w[k, b] = 1``, exactly the
     nonzero entries of `mixing_matrix`'s row k (diagonal forced on,
-    p-weighted, normalized; ``active`` as there)."""
-    p, w = sparse_eq4_unnormalized(idx, p, active=active)
+    p-weighted, normalized; ``active`` and ``row0`` as there)."""
+    p, w = sparse_eq4_unnormalized(idx, p, active=active, row0=row0)
     denom = torch.clamp_min(p + w.sum(dim=1), 1e-12)
     return p / denom, w / denom[:, None]
 
 
 @exchange_site(charges="caller")
-def mix_flat_sparse(self_w, nbr_w, idx, flat_w, peers=None):
+def mix_flat_sparse(self_w, nbr_w, idx, flat_w, peers=None, *, mesh=None,
+                    client_axes=None):
     """Eq.-4 mix in neighbor-list form: each client gathers only its
     <= B selected peer rows (`kernels.ops.sparse_graph_mix`), never the
     dense (N, N) @ (N, P) product. ``peers`` (default ``flat_w``) is the
     peer-visible model table, the decoded payloads under compression;
-    the self term always reads the exact local row of ``flat_w``."""
+    the self term always reads the exact local row of ``flat_w``. Under
+    ``mesh`` every table is the rank's rows and the peer panels rotate
+    shard to shard, only the requested rows kept."""
     peers = flat_w if peers is None else peers
     return _kops.sparse_graph_mix(
         self_w.float().contiguous(), nbr_w.float().contiguous(),
         idx.to(torch.int32).contiguous(), flat_w.contiguous(),
-        peers.contiguous())
+        peers.contiguous(), **mesh_kw(mesh, client_axes))
 
 
 def make_ggc_sparse(reward_fn: Callable, budget: int):
@@ -536,27 +569,33 @@ def make_ggc_sparse(reward_fn: Callable, budget: int):
 
 
 def all_clients_graph_sparse(key, flat_w, p, cand_idx, reward_fn,
-                             budget: int, active=None):
+                             budget: int, active=None, mesh=None,
+                             client_axes=None):
     """Sparse-representation graph construction for every client in one
     batch: candidates and selections are (N, B) neighbor lists, and each
     client's greedy probes only its <= B candidates. Selects what
     `all_clients_graph` selects on the equivalent masks. ``active``
     restricts the candidates to available peers (absent clients keep
-    their previous C_k: the caller's, as in the dense path)."""
-    N = flat_w.shape[0]
+    their previous C_k: the caller's, as in the dense path). Under
+    ``mesh``, ``flat_w`` and ``cand_idx`` are the rank's rows and so is
+    the result."""
     ggc = make_ggc_sparse(reward_fn, budget)
-    k_idx = torch.arange(N, device=flat_w.device)
-    return ggc(_client_keys(key, N), k_idx, cand_idx, flat_w, p,
-               active=active)
+    keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
+    return ggc(keys, k_idx, cand_idx, peers, p, active=active)
 
 
-def all_clients_bggc_sparse(key, flat_w, p, reward_fn, budget: int):
+def all_clients_bggc_sparse(key, flat_w, p, reward_fn, budget: int,
+                            mesh=None, client_axes=None):
     """Batched-GGC preprocessing emitting (N, B) Omega lists. Algorithm 3
     streams every peer (full candidacy), so this is `all_clients_bggc`
     with full candidate masks, converted to lists of width
     ``max(1, min(budget, N - 1))`` (a client selects at most that many
-    peers; the round buffers use the same width)."""
-    N = flat_w.shape[0]
-    cand = ~torch.eye(N, dtype=torch.bool, device=flat_w.device)
-    omega = all_clients_bggc(key, flat_w, p, cand, reward_fn, budget)
-    return neighbors_from_adjacency(omega, max(1, min(budget, N - 1)))
+    peers; the round buffers use the same width). ``mesh`` as in
+    `all_clients_bggc`."""
+    n, N = flat_w.shape[0], p.shape[0]
+    row0 = first_row(mesh, client_axes, n)
+    cand = ~eye_rows(n, N, row0, flat_w.device)
+    omega = all_clients_bggc(key, flat_w, p, cand, reward_fn, budget,
+                             mesh=mesh, client_axes=client_axes)
+    return neighbors_from_adjacency(omega, max(1, min(budget, N - 1)),
+                                    row0)

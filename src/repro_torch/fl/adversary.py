@@ -24,7 +24,9 @@ sees the poisoned row. ``free_rider`` also swaps its noisy payload into
 the peer-visible wire table (`wire_view`) while its own self term stays
 exact. Every select is a ``torch.where`` on the schedule row: with
 ``fraction=0.0`` each mask is all-False and a run equals the
-adversary-free one bit for bit.
+adversary-free one bit for bit. Under a client mesh the schedule and the
+malicious set stay whole on every rank, and a rank applies its rows of
+them to its rows of the panel.
 """
 from __future__ import annotations
 
@@ -198,27 +200,31 @@ def free_rider_active(cfg: Optional[AdversaryConfig]) -> bool:
             and cfg.fraction > 0.0)
 
 
-def wire_view(cfg: AdversaryConfig, flat, row, key, t: int):
+def wire_view(cfg: AdversaryConfig, flat, row, key, t: int,
+              row0: int = 0):
     """The peer-visible (N, P) table of round ``t``: free riders upload
     their stale row (already reverted by `poison_update`) plus
     ``noise_scale`` times ``prng.normal(fold_in(key, t))``; everyone else
     uploads ``flat``. ``prng.normal`` may differ from
     ``jax.random.normal`` by a few ulps (its erfinv); at ``noise_scale=0``
-    the table is ``flat``'s bits."""
+    the table is ``flat``'s bits. ``flat`` and ``row`` may be the rows
+    from ``row0``, which draw their rows of the noise."""
+    n, P = flat.shape
     noise = float(np.float32(cfg.noise_scale)) * prng.normal(
-        prng.fold_in(key, t), tuple(flat.shape))
+        prng.fold_in(key, t), (row0 + n, P), rows=(row0, row0 + n))
     return torch.where(row[:, None], flat + noise, flat)
 
 
-def make_post_train(cfg: AdversaryConfig):
+def make_post_train(cfg: AdversaryConfig, rows: slice = slice(None)):
     """The round engine's ``post_train`` hook (after the participation
-    hold, before the exchange); None for ``label_flip``, which rides the
-    local-train hook."""
+    hold, before the exchange) on the panel's ``rows`` of the schedule;
+    None for ``label_flip``, which rides the local-train hook."""
     if cfg.attack == "label_flip":
         return None
 
     def post_train(flat, prev, aux, t):
-        return poison_update(cfg, flat, prev, aux["adv"]["sched"][t])
+        return poison_update(cfg, flat, prev,
+                             aux["adv"]["sched"][t][rows])
 
     return post_train
 
@@ -236,7 +242,8 @@ def make_adv_local_train(engine, cfg: AdversaryConfig):
     flip_y = perm[train_y]
 
     def local_train(stacked, key, epochs, *, aux, t):
-        ys = torch.where(aux["adv"]["sched"][t][:, None], flip_y, train_y)
+        row = aux["adv"]["sched"][t][engine.rows]
+        ys = torch.where(row[:, None], flip_y, train_y)
         return engine.local_train_with_labels(stacked, key, epochs, ys)
 
     return local_train

@@ -13,9 +13,17 @@ init and `repro`'s keys (`prng` is bitwise ``jax.random``).
 Two arguments of `repro`'s ``_loop`` are not here. ``cache_key``
 memoizes `repro`'s jitted round step on the engine; the port compiles
 nothing, so there is nothing to keep. ``aux_specs`` places the aux
-leaves on a client mesh, which waits for multi-GPU client sharding
-(ROADMAP Queue 1 item 12); every aux tensor lives on the engine's one
-device.
+leaves on a client mesh: here every client-stacked aux tensor is built
+from the engine's rows (APFL's and Ditto's personal models from the
+round-start panel, the residuals), and the schedules are whole.
+
+Every method runs on an engine sharded over a client mesh
+(`FLEngine.shard_clients`): a rank trains and evaluates its rows, and
+what needs every client all-gathers the panel and reduces it as one
+device does, in the same order (a rank-local partial sum would change
+the bits): FedAvg's and the personalized methods' server average,
+FedRep's body average, pFedGraph's similarities and its K1 mix. Every
+rank returns the whole (N,) accuracies.
 
 Simplifications against the original papers are `repro`'s (DESIGN.md);
 every method keeps its defining mechanism:
@@ -35,6 +43,7 @@ from .. import prng
 from ..analysis.registry import exchange_site
 from ..core.graph import mix_flat
 from ..data.availability import schedule_for_data
+from ..sharding.rows import eye_rows
 from . import compress as _compress
 from .engine import FLEngine
 from .round_engine import init_round_state, make_round_step, run_rounds
@@ -43,23 +52,32 @@ from .round_engine import init_round_state, make_round_step, run_rounds
 # "unaccounted": Table-1 baselines are compared on accuracy, not bytes;
 # their server exchange is deliberately outside the comm accounting
 @exchange_site(charges="unaccounted")
-def _global_avg(flat, p, active=None):
+def _global_avg(flat, p, active=None, engine=None):
     """FedAvg server average, broadcast to every row. Under partial
     participation (``active`` (N,) bool) only the participating clients'
     models enter the average and their weights renormalize; the divisor
-    is clamped as a 0-dim tensor, so the call never syncs."""
+    is clamped as a 0-dim tensor, so the call never syncs. ``engine``
+    (a sharded one) gathers its rows' panel first and broadcasts to
+    them."""
+    rows = flat.shape
+    if engine is not None:
+        flat = engine.whole(flat)
     if active is None:
         g = torch.einsum("n,np->p", p, flat)  # p sums to 1
     else:
         w = p * active
         g = torch.einsum("n,np->p", w, flat) / torch.clamp_min(w.sum(),
                                                                1e-12)
-    return g[None].expand(flat.shape).contiguous()
+    return g[None].expand(rows).contiguous()
+
+
+def _accs(engine, acc):
+    return {"test_acc": engine.whole(acc).cpu().numpy()}
 
 
 def _finish(engine, best_flat):
     acc, _ = engine.eval_test(engine.unflatten(best_flat))
-    return {"test_acc": acc.cpu().numpy()}
+    return _accs(engine, acc)
 
 
 def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
@@ -94,13 +112,14 @@ def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
 
         def aggregate(flat, aux, t):  # noqa: F811 (the compressed wrap)
             _, dec, new_ef = _compress.compress_exchange(
-                comp, flat, aux.get("ef"), prng.fold_in(aux["k_comp"], t))
+                comp, flat, aux.get("ef"), prng.fold_in(aux["k_comp"], t),
+                mesh=engine.mesh, client_axes=engine.client_axes)
             out, aux2 = base_agg(flat, aux, t, dec)
             if new_ef is not None:
                 if part_key is not None:
                     # an absent client transmits nothing: its residual
                     # holds (the DPFL engine's rule)
-                    a = aux[part_key][t]
+                    a = aux[part_key][t][engine.rows]
                     new_ef = torch.where(a[:, None], new_ef, aux["ef"])
                 aux2 = dict(aux2, ef=new_ef)
             return out, aux2
@@ -115,8 +134,8 @@ def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
     return state.best_flat, engine.unflatten(state.flat), state.aux
 
 
-def _fedavg_agg(p):
-    return lambda f, s, t: (_global_avg(f, p), s)
+def _fedavg_agg(engine):
+    return lambda f, s, t: (_global_avg(f, engine.p, engine=engine), s)
 
 
 def _fine_tuned(engine, best_flat, seed, epochs):
@@ -125,7 +144,7 @@ def _fine_tuned(engine, best_flat, seed, epochs):
     ft, _ = engine.local_train(engine.unflatten(best_flat),
                                prng.PRNGKey(seed), epochs=epochs)
     acc, _ = engine.eval_test(ft)
-    return {"test_acc": acc.cpu().numpy()}
+    return _accs(engine, acc)
 
 
 # ------------------------------------------------------------------ methods
@@ -139,26 +158,26 @@ def run_local(engine, rounds=20, tau=5, seed=0, **kw):
 
 def run_fedavg(engine, rounds=20, tau=5, seed=0, participation=None,
                compression=None, **kw):
-    p = engine.p
+    p, rows = engine.p, engine.rows
     if _compress.normalize(compression) is not None:
         def aggregate(f, s, t, dec):
             # uplink compression: the server averages what clients
             # transmit (decoded payloads); the downlink global replaces
             # participants' models uncompressed
             if participation is None:
-                return _global_avg(dec, p), s
+                return _global_avg(dec, p, engine=engine), s
             a = s["part"][t]
-            return torch.where(a[:, None], _global_avg(dec, p, active=a),
-                               f), s
+            return torch.where(a[rows, None], _global_avg(
+                dec, p, active=a, engine=engine), f), s
     elif participation is None:
-        aggregate = _fedavg_agg(p)
+        aggregate = _fedavg_agg(engine)
     else:
         def aggregate(f, s, t):
             # sampled FedAvg: only participants enter the (renormalized)
             # average and download the new global; absent clients hold
             a = s["part"][t]
-            return torch.where(a[:, None], _global_avg(f, p, active=a),
-                               f), s
+            return torch.where(a[rows, None], _global_avg(
+                f, p, active=a, engine=engine), f), s
     best_flat, _, _ = _loop(engine, rounds, tau, seed, aggregate,
                             participation=participation,
                             compression=compression)
@@ -167,7 +186,7 @@ def run_fedavg(engine, rounds=20, tau=5, seed=0, participation=None,
 
 def run_fedavg_ft(engine, rounds=20, tau=5, seed=0, **kw):
     """FedAvg, then 2*tau fine-tuning epochs from the best global model."""
-    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine.p))
+    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine))
     return _fine_tuned(engine, best_flat, seed + 1, 2 * tau)
 
 
@@ -192,13 +211,13 @@ def _prox_train(engine, lam):
 
 
 def run_fedprox(engine, rounds=20, tau=5, seed=0, lam=0.1, **kw):
-    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine.p),
+    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine),
                             local_train=_prox_train(engine, lam))
     return _finish(engine, best_flat)
 
 
 def run_fedprox_ft(engine, rounds=20, tau=5, seed=0, lam=0.1, **kw):
-    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine.p),
+    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine),
                             local_train=_prox_train(engine, lam))
     return _fine_tuned(engine, best_flat, seed + 1, 2 * tau)
 
@@ -212,12 +231,13 @@ def run_apfl(engine, rounds=20, tau=5, seed=0, alpha=0.5,
     and the base key ride in ``aux`` (v trained inside ``aggregate``),
     and the evaluated mixture is ``eval_flat``. Under partial
     participation absent clients skip both branches."""
-    p = engine.p
+    p, rows = engine.p, engine.rows
 
     def aggregate(flat, aux, t):
         active = aux["part"][t] if participation is not None else None
-        w = _global_avg(flat, p, active=active)
+        w = _global_avg(flat, p, active=active, engine=engine)
         if active is not None:
+            active = active[rows]
             w = torch.where(active[:, None], w, flat)
         # personal branch trains from the current mixture (old v, new w)
         mix = alpha * aux["v"] + (1 - alpha) * w
@@ -242,7 +262,7 @@ def run_apfl(engine, rounds=20, tau=5, seed=0, alpha=0.5,
 def run_perfedavg(engine, rounds=20, tau=5, seed=0, inner_lr=0.01, **kw):
     """First-order Per-FedAvg: federated training of a meta-initialization;
     evaluation after one local adaptation epoch."""
-    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine.p))
+    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine))
     return _fine_tuned(engine, best_flat, seed + 3, 1)
 
 
@@ -255,13 +275,14 @@ def run_ditto(engine, rounds=20, tau=5, seed=0, lam=0.75,
     base key ride in ``aux`` (prox-trained towards the fresh global
     inside ``aggregate``), and ``eval_flat`` evaluates the personal
     models. Under partial participation absent clients hold both."""
-    p = engine.p
+    p, rows = engine.p, engine.rows
     lt_prox = _prox_train(engine, lam)
 
     def aggregate(flat, aux, t):
         active = aux["part"][t] if participation is not None else None
-        g = _global_avg(flat, p, active=active)
+        g = _global_avg(flat, p, active=active, engine=engine)
         if active is not None:
+            active = active[rows]
             g = torch.where(active[:, None], g, flat)
         # personal step: prox-regularized towards the *global* params
         pers, _ = lt_prox(engine.unflatten(aux["pers"]),
@@ -291,9 +312,10 @@ def run_fedrep(engine, rounds=20, tau=5, seed=0, **kw):
     @exchange_site(charges="unaccounted")
     def aggregate(flat, state, t):
         stacked = engine.unflatten(flat)
+        whole = engine.unflatten(engine.whole(flat))
         for name, leaf in stacked.items():
             if name not in head_keys:  # heads stay local
-                g = torch.einsum("n,n...->...", p, leaf)
+                g = torch.einsum("n,n...->...", p, whole[name])
                 stacked[name] = g[None].expand(leaf.shape)
         return engine.flatten(stacked), state
 
@@ -324,7 +346,7 @@ def run_knnper(engine, rounds=20, tau=5, seed=0, k_nn=10, lam=0.5, **kw):
     """kNN-Per: FedAvg global model plus a per-client kNN over the local
     training set's features (penultimate layer), interpolated at
     inference."""
-    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine.p))
+    best_flat, _, _ = _loop(engine, rounds, tau, seed, _fedavg_agg(engine))
     params = engine.unflatten(best_flat)
     model = engine.model
     n_classes = engine.data.n_classes
@@ -346,7 +368,7 @@ def run_knnper(engine, rounds=20, tau=5, seed=0, k_nn=10, lam=0.5, **kw):
         model_prob = e / e.sum(-1, keepdim=True)    # jax.nn.softmax
         prob = lam * knn_prob + (1 - lam) * model_prob
         acc = (torch.argmax(prob, -1) == te_y).float().mean(-1)
-    return {"test_acc": acc.cpu().numpy()}
+    return _accs(engine, acc)
 
 
 def run_pfedgraph(engine, rounds=20, tau=5, seed=0, temp=5.0,
@@ -354,17 +376,20 @@ def run_pfedgraph(engine, rounds=20, tau=5, seed=0, temp=5.0,
     """pFedGraph (simplified): infer the collaboration graph each round
     from the pairwise cosine similarity of the flattened models and mix
     with the row-normalized similarity weights (all clients weighted, no
-    budget), through the K1 mix."""
+    budget), through the K1 mix. Under a mesh a rank takes its rows of
+    the similarities against the gathered normalized panel."""
+    mesh, ca, row0 = engine.mesh, engine.client_axes, engine.rows.start
+
     def aggregate(flat, state, t):
         norm = flat / torch.clamp_min(
             torch.linalg.vector_norm(flat, dim=1, keepdim=True), 1e-9)
-        sim = norm @ norm.T
+        sim = norm @ engine.whole(norm).T
         w = torch.softmax(temp * sim, dim=1)
-        n = flat.shape[0]
-        w = (1 - self_weight) * w + self_weight * torch.eye(
-            n, device=flat.device)
+        m, n = w.shape
+        w = (1 - self_weight) * w + self_weight * eye_rows(
+            m, n, row0, flat.device).float()
         w = w / w.sum(1, keepdim=True)
-        return mix_flat(w, flat), state
+        return mix_flat(w, flat, mesh=mesh, client_axes=ca), state
 
     best_flat, _, _ = _loop(engine, rounds, tau, seed, aggregate)
     return _finish(engine, best_flat)

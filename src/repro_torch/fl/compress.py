@@ -16,8 +16,12 @@ self term never moves, so it is never compressed), and the GGC refresh
 probes the decoded peers: one download serves both. Bytes per download
 are static per codec (`bytes_per_model`), Python-int arithmetic.
 
-Not ported: the client-mesh branches of `compress_exchange` and
-`sparse_mix_compressed` (ROADMAP Queue 1 item 12).
+Under a client mesh (``mesh=`` / ``client_axes=``) encode and decode
+run on the owning shard (per-row ops, so the bits of the one-device
+run; int8's dither draws its rows of the whole (N, P) stream), and what
+crosses ranks is the compressed payload: the dense mixes all-gather it,
+the neighbor-list mix rotates it shard to shard and decodes each
+visiting panel.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from .. import prng
 from ..analysis.registry import exchange_site
 from ..kernels import ops as _kops
 from ..kernels.ref import densify_topk
+from ..sharding import collectives as _coll
+from ..sharding.rows import eye_rows, first_row, mesh_kw
 
 CODECS = ("identity", "topk", "int8")
 
@@ -95,9 +101,10 @@ def bytes_per_model(cfg, n_params: int) -> int:
 # ------------------------------------------------------------------ codecs
 
 
-def encode(cfg, x, key):
+def encode(cfg, x, key, row0: int = 0):
     """x: (N, P) client-stacked flattened params -> payload dict. ``key``
-    feeds the int8 stochastic rounding (topk is deterministic)."""
+    feeds the int8 stochastic rounding (topk is deterministic); rows
+    ``row0 ...`` of a larger table draw their rows of its dither."""
     if cfg.codec == "topk":
         k = topk_k(cfg, x.shape[1])
         idx = torch.topk(x.abs(), k, dim=1).indices
@@ -107,7 +114,9 @@ def encode(cfg, x, key):
         scale = torch.clamp_min(x.abs().amax(dim=1) / levels, 1e-30)
         y = x / scale[:, None]                   # in [-levels, levels]
         lo = torch.floor(y)
-        up = prng.uniform(key, x.shape) < (y - lo)
+        n = x.shape[0]
+        up = prng.uniform(key, (row0 + n,) + tuple(x.shape[1:]),
+                          rows=(row0, row0 + n)) < (y - lo)
         q = torch.clamp(lo + up, -levels, levels)  # guards fp edges only
         return {"q": q.to(torch.int8), "scale": scale}
     raise ValueError(cfg.codec)
@@ -122,15 +131,17 @@ def decode(cfg, payload, n_params: int):
     raise ValueError(cfg.codec)
 
 
-def compress_exchange(cfg, flat, ef, key):
+def compress_exchange(cfg, flat, ef, key, *, mesh=None, client_axes=None):
     """One round's transmit side: encode the error-compensated models.
 
     flat: (N, P); ef: (N, P) residuals, or None with EF off. Returns
     ``(payload, dec, new_ef)``: the wire payload, the decoded (N, P)
     models every receiver rebuilds, and the residuals ``xin - dec``
-    (None when ``ef`` is)."""
+    (None when ``ef`` is). Under ``mesh`` the tables are the rank's rows
+    and so is every output: the owning shard encodes and decodes."""
     xin = flat + ef if ef is not None else flat
-    payload = encode(cfg, xin, key)
+    payload = encode(cfg, xin, key,
+                     first_row(mesh, client_axes, flat.shape[0]))
     dec = decode(cfg, payload, flat.shape[1])
     new_ef = xin - dec if ef is not None else None
     return payload, dec, new_ef
@@ -140,43 +151,74 @@ def compress_exchange(cfg, flat, ef, key):
 
 
 @exchange_site(charges="caller")
-def _mix_int8_offdiag(A_off, dec):
+def _mix_int8_offdiag(A_off, payload, dec, *, mesh=None, client_axes=None):
     """Off-diagonal Eq.-4 term for the int8 codec: the decoded models
-    through the standard graph_mix kernel."""
+    through the standard graph_mix kernel. Under ``mesh`` the int8 q and
+    the fp32 scales are all-gathered (a quarter of the fp32 panels) and
+    dequantized on the shard before the row-block launch."""
+    if mesh is not None:
+        q = _coll.all_gather_rows(payload["q"], mesh, client_axes)
+        scale = _coll.all_gather_rows(payload["scale"], mesh, client_axes)
+        dec = q.float() * scale[:, None]
     return _kops.graph_mix(A_off.contiguous(), dec.contiguous())
 
 
 @exchange_site(charges="caller")
-def mix_compressed(cfg, A, flat, payload, dec):
+def mix_compressed(cfg, A, flat, payload, dec, *, mesh=None,
+                   client_axes=None):
     """Eq.-4 mixing over compressed peers: the off-diagonal terms use the
     decoded payloads, the self term the client's exact local model (a
     client never downloads, or compresses, the model it holds). topk
     goes through `kernels.ops.compressed_graph_mix`, so the peers' dense
-    (N, P) table is never built for the mix; int8 mixes ``dec``."""
-    N = A.shape[0]
-    diag = torch.diagonal(A)
-    A_off = A * (1.0 - torch.eye(N, dtype=A.dtype, device=A.device))
+    (N, P) table is never built for the mix; int8 mixes ``dec``. Under
+    ``mesh``, A is the rank's (n_loc, N) row block and the tables its
+    rows; the compressed payloads cross ranks."""
+    m, n = A.shape
+    row0 = first_row(mesh, client_axes, m)
+    diag = A.gather(1, torch.arange(row0, row0 + m, device=A.device)[:, None])
+    A_off = A * (1.0 - eye_rows(m, n, row0, A.device).to(A.dtype))
     if cfg.codec == "topk":
         off = _kops.compressed_graph_mix(
             A_off.contiguous(), payload["vals"].contiguous(),
-            payload["idx"].contiguous(), flat.shape[1])
+            payload["idx"].contiguous(), flat.shape[1],
+            **mesh_kw(mesh, client_axes))
     elif cfg.codec == "int8":
-        off = _mix_int8_offdiag(A_off, dec)
+        off = _mix_int8_offdiag(A_off, payload, dec, mesh=mesh,
+                                client_axes=client_axes)
     else:
         raise ValueError(cfg.codec)
-    return off + diag[:, None] * flat
+    return off + diag * flat
+
+
+def _payload_parts(cfg, payload, n_params: int):
+    """(parts, decode) of a codec payload: what the neighbor-list
+    exchange rotates shard to shard in place of dense fp32 panels (topk:
+    (vals, idx), 2K words a peer; int8: (q, scale)), and the decode of
+    one visiting panel."""
+    if cfg.codec == "topk":
+        return ((payload["vals"], payload["idx"]),
+                lambda v, i: densify_topk(v, i, n_params))
+    if cfg.codec == "int8":
+        return ((payload["q"], payload["scale"]),
+                lambda q, s: q.float() * s[:, None])
+    raise ValueError(cfg.codec)
 
 
 @exchange_site(charges="caller")
-def sparse_mix_compressed(cfg, self_w, nbr_w, nbr_idx, flat, payload, dec):
+def sparse_mix_compressed(cfg, self_w, nbr_w, nbr_idx, flat, payload, dec,
+                          *, mesh=None, client_axes=None):
     """Neighbor-list Eq.-4 mixing over compressed peers: the <= B
-    selected peer rows are decoded payloads (``dec``, already rebuilt
-    for the GGC probes), the self term the exact local model (the
-    sparse_graph_mix kernel with ``W_peers = dec``). ``payload`` is the
-    wire payload, which only the client-mesh exchange (not ported)
-    reads."""
-    del cfg, payload
+    selected peer rows are decoded payloads, the self term the exact
+    local model (the sparse_graph_mix kernel). On one device
+    ``W_peers = dec``, already rebuilt for the GGC probes; under
+    ``mesh`` the payload's parts rotate shard to shard and each visiting
+    panel is decoded on the shard, so the exchange moves encoded
+    bytes."""
+    tables = (self_w.float().contiguous(), nbr_w.float().contiguous(),
+              nbr_idx.to(torch.int32).contiguous(), flat.contiguous())
+    if mesh is None:
+        return _kops.sparse_graph_mix(*tables, dec.contiguous())
+    parts, decode = _payload_parts(cfg, payload, flat.shape[1])
     return _kops.sparse_graph_mix(
-        self_w.float().contiguous(), nbr_w.float().contiguous(),
-        nbr_idx.to(torch.int32).contiguous(), flat.contiguous(),
-        dec.contiguous())
+        *tables, peer_parts=tuple(x.contiguous() for x in parts),
+        peer_decode=decode, mesh=mesh, client_axes=client_axes)

@@ -27,6 +27,12 @@ Both read the peer-visible table (decoded payloads under a codec, the
 wire table under free riding) while the self term reads the exact local
 row, the contract of `mix_flat_sparse` and `compress.mix_compressed`.
 Everything here stays on the device: no host sync inside a round.
+
+Under a client mesh a rank mixes its own rows: the dense functions take
+its (n_loc, N) weight rows with ``row0``, its first global row, against
+the all-gathered (N, P) peer table; the neighbor-list ones take the
+(n_loc, B, P) panel of the peer rows its lists name (``nbr_rows``, from
+the rotation of `kernels.ops.rotate`).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from ..analysis.registry import exchange_site
+from ..sharding.rows import eye_rows
 
 __all__ = ["MIX_RULES", "update_norms", "clip_factors", "clipped_matrix",
            "clip_factors_sparse", "clipped_sparse_weights",
@@ -80,12 +87,12 @@ def clip_factors(recv, flat, prev, clip_mult):
                  clip_mult)
 
 
-def clipped_matrix(A, gamma):
+def clipped_matrix(A, gamma, row0: int = 0):
     """Scale the off-diagonal entries of a row-stochastic Eq.-4 matrix by
     ``gamma`` and move the freed mass onto the diagonal. ``gamma == 1``
     keeps every off-diagonal entry bit for bit, so a second pass changes
-    no bit (idempotence)."""
-    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    no bit (idempotence). ``A`` may be the row block from row ``row0``."""
+    eye = eye_rows(A.shape[0], A.shape[1], row0, A.device).to(A.dtype)
     off = A * (1.0 - eye) * gamma
     return off + (1.0 - off.sum(dim=1, keepdim=True)) * eye
 
@@ -154,33 +161,39 @@ def trimmed_weights_sparse(p_self, w_nbr, vals, trim_frac):
     return wk / denom[:, None, :]
 
 
-def trimmed_panel_dense(flat, recv):
+def trimmed_panel_dense(flat, recv, row0: int = 0):
     """(N, N, P) member values: row k sees peer i's received model at slot
-    i and its own exact row on the diagonal."""
-    eye = torch.eye(flat.shape[0], dtype=torch.bool, device=flat.device)
+    i and its own exact row on the diagonal (``flat`` may be the rows
+    from ``row0`` of the whole ``recv``)."""
+    eye = eye_rows(flat.shape[0], recv.shape[0], row0, flat.device)
     return torch.where(eye[:, :, None], flat[:, None, :], recv[None, :, :])
 
 
-def trimmed_panel_sparse(idx, flat, peers):
+def trimmed_panel_sparse(idx, flat, peers, nbr_rows=None):
     """(N, B+1, P) member values in neighbor-list form: the exact self row
     in slot 0, then the gathered peer rows (junk at -1 slots, which zero
-    weights keep out of the members)."""
-    safe = idx.clamp(0, flat.shape[0] - 1).long()
-    return torch.cat([flat[:, None, :], peers[safe]], dim=1)
+    weights keep out of the members). ``nbr_rows`` ((N, B, P)) are the
+    peer rows already fetched (under a mesh), in place of ``peers[idx]``."""
+    if nbr_rows is None:
+        nbr_rows = peers[idx.clamp(0, flat.shape[0] - 1).long()]
+    return torch.cat([flat[:, None, :], nbr_rows], dim=1)
 
 
 @exchange_site(charges="caller")
-def trimmed_mix_dense(w, flat, recv, trim_frac):
+def trimmed_mix_dense(w, flat, recv, trim_frac, row0: int = 0):
     """Trimmed-mean Eq.-4 mix over the dense panel: ``w`` (N, N)
-    unnormalized weights, ``recv`` the peer-visible (N, P) table."""
-    vals = trimmed_panel_dense(flat, recv)
+    unnormalized weights, ``recv`` the peer-visible (N, P) table (``w``
+    and ``flat`` may be the rows from ``row0``)."""
+    vals = trimmed_panel_dense(flat, recv, row0)
     return (trimmed_weights(w, vals, trim_frac) * vals).sum(dim=1)
 
 
 @exchange_site(charges="caller")
-def trimmed_mix_sparse(p_self, w_nbr, idx, flat, peers, trim_frac):
+def trimmed_mix_sparse(p_self, w_nbr, idx, flat, peers, trim_frac,
+                       nbr_rows=None):
     """Trimmed-mean Eq.-4 mix in neighbor-list form over the <= B selected
-    peer rows ((N, B+1, P) panel)."""
-    vals = trimmed_panel_sparse(idx, flat, peers)
+    peer rows ((N, B+1, P) panel; ``nbr_rows`` as in
+    `trimmed_panel_sparse`)."""
+    vals = trimmed_panel_sparse(idx, flat, peers, nbr_rows)
     return (trimmed_weights_sparse(p_self, w_nbr, vals, trim_frac)
             * vals).sum(dim=1)

@@ -12,6 +12,14 @@ loop runs under ``torch.cuda.set_sync_debug_mode("error")``, so a hidden
 sync raises instead of serializing the rounds (the counterpart of
 `repro`'s ``no_transfer`` guard). Histories leave the device only in
 ``on_flush``.
+
+Under a client mesh (`FLEngine.shard_clients`) a rank's state holds its
+rows of the client leaves (`round_state_shardings` says which leaves
+those are, `shard_round_state` cuts a whole state to a rank's rows) and
+the round runs on them. The fence stays where it is: the shard-local
+compute of a round runs inside it, while each collective of
+`repro_torch.sharding.collectives` lifts it for its own span, since a
+gloo exchange or a host copy synchronizes by nature.
 """
 from __future__ import annotations
 
@@ -112,7 +120,7 @@ def make_round_step(engine, *, tau: int,
             stacked, _ = engine.local_train(stacked, kt, epochs=tau)
         flat = engine.flatten(stacked)
         if participation_key is not None:
-            m = state.aux[participation_key][t]
+            m = state.aux[participation_key][t][engine.rows]
             flat = torch.where(m[:, None], flat, state.flat)
         if post_train is not None:
             flat = post_train(flat, state.flat, state.aux, t)
@@ -132,6 +140,49 @@ def make_round_step(engine, *, tau: int,
             aux=aux)
 
     return round_step
+
+
+def round_state_shardings(*, hist_len: int = 0,
+                          aux_specs: Optional[dict] = None) -> RoundState:
+    """Which leaves of a `RoundState` are client rows under a client mesh
+    (`repro.fl.round_engine.round_state_shardings`): a `RoundState` whose
+    fields hold the axis their clients lie on, None where the leaf is
+    replicated. flat, best_val and best_flat are rows on axis 0, val_hist
+    on axis 1, t and key replicated; ``aux`` is ``aux_specs``, a dict of
+    the same shape as the aux (nested dicts allowed), every leaf it
+    leaves out replicated."""
+    return RoundState(t=None, key=None, flat=0, best_val=0, best_flat=0,
+                      val_hist=1 if hist_len else None,
+                      aux={} if aux_specs is None else aux_specs)
+
+
+def _take_rows(x, axis, rows: slice):
+    if axis is None or not isinstance(x, torch.Tensor):
+        return x
+    return x.narrow(axis, rows.start, rows.stop - rows.start).clone()
+
+
+def _shard_aux(aux, specs, rows):
+    if not isinstance(aux, dict):
+        return _take_rows(aux, specs, rows)
+    specs = specs if isinstance(specs, dict) else {}
+    return {k: _shard_aux(v, specs.get(k), rows) for k, v in aux.items()}
+
+
+def shard_round_state(state: RoundState, rows: slice,
+                      aux_specs: Optional[dict] = None) -> RoundState:
+    """A whole (N, ...) state cut to a rank's client ``rows`` (copies),
+    by the table of `round_state_shardings`: what a rank of a client mesh
+    holds of it."""
+    spec = round_state_shardings(
+        hist_len=0 if state.val_hist is None else 1, aux_specs=aux_specs)
+    return RoundState(
+        t=state.t, key=state.key,
+        flat=_take_rows(state.flat, spec.flat, rows),
+        best_val=_take_rows(state.best_val, spec.best_val, rows),
+        best_flat=_take_rows(state.best_flat, spec.best_flat, rows),
+        val_hist=_take_rows(state.val_hist, spec.val_hist, rows),
+        aux=_shard_aux(state.aux, spec.aux, rows))
 
 
 @contextlib.contextmanager

@@ -5,8 +5,9 @@ operator with its diagonal zeroed by the caller, (vals, idx) the (N, K)
 top-k payloads (duplicate indices add, -1 pads land nowhere). Port of
 the Pallas TPU kernel
 ``repro/kernels/compressed_graph_mix.py::compressed_graph_mix`` on one
-device (the client-mesh all-gather is not ported); the kernel, its bound
-and its design are described in ``csrc/compressed_graph_mix.cu``. Its
+device (under a client mesh `repro_torch.kernels.ops` all-gathers the
+payloads and launches it on the rank's row block of A); the kernel, its
+bound and its design are described in ``csrc/compressed_graph_mix.cu``. Its
 plain version is `repro_torch.kernels.ref.compressed_graph_mix_ref`.
 
 One op is two launches on the same stream, both hand-written CUDA: a

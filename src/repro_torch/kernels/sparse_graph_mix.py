@@ -5,8 +5,9 @@ W_peers[idx[n, b]]`` over the (N, B) neighbor lists of the
 budget-constrained greedy (idx -1 is an empty slot with weight 0,
 duplicate indices add). Port of the Pallas TPU kernel
 ``repro/kernels/sparse_graph_mix.py::sparse_graph_mix`` on one device
-(the client-mesh rotation of `repro.kernels.ops.sparse_graph_mix` is not
-ported); the kernel, its bound and its design are described in
+(under a client mesh `repro_torch.kernels.ops.sparse_graph_mix` launches
+it once per visiting panel of its rotation, with ``W_peers`` that
+panel); the kernel, its bound and its design are described in
 ``csrc/sparse_graph_mix.cu``. Its plain version is
 `repro_torch.kernels.ref.sparse_graph_mix_ref`.
 

@@ -19,7 +19,7 @@ float atomics, so a rerun gives the same bits. The capacity path makes
 no device-to-host copy, so it runs under the decode loop's no-sync
 fence. `repro` wrote no Pallas kernel here (XLA's einsums and
 ``ragged_dot``); neither does the port. Its expert-parallel
-``shard_map`` branch is ROADMAP item 12.
+``shard_map`` branch is ROADMAP item 12b.
 """
 from __future__ import annotations
 
@@ -217,10 +217,10 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
     (or any object with its four weights as attributes): the fp32
     router's top k with the gates renormalised and cast to x's dtype,
     then the ``impl`` dispatch, "capacity" or "ragged". A mesh (expert
-    parallelism) is ROADMAP item 12 and raises."""
+    parallelism) is ROADMAP item 12b and raises."""
     if mesh is not None:
         raise NotImplementedError(
-            "moe_apply: the expert-parallel mesh path is ROADMAP item 12")
+            "moe_apply: the expert-parallel mesh path is ROADMAP item 12b")
     kernel = MOE_IMPLS[impl]
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)

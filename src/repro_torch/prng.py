@@ -99,23 +99,30 @@ def _bits(k1, k2, start: int, stop: int) -> torch.Tensor:
     return b1 ^ b2
 
 
-def _draw(key: torch.Tensor, shape: Sequence[int], fn, dtype):
+def _draw(key: torch.Tensor, shape: Sequence[int], fn, dtype, rows=None):
     """``fn`` (elementwise) of the 32-bit draws of keys ``(..., 2)`` over
     ``shape``, in blocks of `BLOCK` counters per key. An element's counter
     is its flat index (``iota_2x32_shape``), so the blocks give the very
-    bits of one whole draw."""
-    shape = tuple(shape)
-    n = math.prod(shape)
+    bits of one whole draw. ``rows`` = (lo, hi) draws only rows lo..hi-1
+    of the leading axis of ``shape``: the counters of those rows, so the
+    bits of that slice of the whole draw (one client shard's rows)."""
+    shape = out_shape = tuple(shape)
+    first, n = 0, math.prod(shape)
+    if rows is not None:
+        lo, hi = rows
+        out_shape = (hi - lo,) + shape[1:]
+        first, n = lo * math.prod(shape[1:]), math.prod(out_shape)
     lead = tuple(key.shape[:-1])
     k1, k2 = key[..., 0, None], key[..., 1, None]
     per = max(1, BLOCK // max(1, math.prod(lead)))
     if n <= per:
-        return fn(_bits(k1, k2, 0, n)).reshape(lead + shape)
+        return fn(_bits(k1, k2, first, first + n)).reshape(lead + out_shape)
     out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
     for start in range(0, n, per):
         stop = min(n, start + per)
-        out[..., start:stop] = fn(_bits(k1, k2, start, stop))
-    return out.reshape(lead + shape)
+        out[..., start:stop] = fn(_bits(k1, k2, first + start,
+                                        first + stop))
+    return out.reshape(lead + out_shape)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
@@ -132,15 +139,17 @@ def _uniform_from_bits(bits: torch.Tensor, lo: float,
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+            minval: float = 0.0, maxval: float = 1.0,
+            rows=None) -> torch.Tensor:
     """float32 ``jax.random.uniform`` on [minval, maxval): the top 23 bits
-    become the mantissa of a float in [1, 2), minus 1, scaled."""
+    become the mantissa of a float in [1, 2), minus 1, scaled. ``rows``
+    = (lo, hi): only those rows of the draw (`_draw`)."""
     # bounds and span rounded to float32 as jax computes them; Python
     # scalars keep the call free of host-to-device copies
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     return _draw(key, shape, lambda bits: _uniform_from_bits(bits, lo, span),
-                 torch.float32)
+                 torch.float32, rows)
 
 
 def _f32(c: float) -> float:
@@ -267,14 +276,16 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return x * p
 
 
-def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: Sequence[int] = (),
+           rows=None) -> torch.Tensor:
     """float32 ``jax.random.normal`` bit for bit: sqrt(2) * erf_inv(u), u
-    uniform on (-1, 1)."""
+    uniform on (-1, 1). ``rows`` = (lo, hi): only those rows of the draw
+    (`_draw`)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     span = float(np.float32(1.0) - np.float32(lo))
     sqrt2 = float(np.float32(np.sqrt(2)))
     return _draw(key, shape, lambda bits: erf_inv(
-        _uniform_from_bits(bits, lo, span)) * sqrt2, torch.float32)
+        _uniform_from_bits(bits, lo, span)) * sqrt2, torch.float32, rows)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,

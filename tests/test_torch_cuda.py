@@ -1227,3 +1227,37 @@ def test_whisper_serves_and_trains_on_the_card_as_on_the_cpu(cuda):
         scale = w.abs().max().clamp_min(1e-30)
         torch.testing.assert_close(g / scale, w / scale, rtol=0,
                                    atol=K4_BWD_TOL, msg=name)
+
+
+# ------------------------------------------------------- the client mesh
+@pytest.mark.parametrize("world, pods", [(2, 1), (4, 2)])
+def test_sharded_mixes_on_the_card(cuda, tmp_path, world, pods):
+    """K1-K3 on each rank's row block of the PaperCNN-width mix, the ranks
+    on the one card (gloo between them): the dense mixes bit for bit the
+    single-device launch's rows, the rotation within 1e-5 of the plain
+    version, K2 once per visiting panel on every rank."""
+    import torch_mesh_workers as workers
+
+    from repro_torch.launch.mesh import run_on_client_mesh
+
+    N, P = 32, 62006
+    c = workers.op_case(N, P, 4, 6201, seed=3)
+    got, counts = run_on_client_mesh(
+        workers.mix_ops, world, pods=pods, device="cuda:0",
+        init_file=str(tmp_path / "store"), timeout=600, args=([c],))[0]
+    T = {k: torch.from_numpy(v).to(cuda) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    np.testing.assert_array_equal(
+        got["graph_mix"], ops.graph_mix(T["A"], T["W"]).cpu().numpy())
+    np.testing.assert_array_equal(
+        got["compressed_graph_mix"], ops.compressed_graph_mix(
+            T["A"], T["vals"], T["idx"], P).cpu().numpy())
+    dec8 = T["q"].float() * T["scale"][:, None]
+    for name, peers in (("sparse_graph_mix", T["W"]),
+                        ("sparse_graph_mix_int8", dec8)):
+        want = ref.sparse_graph_mix_ref(T["sw"], T["nw"], T["nbr"], T["W"],
+                                        peers).cpu().numpy()
+        np.testing.assert_allclose(got[name], want, rtol=0, atol=1e-5)
+    # per rank: K1 once, K2 once per visiting panel in each of the two
+    # rotations, K3 once
+    assert counts["launches"] == [[1, 2 * world, 1]] * world

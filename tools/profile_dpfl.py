@@ -15,6 +15,12 @@ qwen3-0.6b's widths on 2 layers, 4 clients, the example's
 
     python3 tools/profile_dpfl.py [--rounds 3] [--variant dense]
     python3 tools/profile_dpfl.py --lm
+    python3 tools/profile_dpfl.py --variant sparse --cudnn-ab
+
+``--cudnn-ab`` prices `FLEngine`'s switch to cuDNN's deterministic
+algorithms: it measures four times in turns, with
+``torch.backends.cudnn.deterministic`` False, True, True, False (each a
+warm-up run and a profiled one), one JSON line each.
 
 Needs a CUDA card; imports no JAX.
 """
@@ -40,14 +46,15 @@ def main():
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--variant", default="dense",
                     choices=list(chip_smoke.VARIANTS))
+    ap.add_argument("--cudnn-ab", action="store_true",
+                    help="measure with cuDNN's deterministic algorithms "
+                         "off, on, on, off")
     ap.add_argument("--lm", action="store_true",
                     help="the LM example at chip_smoke.LM_DPFL_FULL (its "
                          "own rounds; --rounds and --variant unused)")
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         sys.exit("profile_dpfl: needs a CUDA card")
@@ -71,6 +78,20 @@ def main():
         cfg = chip_smoke.smoke_config(args.variant,
                                       **dict(chip_smoke.SMOKE_RUN,
                                              rounds=args.rounds))
+
+    if not args.cudnn_ab:
+        measure(torch, dpfl, engine, cfg, args)
+        return
+    for deterministic in (False, True, True, False):
+        torch.backends.cudnn.deterministic = deterministic
+        measure(torch, dpfl, engine, cfg, args,
+                cudnn_deterministic=deterministic)
+
+
+def measure(torch, dpfl, engine, cfg, args, **extra):
+    """One warm-up run of ``cfg``, then one profiled; prints the line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     # phase split by the host clock, each phase ending in a synchronize
     phases = {}
@@ -105,7 +126,7 @@ def main():
     rows.sort(reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), **extra,
         "variant": args.variant, "rounds": args.rounds, "wall_s": wall,
         **phases,
         "rounds_per_s_loop": args.rounds / phases["rounds_s"],
