@@ -136,6 +136,19 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    qwen3-0.6b (PERSONALIZED_RUN: 3 clients' weights, 4 requests of 512
    tokens, 32 new; 28 K4 launches in the prefill, 0 in decode), each
    request's tokens those of `generate` on its own client's weights;
+   then the model mesh (`repro_torch.launch.mesh.run_on_mesh`, one
+   process a shard of a ("data", "model") mesh sharing the card over
+   gloo): `generate` on qwen3-0.6b whole and on qwen3-moe-30b-a3b at
+   full width (its experts split over "model") with each attention ring
+   sharded on its slots over "model" (flash-decoding) on meshes (1, 2)
+   and (2, 2) (MODEL_MESH_RUNS), each rank's every step's logits within
+   MESH_LOGITS_TOL of its rows of the single-device run (the moe model's
+   of its data block's own run, whose dropped copies and router
+   statistics it must reproduce), K4 once a layer a rank, the
+   collectives counted, every decode step under the no-sync fence; and
+   the LM example's clients on client meshes of 2 and 3 ranks
+   (LM_CLIENT_MESHES), bit for bit the single-device run with the
+   shard's client count at a time, the plain run's graphs;
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function where there is one (none for K5
    and K6), K3's launches also alone, K5's three kernels by
@@ -261,6 +274,29 @@ SHARD_RUNS = ("dense-random", "dense", "sparse", "topk")
 # is held within TOL["float32"] of the plain mix of the same inputs over
 # the all-gathered table instead (`rotation_error`).
 SHARD_BITWISE = ("dense-random", "dense", "topk")
+# The model-mesh phase: `repro`'s ("data", "model") mesh axis, one
+# process a shard sharing the card over gloo, each rank serving its block
+# of SERVE_RUN's batch through `launch.serve.generate`, its attention
+# rings sharded on "model" (its C / M slots of the 544-slot rings): run ->
+# (arch, layers (None: all), mesh (data, model)). qwen3-0.6b whole;
+# qwen3-moe-30b-a3b at its published widths with its experts sharded
+# too, on 8 of its 48 layers at (1, 2) (64 experts a rank: 12.8 GB) and
+# 4 at (2, 2) (7.9 GB a rank)
+MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", None, (1, 2)),
+                   "qwen3 2x2": ("qwen3-0.6b", None, (2, 2)),
+                   "moe 1x2": ("qwen3-moe-30b-a3b", 8, (1, 2)),
+                   "moe 2x2": ("qwen3-moe-30b-a3b", 4, (2, 2))}
+# the logits of every step against the single-device run's rows; the aux
+# loss against the whole batch's; a top-2 gap under MESH_GAP may part the
+# greedy tokens
+MESH_LOGITS_TOL = 1e-4
+MESH_AUX_TOL = 1e-6
+MESH_GAP = 1e-5
+# the archs whose serve runs leave the model-mesh runs their references
+MESH_REFERENCE_ARCHS = ("qwen3-0.6b", "qwen3-moe-30b-a3b")
+# LM clients on the client mesh: the LM example's setting (its reduced
+# qwen3, 6 clients) on client meshes of 2 and 3 ranks
+LM_CLIENT_MESHES = {"1x2": 2, "1x3": 3}
 # the card's name and power limit as nvidia-smi gives them (set in main,
 # printed beside every number of the sharded phase)
 SMI = ""
@@ -3560,6 +3596,482 @@ def run_personalized(torch):
                 peak=torch.cuda.max_memory_allocated())
 
 
+def mesh_config(arch, layers):
+    """``arch``'s published config in float32, cut to its first
+    ``layers`` layers (None: all)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(dtype="float32")
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _stepped(torch, model):
+    """Keep the logits of every `decode_step` of ``model`` (device
+    tensors) and whether each step began under the no-sync fence.
+    Returns (logits, fenced, undo)."""
+    inner = model.decode_step
+    logits, fenced = [], []
+
+    def step(caches, token, pos):
+        fenced.append(torch.cuda.get_sync_debug_mode() == 2)
+        out, caches = inner(caches, token, pos)
+        logits.append(out.clone())
+        return out, caches
+
+    model.decode_step = step
+    return logits, fenced, lambda: delattr(model, "decode_step")
+
+
+def _routing_hooks(torch, model, shards, mesh=None):
+    """Forward hooks on the MoE blocks of ``model`` keeping, on the device
+    (decode runs under the no-sync fence), each call's phase (more than
+    one token: the prefill), the copies its capacity drops on each of
+    ``shards`` equal blocks of experts (with a mesh: on the rank's own
+    block alone), its aux loss and, in the prefill, its router
+    probabilities and top-k picks. Returns (records, undo)."""
+    from repro_torch.models import moe
+
+    rec = []
+
+    @torch.no_grad()
+    def hook(mod, args, out):
+        x, cfg = args[0], args[1]
+        E = cfg.n_experts
+        probs = moe.router_probs(x.reshape(-1, x.shape[-1]), mod.router)
+        idx = moe.top_k(probs, cfg.topk)[1]
+        blocks = [moe.expert_block(cfg, mesh)] if mesh is not None else \
+            [(i * E // shards, E // shards) for i in range(shards)]
+        prefill = x.shape[1] > 1
+        rec.append((prefill, torch.stack([moe.dropped_copies(
+            idx, E, first_expert=f, n_local=n) for f, n in blocks]),
+            out[1].detach(), (probs, idx) if prefill else None))
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, moe.MoE)]
+    return rec, lambda: [h.remove() for h in hooks]
+
+
+def _routing_summary(torch, rec):
+    """{"prefill": copies dropped on each expert block summed over the
+    prefill's calls, "decode": over the decode steps', "aux": the
+    prefill's aux loss a layer, "router": its router probabilities and
+    top-k picks a layer} as host values; None without MoE."""
+    if not rec:
+        return None
+    out = {}
+    for phase, keep in (("prefill", True), ("decode", False)):
+        rows = [r[1] for r in rec if r[0] == keep]
+        out[phase] = torch.stack(rows).sum(0).tolist() if rows else \
+            [0] * len(rec[0][1])
+    out["aux"] = [float(r[2]) for r in rec if r[0]]
+    out["router"] = [(r[3][0].cpu(), r[3][1].cpu()) for r in rec if r[0]]
+    return out
+
+
+def aux_of_blocks(torch, blocks):
+    """The aux loss a layer of the data blocks' single-device prefills
+    together (each a `_routing_summary`), the value the model mesh's
+    ranks must each hold: one block's own `load_balance_loss`, or
+    `load_balance_loss` over the blocks' router probabilities and top-k
+    picks concatenated, in the batch's order. Neither goes through
+    `moe.router_stats` or `moe.load_balance_from_stats`, the formula the
+    mesh path applies to its psum."""
+    from repro_torch.models import moe
+
+    if len(blocks) == 1:
+        return blocks[0]["aux"]
+    return [float(moe.load_balance_loss(
+        torch.cat([p for p, _ in layer]), torch.cat([i for _, i in layer]),
+        layer[0][0].shape[1]))
+        for layer in zip(*(b["router"] for b in blocks))]
+
+
+def mesh_reference(torch, model, cfg, shards, rows=slice(None)):
+    """The single-device run the model-mesh ranks are held to: `generate`
+    on ``rows`` of SERVE_RUN's prompts (seed 0, the serve run's), every
+    step's logits kept (the prefill's first) and the MoE routing on
+    ``shards`` expert blocks (`_routing_hooks`). Returns {"logits" (B,
+    new, V), "tokens" (B, new): numpy, "routing": `_routing_summary`}."""
+    from repro_torch.launch.serve import generate, make_prompts
+
+    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len",
+                                        "new_tokens"))
+    prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")[rows]
+    steps, _, undo = _stepped(torch, model)
+    rec, unhook = _routing_hooks(torch, model, shards)
+    try:
+        gen = generate(model, None, prompts, new)
+    finally:
+        undo()
+        unhook()
+    logits = torch.stack([gen.prefill_logits] + steps, 1)
+    return {"logits": logits.cpu().numpy(),
+            "tokens": gen.tokens.cpu().numpy(),
+            "routing": _routing_summary(torch, rec)}
+
+
+def _ranks(torch, x, mesh):
+    """Every rank's ``x`` (a tensor), stacked in rank order."""
+    from repro_torch.sharding import collectives as coll
+
+    return coll.all_gather_rows(x[None].contiguous(), mesh,
+                                tuple(mesh.mesh_dim_names))
+
+
+def model_mesh_rank(mesh, device, run):
+    """One rank of the model-mesh phase's run ``run`` (MODEL_MESH_RUNS):
+    the model built on the mesh (its attention rings and a moe model's
+    experts split over "model") and drawn from seed 0 on the card (a rank
+    draws only its experts), then `generate` on SERVE_RUN's whole prompts
+    (the rank serves its rows of the batch) with the kernel counts and
+    the collectives' zeroed just before and read just after, every decode
+    step's logits and fence kept, the collectives' counts read again at
+    the first decode step (what the decode steps spend in them is the
+    difference), and the MoE routing of the rank's experts observed.
+    Returns, on rank 0: the logits and tokens gathered whole, and every
+    rank's seconds, peak, launches, collectives and routing."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import build_model
+    from repro_torch.sharding import collectives as coll
+
+    arch, layers, _ = MODEL_MESH_RUNS[run]
+    cfg = mesh_config(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="meta", mesh=mesh)
+    n_weights = sum(t.numel() for t in model.init(
+        prng.PRNGKey(0, device=device)).values())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len",
+                                        "new_tokens"))
+    prompts = make_prompts(cfg.vocab_size, B, S, 0, device)
+    steps, fenced, undo = _stepped(torch, model)
+    stepped, at_decode = model.decode_step, []
+
+    def first_step(*args):
+        if not at_decode:
+            at_decode.append({k: list(v) for k, v in coll.counts.items()})
+        return stepped(*args)
+    model.decode_step = first_step
+    rec, unhook = _routing_hooks(torch, model, 1, mesh)
+    coll.reset_counts()
+    torch.cuda.synchronize()
+    _zero_launches()
+    try:
+        gen = generate(model, None, prompts, new)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        unhook()
+    launches = _read_launches()
+    counts = {k: list(v) for k, v in coll.counts.items()}
+    names = sorted(launches)
+    logits = torch.stack([gen.prefill_logits] + steps, 1)
+    routing = _routing_summary(torch, rec)
+    # the decode steps' collectives: calls and seconds
+    decode_coll = [sum(counts[op][j] - at_decode[0][op][j] for op in counts)
+                   for j in (0, 2)]
+    row = [init_s, gen.prefill_seconds, gen.decode_seconds,
+           torch.cuda.max_memory_allocated(), n_weights, len(steps),
+           float(all(fenced))] + [launches[k] for k in names] + \
+        [v for op in sorted(counts) for v in counts[op]] + decode_coll
+    stats = _ranks(torch, torch.tensor(row, dtype=torch.float64,
+                                       device=device), mesh)
+    out = {"logits": coll.all_gather_rows(logits, mesh, ("data",)),
+           "tokens": coll.all_gather_rows(gen.tokens, mesh, ("data",)),
+           "stats": stats, "names": names, "ops": sorted(counts)}
+    if routing is not None:
+        out["routing"] = _ranks(torch, torch.tensor(
+            routing["prefill"] + routing["decode"] + routing["aux"],
+            dtype=torch.float64, device=device), mesh)
+    out = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    return dict(out, device_type=mesh.device_type)
+
+
+def _compare_steps(want, got):
+    """(max abs err of the logits over the steps up to the first step
+    whose greedy token differs in some row (all of them where none does),
+    that step or None, the smallest top-2 gap of the reference's logits
+    in the rows that part there)."""
+    import numpy as np
+
+    diff = (want["tokens"] != got["tokens"]).any(axis=0)
+    t = int(np.argmax(diff)) if diff.any() else None
+    upto = want["logits"].shape[1] if t is None else t + 1
+    err = float(np.abs(got["logits"][:, :upto] -
+                       want["logits"][:, :upto]).max())
+    gap = None
+    if t is not None:
+        rows = np.flatnonzero(want["tokens"][:, t] != got["tokens"][:, t])
+        top = np.sort(want["logits"][rows, t], axis=-1)[:, -2:]
+        gap = float((top[:, 1] - top[:, 0]).min())
+    return err, t, gap
+
+
+def run_model_mesh(torch, refs):
+    """The model-mesh phase (MODEL_MESH_RUNS), each run one `run_on_mesh`
+    launch on the card after its single-device reference was made and
+    freed: ``refs`` holds the serve phase's whole-batch references of
+    qwen3-0.6b and of qwen3-moe-30b-a3b on 8 layers; the moe run on 4
+    layers makes its own here (each data block alone: the capacity is
+    the block's). Each
+    rank must launch K4 once a layer and nothing else, run every decode
+    step under the no-sync fence, make its expected collectives (one
+    pmax and two psums a layer a decode step; a moe layer's psum over
+    model, and over data where it is longer than 1, a call), give every
+    step's logits within MESH_LOGITS_TOL of its rows of the reference
+    (the same greedy tokens, or a parting where the reference's top-2 gap
+    is under MESH_GAP), and a moe rank drop the reference's copies on its
+    experts, its aux losses within MESH_AUX_TOL of the whole batch's
+    (`aux_of_blocks`, from the blocks' single-device runs). Returns {run:
+    launches summed over the ranks}."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.collectives import TRANSPORT
+
+    print(f"model-mesh phase: transport {TRANSPORT}; {SMI}")
+    B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len",
+                                        "new_tokens"))
+    launches = {}
+    for run, (arch, layers, (D, M)) in MODEL_MESH_RUNS.items():
+        cfg = mesh_config(arch, layers)
+        L, moe_layers = cfg.n_layers, cfg.n_layers * (cfg.family == "moe")
+        t0 = time.perf_counter()
+        if run == "moe 2x2":
+            model = build_model(cfg, device="meta")
+            model.init(prng.PRNGKey(0, device="cuda"))
+            blocks = [mesh_reference(torch, model, cfg, M,
+                                     slice(b * B // D, (b + 1) * B // D))
+                      for b in range(D)]
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            ref = refs[arch]
+            blocks = [{k: (v[b * B // D:(b + 1) * B // D]
+                           if k in ("logits", "tokens") else v)
+                       for k, v in ref.items()} for b in range(D)]
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = run_on_mesh(model_mesh_rank, (D, M), ("data", "model"),
+                          device="cuda:0", args=(run,))
+        launch_s = time.perf_counter() - t0
+        names, ops = out["names"], out["ops"]
+        stats = out["stats"]
+        nk = len(names)
+        per_rank = [dict(zip(names, map(int, r[7:7 + nk]))) for r in stats]
+        coll = [{op: (int(r[7 + nk + 3 * j]), int(r[8 + nk + 3 * j]))
+                 for j, op in enumerate(ops)} for r in stats]
+        # the decode steps' collective calls and seconds, per rank
+        at = 7 + nk + 3 * len(ops)
+        dec_calls, dec_coll_s = stats[:, at], stats[:, at + 1]
+        want = {k: 0 for k in names}
+        want["flash_attention"] = L
+        want_coll = {"pmax": (new - 1) * L * (M > 1),
+                     "psum": (new - 1) * 2 * L * (M > 1)
+                     + new * moe_layers * ((M > 1) + (D > 1))}
+        want_dec_calls = sum(want_coll.values()) - \
+            moe_layers * ((M > 1) + (D > 1))
+        for r, (got, c, row) in enumerate(zip(per_rank, coll, stats)):
+            if got != want:
+                fail(f"model mesh {run} rank {r}: launches {got}, expected "
+                     f"{want}")
+            if row[5] != new - 1 or row[6] != 1.0:
+                fail(f"model mesh {run} rank {r}: {int(row[5])} decode "
+                     f"steps, not all under the no-sync fence")
+            if {op: c[op][0] for op in want_coll} != want_coll:
+                fail(f"model mesh {run} rank {r}: collectives {c}, "
+                     f"expected calls {want_coll}")
+            if dec_calls[r] != want_dec_calls:
+                fail(f"model mesh {run} rank {r}: {int(dec_calls[r])} "
+                     f"collectives in the decode steps, expected "
+                     f"{want_dec_calls}")
+        launches[f"model mesh {run}"] = {
+            k: sum(p[k] for p in per_rank) for k in names}
+        got = {"logits": out["logits"], "tokens": out["tokens"]}
+        want_whole = {k: np.concatenate([b[k] for b in blocks])
+                      for k in ("logits", "tokens")}
+        if got["logits"].shape != (B, new, cfg.vocab_size) or \
+                not np.isfinite(got["logits"]).all():
+            fail(f"model mesh {run}: logits {got['logits'].shape} not a "
+                 f"finite {(B, new, cfg.vocab_size)} table")
+        err, part, gap = _compare_steps(want_whole, got)
+        if not err <= MESH_LOGITS_TOL:
+            fail(f"model mesh {run}: logits {err} from the single-device "
+                 f"run's rows (tolerance {MESH_LOGITS_TOL})")
+        if part is not None and not gap < MESH_GAP:
+            fail(f"model mesh {run}: greedy tokens part at step {part} "
+                 f"where the reference's top-2 gap is {gap}")
+        tokens = ("the same greedy tokens" if part is None else
+                  f"greedy tokens parting at step {part}, the reference's "
+                  f"top-2 gap there {gap:.3g} (under {MESH_GAP})")
+        routing = ""
+        if "routing" in out:
+            per = out["routing"]
+            for r, row in enumerate(per):
+                b, i = divmod(r, M)
+                twin = blocks[b]["routing"]
+                if [row[0], row[1]] != [twin["prefill"][i],
+                                        twin["decode"][i]]:
+                    fail(f"model mesh {run} rank {r}: dropped copies "
+                         f"(prefill, decode) {row[:2].tolist()}, its "
+                         f"block's single-device run "
+                         f"{[twin['prefill'][i], twin['decode'][i]]}")
+            whole_aux = aux_of_blocks(torch, [b["routing"] for b in blocks])
+            aux_err = float(np.abs(per[:, 2:] - np.asarray(whole_aux)).max())
+            if not aux_err <= MESH_AUX_TOL:
+                fail(f"model mesh {run}: aux losses {aux_err} from the "
+                     f"whole batch's (tolerance {MESH_AUX_TOL})")
+            routing = (f"; copies dropped per rank (prefill, decode) "
+                       f"{per[:, :2].astype(int).tolist()}, each its data "
+                       f"block's single-device run's on its experts; the "
+                       f"prefill's aux losses a layer {np.round(whole_aux, 6).tolist()}, "
+                       f"every rank's within {aux_err:.3g} of the whole "
+                       f"batch's (`load_balance_loss` of the blocks' "
+                       f"single-device routing; tolerance {MESH_AUX_TOL})")
+        print(f"model mesh {run}: {arch} on {L} layers, mesh (data {D}, "
+              f"model {M}) of {D * M} ranks on a {out['device_type']} "
+              f"DeviceMesh, B {B} (B/D {B // D} a rank), prompt {S}, {new} "
+              f"new, rings of {S + new} slots ({(S + new) // M} a rank); "
+              f"weights a rank {stats[:, 4].astype(int).tolist()}; "
+              f"single-device reference {ref_s:.3f} s, the launch incl. "
+              f"spawn, CUDA init, the draws and the run {launch_s:.3f} s; "
+              f"per rank: init (s) {np.round(stats[:, 0], 3).tolist()}, "
+              f"prefill (ms) {np.round(stats[:, 1] * 1e3, 3).tolist()}, "
+              f"decode (ms/step) "
+              f"{np.round(stats[:, 2] * 1e3 / (new - 1), 3).tolist()}, "
+              f"peak allocated {stats[:, 3].astype(int).tolist()}, "
+              f"decode's collectives (their calls, each timed from the "
+              f"device reaching it to its return) "
+              f"{np.round(dec_coll_s * 1e3 / (new - 1), 3).tolist()} ms a "
+              f"step, {np.round(dec_coll_s / stats[:, 2], 4).tolist()} of "
+              f"the decode wall ({int(dec_calls[0]) // (new - 1)} calls a "
+              f"step), "
+              f"launches {_nonzero(per_rank[0])}, collectives (calls, "
+              f"bytes sent) of rank 0 {coll[0]}; every decode step under "
+              f"the no-sync fence; logits of every step within {err:.3g} "
+              f"of the single-device run's rows (tolerance "
+              f"{MESH_LOGITS_TOL}), {tokens}{routing}; {SMI}")
+    return launches
+
+
+def lm_client_rank(mesh, device):
+    """One rank of the LM example's run on the client mesh: its engine
+    (reduced qwen3 clients, `DPFLConfig(**RUN)`) sharded over ``mesh``,
+    `run_dpfl` with the kernel counts and the collectives zeroed just
+    before and read just after, every round checked to start under the
+    no-sync fence. Returns the result and every rank's launches, wall and
+    peak, and rank 0's collectives."""
+    import lm_dpfl_torch as ex
+    import torch
+
+    from repro_torch.core import DPFLConfig, dpfl
+    from repro_torch.sharding import collectives as coll
+
+    engine, _ = ex.lm_engine(ex.example_config(), ex.CLIENTS, device)
+    engine.shard_clients(mesh)
+    run = DPFLConfig(**ex.RUN)
+    fenced, run_rounds = [], dpfl.run_rounds
+
+    def fenced_run_rounds(round_step, st, rounds, **kw):
+        def step(s):
+            fenced.append(torch.cuda.get_sync_debug_mode() == 2)
+            return round_step(s)
+        return run_rounds(step, st, rounds, **kw)
+
+    dpfl.run_rounds = fenced_run_rounds
+    try:
+        coll.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = dpfl.run_dpfl(engine, run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dpfl.run_rounds = run_rounds
+    launches = _read_launches()
+    names = sorted(launches)
+    stats = _ranks(torch, torch.tensor(
+        [wall, torch.cuda.max_memory_allocated(), float(len(fenced)),
+         float(all(fenced))] + [launches[k] for k in names],
+        dtype=torch.float64, device=device), mesh)
+    return {"res": res, "stats": stats.cpu().numpy(), "names": names,
+            "rows": (engine.rows.start, engine.rows.stop),
+            "collectives": {k: list(v) for k, v in coll.counts.items()}}
+
+
+def run_lm_client_mesh(torch, card):
+    """LM clients on the client mesh (LM_CLIENT_MESHES), each mesh one
+    `run_on_client_mesh` launch on the card: the run must equal bit for
+    bit the single-device card run whose forwards and backwards take the
+    shard's client count (``_client_chunk``), select the plain card run's
+    (``card``, check_lm_dpfl_cross's) Omega, graphs and downloads, make
+    on every rank the single-device run's launches (`lm_dpfl_launches`:
+    a rank makes every vmapped call on its rows) and run every round
+    under the no-sync fence. Returns {run: launches summed over the
+    ranks}."""
+    import lm_dpfl_torch as ex
+    import numpy as np
+
+    from repro_torch.core import DPFLConfig, run_dpfl
+    from repro_torch.launch.mesh import run_on_client_mesh
+
+    plain, want = card["res"], card["want"]
+    launches = {}
+    for name, world in LM_CLIENT_MESHES.items():
+        n_loc = ex.CLIENTS // world
+        engine, _ = ex.lm_engine(ex.example_config(), ex.CLIENTS, "cuda")
+        engine._client_chunk = n_loc
+        _zero_launches()
+        twin = run_dpfl(engine, DPFLConfig(**ex.RUN))
+        launches[f"lm-dpfl client_chunk {n_loc}"] = _read_launches()
+        del engine
+        t0 = time.perf_counter()
+        out = run_on_client_mesh(lm_client_rank, world, device="cuda:0")
+        launch_s = time.perf_counter() - t0
+        res, stats, names = out["res"], out["stats"], out["names"]
+        per_rank = [dict(zip(names, map(int, r[4:]))) for r in stats]
+        for r, (got, row) in enumerate(zip(per_rank, stats)):
+            if got != want:
+                fail(f"lm clients {name} rank {r}: launches {got}, "
+                     f"expected {want}")
+            if row[2] != ex.RUN["rounds"] or row[3] != 1.0:
+                fail(f"lm clients {name} rank {r}: {int(row[2])} rounds, "
+                     f"not all under the no-sync fence")
+        launches[f"lm clients {name}"] = {
+            k: sum(p[k] for p in per_rank) for k in names}
+        if not _same_run(res, twin):
+            fail(f"lm clients {name}: not bit for bit the single-device "
+                 f"run with client_chunk {n_loc}")
+        if not (np.array_equal(res.omega, plain.omega) and all(
+                np.array_equal(a, b) for a, b in zip(
+                    res.graph_history, plain.graph_history))
+                and res.comm_downloads == plain.comm_downloads):
+            fail(f"lm clients {name}: Omega, graphs or downloads differ "
+                 f"from the plain single-device card run's")
+        print(f"lm clients {name}: the LM example (reduced qwen3, "
+              f"{ex.CLIENTS} clients, {n_loc} a rank) on {world} ranks, "
+              f"the launch incl. spawn and CUDA init {launch_s:.3f} s; "
+              f"per rank: wall (s) {np.round(stats[:, 0], 3).tolist()}, "
+              f"peak allocated {stats[:, 1].astype(int).tolist()}, "
+              f"launches {_nonzero(per_rank[0])} as the single-device "
+              f"run's, every round under the no-sync fence; collectives "
+              f"of rank 0 (calls, bytes sent) {out['collectives']}; bit "
+              f"for bit the single-device run with client_chunk {n_loc}; "
+              f"Omega, graphs and downloads the plain card run's; test "
+              f"acc {res.test_acc.tolist()}; {SMI}")
+    return launches
+
+
 def _kernel_row(name, source, replaces, launches, rows):
     main = rows[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -3572,6 +4084,7 @@ def _kernel_row(name, source, replaces, launches, rows):
 
 
 def main():
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3744,7 +4257,7 @@ def main():
     launches.update(run_sharded(torch, engine, single))
     del single
     B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
-    walls = {}
+    walls, mesh_refs = {}, {}
     for arch in SERVE_ARCHS:
         # one model on the card at a time
         cfg, model, params = serve_model(torch, arch)
@@ -3802,6 +4315,11 @@ def main():
               f"{cpu_s:.1f} s" + ("" if routing is None else
                                   f"; smallest router gap on the card "
                                   f"{routing['gap']:.3g}"))
+        if arch in MESH_REFERENCE_ARCHS:
+            # the model-mesh phase's single-device references, while the
+            # weights are on the card (MODEL_MESH_RUNS: qwen3-0.6b whole,
+            # qwen3-moe-30b-a3b on these 8 layers)
+            mesh_refs[arch] = mesh_reference(torch, model, cfg, 2)
         del model, params, gen, again
         torch.cuda.empty_cache()
     print("serve walls, second call (prefill ms, decode ms/step): " +
@@ -3850,6 +4368,7 @@ def main():
           f"models' val losses {card['val_loss_err']:.3g} apart (tol "
           f"{CROSS_TRAIN_LOSS_TOL}); launches {card['launches']}; "
           f"card {card['seconds']:.3f} s, CPU {cpu['seconds']:.3f} s")
+    lm_card = {k: card[k] for k in ("res", "want")}
     del card, cpu
     full = check_lm_dpfl_full(torch)
     launches["lm-dpfl full width"] = full["launches"]
@@ -3890,6 +4409,12 @@ def main():
           f"{pers['peak']} bytes")
     del pers
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches.update(run_model_mesh(torch, mesh_refs))
+    del mesh_refs
+    launches.update(run_lm_client_mesh(torch, lm_card))
+    print(f"model-mesh phase and LM clients on the client mesh: "
+          f"{time.perf_counter() - t0:.3f} s; {SMI}")
 
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle
@@ -3962,6 +4487,8 @@ def main():
     for row in rows:
         row["launches_by_run"] = {v: c[row["name"]]
                                   for v, c in launches.items()}
+    print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s from start "
+          f"to the results; {SMI}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

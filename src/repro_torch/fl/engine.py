@@ -181,14 +181,11 @@ class FLEngine:
         process: the engine keeps this rank's block of N / D clients (D
         the product of the client axes' sizes; N must divide) and uploads
         only their data. ``p`` stays whole: the Eq.-4 weights name peers.
-        Returns the engine. LM clients under a mesh are ROADMAP item
-        12b."""
+        Any model: the classifiers, or LM clients (an ``nn.Module`` with
+        `vmap_clients`' loss and accuracy, which then map over the rank's
+        rows). Returns the engine."""
         from ..sharding import collectives as coll
 
-        if isinstance(self.model, nn.Module):
-            raise NotImplementedError(
-                "FLEngine.shard_clients: LM clients under a client mesh "
-                "are ROADMAP item 12b")
         ca = coll.client_axes_of(mesh, client_axes)
         n_shards = coll.num_shards(mesh, ca)
         N = self.data.n_clients

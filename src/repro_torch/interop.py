@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from .models.lm import hybrid_layout, hybrid_segments
+from .models.moe import expert_block
+from .sharding.rules import EXPERT_LEAVES
 
 
 def params_from_jax(params: Mapping[str, np.ndarray],
@@ -72,7 +74,7 @@ def _leaves(tree: Mapping, prefix: str = ""):
             yield f"{prefix}{name}", np.asarray(leaf)
 
 
-def lm_params_from_jax(params: Mapping, cfg, device=None
+def lm_params_from_jax(params: Mapping, cfg, device=None, mesh=None
                        ) -> Dict[str, torch.Tensor]:
     """A `repro` LM parameter tree of any family (`LM_FAMILIES`), as numpy
     arrays -> the state dict of the port's model
@@ -87,7 +89,11 @@ def lm_params_from_jax(params: Mapping, cfg, device=None
     ``"enc_layers"`` and ``"dec_layers"``; a hybrid tree's leaf
     ``params["segments"][si][f"b{bi}"][name][g]`` becomes
     ``layers.{i}.{name}`` for the layer i at (si, g, bi)
-    (`repro_torch.models.lm.hybrid_layout`)."""
+    (`repro_torch.models.lm.hybrid_layout`). With a ``mesh`` (a
+    `DecoderLM` built on it) each expert leaf becomes this rank's block
+    by the expert rule of `repro_torch.sharding.rules` (E / M experts on
+    the ``model`` axis, `repro_torch.models.moe.expert_block`); the other
+    leaves stay whole, as `repro`'s ``shard_map`` sees them."""
     if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(f"lm_params_from_jax: the {cfg.family} "
                                   f"family is not ported")
@@ -95,8 +101,14 @@ def lm_params_from_jax(params: Mapping, cfg, device=None
     dtype = getattr(torch, cfg.dtype)
     float32 = FLOAT32_LEAVES.get(cfg.family, ())
 
+    first, n_experts = (0, None) if mesh is None else \
+        expert_block(cfg, mesh)
+
     def put(a, name=""):
         keep = name in float32
+        if n_experts is not None and name.rsplit(".", 1)[-1] in \
+                EXPERT_LEAVES:
+            a = a[first:first + n_experts]
         return torch.tensor(np.asarray(a, np.float32), device=device,
                             dtype=torch.float32 if keep else dtype)
 

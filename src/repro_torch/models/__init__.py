@@ -11,10 +11,11 @@ from .whisper import WhisperModel
 
 def build_model(cfg: ArchConfig, device=None, **kw):
     """`repro.models.build_model`: the audio family's `WhisperModel` (which
-    takes no ``attn_window``, dropped as `repro` drops it), every other
-    family's `DecoderLM`."""
+    takes no ``attn_window`` and no ``mesh``, dropped as `repro` drops
+    or ignores them), every other family's `DecoderLM`."""
     if cfg.family == "audio":
         kw.pop("attn_window", None)
+        kw.pop("mesh", None)
         return WhisperModel(cfg, device=device, **kw)
     return DecoderLM(cfg, device=device, **kw)
 

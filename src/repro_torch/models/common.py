@@ -25,12 +25,14 @@ from .. import prng
 
 
 def dense_init(key, shape, dtype=torch.float32,
-               scale: Optional[float] = None) -> torch.Tensor:
+               scale: Optional[float] = None, rows=None) -> torch.Tensor:
     """`repro.models.common.dense_init`: normal(key, shape) * scale, with
-    scale 1/sqrt(fan_in) unless given."""
+    scale 1/sqrt(fan_in) unless given. ``rows`` = (lo, hi): only those
+    rows of the leading axis (`repro_torch.prng.normal`), the scale the
+    whole shape's."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (prng.normal(key, shape) * scale).to(dtype)
+    return (prng.normal(key, shape, rows=rows) * scale).to(dtype)
 
 
 def embed_init(key, shape, dtype=torch.float32) -> torch.Tensor:

@@ -25,9 +25,21 @@ trains every family here, each kernel's forward and backward on the card
 (K4's, K5's and K6's backwards behind their autograd Functions), the
 router's load-balance loss summed over the MoE layers. The audio family
 (`repro.models.whisper`) is `repro_torch.models.whisper`.
+
+Built with a ("data", "model") ``mesh``
+(`repro_torch.launch.mesh.make_mesh`, one process per shard), the model
+serves on `repro`'s ``model`` axis with ``decode_cache_seqshard``: each
+MoE layer holds the rank's E / M experts (expert parallelism,
+`repro_torch.models.moe.moe_apply`), and each attention cache holds the
+rank's C / M ring slots, decode combining the ranks' partial softmaxes
+(`attn_decode_seqshard`, flash-decoding). A rank runs its block of the
+batch on ``data``; every other weight is whole on every rank. The mesh
+path serves; its gradient is ROADMAP item 14d-5.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -38,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 from .. import prng
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..sharding import collectives as coll
+from ..sharding.rules import cache_leaf_spec, check_model_mesh, local_block
 from .common import (NEG_INF, apply_rope, attention_ref,
                      chunked_softmax_xent, dense_init, embed_init, rms_norm,
                      swiglu)
@@ -67,10 +81,58 @@ def init_attn(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
     return p
 
 
+def attn_decode_seqshard(q: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, cache: Cache,
+                         q_pos: torch.Tensor, mesh,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Flash-decoding over a KV cache sharded on its sequence over the
+    ``model`` axis (`repro`'s ``attn_decode_seqshard``, line for line):
+    this rank holds ring slots ``[i Cl, (i + 1) Cl)`` of C = Cl M
+    (i its ``model`` coordinate), writes the new row in place when the
+    position's slot ``pos % C`` is its own, computes the partial softmax
+    over its rows, and one `pmax` and two `psum`s over ``model`` (the
+    (B, Hkv, rep) denominator and the (B, Hkv, rep, hd) numerator)
+    combine the ranks'.
+
+    q: (B, 1, Hq, hd); k_new, v_new: (B, 1, Hkv, hd); cache k, v: (B, Cl,
+    Hkv, hd), pos (B, Cl), this rank's block; q_pos: (1,) the position
+    (on the device: the write is a masked select, no host read).
+    Returns (B, 1, Hq, hd)."""
+    B, _, Hq, hd = q.shape
+    Hkv = k_new.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    n_model = coll.axes_size(mesh, "model")
+    i = coll.axis_index(mesh, "model")
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    Cl = ck.shape[1]
+    pos = q_pos[0]
+    lslot = pos % (Cl * n_model) - i * Cl
+    in_range = (lslot >= 0) & (lslot < Cl)
+    ls = lslot.clamp(0, Cl - 1)[None]
+    # the slot's row replaced only where it is this rank's
+    ck[:, ls] = torch.where(in_range, k_new, ck[:, ls])
+    cv[:, ls] = torch.where(in_range, v_new, cv[:, ls])
+    cp[:, ls] = torch.where(in_range, pos.to(cp.dtype), cp[:, ls])
+    # partial attention over the local rows, products and sums in fp32
+    qg = q.reshape(B, Hkv, rep, hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), ck.float()) * scale
+    mask = (cp >= 0) & (cp <= pos)
+    if window is not None:
+        mask = mask & (cp > pos - window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = coll.pmax(s.amax(dim=-1), mesh, "model")
+    p_ = torch.exp(s - m[..., None])
+    l_ = coll.psum(p_.sum(dim=-1), mesh, "model")
+    o = torch.einsum("bgrk,bkgd->bgrd", p_.to(cv.dtype).float(), cv.float())
+    o = coll.psum(o, mesh, "model") / l_.clamp_min(1e-30)[..., None]
+    return o.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
 def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
                q_pos: torch.Tensor, cache: Optional[Cache] = None,
                window: Optional[int] = None,
-               cache_len: Optional[int] = None
+               cache_len: Optional[int] = None, seqshard=None
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, d). q_pos: (S,) int64 absolute positions (decode: (1,)).
     cache: {"k": (B, C, Hkv, hd), "v": ..., "pos": (B, C)} ring buffer or
@@ -79,8 +141,9 @@ def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
     ring cache the prefill leaves (`cache_from_prefill`, from the K and V
     computed here: `repro` computes them a second time for the cache, the
     same values). With a cache, the new rows go to slots ``q_pos % C``,
-    written in place, and the attention is `attention_ref` over the ring.
-    Returns (out (B, S, d), cache)."""
+    written in place, and the attention is `attention_ref` over the ring;
+    ``seqshard`` (a mesh) at S = 1 runs `attn_decode_seqshard` over this
+    rank's block of the ring instead. Returns (out (B, S, d), cache)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -97,6 +160,8 @@ def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
         out = ops.flash_attention(q, k, v, causal=True, window=window)
         if cache_len is not None:
             cache = cache_from_prefill(k, v, q_pos, cache_len, window)
+    elif seqshard is not None and S == 1:
+        out = attn_decode_seqshard(q, k, v, cache, q_pos, seqshard, window)
     else:
         # an indexed assignment (index_put_) has a batching rule, which
         # index_copy_ has not: a decode under torch.func.vmap writes the
@@ -164,15 +229,17 @@ def init_dense_layer(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
     }
 
 
-def init_moe_layer(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
-    """`repro`'s MoE-layer init for ``key``, on the key's device."""
+def init_moe_layer(key: torch.Tensor, cfg: ArchConfig, dtype,
+                   mesh=None) -> Dict:
+    """`repro`'s MoE-layer init for ``key``, on the key's device (with a
+    mesh, the rank's experts alone: `init_moe`)."""
     d = cfg.d_model
     ks = prng.split(key, 2)
     return {
         "ln1": torch.ones((d,), dtype=dtype, device=key.device),
         "attn": init_attn(ks[0], cfg, dtype),
         "ln2": torch.ones((d,), dtype=dtype, device=key.device),
-        "moe": init_moe(ks[1], cfg, dtype),
+        "moe": init_moe(ks[1], cfg, dtype, mesh),
     }
 
 
@@ -217,15 +284,15 @@ class DenseLayer(nn.Module):
 class MoELayer(nn.Module):
     """One MoE layer's weights: ln1, attn, ln2 and the experts (`MoE`:
     moe.router (d, E) float32, moe.we_gate, moe.we_up (E, d, f) and
-    moe.we_down (E, f, d))."""
+    moe.we_down (E, f, d); E / M experts with a mesh)."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device):
+    def __init__(self, cfg: ArchConfig, dtype, device, mesh=None):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _weight((d,), dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln2 = _weight((d,), dtype, device)
-        self.moe = MoE(cfg, dtype, device)
+        self.moe = MoE(cfg, dtype, device, mesh)
 
 
 class MambaLayer(nn.Module):
@@ -313,18 +380,32 @@ class DecoderLM(nn.Module):
     recompute (``torch.utils.checkpoint``), "none" keeps every
     activation; the loss's cross-entropy runs over ``loss_chunks`` chunks
     of the sequence; the MoE layers dispatch by capacity ("capacity") or
-    dropless ("ragged", `repro_torch.models.moe`)."""
+    dropless ("ragged", `repro_torch.models.moe`).
+
+    ``mesh``, a ("data", "model") `launch.mesh.make_mesh` mesh of one
+    process per shard, is `repro`'s ``mesh`` with ``moe_data_axes``
+    ("data",) and ``decode_cache_seqshard``: the rank's batch rows are
+    its block on ``data`` (the batch must split over it), each MoE layer
+    holds the rank's experts (`moe.expert_block`; its init draws only
+    those), and each attention ring holds the rank's C / M slots (C must
+    split over M). `prefill` takes the whole batch and keeps the rank's
+    rows; `init_cache`, the returned logits and caches, and
+    `decode_step`'s tokens are the rank's blocks. Only serving runs under
+    a mesh: `loss` raises (ROADMAP item 14d-5)."""
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
                  device=None, remat: str = "full", loss_chunks: int = 8,
-                 moe_impl: str = "capacity"):
+                 moe_impl: str = "capacity", mesh=None):
         super().__init__()
         if remat not in ("full", "none"):
             raise ValueError(f"remat {remat!r} is not 'full' or 'none'")
         if moe_impl not in ("capacity", "ragged"):
             raise ValueError(f"moe_impl {moe_impl!r} is not 'capacity' or "
                              f"'ragged'")
+        if mesh is not None:
+            check_model_mesh(mesh)
         self.cfg = cfg
+        self.mesh = mesh
         self.remat = remat
         self.loss_chunks = loss_chunks
         self.moe_impl = moe_impl
@@ -345,7 +426,8 @@ class DecoderLM(nn.Module):
             layers = [RecLayer if kind == "rec" else DenseLayer
                       for *_, kind in hybrid_layout(cfg)]
         else:
-            layers = [{"ssm": MambaLayer, "moe": MoELayer}.get(
+            layers = [{"ssm": MambaLayer,
+                       "moe": functools.partial(MoELayer, mesh=mesh)}.get(
                 cfg.family, DenseLayer)] * cfg.n_layers
         self.layers = nn.ModuleList(layer(cfg, self.dtype, device)
                                     for layer in layers)
@@ -359,7 +441,8 @@ class DecoderLM(nn.Module):
         module's weights and return the state dict. Build the model on
         "meta" first, so that the weights exist once. The port's normal
         sampler may differ from jax's by a few ulps
-        (`repro_torch.prng.normal`)."""
+        (`repro_torch.prng.normal`). Under a mesh each MoE layer draws
+        only the rank's experts: those rows of the whole draw."""
         cfg, dtype = self.cfg, self.dtype
         ks = prng.split(key, 4)
         params = {
@@ -381,8 +464,9 @@ class DecoderLM(nn.Module):
                                        f"layers.{i}."))
         else:
             layer_init = {"ssm": init_mamba_block,
-                          "moe": init_moe_layer}.get(cfg.family,
-                                                     init_dense_layer)
+                          "moe": functools.partial(init_moe_layer,
+                                                   mesh=self.mesh)}.get(
+                cfg.family, init_dense_layer)
             keys = prng.split(ks[2], cfg.n_layers)
             for i in range(cfg.n_layers):
                 params.update(_flatten(layer_init(keys[i], cfg, dtype),
@@ -405,11 +489,11 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         h, cache = attn_apply(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
                               cfg, q_pos, cache, self.window,
-                              cache_len=cache_len)
+                              cache_len=cache_len, seqshard=self.mesh)
         x = x + h
         xn = rms_norm(x, layer.ln2, cfg.norm_eps)
         if isinstance(layer, MoELayer):
-            mo, aux = layer.moe(xn, cfg, self.moe_impl)
+            mo, aux = layer.moe(xn, cfg, self.moe_impl, mesh=self.mesh)
             return x + mo, cache, aux
         return x + swiglu(xn, layer.wi_gate, layer.wi_up, layer.wo_mlp), \
             cache, None
@@ -472,7 +556,11 @@ class DecoderLM(nn.Module):
         ``DecoderLM.loss``. A vlm model runs the vision embeddings (cast
         to the model's dtype) before the tokens, their positions with
         label 0 and mask 0. Returns (loss, {"ce": ..., "aux": ...}), fp32
-        scalars."""
+        scalars. Not under a mesh (ROADMAP item 14d-5)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "DecoderLM.loss under a mesh: training on the model axis is "
+                "ROADMAP item 14d-5 (repro compiles it only in its dry run)")
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(tokens[:, :-1])
@@ -496,21 +584,57 @@ class DecoderLM(nn.Module):
         return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
+    def _shards(self, batch: int, cache_len: int) -> Tuple[int, int]:
+        """(D, M): the shards of the batch (the ``data`` axis) and of each
+        ring's C = min(cache_len, window) slots (the ``model`` axis), 1
+        and 1 without a mesh. Raises ``ValueError`` where the batch or C
+        does not split."""
+        if self.mesh is None:
+            return 1, 1
+        D = coll.axes_size(self.mesh, "data")
+        M = coll.axes_size(self.mesh, "model")
+        C = min(cache_len, self.window) if self.window else cache_len
+        if batch % D:
+            raise ValueError(f"batch {batch} does not split over the data "
+                             f"axis ({D} shards)")
+        if C % M:
+            raise ValueError(f"a ring of {C} slots does not split over the "
+                             f"model axis ({M} shards)")
+        return D, M
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the batch (dim 0) on ``data``."""
+        if self.mesh is None:
+            return x
+        return local_block(x, ("data",), self.mesh)
+
     def init_cache(self, batch: int, cache_len: int) -> List[Cache]:
         """One empty cache per layer: a ring of ``cache_len`` slots
         (attention), {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)}
         zeros (Mamba2) or {"h": (B, W) fp32, "conv": (B, K-1, W)} zeros
-        (RG-LRU)."""
+        (RG-LRU). Under a mesh, this rank's block (`repro`'s
+        ``cache_specs(shard_seq_model=True)``): B / D rows of the whole
+        ``batch`` and C / M slots of each ring."""
         device = self.tok_embed.device
+        D, M = self._shards(batch, cache_len)
+        batch //= D
+        C = min(cache_len, self.window) if self.window else cache_len
 
         def one(layer):
             if isinstance(layer, MambaLayer):
                 return init_mamba_cache(self.cfg, batch, self.dtype, device)
             if isinstance(layer, RecLayer):
                 return init_rec_cache(self.cfg, batch, self.dtype, device)
-            return init_attn_cache(self.cfg, batch, cache_len, self.dtype,
-                                   self.window, device)
+            return init_attn_cache(self.cfg, batch, C // M, self.dtype,
+                                   None, device)
         return [one(layer) for layer in self.layers]
+
+    def _cut_ring(self, cache: Cache) -> Cache:
+        """This rank's C / M slots of a whole attention ring (copied, so
+        the whole ring is freed)."""
+        return {name: local_block(leaf, cache_leaf_spec(
+            name, leaf.dim(), None, "model"), self.mesh).clone()
+            for name, leaf in cache.items()}
 
     def prefill(self, tokens: torch.Tensor,
                 vision: Optional[torch.Tensor] = None,
@@ -522,13 +646,21 @@ class DecoderLM(nn.Module):
         (attention; default all the positions) or the SSM or RG-LRU state
         and conv rows, which ``cache_len`` does not size). An SSM or
         hybrid prompt shorter than ``ssm_conv - 1`` tokens raises
-        ``ValueError`` (`mamba_block`, `rec_block`)."""
+        ``ValueError`` (`mamba_block`, `rec_block`). Under a mesh the
+        tokens (and vision) are the whole batch: the rank runs its rows,
+        and returns their logits and its block of each cache
+        (`init_cache`), the ring built whole, then cut."""
+        S = tokens.shape[1] + (vision.shape[1] if (
+            self.cfg.family == "vlm" and vision is not None) else 0)
+        M = self._shards(tokens.shape[0], cache_len or S)[1]
+        tokens = self._rows(tokens)
         x = self._embed(tokens)
         if self.cfg.family == "vlm" and vision is not None:
-            x = torch.cat([vision.to(x.dtype), x], dim=1)
-        S = x.shape[1]
+            x = torch.cat([self._rows(vision).to(x.dtype), x], dim=1)
         q_pos = torch.arange(S, device=x.device)
         x, caches = self._apply_stack_prefill(x, q_pos, cache_len or S)
+        if M > 1:
+            caches = [self._cut_ring(c) if "k" in c else c for c in caches]
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x[:, -1:, :])[:, 0], caches
 
@@ -538,7 +670,9 @@ class DecoderLM(nn.Module):
         (a host int, so the step makes no device-to-host copy; the
         recurrent blocks do not read it). Writes the caches in place (the
         ring's slot, or the state and conv rows); returns (logits (B, V),
-        caches)."""
+        caches). Under a mesh, the token, caches and logits are the
+        rank's rows (`prefill`), and each attention layer runs
+        `attn_decode_seqshard`."""
         x = self._embed(token)
         q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         x, caches = self._apply_stack(x, q_pos, caches)

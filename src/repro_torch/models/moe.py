@@ -1,4 +1,5 @@
-"""Top-k Mixture-of-Experts (port of `repro.models.moe`, one device).
+"""Top-k Mixture-of-Experts with expert parallelism (port of
+`repro.models.moe`).
 
 The router's softmax runs in fp32 and picks each token's top k experts
 (ties to the lower expert id, as ``lax.top_k``); the gates are the k
@@ -18,8 +19,17 @@ sorted position (the order `repro`'s scatter-add meets them), with no
 float atomics, so a rerun gives the same bits. The capacity path makes
 no device-to-host copy, so it runs under the decode loop's no-sync
 fence. `repro` wrote no Pallas kernel here (XLA's einsums and
-``ragged_dot``); neither does the port. Its expert-parallel
-``shard_map`` branch is ROADMAP item 12b.
+``ragged_dot``); neither does the port.
+
+Expert parallelism (`moe_apply` with a ("data", "model") mesh,
+`repro`'s ``shard_map`` branch): a rank holds E / M experts (`MoE` built
+with the mesh) and its block of the batch on ``data``, the activations
+whole across ``model``, so the dispatch needs no exchange of tokens. The
+rank routes its own rows, runs the dispatch over its experts
+``[i E / M, (i + 1) E / M)`` with the capacity of its own token count,
+and one `psum` over ``model`` combines the ranks' outputs. The aux loss
+is `repro`'s over the whole batch: the router's column sums, the top-k
+counts and the token count are summed over ``data`` first.
 """
 from __future__ import annotations
 
@@ -31,41 +41,66 @@ from torch import nn
 
 from .. import prng
 from ..configs.base import ArchConfig
+from ..sharding import collectives as coll
+from ..sharding.rules import check_model_mesh
 from .common import dense_init
 
 
-def init_moe(key: torch.Tensor, cfg: ArchConfig, dtype) -> dict:
+def expert_block(cfg: ArchConfig, mesh=None) -> Tuple[int, int]:
+    """(first expert, experts) a rank holds: all E without a mesh, else
+    its block of E / M at ``axis_index("model")`` of a ("data", "model")
+    mesh. Raises ``ValueError`` for another mesh or where M does not
+    divide E."""
+    E = cfg.n_experts
+    if mesh is None:
+        return 0, E
+    check_model_mesh(mesh)
+    M = coll.axes_size(mesh, "model")
+    if E % M:
+        raise ValueError(f"{E} experts do not split over a model axis of "
+                         f"{M}")
+    return coll.axis_index(mesh, "model") * (E // M), E // M
+
+
+def init_moe(key: torch.Tensor, cfg: ArchConfig, dtype,
+             mesh=None) -> dict:
     """`repro`'s MoE init for ``key`` on its device: the router (d, E) in
     float32 whatever ``dtype``, the experts' (E, d, f) gate and up and
     (E, f, d) down weights. `dense_init` scales by 1/sqrt(shape[0]), so
-    the expert weights by 1/sqrt(E), as in `repro`."""
+    the expert weights by 1/sqrt(E), as in `repro`. With a mesh only the
+    rank's experts (`expert_block`) are drawn: those rows of the whole
+    draw, bit for bit."""
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert_ff
+    first, n = expert_block(cfg, mesh)
+    rows = None if n == E else (first, first + n)
     ks = prng.split(key, 4)
     return {"router": dense_init(ks[0], (d, E), torch.float32),
-            "we_gate": dense_init(ks[1], (E, d, f), dtype),
-            "we_up": dense_init(ks[2], (E, d, f), dtype),
-            "we_down": dense_init(ks[3], (E, f, d), dtype)}
+            "we_gate": dense_init(ks[1], (E, d, f), dtype, rows=rows),
+            "we_up": dense_init(ks[2], (E, d, f), dtype, rows=rows),
+            "we_down": dense_init(ks[3], (E, f, d), dtype, rows=rows)}
 
 
 class MoE(nn.Module):
     """One MoE block's weights under `repro`'s names: router (d, E)
-    float32, we_gate and we_up (E, d, f), we_down (E, f, d). Calling it
-    is `moe_apply`."""
+    float32, we_gate and we_up (E_l, d, f), we_down (E_l, f, d), E_l = E,
+    or E / M built with a ("data", "model") mesh of M ranks on ``model``
+    (the rank's experts, `expert_block`). Calling it is `moe_apply`."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device):
+    def __init__(self, cfg: ArchConfig, dtype, device, mesh=None):
         super().__init__()
         d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert_ff
+        E_l = expert_block(cfg, mesh)[1]
 
         def weight(shape, dt=dtype):
             return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
         self.router = weight((d, E), torch.float32)
-        self.we_gate = weight((E, d, f))
-        self.we_up = weight((E, d, f))
-        self.we_down = weight((E, f, d))
+        self.we_gate = weight((E_l, d, f))
+        self.we_up = weight((E_l, d, f))
+        self.we_down = weight((E_l, f, d))
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig,
-                impl: str = "capacity"):
-        return moe_apply(self, x, cfg, impl=impl)
+                impl: str = "capacity", mesh=None):
+        return moe_apply(self, x, cfg, mesh=mesh, impl=impl)
 
 
 def router_probs(x2d: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
@@ -90,6 +125,27 @@ def load_balance_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
     counts = _bincount(topk_idx.reshape(-1), n_experts).float()
     fe = counts / counts.sum().clamp_min(1.0)
     return n_experts * torch.sum(fe * pe)
+
+
+def router_stats(probs: torch.Tensor, topk_idx: torch.Tensor,
+                 n_experts: int) -> torch.Tensor:
+    """(2E + 1,) fp32: the router probabilities' column sums, the top-k
+    counts and the token count of a block of tokens. Summed over blocks,
+    they give the blocks' `load_balance_loss` together
+    (`load_balance_from_stats`); the counts are exact integers in fp32."""
+    return torch.cat([probs.sum(0),
+                      _bincount(topk_idx.reshape(-1), n_experts).float(),
+                      probs.new_full((1,), float(probs.shape[0]))])
+
+
+def load_balance_from_stats(stats: torch.Tensor,
+                            n_experts: int) -> torch.Tensor:
+    """`load_balance_loss` from `router_stats` (summed over blocks):
+    E * sum_e f_e * P_e."""
+    E = n_experts
+    counts = stats[E:2 * E]
+    return E * torch.sum(counts / counts.sum().clamp_min(1.0)
+                         * stats[:E] / stats[2 * E])
 
 
 def capacity(T: int, k: int, n_experts: int,
@@ -216,21 +272,45 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
     """x: (B, S, d) -> (out (B, S, d), the fp32 aux loss), ``p`` a `MoE`
     (or any object with its four weights as attributes): the fp32
     router's top k with the gates renormalised and cast to x's dtype,
-    then the ``impl`` dispatch, "capacity" or "ragged". A mesh (expert
-    parallelism) is ROADMAP item 12b and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_apply: the expert-parallel mesh path is ROADMAP item 12b")
+    then the ``impl`` dispatch, "capacity" or "ragged".
+
+    With a ("data", "model") ``mesh`` (`repro`'s ``shard_map`` branch):
+    ``x`` is this rank's block of the batch on ``data``, ``p`` holds the
+    rank's experts (`expert_block`); the dispatch runs over them with the
+    capacity of the block's own token count, a `psum` over ``model``
+    combines the ranks' outputs, and the aux loss is the whole batch's
+    (the router's column sums, the top-k counts and the token count
+    summed over ``data`` in one `psum`). It runs without gradients:
+    `repro` compiles the gradient of this path only in its dry run
+    (ROADMAP item 14d-5), so under grad mode it raises
+    ``NotImplementedError``."""
     kernel = MOE_IMPLS[impl]
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     probs = router_probs(x2, p.router)
     gates, topk_idx = top_k(probs, cfg.topk)
     gates = (gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype)
-    aux = load_balance_loss(probs, topk_idx, cfg.n_experts)
-    out = kernel(x2, p.we_gate, p.we_up, p.we_down, topk_idx, gates, 0,
-                 cfg.n_experts)
-    return out.reshape(B, S, d), aux
+    if mesh is None:
+        aux = load_balance_loss(probs, topk_idx, cfg.n_experts)
+        out = kernel(x2, p.we_gate, p.we_up, p.we_down, topk_idx, gates, 0,
+                     cfg.n_experts)
+        return out.reshape(B, S, d), aux
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "moe_apply: the gradient of the expert-parallel mesh path is "
+            "ROADMAP item 14d-5 (repro compiles it only in its dry run); "
+            "run it under torch.no_grad() or torch.inference_mode()")
+    E = cfg.n_experts
+    first, E_l = expert_block(cfg, mesh)
+    if p.we_gate.shape[0] != E_l:
+        raise ValueError(f"moe_apply: the weights hold "
+                         f"{p.we_gate.shape[0]} experts, the rank's block "
+                         f"is {E_l} (build the MoE with the mesh)")
+    stats = coll.psum(router_stats(probs, topk_idx, E), mesh, "data")
+    aux = load_balance_from_stats(stats, E)
+    out = kernel(x2, p.we_gate, p.we_up, p.we_down, topk_idx, gates, first,
+                 E)
+    return coll.psum(out, mesh, "model").reshape(B, S, d), aux
 
 
 def router_gap(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -244,10 +324,16 @@ def router_gap(probs: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def dropped_copies(topk_idx: torch.Tensor, n_experts: int,
-                   capacity_factor: float = 1.25) -> torch.Tensor:
-    """How many of the T k routed copies `_moe_capacity` drops (a device
-    int64 scalar): those past their expert's capacity."""
+                   capacity_factor: float = 1.25, first_expert: int = 0,
+                   n_local: Optional[int] = None) -> torch.Tensor:
+    """How many of the T k routed copies to experts [first_expert,
+    first_expert + n_local) (default: all of them) `_moe_capacity` drops
+    (a device int64 scalar): those past their expert's capacity, which
+    ``n_experts`` (the global count) and T size."""
     T, k = topk_idx.shape
+    n_local = n_experts if n_local is None else n_local
     counts = _bincount(topk_idx.reshape(-1), n_experts)
     cap = capacity(T, k, n_experts, capacity_factor)
-    return (counts - cap).clamp_min(0).sum()
+    return (counts[first_expert:first_expert + n_local] - cap).clamp_min(
+        0).sum()
+

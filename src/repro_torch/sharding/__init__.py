@@ -1,2 +1,2 @@
-"""The client mesh's collectives (port of `repro.sharding`'s client-axis
-parts): `collectives`."""
+"""The mesh's collectives and sharding rules (port of `repro.sharding`):
+`collectives`, `rules`, and the client axis's row blocks, `rows`."""

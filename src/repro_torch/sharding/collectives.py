@@ -1,51 +1,67 @@
-"""The collectives of the client mesh: the only way one shard's rows
-reach another (port of the ``jax.lax.all_gather(tiled=True)``,
-``ppermute`` and ``axis_index`` calls inside `repro`'s ``shard_map``
-bodies, and of `repro.sharding.compat.mesh_axis_sizes`).
+"""The collectives of the mesh: the only way one shard's values reach
+another (port of the ``jax.lax.all_gather(tiled=True)``, ``ppermute``,
+``psum``, ``pmax`` and ``axis_index`` calls inside `repro`'s
+``shard_map`` bodies, and of `repro.sharding.compat.mesh_axis_sizes`).
 
-A mesh is `repro_torch.launch.mesh.make_client_mesh`'s ``DeviceMesh``,
-one process per shard. The client axis is split row-major over the
-client axes, so the shard index of a rank is its row-major position
-over them, and `all_gather_rows` returns the rows in global order.
+A mesh is a `repro_torch.launch.mesh` ``DeviceMesh``, one process per
+shard: the client mesh ``('pod', 'data')`` of the DPFL clients, or a
+mesh with a ``'model'`` axis (the LM's experts and sequence-sharded
+caches). The client axis is split row-major over the client axes, so
+the shard index of a rank is its row-major position over them, and
+`all_gather_rows` returns the rows in global order. `psum` and `pmax`
+reduce over the ranks that share this rank's coordinates off the axes
+named.
 
 How a CUDA tensor crosses ranks is one fixed table, `TRANSPORT`, keyed by
-backend and op, never a try/except at run time: gloo all-gathers CUDA
-tensors itself (``ProcessGroupGloo`` stages them through the host), but
-its send and receive take CPU tensors only, so `ppermute_next` copies
-through a pinned host buffer and back. That copy is the transport of a
-simulated exchange between processes that share one card; it is not a
-fallback, and every kernel still runs on the card. CPU tensors go as
-they are.
+backend and op, never a try/except at run time: gloo all-gathers and
+all-reduces CUDA tensors itself (``ProcessGroupGloo`` stages them
+through the host), but its send and receive take CPU tensors only, so
+`ppermute_next` copies through a pinned host buffer and back. That copy
+is the transport of a simulated exchange between processes that share
+one card; it is not a fallback, and every kernel still runs on the card.
+CPU tensors go as they are.
 
 Each op runs outside `repro_torch.fl.round_engine.no_sync`'s fence: it
 lifts CUDA's sync-debug mode for its own span, since a host copy or a
 gloo exchange synchronizes by nature, and restores it after.
-``counts`` holds the calls and bytes of each op since the last reset.
+``counts`` holds the calls, bytes and seconds of each op since the last
+reset. An op on CUDA tensors waits for the device to reach it before
+its clock starts (the exchange would wait for it anyway), so its seconds
+are the exchange's own, not the compute queued before it.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 #: (backend, op) -> how a CUDA tensor crosses ranks: "device" (the
-#: backend takes the CUDA tensor) or "host" (through a pinned host copy)
-#: (gloo only: NCCL on a card with more than one GPU is ROADMAP item 12b)
+#: backend takes the CUDA tensor) or "host" (through a pinned host copy).
+#: gloo's rows only: NCCL's, on a host with more than one GPU, are what
+#: is left of ROADMAP item 12b
 TRANSPORT: Dict[Tuple[str, str], str] = {
     ("gloo", "all_gather"): "device",
     ("gloo", "ppermute"): "host",
+    ("gloo", "all_reduce"): "device",
 }
-OPS = ("all_gather", "ppermute")
-#: op -> [calls, bytes sent by this rank] since the last `reset_counts`
-counts: Dict[str, list] = {op: [0, 0] for op in OPS}
+#: the counted ops; `psum` and `pmax` cross by the "all_reduce" row
+OPS = ("all_gather", "ppermute", "psum", "pmax")
+_TRANSPORT_OP = {"psum": "all_reduce", "pmax": "all_reduce"}
+#: op -> [calls, bytes sent by this rank, seconds] since the last
+#: `reset_counts`
+counts: Dict[str, list] = {op: [0, 0, 0.0] for op in OPS}
+#: (mesh layout, axes) -> the subgroup of a reduction over several axes
+#: but not all (`_group`), made once per process
+_subgroups: Dict[tuple, object] = {}
 
 
 def reset_counts():
     for op in OPS:
-        counts[op] = [0, 0]
+        counts[op] = [0, 0, 0.0]
 
 
 def transport(op: str, tensor: torch.Tensor, group=None) -> str:
@@ -54,25 +70,35 @@ def transport(op: str, tensor: torch.Tensor, group=None) -> str:
     if tensor.device.type == "cpu":
         return "cpu"
     backend = str(dist.get_backend(group))
+    op = _TRANSPORT_OP.get(op, op)
     if (backend, op) not in TRANSPORT:
         raise ValueError(f"no transport for {op} on the {backend} backend "
-                         f"(the client mesh runs on gloo; other backends "
-                         f"are ROADMAP item 12b)")
+                         f"(the mesh runs on gloo; NCCL's rows are ROADMAP "
+                         f"item 12b)")
     return TRANSPORT[(backend, op)]
 
 
 @contextlib.contextmanager
-def _unfenced(t: torch.Tensor):
-    """Lift CUDA's sync-debug mode (`no_sync`'s fence) for one collective."""
-    if t.device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
+def _exchange(op: str, t: torch.Tensor):
+    """One call of collective ``op`` sending ``t``: CUDA's sync-debug
+    mode (`no_sync`'s fence) lifted for its span, and the call, ``t``'s
+    bytes and the seconds from the device reaching the call to its
+    return added to ``counts[op]``."""
+    cuda = t.device.type == "cuda"
+    if cuda:
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        if cuda:
+            torch.cuda.set_sync_debug_mode(prev)
+    c = counts[op]
+    c[0] += 1
+    c[1] += t.numel() * t.element_size()
+    c[2] += time.perf_counter() - t0
 
 
 def mesh_axis_sizes(mesh) -> dict:
@@ -118,16 +144,67 @@ def shard_index(mesh, client_axes: Sequence[str] = None, rank=None) -> int:
     return index
 
 
-def _client_group(mesh, client_axes):
+def _group(mesh, axes):
     """(process group, its member ranks in group order) of the ranks that
-    share this rank's coordinates off the client axes."""
+    share this rank's coordinates off ``axes``: the world, one axis's
+    group of the mesh, or (several axes, not all) a subgroup made once
+    per process by every rank (`_subgroups`, keyed by the mesh's layout),
+    since a collective is entered by all."""
     names = tuple(mesh.mesh_dim_names)
-    if set(client_axes) == set(names):
+    axes = tuple(axes)
+    if not axes or set(axes) - set(names):
+        raise ValueError(f"axes {axes} are not axes of the mesh {names}")
+    if set(axes) == set(names):
         return None, list(range(dist.get_world_size()))
-    if len(client_axes) == 1:
-        group = mesh.get_group(client_axes[0])
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
         return group, dist.get_process_group_ranks(group)
-    raise ValueError(f"client axes {client_axes} of mesh axes {names}")
+    key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape),
+           names, axes)
+    if key not in _subgroups:
+        at = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in at]
+        blocks = mesh.mesh.permute(rest + at).reshape(
+            -1, math.prod(mesh.mesh.shape[i] for i in at))
+        _subgroups[key] = dist.new_subgroups_by_enumeration(
+            blocks.tolist())[0]
+    group = _subgroups[key]
+    return group, dist.get_process_group_ranks(group)
+
+
+def axes_size(mesh, axes) -> int:
+    """The product of the sizes of ``axes`` (a name or a tuple of names)."""
+    sizes = mesh_axis_sizes(mesh)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return math.prod(sizes[a] for a in axes)
+
+
+def _all_reduce(op: str, x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    group, members = _group(mesh, (axes,) if isinstance(axes, str)
+                            else axes)
+    if len(members) == 1:
+        return x
+    # refuses a backend off the table; gloo's all_reduce row is "device"
+    transport(op, x, group)
+    out = x.clone(memory_format=torch.contiguous_format)
+    with _exchange(op, out):
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "psum"
+                        else dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks that differ from this one only on
+    ``axes`` (a name or a tuple of names): ``jax.lax.psum(x, axes)``. A
+    new tensor, the same bits on every rank of the group; ``x`` itself
+    where the axes' sizes multiply to 1 (no collective)."""
+    return _all_reduce("psum", x, mesh, axes)
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the same ranks as `psum`:
+    ``jax.lax.pmax(x, axes)``."""
+    return _all_reduce("pmax", x, mesh, axes)
 
 
 def all_gather_rows(x: torch.Tensor, mesh,
@@ -136,7 +213,7 @@ def all_gather_rows(x: torch.Tensor, mesh,
     shard's (n_loc, ...) block, in global row order (``all_gather(x, ca,
     axis=0, tiled=True)``)."""
     ca = client_axes_of(mesh, client_axes)
-    group, members = _client_group(mesh, ca)
+    group, members = _group(mesh, ca)
     as_bool = x.dtype == torch.bool
     send = (x.to(torch.uint8) if as_bool else x).contiguous()
     order = sorted(range(len(members)),
@@ -144,12 +221,10 @@ def all_gather_rows(x: torch.Tensor, mesh,
     # refuses a backend off the table; every all_gather entry of it is
     # "device", so the tensor goes as it is
     transport("all_gather", send, group)
-    with _unfenced(send):
+    with _exchange("all_gather", send):
         chunks = [torch.empty_like(send) for _ in members]
         dist.all_gather(chunks, send, group=group)
         out = torch.cat([chunks[i] for i in order], dim=0)
-    counts["all_gather"][0] += 1
-    counts["all_gather"][1] += send.numel() * send.element_size()
     return out.bool() if as_bool else out
 
 
@@ -172,7 +247,7 @@ def ppermute_next(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
     dst, src = rank_at(c[axis] + 1), rank_at(c[axis] - 1)
     x = x.contiguous()
-    with _unfenced(x):
+    with _exchange("ppermute", x):
         staged = transport("ppermute", x) == "host"
         if staged:
             send = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -185,6 +260,4 @@ def ppermute_next(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
                  dist.P2POp(dist.irecv, recv, src)]):
             req.wait()
         out = recv.to(x.device) if staged else recv
-    counts["ppermute"][0] += 1
-    counts["ppermute"][1] += x.numel() * x.element_size()
     return out

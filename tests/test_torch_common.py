@@ -17,7 +17,7 @@ leaves ``jax`` out of ``sys.modules``; the port's copies of `repro`'s
 numpy modules (the synthetic data generator, the availability schedules,
 the adversary's host code, the LM token corpus) equal the originals;
 every DPFL setting of `repro` is ported; no error names ROADMAP item
-14d, which is split into 14d-1 to 14d-4.
+14d, which is split into 14d-1 to 14d-5.
 """
 import ast
 import os
@@ -190,11 +190,12 @@ def test_port_lm_token_data_equals_repro(seed, n_clients, vocab, seq_len,
 
 def test_no_raise_names_the_split_item_14d():
     """ROADMAP Queue 1 item 14d is split: every refusal in the port names
-    one of 14d-1 to 14d-4 (14d-2 the SSM and hybrid training, 14d-3 bf16
-    training, 14d-4 the families not ported)."""
+    one of 14d-1 to 14d-5 (14d-2 the SSM and hybrid training, 14d-3 bf16
+    training, 14d-4 the families not ported, 14d-5 the dry run, with the
+    gradient of the model mesh's paths)."""
     import re
 
-    pattern = re.compile(r"\b14d\b(?!-[1-4])")
+    pattern = re.compile(r"\b14d\b(?!-[1-5])")
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         text = path.read_text()
         assert not pattern.search(text), f"{path} names item 14d"

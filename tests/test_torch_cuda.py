@@ -1261,3 +1261,63 @@ def test_sharded_mixes_on_the_card(cuda, tmp_path, world, pods):
     # per rank: K1 once, K2 once per visiting panel in each of the two
     # rotations, K3 once
     assert counts["launches"] == [[1, 2 * world, 1]] * world
+
+
+# -------------------------------------------------------- the model axis
+def test_psum_and_pmax_of_cuda_tensors_give_every_rank_the_same_bits(
+        cuda, tmp_path):
+    """gloo's all-reduce of CUDA tensors (`collectives.TRANSPORT`'s
+    ("gloo", "all_reduce") row, "device") on a (1, 2) ("data", "model")
+    mesh, the ranks on the one card: the sum and the maximum of each
+    rank's seeded tensor, the same bits on both ranks."""
+    import torch_mesh_workers as workers
+
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.sharding.collectives import TRANSPORT
+
+    assert TRANSPORT[("gloo", "all_reduce")] == "device"
+    (psum, pmax), = [v for k, v in run_on_mesh(
+        workers.reductions, (1, 2), ("data", "model"), device="cuda:0",
+        init_file=str(tmp_path / "store"), timeout=600)[0].items()
+        if k == ("model",)]
+    x = np.stack([torch.randn((3, 5), generator=torch.Generator(
+    ).manual_seed(r)).numpy() for r in range(2)])
+    assert np.array_equal(psum[0], psum[1]) and np.array_equal(pmax[0],
+                                                               pmax[1])
+    np.testing.assert_allclose(psum[0], x.sum(0), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(pmax[0], x.max(0))
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_seqshard_decode_on_the_card_matches_one_device(cuda, tmp_path,
+                                                        shape):
+    """Reduced qwen3-0.6b decoded over a ring of 16 slots for 24 steps
+    (it wraps) with the ring sharded over model: every step's logits
+    within 1e-5 of the single-device decode on the card, the same greedy
+    tokens, one pmax and two psums a layer a step."""
+    import torch_mesh_workers as workers
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import build_model
+
+    got, counts = run_on_mesh(
+        workers.card_seqshard, shape, ("data", "model"), device="cuda:0",
+        init_file=str(tmp_path / "store"), timeout=600,
+        args=("qwen3-0.6b", 16, 24))
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build_model(cfg, device="meta")
+    model.init(prng.PRNGKey(0, device=cuda))
+    toks = torch.randint(0, cfg.vocab_size, (4, 24),
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    want = []
+    with torch.inference_mode():
+        caches = model.init_cache(4, 16)
+        for t in range(24):
+            lg, caches = model.decode_step(caches, toks[:, t:t + 1], t)
+            want.append(lg)
+    want = torch.stack(want, 1).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert counts["pmax"][0] == cfg.n_layers
+    assert counts["psum"][0] == 2 * cfg.n_layers

@@ -215,11 +215,15 @@ def test_moe_apply_and_its_gradients_match_repro(impl):
         _close(g, jgx if n == "x" else jgp[n], msg=n)
 
 
-def test_moe_apply_refuses_a_mesh():
+def test_moe_apply_under_a_grad_refuses_a_mesh():
+    """The expert-parallel path serves; its gradient is ROADMAP item
+    14d-5 (`repro` compiles it only in its dry run)."""
     cfg = types.SimpleNamespace(d_model=D, n_experts=E, d_expert_ff=F,
                                 topk=K)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmoe.moe_apply(None, torch.zeros((1, 2, D)), cfg, mesh=object())
+    p = types.SimpleNamespace(router=torch.zeros((D, E)))
+    with torch.enable_grad(), pytest.raises(NotImplementedError,
+                                            match="14d-5"):
+        tmoe.moe_apply(p, torch.zeros((1, 2, D)), cfg, mesh=object())
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])

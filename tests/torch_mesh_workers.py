@@ -182,3 +182,268 @@ def fail_on_rank(mesh, device, rank):
     if dist.get_rank() == rank:
         raise RuntimeError(f"deliberate failure on rank {rank}")
     return dist.get_rank()
+
+
+# ------------------------------------------------------- the model axis
+
+
+def _gather(x, mesh, axes, dim=0):
+    """``x`` whole along ``dim`` over ``axes`` (an all-gather)."""
+    return coll.all_gather_rows(x.movedim(dim, 0).contiguous(), mesh,
+                                axes).movedim(0, dim)
+
+
+def _world(x, mesh):
+    """Every rank's ``x`` stacked in rank order."""
+    return coll.all_gather_rows(x[None].contiguous(), mesh,
+                                tuple(mesh.mesh_dim_names))
+
+
+def kept_copies(topk_idx, n_experts, first_expert=0, n_local=None,
+                capacity_factor=1.25):
+    """(T, k) bool: the routed copies the port's ``_moe_capacity`` keeps
+    over experts [first_expert, first_expert + n_local) (default: all):
+    each expert's first ``capacity`` copies in token order."""
+    from repro_torch.models import moe
+
+    T, k = topk_idx.shape
+    n_local = n_experts if n_local is None else n_local
+    order, sorted_le, _, pos = moe._dispatch(topk_idx, first_expert,
+                                             n_local)
+    keep = (pos < moe.capacity(T, k, n_experts, capacity_factor)) & \
+        (sorted_le < n_local)
+    return torch.zeros_like(keep).scatter_(0, order, keep).reshape(T, k)
+
+
+def moe_cases(mesh, device, cases):
+    """`moe_apply` with ``mesh`` on each case (a dict: numpy ``x`` (B, S,
+    d) whole, the four whole weights, ``cfg`` keywords of an
+    ArchConfig-like namespace, ``impl``), without gradients: this rank's
+    rows of the batch and its experts. Returns, per case, the output
+    gathered whole, the aux loss of every rank, every rank's kept-copy
+    mask (T_l, k) and dropped count over its experts, and the
+    collectives' calls."""
+    import types
+
+    from repro_torch.models import moe
+
+    out = []
+    for c in cases:
+        cfg = types.SimpleNamespace(**c["cfg"])
+        first, E_l = moe.expert_block(cfg, mesh)
+        p = types.SimpleNamespace(
+            router=_t(c["router"], device),
+            **{k: _t(c[k][first:first + E_l], device)
+               for k in ("we_gate", "we_up", "we_down")})
+        axes = ("data",)
+        x = _t(c["x"], device)
+        n = x.shape[0] // coll.axes_size(mesh, axes)
+        x = x[coll.shard_index(mesh, axes) * n:][:n]
+        coll.reset_counts()
+        with torch.no_grad():
+            y, aux = moe.moe_apply(p, x, cfg, mesh=mesh, impl=c["impl"])
+        counts = {k: list(v) for k, v in coll.counts.items()}
+        idx = moe.top_k(moe.router_probs(x.reshape(-1, x.shape[-1]),
+                                         p.router), cfg.topk)[1]
+        kept = kept_copies(idx, cfg.n_experts, first, E_l)
+        dropped = moe.dropped_copies(idx, cfg.n_experts, first_expert=first,
+                                     n_local=E_l)
+        out.append({"y": _gather(y, mesh, axes).cpu().numpy(),
+                    "aux": _world(aux, mesh).cpu().numpy(),
+                    "kept": _world(kept, mesh).cpu().numpy(),
+                    "dropped": _world(dropped, mesh).cpu().numpy(),
+                    "counts": counts})
+    return out
+
+
+def _lm(arch, params, mesh, device):
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_from_jax
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="meta", mesh=mesh)
+    model.load_state_dict(lm_params_from_jax(params, cfg, device, mesh=mesh),
+                          assign=True)
+    return model
+
+
+def _whole_caches(caches, mesh, axes, seq_axes):
+    out = []
+    for c in caches:
+        out.append({k: _gather(_gather(v, mesh, axes, 0), mesh, seq_axes,
+                               1).cpu().numpy() for k, v in c.items()})
+    return out
+
+
+def seqshard_decodes(mesh, device, cases):
+    """Each case (arch, `repro`'s params as numpy, tokens (B, T) whole,
+    the ring's cache_len, prompt length P): `DecoderLM` on ``mesh`` (the
+    rings sharded on ``model``); a prefill of the first P tokens (P > 0)
+    or `init_cache`, then a greedy-free decode of the remaining tokens
+    one at a time. Returns, per case, the logits of every step (the
+    prefill's first) gathered whole, the caches gathered whole, each
+    rank's cache block shape, and the collectives' calls of the last
+    decode step."""
+    axes = ("data",)
+    out = []
+    for arch, params, tokens, cache_len, P in cases:
+        model = _lm(arch, params, mesh, device)
+        toks = _t(tokens, device).long()
+        B, T = toks.shape
+        n = B // coll.axes_size(mesh, axes)
+        rows = toks[coll.shard_index(mesh, axes) * n:][:n]
+        logits = []
+        with torch.inference_mode():
+            if P:
+                lg, caches = model.prefill(toks[:, :P], cache_len=cache_len)
+                logits.append(lg)
+            else:
+                caches = model.init_cache(B, cache_len)
+            for t in range(P, T):
+                coll.reset_counts()
+                lg, caches = model.decode_step(caches, rows[:, t:t + 1], t)
+                logits.append(lg)
+        counts = {k: list(v) for k, v in coll.counts.items()}
+        out.append({
+            "logits": _gather(torch.stack(logits, 1), mesh, axes
+                              ).cpu().numpy(),
+            "caches": _whole_caches(caches, mesh, axes, ("model",)),
+            "block": tuple(caches[0]["k"].shape), "counts": counts})
+    return out
+
+
+def split_refusals(mesh, device, arch, params):
+    """The messages of `DecoderLM`'s ValueErrors for a batch and a ring
+    that do not split over ``mesh``."""
+    model = _lm(arch, params, mesh, device)
+    msgs = []
+    for batch, cache_len in ((3, 16), (4, 17)):
+        try:
+            model.init_cache(batch, cache_len)
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+    return msgs
+
+
+def reductions(mesh, device, shape=(3, 5)):
+    """`coll.psum` and `coll.pmax` over every non-empty subset of the
+    mesh's axes, of a (3, 5) float32 tensor drawn from a generator seeded
+    with the rank. Returns {axes: (every rank's psum, every rank's pmax)}
+    in rank order, and the calls each op made."""
+    import itertools
+
+    import torch.distributed as dist
+
+    gen = torch.Generator().manual_seed(dist.get_rank())
+    x = torch.randn(shape, generator=gen).to(device)
+    names = tuple(mesh.mesh_dim_names)
+    out = {}
+    coll.reset_counts()
+    for n in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, n):
+            out[axes] = (_world(coll.psum(x, mesh, axes), mesh).cpu().numpy(),
+                         _world(coll.pmax(x, mesh, axes), mesh).cpu().numpy())
+    calls = {op: coll.counts[op][0] for op in ("psum", "pmax")}
+    return out, calls
+
+
+def expert_blocks(mesh, device, arch, params):
+    """A moe model's weights on this rank, two ways: `repro`'s whole
+    ``params`` carried by `lm_params_from_jax(mesh=)`, and the port's
+    `DecoderLM.init` on the mesh. Returns, per way, whether each leaf is
+    the rank's block of the whole (the expert leaves their E / M rows at
+    `expert_block`, the others whole, bit for bit), and the expert leaves'
+    shapes."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_from_jax
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_block
+
+    cfg = get_config(arch).reduced()
+    first, n = expert_block(cfg, mesh)
+
+    def same(part, whole):
+        return all(torch.equal(v, whole[k][first:first + n]
+                               if k.rsplit(".", 1)[-1].startswith("we_")
+                               else whole[k]) for k, v in part.items())
+    key = prng.PRNGKey(0, device=device)
+    carried = lm_params_from_jax(params, cfg, device, mesh=mesh)
+    drawn = build_model(cfg, device="meta", mesh=mesh).init(key)
+    return {"carried": same(carried, lm_params_from_jax(params, cfg,
+                                                        device)),
+            "drawn": same(drawn, build_model(cfg, device="meta").init(key)),
+            "shape": tuple(drawn["layers.0.moe.we_gate"].shape)}
+
+
+def model_mesh_runs(mesh, device, moe, decodes, refusal, experts):
+    """What the CPU tests hold of one model mesh, in one launch."""
+    return {"moe": moe_cases(mesh, device, moe),
+            "decode": seqshard_decodes(mesh, device, decodes),
+            "refusal": split_refusals(mesh, device, *refusal),
+            "reductions": reductions(mesh, device),
+            "experts": expert_blocks(mesh, device, *experts)}
+
+
+def card_seqshard(mesh, device, arch, cache_len, steps, seed=0):
+    """The seqshard decode of reduced ``arch`` on ``mesh`` from the
+    port's init of PRNGKey(0) on ``device``, tokens from a generator
+    seeded with ``seed``: every step's logits gathered whole, and the
+    collectives' calls of the last step."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="meta", mesh=mesh)
+    model.init(prng.PRNGKey(0, device=device))
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (4, steps), generator=gen)
+    axes = ("data",)
+    n = 4 // coll.axes_size(mesh, axes)
+    rows = toks[coll.shard_index(mesh, axes) * n:][:n].to(device)
+    logits = []
+    with torch.inference_mode():
+        caches = model.init_cache(4, cache_len)
+        for t in range(steps):
+            coll.reset_counts()
+            lg, caches = model.decode_step(caches, rows[:, t:t + 1], t)
+            logits.append(lg)
+    return (_gather(torch.stack(logits, 1), mesh, axes).cpu().numpy(),
+            {k: list(v) for k, v in coll.counts.items()})
+
+
+# --------------------------------------------------- LM clients, sharded
+
+
+def lm_example():
+    """examples/lm_dpfl_torch.py as a module (the ranks load it by path)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "lm_dpfl_torch.py"
+    spec = importlib.util.spec_from_file_location("lm_dpfl_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lm_client_runs(mesh, device):
+    """`run_dpfl` of the LM example's setting (reduced qwen3 clients,
+    `DPFLConfig(**RUN)`) on the engine sharded over the client mesh.
+    Returns the `result_dict`, the collectives' calls and bytes, and
+    each rank's client rows."""
+    from repro_torch.core import DPFLConfig, run_dpfl
+
+    ex = lm_example()
+    engine, _ = ex.lm_engine(ex.example_config(), ex.CLIENTS, device)
+    engine.shard_clients(mesh)
+    coll.reset_counts()
+    res = run_dpfl(engine, DPFLConfig(**ex.RUN))
+    rows = _world(torch.tensor([engine.rows.start, engine.rows.stop]), mesh)
+    return {"res": result_dict(res),
+            "counts": {k: list(v) for k, v in coll.counts.items()},
+            "rows": rows.tolist()}
