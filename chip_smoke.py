@@ -60,7 +60,14 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    the same entry point on a small input on the card and on the CPU
    (dense, sparse, top-k, int8, and dense and sparse under participation
    with sign flippers clipped, with label flippers trimmed and with noisy
-   free riders), which must select the same graphs; the dense run's best
+   free riders), which must select the same graphs; the guards phase
+   (`repro_torch.analysis.guards`): the dense run again, warm, under
+   ``recompile_sentinel(expect_new=0)`` over every kernel library (0
+   new builds and loads) with its rounds inside `run_rounds`'
+   ``no_transfer`` fence, each of `transfer_probes` inside the
+   fence (raising where `TRANSFER_FENCED` says) and inside
+   ``allow_transfers`` (passing), and the `donation_report` of the
+   full-width dense `dpfl_round_step`; the dense run's best
    models through the port's `CheckpointManager` and back bit for bit;
    then the eleven Table-1 baselines, and FedAvg under markov outages
    with the top-k codec, through `repro_torch.fl.baselines.run_baseline`
@@ -70,8 +77,13 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    learning check; then the same runs on client meshes of processes
    that share the card (`repro_torch.launch.mesh`, gloo; SHARD_MESHES:
    2 ranks of 16 clients, and 2 x 2 ranks of 8 crossing the pod axis):
-   a random-graph dense run and the dense, sparse and top-k variants
-   (SHARD_RUNS), each rank's K1-K3 launches against `shard_launches`,
+   the random-graph dense, sparse and top-k runs and the dense, sparse
+   and top-k variants (SHARD_RUNS), each rank's K1-K3 launches against
+   `shard_launches`, one round of each audited
+   (`repro_torch.analysis.commaudit.audit_config`: the random-graph
+   rounds' wire W equal to AUDIT_WIRE's and reconciled with the run's
+   comm_bytes, W x E == claimed x N x (D - 1), the greedy rounds with
+   no UNEXPLAINED call),
    every round under the no-sync fence, the counters equal to the
    single-device runs', the random-graph, dense and top-k runs bit for
    bit against single-device runs whose forwards and backwards take the
@@ -88,7 +100,12 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    just before and read just after (28 K4 launches in the prefill, 0 in
    decode), the same tokens from a second call, and the same weights on
    the card and on the CPU (batch 1, prompt 128, 8 tokens), which must
-   give the same tokens; then the same for mamba2-370m at its full
+   give the same tokens; its warm serve under
+   ``recompile_sentinel(expect_new=0)``, each decode step inside
+   `generate`'s fence; and the same weights in a model built with
+   ``build_model(cfg, attn_window=REPAIR_WINDOW)``, shorter than the
+   prompt, its prefill logits and tokens against the same model with
+   K4's plain version (K4_TOL); then the same for mamba2-370m at its full
    published config (48 Mamba2 blocks, float32; 48 K5 launches in the
    prefill, 0 in decode, no other kernel of the port) and for
    recurrentgemma-9b at its full published config (26 RG-LRU blocks and
@@ -263,7 +280,16 @@ LEARN_MARGIN = 0.1
 # the same bits as a single-device run of the same per-launch client
 # count) and three of VARIANTS.
 SHARD_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
-SHARD_RUNS = ("dense-random", "dense", "sparse", "topk")
+SHARD_RUNS = ("dense-random", "sparse-random", "topk-random", "dense",
+              "sparse", "topk")
+# The wire-bytes audit of one round of each sharded run
+# (`analysis.commaudit.audit_config`): on the random graph, W = N x bpm x
+# (D - 1) bytes received over the ranks (PaperCNN P 62,006, N 32; bpm
+# 248,024 in fp32, 49,608 at top-k 0.1: K 6,201), dense and sparse alike,
+# reconciled against the run's comm_bytes; the greedy runs' audits show
+# no UNEXPLAINED call. (codec, mesh) -> W
+AUDIT_WIRE = {("fp32", "1x2"): 7936768, ("fp32", "2x2"): 23810304,
+              ("topk", "1x2"): 1587456, ("topk", "2x2"): 4762368}
 # the runs held bit for bit against a single-device run that takes the
 # shard's client count at a time (FLEngine._client_chunk): cuDNN picks
 # its grouped-convolution algorithms by the group count, so the plain
@@ -292,6 +318,15 @@ MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", None, (1, 2)),
 MESH_LOGITS_TOL = 1e-4
 MESH_AUX_TOL = 1e-6
 MESH_GAP = 1e-5
+# the repair of build_model(attn_window=): qwen3-0.6b served with this
+# window, shorter than SERVE_RUN's 512-token prompt, so K4's window binds
+REPAIR_WINDOW = 256
+# each deliberate transfer of `transfer_probes` -> whether the CUDA fence
+# of `repro_torch.analysis.guards.no_transfer` refuses it (the table its
+# docstring states; tests/test_torch_cuda.py holds the card to it too)
+TRANSFER_FENCED = {"item": True, "cpu": True, "as_tensor numpy": True,
+                   "tensor scalar": True, "python scalar operand": False,
+                   "pinned non_blocking to cuda": False}
 # the archs whose serve runs leave the model-mesh runs their references
 MESH_REFERENCE_ARCHS = ("qwen3-0.6b", "qwen3-moe-30b-a3b")
 # LM clients on the client mesh: the LM example's setting (its reduced
@@ -2318,11 +2353,188 @@ def run_baselines(torch, engine):
     return out
 
 
+def transfer_probes(torch, device):
+    """One deliberate transfer of each class `TRANSFER_FENCED` names, on
+    CUDA ``device``: {name: a callable that makes it and returns}."""
+    import numpy as np
+
+    x = torch.arange(4.0, device=device)
+    host = np.arange(4.0, dtype=np.float32)
+    pinned = torch.arange(4.0).pin_memory()
+    return {
+        "item": lambda: x[0].item(),
+        "cpu": lambda: x.cpu(),
+        "as_tensor numpy": lambda: torch.as_tensor(host, device=device),
+        "tensor scalar": lambda: torch.tensor(3.0, device=device),
+        "python scalar operand": lambda: x + 1.0,
+        "pinned non_blocking to cuda": lambda: pinned.to(device,
+                                                         non_blocking=True)}
+
+
+def run_guards(torch, engine, dense_counts):
+    """The guards phase on one device at full width
+    (`repro_torch.analysis.guards`): the dense run of VARIANTS again,
+    warm, under ``recompile_sentinel(expect_new=0)`` over every kernel
+    library, each of its rounds checked to run inside `run_rounds`'
+    ``no_transfer`` fence, with the dense run's launches; each of
+    `transfer_probes` inside ``no_transfer``, which must raise
+    where `TRANSFER_FENCED` says and pass where it does not, and inside
+    ``allow_transfers``, where it must pass; the `donation_report` of the
+    full-width dense `dpfl_round_step`. Returns the warm run's
+    launches."""
+    from repro_torch.analysis import guards
+    from repro_torch.core import dpfl
+
+    fenced = []
+    run_rounds = dpfl.run_rounds
+
+    def fenced_run_rounds(round_step, state, rounds, **kw):
+        def step(st):
+            if torch.cuda.get_sync_debug_mode() != 2:
+                fail(f"guards: round {st.t} of the warm dense run ran "
+                     f"outside the no_transfer fence")
+            fenced.append(st.t)
+            return round_step(st)
+        return run_rounds(step, state, rounds, **kw)
+
+    dpfl.run_rounds = fenced_run_rounds
+    try:
+        with guards.recompile_sentinel(expect_new=0) as h:
+            res, cfg, counts, seconds, _ = run_main_path(torch, engine,
+                                                         "dense")
+    finally:
+        dpfl.run_rounds = run_rounds
+    if fenced != list(range(cfg.rounds)):
+        fail(f"guards: fenced rounds {fenced}")
+    if counts != dense_counts:
+        fail(f"guards: the warm dense run launched {counts}, the first "
+             f"{dense_counts}")
+    print(f"guards: the dense run again, warm, under "
+          f"recompile_sentinel(expect_new=0) over {len(h.names)} kernel "
+          f"libraries: {h.new_builds()} new builds, {h.new_loads()} new "
+          f"loads; its {cfg.rounds} rounds inside run_rounds' no_transfer "
+          f"fence; launches {_nonzero(counts)} as the first run's; "
+          f"{seconds:.3f} s wall; comm_downloads {res.comm_downloads}")
+    for name, probe in transfer_probes(torch, "cuda").items():
+        torch.cuda.synchronize()
+        raised = None
+        with guards.no_transfer("cuda"):
+            try:
+                probe()
+            except RuntimeError as e:
+                if "synchroniz" not in str(e):
+                    raise
+                raised = str(e).splitlines()[0]
+            with guards.allow_transfers():
+                probe()
+        torch.cuda.synchronize()
+        if (raised is not None) != TRANSFER_FENCED[name]:
+            fail(f"guards: {name} inside no_transfer "
+                 f"{'raised' if raised else 'passed'}, the guards "
+                 f"docstring says it "
+                 f"{'raises' if TRANSFER_FENCED[name] else 'passes'}")
+        print(f"guards: {name} inside no_transfer: "
+              + (f"raised ({raised})" if raised else "passed, not fenced")
+              + "; inside allow_transfers: passed; as TRANSFER_FENCED "
+                "says")
+    state, _ = dpfl.dpfl_initial_state(engine, cfg)
+    rep = guards.donation_report(dpfl.dpfl_round_step(engine, cfg), state)
+    del state
+    if rep["blocked"]:
+        fail(f"guards: round-state leaves not donatable: {rep['blocked']}")
+    print(f"guards: donation_report of the dense dpfl_round_step at "
+          f"PaperCNN width (N {SMOKE_DATA['n_clients']}, P "
+          f"{engine.n_params}): donatable {rep['donatable']} "
+          f"({rep['donatable_bytes']} bytes), blocked {rep['blocked']}, "
+          f"in place {rep['in_place']}")
+    return counts
+
+
+def check_serve_guards(torch, cfg, model, params, gen):
+    """qwen3-0.6b's serve again, warm, under
+    ``recompile_sentinel(expect_new=0)``, each decode step checked to run
+    inside `generate`'s ``no_transfer`` fence, the tokens the first
+    call's; then the repair of ``build_model(attn_window=)``: the same
+    weights (no copy) in a model built with ``attn_window=REPAIR_WINDOW``,
+    shorter than the prompt, served through `generate` (its rings
+    REPAIR_WINDOW slots, K4 once a layer in the prefill), its prefill
+    logits and greedy tokens held against the same model with K4
+    replaced by its plain version (K4_TOL). Returns the windowed serve's
+    launches."""
+    from repro_torch.analysis import guards
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import build_model
+
+    B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
+    S = SERVE_RUN["prompt_len"]
+    prompts = make_prompts(cfg.vocab_size, B, S, 0, "cuda")
+    fenced = []
+    step = model.decode_step
+
+    def fenced_step(*args, **kw):
+        fenced.append(torch.cuda.get_sync_debug_mode() == 2)
+        return step(*args, **kw)
+
+    model.decode_step = fenced_step
+    try:
+        with guards.recompile_sentinel(expect_new=0) as h:
+            warm = generate(model, params, prompts, new)
+    finally:
+        del model.decode_step
+    if fenced != [True] * (new - 1):
+        fail(f"serve guards: decode steps inside the fence {fenced}")
+    if not torch.equal(warm.tokens, gen.tokens):
+        fail("serve guards: the warm serve gave other tokens")
+    print(f"serve {cfg.name} guards: warm serve (B {B}, prompt {S}, {new} "
+          f"new) under recompile_sentinel(expect_new=0): "
+          f"{h.new_builds()} new builds, {h.new_loads()} new loads; its "
+          f"{new - 1} decode steps inside generate's no_transfer fence; "
+          f"the first call's tokens")
+    windowed = build_model(cfg, device="meta", attn_window=REPAIR_WINDOW)
+    windowed.load_state_dict(params, assign=True)
+    if windowed.window != REPAIR_WINDOW:
+        fail(f"serve window: model.window {windowed.window}")
+    torch.cuda.synchronize()
+    _zero_launches()
+    got = generate(windowed, None, prompts, new)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    if counts != generate_kernels(cfg, new):
+        fail(f"serve window: launches {counts}, expected "
+             f"{generate_kernels(cfg, new)}")
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, *, causal=True, window=None: \
+        ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    try:
+        plain = generate(windowed, None, prompts, new)
+    finally:
+        ops.flash_attention = kernel
+    err = _close(torch, "serve window: prefill logits against K4's plain "
+                 "version", got.prefill_logits, plain.prefill_logits,
+                 K4_TOL["float32"])
+    if not torch.equal(got.tokens, plain.tokens):
+        fail("serve window: greedy tokens differ from K4's plain version")
+    if torch.equal(got.prefill_logits, gen.prefill_logits):
+        fail("serve window: the window changed no logit")
+    print(f"serve {cfg.name} window: build_model(cfg, attn_window="
+          f"{REPAIR_WINDOW}) under a {S}-token prompt: launches "
+          f"{_nonzero(counts)}; prefill logits within {err:.3g} of the "
+          f"same model with K4's plain version (K4_TOL "
+          f"{K4_TOL['float32']}), the same {new} greedy tokens; "
+          f"prefill {got.prefill_seconds * 1e3:.3f} ms, decode "
+          f"{got.decode_seconds / (new - 1) * 1e3:.3f} ms/step; the "
+          f"logits differ from the unwindowed model's by "
+          f"{(got.prefill_logits - gen.prefill_logits).abs().max():.3g}")
+    return counts
+
+
 def shard_config(run):
-    """The DPFLConfig of a sharded run: SHARD_RUNS' "dense-random" is the
-    dense variant on the Fig.-3 random graph."""
-    if run == "dense-random":
-        return smoke_config("dense", **SMOKE_RUN, random_graph=True)
+    """The DPFLConfig of a sharded run: SHARD_RUNS' "<variant>-random" is
+    that variant on the Fig.-3 random graph."""
+    if run.endswith("-random"):
+        return smoke_config(run[:-len("-random")], **SMOKE_RUN,
+                            random_graph=True)
     return smoke_config(run, **SMOKE_RUN)
 
 
@@ -2332,11 +2544,17 @@ def shard_launches(run, N, B, rounds, shards):
     single-device run on its row block (BGGC's phase 1 streams all N
     peers in batches of B either way), except that the rotation
     launches K2 once per visiting panel, ``shards`` times a mix. The
-    random graph runs no greedy: K1 mixes once in preprocessing and
-    once a round."""
+    random graph runs no greedy: the preprocessing mix and each round's
+    mix only (K1, K2 or, for the rounds of top-k, K3)."""
     want = {name: 0 for name in _kernel_modules()}
     if run == "dense-random":
         want["graph_mix"] = 1 + rounds
+        return want
+    if run == "sparse-random":
+        want["sparse_graph_mix"] = (1 + rounds) * shards
+        return want
+    if run == "topk-random":
+        want.update(graph_mix=1, compressed_graph_mix=rounds)
         return want
     want = expected_launches(run, N, B, rounds)
     want["sparse_graph_mix"] *= shards
@@ -2424,13 +2642,16 @@ def sharded_rank(mesh, device, runs):
     round checked to start under the no-sync fence and every greedy
     decision's |u - a/(a+b)| recorded, and each rotated K2 mix held
     against the plain mix of its inputs over the all-gathered table
-    (`rotation_error`, after the run's counts are read). Returns, whole
-    on every rank: each run's results, every rank's launches and walls,
-    the smallest margin, the collectives' calls and bytes, the largest
-    rotation error over the ranks (per run, and of `rotation_case`), and
-    each rank's device, TF32 switches and cuDNN determinism."""
+    (`rotation_error`, after the run's counts are read), then one round
+    of the run's config audited (`analysis.commaudit.audit_config`).
+    Returns, whole on every rank: each run's results, every rank's
+    launches and walls, the smallest margin, the collectives' calls and
+    bytes, the largest rotation error over the ranks (per run, and of
+    `rotation_case`), the audit's report and its slowest rank's seconds,
+    and each rank's device, TF32 switches and cuDNN determinism."""
     import torch
 
+    from repro_torch.analysis import commaudit
     from repro_torch.core import dpfl, graph
     from repro_torch.kernels import ops
     from repro_torch.sharding import collectives as coll
@@ -2496,6 +2717,13 @@ def sharded_rank(mesh, device, runs):
                 len(calls), float(engine.whole(errs).max())
                 if calls else None)
             calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["runs"][run]["audit"] = commaudit.audit_config(engine, cfg)
+            torch.cuda.synchronize()
+            out["runs"][run]["audit_s"] = float(engine.whole(torch.tensor(
+                [time.perf_counter() - t0], device=device)).max())
+            calls.clear()
     finally:
         undo_spy()
         dpfl.run_rounds = run_rounds
@@ -2551,8 +2779,8 @@ def run_sharded(torch, engine, single):
             engine._client_chunk = None
         return res
 
-    plain = dict(single, **{"dense-random": single_run(
-        "dense-random", "single-device dense-random")})
+    plain = dict(single, **{run: single_run(run, f"single-device {run}")
+                            for run in SHARD_RUNS if run.endswith("-random")})
     if not _same_run(plain["dense-random"], single_run(
             "dense-random", "single-device dense-random, repeated")):
         fail("the single-device dense-random run did not repeat its bits")
@@ -2623,10 +2851,12 @@ def run_sharded(torch, engine, single):
                 twin = (f"bit for bit the single-device run with "
                         f"client_chunk {n_loc} (best_flat, test_acc, val "
                         f"acc history, Omega, graphs, counters)")
-            else:
+            elif "sparse" in run:
                 twin = ("no single-device twin (the rotation adds in "
                         "visit order)")
-            if run == "dense-random":
+            else:
+                twin = "not held against a single-device twin"
+            if run.endswith("-random"):
                 # the random graph: Omega and every graph are fixed
                 if not same_graphs:
                     fail(f"sharded {mesh_name} {run}: graphs differ from "
@@ -2647,7 +2877,49 @@ def run_sharded(torch, engine, single):
                   f"mean test acc {mean_acc:.4f} against "
                   f"{np.mean(ref.test_acc):.4f}; smallest greedy "
                   f"|u - a/(a+b)| {got['margin']:.3g}; {SMI}")
+            check_audit(mesh_name, run, got["audit"], res, world)
+            print(f"sharded {mesh_name} {run}: the audit of one round took "
+                  f"{got['audit_s']:.3f} s (its slowest rank, the round's "
+                  f"starting state built as run_dpfl builds it)")
     return launches
+
+
+def check_audit(mesh_name, run, rep, res, world):
+    """One sharded run's audit (`analysis.commaudit.audit_config` of one
+    round): on the random graph exact, reconciled against the run's
+    ``comm_bytes`` and W equal to AUDIT_WIRE's; on the greedy graph no
+    UNEXPLAINED row and the mix's wire still N x bpm x (D - 1). Prints
+    the table."""
+    from repro_torch.analysis import commaudit
+
+    N = SMOKE_DATA["n_clients"]
+    label = f"sharded {mesh_name} {run}"
+    print(f"{label}: audit\n{rep.table()}")
+    if rep.n_devices != world or rep.n_clients != N:
+        fail(f"{label}: the audit saw D={rep.n_devices} N={rep.n_clients}")
+    if "UNEXPLAINED" in {r.classification for r in rep.rows}:
+        fail(f"{label}: the audit found an unexplained call")
+    if not rep.ok:
+        fail(f"{label}: the audit failed: {rep.failures}")
+    W = rep.wire_model_bytes
+    if W != N * rep.bytes_per_model * (world - 1):
+        fail(f"{label}: wire {W} != N x bpm x (D - 1)")
+    if not run.endswith("-random"):
+        print(f"{label}: structural audit ok (no UNEXPLAINED row; the "
+              f"refresh's {rep.wire_refresh_bytes} bytes attributed, not "
+              f"charged)")
+        return
+    want = AUDIT_WIRE[("topk" if "topk" in run else "fp32", mesh_name)]
+    if W != want:
+        fail(f"{label}: audit wire {W} bytes, expected {want}")
+    try:
+        commaudit.reconcile(rep, res.comm_bytes[0])
+    except AssertionError as e:
+        fail(f"{label}: {e}")
+    E = rep.claimed_downloads
+    print(f"{label}: W = {W} bytes a round (expected {want}); W x E = "
+          f"{W * E} == claimed x N x (D - 1) = {res.comm_bytes[0]} x {N} x "
+          f"{world - 1}: reconciled")
 
 
 def _nonzero(counts):
@@ -4238,6 +4510,10 @@ def main():
               f"{res.comm_bytes}, mean test acc {mean_acc:.4f} (JAX "
               f"reference {LEARN_REF[variant]}), mean val acc per round "
               f"{[round(float(v.mean()), 4) for v in res.val_acc_history]}")
+    t0 = time.perf_counter()
+    launches["guards dense (warm)"] = run_guards(torch, engine,
+                                                 launches["dense"])
+    print(f"guards phase: {time.perf_counter() - t0:.3f} s; {SMI}")
     nbytes = check_checkpoint(torch, engine, dense_res)
     print(f"checkpoint: the dense run's best models ({engine.n_params} "
           f"parameters x {SMOKE_DATA['n_clients']} clients) through "
@@ -4279,6 +4555,9 @@ def main():
                   f"{(new - 1) * B / g.decode_seconds:.1f} tok/s)")
         walls[arch] = (again.prefill_seconds * 1e3,
                        again.decode_seconds / (new - 1) * 1e3)
+        if arch == "qwen3-0.6b":
+            launches[f"serve {arch} window {REPAIR_WINDOW}"] = \
+                check_serve_guards(torch, cfg, model, params, gen)
         print(f"serve {arch}: launches {launches[run]}, (prefill, decode) "
               f"{split}, same tokens on a second call"
               + (" (and the same logits bits)" if cfg.family == "moe"

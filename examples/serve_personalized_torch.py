@@ -18,9 +18,9 @@ import time
 import torch
 
 from repro_torch import prng
+from repro_torch.analysis.guards import no_transfer
 from repro_torch.configs import get_config
 from repro_torch.fl.engine import vmap_clients
-from repro_torch.fl.round_engine import no_sync
 from repro_torch.models import build_model
 
 CLIENTS = 3
@@ -88,11 +88,11 @@ def personalized_decode(model, params, caches, tok: torch.Tensor, pos: int,
     """``steps`` greedy decode steps after tokens ``tok`` (R, 1) at
     position ``pos``, each request on its own weights (one vmapped
     `DecoderLM.decode_step` a step), the tokens kept on the device with
-    no device-to-host copy (`no_sync`). Returns (R, steps) tokens."""
+    no device-to-host copy (`no_transfer`). Returns (R, steps) tokens."""
     decode = vmap_clients(
         model, lambda m, b, at: m.decode_step(b[0], b[1], at))
     out = []
-    with no_sync(tok.device):
+    with no_transfer(tok.device):
         for t in range(steps):
             logits, caches = decode(params, (caches, tok[:, None]), pos + t)
             tok = logits[:, 0].argmax(-1, keepdim=True)

@@ -486,10 +486,13 @@ def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
         new_adj = adj
         if refresh:
             cand = omega if active is None else omega & active[None, :]
-            new_adj = all_clients_graph(
-                prng.fold_in(aux["k_graph"], 1000 + t), recv, p, cand,
-                reward_fn, budget, impl=cfg.graph_impl, mesh=mesh,
-                client_axes=ca)
+            # the refresh's exchanges are tagged for the wire-bytes audit
+            # (`analysis.commaudit`): attributed there, not charged
+            with _coll.region("refresh"):
+                new_adj = all_clients_graph(
+                    prng.fold_in(aux["k_graph"], 1000 + t), recv, p, cand,
+                    reward_fn, budget, impl=cfg.graph_impl, mesh=mesh,
+                    client_axes=ca)
             if active is not None:
                 # absent clients keep their previous C_k
                 new_adj = torch.where(mine[:, None], new_adj, adj)
@@ -535,9 +538,11 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
                                           rows.start)
         new_nbr = nbr
         if refresh:
-            new_nbr = all_clients_graph_sparse(
-                prng.fold_in(aux["k_graph"], 1000 + t), recv, p, omega,
-                reward_fn, budget, active=active, mesh=mesh, client_axes=ca)
+            with _coll.region("refresh"):
+                new_nbr = all_clients_graph_sparse(
+                    prng.fold_in(aux["k_graph"], 1000 + t), recv, p, omega,
+                    reward_fn, budget, active=active, mesh=mesh,
+                    client_axes=ca)
             if active is not None:
                 # absent clients keep their previous C_k lists
                 new_nbr = torch.where(mine[:, None], new_nbr, nbr)
@@ -586,31 +591,53 @@ def _dpfl_aux_specs(hist_len: int, participation: bool = False,
     return specs
 
 
-def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
-    """Algorithm 1 on the device-resident round engine (on a client mesh
-    when the engine is sharded: every rank returns the same result)."""
+def dpfl_round_step(engine: FLEngine, cfg: DPFLConfig):
+    """The DPFL ``round_step`` for (engine, cfg): the exact function
+    `run_dpfl` dispatches each round (`repro.core.dpfl.dpfl_round_step`),
+    public so the audit and the donation report run the round itself,
+    never a copy of it. Built anew on each call: the port compiles
+    nothing, so there is nothing to memoize on the engine."""
+    _check_ported(cfg)
+    budget = _budget(cfg, engine.data.n_clients)
+    hist_len = _hist_len(cfg)
+    adv = cfg.adversary
+    make_agg = _make_dpfl_aggregate_sparse if _sparse(cfg) \
+        else _make_dpfl_aggregate
+    return make_round_step(
+        engine, tau=cfg.tau_train,
+        aggregate=make_agg(engine, cfg, engine.make_reward_fn(), budget,
+                           hist_len),
+        local_train=(_adversary.make_adv_local_train(engine, adv)
+                     if adv is not None else None),
+        post_train=(_adversary.make_post_train(adv, engine.rows)
+                    if adv is not None else None),
+        participation_key=("part" if cfg.participation is not None
+                           else None),
+        hist_len=hist_len)
+
+
+def dpfl_initial_state(engine: FLEngine, cfg: DPFLConfig):
+    """``(state, result)``: the `RoundState` the first round of `run_dpfl`
+    starts from, built as `run_dpfl` builds it (Alg. 1 lines 1-5: same
+    init, tau_init epochs, Omega, one mix; a random graph samples its
+    Omega and runs no BGGC), and the `DPFLResult` it has filled so far
+    (the preprocessing counter, the schedules). Under a client mesh, the
+    rank's rows."""
     _check_ported(cfg)
     N = engine.data.n_clients
     budget = _budget(cfg, N)
-    reward_fn = engine.make_reward_fn()
     dev = engine.device
-    sparse = _sparse(cfg)
-    adv = cfg.adversary
     n_loc = engine.n_local
-
-    # ---- preprocess (Alg. 1 lines 1-5)
-    omega, flat, k_graph, k_train = _preprocess(engine, cfg, reward_fn,
-                                                budget)
+    omega, flat, k_graph, k_train = _preprocess(
+        engine, cfg, engine.make_reward_fn(), budget)
     result = DPFLResult(test_acc=None)
     result.comm_preprocess = _comm_preprocess(cfg, N, budget)
-
-    # ---- training loop (Alg. 1 lines 6-12)
     hist_len = _hist_len(cfg)
     aux = _round_aux(engine, cfg, flat, result)
     aux.update(k_graph=k_graph,
                comm=torch.zeros((cfg.rounds,), dtype=torch.int64,
                                 device=dev))
-    if sparse:
+    if _sparse(cfg):
         aux.update(nbr=omega, omega_nbr=omega)
         if hist_len:
             aux["graph_hist"] = torch.full(
@@ -621,21 +648,26 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
         if hist_len:
             aux["graph_hist"] = torch.zeros((hist_len, n_loc, N),
                                             dtype=torch.bool, device=dev)
-    make_agg = _make_dpfl_aggregate_sparse if sparse else _make_dpfl_aggregate
-    round_step = make_round_step(
-        engine, tau=cfg.tau_train,
-        aggregate=make_agg(engine, cfg, reward_fn, budget, hist_len),
-        local_train=(_adversary.make_adv_local_train(engine, adv)
-                     if adv is not None else None),
-        post_train=(_adversary.make_post_train(adv, engine.rows)
-                    if adv is not None else None),
-        participation_key="part" if "part" in aux else None,
-        hist_len=hist_len)
-    state = init_round_state(flat, k_train, hist_len=hist_len, aux=aux)
+    return init_round_state(flat, k_train, hist_len=hist_len,
+                            aux=aux), result
+
+
+def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
+    """Algorithm 1 on the device-resident round engine (on a client mesh
+    when the engine is sharded: every rank returns the same result)."""
+    N = engine.data.n_clients
+    sparse = _sparse(cfg)
+
+    # ---- preprocess (Alg. 1 lines 1-5)
+    state, result = dpfl_initial_state(engine, cfg)
+
+    # ---- training loop (Alg. 1 lines 6-12)
+    hist_len = _hist_len(cfg)
+    round_step = dpfl_round_step(engine, cfg)
     # the client axis of each leaf: what the flushes and the end gather
     spec = round_state_shardings(hist_len=hist_len, aux_specs=_dpfl_aux_specs(
-        hist_len, "part" in aux, _compress.normalize(cfg.compression),
-        sparse, adv is not None))
+        hist_len, "part" in state.aux, _compress.normalize(cfg.compression),
+        sparse, cfg.adversary is not None))
     g_key = "omega_nbr" if sparse else "omega"
 
     def flush_histories(st, k):
@@ -665,8 +697,8 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     result.test_acc = engine.whole(test_acc).cpu().numpy()
     result.best_flat = engine.whole(state.best_flat,
                                     spec.best_flat).cpu().numpy()
-    result.omega = _omega_np(engine.whole(omega, spec.aux[g_key]), N,
-                             sparse)
+    result.omega = _omega_np(engine.whole(state.aux[g_key],
+                                          spec.aux[g_key]), N, sparse)
     return result
 
 

@@ -6,8 +6,8 @@ evaluation protocol).
 Every method's round loop runs on the port's round engine (`_loop`):
 APFL's personal branch and Ditto's personal models ride in the engine's
 ``aux`` dict, the evaluated model is ``eval_flat``'s, and `run_rounds`
-fences each round with `round_engine.no_sync`, so no round makes a
-device-to-host sync. From the same seed every method draws `repro`'s
+fences the rounds with `repro_torch.analysis.guards.no_transfer`, so no
+round makes a device-to-host sync. From the same seed every method draws `repro`'s
 init and `repro`'s keys (`prng` is bitwise ``jax.random``).
 
 Two arguments of `repro`'s ``_loop`` are not here. ``cache_key``

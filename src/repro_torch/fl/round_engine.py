@@ -7,29 +7,29 @@ tracking, the collaboration graph, comm counters and history buffers.
 The round counter is a host int, so per-round decisions (refresh or not,
 history slot) are Python branches that never read the device.
 
-`run_rounds` drives the rounds with no device-to-host sync: on CUDA the
-loop runs under ``torch.cuda.set_sync_debug_mode("error")``, so a hidden
-sync raises instead of serializing the rounds (the counterpart of
-`repro`'s ``no_transfer`` guard). Histories leave the device only in
-``on_flush``.
+`run_rounds` drives the rounds with no device-to-host sync: the loop
+runs inside `repro_torch.analysis.guards.no_transfer`, so on CUDA a
+hidden sync raises instead of serializing the rounds, as in `repro`.
+Histories leave the device only in ``on_flush``.
 
 Under a client mesh (`FLEngine.shard_clients`) a rank's state holds its
 rows of the client leaves (`round_state_shardings` says which leaves
 those are, `shard_round_state` cuts a whole state to a rank's rows) and
 the round runs on them. The fence stays where it is: the shard-local
 compute of a round runs inside it, while each collective of
-`repro_torch.sharding.collectives` lifts it for its own span, since a
-gloo exchange or a host copy synchronizes by nature.
+`repro_torch.sharding.collectives` lifts it for its own span
+(``allow_transfers``), since a gloo exchange or a host copy
+synchronizes by nature.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
 
 from .. import prng
+from ..analysis.guards import allow_transfers, no_transfer
 
 
 @dataclasses.dataclass
@@ -185,37 +185,25 @@ def shard_round_state(state: RoundState, rows: slice,
         aux=_shard_aux(state.aux, spec.aux, rows))
 
 
-@contextlib.contextmanager
-def no_sync(device: torch.device):
-    """On CUDA, make any device-to-host synchronization raise inside the
-    block; a no-op on the CPU."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
 def run_rounds(round_step, state: RoundState, rounds: int,
                on_flush: Optional[Callable] = None,
                flush_every: int = 0) -> RoundState:
-    """Run ``rounds`` round steps with no device-to-host sync between them
-    (`no_sync`). ``on_flush(state, done)`` (if given) is called every
-    ``flush_every`` rounds, outside the guard since pulling histories off
-    the device is its purpose, and once more at the end."""
+    """Run ``rounds`` round steps with no host sync between them: the
+    loop runs inside `no_transfer` on the state's device (`repro`'s
+    ``guard_transfers=False`` opt-out has no caller in the port and is
+    not kept). ``on_flush(state, done)`` (if given) is called every
+    ``flush_every`` rounds, inside an `allow_transfers` hole since
+    pulling histories off the device is its purpose, and once more at
+    the end, outside the fenced region."""
     last = 0
-    device = state.flat.device
-    for t in range(rounds):
-        with no_sync(device):
+    with no_transfer(state.flat.device):
+        for t in range(rounds):
             state = round_step(state)
-        if flush_every and on_flush is not None and \
-                (t + 1) % flush_every == 0 and t + 1 < rounds:
-            on_flush(state, t + 1 - last)
-            last = t + 1
+            if flush_every and on_flush is not None and \
+                    (t + 1) % flush_every == 0 and t + 1 < rounds:
+                with allow_transfers():
+                    on_flush(state, t + 1 - last)
+                last = t + 1
     if on_flush is not None and rounds > last:
         on_flush(state, rounds - last)
     return state

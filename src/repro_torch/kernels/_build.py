@@ -10,6 +10,10 @@ header is rebuilt and a stale library is never loaded.
 
 Importing this module needs neither ``nvcc`` nor a GPU: the CPU tests
 import it. Asking for a library where ``nvcc`` is missing raises.
+
+``counts`` holds, per kernel, the ``nvcc`` builds and the library loads
+of this process: what `repro_torch.analysis.guards.recompile_sentinel`
+reads, as `repro`'s reads a jitted function's compile cache.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -41,6 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
+#: kernel name -> [nvcc builds, library loads] in this process
+counts: Dict[str, List[int]] = {name: [0, 0] for name in SOURCES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +79,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _compile(todo: Dict[str, Path]) -> Dict[str, Tuple[float, str]]:
+    """Run one ``nvcc`` a library of ``todo`` (name -> library path), all
+    started together, each publishing its library atomically. Returns
+    {name: (seconds since the start, nvcc's output)}; raises with nvcc's
+    output if any compile fails."""
+    exe = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True))
+    out, failures = {}, []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {SOURCES[name]} "
+                            f"(exit {proc.returncode}):\n{log}")
+            continue
+        # atomic publish: a concurrent builder never loads a partial file
+        os.replace(tmp, todo[name])
+        out[name] = (time.perf_counter() - t0, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
     """Compile the named kernels (default: all) that are not built yet,
     one ``nvcc`` process each, started together. Raises with nvcc's
@@ -86,38 +122,23 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
             out[name] = Built(path, 0.0, "")
         else:
             todo[name] = path
-    if not todo:
-        return out
-    exe = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
-    failures = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {SOURCES[name]} "
-                            f"(exit {proc.returncode}):\n{log}")
-            continue
-        # atomic publish: a concurrent builder never loads a partial file
-        os.replace(tmp, todo[name])
-        out[name] = Built(todo[name], time.perf_counter() - t0, log)
-    if failures:
-        raise RuntimeError("\n".join(failures))
+    if todo:
+        for name, (seconds, log) in _compile(todo).items():
+            counts[name][0] += 1
+            out[name] = Built(todo[name], seconds, log)
     return out
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(path))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name].path))
+        lib = _open(build([name])[name].path)
+        counts[name][1] += 1
         _LIBS[name] = lib
     return lib
 

@@ -81,9 +81,13 @@ def rotate(parts: Tuple[torch.Tensor, ...], visit: Callable, mesh,
            client_axes) -> None:
     """Drive the rotation of `_rotation_schedule`: ``visit(src, panel)``
     sees this rank's own ``parts`` first (``src`` its shard index), then,
-    after each step's single-axis shifts (`collectives.ppermute_next`),
-    the parts of shard ``src`` that the step brought. One panel of parts
-    is held at a time."""
+    after each step's shift, the parts of shard ``src`` that the step
+    brought. A step's single-axis shifts (two or more where a carry
+    moves the next axis too) are composed into one exchange
+    (`collectives.ppermute_next` over the axes moved), so each part
+    crosses D - 1 times a rotation, the count the wire-bytes audit
+    (`analysis.commaudit`) holds it to. One panel of parts is held at a
+    time."""
     ca = _coll.client_axes_of(mesh, client_axes)
     sizes, schedule = _rotation_schedule(_coll.mesh_axis_sizes(mesh), ca)
     coords = [_coll.axis_index(mesh, a) for a in ca]
@@ -97,8 +101,10 @@ def rotate(parts: Tuple[torch.Tensor, ...], visit: Callable, mesh,
     visit(source((0,) * len(ca)), parts)
     panel = tuple(parts)
     for moves, offsets in schedule:
-        for axis in moves:
-            panel = tuple(_coll.ppermute_next(x, mesh, axis) for x in panel)
+        shifted = []
+        for x in panel:
+            shifted.append(_coll.ppermute_next(x, mesh, moves))
+        panel = tuple(shifted)
         visit(source(offsets), panel)
 
 

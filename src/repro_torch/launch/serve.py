@@ -16,7 +16,7 @@ model (whisper) encodes its frames in the prefill (K4 non-causal over
 them, K4 causal in its decoder's self-attention, K4 non-causal in each
 cross-attention, in decode too) and carries (enc_out, caches). The decode
 loop keeps the tokens on the device and makes no device-to-host copy
-(``set_sync_debug_mode("error")`` on CUDA). The CLI draws its weights,
+(`repro_torch.analysis.guards.no_transfer` on CUDA). The CLI draws its weights,
 prompts and samples from ``PRNGKey(0)`` as `repro`'s does, so the same
 flags give `repro`'s prompts; a vlm model's vision embeddings are zeros,
 as in `repro`'s CLI, and an audio model's frames zeros too.
@@ -31,8 +31,8 @@ from typing import Dict, Optional
 import torch
 
 from .. import prng
+from ..analysis.guards import no_transfer
 from ..configs import ARCH_IDS, get_config
-from ..fl.round_engine import no_sync
 from ..models import build_model
 
 
@@ -102,10 +102,10 @@ def decode(model, caches, tok: torch.Tensor, pos: int, steps: int, *,
            temperature: float = 0.0, key: Optional[torch.Tensor] = None):
     """The second phase of `generate`: ``steps`` decode steps after token
     ``tok`` (B, 1) at position ``pos``, the tokens kept on the device with
-    no device-to-host copy (`no_sync`). Returns ((B, steps) tokens, the
+    no device-to-host copy (`no_transfer`). Returns ((B, steps) tokens, the
     last step's logits, None for no step)."""
     out, logits = [], None
-    with no_sync(tok.device):
+    with no_transfer(tok.device):
         for t in range(steps):
             logits, caches = model.decode_step(caches, tok, pos + t)
             tok, key = _next_token(logits, temperature, key)

@@ -12,7 +12,12 @@ from .whisper import WhisperModel
 def build_model(cfg: ArchConfig, device=None, **kw):
     """`repro.models.build_model`: the audio family's `WhisperModel` (which
     takes no ``attn_window`` and no ``mesh``, dropped as `repro` drops
-    or ignores them), every other family's `DecoderLM`."""
+    or ignores them), every other family's `DecoderLM` (``attn_window=``
+    overrides the config's window, as in `repro`).
+
+    The second positional parameter differs: `repro`'s is
+    ``build_model(cfg, mesh)``, this one's ``build_model(cfg, device)``;
+    every caller passes either by keyword."""
     if cfg.family == "audio":
         kw.pop("attn_window", None)
         kw.pop("mesh", None)

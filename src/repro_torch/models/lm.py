@@ -380,7 +380,10 @@ class DecoderLM(nn.Module):
     recompute (``torch.utils.checkpoint``), "none" keeps every
     activation; the loss's cross-entropy runs over ``loss_chunks`` chunks
     of the sequence; the MoE layers dispatch by capacity ("capacity") or
-    dropless ("ragged", `repro_torch.models.moe`).
+    dropless ("ragged", `repro_torch.models.moe`). ``attn_window`` is
+    `repro`'s too: the attention window of every attention layer, over
+    ``cfg.attn_window``, and the hybrid's ``local_window`` only where
+    both are None.
 
     ``mesh``, a ("data", "model") `launch.mesh.make_mesh` mesh of one
     process per shard, is `repro`'s ``mesh`` with ``moe_data_axes``
@@ -395,7 +398,8 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
                  device=None, remat: str = "full", loss_chunks: int = 8,
-                 moe_impl: str = "capacity", mesh=None):
+                 moe_impl: str = "capacity", mesh=None,
+                 attn_window: Optional[int] = None):
         super().__init__()
         if remat not in ("full", "none"):
             raise ValueError(f"remat {remat!r} is not 'full' or 'none'")
@@ -409,7 +413,8 @@ class DecoderLM(nn.Module):
         self.remat = remat
         self.loss_chunks = loss_chunks
         self.moe_impl = moe_impl
-        self.window = cfg.attn_window
+        self.window = attn_window if attn_window is not None \
+            else cfg.attn_window
         if cfg.family == "hybrid" and cfg.local_window and \
                 self.window is None:
             self.window = cfg.local_window

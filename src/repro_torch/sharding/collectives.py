@@ -21,23 +21,35 @@ is the transport of a simulated exchange between processes that share
 one card; it is not a fallback, and every kernel still runs on the card.
 CPU tensors go as they are.
 
-Each op runs outside `repro_torch.fl.round_engine.no_sync`'s fence: it
-lifts CUDA's sync-debug mode for its own span, since a host copy or a
-gloo exchange synchronizes by nature, and restores it after.
-``counts`` holds the calls, bytes and seconds of each op since the last
-reset. An op on CUDA tensors waits for the device to reach it before
-its clock starts (the exchange would wait for it anyway), so its seconds
-are the exchange's own, not the compute queued before it.
+Each op runs inside `repro_torch.analysis.guards.allow_transfers`: a
+round runs under the ``no_transfer`` fence, and a host copy or a gloo
+exchange synchronizes by nature. ``counts`` holds the calls, bytes and
+seconds of each op since the last reset. An op on CUDA tensors waits for
+the device to reach it before its clock starts (the exchange would wait
+for it anyway), so its seconds are the exchange's own, not the compute
+queued before it.
+
+Inside a `recording` block each call also leaves a `CallRecord`: the
+op, what this rank sent, the group's size, the call site (the first
+frame outside this module) and the `region` tag the caller set, such as
+the GGC refresh. `repro_torch.analysis.commaudit` reads them as
+`repro`'s audit reads the collectives of the compiled round. Outside
+such a block a call records nothing and looks up no call site.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
+import os
+import sys
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..analysis.guards import allow_transfers
 
 #: (backend, op) -> how a CUDA tensor crosses ranks: "device" (the
 #: backend takes the CUDA tensor) or "host" (through a pinned host copy).
@@ -59,9 +71,78 @@ counts: Dict[str, list] = {op: [0, 0, 0.0] for op in OPS}
 _subgroups: Dict[tuple, object] = {}
 
 
+@dataclasses.dataclass(frozen=True)
+class CallRecord:
+    """One call of a collective on this rank.
+
+    op:         one of `OPS`
+    shape:      the shape of the tensor this rank sent
+    dtype:      its dtype, as ``str(torch.dtype)``
+    sent_bytes: its bytes
+    group_size: the ranks taking part (a ppermute's: the ranks of the
+                axes it shifts along)
+    site:       ``"<file under repro_torch/>:<function>"`` of the first
+                frame outside this module (a caller outside the package:
+                its file's name)
+    region:     the innermost `region` tag around the call, or None
+    """
+    op: str
+    shape: Tuple[int, ...]
+    dtype: str
+    sent_bytes: int
+    group_size: int
+    site: str
+    region: Optional[str]
+
+
+# the lists of the active `recording` blocks, and the `region` tags
+_recorders: List[List[CallRecord]] = []
+_regions: List[str] = []
+
+
 def reset_counts():
     for op in OPS:
         counts[op] = [0, 0, 0.0]
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the collective calls made inside the block: yields a list
+    that gains one `CallRecord` a call, in call order."""
+    recs: List[CallRecord] = []
+    _recorders.append(recs)
+    try:
+        yield recs
+    finally:
+        _recorders.pop()
+
+
+@contextlib.contextmanager
+def region(tag: str):
+    """Tag the collectives called inside the block with ``tag`` in their
+    `CallRecord` (the innermost tag wins)."""
+    _regions.append(tag)
+    try:
+        yield
+    finally:
+        _regions.pop()
+
+
+_HERE = os.path.abspath(__file__)
+_SKIP = (_HERE, os.path.abspath(contextlib.__file__))
+
+
+def _call_site() -> str:
+    frame = sys._getframe(1)
+    while frame is not None and \
+            os.path.abspath(frame.f_code.co_filename) in _SKIP:
+        frame = frame.f_back
+    if frame is None:
+        return "?"
+    path = frame.f_code.co_filename.replace(os.sep, "/")
+    at = path.rfind("/repro_torch/")
+    name = path[at + 1:] if at >= 0 else os.path.basename(path)
+    return f"{name}:{frame.f_code.co_name}"
 
 
 def transport(op: str, tensor: torch.Tensor, group=None) -> str:
@@ -79,25 +160,26 @@ def transport(op: str, tensor: torch.Tensor, group=None) -> str:
 
 
 @contextlib.contextmanager
-def _exchange(op: str, t: torch.Tensor):
-    """One call of collective ``op`` sending ``t``: CUDA's sync-debug
-    mode (`no_sync`'s fence) lifted for its span, and the call, ``t``'s
-    bytes and the seconds from the device reaching the call to its
-    return added to ``counts[op]``."""
-    cuda = t.device.type == "cuda"
-    if cuda:
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
-    try:
+def _exchange(op: str, t: torch.Tensor, group_size: int):
+    """One call of collective ``op`` sending ``t`` to a group of
+    ``group_size`` ranks: inside `allow_transfers`, its `CallRecord`
+    appended to every active `recording`, and the call, ``t``'s bytes and the seconds from the device
+    reaching the call to its return added to ``counts[op]``."""
+    nbytes = t.numel() * t.element_size()
+    if _recorders:
+        rec = CallRecord(op, tuple(t.shape), str(t.dtype), nbytes,
+                         group_size, _call_site(),
+                         _regions[-1] if _regions else None)
+        for recs in _recorders:
+            recs.append(rec)
+    with allow_transfers():
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
         yield
-    finally:
-        if cuda:
-            torch.cuda.set_sync_debug_mode(prev)
     c = counts[op]
     c[0] += 1
-    c[1] += t.numel() * t.element_size()
+    c[1] += nbytes
     c[2] += time.perf_counter() - t0
 
 
@@ -187,7 +269,7 @@ def _all_reduce(op: str, x: torch.Tensor, mesh, axes) -> torch.Tensor:
     # refuses a backend off the table; gloo's all_reduce row is "device"
     transport(op, x, group)
     out = x.clone(memory_format=torch.contiguous_format)
-    with _exchange(op, out):
+    with _exchange(op, out, len(members)):
         dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "psum"
                         else dist.ReduceOp.MAX, group=group)
     return out
@@ -221,33 +303,38 @@ def all_gather_rows(x: torch.Tensor, mesh,
     # refuses a backend off the table; every all_gather entry of it is
     # "device", so the tensor goes as it is
     transport("all_gather", send, group)
-    with _exchange("all_gather", send):
+    with _exchange("all_gather", send, len(members)):
         chunks = [torch.empty_like(send) for _ in members]
         dist.all_gather(chunks, send, group=group)
         out = torch.cat([chunks[i] for i in order], dim=0)
     return out.bool() if as_bool else out
 
 
-def ppermute_next(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The cyclic shift by +1 along ``axis``: this rank sends ``x`` to the
-    next coordinate and returns what the previous one sent (`repro`'s
-    ``ppermute(x, axis, [(i, (i + 1) % size)])``). The identity on an
-    axis of size 1."""
-    size = mesh_axis_sizes(mesh)[axis]
-    if size == 1:
+def ppermute_next(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The cyclic shift by +1 along each of ``axes`` (a name or a tuple of
+    names) at once: this rank sends ``x`` to the rank one further on
+    every axis named and returns what the rank one back on each sent.
+    One axis is `repro`'s ``ppermute(x, axis, [(i, (i + 1) % size)])``;
+    several are the shifts of that many such calls composed, made as one
+    exchange, so a panel crosses once. The identity where the axes'
+    sizes multiply to 1."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = mesh_axis_sizes(mesh)
+    if math.prod(sizes[a] for a in axes) == 1:
         return x
     c = _coords(mesh, dist.get_rank())
     names = list(mesh.mesh_dim_names)
-    at = names.index(axis)
 
-    def rank_at(coord):
+    def rank_at(step):
         pos = [c[n] for n in names]
-        pos[at] = coord % size
+        for a in axes:
+            at = names.index(a)
+            pos[at] = (pos[at] + step) % sizes[a]
         return int(mesh.mesh[tuple(pos)])
 
-    dst, src = rank_at(c[axis] + 1), rank_at(c[axis] - 1)
+    dst, src = rank_at(1), rank_at(-1)
     x = x.contiguous()
-    with _exchange("ppermute", x):
+    with _exchange("ppermute", x, math.prod(sizes[a] for a in axes)):
         staged = transport("ppermute", x) == "host"
         if staged:
             send = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)

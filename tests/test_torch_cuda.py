@@ -6,6 +6,9 @@ only PyTorch:
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1321,3 +1324,99 @@ def test_seqshard_decode_on_the_card_matches_one_device(cuda, tmp_path,
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     assert counts["pmax"][0] == cfg.n_layers
     assert counts["psum"][0] == 2 * cfg.n_layers
+
+
+# ------------------------------------------------------------ the guards
+
+# the small MLP setting of tests/test_round_engine.py (6 clients)
+GUARD_DATA = dict(seed=5, n_clients=6, n_clusters=2,
+                  partition="pathological", classes_per_client=3,
+                  feature_dim=8, n_train=16, n_val=16, n_test=16, noise=2.0,
+                  assign_level="cluster")
+
+
+@pytest.mark.parametrize("name", ["item", "cpu", "as_tensor numpy",
+                                  "tensor scalar", "python scalar operand",
+                                  "pinned non_blocking to cuda"])
+def test_fence_refuses_the_transfers_it_is_documented_to(cuda, name):
+    """Each deliberate transfer of chip_smoke.py's `transfer_probes`
+    inside ``no_transfer``: raises where its `TRANSFER_FENCED` says (CUDA's
+    sync-debug error), passes where it does not; inside
+    ``allow_transfers`` it passes; the mode is restored after."""
+    from repro_torch.analysis import guards
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    probes = smoke.transfer_probes(torch, cuda)
+    assert set(probes) == set(smoke.TRANSFER_FENCED)
+    before = torch.cuda.get_sync_debug_mode()
+    with guards.no_transfer(cuda):
+        if smoke.TRANSFER_FENCED[name]:
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                probes[name]()
+        else:
+            probes[name]()
+        with guards.allow_transfers():
+            probes[name]()
+        assert torch.cuda.get_sync_debug_mode() == 2
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+def test_warm_dpfl_round_inside_the_fence(cuda):
+    """A dense DPFL round (the small MLP engine on the card), warm, inside
+    ``no_transfer`` and ``recompile_sentinel(expect_new=0)``: no host
+    sync, no library built or loaded; then `run_dpfl` itself, whose
+    rounds run inside `run_rounds`' fence."""
+    from repro_torch.analysis import guards
+    from repro_torch.core.dpfl import (DPFLConfig, dpfl_initial_state,
+                                       dpfl_round_step, run_dpfl)
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl.engine import FLEngine
+    from repro_torch.models.classifier import MLP
+
+    engine = FLEngine(MLP(8, 16, 10),
+                      make_federated_classification(**GUARD_DATA), lr=0.05,
+                      batch_size=8, device=cuda)
+    cfg = DPFLConfig(rounds=3, tau_init=1, tau_train=1, budget=3, seed=0)
+    state, _ = dpfl_initial_state(engine, cfg)
+    step = dpfl_round_step(engine, cfg)
+    state = step(state)                      # warm
+    torch.cuda.synchronize()
+    with guards.recompile_sentinel(expect_new=0), guards.no_transfer(cuda):
+        state = step(state)
+    torch.cuda.synchronize()
+    assert state.t == 2
+    with guards.recompile_sentinel(expect_new=0):
+        res = run_dpfl(engine, cfg)
+    assert len(res.comm_downloads) == 3
+
+
+def test_serve_decode_runs_inside_the_fence(cuda):
+    """`generate`'s decode loop on reduced qwen3-0.6b: every step inside
+    the ``no_transfer`` fence, and a warm call builds and loads no
+    library."""
+    from repro_torch.analysis import guards
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build_model(cfg, device="meta")
+    params = model.init(prng.PRNGKey(0, device=cuda))
+    prompts = make_prompts(cfg.vocab_size, 2, 16, 0, "cuda")
+    first = generate(model, params, prompts, 6)
+    modes = []
+    step = model.decode_step
+
+    def spy(*args, **kw):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return step(*args, **kw)
+
+    model.decode_step = spy
+    with guards.recompile_sentinel(expect_new=0):
+        again = generate(model, None, prompts, 6)
+    assert modes == [2] * 5
+    assert torch.equal(first.tokens, again.tokens)

@@ -256,7 +256,8 @@ def test_sharded_ops_match_ref(runs, mesh, op):
     """Each rank's row block, gathered, against the whole plain version:
     the dense mixes bit for bit, the rotation within 1e-5. The dense ops
     gather (1 call each, 2 for top-k's parts); the rotation moves one
-    panel a step (D - 1 steps, one shift per axis moved)."""
+    panel a step (D - 1 steps, a step's shifts along several axes
+    composed into one exchange)."""
     c = _op_case()
     T = torch.from_numpy
     got, counts = runs.mesh(mesh)["ops"][0]
@@ -279,11 +280,11 @@ def test_sharded_ops_match_ref(runs, mesh, op):
     world, pods = MESHES[mesh]
     sizes = {"pod": pods, "data": world // pods}
     # the rotations move 4 parts: the plain mix's panel, int8's q and
-    # scale, the peer rows' panel; a step shifts along each axis it moves
-    # that is longer than 1 (2 at a pod boundary)
+    # scale, the peer rows' panel; each of the D - 1 steps is one shift,
+    # also where it moves both axes (at a pod boundary)
     steps = ops._rotation_schedule(sizes, ("pod", "data"))[1]
-    shifts = sum(sum(sizes[a] > 1 for a in moves) for moves, _ in steps)
-    assert counts["ppermute"][0] == 4 * shifts
+    assert len(steps) == world - 1
+    assert counts["ppermute"][0] == 4 * len(steps)
 
 
 # ------------------------------------------------------- whole DPFL runs

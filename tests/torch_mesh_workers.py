@@ -175,6 +175,31 @@ def all_runs(mesh, device, cases, data_kw, mlp, eng_kw, init, settings,
                                      eng_kw)}
 
 
+def audit_runs(mesh, device, data_kw, mlp, eng_kw, settings):
+    """For each (name, DPFLConfig keywords) of ``settings``: `run_dpfl` on
+    the sharded engine (its claimed ``comm_bytes``) and
+    `analysis.commaudit.audit_config` of one round. Returns {name:
+    (comm_bytes, the report)}; every rank's report must be the same, or
+    this raises."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import commaudit
+    from repro_torch.core.dpfl import DPFLConfig, run_dpfl
+
+    engine = _engine(device, data_kw, mlp, eng_kw, mesh)
+    out = {}
+    for name, kw in settings:
+        cfg = DPFLConfig(**kw)
+        res = run_dpfl(engine, cfg)
+        rep = commaudit.audit_config(engine, cfg)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, rep)
+        if any(r != rep for r in every):
+            raise AssertionError(f"{name}: the ranks' reports differ")
+        out[name] = (list(res.comm_bytes), rep)
+    return out
+
+
 def fail_on_rank(mesh, device, rank):
     """Raise on rank ``rank`` before any collective."""
     import torch.distributed as dist
