@@ -155,8 +155,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    request's tokens those of `generate` on its own client's weights;
    then the model mesh (`repro_torch.launch.mesh.run_on_mesh`, one
    process a shard of a ("data", "model") mesh sharing the card over
-   gloo): `generate` on qwen3-0.6b whole and on qwen3-moe-30b-a3b at
-   full width (its experts split over "model") with each attention ring
+   gloo): `generate` on qwen3-0.6b (whole, or 14 layers on (2, 2)) and
+   on qwen3-moe-30b-a3b at full width (its experts split over "model",
+   on 4 layers, or 2 on (2, 2)) with each attention ring
    sharded on its slots over "model" (flash-decoding) on meshes (1, 2)
    and (2, 2) (MODEL_MESH_RUNS), each rank's every step's logits within
    MESH_LOGITS_TOL of its rows of the single-device run (the moe model's
@@ -165,7 +166,16 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    collectives counted, every decode step under the no-sync fence; and
    the LM example's clients on client meshes of 2 and 3 ranks
    (LM_CLIENT_MESHES), bit for bit the single-device run with the
-   shard's client count at a time, the plain run's graphs;
+   shard's client count at a time, the plain run's graphs; then the
+   dry run (`run_dryrun`, `repro_torch.launch.dryrun`'s means on the
+   card): each kernel and backward at its first timed shape asks the
+   allocator for exactly what its meta path allocates; the peak that
+   `roofline.count_step` predicts on "meta" tensors within
+   DRYRUN_PEAK_TOL of `max_memory_allocated` for one dense round, the
+   qwen3-0.6b, mamba2-370m and whisper-medium train steps and
+   qwen3-0.6b's serve
+   (DRYRUN_TRAINS, DRYRUN_SERVE); and the `ShapeMesh` rounds' collective
+   records equal the sharded phase's audited rounds', rank by rank;
 5. each kernel timed beside its plain version, the one PyTorch call
    that computes the same function where there is one (none for K5
    and K6), K3's launches also alone, K5's three kernels by
@@ -180,6 +190,7 @@ without the port's sources beside it. Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -304,14 +315,16 @@ SHARD_BITWISE = ("dense-random", "dense", "topk")
 # process a shard sharing the card over gloo, each rank serving its block
 # of SERVE_RUN's batch through `launch.serve.generate`, its attention
 # rings sharded on "model" (its C / M slots of the 544-slot rings): run ->
-# (arch, layers (None: all), mesh (data, model)). qwen3-0.6b whole;
-# qwen3-moe-30b-a3b at its published widths with its experts sharded
-# too, on 8 of its 48 layers at (1, 2) (64 experts a rank: 12.8 GB) and
-# 4 at (2, 2) (7.9 GB a rank)
+# (arch, layers (None: all), mesh (data, model)). qwen3-0.6b whole at
+# (1, 2) and on 14 of its 28 layers at (2, 2); qwen3-moe-30b-a3b at its
+# published widths with its experts sharded too, on 4 of its 48 layers
+# at (1, 2) (64 experts a rank: 6.4 GB) and 2 at (2, 2). These runs were
+# cut (moe from 8 and 4 layers, qwen3 at (2, 2) from 28) to keep the
+# script under 800 s with the dry-run phase.
 MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", None, (1, 2)),
-                   "qwen3 2x2": ("qwen3-0.6b", None, (2, 2)),
-                   "moe 1x2": ("qwen3-moe-30b-a3b", 8, (1, 2)),
-                   "moe 2x2": ("qwen3-moe-30b-a3b", 4, (2, 2))}
+                   "qwen3 2x2": ("qwen3-0.6b", 14, (2, 2)),
+                   "moe 1x2": ("qwen3-moe-30b-a3b", 4, (1, 2)),
+                   "moe 2x2": ("qwen3-moe-30b-a3b", 2, (2, 2))}
 # the logits of every step against the single-device run's rows; the aux
 # loss against the whole batch's; a top-2 gap under MESH_GAP may part the
 # greedy tokens
@@ -328,7 +341,7 @@ TRANSFER_FENCED = {"item": True, "cpu": True, "as_tensor numpy": True,
                    "tensor scalar": True, "python scalar operand": False,
                    "pinned non_blocking to cuda": False}
 # the archs whose serve runs leave the model-mesh runs their references
-MESH_REFERENCE_ARCHS = ("qwen3-0.6b", "qwen3-moe-30b-a3b")
+MESH_REFERENCE_ARCHS = ("qwen3-0.6b",)
 # LM clients on the client mesh: the LM example's setting (its reduced
 # qwen3, 6 clients) on client meshes of 2 and 3 ranks
 LM_CLIENT_MESHES = {"1x2": 2, "1x3": 3}
@@ -784,25 +797,24 @@ LM_DPFL_FULL = dict(arch="qwen3-0.6b", n_layers=2, clients=4)
 PERSONALIZED_RUN = dict(arch="qwen3-0.6b", prompt_len=512, new_tokens=32,
                         seed=3)
 
-# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
-# on the tensor cores), NVIDIA data sheets. A row's bound takes the rate
-# of its inputs' type: a kernel on bf16 inputs could use the tensor cores.
-CARDS = {"H200": (4.8e12, 67e12, 989e12),
-         "H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H100": (3.35e12, 67e12, 989e12)}
-
-
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
 def card_rates(name: str):
-    for key, rates in CARDS.items():
-        if key in name:
-            return rates
-    fail(f"no published rates for {name!r}: the port targets Hopper")
+    """The card's row of the port's hardware table
+    (`repro_torch.roofline.analysis.CARDS`: HBM bytes/s, fp32 FLOP/s
+    outside the tensor cores, dense bf16 FLOP/s on the tensor cores, SMs,
+    one NVLink direction, memory; NVIDIA data sheets), which the dry run
+    reads too. A bound takes the rate of its inputs' type: a kernel on
+    bf16 inputs could use the tensor cores."""
+    from repro_torch.roofline.analysis import card_for
+
+    rates = card_for(name)
+    if rates is None:
+        fail(f"no published rates for {name!r}: the port targets Hopper")
+    return rates
 
 
 def _close(torch, label, got, want, tol, rtol=None):
@@ -906,9 +918,7 @@ def time_k1(torch, inputs, errs, rates):
         plain_ms = time_ms(lambda: ref.graph_mix_ref(A, W), torch)
         lib_ms = (time_ms(lambda: torch.matmul(A, W), torch)
                   if dt == "float32" else None)
-        elt = W.element_size()
-        nbytes = 4 * M * N + elt * (N * P + M * P)
-        flops = 2 * M * N * P
+        nbytes, flops = k1.work(M, N, P, W.element_size())
         bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
         rows.append(dict(M=M, N=N, P=P, dtype=dt, max_abs_err=err,
                          tol=TOL[dt], ms=ms, plain_ms=plain_ms,
@@ -1072,11 +1082,10 @@ def time_k2(torch, inputs, errs, rates):
                  idx.clamp_min(0).long()),
                 torch.where(idx >= 0, nw, 0.0), accumulate=True)
             lib_ms = time_ms(lambda: torch.matmul(A, W), torch)
-        elt = W.element_size()
         valid = idx >= 0
         peer_rows = 0 if Wp is W else int(torch.unique(idx[valid]).numel())
-        nbytes = 4 * N + 8 * N * B + elt * (2 * N + peer_rows) * P
-        flops = 2 * P * (N + int(valid.sum()))
+        nbytes, flops = k2.work(N, B, P, W.element_size(),
+                                int(valid.sum()), peer_rows)
         bound_ms, bound_by = _bound(rates, nbytes, flops, dt)
         rows.append(dict(case=name, N=N, B=B, P=P, dtype=dt,
                          max_abs_err=err, tol=TOL[dt], ms=ms,
@@ -1122,8 +1131,7 @@ def time_k3(torch, inputs, errs, rates):
         At = A.t().contiguous()
         lib_ms = time_ms(lambda: torch.sparse.mm(S, At), torch)
         entries = int((idx >= 0).sum())
-        nbytes = 8 * N * K + 4 * M * N + 4 * M * P
-        flops = 2 * M * entries
+        nbytes, flops = k3.work(M, N, K, P, entries)
         bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         rows.append(dict(case=name, M=M, N=N, K=K, P=P, dtype="float32",
                          max_abs_err=err, tol=TOL["float32"], ms=ms,
@@ -1186,20 +1194,13 @@ def check_k4(torch, inputs):
 
 
 def k4_work(q, k, causal, window):
-    """(bytes, flops) K4 must at least move and do: q, k, v read once and
-    out written once; 4 hd flops (two products) per visible (query, key)
-    pair of every head, counted from the mask of these shapes (row i sees
-    keys j <= i when causal, j > i - window under a window: non-causal
-    with no window, every row all Sk keys, 4 B Hq Sq Sk hd)."""
+    """(bytes, flops) of a K4 forward call on q (B, Sq, Hq, hd) and k
+    (B, Sk, Hkv, hd): `kernels.flash_attention.work`."""
+    from repro_torch.kernels import flash_attention as k4
+
     B, Sq, Hq, hd = q.shape
-    Sk = k.shape[1]
-    pairs = 0
-    for i in range(Sq):
-        lo = 0 if window is None else max(0, i - window + 1)
-        hi = min(i, Sk - 1) if causal else Sk - 1
-        pairs += max(0, hi - lo + 1)
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return nbytes, 4 * B * Hq * hd * pairs
+    return k4.work(B, Sq, k.shape[1], Hq, k.shape[2], hd, causal, window,
+                   q.element_size())
 
 
 def time_k4(torch, inputs, errs, rates):
@@ -1323,16 +1324,13 @@ def check_k4_bwd(torch, inputs):
 
 
 def k4_bwd_work(q, k, causal, window):
-    """(bytes, flops) K4's backward must at least move and do: q, k, v,
-    out and dout read once, lse read once, dq, dk and dv written once;
-    10 hd flops (five products) per visible (query, key) pair of every
-    head (non-causal with no window: 10 B Hq hd Sq Sk)."""
-    nbytes, flops = k4_work(q, k, causal, window)
-    B, Sq, Hq, _ = q.shape
-    # k4_work counts q, k, v and out: add dout, lse, dq, dk and dv
-    nbytes += q.element_size() * (2 * q.numel() + 2 * k.numel() +
-                                  B * Hq * Sq)
-    return nbytes, flops // 4 * 10
+    """(bytes, flops) of a K4 backward call: `kernels.flash_attention.
+    bwd_work`."""
+    from repro_torch.kernels import flash_attention as k4
+
+    B, Sq, Hq, hd = q.shape
+    return k4.bwd_work(B, Sq, k.shape[1], Hq, k.shape[2], hd, causal,
+                       window, q.element_size())
 
 
 def kernel_split_ms(fn, torch, pattern, reps: int = 20):
@@ -1489,24 +1487,11 @@ def check_k5(torch, inputs):
 
 
 def k5_work(x, B, chunk, h0):
-    """(bytes, flops) K5 must at least move and do: x, dlogA, B, C (and
-    h0) read once, y and h_last written once; the scores C_i . B_j of the
-    causal pairs once per (b, chunk), since B and C are shared by the
-    heads (2n each), then per head the scores times X (2p per pair), the
-    state update (2 L n p per chunk) and the carried-in C h^T (2 L n p per
-    chunk that receives a state: all but the first when h0 is None)."""
+    """(bytes, flops) of a K5 forward op: `kernels.ssd.work`."""
+    from repro_torch.kernels import ssd as k5
+
     b, l, H, p = x.shape
-    n = B.shape[-1]
-    L = min(chunk, l)
-    c = l // L
-    pairs = L * (L + 1) // 2
-    carried = c - (1 if h0 is None else 0)
-    flops = (b * c * pairs * 2 * n
-             + b * H * (c * pairs * 2 * p + c * 2 * L * n * p
-                        + carried * 2 * L * n * p))
-    nbytes = 4 * (2 * x.numel() + b * l * H + 2 * B.numel()
-                  + (2 if h0 is not None else 1) * b * H * p * n)
-    return nbytes, flops
+    return k5.work(b, l, H, p, B.shape[-1], chunk, h0 is not None)
 
 
 def host_ms(fn, torch, reps: int = 20) -> float:
@@ -1618,11 +1603,10 @@ def check_k6(torch, inputs):
 
 
 def k6_work(a, h0):
-    """(bytes, flops) K6 must at least move and do: a and b (and h0) read
-    once, h and h_last written once; a product and a sum per element."""
-    B, S, W = a.shape
-    nbytes = 4 * (3 * a.numel() + (2 if h0 is not None else 1) * B * W)
-    return nbytes, 2 * a.numel()
+    """(bytes, flops) of a K6 forward call: `kernels.rglru_scan.work`."""
+    from repro_torch.kernels import rglru_scan as k6
+
+    return k6.work(*a.shape, h0 is not None)
 
 
 def time_k6(torch, inputs, errs, rates):
@@ -1729,21 +1713,13 @@ def check_k5_bwd(torch, inputs):
     return out
 
 
-def k5_bwd_work(x, B, chunk, h0, dhl, states):
-    """(bytes, flops) K5's backward must at least move and do: x, B, C,
-    dy, the forward's cum and states (and dh_last) read once; dx, d
-    dlogA, dB and dC (and dh0) written once; `ssd.backward_flops`."""
+def k5_bwd_work(x, B, chunk, h0, dhl):
+    """(bytes, flops) of a K5 backward call: `kernels.ssd.bwd_work`."""
     from repro_torch.kernels import ssd as k5
 
     b, l, H, p = x.shape
-    n = B.shape[-1]
-    state = b * H * p * n
-    nbytes = 4 * (3 * x.numel() + 4 * B.numel() + 2 * b * l * H +
-                  states.numel() + (state if dhl is not None else 0) +
-                  (state if h0 is not None else 0))
-    flops = k5.backward_flops(b, l, H, p, n, min(chunk, l), h0 is not None,
-                              dhl is not None)["total"]
-    return nbytes, flops
+    return k5.bwd_work(b, l, H, p, B.shape[-1], chunk, h0 is not None,
+                       dhl is not None)
 
 
 def time_k5_bwd(torch, inputs, errs, rates):
@@ -1774,7 +1750,7 @@ def time_k5_bwd(torch, inputs, errs, rates):
         host = host_ms(bwd, torch)
         plain_ms = time_ms(lambda: ref.ssd_bwd_ref(
             x, dlogA, B, C, chunk, h0, dy, dhl), torch, reps=20, warmup=3)
-        nbytes, flops = k5_bwd_work(x, B, chunk, h0, dhl, states)
+        nbytes, flops = k5_bwd_work(x, B, chunk, h0, dhl)
         bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         b, l, H, p = x.shape
         n = B.shape[-1]
@@ -1864,9 +1840,8 @@ def time_k6_bwd(torch, inputs, errs, rates):
         plain_ms = time_ms(lambda: ref.linear_scan_bwd_ref(
             a, b, h0, dy, dhl), torch, reps=5, warmup=1)
         B, S, W = a.shape
-        nbytes = 4 * (5 * a.numel() + B * W * ((h0 is not None) * 2 +
-                                               (dhl is not None)))
-        flops = 3 * a.numel()
+        nbytes, flops = k6.bwd_work(B, S, W, h0 is not None,
+                                    dhl is not None)
         bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
         rows.append(dict(case=name, B=B, S=S, W=W, dtype="float32",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2719,7 +2694,10 @@ def sharded_rank(mesh, device, runs):
             calls.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out["runs"][run]["audit"] = commaudit.audit_config(engine, cfg)
+            records = []
+            out["runs"][run]["audit"] = commaudit.audit_config(
+                engine, cfg, records=records)
+            out["runs"][run]["records"] = records
             torch.cuda.synchronize()
             out["runs"][run]["audit_s"] = float(engine.whole(torch.tensor(
                 [time.perf_counter() - t0], device=device)).max())
@@ -2743,7 +2721,7 @@ def _same_run(a, b) -> bool:
             "comm_downloads", "comm_preprocess", "comm_bytes"))
 
 
-def run_sharded(torch, engine, single):
+def run_sharded(torch, engine, single, records=None):
     """The sharded phase (SHARD_MESHES x SHARD_RUNS), each mesh one
     `run_on_client_mesh` launch on the card; ``single`` holds the
     single-device card runs of VARIANTS. The single-device random-graph
@@ -2754,7 +2732,9 @@ def run_sharded(torch, engine, single):
     rotated mix of a sharded run, and a seeded int8 rotation, must be
     within TOL["float32"] of the plain mix over the gathered table.
     Returns
-    {run label: launches, summed over the ranks} for the kernels line."""
+    {run label: launches, summed over the ranks} for the kernels line;
+    ``records`` (a dict) gains {(mesh name, run): every rank's
+    `CallRecord`s of the audited round}."""
     import numpy as np
 
     from repro_torch.core.dpfl import run_dpfl
@@ -2815,6 +2795,8 @@ def run_sharded(torch, engine, single):
               f"{TOL['float32']})")
         for run in SHARD_RUNS:
             got = out["runs"][run]
+            if records is not None:
+                records[(mesh_name, run)] = got["records"]
             res, cfg, ref = got["res"], shard_config(run), plain[run]
             want = shard_launches(run, N, B, rounds, world)
             for r, counts in enumerate(got["launches"]):
@@ -3962,7 +3944,8 @@ def mesh_reference(torch, model, cfg, shards, rows=slice(None)):
     on ``rows`` of SERVE_RUN's prompts (seed 0, the serve run's), every
     step's logits kept (the prefill's first) and the MoE routing on
     ``shards`` expert blocks (`_routing_hooks`). Returns {"logits" (B,
-    new, V), "tokens" (B, new): numpy, "routing": `_routing_summary`}."""
+    new, V), "tokens" (B, new): numpy, "routing": `_routing_summary`,
+    "layers": the model's depth}."""
     from repro_torch.launch.serve import generate, make_prompts
 
     B, S, new = (SERVE_RUN[k] for k in ("batch", "prompt_len",
@@ -3978,7 +3961,7 @@ def mesh_reference(torch, model, cfg, shards, rows=slice(None)):
     logits = torch.stack([gen.prefill_logits] + steps, 1)
     return {"logits": logits.cpu().numpy(),
             "tokens": gen.tokens.cpu().numpy(),
-            "routing": _routing_summary(torch, rec)}
+            "routing": _routing_summary(torch, rec), "layers": cfg.n_layers}
 
 
 def _ranks(torch, x, mesh):
@@ -4087,10 +4070,9 @@ def _compare_steps(want, got):
 def run_model_mesh(torch, refs):
     """The model-mesh phase (MODEL_MESH_RUNS), each run one `run_on_mesh`
     launch on the card after its single-device reference was made and
-    freed: ``refs`` holds the serve phase's whole-batch references of
-    qwen3-0.6b and of qwen3-moe-30b-a3b on 8 layers; the moe run on 4
-    layers makes its own here (each data block alone: the capacity is
-    the block's). Each
+    freed: ``refs`` holds the serve phase's whole-batch reference of
+    qwen3-0.6b; a run of another depth or arch makes its own here (each
+    data block alone: a moe block's capacity is the block's). Each
     rank must launch K4 once a layer and nothing else, run every decode
     step under the no-sync fence, make its expected collectives (one
     pmax and two psums a layer a decode step; a moe layer's psum over
@@ -4116,7 +4098,7 @@ def run_model_mesh(torch, refs):
         cfg = mesh_config(arch, layers)
         L, moe_layers = cfg.n_layers, cfg.n_layers * (cfg.family == "moe")
         t0 = time.perf_counter()
-        if run == "moe 2x2":
+        if L != refs.get(arch, {}).get("layers"):
             model = build_model(cfg, device="meta")
             model.init(prng.PRNGKey(0, device="cuda"))
             blocks = [mesh_reference(torch, model, cfg, M,
@@ -4344,6 +4326,295 @@ def run_lm_client_mesh(torch, card):
     return launches
 
 
+# ---------------------------------------------------------- the dry run
+
+#: the dry run's predicted peak (`roofline.count_step` on "meta" tensors)
+#: against the card's: each anchor's measured peak within this share
+DRYRUN_PEAK_TOL = 0.10
+#: the anchors' train steps (fp32, remat "full", the loss over 4 chunks
+#: as `launch.train.main` builds it; whisper-medium whole after 1,500
+#: frames, TRAIN_AUDIO's step: a model of modules, where a counter's
+#: module hooks would hold its activations) and serve run
+DRYRUN_TRAINS = {"qwen3-0.6b": dict(batch=8, seq=512),
+                 "mamba2-370m": dict(batch=8, seq=512),
+                 "whisper-medium": dict(batch=8, seq=448)}
+DRYRUN_SERVE = dict(arch="qwen3-0.6b", batch=4, prompt_len=512,
+                    new_tokens=8)
+
+
+def meta_twin(torch, t):
+    """A "meta" tensor of ``t``'s shape, strides and dtype (anything
+    else, as it is)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    return torch.empty_strided(tuple(t.shape), t.stride(), dtype=t.dtype,
+                               device="meta")
+
+
+def _card_alloc(torch, fn):
+    """(the rise of max_memory_allocated over ``fn()``, the rise of the
+    allocator's peak requested bytes): what its launches allocate."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out = fn()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    req = torch.cuda.memory_stats()["requested_bytes.all.peak"] - requested
+    del out
+    return rise, req
+
+
+def _meta_alloc(fn, sms):
+    """(``fn()``'s peak on "meta" tensors in 512-byte blocks, and in bytes
+    as requested)."""
+    from repro_torch.kernels import meta as kmeta
+    from repro_torch.roofline.analysis import PeakTracker
+
+    with kmeta.target(sms), PeakTracker(512) as blocks, \
+            PeakTracker(1) as exact:
+        fn()
+    return blocks.peak, exact.peak
+
+
+def kernel_alloc_cases(torch, k1_in, k2_in, k3_in, k4_in, k4b_in, k5_in,
+                       k6_in, k5b_in, k6b_in):
+    """(name, card call, meta call) of each kernel and backward at its
+    first timed shape (PERF.md §6), the meta call on `meta_twin`s."""
+    from repro_torch.kernels import compressed_graph_mix as k3
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import graph_mix as k1
+    from repro_torch.kernels import rglru_scan as k6
+    from repro_torch.kernels import sparse_graph_mix as k2
+    from repro_torch.kernels import ssd as k5
+
+    def twin(*ts):
+        return [meta_twin(torch, t) for t in ts]
+
+    def pair(name, fn, *args, **kw):
+        return (name, functools.partial(fn, *args, **kw),
+                functools.partial(fn, *twin(*args),
+                                  **dict(zip(kw, twin(*kw.values())))))
+    cases = []
+    M, N, P, dt, A, W = k1_in[0]
+    cases.append(pair("graph_mix", k1.graph_mix, A, W))
+    name, dt, sw, nw, idx, W, Wp = next(c for c in k2_in
+                                        if c[0].startswith("main"))
+    meta_k2 = twin(sw, nw, idx, W)
+    meta_k2.append(meta_k2[-1] if Wp is W else meta_twin(torch, Wp))
+    cases.append(("sparse_graph_mix",
+                  functools.partial(k2.sparse_graph_mix, sw, nw, idx, W, Wp),
+                  functools.partial(k2.sparse_graph_mix, *meta_k2)))
+    name, A, vals, idx, P = next(c for c in k3_in if c[0] == "main")
+    meta_k3 = twin(A, vals, idx)
+    cases.append(("compressed_graph_mix",
+                  functools.partial(k3.compressed_graph_mix, A, vals, idx,
+                                    P),
+                  functools.partial(k3.compressed_graph_mix, *meta_k3, P)))
+    name, dt, causal, window, q, k, v = next(
+        c for c in k4_in if "serve" in c[0] and c[1] == "float32")
+    cases.append(pair("flash_attention", k4.flash_attention, q, k, v,
+                      causal=causal, window=window))
+    name, causal, window, q, k, v, dout = next(
+        c for c in k4b_in if c[0] in K4_BWD_TIMED)
+    out, lse = k4.flash_attention_with_lse(q, k, v, causal=causal,
+                                           window=window)
+    cases.append(pair("flash_attention_bwd", k4.flash_attention_bwd, q, k,
+                      v, out, lse, dout, causal=causal, window=window))
+    name, chunk, x, dlogA, B, C, h0 = next(c for c in k5_in
+                                           if c[0] in K5_TIMED)
+    cases.append(pair("ssd", k5.ssd, x, dlogA, B, C, chunk=chunk, h0=h0))
+    name, a, b, h0 = next(c for c in k6_in if c[0] == "serve")
+    cases.append(pair("rglru_scan", k6.rglru_scan, a, b, h0))
+    name, chunk, x, dlogA, B, C, h0, dy, dhl = next(
+        c for c in k5b_in if c[0] in K5_BWD_TIMED)
+    _, _, cum, states = k5.ssd_with_work(x, dlogA, B, C, chunk=chunk, h0=h0)
+    cases.append(pair("ssd_bwd", k5.ssd_bwd, x, dlogA, B, C, chunk, h0, dy,
+                      dhl, cum, states))
+    name, a, b, h0, dy, dhl = next(c for c in k6b_in
+                                   if c[0] in K6_BWD_TIMED)
+    h, _ = k6.rglru_scan(a, b, h0)
+    cases.append(pair("rglru_scan_bwd", k6.rglru_scan_bwd, a, h, h0, dy,
+                      dhl))
+    return cases
+
+
+def check_kernel_allocs(torch, cases, sms):
+    """Each kernel's launch allocates what its meta path allocates (its
+    plan for a card of ``sms`` SMs, the hardware table's): the bytes the
+    launch asks the caching allocator for (its peak requested bytes)
+    equal the meta path's exactly, and its max_memory_allocated rise is
+    at least the meta path's in 512-byte blocks (the allocator hands a
+    large request a larger block where a segment's rest is too small to
+    split, so the rise is not the request rounded). Returns {name:
+    (requested, card rise, meta blocks)}."""
+    out = {}
+    for name, card, meta in cases:
+        rise, req = _card_alloc(torch, card)
+        blocks, exact = _meta_alloc(meta, sms)
+        print(f"  {name}: the launch asks for {req} bytes (max_memory_"
+              f"allocated rise {rise}), the meta path {exact} ({blocks} in "
+              f"512-byte blocks)")
+        if req != exact or rise < blocks:
+            fail(f"dry run: {name}'s launch allocates {req} bytes (rise "
+                 f"{rise}), its meta path {exact} ({blocks} in blocks)")
+        out[name] = (req, rise, blocks)
+    return out
+
+
+def _peak_gap(torch, label, card_fn, meta_fn, hw):
+    """``card_fn()``'s measured peak (max_memory_allocated after a reset,
+    less what was allocated before it) against the dry run's prediction
+    of ``meta_fn`` on "meta" tensors (`roofline.count_step`'s peak, the
+    instrument behind the dry run's records); fails beyond
+    DRYRUN_PEAK_TOL. Returns (predicted, measured, gap)."""
+    from repro_torch.roofline import count_step
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    card_fn()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    predicted = count_step(meta_fn, hw=hw).peak_bytes
+    gap = (predicted - measured) / measured
+    print(f"  {label}: predicted peak {predicted} bytes, measured "
+          f"{measured} (gap {gap:+.4f}, tolerance {DRYRUN_PEAK_TOL}); {SMI}")
+    if abs(gap) > DRYRUN_PEAK_TOL:
+        fail(f"dry run: {label}'s predicted peak {predicted} is {gap:+.4f} "
+             f"off the measured {measured}")
+    return predicted, measured, gap
+
+
+def _lm_pair(torch, arch):
+    """(a card model with seeded weights, its "meta" twin): the whole
+    ``arch`` in fp32, the loss over 4 chunks (`launch.train.main`'s)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).replace(dtype="float32")
+    model = build_model(cfg, device="meta", loss_chunks=4).to_empty(
+        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    return cfg, model, build_model(cfg, device="meta", loss_chunks=4)
+
+
+def run_dryrun(torch, engine, kernel_cases, records):
+    """The dry-run phase: each kernel's meta allocation against its
+    launch's; the predicted peak of one dense round (N 32), the
+    qwen3-0.6b, mamba2-370m and whisper-medium train steps and
+    qwen3-0.6b's serve against the card's; the `ShapeMesh` records of the sharded phase's audited rounds
+    against the real ones, rank by rank. Returns the anchors' (predicted,
+    measured, gap) by label."""
+    import dataclasses
+
+    from repro_torch.core.dpfl import (abstract_round_state,
+                                       dpfl_initial_state, dpfl_round_step)
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl.engine import FLEngine
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import AXES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.classifier import PaperCNN
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import CARDS, HW
+    from repro_torch.sharding import collectives as coll
+
+    hw = HW(next(k for k in CARDS if k in torch.cuda.get_device_name(0)))
+    print("dry run: each kernel's launch against its meta path:")
+    check_kernel_allocs(torch, kernel_cases, hw.card.sms)
+    gaps = {}
+    print(f"dry run: predicted peaks against the card's (modelled on "
+          f"'meta' tensors; measured: max_memory_allocated less what was "
+          f"allocated before the run):")
+    data = make_federated_classification(**SMOKE_DATA)
+    cfg = smoke_config("dense", **SMOKE_RUN)
+    state, _ = dpfl_initial_state(engine, cfg)
+    step = dpfl_round_step(engine, cfg)
+    meta_engine = FLEngine(engine.model, data, lr=SMOKE_LR,
+                           batch_size=SMOKE_BATCH, device="meta")
+    meta_state = abstract_round_state(meta_engine, cfg)
+    meta_step = dpfl_round_step(meta_engine, cfg)
+    gaps["dense round N 32"] = _peak_gap(
+        torch, f"one dense round (PaperCNN, N {SMOKE_DATA['n_clients']})",
+        lambda: step(state), lambda: meta_step(meta_state), hw)
+    del state, step
+    for arch, run in DRYRUN_TRAINS.items():
+        cfg_lm, model, twin = _lm_pair(torch, arch)
+        opt = adamw(3e-4)
+        st = opt.init(dict(model.named_parameters()))
+        train = make_train_step(model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        batch = {"tokens": torch.randint(
+            0, cfg_lm.vocab_size, (run["batch"], run["seq"] + 1),
+            generator=gen, device="cuda")}
+        if cfg_lm.family == "audio":
+            batch["frames"] = make_frames(torch, cfg_lm, run["batch"])
+        st, _ = train(st, batch)      # the cuBLAS workspaces, warm
+        meta_st = opt.init(dict(twin.named_parameters()))
+        meta_train = make_train_step(twin, opt)
+        meta_batch = {k: meta_twin(torch, v) for k, v in batch.items()}
+        gaps[f"train {arch}"] = _peak_gap(
+            torch, f"{arch} train step (B {run['batch']}, S {run['seq']})",
+            lambda: train(st, batch), lambda: meta_train(meta_st,
+                                                         meta_batch), hw)
+        del model, twin, st, train, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    r = DRYRUN_SERVE
+    cfg_lm, model, twin = _lm_pair(torch, r["arch"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    prompts = torch.randint(0, cfg_lm.vocab_size,
+                            (r["batch"], r["prompt_len"]), generator=gen,
+                            device="cuda")
+    serve.generate(model, None, prompts, r["new_tokens"])
+    meta_prompts = meta_twin(torch, prompts)
+    gaps[f"serve {r['arch']}"] = _peak_gap(
+        torch, f"{r['arch']} serve (B {r['batch']}, prompt "
+               f"{r['prompt_len']}, {r['new_tokens']} new)",
+        lambda: serve.generate(model, None, prompts, r["new_tokens"]),
+        lambda: serve.generate(twin, None, meta_prompts, r["new_tokens"]),
+        hw)
+    del model, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = 0
+    for mesh_name, (pods, per_pod) in SHARD_MESHES.items():
+        world = pods * per_pod
+        for rank in range(world):
+            eng = meta_engine.shard_clients(
+                coll.ShapeMesh((pods, per_pod), AXES, rank))
+            # the random-graph runs on every rank, the greedy ones (about
+            # 1 s a meta round) on rank 0: the CPU tests hold every
+            # rank's greedy records against the gloo meshes'
+            # (tests/test_torch_dryrun.py)
+            for run in (SHARD_RUNS if rank == 0 else
+                        [r for r in SHARD_RUNS if r.endswith("-random")]):
+                cfg = shard_config(run)
+                st = abstract_round_state(eng, cfg)
+                with coll.recording() as recs:
+                    dpfl_round_step(eng, cfg)(st)
+                want = [dataclasses.astuple(c)
+                        for c in records[(mesh_name, run)][rank]]
+                got = [dataclasses.astuple(c) for c in recs]
+                if got != want:
+                    fail(f"dry run: sharded {mesh_name} {run} rank {rank}: "
+                         f"the ShapeMesh round's records {got} differ from "
+                         f"the card's {want}")
+                n += len(got)
+    print(f"dry run: the ShapeMesh rounds' {n} CallRecords equal the "
+          f"sharded phase's audited rounds', op by op (op, shape, dtype, "
+          f"bytes, group size, site, region), on {list(SHARD_MESHES)}: "
+          f"every rank for {[r for r in SHARD_RUNS if r.endswith('-random')]}"
+          f", rank 0 for the others")
+    return gaps
+
+
 def _kernel_row(name, source, replaces, launches, rows):
     main = rows[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -4530,7 +4801,8 @@ def main():
               f"tau={BASELINE_RUN['tau']}: {seconds:.3f} s wall, mean test "
               f"acc {mean_acc:.4f} (JAX reference {LEARN_REF[name]}), "
               f"launches {counts}, every round under the no-sync fence")
-    launches.update(run_sharded(torch, engine, single))
+    sharded_records = {}
+    launches.update(run_sharded(torch, engine, single, sharded_records))
     del single
     B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
     walls, mesh_refs = {}, {}
@@ -4595,9 +4867,9 @@ def main():
                                   f"; smallest router gap on the card "
                                   f"{routing['gap']:.3g}"))
         if arch in MESH_REFERENCE_ARCHS:
-            # the model-mesh phase's single-device references, while the
-            # weights are on the card (MODEL_MESH_RUNS: qwen3-0.6b whole,
-            # qwen3-moe-30b-a3b on these 8 layers)
+            # the model-mesh phase's single-device reference, while the
+            # weights are on the card (MODEL_MESH_RUNS' qwen3 (1, 2) run:
+            # qwen3-0.6b whole)
             mesh_refs[arch] = mesh_reference(torch, model, cfg, 2)
         del model, params, gen, again
         torch.cuda.empty_cache()
@@ -4694,6 +4966,12 @@ def main():
     launches.update(run_lm_client_mesh(torch, lm_card))
     print(f"model-mesh phase and LM clients on the client mesh: "
           f"{time.perf_counter() - t0:.3f} s; {SMI}")
+    t0 = time.perf_counter()
+    run_dryrun(torch, engine, kernel_alloc_cases(
+        torch, k1_in, k2_in, k3_in, k4_in, k4b_in, k5_in, k6_in, k5b_in,
+        k6b_in), sharded_records)
+    del sharded_records
+    print(f"dry-run phase: {time.perf_counter() - t0:.3f} s; {SMI}")
 
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle

@@ -332,12 +332,15 @@ def reconcile(rep: AuditReport, claimed_bytes_per_round: int) -> None:
             f"D={rep.n_devices})")
 
 
-def audit_config(engine, cfg) -> AuditReport:
+def audit_config(engine, cfg, records: Optional[list] = None
+                 ) -> AuditReport:
     """Run one round of the (engine, cfg) ``round_step`` that `run_dpfl`
     dispatches, from the state `run_dpfl` starts from, and audit its
     collective calls: under a client mesh every rank calls it, each
     rank's calls are gathered, and every rank returns the same report of
-    all of them. The only entry most callers need."""
+    all of them. The only entry most callers need. ``records``, a list,
+    gains each rank's `CallRecord`s of the round (one list a rank, in
+    rank order)."""
     import torch.distributed as dist
 
     from ..core.dpfl import dpfl_initial_state, dpfl_round_step
@@ -352,6 +355,8 @@ def audit_config(engine, cfg) -> AuditReport:
     else:
         per_rank = [None] * dist.get_world_size()
         dist.all_gather_object(per_rank, mine)
+    if records is not None:
+        records.extend(per_rank)
     N = engine.data.n_clients
     return audit_records(
         per_rank, n_clients=N, n_devices=len(per_rank),

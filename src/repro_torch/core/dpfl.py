@@ -652,6 +652,48 @@ def dpfl_initial_state(engine: FLEngine, cfg: DPFLConfig):
                             aux=aux), result
 
 
+def abstract_round_state(engine: FLEngine, cfg: DPFLConfig):
+    """The `RoundState` of `dpfl_initial_state` as shapes alone: every
+    leaf of the same name, shape and dtype on "meta" (no storage), the
+    engine's rows under a client mesh
+    (`repro.core.dpfl.abstract_round_state`). It runs no preprocessing,
+    so `dpfl_round_step` can run one round of a production-size
+    configuration on "meta" tensors (`repro_torch.launch.fl_dryrun`)."""
+    _check_ported(cfg)
+    N = engine.data.n_clients
+    n_loc, P_ = engine.n_local, engine.n_params
+    hist_len = _hist_len(cfg)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    key = empty((2,), torch.int64)
+    aux = {"k_graph": key, "comm": empty((cfg.rounds,), torch.int64)}
+    if _sparse(cfg):
+        B = _nbr_width(N, _budget(cfg, N))
+        aux.update(nbr=empty((n_loc, B), torch.int32),
+                   omega_nbr=empty((n_loc, B), torch.int32))
+        if hist_len:
+            aux["graph_hist"] = empty((hist_len, n_loc, B), torch.int32)
+    else:
+        aux.update(adj=empty((n_loc, N), torch.bool),
+                   omega=empty((n_loc, N), torch.bool))
+        if hist_len:
+            aux["graph_hist"] = empty((hist_len, n_loc, N), torch.bool)
+    comp = _compress.normalize(cfg.compression)
+    if comp is not None:
+        aux["k_comp"] = key
+        if _compress.uses_ef(comp):
+            aux["ef"] = empty((n_loc, P_))
+    if cfg.participation is not None:
+        aux["part"] = empty((cfg.rounds, N), torch.bool)
+    if cfg.adversary is not None:
+        aux["adv"] = {"sched": empty((cfg.rounds, N), torch.bool),
+                      "key": key}
+    return init_round_state(empty((n_loc, P_)), key, hist_len=hist_len,
+                            aux=aux)
+
+
 def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     """Algorithm 1 on the device-resident round engine (on a client mesh
     when the engine is sharded: every rank returns the same result)."""

@@ -20,7 +20,11 @@ runs. The pass's plain version is
 
 The wrapper launches the kernel on CUDA tensors, or raises: it never
 falls back to the plain version (`repro_torch.kernels.ops` picks the
-plain version for CPU tensors only).
+plain version for CPU tensors only). On "meta" tensors it runs the
+checks and allocates what the pair allocates (the bucketed payload, its
+offset table and the output), and launches nothing
+(`repro_torch.kernels.meta`). `work` is the bytes and operations of one
+op.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import meta as _meta
 
 _BUCKET_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int,
                                              ctypes.c_longlong, ctypes.c_int,
@@ -40,6 +45,15 @@ _MIX_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int,
 TILE = 256
 
 
+def work(M: int, N: int, K: int, P: int, entries: int):
+    """(bytes, flops) one op must at least move and do: the (N, K) fp32
+    values and int32 indices and A read once, out written once; a
+    multiply and an add per output row and each of the ``entries``
+    payload entries in [0, P). The count depends on the payload: a
+    shape-only call counts every entry in range."""
+    return 8 * N * K + 4 * M * N + 4 * M * P, 2 * M * entries
+
+
 def compressed_graph_mix(A: torch.Tensor, vals: torch.Tensor,
                          idx: torch.Tensor, p_dim: int) -> torch.Tensor:
     """A: (M, N) fp32; vals: (N, K) fp32; idx: (N, K) int32, an entry
@@ -47,18 +61,21 @@ def compressed_graph_mix(A: torch.Tensor, vals: torch.Tensor,
     one CUDA device. Returns
     (M, p_dim) = A @ densify(vals, idx) in fp32. Launches the bucketing
     pass and the mix; the pair is one op, so it adds one to
-    ``compressed_graph_mix.launches`` (in `launch_bucketed`)."""
+    ``compressed_graph_mix.launches`` (in `launch_bucketed`). On "meta"
+    tensors: the checks and the pair's allocations, no launch."""
     dev = A.device
-    if dev.type != "cuda" or vals.device != dev or idx.device != dev:
+    if dev.type not in ("cuda", "meta") or vals.device != dev or \
+            idx.device != dev:
         raise ValueError(f"compressed_graph_mix kernel needs A, vals and "
                          f"idx on one CUDA device, got {A.device}, "
                          f"{vals.device}, {idx.device}")
     if A.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError(f"compressed_graph_mix: A and vals must be "
-                        f"float32, got {A.dtype}, {vals.dtype}")
+        raise _meta.RefusedType(f"compressed_graph_mix: A and vals must be "
+                                f"float32, got {A.dtype}, {vals.dtype}")
     if idx.dtype != torch.int32:
-        raise TypeError(f"compressed_graph_mix: idx must be int32, got "
-                        f"{idx.dtype}")
+        raise _meta.RefusedType(
+            f"compressed_graph_mix: idx must be int32, got "
+            f"{idx.dtype}")
     if A.dim() != 2 or vals.dim() != 2 or idx.shape != vals.shape or \
             A.shape[1] != vals.shape[0]:
         raise ValueError(f"compressed_graph_mix: shapes A "
@@ -91,6 +108,8 @@ def bucket_payload(vals: torch.Tensor, idx: torch.Tensor, p_dim: int):
     bvals = torch.empty_like(vals)
     bidx = torch.empty_like(idx)
     offsets = torch.empty((N, T + 1), dtype=torch.int32, device=idx.device)
+    if idx.device.type == "meta":
+        return bvals, bidx, offsets
     fn = _build.entry("compressed_graph_mix", "compressed_graph_mix_bucket",
                       _BUCKET_ARGTYPES)
     stream = torch.cuda.current_stream(idx.device).cuda_stream
@@ -107,6 +126,11 @@ def launch_bucketed(A: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     (the op's count)."""
     M, N = A.shape
     out = torch.empty((M, p_dim), dtype=torch.float32, device=A.device)
+    if A.device.type == "meta":
+        _meta.record("compressed_graph_mix",
+                     work(M, N, vals.shape[1], p_dim, vals.numel()),
+                     torch.float32)
+        return out
     fn = _build.entry("compressed_graph_mix", "compressed_graph_mix_f32",
                       _MIX_ARGTYPES)
     stream = torch.cuda.current_stream(A.device).cuda_stream

@@ -17,7 +17,10 @@ plain version is `repro_torch.kernels.ref.flash_attention_bwd_ref`.
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to a plain version (`repro_torch.kernels.ops.flash_attention`
 picks the plain version, which autograd differentiates, for CPU tensors
-only).
+only). On "meta" tensors they run the checks and allocate what a launch
+allocates (the backward's scratch of `backward_plan` included, planned
+for the SM count of `repro_torch.kernels.meta.target`), and launch
+nothing. `work` and `bwd_work` are the bytes and operations of one call.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from . import meta as _meta
 
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
@@ -153,6 +157,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """(query, key) pairs the mask lets through: row i sees keys j <= i
+    when causal, j > i - window under a window (every key otherwise)."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    lo = torch.zeros_like(i) if window is None else \
+        (i - window + 1).clamp_min(0)
+    hi = i.clamp_max(Sk - 1) if causal else torch.full_like(i, Sk - 1)
+    return int((hi - lo + 1).clamp_min(0).sum())
+
+
+def work(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
+         causal: bool, window: Optional[int], element_size: int):
+    """(bytes, flops) the forward must at least move and do: q, k, v read
+    once and out written once; 4 hd flops (two products) per visible
+    (query, key) pair of every head (`visible_pairs`)."""
+    nbytes = element_size * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd)
+    return nbytes, 4 * B * Hq * hd * visible_pairs(Sq, Sk, causal, window)
+
+
+def bwd_work(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
+             causal: bool, window: Optional[int], element_size: int):
+    """(bytes, flops) the backward must at least move and do: q, k, v,
+    out and dout read once, lse read once, dq, dk and dv written once;
+    10 hd flops (five products) per visible (query, key) pair of every
+    head."""
+    nbytes, flops = work(B, Sq, Sk, Hq, Hkv, hd, causal, window,
+                         element_size)
+    # `work` counts q, k, v and out: add dout, lse, dq, dk and dv
+    nbytes += element_size * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd
+                              + B * Hq * Sq)
+    return nbytes, flops // 4 * 10
+
+
 def alignment_error(name: str, address: int, shape, strides,
                     element_size: int) -> Optional[str]:
     """Why the kernel cannot read ``name`` (a (B, S, H, hd) tensor at
@@ -178,7 +216,7 @@ def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     grad rather than return a result autograd cannot follow."""
     if q.dtype != torch.float32 and (q.requires_grad or k.requires_grad
                                      or v.requires_grad):
-        raise NotImplementedError(
+        raise _meta.RefusedNotImplemented(
             f"flash_attention has no {q.dtype} backward (fp32 only): bf16 "
             f"LM training is ROADMAP item 14d-3 (speed work after the "
             f"port); call it under torch.no_grad() or "
@@ -188,9 +226,10 @@ def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
     """(B, Sq, Sk, Hq, Hkv, hd) of inputs the kernels take, or raise."""
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k and v must share one dtype, "
-                        f"float32 or bfloat16, got {q.dtype}, {k.dtype} "
-                        f"and {v.dtype}")
+        raise _meta.RefusedType(
+            f"flash_attention: q, k and v must share one dtype, "
+            f"float32 or bfloat16, got {q.dtype}, {k.dtype} "
+            f"and {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} are not "
@@ -202,8 +241,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
                          f"match k/v {tuple(k.shape)} (same B and hd, Hq "
                          f"a multiple of Hkv)")
     if hd % 16 or not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head_dim {hd} is not a "
-                         f"multiple of 16 up to {MAX_HEAD_DIM}")
+        raise _meta.RefusedValue(f"flash_attention: head_dim {hd} is not a "
+                                 f"multiple of 16 up to {MAX_HEAD_DIM}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head_dim axis must be "
                          "contiguous")
@@ -212,7 +251,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
     if Sq and (Sk == 0 or (window is not None and Sq > Sk + window - 1)):
         raise ValueError(f"flash_attention: with Sq={Sq}, Sk={Sk}, "
                          f"window={window} some query row sees no key")
-    if q.device.type != "cuda" or k.device != q.device or \
+    if q.device.type not in ("cuda", "meta") or k.device != q.device or \
             v.device != q.device:
         raise ValueError(f"flash_attention kernel needs q, k and v on one "
                          f"CUDA device, got {q.device}, {k.device} and "
@@ -221,7 +260,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
         err = alignment_error(name, t.data_ptr(), t.shape, t.stride(),
                               t.element_size())
         if err:
-            raise ValueError(err)
+            raise _meta.RefusedValue(err)
     return B, Sq, Sk, Hq, Hkv, hd
 
 
@@ -237,6 +276,11 @@ def _forward(q, k, v, causal, window, with_lse):
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
                       device=q.device) if with_lse else None
+    if q.device.type == "meta":
+        _meta.record("flash_attention", work(
+            B, Sq, Sk, Hq, Hkv, hd, causal, window, q.element_size()),
+            q.dtype)
+        return out, lse
     if B == 0 or Sq == 0 or Hq == 0:
         return out, lse
     strides = _strides(q, k, v)
@@ -392,8 +436,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     there are several) and adds one to ``flash_attention_bwd.launches``.
     The scratch (`BackwardPlan.scratch_bytes`) lives for the call."""
     if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd: fp32 only, got {q.dtype} "
-                        f"(bf16 training is ROADMAP item 14d-3)")
+        raise _meta.RefusedType(
+            f"flash_attention_bwd: fp32 only, got {q.dtype} "
+            f"(bf16 training is ROADMAP item 14d-3)")
     B, Sq, Sk, Hq, Hkv, hd = _check(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != (B, Hq, Sq):
@@ -416,12 +461,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    plan = backward_plan(B, Sq, Sk, Hq, Hkv, hd, _sm_count(q.device.index))
+    meta = q.device.type == "meta"
+    plan = backward_plan(B, Sq, Sk, Hq, Hkv, hd, _meta.target_sms() if meta
+                         else _sm_count(q.device.index))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     ds = torch.empty(plan.scratch["ds"], dtype=torch.float32,
                      device=q.device)
     part = torch.empty(plan.scratch["part"], dtype=torch.float32,
                        device=q.device) if plan.splits > 1 else None
+    if meta:
+        _meta.record("flash_attention_bwd", bwd_work(
+            B, Sq, Sk, Hq, Hkv, hd, causal, window, q.element_size()),
+            q.dtype)
+        return dq, dk, dv
     strides = _strides(q, k, v)
     launch = (ctypes.c_int * len(plan.launch))(*plan.launch)
     lib_fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_f32",

@@ -9,7 +9,10 @@ Its plain version is `repro_torch.kernels.ref.graph_mix_ref`.
 
 The wrapper launches the kernel on a CUDA tensor, or raises: it never
 falls back to the plain version (`repro_torch.kernels.ops.graph_mix`
-picks the plain version for CPU tensors only).
+picks the plain version for CPU tensors only). On "meta" tensors it runs
+the checks and allocates the output, and launches nothing
+(`repro_torch.kernels.meta`). `work` is the bytes and operations of one
+call.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import meta as _meta
 
 _SYMBOLS = {torch.float32: "graph_mix_f32", torch.bfloat16: "graph_mix_bf16"}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -38,8 +42,15 @@ def vector_width(P: int, element_size: int, *addresses: int) -> int:
         if P % cols == 0 and all(a % (cols * element_size) == 0
                                  for a in addresses):
             return cols
-    raise ValueError(f"an address in {addresses} is not aligned to its "
-                     f"{element_size}-byte elements")
+    raise _meta.RefusedValue(
+        f"an address in {addresses} is not aligned to its "
+        f"{element_size}-byte elements")
+
+
+def work(M: int, N: int, P: int, element_size: int):
+    """(bytes, flops) one call must at least move and do: A (fp32) and W
+    read once, out written once; a multiply and an add per (m, n, p)."""
+    return 4 * M * N + element_size * (N * P + M * P), 2 * M * N * P
 
 
 def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -47,15 +58,16 @@ def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     device. Returns (M, P) = A @ W in W's dtype, fp32 accumulation.
     W may start at any element boundary (a row-offset view): the vector
     width follows P and the addresses (`vector_width`). Adds one to
-    ``graph_mix.launches`` per kernel launch."""
-    if A.device.type != "cuda" or W.device != A.device:
+    ``graph_mix.launches`` per kernel launch. On "meta" tensors: the
+    checks and the output, no launch."""
+    if A.device.type not in ("cuda", "meta") or W.device != A.device:
         raise ValueError(f"graph_mix kernel needs A and W on one CUDA "
                          f"device, got {A.device} and {W.device}")
     if A.dtype != torch.float32:
-        raise TypeError(f"graph_mix: A must be float32, got {A.dtype}")
+        raise _meta.RefusedType(f"graph_mix: A must be float32, got {A.dtype}")
     if W.dtype not in _SYMBOLS:
-        raise TypeError(f"graph_mix: W must be float32 or bfloat16, "
-                        f"got {W.dtype}")
+        raise _meta.RefusedType(f"graph_mix: W must be float32 or bfloat16, "
+                                f"got {W.dtype}")
     if A.dim() != 2 or W.dim() != 2 or A.shape[1] != W.shape[0]:
         raise ValueError(f"graph_mix: shapes {tuple(A.shape)} @ "
                          f"{tuple(W.shape)} do not chain")
@@ -64,6 +76,9 @@ def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     M, N = A.shape
     P = W.shape[1]
     out = torch.empty((M, P), dtype=W.dtype, device=W.device)
+    if A.device.type == "meta":
+        _meta.record("graph_mix", work(M, N, P, W.element_size()), W.dtype)
+        return out
     if M == 0 or P == 0:
         return out
     if N == 0:

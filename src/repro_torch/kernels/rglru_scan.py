@@ -15,7 +15,9 @@ plain version, `repro_torch.kernels.ref.linear_scan_bwd_ref`.
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to the plain version (`repro_torch.kernels.ops.rglru_scan`
 picks the plain version, which autograd differentiates, for CPU tensors
-only).
+only). On "meta" tensors they run the checks and allocate what a launch
+allocates, and launch nothing (`repro_torch.kernels.meta`). `work` and
+`bwd_work` are the bytes and operations of one call.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import meta as _meta
 
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 # a, h, h0, dy, dh_last, da, db, dh0; B, S, W, blocks, device; stream
@@ -34,13 +37,30 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
 THREADS = 128
 
 
+def work(B: int, S: int, W: int, with_h0: bool):
+    """(bytes, flops) the forward must at least move and do: a and b (and
+    h0) read once, h and h_last written once; a product and a sum per
+    element."""
+    n = B * S * W
+    return 4 * (3 * n + (2 if with_h0 else 1) * B * W), 2 * n
+
+
+def bwd_work(B: int, S: int, W: int, with_h0: bool, with_dh_last: bool):
+    """(bytes, flops) the backward must at least move and do: a, h and dy
+    read once, da and db written once (20 bytes an element), h0 and
+    dh_last read and dh0 written where given; three flops an element."""
+    n = B * S * W
+    return (4 * (5 * n + B * W * (with_h0 * 2 + with_dh_last)), 3 * n)
+
+
 def _check(a, b, h0):
     """(B, S, W) of inputs the kernels take, or raise."""
     tensors = (a, b) + (() if h0 is None else (h0,))
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"rglru_scan: a, b and h0 must be float32, got "
-                        f"{[t.dtype for t in tensors]} (a bf16 path is not "
-                        f"ported)")
+        raise _meta.RefusedType(
+            f"rglru_scan: a, b and h0 must be float32, got "
+            f"{[t.dtype for t in tensors]} (a bf16 path is not "
+            f"ported)")
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} are not one (B, S, W) shape")
@@ -49,7 +69,8 @@ def _check(a, b, h0):
         raise ValueError(f"rglru_scan: S {S} and W {W} must be >= 1")
     if h0 is not None and tuple(h0.shape) != (B, W):
         raise ValueError(f"rglru_scan: h0 {tuple(h0.shape)} is not {(B, W)}")
-    if a.device.type != "cuda" or any(t.device != a.device for t in tensors):
+    if a.device.type not in ("cuda", "meta") or any(t.device != a.device
+                                                    for t in tensors):
         raise ValueError(f"rglru_scan kernel needs every input on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
     return B, S, W
@@ -63,6 +84,9 @@ def _forward(a, b, h0):
         return h, h_last
     a, b = a.contiguous(), b.contiguous()
     h0c = None if h0 is None else h0.contiguous()
+    if a.device.type == "meta":
+        _meta.record("rglru_scan", work(B, S, W, h0 is not None), a.dtype)
+        return h, h_last
     lib_fn = _build.entry("rglru_scan", "rglru_scan_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _build.check("rglru_scan", lib_fn(
@@ -146,6 +170,10 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
     a, h, dh = a.contiguous(), h.contiguous(), dh.contiguous()
     h0c = None if h0 is None else h0.contiguous()
     dlc = None if dh_last is None else dh_last.contiguous()
+    if a.device.type == "meta":
+        _meta.record("rglru_scan_bwd", bwd_work(
+            B, S, W, h0 is not None, dh_last is not None), a.dtype)
+        return da, db, dh0
     lib_fn = _build.entry("rglru_scan_bwd", "rglru_scan_bwd_f32",
                           _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -13,7 +13,10 @@ panel); the kernel, its bound and its design are described in
 
 The wrapper launches the kernel on CUDA tensors, or raises: it never
 falls back to the plain version (`repro_torch.kernels.ops` picks the
-plain version for CPU tensors only).
+plain version for CPU tensors only). On "meta" tensors it runs the
+checks and allocates the output, and launches nothing
+(`repro_torch.kernels.meta`). `work` is the bytes and operations of one
+call.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import meta as _meta
 from .graph_mix import vector_width
 
 _SYMBOLS = {torch.float32: "sparse_graph_mix_f32",
@@ -45,10 +49,24 @@ def launch_grid(N: int, P: int, cols: int) -> int:
     a stride of y (a block takes tiles y0, y0 + y, ...), so every P fits.
     Raises where N exceeds the grid's x extent."""
     if N > MAX_GRID_X:
-        raise ValueError(f"sparse_graph_mix: N = {N} clients is more than "
-                         f"the kernel's grid takes ({MAX_GRID_X})")
+        raise _meta.RefusedValue(
+            f"sparse_graph_mix: N = {N} clients is more than "
+            f"the kernel's grid takes ({MAX_GRID_X})")
     tiles = -(-P // (BLOCK_VECTORS * cols))
     return max(1, min(tiles, MAX_GRID_Y))
+
+
+def work(N: int, B: int, P: int, element_size: int, slots: int,
+         peer_rows: int):
+    """(bytes, flops) one call must at least move and do: self_w, nbr_w
+    and nbr_idx read once, W_self read and out written once, and the
+    ``peer_rows`` distinct rows of a separate W_peers that the lists name
+    (0 where W_peers is W_self: those rows are W_self's); a multiply and
+    an add per column of the self term and of each of the ``slots``
+    valid slots. The count depends on the lists: a shape-only call
+    counts every slot valid and every row of a separate table named."""
+    return (4 * N + 8 * N * B + element_size * (2 * N + peer_rows) * P,
+            2 * P * (N + slots))
 
 
 def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
@@ -60,23 +78,27 @@ def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
     dtype, fp32 accumulation. The tables may start at any element
     boundary: two columns a thread where P is even and W_self, W_peers
     and out are aligned to two elements, else one (`vector_width`). Adds
-    one to ``sparse_graph_mix.launches`` per kernel launch."""
+    one to ``sparse_graph_mix.launches`` per kernel launch. On "meta"
+    tensors: the checks and the output, no launch."""
     dev = W_self.device
     tensors = (self_w, nbr_w, nbr_idx, W_self, W_peers)
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev
+                                               for t in tensors):
         raise ValueError(f"sparse_graph_mix kernel needs every tensor on "
                          f"one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
     if self_w.dtype != torch.float32 or nbr_w.dtype != torch.float32:
-        raise TypeError(f"sparse_graph_mix: self_w and nbr_w must be "
-                        f"float32, got {self_w.dtype}, {nbr_w.dtype}")
+        raise _meta.RefusedType(f"sparse_graph_mix: self_w and nbr_w must be "
+                                f"float32, got {self_w.dtype}, {nbr_w.dtype}")
     if nbr_idx.dtype != torch.int32:
-        raise TypeError(f"sparse_graph_mix: nbr_idx must be int32, got "
-                        f"{nbr_idx.dtype}")
+        raise _meta.RefusedType(
+            f"sparse_graph_mix: nbr_idx must be int32, got "
+            f"{nbr_idx.dtype}")
     if W_self.dtype not in _SYMBOLS or W_peers.dtype != W_self.dtype:
-        raise TypeError(f"sparse_graph_mix: W_self and W_peers must both "
-                        f"be float32 or both bfloat16, got {W_self.dtype}, "
-                        f"{W_peers.dtype}")
+        raise _meta.RefusedType(
+            f"sparse_graph_mix: W_self and W_peers must both "
+            f"be float32 or both bfloat16, got {W_self.dtype}, "
+            f"{W_peers.dtype}")
     if W_self.dim() != 2 or W_peers.shape != W_self.shape or \
             nbr_idx.dim() != 2 or nbr_w.shape != nbr_idx.shape or \
             self_w.shape != (W_self.shape[0],) or \
@@ -92,6 +114,11 @@ def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
     N, B = nbr_idx.shape
     P = W_self.shape[1]
     out = torch.empty_like(W_self)
+    if dev.type == "meta":
+        _meta.record("sparse_graph_mix", work(
+            N, B, P, W_self.element_size(), N * B,
+            0 if W_peers is W_self else min(N, N * B)), W_self.dtype)
+        return out
     if N == 0 or P == 0:
         return out
     cols = vector_width(P, W_self.element_size(), W_self.data_ptr(),

@@ -38,7 +38,11 @@ counterpart: `repro` differentiates its oracle), whose plain version is
 
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to a plain version (`repro_torch.kernels.ops.ssd` picks the
-plain version, which autograd differentiates, for CPU tensors only).
+plain version, which autograd differentiates, for CPU tensors only). On
+"meta" tensors they run the checks and allocate what a launch allocates
+(the outputs and both ops' workspaces), and launch nothing
+(`repro_torch.kernels.meta`). `work` and `bwd_work` are the bytes and
+operations of one op.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import meta as _meta
 
 _ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
@@ -136,8 +141,9 @@ def launch_plan(b: int, l: int, H: int, p: int, n: int, L: int) -> Plan:
              "output": (b * H * nc * nt, 1)}
     for name, (gx, _) in grids.items():
         if gx > MAX_GRID_X:
-            raise ValueError(f"ssd: the {name} kernel's grid of {gx} blocks "
-                             f"is more than CUDA takes ({MAX_GRID_X})")
+            raise _meta.RefusedValue(
+                f"ssd: the {name} kernel's grid of {gx} blocks "
+                f"is more than CUDA takes ({MAX_GRID_X})")
     smem = smem_bytes(p)
     return Plan(pw=pw, nc=nc, nt=nt, ntri=ntri, grids=grids, smem=smem,
                 workspace={"cum": (b, H, l),
@@ -256,8 +262,9 @@ def backward_plan(b: int, l: int, H: int, p: int, n: int,
              "final": (2 * nh * b * nc * nt + b * H * nc, 1)}
     for name, (gx, _) in grids.items():
         if gx > MAX_GRID_X:
-            raise ValueError(f"ssd_bwd: the {name} kernel's grid of {gx} "
-                             f"blocks is more than CUDA takes ({MAX_GRID_X})")
+            raise _meta.RefusedValue(
+                f"ssd_bwd: the {name} kernel's grid of {gx} "
+                f"blocks is more than CUDA takes ({MAX_GRID_X})")
     T = TILE
     smem = backward_smem(p)
     work = {"dst": (b, nc, H, n, pw), "sc": (b, nc, ntri, T, T),
@@ -295,6 +302,41 @@ def backward_flops(b: int, l: int, H: int, p: int, n: int, L: int,
              "v": state * h_chunks, "dh_in": state * h_chunks,
              "dB_dC": 2 * b * nc * pairs * 2 * n}
     return {**parts, "total": sum(parts.values())}
+
+
+def work(b: int, l: int, H: int, p: int, n: int, chunk: int,
+         with_h0: bool):
+    """(bytes, flops) the forward must at least move and do: x, dlogA, B,
+    C (and h0) read once, y and h_last written once; the scores C_i . B_j
+    of the causal pairs once per (b, chunk), since B and C are shared by
+    the heads (2n each), then per head the scores times X (2p per pair),
+    the state update (2 L n p per chunk) and the carried-in C h^T (2 L n p
+    per chunk that receives a state: all but the first without h0)."""
+    L = min(chunk, l)
+    c = l // L
+    pairs = L * (L + 1) // 2
+    carried = c - (0 if with_h0 else 1)
+    flops = (b * c * pairs * 2 * n
+             + b * H * (c * pairs * 2 * p + c * 2 * L * n * p
+                        + carried * 2 * L * n * p))
+    nbytes = 4 * (2 * b * l * H * p + b * l * H + 2 * b * l * n
+                  + (2 if with_h0 else 1) * b * H * p * n)
+    return nbytes, flops
+
+
+def bwd_work(b: int, l: int, H: int, p: int, n: int, chunk: int,
+             with_h0: bool, with_dh_last: bool):
+    """(bytes, flops) the backward must at least move and do: x, B, C,
+    dy, the forward's cum and states (and dh_last) read once; dx, d
+    dlogA, dB and dC (and dh0) written once; `backward_flops`."""
+    L = min(chunk, l)
+    state = b * H * p * n
+    states = math.prod(launch_plan(b, l, H, p, n, L).workspace["states"])
+    nbytes = 4 * (3 * b * l * H * p + 4 * b * l * n + 2 * b * l * H +
+                  states + (state if with_dh_last else 0) +
+                  (state if with_h0 else 0))
+    return nbytes, backward_flops(b, l, H, p, n, L, with_h0,
+                                  with_dh_last)["total"]
 
 
 def aligned16(t: torch.Tensor, dims) -> bool:
@@ -342,8 +384,9 @@ def _check(x, dlogA, B, C, chunk, h0):
     """(b, l, H, p, n, L) of inputs the kernels take, or raise."""
     tensors = (x, dlogA, B, C) + (() if h0 is None else (h0,))
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"ssd: x, dlogA, B, C and h0 must be float32, got "
-                        f"{[t.dtype for t in tensors]}")
+        raise _meta.RefusedType(
+            f"ssd: x, dlogA, B, C and h0 must be float32, got "
+            f"{[t.dtype for t in tensors]}")
     if x.dim() != 4 or dlogA.dim() != 3 or B.dim() != 3 or \
             C.shape != B.shape:
         raise ValueError(f"ssd: shapes {tuple(x.shape)}, "
@@ -362,18 +405,20 @@ def _check(x, dlogA, B, C, chunk, h0):
         raise ValueError(f"ssd: chunk {chunk} and seq {l} must be >= 1")
     L = min(chunk, l)
     if l % L != 0:
-        raise ValueError(f"seq {l} not divisible by chunk {L}")
+        raise _meta.RefusedValue(f"seq {l} not divisible by chunk {L}")
     if not 0 < p <= MAX_HEAD_DIM:
-        raise ValueError(f"ssd: head_dim {p} is not in 1..{MAX_HEAD_DIM}")
+        raise _meta.RefusedValue(
+            f"ssd: head_dim {p} is not in 1..{MAX_HEAD_DIM}")
     if n % 4 or not 0 < n <= MAX_STATE:
-        raise ValueError(f"ssd: state {n} is not a multiple of 4 up to "
-                         f"{MAX_STATE}")
+        raise _meta.RefusedValue(
+            f"ssd: state {n} is not a multiple of 4 up to "
+            f"{MAX_STATE}")
     launch_plan(b, l, H, p, n, L)   # raises for a grid past CUDA's
     if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
         raise ValueError("ssd: the last axis of x, B and C must be "
                          "contiguous")
-    if x.device.type != "cuda" or any(t.device != x.device
-                                      for t in tensors):
+    if x.device.type not in ("cuda", "meta") or any(t.device != x.device
+                                                    for t in tensors):
         raise ValueError(f"ssd kernel needs every input on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     return b, l, H, p, n, L
@@ -393,9 +438,12 @@ def _forward(x, dlogA, B, C, chunk, h0):
     sizes = [math.prod(plan.workspace[k])
              for k in ("cum", "scores", "ct", "states")]
     starts = [sum(-(-m // 4) * 4 for m in sizes[:i]) for i in range(4)]
-    work = torch.empty(starts[-1] + sizes[-1], dtype=torch.float32,
-                       device=dev)
+    work_ = torch.empty(starts[-1] + sizes[-1], dtype=torch.float32,
+                        device=dev)
     h0c = None if h0 is None else h0.contiguous()
+    if dev.type == "meta":
+        _meta.record("ssd", work(b, l, H, p, n, L, h0 is not None), x.dtype)
+        return y, h_last, *_views(work_, starts, sizes, plan)
     vec = int(aligned16(x, (0, 1, 2)) and aligned16(B, (0, 1)) and
               aligned16(C, (0, 1)))
     strides = (ctypes.c_longlong * 10)(
@@ -407,12 +455,18 @@ def _forward(x, dlogA, B, C, chunk, h0):
     _build.check("ssd", lib_fn(
         x.data_ptr(), dlogA.data_ptr(), B.data_ptr(), C.data_ptr(),
         None if h0c is None else h0c.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), *(work.data_ptr() + 4 * i for i in starts),
+        h_last.data_ptr(), *(work_.data_ptr() + 4 * i for i in starts),
         b, l, H, p, n, L, vec, strides, (ctypes.c_int * 6)(*plan.launch),
         dev.index, stream))
     ssd.launches += 1
-    return (y, h_last, work[starts[0]:starts[0] + sizes[0]].view(
-        plan.workspace["cum"]), work[starts[3]:starts[3] + sizes[3]].view(
+    return (y, h_last, *_views(work_, starts, sizes, plan))
+
+
+def _views(work_, starts, sizes, plan):
+    """(cum, states): the workspaces the backward takes, as views of the
+    forward's one allocation."""
+    return (work_[starts[0]:starts[0] + sizes[0]].view(
+        plan.workspace["cum"]), work_[starts[3]:starts[3] + sizes[3]].view(
         plan.workspace["states"]))
 
 
@@ -483,10 +537,14 @@ def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     sizes = [math.prod(plan.workspace[k]) for k in BWD_WORKSPACES]
     starts = [sum(-(-m // 4) * 4 for m in sizes[:i])
               for i in range(len(sizes))]
-    work = torch.empty(starts[-1] + sizes[-1], dtype=torch.float32,
-                       device=dev)
+    work_ = torch.empty(starts[-1] + sizes[-1], dtype=torch.float32,
+                        device=dev)
+    if dev.type == "meta":
+        _meta.record("ssd_bwd", bwd_work(b, l, H, p, n, L, h0 is not None,
+                                         dh_last is not None), x.dtype)
+        return dx, ddlogA, dB, dC, dh0
     ptrs = (ctypes.c_void_p * len(starts))(
-        *(work.data_ptr() + 4 * i for i in starts))
+        *(work_.data_ptr() + 4 * i for i in starts))
     vec = int(aligned16(x, (0, 1, 2)) and aligned16(B, (0, 1)) and
               aligned16(C, (0, 1)) and aligned16(dy, (0, 1, 2)))
     strides = (ctypes.c_longlong * 7)(

@@ -1,6 +1,6 @@
 """Meshes of processes, one per shard (port of
-`repro.launch.mesh.make_client_mesh` and `make_host_mesh`, and of
-`repro.sharding.compat.make_mesh`).
+`repro.launch.mesh.make_client_mesh`, `make_host_mesh` and
+`make_production_mesh`, and of `repro.sharding.compat.make_mesh`).
 
 `repro` shards the FL client axis over a ``('pod', 'data')`` jax mesh of
 devices (``FLEngine.shard_clients``, DESIGN.md §8), and an LM's batch,
@@ -17,6 +17,10 @@ counterpart of `repro`'s forced host devices. On a card every rank uses
 the same device; gloo moves what crosses ranks
 (`repro_torch.sharding.collectives` says how), and every kernel still
 runs on the card. `run_on_client_mesh` is its client-mesh form.
+
+`make_production_mesh` is `repro`'s production mesh as a
+`repro_torch.sharding.collectives.ShapeMesh`: shapes and one rank's
+coordinates, no processes, for the dry run.
 """
 from __future__ import annotations
 
@@ -35,8 +39,22 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 AXES = ("pod", "data")
+#: `repro`'s production meshes (``src/repro/launch/mesh.py``): one pod of
+#: 16 x 16, and two pods
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 #: the axis names a mesh may carry (`repro`'s)
 MESH_AXES = ("pod", "data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """`repro`'s production mesh, (16, 16) ("data", "model") or, with
+    ``multi_pod``, (2, 16, 16) ("pod", "data", "model"), as a `ShapeMesh`
+    seen from rank 0: what the dry run runs one rank of."""
+    from ..sharding.collectives import ShapeMesh
+
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    return ShapeMesh(shape, axes, 0)
 
 
 def make_client_mesh(n_devices: Optional[int] = None, *, pods: int = 1,

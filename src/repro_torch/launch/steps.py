@@ -31,13 +31,21 @@ def make_train_step(model, optimizer, grad_dtype=None):
     for donating the old ones, so params are neither passed nor
     returned. ``opt_state`` is ``optimizer.init`` of the model's weights
     (``dict(model.named_parameters())``); the loss comes back detached,
-    on the model's device (no host sync)."""
+    on the model's device (no host sync). Under a model's ("data",
+    "model") mesh each rank's gradients are its rows' part, summed over
+    ``data`` (one `psum` a weight), so every rank takes the whole batch's
+    step: a rank's experts their own, every other weight the same."""
+    from ..sharding import collectives as coll
+
     params = dict(model.named_parameters())
+    mesh = getattr(model, "mesh", None)
 
     def step(opt_state, batch):
         loss, _ = model.loss(batch)
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
+        if mesh is not None:
+            grads = {k: coll.psum(g, mesh, "data") for k, g in grads.items()}
         if grad_dtype is not None:
             grads = {k: g.to(grad_dtype) for k, g in grads.items()}
         updates, opt_state = optimizer.update(grads, opt_state, params)

@@ -34,7 +34,9 @@ MoE layer holds the rank's E / M experts (expert parallelism,
 rank's C / M ring slots, decode combining the ranks' partial softmaxes
 (`attn_decode_seqshard`, flash-decoding). A rank runs its block of the
 batch on ``data``; every other weight is whole on every rank. The mesh
-path serves; its gradient is ROADMAP item 14d-5.
+path serves and trains: `DecoderLM.loss` under a mesh is the whole
+batch's, and its gradient on a rank is its block's part
+(`repro_torch.launch.steps.make_train_step` sums them over ``data``).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import prng
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..kernels.meta import RefusedValue
 from ..sharding import collectives as coll
 from ..sharding.rules import cache_leaf_spec, check_model_mesh, local_block
 from .common import (NEG_INF, apply_rope, attention_ref,
@@ -393,8 +396,8 @@ class DecoderLM(nn.Module):
     those), and each attention ring holds the rank's C / M slots (C must
     split over M). `prefill` takes the whole batch and keeps the rank's
     rows; `init_cache`, the returned logits and caches, and
-    `decode_step`'s tokens are the rank's blocks. Only serving runs under
-    a mesh: `loss` raises (ROADMAP item 14d-5)."""
+    `decode_step`'s tokens are the rank's blocks. `loss` takes the whole
+    batch too and returns the whole batch's loss."""
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
                  device=None, remat: str = "full", loss_chunks: int = 8,
@@ -561,12 +564,19 @@ class DecoderLM(nn.Module):
         ``DecoderLM.loss``. A vlm model runs the vision embeddings (cast
         to the model's dtype) before the tokens, their positions with
         label 0 and mask 0. Returns (loss, {"ce": ..., "aux": ...}), fp32
-        scalars. Not under a mesh (ROADMAP item 14d-5)."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "DecoderLM.loss under a mesh: training on the model axis is "
-                "ROADMAP item 14d-5 (repro compiles it only in its dry run)")
+        scalars. Under a mesh ``batch`` is the whole batch: the rank runs
+        its rows (the batch must split over ``data``), and the loss is
+        the whole batch's, the rows' weighted sums and weights summed over
+        ``data`` (`collectives.psum_replicated`), so its gradient on the
+        rank is the rank's rows' part of the whole batch's gradient."""
         cfg = self.cfg
+        if self.mesh is not None:
+            D = coll.axes_size(self.mesh, "data")
+            if batch["tokens"].shape[0] % D:
+                raise RefusedValue(f"batch {batch['tokens'].shape[0]} does "
+                                   f"not split over the data axis ({D} "
+                                   f"shards)")
+            batch = {k: self._rows(v) for k, v in batch.items()}
         tokens = batch["tokens"]
         x = self._embed(tokens[:, :-1])
         labels = tokens[:, 1:]
@@ -584,8 +594,13 @@ class DecoderLM(nn.Module):
         q_pos = torch.arange(x.shape[1], device=x.device)
         x, aux = self._apply_stack_train(x, q_pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        ce, _ = chunked_softmax_xent(self._logits, x, labels, mask,
-                                     n_chunks=self.loss_chunks)
+        ce, wsum = chunked_softmax_xent(self._logits, x, labels, mask,
+                                        n_chunks=self.loss_chunks)
+        if self.mesh is not None:
+            tot = coll.psum_replicated(
+                torch.stack([ce * torch.clamp(wsum, min=1.0), wsum]),
+                self.mesh, "data")
+            ce = tot[0] / torch.clamp(tot[1], min=1.0)
         return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
@@ -600,11 +615,11 @@ class DecoderLM(nn.Module):
         M = coll.axes_size(self.mesh, "model")
         C = min(cache_len, self.window) if self.window else cache_len
         if batch % D:
-            raise ValueError(f"batch {batch} does not split over the data "
-                             f"axis ({D} shards)")
+            raise RefusedValue(f"batch {batch} does not split over the data "
+                               f"axis ({D} shards)")
         if C % M:
-            raise ValueError(f"a ring of {C} slots does not split over the "
-                             f"model axis ({M} shards)")
+            raise RefusedValue(f"a ring of {C} slots does not split over the "
+                               f"model axis ({M} shards)")
         return D, M
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:

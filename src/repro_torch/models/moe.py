@@ -41,6 +41,7 @@ from torch import nn
 
 from .. import prng
 from ..configs.base import ArchConfig
+from ..kernels.meta import RefusedValue
 from ..sharding import collectives as coll
 from ..sharding.rules import check_model_mesh
 from .common import dense_init
@@ -57,8 +58,8 @@ def expert_block(cfg: ArchConfig, mesh=None) -> Tuple[int, int]:
     check_model_mesh(mesh)
     M = coll.axes_size(mesh, "model")
     if E % M:
-        raise ValueError(f"{E} experts do not split over a model axis of "
-                         f"{M}")
+        raise RefusedValue(f"{E} experts do not split over a model axis of "
+                           f"{M}")
     return coll.axis_index(mesh, "model") * (E // M), E // M
 
 
@@ -280,10 +281,13 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
     capacity of the block's own token count, a `psum` over ``model``
     combines the ranks' outputs, and the aux loss is the whole batch's
     (the router's column sums, the top-k counts and the token count
-    summed over ``data`` in one `psum`). It runs without gradients:
-    `repro` compiles the gradient of this path only in its dry run
-    (ROADMAP item 14d-5), so under grad mode it raises
-    ``NotImplementedError``."""
+    summed over ``data`` in one `psum`). Its gradient is `repro`'s: the
+    two sums pass their cotangents through (`collectives.psum_replicated`:
+    the output and the aux loss are whole on every rank of their groups),
+    and the tokens and gates entering the rank's experts sum theirs over
+    ``model`` (`collectives.pvary`), so a rank's weights get the gradient
+    of its block of the batch; the step sums those over ``data``
+    (`repro_torch.launch.steps.make_train_step`)."""
     kernel = MOE_IMPLS[impl]
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
@@ -295,22 +299,19 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
         out = kernel(x2, p.we_gate, p.we_up, p.we_down, topk_idx, gates, 0,
                      cfg.n_experts)
         return out.reshape(B, S, d), aux
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            "moe_apply: the gradient of the expert-parallel mesh path is "
-            "ROADMAP item 14d-5 (repro compiles it only in its dry run); "
-            "run it under torch.no_grad() or torch.inference_mode()")
     E = cfg.n_experts
     first, E_l = expert_block(cfg, mesh)
     if p.we_gate.shape[0] != E_l:
         raise ValueError(f"moe_apply: the weights hold "
                          f"{p.we_gate.shape[0]} experts, the rank's block "
                          f"is {E_l} (build the MoE with the mesh)")
-    stats = coll.psum(router_stats(probs, topk_idx, E), mesh, "data")
+    stats = coll.psum_replicated(router_stats(probs, topk_idx, E), mesh,
+                                 "data")
     aux = load_balance_from_stats(stats, E)
-    out = kernel(x2, p.we_gate, p.we_up, p.we_down, topk_idx, gates, first,
-                 E)
-    return coll.psum(out, mesh, "model").reshape(B, S, d), aux
+    out = kernel(coll.pvary(x2, mesh, "model"), p.we_gate, p.we_up,
+                 p.we_down, topk_idx, coll.pvary(gates, mesh, "model"),
+                 first, E)
+    return coll.psum_replicated(out, mesh, "model").reshape(B, S, d), aux
 
 
 def router_gap(probs: torch.Tensor, k: int) -> torch.Tensor:

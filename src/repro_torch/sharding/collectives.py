@@ -29,6 +29,13 @@ the device to reach it before its clock starts (the exchange would wait
 for it anyway), so its seconds are the exchange's own, not the compute
 queued before it.
 
+A `ShapeMesh` is a mesh of shapes alone: the axis names, their sizes
+and one rank's coordinates, with no process group. On it the ops take
+"meta" tensors only, return "meta" tensors of the result's shape and
+record each call as a real one (`recording`): the dry run
+(`repro_torch.launch.dryrun`, `fl_dryrun`) runs the port's own step code
+as one rank of a production mesh this way.
+
 Inside a `recording` block each call also leaves a `CallRecord`: the
 op, what this rank sent, the group's size, the call site (the first
 frame outside this module) and the `region` tag the caller set, such as
@@ -98,6 +105,53 @@ class CallRecord:
 # the lists of the active `recording` blocks, and the `region` tags
 _recorders: List[List[CallRecord]] = []
 _regions: List[str] = []
+
+
+class ShapeMesh:
+    """A mesh of ``shape`` with axis names ``axes``, ranks row-major, seen
+    from ``rank``: what `make_mesh`'s ``DeviceMesh`` answers about axes
+    and coordinates, with no ``torch.distributed`` behind it. The
+    collectives take "meta" tensors on it and only those."""
+
+    device_type = "meta"
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 rank: int = 0):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ "
+                             f"in length")
+        self.mesh = torch.arange(math.prod(shape)).reshape(shape)
+        self.mesh_dim_names = axes
+        if not 0 <= rank < self.mesh.numel():
+            raise ValueError(f"rank {rank} is not in the {shape} mesh")
+        self.rank = int(rank)
+
+    def size(self) -> int:
+        return self.mesh.numel()
+
+    def get_local_rank(self, axis: str) -> int:
+        return _coords(self, self.rank)[axis]
+
+    def __repr__(self) -> str:
+        return (f"ShapeMesh({tuple(self.mesh.shape)}, {self.mesh_dim_names}, "
+                f"rank={self.rank})")
+
+
+def _shape_only(mesh, *tensors: torch.Tensor) -> bool:
+    """Whether ``mesh`` is a `ShapeMesh`; it refuses a tensor off "meta"."""
+    if not isinstance(mesh, ShapeMesh):
+        return False
+    for t in tensors:
+        if t.device.type != "meta":
+            raise ValueError(f"a ShapeMesh takes 'meta' tensors only, got "
+                             f"one on {t.device}")
+    return True
+
+
+def _rank(mesh) -> int:
+    """This process's rank in ``mesh``'s world (a `ShapeMesh`'s own)."""
+    return mesh.rank if isinstance(mesh, ShapeMesh) else dist.get_rank()
 
 
 def reset_counts():
@@ -219,7 +273,7 @@ def shard_index(mesh, client_axes: Sequence[str] = None, rank=None) -> int:
     """Row-major position of ``rank`` (default: this one) over the client
     axes: the block of client rows it owns."""
     sizes = mesh_axis_sizes(mesh)
-    c = _coords(mesh, dist.get_rank() if rank is None else rank)
+    c = _coords(mesh, _rank(mesh) if rank is None else rank)
     index = 0
     for a in client_axes_of(mesh, client_axes):
         index = index * sizes[a] + c[a]
@@ -231,11 +285,18 @@ def _group(mesh, axes):
     share this rank's coordinates off ``axes``: the world, one axis's
     group of the mesh, or (several axes, not all) a subgroup made once
     per process by every rank (`_subgroups`, keyed by the mesh's layout),
-    since a collective is entered by all."""
+    since a collective is entered by all. A `ShapeMesh` has no process
+    group: (None, the members, laid out as the subgroups are)."""
     names = tuple(mesh.mesh_dim_names)
     axes = tuple(axes)
     if not axes or set(axes) - set(names):
         raise ValueError(f"axes {axes} are not axes of the mesh {names}")
+    if isinstance(mesh, ShapeMesh):
+        at = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in at]
+        blocks = mesh.mesh.permute(rest + at).reshape(
+            -1, math.prod(mesh.mesh.shape[i] for i in at)).tolist()
+        return None, next(b for b in blocks if mesh.rank in b)
     if set(axes) == set(names):
         return None, list(range(dist.get_world_size()))
     if len(axes) == 1:
@@ -266,9 +327,13 @@ def _all_reduce(op: str, x: torch.Tensor, mesh, axes) -> torch.Tensor:
                             else axes)
     if len(members) == 1:
         return x
+    out = x.clone(memory_format=torch.contiguous_format)
+    if _shape_only(mesh, x):
+        with _exchange(op, out, len(members)):
+            pass
+        return out
     # refuses a backend off the table; gloo's all_reduce row is "device"
     transport(op, x, group)
-    out = x.clone(memory_format=torch.contiguous_format)
     with _exchange(op, out, len(members)):
         dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "psum"
                         else dist.ReduceOp.MAX, group=group)
@@ -289,6 +354,51 @@ def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _all_reduce("pmax", x, mesh, axes)
 
 
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce("psum", x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axes), None, None
+
+
+def psum_replicated(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """`psum` whose result every rank of the group then uses alike (the
+    sum of the ranks' parts of one value): its backward passes the
+    cotangent through unchanged, as jax's ``psum`` under ``shard_map``
+    transposes to a broadcast. Summing the cotangent again would count a
+    replicated cotangent once per rank of the group."""
+    if axes_size(mesh, axes) == 1 or not (torch.is_grad_enabled()
+                                            and x.requires_grad):
+        return psum(x, mesh, axes)
+    return _PsumReplicated.apply(x, mesh, axes)
+
+
+def pvary(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x``, whole on every rank of the group, handed to a computation
+    that differs from rank to rank (a rank's experts): the identity
+    forward, and a `psum` of the cotangent over ``axes`` backward, since
+    each rank's part of the gradient is only its own computation's (jax's
+    ``pvary``, whose transpose is ``psum``)."""
+    if axes_size(mesh, axes) == 1 or not (torch.is_grad_enabled()
+                                            and x.requires_grad):
+        return x
+    return _Pvary.apply(x, mesh, axes)
+
+
 def all_gather_rows(x: torch.Tensor, mesh,
                     client_axes=None) -> torch.Tensor:
     """The tiled all-gather of ``x``'s rows over the client axes: every
@@ -298,6 +408,11 @@ def all_gather_rows(x: torch.Tensor, mesh,
     group, members = _group(mesh, ca)
     as_bool = x.dtype == torch.bool
     send = (x.to(torch.uint8) if as_bool else x).contiguous()
+    if _shape_only(mesh, send):
+        with _exchange("all_gather", send, len(members)):
+            out = send.new_empty((len(members) * send.shape[0],)
+                                 + tuple(send.shape[1:]))
+        return out.bool() if as_bool else out
     order = sorted(range(len(members)),
                    key=lambda i: shard_index(mesh, ca, members[i]))
     # refuses a backend off the table; every all_gather entry of it is
@@ -322,6 +437,11 @@ def ppermute_next(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     sizes = mesh_axis_sizes(mesh)
     if math.prod(sizes[a] for a in axes) == 1:
         return x
+    if _shape_only(mesh, x):
+        x = x.contiguous()
+        with _exchange("ppermute", x, math.prod(sizes[a] for a in axes)):
+            out = torch.empty_like(x)
+        return out
     c = _coords(mesh, dist.get_rank())
     names = list(mesh.mesh_dim_names)
 

@@ -14,12 +14,15 @@ keyed by the state-dict names ("layers.3.moe.we_gate") with no stacked
 layer axis, and a cache's are one dict a layer. `local_block` cuts a
 rank's block of a whole tensor by its spec.
 
-At run time the port reads two of these rules: the expert leaves
-(``we_gate``, ``we_up``, ``we_down``: ``("model", None, None)``, so a rank
-holds E / M experts) and the attention caches under ``shard_seq_model``
-(`repro_torch.models.lm.DecoderLM` with a mesh of `MODEL_MESH_AXES`). The other leaves'
-tensor-parallel specs are `repro`'s, held against it by the tests; like
-`repro`, which uses them only in its dry run, nothing runs them.
+A model built on a mesh of `MODEL_MESH_AXES` (`repro_torch.models.lm.
+DecoderLM`) runs two of these rules: the expert leaves (``we_gate``,
+``we_up``, ``we_down``: ``("model", None, None)``, so a rank holds E / M
+experts) and the attention caches under ``shard_seq_model``. The dry run
+(`repro_torch.launch.dryrun`, as `repro`'s) reads the rest: a rank's
+resident bytes are the `local_block` blocks of `param_specs`, `cache_specs`
+and the inputs' specs (which must agree with `batch_specs`), under
+`add_client_axis` for two pods, and every weight of its rank-local model
+is held to its `local_block`.
 """
 from __future__ import annotations
 

@@ -192,7 +192,7 @@ def test_no_raise_names_the_split_item_14d():
     """ROADMAP Queue 1 item 14d is split: every refusal in the port names
     one of 14d-1 to 14d-5 (14d-2 the SSM and hybrid training, 14d-3 bf16
     training, 14d-4 the families not ported, 14d-5 the dry run, with the
-    gradient of the model mesh's paths)."""
+    gradient of the model mesh's paths). Only 14d-3 is still refused."""
     import re
 
     pattern = re.compile(r"\b14d\b(?!-[1-5])")
@@ -206,6 +206,14 @@ def test_port_availability_is_a_copy_of_repro():
     verbatim (numpy only; tests/test_torch_participation.py holds the
     schedules equal too)."""
     rel = Path("data") / "availability.py"
+    assert (ROOT / "src" / "repro_torch" / rel).read_text() == \
+        (ROOT / "src" / "repro" / rel).read_text()
+
+
+def test_port_shapes_is_a_copy_of_repro():
+    """`repro_torch.configs.shapes` (the dry run's four input shapes) is
+    `repro.configs.shapes` verbatim."""
+    rel = Path("configs") / "shapes.py"
     assert (ROOT / "src" / "repro_torch" / rel).read_text() == \
         (ROOT / "src" / "repro" / rel).read_text()
 

@@ -216,14 +216,18 @@ def test_moe_apply_and_its_gradients_match_repro(impl):
 
 
 def test_moe_apply_under_a_grad_refuses_a_mesh():
-    """The expert-parallel path serves; its gradient is ROADMAP item
-    14d-5 (`repro` compiles it only in its dry run)."""
+    """The expert-parallel path trains (its gradient on the model meshes:
+    tests/test_torch_dryrun.py), on a ("data", "model") mesh only: under
+    grad mode as without it, another mesh is refused."""
+    from repro_torch.sharding.collectives import ShapeMesh
+
     cfg = types.SimpleNamespace(d_model=D, n_experts=E, d_expert_ff=F,
                                 topk=K)
     p = types.SimpleNamespace(router=torch.zeros((D, E)))
-    with torch.enable_grad(), pytest.raises(NotImplementedError,
-                                            match="14d-5"):
-        tmoe.moe_apply(p, torch.zeros((1, 2, D)), cfg, mesh=object())
+    with torch.enable_grad(), pytest.raises(ValueError,
+                                            match="a model is built on"):
+        tmoe.moe_apply(p, torch.zeros((1, 2, D)), cfg,
+                       mesh=ShapeMesh((1, 2), ("pod", "data")))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])

@@ -472,3 +472,135 @@ def lm_client_runs(mesh, device):
     return {"res": result_dict(res),
             "counts": {k: list(v) for k, v in coll.counts.items()},
             "rows": rows.tolist()}
+
+
+# ------------------------------------------------------------- the dry run
+
+
+#: the dry run's gradient checks dispatch dropless: a rank's capacity
+#: counts its own tokens, so the capacity path drops other copies on a
+#: split batch than on the whole one
+GRAD_KW = dict(loss_chunks=2, moe_impl="ragged")
+
+
+def _whole_params(arch, seed):
+    """The reduced ``arch``'s init from PRNGKey(seed) on the CPU, whole."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    return cfg, build_model(cfg, device="meta", **GRAD_KW).init(
+        prng.PRNGKey(seed))
+
+
+def train_grads(mesh, device, cases):
+    """Each case (arch, seed, tokens (B, T + 1) whole): the reduced
+    ``arch`` on ``mesh`` (a ("data", "model") mesh: the rank's experts,
+    dispatched dropless, `GRAD_KW`),
+    its weights the rank's block of the whole init, one step of
+    `launch.steps.make_train_step` on the whole batch with an optimizer
+    that keeps the gradients it is given. Returns, per case, the loss
+    and every gradient with the expert leaves gathered over ``model``
+    (rank 0's), and whether every rank's non-expert gradients equal
+    rank 0's."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_block
+    from repro_torch.optim import Optimizer
+
+    out = []
+    for arch, seed, tokens in cases:
+        cfg, whole = _whole_params(arch, seed)
+        first, n = (expert_block(cfg, mesh) if cfg.family == "moe"
+                    else (0, 0))
+        model = build_model(cfg, device="meta", mesh=mesh, **GRAD_KW)
+        model.load_state_dict(
+            {k: (v[first:first + n] if ".we_" in k else v).clone().to(device)
+             for k, v in whole.items()}, assign=True)
+        kept = {}
+
+        def update(grads, state, params):
+            kept.update(grads)
+            return {k: torch.zeros_like(g) for k, g in grads.items()}, state
+        step = make_train_step(model, Optimizer(lambda p: {}, update))
+        _, loss = step({}, {"tokens": _t(tokens, device).long()})
+        grads = {k: (_gather(g, mesh, ("model",)) if ".we_" in k else g
+                     ).cpu().numpy() for k, g in kept.items()}
+        mine = [g.cpu() for k, g in sorted(kept.items()) if ".we_" not in k]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        same = all(all(torch.equal(a, b) for a, b in zip(r, every[0]))
+                   for r in every)
+        out.append({"loss": float(loss), "grads": grads, "same": same})
+    return out
+
+
+def _every_rank(x):
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, x)
+    return every
+
+
+def state_leaves(state):
+    """{path: (shape, dtype)} of a `RoundState`'s tensors."""
+    from repro_torch.analysis.guards import _leaves
+
+    return {k: (tuple(v.shape), str(v.dtype))
+            for k, v in _leaves(state).items()}
+
+
+def round_records(mesh, device, data_kw, mlp, eng_kw, settings):
+    """For each (name, DPFLConfig keywords) of ``settings``: one round of
+    `core.dpfl.dpfl_round_step` from `dpfl_initial_state` on the sharded
+    engine, its collectives recorded. Returns {name: (every rank's
+    `CallRecord`s, every rank's initial `state_leaves`), each in rank
+    order}."""
+    from repro_torch.core.dpfl import (DPFLConfig, dpfl_initial_state,
+                                       dpfl_round_step)
+
+    engine = _engine(device, data_kw, mlp, eng_kw, mesh)
+    out = {}
+    for name, kw in settings:
+        cfg = DPFLConfig(**kw)
+        state, _ = dpfl_initial_state(engine, cfg)
+        leaves = state_leaves(state)
+        step = dpfl_round_step(engine, cfg)
+        with coll.recording() as recs:
+            step(state)
+        out[name] = (_every_rank(list(recs)), _every_rank(leaves))
+    return out
+
+
+def decode_records(mesh, device, arch, seed, batch, cache_len, pos):
+    """One decode step of the reduced ``arch`` on ``mesh`` (the rings on
+    ``model``) at position ``pos`` from `init_cache`, its collectives
+    recorded. Returns every rank's `CallRecord`s, in rank order."""
+    from repro_torch.models import build_model
+
+    cfg, whole = _whole_params(arch, seed)
+    model = build_model(cfg, device="meta", mesh=mesh)
+    model.load_state_dict({k: v.to(device) for k, v in whole.items()},
+                          assign=True)
+    n = batch // coll.axes_size(mesh, "data")
+    with torch.inference_mode(), coll.recording() as recs:
+        caches = model.init_cache(batch, cache_len)
+        model.decode_step(caches, torch.zeros((n, 1), dtype=torch.int64,
+                                              device=device), pos)
+    return _every_rank(list(recs))
+
+
+def dryrun_mesh_runs(mesh, device, grads=(), rounds=None, decode=None):
+    """What the dry run's CPU tests hold of one mesh, in one launch."""
+    out = {}
+    if grads:
+        out["grads"] = train_grads(mesh, device, grads)
+    if rounds is not None:
+        out["rounds"] = round_records(mesh, device, *rounds)
+    if decode is not None:
+        out["decode"] = decode_records(mesh, device, *decode)
+    return out
