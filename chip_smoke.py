@@ -40,7 +40,11 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    projection, inputs off 16-byte alignment, p 128, two head groups;
    the same bits on a repeat) and K6's backward (the recurrentgemma-9b
    train shape, ragged S and W with and without h0 and dh_last, one
-   step; bit for bit); K4 under ``torch.func.vmap`` over clients
+   step; bit for bit); K4's bf16 backward (K4_BWD_BF16_CASES: qwen3-0.6b's
+   train shape, whisper-medium's encoder, recurrentgemma-9b's; in bf16
+   against the plain version in bf16, one launch of the bf16 library a
+   call, the same bits on a repeat and through autograd); K4 under
+   ``torch.func.vmap`` over clients
    (K4_VMAP_CASES, the lm-dpfl example's head_dim 32 among them: one
    launch on the folded batch, forward and backward, bit for bit the
    per-client launches);
@@ -108,9 +112,10 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    K4's plain version (K4_TOL); then the same for mamba2-370m at its full
    published config (48 Mamba2 blocks, float32; 48 K5 launches in the
    prefill, 0 in decode, no other kernel of the port) and for
-   recurrentgemma-9b at its full published config (26 RG-LRU blocks and
-   12 local-attention blocks, float32, 26.1 GB of weights; 26 K6 and 12
-   K4 launches in the prefill, 0 in decode), whose card-against-CPU
+   recurrentgemma-9b at its published widths on its first 14 of 38
+   layers (SERVE_LAYERS: 10 RG-LRU blocks and 4 local-attention blocks,
+   float32; 10 K6 and 4 K4 launches in the prefill, 0 in decode), whose
+   card-against-CPU
    check runs the model's first five layers (two segments) with its
    embedding, head and final norm (CROSS_LAYERS); then internvl2-2b at
    its full published config (24 layers behind 256 vision embeddings
@@ -128,9 +133,13 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    first 2 encoder and 2 decoder layers, prompt 64);
    then the training
    path: `launch.train.main` on qwen3-0.6b (TRAIN_ARGV) and mamba2-370m
-   (TRAIN_SSM_ARGV) at their published configs, and through
-   `launch.train.train` internvl2-2b whole (TRAIN_VLM: seeded vision
-   embeddings) and recurrentgemma-9b and qwen3-moe-30b-a3b at full width
+   (TRAIN_SSM_ARGV) at their published configs, qwen3-0.6b whole in bf16
+   through `launch.train.train` (TRAIN_BF16: K4's bf16 forward twice and
+   its bf16 backward once a layer and step; its warm step, AdamW's share
+   and peak printed beside the fp32 run's), and through
+   `launch.train.train` internvl2-2b on 12 of its 24 layers (TRAIN_VLM:
+   seeded vision embeddings) and recurrentgemma-9b and qwen3-moe-30b-a3b
+   at full width
    on their first 6 and 2 layers (TRAIN_HYBRID, TRAIN_MOE; the moe run's
    router loss printed), and whisper-medium whole (TRAIN_AUDIO: B 8,
    448 tokens after 1,500 seeded frames; 144 K4 forward and 72 backward
@@ -139,7 +148,8 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    and read just after (each layer's kernel forward twice a step and its
    backward once, under remat "full"), finite, falling losses; then each
    family cut small on the card and on the CPU against JAX's losses
-   (CROSS_TRAINS), and the DPFL mix of the dense one's weights; then
+   (CROSS_TRAINS; qwen3-0.6b's twice, in fp32 and in bf16), and the DPFL
+   mix of the dense one's weights; then
    the LM examples: `examples/lm_dpfl_torch.py` (Algorithm 1 over qwen3
    clients, their loss and accuracy vmapped over the clients) in its
    own setting on the card and on the CPU, which must select the same
@@ -155,9 +165,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    request's tokens those of `generate` on its own client's weights;
    then the model mesh (`repro_torch.launch.mesh.run_on_mesh`, one
    process a shard of a ("data", "model") mesh sharing the card over
-   gloo): `generate` on qwen3-0.6b (whole, or 14 layers on (2, 2)) and
-   on qwen3-moe-30b-a3b at full width (its experts split over "model",
-   on 4 layers, or 2 on (2, 2)) with each attention ring
+   gloo): `generate` on qwen3-0.6b (14 layers on (1, 2), 7 on (2, 2))
+   and on qwen3-moe-30b-a3b at full width (its experts split over
+   "model", on 2 layers, or 1 on (2, 2)) with each attention ring
    sharded on its slots over "model" (flash-decoding) on meshes (1, 2)
    and (2, 2) (MODEL_MESH_RUNS), each rank's every step's logits within
    MESH_LOGITS_TOL of its rows of the single-device run (the moe model's
@@ -173,7 +183,8 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    `roofline.count_step` predicts on "meta" tensors within
    DRYRUN_PEAK_TOL of `max_memory_allocated` for one dense round, the
    qwen3-0.6b, mamba2-370m and whisper-medium train steps and
-   qwen3-0.6b's serve
+   qwen3-0.6b's serve, and within DRYRUN_BF16_PEAK_TOL for qwen3-0.6b's
+   bf16 train step
    (DRYRUN_TRAINS, DRYRUN_SERVE); and the `ShapeMesh` rounds' collective
    records equal the sharded phase's audited rounds', rank by rank;
 5. each kernel timed beside its plain version, the one PyTorch call
@@ -315,16 +326,16 @@ SHARD_BITWISE = ("dense-random", "dense", "topk")
 # process a shard sharing the card over gloo, each rank serving its block
 # of SERVE_RUN's batch through `launch.serve.generate`, its attention
 # rings sharded on "model" (its C / M slots of the 544-slot rings): run ->
-# (arch, layers (None: all), mesh (data, model)). qwen3-0.6b whole at
-# (1, 2) and on 14 of its 28 layers at (2, 2); qwen3-moe-30b-a3b at its
-# published widths with its experts sharded too, on 4 of its 48 layers
-# at (1, 2) (64 experts a rank: 6.4 GB) and 2 at (2, 2). These runs were
-# cut (moe from 8 and 4 layers, qwen3 at (2, 2) from 28) to keep the
-# script under 800 s with the dry-run phase.
-MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", None, (1, 2)),
-                   "qwen3 2x2": ("qwen3-0.6b", 14, (2, 2)),
-                   "moe 1x2": ("qwen3-moe-30b-a3b", 4, (1, 2)),
-                   "moe 2x2": ("qwen3-moe-30b-a3b", 2, (2, 2))}
+# (arch, layers, mesh (data, model)). qwen3-0.6b on 14 of its 28 layers
+# at (1, 2) and on 7 at (2, 2); qwen3-moe-30b-a3b at its published widths
+# with its experts sharded too, on 2 of its 48 layers at (1, 2) (64
+# experts a rank) and 1 at (2, 2). These runs were cut (moe from 8, 4
+# and 2 layers, qwen3 from 28 and 14) to keep the script under 800 s
+# with the dry-run phase and the bf16 phases.
+MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", 14, (1, 2)),
+                   "qwen3 2x2": ("qwen3-0.6b", 7, (2, 2)),
+                   "moe 1x2": ("qwen3-moe-30b-a3b", 2, (1, 2)),
+                   "moe 2x2": ("qwen3-moe-30b-a3b", 1, (2, 2))}
 # the logits of every step against the single-device run's rows; the aux
 # loss against the whole batch's; a top-2 gap under MESH_GAP may part the
 # greedy tokens
@@ -341,7 +352,6 @@ TRANSFER_FENCED = {"item": True, "cpu": True, "as_tensor numpy": True,
                    "tensor scalar": True, "python scalar operand": False,
                    "pinned non_blocking to cuda": False}
 # the archs whose serve runs leave the model-mesh runs their references
-MESH_REFERENCE_ARCHS = ("qwen3-0.6b",)
 # LM clients on the client mesh: the LM example's setting (its reduced
 # qwen3, 6 clients) on client meshes of 2 and 3 ranks
 LM_CLIENT_MESHES = {"1x2": 2, "1x3": 3}
@@ -462,19 +472,23 @@ SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
 SERVE_PROMPT = {"whisper-medium": 224}
 # served at full width on their first layers: qwen3-moe-30b-a3b's 48
 # layers hold 30.5 B weights (122 GB in fp32, more than the card); its
-# first 8 with the embedding, head and final norm are 5.61 B (22.4 GB)
-SERVE_LAYERS = {"qwen3-moe-30b-a3b": 8}
+# first 8 with the embedding, head and final norm are 5.61 B (22.4 GB);
+# recurrentgemma-9b on 14 of its 38 layers (both segments: 4 groups of
+# (rec, rec, attn), then (rec, rec)), cut from 38 to keep the script
+# under 800 s (its whole 26.1 GB draw took 32 s)
+SERVE_LAYERS = {"qwen3-moe-30b-a3b": 8, "recurrentgemma-9b": 14}
 # the seed of the vlm's vision embeddings (unit normals, B x 256 x 2048)
 VISION_SEED = 5
 # the seed of the audio model's frames (unit normals, B x 1500 x 1024)
 FRAMES_SEED = 6
 CROSS_RUN = dict(batch=1, prompt_len=128, new_tokens=8)
 CROSS_PROMPT = {"whisper-medium": 64}
-# Card against CPU at a stated reduction: recurrentgemma-9b's 26.1 GB of
-# weights are run on the CPU as the model's first five layers (rec, rec,
+# Card against CPU at a stated reduction: recurrentgemma-9b's served
+# weights (14 layers, SERVE_LAYERS) are run on the CPU as the model's
+# first five layers (rec, rec,
 # attn, then the (rec, rec) remainder segment, so both segments run) with
-# its embedding, head and final norm: 10.4 GB copied to the host, nothing
-# drawn anew. internvl2-2b runs its first 4 of 24 layers (2.4 GB with its
+# its embedding, head and final norm, copied to the host, nothing drawn
+# anew. internvl2-2b runs its first 4 of 24 layers (2.4 GB with its
 # embedding and head) and qwen3-moe-30b-a3b its first 2 (7.5 GB);
 # whisper-medium its first 2 encoder and 2 decoder layers with its
 # embedding and norms (prompt 64). The other serve models run whole.
@@ -631,6 +645,22 @@ K4_BWD_TOL = 1e-4
 # the forward's row log-sum-exp against torch.logsumexp of the plain
 # scores (atol = rtol)
 K4_LSE_TOL = 1e-5
+# K4's bf16 backward (the same source built with FA_BWD_BF16), in bf16 at
+# the three shapes of bf16 training's main path, every one timed:
+# qwen3-0.6b's train shape, whisper-medium's encoder (non-causal, 5 slabs
+# of 320 keys) and recurrentgemma-9b's (one KV head of 256, 8 head
+# splits, window 2,048)
+K4_BWD_BF16_CASES = [("train bf16", 8, 512, 512, 16, 8, 128, True, None),
+                     ("whisper encoder train bf16", 8, 1500, 1500, 16, 16,
+                      64, False, None),
+                     ("hybrid bf16", 4, 512, 512, 16, 1, 256, True, 2048)]
+# dq, dk, dv against the plain version's in bf16 (the autograd of the
+# plain attention with `repro`'s cast points), each as a share of that
+# gradient's largest element (tests/test_torch_cuda.py): both round each
+# gradient to bf16 once (2^-8 of itself, an ulp on a rounding boundary),
+# and D reads the bf16 out where the plain autograd sums P dP (PR 33's
+# first chip run: at most 9.0e-3)
+K4_BWD_BF16_TOL = 2e-2
 # K5 backward cases: (name, b, l, H, p, n, chunk, inputs, h0, dh_last,
 # layout), inputs and layout as in K5_CASES. The first is the train run's
 # (mamba2-370m, batch 8, sequence 512: two chunks, no h0, and no dh_last,
@@ -694,14 +724,14 @@ TRAIN_SSM_ARGV = ["--arch", "mamba2-370m", "--steps", "10", "--batch", "8",
 # `launch.train.train` from the init of PRNGKey(0)
 TRAIN_HYBRID = dict(arch="recurrentgemma-9b", n_layers=6, batch=4, seq=512,
                     steps=10, lr=3e-4)
-# internvl2-2b whole (24 layers, 1.89 B weights: 30 GB with gradients and
-# AdamW's moments), batch 8, sequence 512 behind 256 vision embeddings
-# (768 positions) from `make_vision`, the same at every step, 10 steps,
-# through `launch.train.train`. Not `main`'s zero embeddings: at this
-# depth they give non-finite gradients in `repro` as in the port (each
-# RMS norm of a zero row scales its gradient by 1/sqrt(1e-6), and 48
-# norms overflow fp32; tests/test_torch_lm_families.py)
-TRAIN_VLM = dict(arch="internvl2-2b", n_layers=24, batch=8, seq=512,
+# internvl2-2b at full width on 12 of its 24 layers (cut from 24 to keep
+# the script under 800 s), batch 8, sequence 512 behind 256 vision
+# embeddings (768 positions) from `make_vision`, the same at every step,
+# 10 steps, through `launch.train.train`. Not `main`'s zero embeddings:
+# at full depth they give non-finite gradients in `repro` as in the port
+# (each RMS norm of a zero row scales its gradient by 1/sqrt(1e-6), and
+# 48 norms overflow fp32; tests/test_torch_lm_families.py)
+TRAIN_VLM = dict(arch="internvl2-2b", n_layers=12, batch=8, seq=512,
                  steps=10, lr=3e-4)
 # qwen3-moe-30b-a3b at full width on its first 2 layers (1.87 B weights,
 # 29.9 GB with gradients and moments), batch 4, sequence 512, 10 steps
@@ -712,6 +742,11 @@ TRAIN_MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=2, batch=4, seq=512,
 # (whisper's 448 text positions: tokens (8, 449)) after 1,500 frames from
 # `make_frames`, the same at every step, 10 steps, through
 # `launch.train.train`
+# qwen3-0.6b whole at bf16, `repro`'s default dtype (bf16 weights,
+# gradients and activations, AdamW's moments fp32), through
+# `launch.train.train`: K4's bf16 forward and backward every step
+TRAIN_BF16 = dict(arch="qwen3-0.6b", n_layers=28, batch=8, seq=512,
+                  steps=10, lr=3e-4, dtype="bfloat16")
 TRAIN_AUDIO = dict(arch="whisper-medium", n_layers=24, batch=8, seq=448,
                    steps=10, lr=3e-4)
 # Card against CPU and against JAX, each family on the training loop
@@ -744,10 +779,15 @@ CROSS_TRAINS = {
     # its 1,500 zero frames as `launch.train` feeds them
     "train-cross-audio": dict(arch="whisper-medium", n_layers=2,
                               n_enc_layers=2, batch=2, seq=128, steps=3,
-                              lr=3e-4)}
+                              lr=3e-4),
+    # qwen3-0.6b's cut run at bf16 (`repro`'s default dtype: bf16 weights,
+    # gradients and activations, AdamW's moments fp32), K4's bf16 forward
+    # and backward on the card
+    "train-cross-bf16": dict(arch="qwen3-0.6b", n_layers=2, batch=2,
+                             seq=128, steps=3, lr=3e-4, dtype="bfloat16")}
 # the JAX reference's losses of those runs (tools/jax_reference_smoke.py
 # train-cross train-cross-ssm train-cross-hybrid train-cross-vlm
-# train-cross-moe train-cross-audio, on the CPU)
+# train-cross-moe train-cross-audio train-cross-bf16, on the CPU)
 CROSS_TRAIN_JAX_LOSSES = {
     "train-cross": [12.067048072814941, 12.131933212280273,
                     12.170770645141602],
@@ -760,12 +800,22 @@ CROSS_TRAIN_JAX_LOSSES = {
     "train-cross-moe": [6.785251140594482, 6.8302788734436035,
                         6.734958171844482],
     "train-cross-audio": [11.074835777282715, 11.003856658935547,
-                          10.927026748657227]}
+                          10.927026748657227],
+    "train-cross-bf16": [12.066932678222656, 12.132614135742188,
+                         12.170795440673828]}
 # losses (atol) and step-0 gradients (each leaf as a share of its
 # largest element): fp32 sums over the vocabulary's logits and the
 # positions in other orders (card, CPU, XLA)
 CROSS_TRAIN_LOSS_TOL = 1e-4
 CROSS_TRAIN_GRAD_TOL = 1e-4
+# the bf16 cut run's (train-cross-bf16): each activation rounded to bf16
+# lands on one side of a rounding boundary or the other, so card, CPU
+# and XLA differ by the bf16 noise; tests/test_torch_bf16.py's tolerances
+# for the reduced families (PR 33's probe on an NVIDIA H100 80GB HBM3 at
+# 700 W: losses at most 3.7e-4 apart, step-0 gradients 0.028 of a leaf's
+# largest element)
+CROSS_TRAIN_BF16_LOSS_TOL = 5e-3
+CROSS_TRAIN_BF16_GRAD_TOL = 5e-2
 # the DPFL mix of that model's weights: 4 clients
 DPFL_MIX_CLIENTS = 4
 # The LM examples (examples/lm_dpfl_torch.py, serve_personalized_torch.py)
@@ -1429,6 +1479,132 @@ def time_k4_bwd(torch, inputs, errs, rates):
     return rows
 
 
+def k4_bwd_bf16_inputs(torch):
+    """Seeded (name, causal, window, q, k, v, dout) in bf16 on the card for
+    every K4_BWD_BF16_CASES case, q and k scaled by 0.5 as in k4_inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = []
+    for name, B, Sq, Sk, Hq, Hkv, hd, causal, window in K4_BWD_BF16_CASES:
+        def draw(S, H, scale):
+            return (torch.randn((B, S, H, hd), generator=gen, device="cuda")
+                    * scale).bfloat16()
+        out.append((name, causal, window, draw(Sq, Hq, 0.5),
+                    draw(Sk, Hkv, 0.5), draw(Sk, Hkv, 1.0),
+                    draw(Sq, Hq, 1.0)))
+    return out
+
+
+def check_k4_bwd_bf16(torch, inputs):
+    """In every bf16 case: the backward's dq, dk and dv (bf16) within
+    K4_BWD_BF16_TOL of the plain version's in bf16, each as a share of
+    that gradient's largest element; one launch of the bf16 library a
+    call (``flash_attention_bwd_bf16.launches``, none of the fp32 one's);
+    a repeated call bit for bit; autograd through ``ops.flash_attention``
+    the same bits. Returns per case (max abs err, the largest share)."""
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for name, causal, window, q, k, v, dout in inputs:
+        kw = dict(causal=causal, window=window)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+        before = (k4.flash_attention_bwd.launches,
+                  k4.flash_attention_bwd_bf16.launches)
+        got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        if (k4.flash_attention_bwd.launches,
+                k4.flash_attention_bwd_bf16.launches) != (before[0],
+                                                          before[1] + 1):
+            fail(f"K4 bf16 backward {name}: not one launch of the bf16 "
+                 f"library")
+        want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        err = share = 0.0
+        for label, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+                fail(f"K4 bf16 backward {name} {label}: {g.dtype}")
+            scale = w.float().abs().max().clamp_min(1e-30)
+            _close(torch, f"K4 bf16 backward {name} {label} / max "
+                   f"|{label}|", g.float() / scale, w.float() / scale,
+                   K4_BWD_BF16_TOL, 0.0)
+            diff = (g.float() - w.float()).abs().max()
+            err = max(err, diff.item())
+            share = max(share, (diff / scale).item())
+        del want
+        again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K4 bf16 backward {name}: a repeated call gave other "
+                 f"bits")
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                    leaves, dout)
+        if not all(torch.equal(a, b) for a, b in zip(grads, got)):
+            fail(f"K4 bf16 backward {name}: autograd gave other bits")
+        rows.append((err, share))
+    return rows
+
+
+def time_k4_bwd_bf16(torch, inputs, errs, rates):
+    """K4's bf16 backward at every K4_BWD_BF16_CASES shape (the train
+    run's first): the kernel, its plain version in bf16 and the
+    yardstick, SDPA's bf16 backward (the case's ``is_causal``,
+    ``enable_gqa``; the hybrid's window does not bind at 512 positions),
+    beside the bound at the bf16 rate; each kernel's device time from the
+    profiler. Returns the rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    rows = []
+    for (name, causal, window, q, k, v, dout), err in zip(inputs, errs):
+        kw = dict(causal=causal, window=window)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+
+        def bwd():
+            return k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        ms = time_ms(bwd, torch)
+        split = kernel_split_ms(
+            bwd, torch,
+            r"\bflash_attention_bwd_(delta|dkdv|dq|finish)_kernel\b")
+        if not {"delta", "dkdv", "dq", "finish"} <= set(split):
+            fail(f"K4 bf16 backward: the profiler recorded the kernels "
+                 f"{sorted(split)}")
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, dout, **kw), torch)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                           enable_gqa=True)
+        dt = dout.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o, leaves, dt, retain_graph=True), torch)
+        del o, leaves
+        nbytes, flops = k4_bwd_work(q, k, causal, window)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "bfloat16")
+        B, S, Hq, hd = q.shape
+        plan = k4.backward_plan(B, S, k.shape[1], Hq, k.shape[2], hd,
+                                k4._sm_count(q.device.index),
+                                q.element_size())
+        print(f"  K4 bf16 backward {name} ({B}, {S}, {Hq}, {k.shape[2]}, "
+              f"{hd}, causal {causal}, window {window}) err {err[0]:.3g} "
+              f"({err[1]:.3g} of the largest element) kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s; " + ", ".join(
+                  f"{kname} {t:.4f}" for kname, t in split.items()) +
+              f" ms a call; {plan.splits} head splits, {plan.n_slabs} "
+              f"slabs, scratch {plan.scratch_bytes()} bytes)  plain "
+              f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
+                         causal=causal, window=window, dtype="bfloat16",
+                         max_abs_err=err[0], share=err[1],
+                         tol=K4_BWD_BF16_TOL, ms=ms, kernel_ms=split,
+                         splits=plan.splits, slabs=plan.n_slabs,
+                         scratch_bytes=plan.scratch_bytes(),
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         flops=flops, tflops=flops / ms / 1e9))
+    return rows
+
+
 def k5_inputs(torch):
     """Seeded (name, chunk, x, dlogA, B, C, h0) on the card for every K5
     case: x, B, C normal * 0.3, and dlogA -|normal| * 0.1 ("kernels", as
@@ -1858,8 +2034,8 @@ def time_k6_bwd(torch, inputs, errs, rates):
 #: the kernels redesigned for Hopper: their ptxas report is printed in
 #: full, and a spill fails the run
 REDESIGNED = ("graph_mix", "sparse_graph_mix", "compressed_graph_mix",
-              "flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd",
-              "rglru_scan_bwd")
+              "flash_attention", "flash_attention_bwd",
+              "flash_attention_bwd_bf16", "ssd", "ssd_bwd", "rglru_scan_bwd")
 
 
 def ptxas_report(log):
@@ -1932,7 +2108,9 @@ def report_build(built):
     backward) every entry function (registers, spills, static shared
     memory), failing on a spill; and K4's SASS: its bf16 kernels must run
     on the tensor cores (HMMA or HGMMA) and its fp32 kernels, the
-    backward's 34 included, must not; nor may K5's backward's 11."""
+    backward's 34 included, must not; nor may K5's backward's 11, nor
+    the bf16 backward's 35 (the fp32 backward's kernels on bf16 inputs,
+    with its finish kernel: IEEE fp32 FMAs)."""
     from repro_torch.kernels import _build
 
     for kname, b in sorted(built.items()):
@@ -1976,6 +2154,15 @@ def report_build(built):
         fail("K4 backward SASS: a kernel runs on the tensor cores (fp32 "
              "only, no TF32)")
     print(f"K4 backward SASS: no HMMA or HGMMA in its {len(bwd)} kernels")
+    bwd16 = sass_mma_counts(_build.library_path("flash_attention_bwd_bf16"))
+    if len(bwd16) != 35:
+        fail(f"K4 bf16 backward SASS: {len(bwd16)} kernels, expected 35 (D, "
+             f"dK/dV and dQ at 16 head sizes, the split sum, the finish)")
+    if any(h + g for h, g in bwd16.values()):
+        fail("K4 bf16 backward SASS: a kernel runs on the tensor cores "
+             "(this design's products are fp32 FMAs)")
+    print(f"K4 bf16 backward SASS: no HMMA or HGMMA in its {len(bwd16)} "
+          f"kernels")
     k5b = sass_mma_counts(_build.library_path("ssd_bwd"))
     if len(k5b) != 11:
         fail(f"K5 backward SASS: {len(k5b)} kernels, expected 11 (chunk, "
@@ -1998,7 +2185,9 @@ def _kernel_modules():
             "sparse_graph_mix": k2.sparse_graph_mix,
             "compressed_graph_mix": k3.compressed_graph_mix,
             "flash_attention": k4.flash_attention,
-            "flash_attention_bwd": k4.flash_attention_bwd, "ssd": k5.ssd,
+            "flash_attention_bwd": k4.flash_attention_bwd,
+            "flash_attention_bwd_bf16": k4.flash_attention_bwd_bf16,
+            "ssd": k5.ssd,
             "ssd_bwd": k5.ssd_bwd, "rglru_scan": k6.rglru_scan,
             "rglru_scan_bwd": k6.rglru_scan_bwd}
 
@@ -2976,7 +3165,7 @@ def serve_model(torch, arch):
     """``arch`` (one of SERVE_ARCHS) at its published config in float32
     (cut to its first SERVE_LAYERS[arch] layers where it has an entry),
     built on "meta" and its weights drawn from seed 0 on the card (so
-    they exist once: recurrentgemma-9b's are 26.1 GB); returns (cfg,
+    they exist once); returns (cfg,
     model, params)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
@@ -3231,7 +3420,10 @@ def train_launches(cfg, steps):
     want = {name: 0 for name in _kernel_modules()}
     for kname in layer_kernels(cfg):
         want[kname] += 2 * steps
-        want[kname + "_bwd"] += steps
+        # a bf16 model's attention backward is the bf16 library's; its
+        # scans run in fp32 (the models cast their inputs, as `repro`'s)
+        bf16 = cfg.dtype == "bfloat16" and kname == "flash_attention"
+        want[kname + ("_bwd_bf16" if bf16 else "_bwd")] += steps
     return want
 
 
@@ -3261,7 +3453,8 @@ def run_train(torch, argv=None, cut=None):
     """The training path once, with every kernel count zeroed just before
     and read just after (`train_launches`): `repro_torch.launch.train.
     main(argv)`, or for ``cut`` (TRAIN_HYBRID, TRAIN_VLM, TRAIN_MOE,
-    TRAIN_AUDIO) the config cut to its first ``n_layers`` layers, its init
+    TRAIN_AUDIO, TRAIN_BF16) the config at ``cut``'s dtype (float32
+    unless given) cut to its first ``n_layers`` layers, its init
     of PRNGKey(0) on the card and `launch.train.train` (a vlm's vision
     embeddings from `make_vision`, an audio model's frames from
     `make_frames`; a moe model's router loss of each step kept,
@@ -3286,7 +3479,8 @@ def run_train(torch, argv=None, cut=None):
         run = train.main(argv)
     else:
         steps, batch, seq = cut["steps"], cut["batch"], cut["seq"]
-        cfg = get_config(cut["arch"]).replace(dtype="float32")
+        cfg = get_config(cut["arch"]).replace(
+            dtype=cut.get("dtype", "float32"))
         cfg = cfg.replace(n_layers=cut["n_layers"], **(
             {"n_enc_layers": cut["n_layers"]} if cfg.family == "audio"
             else {}))
@@ -3332,7 +3526,8 @@ def run_train(torch, argv=None, cut=None):
         del updates
     del grads, params
     warm = statistics.median(run.step_seconds[2:])
-    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
+    return dict(arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                batch=batch, seq=seq,
                 vision=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
                 frames=cfg.n_audio_frames if cfg.family == "audio" else 0,
                 n_params=run.n_params, steps=steps, losses=run.losses,
@@ -3348,7 +3543,7 @@ def print_train(tr):
         f"{n // tr['steps']} {k}" for k, n in tr["launches"].items() if n)
     layers = f"{tr['n_layers']}" + (" encoder and decoder" if tr["frames"]
                                     else "")
-    print(f"train {tr['arch']} ({layers} layers) float32 "
+    print(f"train {tr['arch']} ({layers} layers) {tr['dtype']} "
           f"B={tr['batch']} S={tr['seq']}"
           + (f" + {tr['vision']} vision" if tr["vision"] else "")
           + (f" after {tr['frames']} frames" if tr["frames"] else "") +
@@ -3365,13 +3560,21 @@ def print_train(tr):
                                        f"{[round(a, 6) for a in tr['aux']]}"))
 
 
+def cross_train_tols(cfg):
+    """(loss, gradient) tolerances of a cut run at ``cfg``'s dtype."""
+    if cfg.dtype == "bfloat16":
+        return CROSS_TRAIN_BF16_LOSS_TOL, CROSS_TRAIN_BF16_GRAD_TOL
+    return CROSS_TRAIN_LOSS_TOL, CROSS_TRAIN_GRAD_TOL
+
+
 def check_cross_train(torch, name):
     """CROSS_TRAINS[name] on the card and by the port on the CPU (the
     card's init copied to the host before any step): the step-0
-    gradients within CROSS_TRAIN_GRAD_TOL (each leaf as a share of its
+    gradients within `cross_train_tols`' (CROSS_TRAIN_GRAD_TOL, or
+    CROSS_TRAIN_BF16_GRAD_TOL for the bf16 run) (each leaf as a share of its
     largest element), then 3 steps of the training loop
     (`launch.train.train`) on each, the card's launches `train_launches`
-    and the CPU's none, the losses within CROSS_TRAIN_LOSS_TOL of each
+    and the CPU's none, the losses within `cross_train_tols`' of each
     other and of the JAX reference's (CROSS_TRAIN_JAX_LOSSES[name]).
     Returns (card losses, CPU losses, the largest gradient share, the
     card's launches, the card's trained weights, CPU seconds)."""
@@ -3388,8 +3591,9 @@ def check_cross_train(torch, name):
     cfg = get_config(c["arch"])
     if c.get("reduced"):
         cfg = cfg.reduced()
-    cfg = cfg.replace(dtype="float32", **{
+    cfg = cfg.replace(dtype=c.get("dtype", "float32"), **{
         k: c[k] for k in ("n_layers", "n_enc_layers") if k in c})
+    loss_tol, grad_tol = cross_train_tols(cfg)
     card = build_model(cfg, device="meta", loss_chunks=4)
     params = card.init(prng.PRNGKey(0, device="cuda"))
     cpu = build_model(cfg, device="meta", loss_chunks=4)
@@ -3417,9 +3621,9 @@ def check_cross_train(torch, name):
     share = 0.0
     for (pname, _), g, w in zip(card.named_parameters(), grads["card"],
                                 grads["cpu"]):
-        sh = ((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)
-              ).item()
-        if not sh <= CROSS_TRAIN_GRAD_TOL:
+        g, w = g.cpu().float(), w.float()
+        sh = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        if not sh <= grad_tol:
             fail(f"{name} card against CPU: step-0 gradient of {pname} "
                  f"differs by {sh} of its largest element")
         share = max(share, sh)
@@ -3439,9 +3643,9 @@ def check_cross_train(torch, name):
              f"(expected {want}), {n_cpu} on the CPU")
     for label, other in (("the CPU", on_cpu.losses), ("JAX", jax_losses)):
         diff = max(abs(a - b) for a, b in zip(on_card.losses, other))
-        if not diff <= CROSS_TRAIN_LOSS_TOL:
+        if not diff <= loss_tol:
             fail(f"{name} card against {label}: losses {on_card.losses} "
-                 f"and {other} differ by {diff} > {CROSS_TRAIN_LOSS_TOL}")
+                 f"and {other} differ by {diff} > {loss_tol}")
     return (on_card.losses, on_cpu.losses, share, n_card,
             dict(card.named_parameters()), seconds)
 
@@ -3852,11 +4056,10 @@ def run_personalized(torch):
 
 def mesh_config(arch, layers):
     """``arch``'s published config in float32, cut to its first
-    ``layers`` layers (None: all)."""
+    ``layers`` layers."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch).replace(dtype="float32")
-    return cfg if layers is None else cfg.replace(n_layers=layers)
+    return get_config(arch).replace(dtype="float32", n_layers=layers)
 
 
 def _stepped(torch, model):
@@ -3995,7 +4198,8 @@ def model_mesh_rank(mesh, device, run):
     cfg = mesh_config(arch, layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = build_model(cfg, device="meta", mesh=mesh)
+    model = build_model(cfg, device="meta", mesh=mesh,
+                        decode_cache_seqshard=True)
     n_weights = sum(t.numel() for t in model.init(
         prng.PRNGKey(0, device=device)).values())
     torch.cuda.synchronize()
@@ -4067,12 +4271,11 @@ def _compare_steps(want, got):
     return err, t, gap
 
 
-def run_model_mesh(torch, refs):
+def run_model_mesh(torch):
     """The model-mesh phase (MODEL_MESH_RUNS), each run one `run_on_mesh`
-    launch on the card after its single-device reference was made and
-    freed: ``refs`` holds the serve phase's whole-batch reference of
-    qwen3-0.6b; a run of another depth or arch makes its own here (each
-    data block alone: a moe block's capacity is the block's). Each
+    launch on the card after its single-device reference was made here
+    and freed (each data block alone: a moe block's capacity is the
+    block's). Each
     rank must launch K4 once a layer and nothing else, run every decode
     step under the no-sync fence, make its expected collectives (one
     pmax and two psums a layer a decode step; a moe layer's psum over
@@ -4098,20 +4301,14 @@ def run_model_mesh(torch, refs):
         cfg = mesh_config(arch, layers)
         L, moe_layers = cfg.n_layers, cfg.n_layers * (cfg.family == "moe")
         t0 = time.perf_counter()
-        if L != refs.get(arch, {}).get("layers"):
-            model = build_model(cfg, device="meta")
-            model.init(prng.PRNGKey(0, device="cuda"))
-            blocks = [mesh_reference(torch, model, cfg, M,
-                                     slice(b * B // D, (b + 1) * B // D))
-                      for b in range(D)]
-            del model
-            gc.collect()
-            torch.cuda.empty_cache()
-        else:
-            ref = refs[arch]
-            blocks = [{k: (v[b * B // D:(b + 1) * B // D]
-                           if k in ("logits", "tokens") else v)
-                       for k, v in ref.items()} for b in range(D)]
+        model = build_model(cfg, device="meta")
+        model.init(prng.PRNGKey(0, device="cuda"))
+        blocks = [mesh_reference(torch, model, cfg, M,
+                                 slice(b * B // D, (b + 1) * B // D))
+                  for b in range(D)]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
         ref_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         out = run_on_mesh(model_mesh_rank, (D, M), ("data", "model"),
@@ -4337,7 +4534,11 @@ DRYRUN_PEAK_TOL = 0.10
 #: module hooks would hold its activations) and serve run
 DRYRUN_TRAINS = {"qwen3-0.6b": dict(batch=8, seq=512),
                  "mamba2-370m": dict(batch=8, seq=512),
-                 "whisper-medium": dict(batch=8, seq=448)}
+                 "whisper-medium": dict(batch=8, seq=448),
+                 "qwen3-0.6b bf16": dict(arch="qwen3-0.6b", batch=8,
+                                         seq=512, dtype="bfloat16")}
+#: the bf16 train step's anchor is held closer: within this share
+DRYRUN_BF16_PEAK_TOL = 0.01
 DRYRUN_SERVE = dict(arch="qwen3-0.6b", batch=4, prompt_len=512,
                     new_tokens=8)
 
@@ -4379,7 +4580,7 @@ def _meta_alloc(fn, sms):
 
 
 def kernel_alloc_cases(torch, k1_in, k2_in, k3_in, k4_in, k4b_in, k5_in,
-                       k6_in, k5b_in, k6b_in):
+                       k6_in, k5b_in, k6b_in, k4b16_in):
     """(name, card call, meta call) of each kernel and backward at its
     first timed shape (PERF.md §6), the meta call on `meta_twin`s."""
     from repro_torch.kernels import compressed_graph_mix as k3
@@ -4422,6 +4623,11 @@ def kernel_alloc_cases(torch, k1_in, k2_in, k3_in, k4_in, k4b_in, k5_in,
                                            window=window)
     cases.append(pair("flash_attention_bwd", k4.flash_attention_bwd, q, k,
                       v, out, lse, dout, causal=causal, window=window))
+    name, causal, window, q, k, v, dout = k4b16_in[0]
+    out, lse = k4.flash_attention_with_lse(q, k, v, causal=causal,
+                                           window=window)
+    cases.append(pair("flash_attention_bwd_bf16", k4.flash_attention_bwd, q,
+                      k, v, out, lse, dout, causal=causal, window=window))
     name, chunk, x, dlogA, B, C, h0 = next(c for c in k5_in
                                            if c[0] in K5_TIMED)
     cases.append(pair("ssd", k5.ssd, x, dlogA, B, C, chunk=chunk, h0=h0))
@@ -4463,12 +4669,12 @@ def check_kernel_allocs(torch, cases, sms):
     return out
 
 
-def _peak_gap(torch, label, card_fn, meta_fn, hw):
+def _peak_gap(torch, label, card_fn, meta_fn, hw, tol=DRYRUN_PEAK_TOL):
     """``card_fn()``'s measured peak (max_memory_allocated after a reset,
     less what was allocated before it) against the dry run's prediction
     of ``meta_fn`` on "meta" tensors (`roofline.count_step`'s peak, the
     instrument behind the dry run's records); fails beyond
-    DRYRUN_PEAK_TOL. Returns (predicted, measured, gap)."""
+    ``tol`` (DRYRUN_PEAK_TOL). Returns (predicted, measured, gap)."""
     from repro_torch.roofline import count_step
 
     gc.collect()
@@ -4481,20 +4687,20 @@ def _peak_gap(torch, label, card_fn, meta_fn, hw):
     predicted = count_step(meta_fn, hw=hw).peak_bytes
     gap = (predicted - measured) / measured
     print(f"  {label}: predicted peak {predicted} bytes, measured "
-          f"{measured} (gap {gap:+.4f}, tolerance {DRYRUN_PEAK_TOL}); {SMI}")
-    if abs(gap) > DRYRUN_PEAK_TOL:
+          f"{measured} (gap {gap:+.4f}, tolerance {tol}); {SMI}")
+    if abs(gap) > tol:
         fail(f"dry run: {label}'s predicted peak {predicted} is {gap:+.4f} "
              f"off the measured {measured}")
     return predicted, measured, gap
 
 
-def _lm_pair(torch, arch):
+def _lm_pair(torch, arch, dtype="float32"):
     """(a card model with seeded weights, its "meta" twin): the whole
-    ``arch`` in fp32, the loss over 4 chunks (`launch.train.main`'s)."""
+    ``arch`` at ``dtype``, the loss over 4 chunks (`launch.train.main`'s)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config(arch).replace(dtype="float32")
+    cfg = get_config(arch).replace(dtype=dtype)
     model = build_model(cfg, device="meta", loss_chunks=4).to_empty(
         device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -4507,7 +4713,8 @@ def _lm_pair(torch, arch):
 def run_dryrun(torch, engine, kernel_cases, records):
     """The dry-run phase: each kernel's meta allocation against its
     launch's; the predicted peak of one dense round (N 32), the
-    qwen3-0.6b, mamba2-370m and whisper-medium train steps and
+    qwen3-0.6b, mamba2-370m and whisper-medium train steps, qwen3-0.6b's
+    bf16 train step (within DRYRUN_BF16_PEAK_TOL) and
     qwen3-0.6b's serve against the card's; the `ShapeMesh` records of the sharded phase's audited rounds
     against the real ones, rank by rank. Returns the anchors' (predicted,
     measured, gap) by label."""
@@ -4544,8 +4751,10 @@ def run_dryrun(torch, engine, kernel_cases, records):
         torch, f"one dense round (PaperCNN, N {SMOKE_DATA['n_clients']})",
         lambda: step(state), lambda: meta_step(meta_state), hw)
     del state, step
-    for arch, run in DRYRUN_TRAINS.items():
-        cfg_lm, model, twin = _lm_pair(torch, arch)
+    for label, run in DRYRUN_TRAINS.items():
+        arch = run.get("arch", label)
+        cfg_lm, model, twin = _lm_pair(torch, arch,
+                                       run.get("dtype", "float32"))
         opt = adamw(3e-4)
         st = opt.init(dict(model.named_parameters()))
         train = make_train_step(model, opt)
@@ -4559,10 +4768,13 @@ def run_dryrun(torch, engine, kernel_cases, records):
         meta_st = opt.init(dict(twin.named_parameters()))
         meta_train = make_train_step(twin, opt)
         meta_batch = {k: meta_twin(torch, v) for k, v in batch.items()}
-        gaps[f"train {arch}"] = _peak_gap(
-            torch, f"{arch} train step (B {run['batch']}, S {run['seq']})",
+        gaps[f"train {label}"] = _peak_gap(
+            torch, f"{arch} {cfg_lm.dtype} train step (B {run['batch']}, S "
+                   f"{run['seq']})",
             lambda: train(st, batch), lambda: meta_train(meta_st,
-                                                         meta_batch), hw)
+                                                         meta_batch), hw,
+            DRYRUN_BF16_PEAK_TOL if cfg_lm.dtype == "bfloat16"
+            else DRYRUN_PEAK_TOL)
         del model, twin, st, train, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -4624,6 +4836,12 @@ def _kernel_row(name, source, replaces, launches, rows):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shapes": rows}
+
+
+def stamp(started, done):
+    """Print the seconds since ``started`` as ``done`` ends (the phases'
+    share of the script's time)."""
+    print(f"[{time.perf_counter() - started:.1f} s] done: {done}")
 
 
 def main():
@@ -4703,6 +4921,15 @@ def main():
         print(f"  K4 backward {case[0]}: max abs err {err:.3g} "
               f"({share:.3g} of the largest element); LSE max abs err "
               f"{lse_err:.3g}; {splits} head splits, {slabs} slabs")
+    k4b16_in = k4_bwd_bf16_inputs(torch)
+    k4b16_errs = check_k4_bwd_bf16(torch, k4b16_in)
+    print(f"K4 bf16 backward agrees with its plain version in bf16 in "
+          f"{len(k4b16_in)} cases (dq, dk, dv within {K4_BWD_BF16_TOL} of "
+          f"each one's largest element), one launch of the bf16 library a "
+          f"call, the same bits on a repeated call and through autograd")
+    for case, (err, share) in zip(K4_BWD_BF16_CASES, k4b16_errs):
+        print(f"  K4 bf16 backward {case[0]}: max abs err {err:.3g} "
+              f"({share:.3g} of the largest element)")
     for (name, N, B, S, Hq, Hkv, hd), (err, share) in zip(
             K4_VMAP_CASES, check_k4_vmap(torch)):
         print(f"K4 under torch.func.vmap, {name} ({N} clients x ({B}, {S}, "
@@ -4741,6 +4968,8 @@ def main():
     normal_s = check_normal(torch)
     print(f"prng.normal: {NORMAL_DRAWS} draws from PRNGKey(3) on the card in "
           f"{normal_s:.3f} s, the CPU's bits and jax.random.normal's")
+
+    stamp(started, "the kernels' checks")
 
     # ---- 4. the main paths
     import numpy as np
@@ -4801,11 +5030,12 @@ def main():
               f"tau={BASELINE_RUN['tau']}: {seconds:.3f} s wall, mean test "
               f"acc {mean_acc:.4f} (JAX reference {LEARN_REF[name]}), "
               f"launches {counts}, every round under the no-sync fence")
+    stamp(started, "the DPFL runs, guards and baselines")
     sharded_records = {}
     launches.update(run_sharded(torch, engine, single, sharded_records))
     del single
     B, new = SERVE_RUN["batch"], SERVE_RUN["new_tokens"]
-    walls, mesh_refs = {}, {}
+    walls = {}
     for arch in SERVE_ARCHS:
         # one model on the card at a time
         cfg, model, params = serve_model(torch, arch)
@@ -4866,35 +5096,54 @@ def main():
               f"{cpu_s:.1f} s" + ("" if routing is None else
                                   f"; smallest router gap on the card "
                                   f"{routing['gap']:.3g}"))
-        if arch in MESH_REFERENCE_ARCHS:
-            # the model-mesh phase's single-device reference, while the
-            # weights are on the card (MODEL_MESH_RUNS' qwen3 (1, 2) run:
-            # qwen3-0.6b whole)
-            mesh_refs[arch] = mesh_reference(torch, model, cfg, 2)
         del model, params, gen, again
         torch.cuda.empty_cache()
     print("serve walls, second call (prefill ms, decode ms/step): " +
           ", ".join(f"{a} {p:.3f}, {d:.3f}" for a, (p, d) in walls.items()))
-    for kw in (dict(argv=TRAIN_ARGV), dict(argv=TRAIN_SSM_ARGV),
-               dict(cut=TRAIN_HYBRID), dict(cut=TRAIN_VLM),
-               dict(cut=TRAIN_MOE), dict(cut=TRAIN_AUDIO)):
+    stamp(started, "the sharded phase and the serve runs")
+    trains = {}
+    for kw in (dict(argv=TRAIN_ARGV), dict(cut=TRAIN_BF16),
+               dict(argv=TRAIN_SSM_ARGV), dict(cut=TRAIN_HYBRID),
+               dict(cut=TRAIN_VLM), dict(cut=TRAIN_MOE),
+               dict(cut=TRAIN_AUDIO)):
         tr = run_train(torch, **kw)
-        launches[f"train {tr['arch']}"] = tr["launches"]
+        label = tr["arch"] + (" bf16" if tr["dtype"] == "bfloat16" else "")
+        launches[f"train {label}"] = tr["launches"]
+        trains[label] = {k: tr[k] for k in ("warm_step_s", "optimizer_s",
+                                            "optimizer_share", "peak_bytes")}
         print_train(tr)
+        if tr["dtype"] == "bfloat16":
+            f32 = trains[tr["arch"]]
+            n_bf16 = tr["launches"]["flash_attention_bwd_bf16"]
+            print(f"train {tr['arch']} bf16 beside float32 (B "
+                  f"{tr['batch']}, S {tr['seq']}, {tr['n_layers']} layers, "
+                  f"remat full): warm step {tr['warm_step_s']:.4f} s against "
+                  f"{f32['warm_step_s']:.4f} s; AdamW alone "
+                  f"{tr['optimizer_s']:.4f} s ({tr['optimizer_share']:.3f} "
+                  f"of a step) against {f32['optimizer_s']:.4f} s "
+                  f"({f32['optimizer_share']:.3f}); peak allocated "
+                  f"{tr['peak_bytes']} against {f32['peak_bytes']} bytes; "
+                  f"K4's bf16 backward launched {n_bf16} times "
+                  f"({n_bf16 // tr['steps']} a step); {SMI}")
         # the first model trained under activation recompute stays in a
         # reference cycle (frames of torch.utils.checkpoint's first call)
         # until the collector runs: free its weights before the next run
         gc.collect()
         torch.cuda.empty_cache()
+    stamp(started, "the train runs")
     for name in CROSS_TRAINS:
         (card_losses, cpu_losses, grad_share, n_cross, params,
          cpu_s) = check_cross_train(torch, name)
         launches[f"{name} (card)"] = n_cross
+        loss_tol, grad_tol = CROSS_TRAIN_LOSS_TOL, CROSS_TRAIN_GRAD_TOL
+        if CROSS_TRAINS[name].get("dtype") == "bfloat16":
+            loss_tol = CROSS_TRAIN_BF16_LOSS_TOL
+            grad_tol = CROSS_TRAIN_BF16_GRAD_TOL
         print(f"{name} card against CPU and JAX ({CROSS_TRAINS[name]}): "
               f"losses card {card_losses}, CPU {cpu_losses}, JAX "
-              f"{CROSS_TRAIN_JAX_LOSSES[name]} (tol {CROSS_TRAIN_LOSS_TOL}); "
+              f"{CROSS_TRAIN_JAX_LOSSES[name]} (tol {loss_tol}); "
               f"step-0 gradients within {grad_share:.3g} of each leaf's "
-              f"largest element (tol {CROSS_TRAIN_GRAD_TOL}); launches "
+              f"largest element (tol {grad_tol}); launches "
               f"{n_cross}; CPU side {cpu_s:.1f} s")
         if name == "train-cross":
             cross_params = params
@@ -4909,6 +5158,7 @@ def main():
     del cross_params
     gc.collect()
     torch.cuda.empty_cache()
+    stamp(started, "the cut runs and the DPFL mix")
     card, cpu = check_lm_dpfl_cross(torch)
     launches["lm-dpfl (card)"] = card["launches"]
     print(f"lm-dpfl card against CPU (the example: reduced qwen3, "
@@ -4960,19 +5210,20 @@ def main():
           f"{pers['peak']} bytes")
     del pers
     torch.cuda.empty_cache()
+    stamp(started, "the LM examples")
     t0 = time.perf_counter()
-    launches.update(run_model_mesh(torch, mesh_refs))
-    del mesh_refs
+    launches.update(run_model_mesh(torch))
     launches.update(run_lm_client_mesh(torch, lm_card))
     print(f"model-mesh phase and LM clients on the client mesh: "
           f"{time.perf_counter() - t0:.3f} s; {SMI}")
     t0 = time.perf_counter()
     run_dryrun(torch, engine, kernel_alloc_cases(
         torch, k1_in, k2_in, k3_in, k4_in, k4b_in, k5_in, k6_in, k5b_in,
-        k6b_in), sharded_records)
+        k6b_in, k4b16_in), sharded_records)
     del sharded_records
     print(f"dry-run phase: {time.perf_counter() - t0:.3f} s; {SMI}")
 
+    stamp(started, "the model mesh and the dry run")
     # ---- 5. the kernels timed, after the main path has brought the
     # card's clocks up from idle
     k1_rows = time_k1(torch, k1_in, k1_errs, rates)
@@ -4980,6 +5231,8 @@ def main():
     k3_rows = time_k3(torch, k3_in, k3_errs, rates)
     k4_rows = time_k4(torch, k4_in, k4_errs, rates)
     k4b_rows = time_k4_bwd(torch, k4b_in, k4b_errs, rates)
+    k4b16_rows = time_k4_bwd_bf16(torch, k4b16_in, k4b16_errs, rates)
+    del k4b16_in
     k5_rows = time_k5(torch, k5_in, k5_errs, rates)
     k6_rows = time_k6(torch, k6_in, k6_errs, rates)
     k5b_rows = time_k5_bwd(torch, k5b_in, k5b_errs, rates)
@@ -4997,7 +5250,7 @@ def main():
     # mix, the two lm-dpfl runs on the card and the personalized serve),
     # with each run's counts beside them
     def total(kname):
-        return sum(c[kname] for c in launches.values())
+        return sum(c.get(kname, 0) for c in launches.values())
 
     rows = [
         _kernel_row("graph_mix", "src/repro_torch/kernels/csrc/graph_mix.cu",
@@ -5025,6 +5278,18 @@ def main():
          "bound_ms": k4b_rows[0]["bound_ms"],
          "bound_by": k4b_rows[0]["bound_by"],
          "library_ms": k4b_rows[0]["library_ms"], "shapes": k4b_rows},
+        {"name": "flash_attention_bwd_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu "
+                   "(built with FA_BWD_BF16)",
+         "replaces": "src/repro/kernels/flash_attention.py:96 (its "
+                     "function's gradient at bf16, repro's cast points; no "
+                     "Pallas counterpart)",
+         "launches": total("flash_attention_bwd_bf16"),
+         "max_abs_err": max(e[0] for e in k4b16_errs),
+         "ms": k4b16_rows[0]["ms"], "plain_ms": k4b16_rows[0]["plain_ms"],
+         "bound_ms": k4b16_rows[0]["bound_ms"],
+         "bound_by": k4b16_rows[0]["bound_by"],
+         "library_ms": k4b16_rows[0]["library_ms"], "shapes": k4b16_rows},
         _kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
                     "src/repro/kernels/ssd.py:83", total("ssd"), k5_rows),
         _kernel_row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -5042,7 +5307,7 @@ def main():
     rows[-2]["max_abs_err"] = max(e[0] for e in k5b_errs)
     rows[-1]["max_abs_err"] = max(k6b_errs)
     for row in rows:
-        row["launches_by_run"] = {v: c[row["name"]]
+        row["launches_by_run"] = {v: c.get(row["name"], 0)
                                   for v, c in launches.items()}
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s from start "
           f"to the results; {SMI}")

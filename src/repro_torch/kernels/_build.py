@@ -35,6 +35,7 @@ SOURCES = {"graph_mix": "graph_mix.cu",
            "compressed_graph_mix": "compressed_graph_mix.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_bwd_bf16": "flash_attention_bwd.cu",
            "ssd": "ssd.cu",
            "ssd_bwd": "ssd_bwd.cu",
            "rglru_scan": "rglru_scan.cu",
@@ -42,6 +43,10 @@ SOURCES = {"graph_mix": "graph_mix.cu",
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: kernel name -> nvcc flags of its build alone: K4's backward is one
+#: source built twice, one element type a library, so that the two
+#: builds run side by side
+DEFINES = {"flash_attention_bwd_bf16": ("-DFA_BWD_BF16",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
@@ -75,7 +80,8 @@ def library_path(name: str) -> Path:
     # all, so an edited header rebuilds its users
     src = b"".join(p.read_bytes() for p in
                    [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + DEFINES.get(name, ())
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -90,7 +96,8 @@ def _compile(todo: Dict[str, Path]) -> Dict[str, Tuple[float, str]]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [exe, *NVCC_FLAGS, *DEFINES.get(name, ()), "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))

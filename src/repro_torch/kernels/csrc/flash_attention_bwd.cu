@@ -6,8 +6,9 @@
 // trains by differentiating its plain attention (repro/models/lm.py::
 // attn_apply calls attention_ref). The plain version here is
 // `torch.autograd.grad` of repro_torch.kernels.ref.flash_attention_ref
-// (ref.flash_attention_bwd_ref). fp32 only, IEEE FMAs (no tensor cores,
-// no TF32). Every mask the forward takes: causal or not, a window, ragged
+// (ref.flash_attention_bwd_ref). fp32 or bf16 inputs, IEEE fp32 FMAs
+// either way (no tensor cores, no TF32). Every mask the forward takes:
+// causal or not, a window, ragged
 // Sq and Sk (aligned positions: row i sees key j iff j < Sk, j <= i when
 // causal, j > i - window). A masked score is -1e30, so its probability
 // is 0, and tiles that no row sees are skipped. Every sum runs in a fixed
@@ -72,6 +73,29 @@
 //   (c) One block per (head, b, 64 rows): tiles of the scratch and of K
 //   stream through two stages, and dQ += (scale dS) K runs as the
 //   forward's P V.
+//
+// bf16 (the same kernels on another element type; one source, two
+// libraries: the wrapper's flash_attention_bwd_bf16 is this file built
+// with FA_BWD_BF16 defined, so each build compiles one element type).
+// Q, K, V, O and dO are bf16, the forward's LSE fp32, dQ, dK and dV bf16,
+// the leaves' dtype as in `repro`, whose plain attention is differentiated
+// at bf16 with bf16 operands and fp32 sums (repro/models/common.py::
+// attention_ref): every tile is converted to fp32 as it is loaded (a
+// plain 16-byte load of 8 values, converted and stored to shared memory
+// in place of the fp32 path's cp.async), so shared memory, tiles, plans
+// and products are the fp32 path's. The gradient follows `repro`'s cast
+// points: P is rounded to bf16 before dV += P^T dO (the forward rounds P
+// before P V), dP = dO V^T is rounded to bf16 (the gradient of that
+// bf16 P), and dS = P (dP - D) uses the unrounded P (the softmax's
+// gradient is fp32); D = rowsum(dO o O) reads the bf16 O. dK and dV go
+// to the fp32 partials of the split sum whatever the splits, and dQ to
+// an fp32 scratch, so the slabs add in fp32; a last kernel sums the
+// splits in order and rounds dK, dV and dQ to bf16 once.
+// At qwen3-0.6b's training shape 21.5 GFLOP run on the FMA units (0.321
+// ms at 67 TFLOP/s) against the card's bf16 tensor-core bound of 0.0217
+// ms (989 TFLOP/s): this design is correct first, not fast; moving its
+// five products to mma.sync (the forward's mma_bf16) is later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,24 +114,82 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   return fmaf(a.w, b.w, acc);
 }
 
+// 4 values at p (16 bytes of fp32, 8 of bf16) as fp32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+
+// x rounded to bf16 (round to nearest even), as fp32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + ROWS) of one (b, head) slice into fp32 shared memory at
+// `pitch` floats a row, rows at or past S zero-filled: fp32 by cp.async
+// (wait with cp_async_wait_all); bf16 by plain 16-byte loads of 8 values,
+// converted and stored (done when the loop ends)
+template <int HD, int ROWS, int THREADS = kThreads>
+__device__ __forceinline__ void load_rows(float* dst, int pitch,
+                                          const float* base,
+                                          int64_t stride_s, int r0, int S) {
+  load_tile<float, HD, ROWS, THREADS>(dst, pitch, base, stride_s, r0, S);
+}
+
+template <int HD, int ROWS, int THREADS = kThreads>
+__device__ __forceinline__ void load_rows(float* dst, int pitch,
+                                          const __nv_bfloat16* base,
+                                          int64_t stride_s, int r0, int S) {
+  constexpr int kPerRow = HD / 8;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
+    const int r = i / kPerRow;
+    const int c = (i - r * kPerRow) * 8;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < S)
+      u = *reinterpret_cast<const uint4*>(base + (r0 + r) * stride_s + c);
+    float* d = dst + r * pitch + c;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+    *reinterpret_cast<float4*>(d + 4) =
+        make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w));
+  }
+}
+
 // ---- (a) D = rowsum(dO o O): one warp per (b, s, h) row of the
 // contiguous (B, Sq, Hq, hd) out and dout, into delta (B, Hq, Sq)
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_delta_kernel(const float* __restrict__ out,
-                                 const float* __restrict__ dout,
+flash_attention_bwd_delta_kernel(const T* __restrict__ out,
+                                 const T* __restrict__ dout,
                                  float* __restrict__ delta, int64_t rows,
                                  int Sq, int Hq, int hd) {
   const int lane = threadIdx.x % 32;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   if (r >= rows) return;  // the whole warp
-  const float* o = out + r * hd;
-  const float* g = dout + r * hd;
+  const T* o = out + r * hd;
+  const T* g = dout + r * hd;
   float acc = 0.0f;
   for (int c = 4 * lane; c < hd; c += 128)
-    acc = dot4(*reinterpret_cast<const float4*>(o + c),
-               *reinterpret_cast<const float4*>(g + c), acc);
+    acc = dot4(load4(o + c), load4(g + c), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -121,8 +203,9 @@ flash_attention_bwd_delta_kernel(const float* __restrict__ out,
 
 // ---- shared by (b) and (c)
 
+template <typename T>
 struct Grad {
-  const float* dout;   // contiguous (B, Sq, Hq, hd)
+  const T* dout;       // contiguous (B, Sq, Hq, hd)
   const float* lse;    // (B, Hq, Sq)
   const float* delta;  // (B, Hq, Sq)
 };
@@ -130,7 +213,7 @@ struct Grad {
 // one slab of keys: what (b) writes and (c) reads
 struct Pass {
   float* ds;        // (B, Hq, n_qt, slab_keys, kBQ): scale dS^T by query tile
-  float* dk;        // (B, Sk, Hkv, hd): dK, or split 0's partial
+  float* dk;        // (B, Sk, Hkv, hd): fp32 dK, or split 0's partial
   float* dv;        // the same for dV
   int64_t part;     // elements from one split's partial to the next's
   int splits;       // query-head splits of a GQA group
@@ -211,8 +294,8 @@ __device__ __forceinline__ void tile_product(const float* a, const float* b,
 
 // acc[i][4 c + e] += sum over the tile's rows r of w[r][key0 + i] x[r][4
 // (cg + 16 c) + e]: dV += P^T dO, or dK += dS^T Q, for KEYS keys and 4
-// NCH columns of one thread
-template <int HD, int KEYS>
+// NCH columns of one thread; ROUND_W rounds each w to bf16 first
+template <int HD, int KEYS, bool ROUND_W = false>
 __device__ __forceinline__ void accumulate(
     const float* w, const float* x, int key0, int cg,
     float (&acc)[KEYS][KVTiles<HD>::kNch * 4]) {
@@ -230,6 +313,10 @@ __device__ __forceinline__ void accumulate(
       wr[i + 1] = t.y;
       wr[i + 2] = t.z;
       wr[i + 3] = t.w;
+    }
+    if (ROUND_W) {
+#pragma unroll
+      for (int i = 0; i < KEYS; ++i) wr[i] = round_bf16(wr[i]);
     }
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
@@ -254,20 +341,21 @@ __device__ __forceinline__ void accumulate(
 // shared memory) and dV += P^T dO; threads 128-255 compute dP, read P,
 // write dS (to shared memory and the scratch) and dK += dS^T Q.
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
-                                const float* __restrict__ k,
-                                const float* __restrict__ v, Grad gr,
+flash_attention_bwd_dkdv_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v, Grad<T> gr,
                                 Pass pass, Problem p) {
-  using T = KVTiles<HD>;
-  constexpr int BK = T::kBK;
-  constexpr int PITCH = T::kPitch;
-  constexpr int PK = T::kPK;
-  constexpr int NJ = T::kNJ;
-  constexpr int KEYS = T::kKeys;
-  constexpr int NCH = T::kNch;
-  constexpr int ST = T::kStages;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  using Tiles = KVTiles<HD>;
+  constexpr int BK = Tiles::kBK;
+  constexpr int PITCH = Tiles::kPitch;
+  constexpr int PK = Tiles::kPK;
+  constexpr int NJ = Tiles::kNJ;
+  constexpr int KEYS = Tiles::kKeys;
+  constexpr int NCH = Tiles::kNch;
+  constexpr int ST = Tiles::kStages;
   constexpr int HALF = kBwdThreads / 2;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);  // [BK][PITCH]
@@ -307,21 +395,19 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
   auto load_q = [&](int it, int st) {
     const int h = h_first + it / n_q;
     const int q0 = q_first + (it % n_q) * kBQ;
-    load_tile<float, HD, kBQ, kBwdThreads>(q_s + st * kBQ * PITCH, PITCH,
-                                           q + b * p.qs.b + h * p.qs.h,
-                                           p.qs.s, q0, p.Sq);
-    load_tile<float, HD, kBQ, kBwdThreads>(
+    load_rows<HD, kBQ, kBwdThreads>(q_s + st * kBQ * PITCH, PITCH,
+                                    q + b * p.qs.b + h * p.qs.h, p.qs.s, q0,
+                                    p.Sq);
+    load_rows<HD, kBQ, kBwdThreads>(
         g_s + st * kBQ * PITCH, PITCH,
         gr.dout + (static_cast<int64_t>(b) * p.Sq * p.Hq + h) * HD, g_row,
         q0, p.Sq);
   };
 
-  load_tile<float, HD, BK, kBwdThreads>(k_s, PITCH,
-                                        k + b * p.ks.b + hk * p.ks.h,
-                                        p.ks.s, k0, p.Sk);
-  load_tile<float, HD, BK, kBwdThreads>(v_s, PITCH,
-                                        v + b * p.vs.b + hk * p.vs.h,
-                                        p.vs.s, k0, p.Sk);
+  load_rows<HD, BK, kBwdThreads>(k_s, PITCH, k + b * p.ks.b + hk * p.ks.h,
+                                 p.ks.s, k0, p.Sk);
+  load_rows<HD, BK, kBwdThreads>(v_s, PITCH, v + b * p.vs.b + hk * p.vs.h,
+                                 p.vs.s, k0, p.Sk);
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();
 
@@ -375,7 +461,8 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
       }
       bar_arrive(kBarP, kBwdThreads);   // P is in for the second half
       bar_sync(kBarHalf, HALF);         // and all of it for this half
-      accumulate<HD, KEYS>(p_s, gt_s, kg * KEYS, cg, acc);  // dV
+      // dV, from P rounded to bf16 as the forward rounds it (bf16)
+      accumulate<HD, KEYS, kBf16>(p_s, gt_s, kg * KEYS, cg, acc);
     } else {
       tile_product<HD, NJ>(gt_s + srg * 4 * PITCH, v_s + skg * PITCH, s);
       bar_sync(kBarP, kBwdThreads);     // P is in
@@ -383,7 +470,9 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          s[i][j] = p_s[(srg * 4 + i) * PK + skg + 8 * j] * (s[i][j] - LD[i]);
+          // dP is the gradient of the bf16 P: rounded to bf16 (bf16)
+          const float dp = kBf16 ? round_bf16(s[i][j]) : s[i][j];
+          s[i][j] = p_s[(srg * 4 + i) * PK + skg + 8 * j] * (dp - LD[i]);
           d_s[(srg * 4 + i) * PK + skg + 8 * j] = s[i][j];
         }
       // scale dS^T to the scratch: rows of this tile's keys, 64 queries
@@ -408,8 +497,8 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
   }
 
   // dV (first half) and dK = scale dS^T Q (second), contiguous (B, Sk,
-  // Hkv, hd), or this split's partials of them; a key that no query sees
-  // gets zeros
+  // Hkv, hd) fp32, or this split's partials of them (always, in bf16); a
+  // key that no query sees gets zeros
   const int Hkv = p.Hq / p.rep;
   float* out = (half ? pass.dk : pass.dv) + split * pass.part;
   const float sc = half ? p.scale : 1.0f;
@@ -433,14 +522,14 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
 // ---- (c) dQ = (scale dS) K over this slab's keys: 128 threads, two
 // blocks an SM
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_bwd_dq_kernel(const float* __restrict__ k, Pass pass,
+flash_attention_bwd_dq_kernel(const T* __restrict__ k, Pass pass,
                               float* __restrict__ dq, Problem p) {
-  using T = QTiles<HD>;
-  constexpr int BK = T::kBK;
-  constexpr int PITCH = T::kPitch;
-  constexpr int NCH = T::kNch;
+  using Tiles = QTiles<HD>;
+  constexpr int BK = Tiles::kBK;
+  constexpr int PITCH = Tiles::kPitch;
+  constexpr int NCH = Tiles::kNch;
   extern __shared__ float4 smem4[];
   float* d_s = reinterpret_cast<float*>(smem4);  // [2][BK][kPQ], scratch
   float* k_s = d_s + 2 * BK * kPQ;               // [2][BK][PITCH], K
@@ -466,13 +555,12 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ k, Pass pass,
       pass.ds + ((static_cast<int64_t>(b) * p.Hq + h) * pass.n_qt +
                  span.q0 / kBQ) *
                     pass.slab_keys * kBQ;
-  const float* kb = k + b * p.ks.b + hk * p.ks.h;
+  const T* kb = k + b * p.ks.b + hk * p.ks.h;
   auto load = [&](int t, int st) {
     const int k0 = lo + t * BK;
     load_tile<float, kBQ, BK>(d_s + st * BK * kPQ, kPQ, ds, kBQ,
                               k0 - pass.slab_lo, pass.slab_keys);
-    load_tile<float, HD, BK>(k_s + st * BK * PITCH, PITCH, kb, p.ks.s, k0,
-                             p.Sk);
+    load_rows<HD, BK>(k_s + st * BK * PITCH, PITCH, kb, p.ks.s, k0, p.Sk);
   };
   load(0, 0);
   cp_async_commit();
@@ -518,8 +606,8 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ k, Pass pass,
     }
   }
 
-  // dQ, contiguous (B, Sq, Hq, hd): written, or added to an earlier
-  // slab's
+  // dQ, contiguous (B, Sq, Hq, hd) fp32 (the bf16 path's scratch):
+  // written, or added to an earlier slab's
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = span.q0 + rg * 8 + i;
@@ -564,6 +652,36 @@ flash_attention_bwd_reduce_kernel(const float4* __restrict__ part,
   }
 }
 
+// ---- bf16: dK (blockIdx.y 0) and dV (1) as the splits' fp32 partials
+// summed in split order, and dQ (2) from its fp32 scratch, each rounded to
+// bf16 once: part is (2, splits, n4) float4, dq32 n4_q float4
+
+// (a template on the element type, so that only the bf16 build has it)
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_finish_kernel(const float4* __restrict__ part,
+                                  const float4* __restrict__ dq32,
+                                  uint2* __restrict__ dk,
+                                  uint2* __restrict__ dv,
+                                  uint2* __restrict__ dq, int64_t n4,
+                                  int64_t n4_q, int splits) {
+  const int y = blockIdx.y;
+  const float4* src = y == 2 ? dq32 : part + y * splits * n4;
+  uint2* dst = y == 0 ? dk : (y == 1 ? dv : dq);
+  const int64_t n = y == 2 ? n4_q : n4;
+  const int terms = y == 2 ? 1 : splits;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kBwdThreads +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * kBwdThreads) {
+    float4 s = src[i];
+    for (int g = 1; g < terms; ++g) {
+      const float4 t = src[g * n + i];
+      s = make_float4(s.x + t.x, s.y + t.y, s.z + t.z, s.w + t.w);
+    }
+    dst[i] = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+  }
+}
+
 // ---- launch
 
 template <typename K>
@@ -580,11 +698,16 @@ struct Plan {
       reduce_blocks;
 };
 
-template <int HD>
-cudaError_t launch_hd(const float* q, const float* k, const float* v,
-                      const Grad& gr, float* dq, float* dk, float* dv,
-                      float* ds, float* part, int B, const Problem& p,
-                      const Plan& plan, cudaStream_t stream) {
+// fp32: dq, dk and dv are the outputs (dk and dv through `part` when
+// split); bf16: dq is the fp32 scratch dq32 and dk and dv go through
+// `part` always, then the finish kernel writes the bf16 outputs
+template <typename T, int HD>
+cudaError_t launch_hd(const T* q, const T* k, const T* v, const Grad<T>& gr,
+                      float* dq, float* dk, float* dv, float* ds,
+                      float* part, void* out_dq, void* out_dk, void* out_dv,
+                      int B, const Problem& p, const Plan& plan,
+                      cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   using KV = KVTiles<HD>;
   using QT = QTiles<HD>;
   // a plan made for other tiles than these kernels' is refused
@@ -592,13 +715,13 @@ cudaError_t launch_hd(const float* q, const float* k, const float* v,
       plan.dq_smem != QT::kBytes || plan.slab_keys % KV::kBK)
     return cudaErrorInvalidValue;
   cudaError_t err =
-      allow_smem(flash_attention_bwd_dkdv_kernel<HD>, plan.dkdv_smem);
+      allow_smem(flash_attention_bwd_dkdv_kernel<T, HD>, plan.dkdv_smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_attention_bwd_dq_kernel<HD>, plan.dq_smem);
+  err = allow_smem(flash_attention_bwd_dq_kernel<T, HD>, plan.dq_smem);
   if (err != cudaSuccess) return err;
   const int Hkv = p.Hq / p.rep;
   const int64_t n = static_cast<int64_t>(B) * p.Sk * Hkv * HD;
-  const bool split = plan.splits > 1;
+  const bool split = kBf16 || plan.splits > 1;
   Pass pass{ds,
             split ? part : dk,
             split ? part + plan.splits * n : dv,
@@ -613,17 +736,28 @@ cudaError_t launch_hd(const float* q, const float* k, const float* v,
     const dim3 grid_kv(static_cast<unsigned>(Hkv * plan.splits),
                        static_cast<unsigned>(B),
                        static_cast<unsigned>((keys + KV::kBK - 1) / KV::kBK));
-    flash_attention_bwd_dkdv_kernel<HD>
+    flash_attention_bwd_dkdv_kernel<T, HD>
         <<<grid_kv, kBwdThreads, plan.dkdv_smem, stream>>>(q, k, v, gr,
                                                            pass, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const dim3 grid_q(static_cast<unsigned>(p.Hq), static_cast<unsigned>(B),
                       static_cast<unsigned>(pass.n_qt));
-    flash_attention_bwd_dq_kernel<HD>
+    flash_attention_bwd_dq_kernel<T, HD>
         <<<grid_q, kThreads, plan.dq_smem, stream>>>(k, pass, dq, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+  }
+  if constexpr (kBf16) {
+    flash_attention_bwd_finish_kernel<T><<<
+        dim3(static_cast<unsigned>(plan.reduce_blocks), 3), kBwdThreads, 0,
+        stream>>>(reinterpret_cast<const float4*>(part),
+                  reinterpret_cast<const float4*>(dq),
+                  static_cast<uint2*>(out_dk), static_cast<uint2*>(out_dv),
+                  static_cast<uint2*>(out_dq), n / 4,
+                  static_cast<int64_t>(B) * p.Sq * p.Hq * HD / 4,
+                  plan.splits);
+    return cudaGetLastError();
   }
   if (!split) return cudaSuccess;
   flash_attention_bwd_reduce_kernel<<<
@@ -634,13 +768,17 @@ cudaError_t launch_hd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const float* q, const float* k, const float* v,
-                     const float* out, const float* dout, const float* lse,
-                     float* delta, float* dq, float* dk, float* dv,
-                     float* ds, float* part, int B, int Sq, int Sk, int Hq,
-                     int Hkv, int hd, const long long* strides, int causal,
-                     int window, float scale, const int* plan_ints,
-                     int device, void* stream) {
+// fp32: dq, dk, dv the outputs (dq32 unused); bf16: dq, dk, dv the bf16
+// outputs, dq32 a (B, Sq, Hq, hd) fp32 scratch, part always used
+template <typename T>
+cudaError_t dispatch(const T* q, const T* k, const T* v, const T* out,
+                     const T* dout, const float* lse, float* delta, void* dq,
+                     void* dk, void* dv, float* ds, float* part, float* dq32,
+                     int B, int Sq, int Sk, int Hq, int Hkv, int hd,
+                     const long long* strides, int causal, int window,
+                     float scale, const int* plan_ints, int device,
+                     void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   // this library carries its own (static) CUDA runtime, whose current
   // device is set here to the one the tensors live on
   cudaError_t err = cudaSetDevice(device);
@@ -665,16 +803,19 @@ cudaError_t dispatch(const float* q, const float* k, const float* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows = static_cast<int64_t>(B) * Sq * Hq;
   const int64_t warps = kThreads / 32;
-  flash_attention_bwd_delta_kernel<<<
+  flash_attention_bwd_delta_kernel<T><<<
       static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0, s>>>(
       out, dout, delta, rows, Sq, Hq, hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const Grad gr{dout, lse, delta};
+  const Grad<T> gr{dout, lse, delta};
+  float* f_dq = kBf16 ? dq32 : static_cast<float*>(dq);
+  float* f_dk = kBf16 ? nullptr : static_cast<float*>(dk);
+  float* f_dv = kBf16 ? nullptr : static_cast<float*>(dv);
 #define FA_CASE(N)                                                          \
   case N:                                                                   \
-    return launch_hd<16 * N>(q, k, v, gr, dq, dk, dv, ds, part, B, p, plan, \
-                             s);
+    return launch_hd<T, 16 * N>(q, k, v, gr, f_dq, f_dk, f_dv, ds, part, dq, \
+                                dk, dv, B, p, plan, s);
   switch (hd / 16) {
     FA_CASE(1)
     FA_CASE(2)
@@ -700,38 +841,62 @@ cudaError_t dispatch(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// C entry point, bound with ctypes: the kernels, in order, on `stream`:
-// (a), then (b) and (c) for each slab of keys, then the split sum when
-// there is more than one split. q, k and v as the forward took them (fp32
-// on `device`, `strides` their nine (b, s, h) strides in elements,
-// 16-byte aligned); out and dout contiguous (B, Sq, Hq, hd) fp32, 16-byte
-// aligned; lse the forward's (B, Hq, Sq); delta a (B, Hq, Sq) fp32
-// scratch; ds the (B, Hq, query tiles, slab keys, 64) fp32 scratch; part
-// the (2, splits, B, Sk, Hkv, hd) fp32 scratch of the partials (unused
-// with one split); dq contiguous (B, Sq, Hq, hd), dk and dv contiguous
-// (B, Sk, Hkv, hd); `plan` the launch plan's 7 ints (block keys, splits,
-// slab keys, slabs, (b)'s and (c)'s shared bytes, the split sum's
+// C entry points, bound with ctypes: the kernels, in order, on `stream`:
+// (a), then (b) and (c) for each slab of keys, then (fp32) the split sum
+// when there is more than one split or (bf16) the finish kernel. q, k and
+// v as the forward took them (on `device`, `strides` their nine (b, s, h)
+// strides in elements, 16-byte aligned); out and dout contiguous (B, Sq,
+// Hq, hd), 16-byte aligned, all five in the dtype of the name; lse the
+// forward's (B, Hq, Sq) fp32; delta a (B, Hq, Sq) fp32 scratch; ds the
+// (B, Hq, query tiles, slab keys, 64) fp32 scratch; part the (2, splits,
+// B, Sk, Hkv, hd) fp32 scratch of the partials (fp32: unused with one
+// split); dq32 a (B, Sq, Hq, hd) fp32 scratch (bf16 only; fp32: null); dq
+// contiguous (B, Sq, Hq, hd), dk and dv contiguous (B, Sk, Hkv, hd), in
+// the dtype of the name; `plan` the launch plan's 7 ints (block keys,
+// splits, slab keys, slabs, (b)'s and (c)'s shared bytes, the split sum's
 // blocks). hd is a multiple of 16 up to 256, Hq a multiple of Hkv, every
 // query row sees a key (the forward's wrapper refuses the rest); window
 // <= 0 means none. Returns the first cudaGetLastError() that is not
 // cudaSuccess, or cudaErrorInvalidValue for a plan these kernels do not
-// match.
+// match. One build holds one of the two: fp32 by default, bf16 with
+// FA_BWD_BF16 defined (kernels/_build.py's DEFINES).
+#ifndef FA_BWD_BF16
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, void* ds, void* part, int B, int Sq, int Sk, int Hq, int Hkv,
-    int hd, const long long* strides, int causal, int window, float scale,
-    const int* plan, int device, void* stream) {
-  return static_cast<int>(dispatch(
+    void* dv, void* ds, void* part, void* dq32, int B, int Sq, int Sk,
+    int Hq, int Hkv, int hd, const long long* strides, int causal,
+    int window, float scale, const int* plan, int device, void* stream) {
+  return static_cast<int>(dispatch<float>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(out),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(ds), static_cast<float*>(part), B, Sq, Sk, Hq,
+      static_cast<float*>(delta), dq, dk, dv, static_cast<float*>(ds),
+      static_cast<float*>(part), static_cast<float*>(dq32), B, Sq, Sk, Hq,
       Hkv, hd, strides, causal, window, scale, plan, device, stream));
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#else
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, void* ds, void* part, void* dq32, int B, int Sq, int Sk,
+    int Hq, int Hkv, int hd, const long long* strides, int causal,
+    int window, float scale, const int* plan, int device, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return static_cast<int>(dispatch<bf16>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), dq, dk, dv, static_cast<float*>(ds),
+      static_cast<float*>(part), static_cast<float*>(dq32), B, Sq, Sk, Hq,
+      Hkv, hd, strides, causal, window, scale, plan, device, stream));
+}
+
+extern "C" const char* flash_attention_bwd_bf16_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+#endif

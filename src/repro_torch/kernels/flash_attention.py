@@ -7,12 +7,15 @@ q is (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), in `repro`'s layout.
 The forward ports the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``; the kernel itself, its bound and its design are
 described in ``csrc/flash_attention.cu``. Its plain version is
-`repro_torch.kernels.ref.flash_attention_ref`. On fp32 inputs that
-require grad, `flash_attention` is a ``torch.autograd.Function``: its
-forward also writes each row's log-sum-exp, and its backward is
+`repro_torch.kernels.ref.flash_attention_ref`. On inputs that require
+grad (fp32 or bf16), `flash_attention` is a ``torch.autograd.Function``:
+its forward also writes each row's log-sum-exp, and its backward is
 `flash_attention_bwd` (``csrc/flash_attention_bwd.cu``, which has no
-Pallas counterpart: `repro` differentiates its plain attention), whose
-plain version is `repro_torch.kernels.ref.flash_attention_bwd_ref`.
+Pallas counterpart: `repro` differentiates its plain attention, at bf16
+with its cast points), whose plain version is
+`repro_torch.kernels.ref.flash_attention_bwd_ref`. The source is built
+twice, one library an element type: fp32 (`flash_attention_bwd`'s
+count) and bf16 (`flash_attention_bwd_bf16`'s).
 
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to a plain version (`repro_torch.kernels.ops.flash_attention`
@@ -42,12 +45,18 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 +
              (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
               ctypes.c_int, ctypes.c_void_p))
-# q, k, v, out, dout, lse, delta, dq, dk, dv, ds, part; B, Sq, Sk, Hq,
-# Hkv, hd; strides; causal, window, scale; plan; device; stream
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6 +
+# q, k, v, out, dout, lse, delta, dq, dk, dv, ds, part, dq32; B, Sq, Sk,
+# Hq, Hkv, hd; strides; causal, window, scale; plan; device; stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 6 +
                  (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                   ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_void_p))
+#: the backward's library and C entry by element type (one source, built
+#: with FA_BWD_BF16 for bf16: `_build.DEFINES`)
+_BWD_ENTRIES = {torch.float32: ("flash_attention_bwd",
+                                "flash_attention_bwd_f32"),
+                torch.bfloat16: ("flash_attention_bwd_bf16",
+                                 "flash_attention_bwd_bf16")}
 MAX_HEAD_DIM = 256
 #: bytes of each cp.async copy (and ldmatrix row) of the kernel
 ALIGN = 16
@@ -77,8 +86,9 @@ class BackwardPlan:
     same way): the tile is the slowest axis, so the blocks with the most
     work start first when causal; ``smem`` the dynamic shared bytes of
     (b) and (c) and ``stages`` (b)'s Q/dO stages; ``scratch`` the shapes
-    of the fp32 scratch tensors ("ds", and "part" when splits > 1);
-    ``launch`` the ints the C entry takes."""
+    of the fp32 scratch tensors ("ds"; "part" when splits > 1, and at
+    bf16 always, with "dq", the fp32 dQ the slabs add into); ``launch``
+    the ints the C entry takes."""
     block_keys: int
     splits: int
     slab_keys: int
@@ -115,13 +125,19 @@ def backward_smem(hd: int) -> Tuple[int, int, int]:
 
 
 def backward_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
-                  sms: int) -> BackwardPlan:
+                  sms: int, element_size: int = 4) -> BackwardPlan:
     """The launch plan of `flash_attention_bwd` for these shapes on a
     card of ``sms`` SMs. The scratch of scale dS^T, (B, Hq, query tiles,
     slab keys, 64) fp32, stays within BWD_SCRATCH_BYTES unless one key
     tile already exceeds it; the splits are the fewest (a divisor of Hq /
     Hkv) that give (b)'s first pass two blocks an SM, else Hq / Hkv. Pure
-    arithmetic, so the CPU tests reach it."""
+    arithmetic, so the CPU tests reach it.
+
+    By ``element_size``: the tiles, shared memory, slabs and splits are
+    the same at 2 (bf16) as at 4 (the kernels convert bf16 tiles to fp32
+    as they load them); at 2 the partials' scratch "part" is there
+    whatever the splits and an fp32 "dq" is added, and the last launch
+    (the bf16 finish kernel) has a third row of blocks for dQ."""
     bk = backward_block_keys(hd)
     rep = Hq // Hkv
     n_qt = -(-Sq // QUERY_TILE)
@@ -133,17 +149,21 @@ def backward_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
     splits = next((d for d in range(1, rep + 1)
                    if rep % d == 0 and first * d >= 2 * sms), rep)
     dkdv_smem, stages, dq_smem = backward_smem(hd)
-    n4 = B * Sk * Hkv * hd // 4
+    bf16 = element_size == 2
+    n4 = max(B * Sk * Hkv, B * Sq * Hq if bf16 else 0) * hd // 4
     reduce_blocks = max(1, min(-(-n4 // BWD_THREADS), 8 * sms))
     grids = {
         "delta": ((-(-B * Sq * Hq // 4), 1, 1),),
         "dkdv": tuple((Hkv * splits, B, -(-min(slab, Sk - s * slab) // bk))
                       for s in range(n_slabs)),
         "dq": ((Hq, B, n_qt),) * n_slabs,
-        "reduce": ((reduce_blocks, 2, 1),) if splits > 1 else ()}
+        "reduce": ((reduce_blocks, 3 if bf16 else 2, 1),)
+        if splits > 1 or bf16 else ()}
     scratch = {"ds": (B, Hq, n_qt, slab, QUERY_TILE)}
-    if splits > 1:
+    if splits > 1 or bf16:
         scratch["part"] = (2, splits, B, Sk, Hkv, hd)
+    if bf16:
+        scratch["dq"] = (B, Sq, Hq, hd)
     return BackwardPlan(
         block_keys=bk, splits=splits, slab_keys=slab, n_slabs=n_slabs,
         query_tiles=n_qt, stages=stages, grids=grids,
@@ -180,14 +200,14 @@ def work(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
 def bwd_work(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
              causal: bool, window: Optional[int], element_size: int):
     """(bytes, flops) the backward must at least move and do: q, k, v,
-    out and dout read once, lse read once, dq, dk and dv written once;
-    10 hd flops (five products) per visible (query, key) pair of every
-    head."""
+    out and dout read once, lse (fp32) read once, dq, dk and dv written
+    once, in ``element_size`` bytes but lse; 10 hd flops (five products)
+    per visible (query, key) pair of every head."""
     nbytes, flops = work(B, Sq, Sk, Hq, Hkv, hd, causal, window,
                          element_size)
-    # `work` counts q, k, v and out: add dout, lse, dq, dk and dv
-    nbytes += element_size * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd
-                              + B * Hq * Sq)
+    # `work` counts q, k, v and out: add dout, dq, dk, dv and lse
+    nbytes += element_size * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd) \
+        + 4 * B * Hq * Sq
     return nbytes, flops // 4 * 10
 
 
@@ -209,18 +229,6 @@ def alignment_error(name: str, address: int, shape, strides,
                     f"{strides[axis]} is {step} bytes, not a multiple of "
                     f"{ALIGN}")
     return None
-
-
-def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """K4's backward takes fp32 only: refuse other inputs that require
-    grad rather than return a result autograd cannot follow."""
-    if q.dtype != torch.float32 and (q.requires_grad or k.requires_grad
-                                     or v.requires_grad):
-        raise _meta.RefusedNotImplemented(
-            f"flash_attention has no {q.dtype} backward (fp32 only): bf16 "
-            f"LM training is ROADMAP item 14d-3 (speed work after the "
-            f"port); call it under torch.no_grad() or "
-            f"torch.inference_mode()")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window):
@@ -395,15 +403,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hq, hd) in q's dtype. Refuses inputs where a query row sees no key
     (Sk = 0, or Sq > Sk + window - 1): there the plain version averages
     every key, which a kernel that skips masked tiles does not compute.
-    fp32 inputs that require grad (grad mode on) go through the
-    autograd Function, whose backward launches `flash_attention_bwd`;
-    bf16 ones raise (`check_no_grad`). Other calls launch the forward
+    Inputs that require grad (grad mode on) go through the autograd
+    Function, whose backward launches `flash_attention_bwd` at their
+    dtype (fp32 or bf16). Other calls launch the forward
     directly, or, inside a ``torch.func`` transform (``vmap``), through
     `_Forward`, whose vmap rule folds the vmapped axis into the batch
     axis. Adds one to ``flash_attention.launches`` per kernel launch
     (under activation recompute, ``torch.utils.checkpoint``, the forward
     launches again in the backward pass)."""
-    check_no_grad(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, window)[0]
@@ -426,29 +433,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None):
     """dq, dk, dv of `flash_attention` at (q, k, v) for the gradient
-    ``dout`` of its output: fp32 only, q, k and v as the forward takes
-    them, ``out`` and ``lse`` the forward's (`flash_attention_with_lse`),
-    dout (B, Sq, Hq, hd) (copied if not contiguous and 16-byte aligned).
-    Returns contiguous fp32 (B, Sq, Hq, hd), (B, Sk, Hkv, hd) twice. One
-    call launches the kernels of `backward_plan` (the row sums D =
+    ``dout`` of its output: q, k and v as the forward takes them (fp32
+    or bf16), ``out`` and ``lse`` the forward's
+    (`flash_attention_with_lse`: out in q's dtype, lse fp32), dout (B,
+    Sq, Hq, hd) in q's dtype (copied if not contiguous and 16-byte
+    aligned). Returns contiguous (B, Sq, Hq, hd), (B, Sk, Hkv, hd) twice
+    in q's dtype; at bf16 the gradient of the plain attention with
+    `repro`'s cast points (``csrc/flash_attention_bwd.cu``). One call
+    launches the kernels of `backward_plan` (the row sums D =
     rowsum(dout * out), then dk and dv with scale dS to a scratch and dq
     from it, once per slab of keys, then the sum of the head splits where
-    there are several) and adds one to ``flash_attention_bwd.launches``.
-    The scratch (`BackwardPlan.scratch_bytes`) lives for the call."""
-    if q.dtype != torch.float32:
-        raise _meta.RefusedType(
-            f"flash_attention_bwd: fp32 only, got {q.dtype} "
-            f"(bf16 training is ROADMAP item 14d-3)")
+    there are several, or at bf16 the finish kernel) and adds one to
+    ``flash_attention_bwd.launches`` (fp32) or
+    ``flash_attention_bwd_bf16.launches`` (bf16). The scratch
+    (`BackwardPlan.scratch_bytes`) lives for the call."""
     B, Sq, Sk, Hq, Hkv, hd = _check(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != (B, Hq, Sq):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
-        if t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"flash_attention_bwd: {name} must be fp32 on "
-                             f"{q.device}, got {t.dtype} on {t.device}")
+    for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
+                           ("lse", lse, torch.float32)):
+        if t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be {dtype} "
+                             f"on {q.device}, got {t.dtype} on {t.device}")
     if not (out.is_contiguous() and lse.is_contiguous()) or \
             out.data_ptr() % ALIGN:
         raise ValueError("flash_attention_bwd: out and lse must be the "
@@ -463,12 +472,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     meta = q.device.type == "meta"
     plan = backward_plan(B, Sq, Sk, Hq, Hkv, hd, _meta.target_sms() if meta
-                         else _sm_count(q.device.index))
+                         else _sm_count(q.device.index), q.element_size())
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     ds = torch.empty(plan.scratch["ds"], dtype=torch.float32,
                      device=q.device)
-    part = torch.empty(plan.scratch["part"], dtype=torch.float32,
-                       device=q.device) if plan.splits > 1 else None
+    part, dq32 = (torch.empty(plan.scratch[name], dtype=torch.float32,
+                              device=q.device)
+                  if name in plan.scratch else None
+                  for name in ("part", "dq"))
     if meta:
         _meta.record("flash_attention_bwd", bwd_work(
             B, Sq, Sk, Hq, Hkv, hd, causal, window, q.element_size()),
@@ -476,24 +487,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     strides = _strides(q, k, v)
     launch = (ctypes.c_int * len(plan.launch))(*plan.launch)
-    lib_fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_f32",
-                          _BWD_ARGTYPES)
+    library, symbol = _BWD_ENTRIES[q.dtype]
+    lib_fn = _build.entry(library, symbol, _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check("flash_attention_bwd", lib_fn(
+    _build.check(library, lib_fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ds.data_ptr(),
-        None if part is None else part.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+        None if part is None else part.data_ptr(),
+        None if dq32 is None else dq32.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
         ctypes.addressof(strides), int(causal),
         0 if window is None else int(window), 1.0 / math.sqrt(hd),
         ctypes.addressof(launch), q.device.index, stream))
-    flash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd_bf16.launches += 1
+    else:
+        flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def flash_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """`flash_attention_bwd` on bf16 inputs only (the library built with
+    FA_BWD_BF16), whose calls ``flash_attention_bwd_bf16.launches``
+    counts; any other dtype raises ``TypeError``."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd_bf16: bf16 inputs, got "
+                        f"{q.dtype}")
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                               window=window)
 
 
 #: kernel launches since the last reset (plain ints; chip_smoke.py zeroes
 #: them before driving the main path and reads them after): forward
 #: launches (the autograd Function's included), and backward calls (the
-#: kernels of `backward_plan` each)
+#: kernels of `backward_plan` each) of the fp32 and the bf16 library
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd_bf16.launches = 0

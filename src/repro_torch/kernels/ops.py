@@ -209,12 +209,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention over aligned positions, optional sliding
     window: q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), output in q's
-    dtype (`repro.kernels.ops.flash_attention`). Differentiable in fp32:
-    on CPU tensors autograd differentiates the plain version, on CUDA
-    tensors the kernel's backward runs (`kernels.flash_attention`).
-    Raises ``NotImplementedError`` for bf16 inputs that require grad, on
-    either device: the kernel's backward takes fp32 only."""
-    _k4.check_no_grad(q, k, v)
+    dtype (`repro.kernels.ops.flash_attention`). Differentiable in fp32
+    and bf16: on CPU tensors autograd differentiates the plain version
+    (at bf16 with `repro`'s cast points), on CUDA tensors the kernel's
+    backward runs (`kernels.flash_attention`)."""
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _k4.flash_attention(q, k, v, causal=causal, window=window)

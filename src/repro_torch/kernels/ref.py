@@ -110,7 +110,11 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, ...]:
     """The plain version of K4's backward: (dq, dk, dv), the gradients of
     `flash_attention_ref` at (q, k, v) for the output gradient ``dout``,
-    by ``torch.autograd.grad``."""
+    by ``torch.autograd.grad``, in the inputs' dtype. At bf16 it is
+    `repro`'s autograd of its plain attention with its cast points (fp32
+    products and sums of the bf16 values; dP the gradient of the bf16 P,
+    so rounded to bf16; dS from the fp32 P; each gradient rounded to
+    bf16 once), as `models.common.attention_ref`'s casts give it."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = flash_attention_ref(*leaves, causal=causal, window=window)

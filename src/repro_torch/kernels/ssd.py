@@ -356,8 +356,9 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     contiguous (other strides are read as they are, at any alignment).
     p <= 128; n a multiple of 4 up to 128; l a multiple of L = min(chunk,
     l). Returns (y (b, l, h, p), h_last (b, h, p, n)), float32. bf16 is
-    refused: the model casts the scan's inputs to float32
-    (``csrc/ssd.cu``; bf16 training is ROADMAP item 14d-3). The
+    refused: a bf16 model casts the scan's inputs to float32, as
+    `repro`'s does (``models/ssm.py``), so bf16 training needs no bf16
+    scan (``csrc/ssd.cu``). The
     workspaces hold about b l (H + (L + 64) / 2 + n + H n pw / L) floats:
     11 MB at mamba2-370m's serve shape. Inputs that require grad (grad
     mode on) go through the autograd Function, whose backward launches

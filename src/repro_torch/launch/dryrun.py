@@ -16,11 +16,17 @@ nothing is allocated.
 
 What one rank holds (its resident bytes) is read from
 `sharding.rules`: the `local_block` of every weight under `param_specs`
-(with AdamW's two moments when training), the caches' blocks under
-`cache_specs` (the port's flash-decoding rings, ``shard_seq_model``) and
-the inputs' blocks under `launch.specs.batch_spec_tree`, which must
-agree with `rules.batch_specs`. Under two pods `add_client_axis` gives
-one DPFL client a pod.
+(with AdamW's two moments, at ``opt_dtype``, when training), the
+caches' blocks under `cache_specs` (whole rings for the rank's rows,
+`repro`'s default, or under ``cache_seq_shard`` the flash-decoding
+rings, ``shard_seq_model``) and the inputs' blocks under
+`launch.specs.batch_spec_tree`, which must agree with
+`rules.batch_specs`. Under two pods `add_client_axis` gives one DPFL
+client a pod, and the train step ends with the DPFL mix of every weight
+over "pod" (`launch.steps.make_dpfl_mix` on a `ShapeMesh` with a pod
+axis: the rank's blocks exchanged, K1's (2, 2) @ (2, block) in fp32,
+cast back), unless ``mix`` is false; the (2, 2) mix matrix is an
+input.
 
 The step a rank runs is a rank-local model: the config with each
 dimension that `param_specs` splits on ``model`` divided by M (query
@@ -34,8 +40,17 @@ the rank holds them whole and reads the KV heads of its query heads;
 the recurrent gates' (W, W) weights, split on their columns, are read
 as the rank's (W / M, W / M) block. The tensor-parallel all-reduces the
 port has no code for are modelled from the layer shapes and named in
-the record. The step runs in fp32, the port's (bf16 training is ROADMAP
-item 14d-3); every time is modelled from the card's data-sheet rates.
+the record. The step runs at the config's dtype (bf16 for every
+architecture, `repro`'s default), its inputs too, and its FLOPs are set
+against the card's rate for that dtype; every time is modelled from the
+card's data-sheet rates.
+
+``opts`` are `repro`'s ``build_lowered`` options (`OPTIONS`, with
+`repro`'s defaults), each applied as there: ``fedavg_global`` (one
+global model over both pods, the batch on ("pod", "data")),
+``cache_seq_shard``, ``parallel_block``, ``vocab_pad``, ``remat``,
+``loss_chunks``, ``lr``, ``opt_dtype`` and ``grad_dtype``, ``zero1``,
+``mix``. A key not among them ends the combo as "error".
 
 Each combo's record goes to ``--out`` as JSON: ``status`` "ok",
 "skipped" (whisper-medium x long_500k, as in `repro`), "refused" (a
@@ -67,7 +82,8 @@ from ..sharding.rules import (add_client_axis, batch_specs, cache_specs,
                               local_block, param_specs)
 from .mesh import make_production_mesh
 from .specs import batch_spec_tree, input_specs, resolve_arch_for_shape
-from .steps import make_decode_step, make_prefill_step, make_train_step
+from .steps import (make_decode_step, make_dpfl_mix, make_prefill_step,
+                    make_train_step)
 
 #: where the records go (git-ignored with build/)
 OUT = os.path.join("build", "dryrun")
@@ -183,7 +199,8 @@ def check_local_leaves(local_sd, global_sd, pspecs, mesh, kv_read,
 
 
 def modelled_collectives(cfg, kind: str, rows: int, seq: int, M: int,
-                         D: int, n_local_params: int, has_mesh: bool):
+                         D: int, n_local_params: int, has_mesh: bool,
+                         grad_bytes: int = 4):
     """{what: bytes a rank receives} of the exchanges a tensor-parallel
     step needs that the port has no code for, from the layer shapes: one
     all-reduce of (rows, seq, d) after each row-parallel product (the
@@ -193,11 +210,14 @@ def modelled_collectives(cfg, kind: str, rows: int, seq: int, M: int,
     gathered at serving. Training doubles the products' all-reduces for
     the backward and adds the recompute's (remat "full"); a model with
     no mesh (the audio family) also all-reduces its gradients over the
-    data ranks. Each all-reduce of n bytes over a group of G receives
-    (G - 1) n (`analysis.commaudit.wire_bytes`)."""
+    data ranks. Activations and logits are in the config's dtype, the
+    loss's max and sum fp32, gradients ``grad_bytes`` an element. Each
+    all-reduce of n bytes over a group of G receives (G - 1) n
+    (`analysis.commaudit.wire_bytes`)."""
     if M == 1:
         return {}
-    act = rows * seq * cfg.d_model * 4
+    el = getattr(torch, cfg.dtype).itemsize
+    act = rows * seq * cfg.d_model * el
     if cfg.family == "audio":
         products = 2 * (cfg.n_layers + cfg.n_enc_layers) + cfg.n_layers
     elif cfg.family == "ssm":
@@ -213,11 +233,20 @@ def modelled_collectives(cfg, kind: str, rows: int, seq: int, M: int,
     if kind == "train":
         out["loss over the vocab (max, sum)"] = (M - 1) * 2 * rows * seq * 4
         if not has_mesh and D > 1:
-            out["data-parallel gradients"] = (D - 1) * n_local_params * 4
+            out["data-parallel gradients"] = (D - 1) * n_local_params * \
+                grad_bytes
     else:
         out["logits gathered"] = (M - 1) * rows * cfg.padded_vocab(2048) \
-            // M * 4
+            // M * el
     return out
+
+
+#: `repro`'s ``build_lowered`` options and their defaults
+OPTIONS = {"fedavg_global": False, "cache_seq_shard": False,
+           "parallel_block": False, "vocab_pad": 2048, "remat": "full",
+           "loss_chunks": 8, "lr": 3e-4, "opt_dtype": "float32",
+           "grad_dtype": None, "zero1": False, "mix": True}
+
 
 
 def _inputs(specs: dict, rows: Optional[int]):
@@ -231,15 +260,26 @@ def _inputs(specs: dict, rows: Optional[int]):
 def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
     """Everything one rank of the (arch, shape, mesh) combo holds and runs:
     (step, meta), ``step()`` the rank's step on "meta" tensors and
-    ``meta`` the record so far (resident bytes, specs read, notes)."""
-    opts = opts or {}
-    cfg = resolve_arch_for_shape(arch, shape_name).replace(dtype="float32")
+    ``meta`` the record so far (resident bytes, specs read, notes, the
+    options applied)."""
+    given = dict(opts or {})
+    unknown = sorted(set(given) - set(OPTIONS))
+    if unknown:     # not a Refusal: the record says "error"
+        raise ValueError(f"unknown dry-run option(s) {unknown}: the options "
+                         f"are {sorted(OPTIONS)}")
+    opts = {**OPTIONS, **given}
+    cfg = resolve_arch_for_shape(arch, shape_name)
+    dtype = getattr(torch, cfg.dtype)
     shape = get_shape(shape_name)
     mesh = make_production_mesh(multi_pod=multi_pod)
     sizes = coll.mesh_axis_sizes(mesh)
     M = sizes["model"]
     B = shape.global_batch
     n_clients = 2 if (multi_pod and B >= 2) else 1
+    if opts["fedavg_global"]:
+        # one global model data-parallel over both pods (`repro`'s
+        # comparator of DPFL's pod-local training and mix)
+        n_clients = 1
     client_axis = "pod" if n_clients > 1 else None
     data_axes = ("data",)
     if multi_pod and n_clients == 1 and B >= 32:
@@ -247,12 +287,16 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
     sharded = B >= 16
     D = math.prod(sizes[a] for a in data_axes) if sharded else 1
     B_client = B // n_clients
-    vp = opts.get("vocab_pad", 2048)
-    build_kw = dict(remat=opts.get("remat", "full"),
-                    loss_chunks=opts.get("loss_chunks", 8))
+    vp = opts["vocab_pad"]
+    build_kw = dict(remat=opts["remat"], loss_chunks=opts["loss_chunks"])
+    # the options `repro` passes to a DecoderLM (not to the audio family)
+    lm_kw = {} if cfg.family == "audio" else dict(
+        moe_data_axes=("data",) if sharded else (),
+        decode_cache_seqshard=bool(opts["cache_seq_shard"]),
+        parallel_block=bool(opts["parallel_block"]))
 
     whole = build_model(cfg, device="meta", vocab_pad_multiple=vp,
-                        **build_kw)
+                        **build_kw, **lm_kw)
     global_sd = whole.state_dict()
     shapes = {k: tuple(v.shape) for k, v in global_sd.items()}
     pspecs = param_specs(whole, cfg, sizes)
@@ -264,14 +308,17 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
     resident = {"weights": sum(
         _block_bytes(stacked(k), global_sd[k].dtype, wspecs[k], mesh)
         for k in shapes)}
+    opt_dtype = getattr(torch, opts["opt_dtype"])
+    grad_dtype = getattr(torch, opts["grad_dtype"]) \
+        if opts["grad_dtype"] else None
     if shape.kind == "train":
         mspecs = (_zero1(wspecs, {k: stacked(k) for k in shapes},
-                         client_axis) if opts.get("zero1") else wspecs)
+                         client_axis) if opts["zero1"] else wspecs)
         resident["adamw moments"] = 2 * sum(
-            _block_bytes(stacked(k), torch.float32, mspecs[k], mesh)
+            _block_bytes(stacked(k), opt_dtype, mspecs[k], mesh)
             for k in shapes)
 
-    inputs = input_specs(cfg, shape, per_client=n_clients)
+    inputs = input_specs(cfg, shape, per_client=n_clients, dtype=dtype)
     ispecs = batch_spec_tree(cfg, shape, data_axes=data_axes,
                              client_axis=client_axis)
     if shape.kind != "decode":
@@ -284,11 +331,15 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
                                  f"differ: {bad}")
     resident["inputs"] = sum(_block_bytes(inputs[k].shape, inputs[k].dtype,
                                           ispecs[k], mesh) for k in inputs)
+    mixes = shape.kind == "train" and n_clients > 1 and bool(opts["mix"])
+    if mixes:
+        # the (2, 2) mix matrix, an input replicated on every rank
+        resident["inputs"] += n_clients * n_clients * 4
     if shape.kind == "decode":
         caches = whole.init_cache(B_client, shape.seq_len)
         cspecs = cache_specs(whole, cfg, B_client, shape.seq_len,
-                             shard_seq=(B == 1), shard_seq_model=(
-                                 cfg.family != "audio"))
+                             shard_seq=(B == 1), shard_seq_model=bool(
+                                 opts["cache_seq_shard"]))
         if n_clients > 1:
             cspecs = add_client_axis(cspecs)
         resident["caches"] = sum(
@@ -303,7 +354,7 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
     lcfg = lcfg.replace(vocab_size=cfg.padded_vocab(vp) // M)
     lmesh = coll.ShapeMesh((D, M), ("data", "model"))
     local = build_model(lcfg, device="meta", vocab_pad_multiple=1,
-                        mesh=lmesh, **build_kw)
+                        mesh=lmesh, **build_kw, **lm_kw)
     has_mesh = getattr(local, "mesh", None) is not None
     notes = check_local_leaves(local.state_dict(), global_sd, pspecs, mesh,
                                kv_read, cfg.family)
@@ -312,6 +363,19 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
                      f"heads do not split over {M}): a rank reads the "
                      f"{kv_read} KV head(s) of its {lcfg.n_heads} query "
                      f"head(s)")
+    if shape.kind == "decode" and cfg.n_heads and \
+            not opts["cache_seq_shard"]:
+        notes.append(f"the rings are whole on every model rank (all "
+                     f"{cfg.n_kv_heads} KV heads, {shape.seq_len} slots, "
+                     f"the rank's rows): its step attends its "
+                     f"{lcfg.n_heads} query head(s) over the "
+                     f"{lcfg.n_kv_heads} KV head(s) they read, with no "
+                     f"flash-decoding collective")
+    if cfg.family == "audio" and (opts["parallel_block"]
+                                  or opts["cache_seq_shard"]):
+        notes.append("parallel_block and cache_seq_shard reach no "
+                     "audio model (as in repro); cache_seq_shard still "
+                     "lays out the resident rings")
     # a model on a mesh takes the client's whole batch and runs its rows;
     # the audio model (no mesh) takes the rank's rows
     rows = B_client // D
@@ -320,12 +384,28 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
     batch = _inputs(one, None if has_mesh else rows)
     n_local_params = sum(v.numel() for v in local.state_dict().values())
     if shape.kind == "train":
-        optimizer = adamw(opts.get("lr", 3e-4))
+        optimizer = adamw(opts["lr"], state_dtype=opt_dtype)
         opt_state = optimizer.init(dict(local.named_parameters()))
-        train = make_train_step(local, optimizer)
+        train = make_train_step(local, optimizer, grad_dtype=grad_dtype)
+        params = dict(local.named_parameters())
+        mix = None
+        if mixes:
+            # the client of this pod mixes with the other pod's: the rank
+            # (pod 0) exchanges its blocks over "pod"
+            pmesh = coll.ShapeMesh(tuple(sizes[a] for a in
+                                         ("pod", "data", "model")),
+                                   ("pod", "data", "model"))
+            mix = make_dpfl_mix(torch.empty(
+                (n_clients, n_clients), dtype=torch.float32, device="meta"),
+                mesh=pmesh)
 
         def step():
-            return train(opt_state, batch)
+            state, loss = train(opt_state, batch)
+            if mix is not None:
+                with torch.no_grad():
+                    for k, w in mix(params).items():
+                        params[k].copy_(w)
+            return state, loss
     elif shape.kind == "prefill":
         prefill = make_prefill_step(local)
 
@@ -349,7 +429,8 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
         "mesh": "multi" if multi_pod else "single",
         "chips": mesh.size(), "n_clients": n_clients,
         "window": getattr(whole, "window", None), "model_flops": mflops,
-        "dtype": "float32", "opts": dict(opts),
+        "dtype": cfg.dtype, "opts": given, "options": opts,
+        "dpfl_mix": mixes,
         "rank_rows": rows, "data_shards": D, "model_shards": M,
         "resident_bytes": resident,
         "local_config": {k: getattr(lcfg, k) for k in (
@@ -359,7 +440,8 @@ def build_step(arch: str, shape_name: str, multi_pod: bool, opts=None):
         "notes": notes,
         "modelled_collectives": modelled_collectives(
             cfg, shape.kind, rows, 1 if shape.kind == "decode"
-            else shape.seq_len, M, D, n_local_params, has_mesh),
+            else shape.seq_len, M, D, n_local_params, has_mesh,
+            grad_bytes=(grad_dtype or dtype).itemsize),
     }
     return step, meta
 
@@ -384,7 +466,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         count = count_step(step, hw=hw)
         rec.update(meta)
         modelled = sum(meta["modelled_collectives"].values())
-        rec.update(analyze_count(count, hw, "float32", modelled))
+        rec.update(analyze_count(count, hw, meta["dtype"], modelled))
         resident = sum(meta["resident_bytes"].values())
         rec["memory"] = {
             "resident_bytes": resident, "step_peak_bytes": count.peak_bytes,
@@ -432,8 +514,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--tag", default="")
     ap.add_argument("--opts", default="{}",
-                    help="JSON dict of build options (remat, loss_chunks, "
-                         "vocab_pad, zero1, lr)")
+                    help="JSON dict of repro's build options: "
+                         + ", ".join(sorted(OPTIONS)))
     args = ap.parse_args(argv)
     opts = json.loads(args.opts)
     archs = [args.arch] if args.arch else list(ARCH_IDS)

@@ -32,19 +32,26 @@ def make_train_step(model, optimizer, grad_dtype=None):
     returned. ``opt_state`` is ``optimizer.init`` of the model's weights
     (``dict(model.named_parameters())``); the loss comes back detached,
     on the model's device (no host sync). Under a model's ("data",
-    "model") mesh each rank's gradients are its rows' part, summed over
-    ``data`` (one `psum` a weight), so every rank takes the whole batch's
-    step: a rank's experts their own, every other weight the same."""
+    "model") mesh with its batch split on ``data`` (``moe_data_axes``)
+    each rank's gradients are its rows' part, summed over ``data`` (one
+    `psum` a weight), so every rank takes the whole batch's step: a
+    rank's experts their own, every other weight the same. A weight the
+    loss does not read (ln2 under ``parallel_block``) gets a zero
+    gradient, as `jax.grad` gives it. The gradients come in the leaves'
+    dtypes (bf16 leaves: bf16), and AdamW's moments are in its
+    ``state_dtype`` (`optim.adamw`), as in `repro`."""
     from ..sharding import collectives as coll
 
     params = dict(model.named_parameters())
     mesh = getattr(model, "mesh", None)
+    split = mesh is not None and bool(getattr(model, "moe_data_axes", ()))
 
     def step(opt_state, batch):
         loss, _ = model.loss(batch)
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
-        if mesh is not None:
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
+        if split:
             grads = {k: coll.psum(g, mesh, "data") for k, g in grads.items()}
         if grad_dtype is not None:
             grads = {k: g.to(grad_dtype) for k, g in grads.items()}
@@ -90,12 +97,35 @@ def make_decode_step(model):
 
 
 @exchange_site(charges="caller")
-def make_dpfl_mix(mix_matrix: torch.Tensor):
+def make_dpfl_mix(mix_matrix: torch.Tensor, mesh=None, axis: str = "pod"):
     """Cross-client DPFL aggregation: w_k <- sum_i A[k, i] w_i on
     client-stacked params. mix_matrix: (C, C) row-stochastic (built by
     `repro_torch.core.graph` from the GGC-selected collaboration sets).
     mix(stacked) maps a dict of (C, ...) leaves to the mixed dict
     (`repro_torch.core.graph.mix_pytree`: each leaf viewed as (C, P) and
     mixed in fp32 by K1, one launch per leaf on the card, then cast back
-    to the leaf's dtype)."""
-    return functools.partial(mix_pytree, mix_matrix)
+    to the leaf's dtype).
+
+    With a ``mesh`` whose ``axis`` holds the C clients (`repro`'s
+    client-stacked weights sharded on "pod", one client a pod), this
+    rank holds its client's block of each weight: mix(blocks) maps a
+    dict of the rank's blocks to its mixed blocks, each leaf's blocks
+    all-gathered over ``axis`` (`collectives.all_gather_rows`), then
+    the (C, C) @ (C, block) product of K1 in fp32 and this rank's row,
+    cast back to the leaf's dtype."""
+    if mesh is None:
+        return functools.partial(mix_pytree, mix_matrix)
+    from ..kernels import ops
+    from ..sharding import collectives as coll
+
+    A = mix_matrix.float().contiguous()
+    row = coll.axis_index(mesh, axis)
+
+    def mix(blocks):
+        out = {}
+        for k, w in blocks.items():
+            flat = w.reshape(1, -1).float().contiguous()
+            rows = coll.all_gather_rows(flat, mesh, (axis,))
+            out[k] = ops.graph_mix(A, rows)[row].reshape(w.shape).to(w.dtype)
+        return out
+    return mix

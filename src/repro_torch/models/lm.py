@@ -28,15 +28,20 @@ router's load-balance loss summed over the MoE layers. The audio family
 
 Built with a ("data", "model") ``mesh``
 (`repro_torch.launch.mesh.make_mesh`, one process per shard), the model
-serves on `repro`'s ``model`` axis with ``decode_cache_seqshard``: each
-MoE layer holds the rank's E / M experts (expert parallelism,
-`repro_torch.models.moe.moe_apply`), and each attention cache holds the
-rank's C / M ring slots, decode combining the ranks' partial softmaxes
-(`attn_decode_seqshard`, flash-decoding). A rank runs its block of the
-batch on ``data``; every other weight is whole on every rank. The mesh
-path serves and trains: `DecoderLM.loss` under a mesh is the whole
+serves on `repro`'s ``model`` axis: each MoE layer holds the rank's E / M
+experts (expert parallelism, `repro_torch.models.moe.moe_apply`); with
+``decode_cache_seqshard`` each attention cache holds the rank's C / M
+ring slots, decode combining the ranks' partial softmaxes
+(`attn_decode_seqshard`, flash-decoding), and without it (`repro`'s
+default) each rank holds its rows' whole rings and decodes over them
+alone. A rank runs its block of the batch on ``data`` (with
+``moe_data_axes`` ("data",), `repro`'s default; with () the batch is
+whole on every rank); every other weight is whole on every rank. The
+mesh path serves and trains: `DecoderLM.loss` under a mesh is the whole
 batch's, and its gradient on a rank is its block's part
 (`repro_torch.launch.steps.make_train_step` sums them over ``data``).
+``parallel_block`` is `repro`'s PaLM-style dense block: attention and
+the MLP read one norm (ln1), and both sums are added to x.
 """
 from __future__ import annotations
 
@@ -389,30 +394,45 @@ class DecoderLM(nn.Module):
     both are None.
 
     ``mesh``, a ("data", "model") `launch.mesh.make_mesh` mesh of one
-    process per shard, is `repro`'s ``mesh`` with ``moe_data_axes``
-    ("data",) and ``decode_cache_seqshard``: the rank's batch rows are
-    its block on ``data`` (the batch must split over it), each MoE layer
-    holds the rank's experts (`moe.expert_block`; its init draws only
-    those), and each attention ring holds the rank's C / M slots (C must
-    split over M). `prefill` takes the whole batch and keeps the rank's
-    rows; `init_cache`, the returned logits and caches, and
+    process per shard, is `repro`'s ``mesh``, with its
+    ``moe_data_axes`` and ``decode_cache_seqshard``: under
+    ``moe_data_axes`` ("data",) the rank's batch rows are its block on
+    ``data`` (the batch must split over it), under () the whole batch;
+    each MoE layer holds the rank's experts (`moe.expert_block`; its
+    init draws only those); with ``decode_cache_seqshard`` each
+    attention ring holds the rank's C / M slots (C must split over M),
+    without it the whole ring. `prefill` takes the whole batch and keeps
+    the rank's rows; `init_cache`, the returned logits and caches, and
     `decode_step`'s tokens are the rank's blocks. `loss` takes the whole
-    batch too and returns the whole batch's loss."""
+    batch too and returns the whole batch's loss. ``parallel_block``
+    (`repro`'s, off by default) makes each dense block (the dense, vlm
+    and hybrid families' attention layers; not the MoE's) PaLM-style:
+    ``x + attn(ln1(x)) + mlp(ln1(x))``, ln2 unused."""
 
     def __init__(self, cfg: ArchConfig, vocab_pad_multiple: int = 1,
                  device=None, remat: str = "full", loss_chunks: int = 8,
                  moe_impl: str = "capacity", mesh=None,
-                 attn_window: Optional[int] = None):
+                 attn_window: Optional[int] = None,
+                 moe_data_axes=("data",),
+                 decode_cache_seqshard: bool = False,
+                 parallel_block: bool = False):
         super().__init__()
         if remat not in ("full", "none"):
             raise ValueError(f"remat {remat!r} is not 'full' or 'none'")
         if moe_impl not in ("capacity", "ragged"):
             raise ValueError(f"moe_impl {moe_impl!r} is not 'capacity' or "
                              f"'ragged'")
+        if tuple(moe_data_axes) not in (("data",), ()):
+            raise ValueError(f"moe_data_axes {tuple(moe_data_axes)} is not "
+                             f"('data',) or (): a model's mesh has one "
+                             f"batch axis")
         if mesh is not None:
             check_model_mesh(mesh)
         self.cfg = cfg
         self.mesh = mesh
+        self.moe_data_axes = tuple(moe_data_axes)
+        self.decode_cache_seqshard = decode_cache_seqshard
+        self.parallel_block = parallel_block
         self.remat = remat
         self.loss_chunks = loss_chunks
         self.moe_impl = moe_impl
@@ -495,13 +515,19 @@ class DecoderLM(nn.Module):
         if isinstance(layer, RecLayer):
             return (*rec_block(layer, x, self.cfg, cache), None)
         cfg = self.cfg
-        h, cache = attn_apply(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
-                              cfg, q_pos, cache, self.window,
-                              cache_len=cache_len, seqshard=self.mesh)
+        xn = rms_norm(x, layer.ln1, cfg.norm_eps)
+        h, cache = attn_apply(
+            layer.attn, xn, cfg, q_pos, cache, self.window,
+            cache_len=cache_len,
+            seqshard=self.mesh if self.decode_cache_seqshard else None)
+        if self.parallel_block and not isinstance(layer, MoELayer):
+            m = swiglu(xn, layer.wi_gate, layer.wi_up, layer.wo_mlp)
+            return x + h + m, cache, None
         x = x + h
         xn = rms_norm(x, layer.ln2, cfg.norm_eps)
         if isinstance(layer, MoELayer):
-            mo, aux = layer.moe(xn, cfg, self.moe_impl, mesh=self.mesh)
+            mo, aux = layer.moe(xn, cfg, self.moe_impl, mesh=self.mesh,
+                                data_axes=self.moe_data_axes)
             return x + mo, cache, aux
         return x + swiglu(xn, layer.wi_gate, layer.wi_up, layer.wo_mlp), \
             cache, None
@@ -570,7 +596,8 @@ class DecoderLM(nn.Module):
         ``data`` (`collectives.psum_replicated`), so its gradient on the
         rank is the rank's rows' part of the whole batch's gradient."""
         cfg = self.cfg
-        if self.mesh is not None:
+        split = self.mesh is not None and bool(self.moe_data_axes)
+        if split:
             D = coll.axes_size(self.mesh, "data")
             if batch["tokens"].shape[0] % D:
                 raise RefusedValue(f"batch {batch['tokens'].shape[0]} does "
@@ -596,7 +623,7 @@ class DecoderLM(nn.Module):
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         ce, wsum = chunked_softmax_xent(self._logits, x, labels, mask,
                                         n_chunks=self.loss_chunks)
-        if self.mesh is not None:
+        if split:
             tot = coll.psum_replicated(
                 torch.stack([ce * torch.clamp(wsum, min=1.0), wsum]),
                 self.mesh, "data")
@@ -605,14 +632,16 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------- serving
     def _shards(self, batch: int, cache_len: int) -> Tuple[int, int]:
-        """(D, M): the shards of the batch (the ``data`` axis) and of each
-        ring's C = min(cache_len, window) slots (the ``model`` axis), 1
-        and 1 without a mesh. Raises ``ValueError`` where the batch or C
-        does not split."""
+        """(D, M): the shards of the batch (the ``data`` axis, under
+        ``moe_data_axes`` ("data",)) and of each ring's C = min(cache_len,
+        window) slots (the ``model`` axis, under
+        ``decode_cache_seqshard``), 1 where not split. Raises
+        ``ValueError`` where the batch or C does not split."""
         if self.mesh is None:
             return 1, 1
-        D = coll.axes_size(self.mesh, "data")
-        M = coll.axes_size(self.mesh, "model")
+        D = coll.axes_size(self.mesh, "data") if self.moe_data_axes else 1
+        M = coll.axes_size(self.mesh, "model") \
+            if self.decode_cache_seqshard else 1
         C = min(cache_len, self.window) if self.window else cache_len
         if batch % D:
             raise RefusedValue(f"batch {batch} does not split over the data "
@@ -624,7 +653,7 @@ class DecoderLM(nn.Module):
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the batch (dim 0) on ``data``."""
-        if self.mesh is None:
+        if self.mesh is None or not self.moe_data_axes:
             return x
         return local_block(x, ("data",), self.mesh)
 
@@ -633,8 +662,8 @@ class DecoderLM(nn.Module):
         (attention), {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)}
         zeros (Mamba2) or {"h": (B, W) fp32, "conv": (B, K-1, W)} zeros
         (RG-LRU). Under a mesh, this rank's block (`repro`'s
-        ``cache_specs(shard_seq_model=True)``): B / D rows of the whole
-        ``batch`` and C / M slots of each ring."""
+        ``cache_specs(shard_seq_model=decode_cache_seqshard)``): B / D rows
+        of the whole ``batch`` and C / M slots of each ring (`_shards`)."""
         device = self.tok_embed.device
         D, M = self._shards(batch, cache_len)
         batch //= D
@@ -691,8 +720,8 @@ class DecoderLM(nn.Module):
         recurrent blocks do not read it). Writes the caches in place (the
         ring's slot, or the state and conv rows); returns (logits (B, V),
         caches). Under a mesh, the token, caches and logits are the
-        rank's rows (`prefill`), and each attention layer runs
-        `attn_decode_seqshard`."""
+        rank's rows (`prefill`), and with ``decode_cache_seqshard`` each
+        attention layer runs `attn_decode_seqshard`."""
         x = self._embed(token)
         q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         x, caches = self._apply_stack(x, q_pos, caches)

@@ -100,8 +100,9 @@ class MoE(nn.Module):
         self.we_down = weight((E_l, f, d))
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig,
-                impl: str = "capacity", mesh=None):
-        return moe_apply(self, x, cfg, mesh=mesh, impl=impl)
+                impl: str = "capacity", mesh=None, data_axes=("data",)):
+        return moe_apply(self, x, cfg, mesh=mesh, impl=impl,
+                         data_axes=data_axes)
 
 
 def router_probs(x2d: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
@@ -269,7 +270,8 @@ MOE_IMPLS = {"ragged": _moe_ragged, "capacity": _moe_capacity}
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
-              impl: str = "capacity") -> Tuple[torch.Tensor, torch.Tensor]:
+              impl: str = "capacity", data_axes=("data",)
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), the fp32 aux loss), ``p`` a `MoE`
     (or any object with its four weights as attributes): the fp32
     router's top k with the gates renormalised and cast to x's dtype,
@@ -281,7 +283,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
     capacity of the block's own token count, a `psum` over ``model``
     combines the ranks' outputs, and the aux loss is the whole batch's
     (the router's column sums, the top-k counts and the token count
-    summed over ``data`` in one `psum`). Its gradient is `repro`'s: the
+    summed over ``data`` in one `psum`; with ``data_axes`` () the batch
+    is whole on every rank, and the statistics are its own, as `repro`'s
+    ``moe_data_axes`` ()). Its gradient is `repro`'s: the
     two sums pass their cotangents through (`collectives.psum_replicated`:
     the output and the aux loss are whole on every rank of their groups),
     and the tokens and gates entering the rank's experts sum theirs over
@@ -305,8 +309,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, mesh=None,
         raise ValueError(f"moe_apply: the weights hold "
                          f"{p.we_gate.shape[0]} experts, the rank's block "
                          f"is {E_l} (build the MoE with the mesh)")
-    stats = coll.psum_replicated(router_stats(probs, topk_idx, E), mesh,
-                                 "data")
+    stats = router_stats(probs, topk_idx, E)
+    if data_axes:
+        stats = coll.psum_replicated(stats, mesh, tuple(data_axes))
     aux = load_balance_from_stats(stats, E)
     out = kernel(coll.pvary(x2, mesh, "model"), p.we_gate, p.we_up,
                  p.we_down, topk_idx, coll.pvary(gates, mesh, "model"),

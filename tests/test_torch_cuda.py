@@ -440,9 +440,10 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         k4.flash_attention(q[..., :24], k[..., :24], v[..., :24])
     with pytest.raises(ValueError):
         k4.flash_attention(q, k[:, :2], v[:, :2], window=4)
-    with pytest.raises(NotImplementedError, match="14d-3"):
-        k4.flash_attention(q.bfloat16().requires_grad_(True), k.bfloat16(),
-                           v.bfloat16())
+    # bf16 inputs that require grad run (K4's bf16 backward); q, k and v
+    # of two dtypes do not
+    with pytest.raises(TypeError):
+        k4.flash_attention(q.bfloat16().requires_grad_(True), k, v)
 
 
 # K4 backward cases: (B, Sq, Sk, Hq, Hkv, hd, causal, window): GQA at hd
@@ -551,6 +552,60 @@ def test_flash_attention_backward_in_slabs_of_keys(cuda, monkeypatch, B, Sq,
                                    atol=K4_BWD_TOL, msg=f"d{name}")
     again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# K4's bf16 backward: the three main-path shapes (qwen3-0.6b's train
+# shape; whisper-medium's encoder, non-causal in 5 slabs of keys;
+# recurrentgemma-9b's, one KV head of 256 in 8 head splits, window 2,048),
+# then small cases of every mask (ragged, a window, Sq < Sk, Sq > Sk,
+# GQA 2 and 8, hd 16 to 224)
+K4_BWD_BF16_SHAPES = [(8, 512, 512, 16, 8, 128, True, None),
+                      (8, 1500, 1500, 16, 16, 64, False, None),
+                      (4, 512, 512, 16, 1, 256, True, 2048),
+                      (2, 77, 77, 4, 2, 64, True, None),
+                      (2, 100, 100, 8, 2, 80, True, 48),
+                      (1, 40, 90, 4, 2, 16, True, None),
+                      (1, 96, 64, 4, 2, 32, False, 40),
+                      (2, 300, 300, 16, 2, 176, True, 100),
+                      (1, 200, 260, 8, 1, 224, False, None)]
+# each bf16 gradient against the plain version's, relative to its largest
+# element: both round dq, dk and dv to bf16 (2^-8 relative, so an element
+# on a rounding boundary differs by an ulp), and D is rowsum(dO o O) of the
+# bf16 O where the plain autograd sums P dP
+K4_BWD_BF16_TOL = 2e-2
+
+
+def test_flash_attention_bf16_backward_matches_plain_version(cuda):
+    for B, Sq, Sk, Hq, Hkv, hd, causal, window in K4_BWD_BF16_SHAPES:
+        q, k, v = _k4_inputs(B, Sq, Sk, Hq, Hkv, hd, "bfloat16", cuda)
+        dout = torch.randn(q.shape, generator=torch.Generator(
+            device=cuda).manual_seed(1), device=cuda).bfloat16()
+        kw = dict(causal=causal, window=window)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+        before = (k4.flash_attention_bwd.launches,
+                  k4.flash_attention_bwd_bf16.launches)
+        got = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        assert (k4.flash_attention_bwd.launches,
+                k4.flash_attention_bwd_bf16.launches) == (before[0],
+                                                          before[1] + 1)
+        want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == w.dtype == torch.bfloat16
+            scale = w.float().abs().max().clamp_min(1e-30)
+            err = float(((g.float() - w.float()) / scale).abs().max())
+            print(f"bf16 backward {(B, Sq, Sk, Hq, Hkv, hd, causal, window)}"
+                  f" d{name}: {err:.3e} of its largest element")
+            assert err <= K4_BWD_BF16_TOL, f"d{name}"
+        del want
+        # fixed orders, no atomics: the same bits on a repeat
+        again = k4.flash_attention_bwd_bf16(q, k, v, out, lse, dout, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # autograd through ops.flash_attention runs the same launches
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                    leaves, dout)
+        assert all(torch.equal(a, b) for a, b in zip(grads, got))
 
 
 # K4 under torch.func.vmap over clients: (clients, B, S, Hq, Hkv, hd),

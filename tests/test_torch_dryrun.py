@@ -380,7 +380,8 @@ def test_shape_mesh_decode_records_equal_the_gloo_meshes(tmp_path_factory):
     cfg, _ = workers._whole_params(arch, seed)
     for rank in range(2):
         mesh = coll.ShapeMesh((1, 2), ("data", "model"), rank)
-        model = build_model(cfg, device="meta", mesh=mesh)
+        model = build_model(cfg, device="meta", mesh=mesh,
+                            decode_cache_seqshard=True)
         with torch.inference_mode(), coll.recording() as recs:
             caches = model.init_cache(batch, cache_len)
             model.decode_step(caches, torch.zeros(

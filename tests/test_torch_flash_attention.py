@@ -108,27 +108,22 @@ def test_plain_version_is_attention_ref_over_aligned_positions():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_refuses_inputs_that_require_grad(dtype):
-    """bf16 inputs that require grad are refused on either path (K4's
-    backward is fp32 only, item 14d-3); fp32 ones differentiate: on the
-    CPU autograd follows the plain version (`flash_attention_bwd_ref`'s
-    gradients), and the kernel wrapper launches or, on CPU tensors,
-    raises for the device."""
+    """Inputs that require grad differentiate at either dtype (the name
+    is kept from when bf16 ones were refused): on the CPU autograd
+    follows the plain version (`flash_attention_bwd_ref`'s gradients, at
+    bf16 with `repro`'s cast points, in the leaves' dtype), and the
+    kernel wrapper launches or, on CPU tensors, raises for the device."""
     q, k, v = _torch(*_qkv(1, 8, 8, 2, 1, 16), dtype=getattr(torch, dtype))
     for i, t in enumerate((q, k, v)):
         t.requires_grad_(True)
-        if dtype == "bfloat16":
-            with pytest.raises(NotImplementedError, match="item 14d-3"):
-                ops.flash_attention(q, k, v)
-            with pytest.raises(NotImplementedError, match="item 14d-3"):
-                k4.flash_attention(q, k, v)
-        else:
-            out = ops.flash_attention(q, k, v)
-            dout = torch.ones_like(out)
-            got, = torch.autograd.grad(out, t, dout)
-            assert torch.equal(got, ref.flash_attention_bwd_ref(
-                q, k, v, dout)[i])
-            with pytest.raises(ValueError, match="CUDA"):
-                k4.flash_attention(q, k, v)
+        out = ops.flash_attention(q, k, v)
+        dout = torch.ones_like(out)
+        got, = torch.autograd.grad(out, t, dout)
+        assert got.dtype == t.dtype
+        assert torch.equal(got, ref.flash_attention_bwd_ref(
+            q, k, v, dout)[i])
+        with pytest.raises(ValueError, match="CUDA"):
+            k4.flash_attention(q, k, v)
         t.requires_grad_(False)
     with torch.no_grad():
         q.requires_grad_(True)
@@ -193,16 +188,22 @@ def test_backward_plain_version_matches_jax_grad(B, Sq, Sk, Hq, Hkv, hd,
 
 
 def test_backward_wrapper_never_takes_the_plain_version():
-    """On CPU tensors the backward wrapper raises before any build, as do
-    bf16 inputs and shapes that do not match the forward's."""
+    """On CPU tensors the backward wrapper raises before any build, at
+    either dtype, as do other dtypes and shapes that do not match the
+    forward's."""
     q, k, v = _torch(*_qkv(1, 8, 8, 4, 2, 16))
     out, lse = torch.zeros_like(q), torch.zeros((1, 4, 8))
     before = k4.flash_attention_bwd.launches
     with pytest.raises(ValueError, match="CUDA"):
         k4.flash_attention_bwd(q, k, v, out, lse, out)
-    with pytest.raises(TypeError, match="fp32"):
-        k4.flash_attention_bwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                               out, lse, out)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.flash_attention_bwd_bf16(q.bfloat16(), k.bfloat16(),
+                                    v.bfloat16(), out.bfloat16(), lse,
+                                    out.bfloat16())
+    with pytest.raises(TypeError, match="bf16"):
+        k4.flash_attention_bwd_bf16(q, k, v, out, lse, out)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k4.flash_attention_bwd(q.half(), k.half(), v.half(), out, lse, out)
     with pytest.raises(ValueError, match="sees no key"):
         k4.flash_attention_bwd(q, k[:, :2], v[:, :2], out, lse, out,
                                window=4)
@@ -221,3 +222,12 @@ def test_kernel_source_is_registered_for_nvcc():
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert 'extern "C" int flash_attention_bwd_f32(' in src
     assert 'extern "C" const char* flash_attention_bwd_error_string(' in src
+    # the bf16 backward: the same source built with FA_BWD_BF16
+    assert _build.SOURCES["flash_attention_bwd_bf16"] == \
+        "flash_attention_bwd.cu"
+    assert _build.DEFINES["flash_attention_bwd_bf16"] == ("-DFA_BWD_BF16",)
+    assert 'extern "C" int flash_attention_bwd_bf16(' in src
+    assert 'extern "C" const char* flash_attention_bwd_bf16_error_string(' \
+        in src
+    assert _build.library_path("flash_attention_bwd") != \
+        _build.library_path("flash_attention_bwd_bf16")

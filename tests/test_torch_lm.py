@@ -326,16 +326,73 @@ def test_vocab_pad_mask_and_separate_head():
     assert torch.isfinite(logits[:, :500]).all()
 
 
+# ------------------------------------------------------ parallel_block
+
+#: fp32: the loss and the prefill logits absolutely, each gradient leaf
+#: relative to its largest element (fp32 sums in another order than XLA's)
+PARALLEL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("arch, S", [("qwen3-0.6b", 16),
+                                     ("recurrentgemma-9b", 48)])
+def test_parallel_block_matches_repro(arch, S):
+    """`repro`'s ``parallel_block`` (PaLM-style: attention and the MLP read
+    ln1, both sums added to x; ln2 unused, a zero gradient) in fp32: the
+    prefill's logits, the loss and every gradient against `repro`'s, on
+    reduced qwen3-0.6b (dense) and recurrentgemma-9b (its attention
+    layers; the recurrent ones have no MLP)."""
+    jcfg = jconfigs.get_config(arch).reduced().replace(dtype="float32")
+    tcfg = tconfigs.get_config(arch).reduced().replace(dtype="float32")
+    jm = jbuild(jcfg, loss_chunks=4, parallel_block=True)
+    jp = jm.init(jax.random.PRNGKey(1))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, S + 1)).astype(np.int32)
+    model = build_model(tcfg, device="meta", loss_chunks=4,
+                        parallel_block=True)
+    model.load_state_dict(lm_params_from_jax(
+        jax.tree.map(np.asarray, jp), tcfg, device="cpu"), assign=True)
+    jlogits, _ = jm.prefill(jp, jnp.asarray(tokens[:, :-1]))
+    with torch.inference_mode():
+        logits, _ = model.prefill(torch.from_numpy(tokens[:, :-1]).long())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=0,
+                               atol=PARALLEL_TOL)
+    (jloss, _), jgrads = jax.value_and_grad(jm.loss, has_aux=True)(
+        jp, {"tokens": jnp.asarray(tokens)})
+    loss, _ = model.loss({"tokens": torch.from_numpy(tokens).long()})
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=0,
+                               atol=PARALLEL_TOL)
+    names = [k for k, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    want = lm_params_from_jax(jax.tree.map(np.asarray, jgrads), tcfg,
+                              device="cpu")
+    for name, g in zip(names, grads):
+        w = want[name].numpy()
+        scale = max(float(np.abs(w).max()), 1e-12)
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, rtol=0,
+                                   atol=PARALLEL_TOL, err_msg=name)
+        if name.endswith(".ln2"):
+            assert not g.any() and not w.any(), name
+    # the block is not the sequential one
+    seq = build_model(tcfg, device="meta", loss_chunks=4)
+    seq.load_state_dict(model.state_dict(), assign=True)
+    with torch.no_grad():
+        other = seq.loss({"tokens": torch.from_numpy(tokens).long()})[0]
+    assert abs(float(other) - float(loss.detach())) > 1e-3
+
+
 # --------------------------------------------------------- what raises
 
 
 @pytest.mark.parametrize("case", ["bf16", "ssm", "hybrid", "fp32 dense"])
 def test_model_refuses_gradients_through_the_attention_kernel(case):
-    """The weights take gradients. What has no backward yet refuses them:
-    a bf16 model (K4's backward is fp32 only, item 14d-3) in the kernel
-    check. fp32 gradients flow on the CPU, through the plain attention
-    (dense), the plain SSD scan (SSM) and the plain RG-LRU recurrence and
-    attention (hybrid), into the leaves before each kernel."""
+    """The weights take gradients (the name is kept from when a bf16
+    model was refused): a bf16 model's gradients flow too, in bf16, as
+    `repro`'s bf16 leaves take theirs (tests/test_torch_bf16.py holds
+    them to `repro`'s values). fp32 gradients flow on the CPU, through
+    the plain attention (dense), the plain SSD scan (SSM) and the plain
+    RG-LRU recurrence and attention (hybrid), into the leaves before
+    each kernel."""
     arch = {"ssm": "mamba2-370m", "hybrid": "recurrentgemma-9b"}.get(
         case, "qwen3-0.6b")
     cfg = tconfigs.get_config(arch).reduced().replace(
@@ -344,17 +401,13 @@ def test_model_refuses_gradients_through_the_attention_kernel(case):
     model.init(prng.PRNGKey(0))
     assert all(p.requires_grad for p in model.parameters())
     batch = {"tokens": torch.zeros((1, 9), dtype=torch.long)}
-    if case == "bf16":
-        with pytest.raises(NotImplementedError, match="item 14d-3"):
-            model.loss(batch)
-        with torch.no_grad():   # the forward alone still runs
-            assert torch.isfinite(model.loss(batch)[0])
-        return
     loss, _ = model.loss(batch)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert all(torch.isfinite(g).all() for g in grads)
+    assert all(g.dtype == p.dtype for g, p in zip(grads, model.parameters()))
     by_name = dict(zip([n for n, _ in model.named_parameters()], grads))
     leaves = {"fp32 dense": ["layers.0.attn.wq"],
+              "bf16": ["layers.0.attn.wq", "layers.0.attn.wk"],
               "ssm": ["layers.0.A_log", "layers.0.dt_bias"],
               "hybrid": ["layers.0.lam", "layers.0.wa", "layers.2.attn.wq"]}
     for name in leaves[case]:

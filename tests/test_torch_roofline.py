@@ -189,22 +189,30 @@ def test_kernel_meta_scratch_equals_the_plans_exactly():
                                   "k5 bf16", "k6 bf16", "mixed devices",
                                   "no target", "k4 shapes"])
 def test_meta_path_refuses_what_the_card_refuses(what):
-    """The shape-only calls run the kernels' own checks: the bf16
-    backwards (K4, ROADMAP item 14d-3), K5 and K6 in bf16, a call mixing
-    "meta" with the CPU, K4's backward plan without the target card's SM
-    count, shapes the kernel does not take. What the card cannot run is
-    a `kmeta.Refusal`; a caller's fault (mixed devices, no target) is
-    not."""
+    """The shape-only calls run the kernels' own checks: K5 and K6 in
+    bf16 (the models cast the scans' inputs to fp32, as `repro`'s), a
+    call mixing "meta" with the CPU, K4's backward plan without the
+    target card's SM count, shapes the kernel does not take. What the
+    card cannot run is a `kmeta.Refusal`; a caller's fault (mixed
+    devices, no target) is not. K4's bf16 backward, refused until the
+    bf16 backward was written, runs: on "meta" it allocates its bf16
+    plan's scratch and records its work at 2 bytes an element (lse 4),
+    directly and under autograd."""
     bf = torch.bfloat16
-    if what == "k4 bf16 backward":
+    if what in ("k4 bf16 backward", "k4 bf16 grad"):
         q = m(1, 16, 2, 16, dtype=bf)
-        with kmeta.target(SMS), pytest.raises(TypeError, match="14d-3") \
-                as err:
-            k4.flash_attention_bwd(q, q, q, q, m(1, 2, 16), q)
-    elif what == "k4 bf16 grad":
-        q = m(1, 16, 2, 16, dtype=bf).requires_grad_()
-        with pytest.raises(NotImplementedError, match="14d-3") as err:
-            ops.flash_attention(q, q, q)
+        with kmeta.target(SMS), kmeta.recording() as calls:
+            if what == "k4 bf16 backward":
+                got = k4.flash_attention_bwd(q, q, q, q, m(1, 2, 16), q)
+            else:
+                q.requires_grad_()
+                got = torch.autograd.grad(ops.flash_attention(q, q, q), q,
+                                          torch.ones_like(q))
+        assert all(g.dtype == bf and g.device.type == "meta" for g in got)
+        bwd = [c for c in calls if c.name == "flash_attention_bwd"]
+        assert len(bwd) == 1 and bwd[0].dtype == "bfloat16"
+        assert bwd[0].nbytes == 2 * 8 * 16 * 2 * 16 + 4 * 2 * 16
+        return
     elif what == "k5 bf16":
         with pytest.raises(TypeError, match="float32") as err:
             k5.ssd(m(1, 64, 2, 16, dtype=bf), m(1, 64, 2, dtype=bf),

@@ -287,7 +287,8 @@ def _lm(arch, params, mesh, device):
     from repro_torch.models import build_model
 
     cfg = get_config(arch).reduced()
-    model = build_model(cfg, device="meta", mesh=mesh)
+    model = build_model(cfg, device="meta", mesh=mesh,
+                        decode_cache_seqshard=True)
     model.load_state_dict(lm_params_from_jax(params, cfg, device, mesh=mesh),
                           assign=True)
     return model
@@ -422,7 +423,8 @@ def card_seqshard(mesh, device, arch, cache_len, steps, seed=0):
     from repro_torch.models import build_model
 
     cfg = get_config(arch).reduced()
-    model = build_model(cfg, device="meta", mesh=mesh)
+    model = build_model(cfg, device="meta", mesh=mesh,
+                        decode_cache_seqshard=True)
     model.init(prng.PRNGKey(0, device=device))
     gen = torch.Generator().manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (4, steps), generator=gen)
@@ -583,7 +585,8 @@ def decode_records(mesh, device, arch, seed, batch, cache_len, pos):
     from repro_torch.models import build_model
 
     cfg, whole = _whole_params(arch, seed)
-    model = build_model(cfg, device="meta", mesh=mesh)
+    model = build_model(cfg, device="meta", mesh=mesh,
+                        decode_cache_seqshard=True)
     model.load_state_dict({k: v.to(device) for k, v in whole.items()},
                           assign=True)
     n = batch // coll.axes_size(mesh, "data")

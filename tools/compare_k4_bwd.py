@@ -47,8 +47,15 @@ def bind(name, src_dir, smem, torch, k4, _build):
                     str(src)], check=True, capture_output=True, timeout=600)
     fn = ctypes.CDLL(str(lib_path)).flash_attention_bwd_f32
     fn.restype = ctypes.c_int
-    with_plan = "const int* plan" in src.read_text()
-    fn.argtypes = list(k4._BWD_ARGTYPES) if with_plan else (
+    text = src.read_text()
+    with_plan = "const int* plan" in text
+    # the entry takes the bf16 path's dq32 scratch since PR 33 (null in
+    # fp32); an earlier source has no such argument
+    with_dq32 = "void* dq32" in text
+    argtypes = list(k4._BWD_ARGTYPES)
+    if not with_dq32:
+        del argtypes[12]
+    fn.argtypes = argtypes if with_plan else (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 +
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
          ctypes.c_int, ctypes.c_void_p])
@@ -73,6 +80,8 @@ def bind(name, src_dir, smem, torch, k4, _build):
                     for shape in plan.scratch.values()]
             args += [keep[0].data_ptr(),
                      keep[1].data_ptr() if len(keep) > 1 else None]
+            if with_dq32:
+                args.append(None)
             launch = list(plan.launch)
             launch[4] = smem.get(hd, launch[4])
             launch = (ctypes.c_int * len(launch))(*launch)

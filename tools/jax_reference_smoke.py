@@ -11,9 +11,9 @@ and its card-against-JAX train check its losses:
         [dense-labelflip-trimmed] [local] [fedavg] ... [pfedgraph] \
         [fedavg-markov-topk] [train-cross] [train-cross-ssm] \
         [train-cross-hybrid] [train-cross-vlm] [train-cross-moe] \
-        [train-cross-audio]
+        [train-cross-audio] [train-cross-bf16]
 
-(no names: all twenty-six). The data and run settings (PaperCNN at its
+(no names: all twenty-seven). The data and run settings (PaperCNN at its
 published width, 32 clients, 3 rounds) are the ones in ``chip_smoke.py``'s
 ``SMOKE_*`` constants. A DPFL variant is one of its ``VARIANTS``, run by
 `repro.core.dpfl.run_dpfl`; a baseline run is one of its
@@ -26,7 +26,8 @@ with zero frames) on qwen3-0.6b, mamba2-370m and internvl2-2b at full
 width cut to their first two layers, whisper-medium at full width cut to
 two encoder and two decoder layers, and on recurrentgemma-9b's and
 qwen3-moe-30b-a3b's reduced configs, for ``CROSS_TRAIN_JAX_LOSSES``
-(about 40 s and 3 GiB for qwen3).
+(about 40 s and 3 GiB for qwen3), in float32, and "train-cross-bf16":
+qwen3-0.6b's cut run at the config's bf16, `repro`'s default dtype.
 """
 from __future__ import annotations
 
@@ -116,7 +117,7 @@ def run_train_cross(name):
         cfg = cfg.reduced()
     cfg = cfg.replace(**{k: c[k] for k in ("n_layers", "n_enc_layers")
                          if k in c})
-    cfg = cfg.replace(dtype="float32")
+    cfg = cfg.replace(dtype=c.get("dtype", "float32"))
     model = build_model(cfg, loss_chunks=4)
     params = model.init(jax.random.PRNGKey(0))
     tokens, _ = make_lm_token_data(
