@@ -42,8 +42,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    train shape, ragged S and W with and without h0 and dh_last, one
    step; bit for bit); K4's bf16 backward (K4_BWD_BF16_CASES: qwen3-0.6b's
    train shape, whisper-medium's encoder, recurrentgemma-9b's; in bf16
-   against the plain version in bf16, one launch of the bf16 library a
-   call, the same bits on a repeat and through autograd); K4 under
+   against the plain version in bf16, each gradient's error printed, one
+   launch of the bf16 library a call, the same bits on a repeat and
+   through autograd); K4 under
    ``torch.func.vmap`` over clients
    (K4_VMAP_CASES, the lm-dpfl example's head_dim 32 among them: one
    launch on the folded batch, forward and backward, bit for bit the
@@ -121,7 +122,7 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    its full published config (24 layers behind 256 vision embeddings
    drawn from a seed; 24 K4 launches in the prefill, 0 in decode; card
    against CPU on its first 4 layers) and qwen3-moe-30b-a3b at full
-   width on its first 8 of 48 layers (SERVE_LAYERS: 8 K4 launches in
+   width on its first 4 of 48 layers (SERVE_LAYERS: 4 K4 launches in
    the prefill, 0 in decode, its experts plain batched products; the
    same logits bits on a second call; the smallest router gap and the
    copies its capacity drops; card against CPU on its first 2 layers)
@@ -141,8 +142,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    seeded vision embeddings) and recurrentgemma-9b and qwen3-moe-30b-a3b
    at full width
    on their first 6 and 2 layers (TRAIN_HYBRID, TRAIN_MOE; the moe run's
-   router loss printed), and whisper-medium whole (TRAIN_AUDIO: B 8,
-   448 tokens after 1,500 seeded frames; 144 K4 forward and 72 backward
+   router loss printed), and whisper-medium at full width on 12 of its
+   24 encoder and 24 decoder layers (TRAIN_AUDIO: B 8,
+   448 tokens after 1,500 seeded frames; 72 K4 forward and 36 backward
    launches a step), each 10 steps with the counts zeroed just
    before
    and read just after (each layer's kernel forward twice a step and its
@@ -165,9 +167,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    request's tokens those of `generate` on its own client's weights;
    then the model mesh (`repro_torch.launch.mesh.run_on_mesh`, one
    process a shard of a ("data", "model") mesh sharing the card over
-   gloo): `generate` on qwen3-0.6b (14 layers on (1, 2), 7 on (2, 2))
+   gloo): `generate` on qwen3-0.6b (7 layers on (1, 2) and on (2, 2))
    and on qwen3-moe-30b-a3b at full width (its experts split over
-   "model", on 2 layers, or 1 on (2, 2)) with each attention ring
+   "model", on 1 layer) with each attention ring
    sharded on its slots over "model" (flash-decoding) on meshes (1, 2)
    and (2, 2) (MODEL_MESH_RUNS), each rank's every step's logits within
    MESH_LOGITS_TOL of its rows of the single-device run (the moe model's
@@ -326,15 +328,15 @@ SHARD_BITWISE = ("dense-random", "dense", "topk")
 # process a shard sharing the card over gloo, each rank serving its block
 # of SERVE_RUN's batch through `launch.serve.generate`, its attention
 # rings sharded on "model" (its C / M slots of the 544-slot rings): run ->
-# (arch, layers, mesh (data, model)). qwen3-0.6b on 14 of its 28 layers
-# at (1, 2) and on 7 at (2, 2); qwen3-moe-30b-a3b at its published widths
-# with its experts sharded too, on 2 of its 48 layers at (1, 2) (64
-# experts a rank) and 1 at (2, 2). These runs were cut (moe from 8, 4
+# (arch, layers, mesh (data, model)). qwen3-0.6b on 7 of its 28 layers
+# at (1, 2) and at (2, 2); qwen3-moe-30b-a3b at its published widths
+# with its experts sharded too, on 1 of its 48 layers at (1, 2) (64
+# experts a rank) and at (2, 2). These runs were cut (moe from 8, 4
 # and 2 layers, qwen3 from 28 and 14) to keep the script under 800 s
 # with the dry-run phase and the bf16 phases.
-MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", 14, (1, 2)),
+MODEL_MESH_RUNS = {"qwen3 1x2": ("qwen3-0.6b", 7, (1, 2)),
                    "qwen3 2x2": ("qwen3-0.6b", 7, (2, 2)),
-                   "moe 1x2": ("qwen3-moe-30b-a3b", 2, (1, 2)),
+                   "moe 1x2": ("qwen3-moe-30b-a3b", 1, (1, 2)),
                    "moe 2x2": ("qwen3-moe-30b-a3b", 1, (2, 2))}
 # the logits of every step against the single-device run's rows; the aux
 # loss against the whole batch's; a top-2 gap under MESH_GAP may part the
@@ -471,12 +473,13 @@ SERVE_RUN = dict(batch=4, prompt_len=512, new_tokens=32)
 # openai/whisper's decoding keeps (half of its 448 text positions)
 SERVE_PROMPT = {"whisper-medium": 224}
 # served at full width on their first layers: qwen3-moe-30b-a3b's 48
-# layers hold 30.5 B weights (122 GB in fp32, more than the card); its
-# first 8 with the embedding, head and final norm are 5.61 B (22.4 GB);
-# recurrentgemma-9b on 14 of its 38 layers (both segments: 4 groups of
-# (rec, rec, attn), then (rec, rec)), cut from 38 to keep the script
-# under 800 s (its whole 26.1 GB draw took 32 s)
-SERVE_LAYERS = {"qwen3-moe-30b-a3b": 8, "recurrentgemma-9b": 14}
+# layers hold 30.5 B weights (122 GB in fp32, more than the card); it
+# serves on its first 4 with the embedding, head and final norm (cut from
+# 8, 5.61 B weights whose draw took 28 s, to keep the script under 800
+# s); recurrentgemma-9b on 14 of its 38 layers (both segments: 4 groups
+# of (rec, rec, attn), then (rec, rec)), cut from 38 for the same reason
+# (its whole 26.1 GB draw took 32 s)
+SERVE_LAYERS = {"qwen3-moe-30b-a3b": 4, "recurrentgemma-9b": 14}
 # the seed of the vlm's vision embeddings (unit normals, B x 256 x 2048)
 VISION_SEED = 5
 # the seed of the audio model's frames (unit normals, B x 1500 x 1024)
@@ -645,11 +648,11 @@ K4_BWD_TOL = 1e-4
 # the forward's row log-sum-exp against torch.logsumexp of the plain
 # scores (atol = rtol)
 K4_LSE_TOL = 1e-5
-# K4's bf16 backward (the same source built with FA_BWD_BF16), in bf16 at
-# the three shapes of bf16 training's main path, every one timed:
-# qwen3-0.6b's train shape, whisper-medium's encoder (non-causal, 5 slabs
-# of 320 keys) and recurrentgemma-9b's (one KV head of 256, 8 head
-# splits, window 2,048)
+# K4's bf16 backward (csrc/flash_attention_bwd_bf16.cu), in bf16 at the
+# three shapes of bf16 training's main path, every one timed: qwen3-0.6b's
+# train shape, whisper-medium's encoder (non-causal, 1,500 keys in one
+# pass) and recurrentgemma-9b's (one KV head of 256, 8 head splits,
+# window 2,048)
 K4_BWD_BF16_CASES = [("train bf16", 8, 512, 512, 16, 8, 128, True, None),
                      ("whisper encoder train bf16", 8, 1500, 1500, 16, 16,
                       64, False, None),
@@ -737,17 +740,17 @@ TRAIN_VLM = dict(arch="internvl2-2b", n_layers=12, batch=8, seq=512,
 # 29.9 GB with gradients and moments), batch 4, sequence 512, 10 steps
 TRAIN_MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=2, batch=4, seq=512,
                  steps=10, lr=3e-4)
-# whisper-medium whole (24 encoder and 24 decoder layers, 758 M weights:
-# 12.1 GB with gradients and AdamW's moments), batch 8, sequence 448
-# (whisper's 448 text positions: tokens (8, 449)) after 1,500 frames from
-# `make_frames`, the same at every step, 10 steps, through
+# whisper-medium at full width on 12 of its 24 encoder and 24 decoder
+# layers (cut from 24 to keep the script under 800 s), batch 8, sequence
+# 448 (whisper's 448 text positions: tokens (8, 449)) after 1,500 frames
+# from `make_frames`, the same at every step, 10 steps, through
 # `launch.train.train`
 # qwen3-0.6b whole at bf16, `repro`'s default dtype (bf16 weights,
 # gradients and activations, AdamW's moments fp32), through
 # `launch.train.train`: K4's bf16 forward and backward every step
 TRAIN_BF16 = dict(arch="qwen3-0.6b", n_layers=28, batch=8, seq=512,
                   steps=10, lr=3e-4, dtype="bfloat16")
-TRAIN_AUDIO = dict(arch="whisper-medium", n_layers=24, batch=8, seq=448,
+TRAIN_AUDIO = dict(arch="whisper-medium", n_layers=12, batch=8, seq=448,
                    steps=10, lr=3e-4)
 # Card against CPU and against JAX, each family on the training loop
 # (`launch.train.train`) for 3 steps at lr 3e-4 from the init of
@@ -1500,7 +1503,8 @@ def check_k4_bwd_bf16(torch, inputs):
     that gradient's largest element; one launch of the bf16 library a
     call (``flash_attention_bwd_bf16.launches``, none of the fp32 one's);
     a repeated call bit for bit; autograd through ``ops.flash_attention``
-    the same bits. Returns per case (max abs err, the largest share)."""
+    the same bits. Returns per case (max abs err, the largest share,
+    each gradient's share)."""
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import ops, ref
 
@@ -1518,6 +1522,7 @@ def check_k4_bwd_bf16(torch, inputs):
                  f"library")
         want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
         err = share = 0.0
+        shares = {}
         for label, g, w in zip(("dq", "dk", "dv"), got, want):
             if g.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
                 fail(f"K4 bf16 backward {name} {label}: {g.dtype}")
@@ -1527,7 +1532,8 @@ def check_k4_bwd_bf16(torch, inputs):
                    K4_BWD_BF16_TOL, 0.0)
             diff = (g.float() - w.float()).abs().max()
             err = max(err, diff.item())
-            share = max(share, (diff / scale).item())
+            shares[label] = (diff / scale).item()
+            share = max(share, shares[label])
         del want
         again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -1538,7 +1544,7 @@ def check_k4_bwd_bf16(torch, inputs):
                                     leaves, dout)
         if not all(torch.equal(a, b) for a, b in zip(grads, got)):
             fail(f"K4 bf16 backward {name}: autograd gave other bits")
-        rows.append((err, share))
+        rows.append((err, share, shares))
     return rows
 
 
@@ -1564,10 +1570,16 @@ def time_k4_bwd_bf16(torch, inputs, errs, rates):
         ms = time_ms(bwd, torch)
         split = kernel_split_ms(
             bwd, torch,
-            r"\bflash_attention_bwd_(delta|dkdv|dq|finish)_kernel\b")
-        if not {"delta", "dkdv", "dq", "finish"} <= set(split):
+            r"\bflash_attention_bwd_(delta|dkdv|dq|reduce)_kernel\b")
+        B, S, Hq, hd = q.shape
+        plan = k4.backward_plan(B, S, k.shape[1], Hq, k.shape[2], hd,
+                                k4._sm_count(q.device.index),
+                                q.element_size())
+        want = {"delta", "dkdv", "dq"} | (
+            {"reduce"} if plan.splits > 1 else set())
+        if set(split) != want:
             fail(f"K4 bf16 backward: the profiler recorded the kernels "
-                 f"{sorted(split)}")
+                 f"{sorted(split)}, not {sorted(want)}")
         plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
             q, k, v, dout, **kw), torch)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True)
@@ -1580,10 +1592,6 @@ def time_k4_bwd_bf16(torch, inputs, errs, rates):
         del o, leaves
         nbytes, flops = k4_bwd_work(q, k, causal, window)
         bound_ms, bound_by = _bound(rates, nbytes, flops, "bfloat16")
-        B, S, Hq, hd = q.shape
-        plan = k4.backward_plan(B, S, k.shape[1], Hq, k.shape[2], hd,
-                                k4._sm_count(q.device.index),
-                                q.element_size())
         print(f"  K4 bf16 backward {name} ({B}, {S}, {Hq}, {k.shape[2]}, "
               f"{hd}, causal {causal}, window {window}) err {err[0]:.3g} "
               f"({err[1]:.3g} of the largest element) kernel {ms:.4f} ms "
@@ -1596,7 +1604,8 @@ def time_k4_bwd_bf16(torch, inputs, errs, rates):
         rows.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=k.shape[2], hd=hd,
                          causal=causal, window=window, dtype="bfloat16",
                          max_abs_err=err[0], share=err[1],
-                         tol=K4_BWD_BF16_TOL, ms=ms, kernel_ms=split,
+                         shares=err[2], tol=K4_BWD_BF16_TOL, ms=ms,
+                         kernel_ms=split,
                          splits=plan.splits, slabs=plan.n_slabs,
                          scratch_bytes=plan.scratch_bytes(),
                          plain_ms=plain_ms, library_ms=lib_ms,
@@ -2108,9 +2117,10 @@ def report_build(built):
     backward) every entry function (registers, spills, static shared
     memory), failing on a spill; and K4's SASS: its bf16 kernels must run
     on the tensor cores (HMMA or HGMMA) and its fp32 kernels, the
-    backward's 34 included, must not; nor may K5's backward's 11, nor
-    the bf16 backward's 35 (the fp32 backward's kernels on bf16 inputs,
-    with its finish kernel: IEEE fp32 FMAs)."""
+    backward's 34 included, must not; nor may K5's backward's 11. The
+    bf16 backward's 34: its dK/dV and dQ kernels at 16 head sizes must
+    run on the tensor cores (every product is an mma.sync), its D and
+    split-sum kernels must not (fp32 sums)."""
     from repro_torch.kernels import _build
 
     for kname, b in sorted(built.items()):
@@ -2155,14 +2165,21 @@ def report_build(built):
              "only, no TF32)")
     print(f"K4 backward SASS: no HMMA or HGMMA in its {len(bwd)} kernels")
     bwd16 = sass_mma_counts(_build.library_path("flash_attention_bwd_bf16"))
-    if len(bwd16) != 35:
-        fail(f"K4 bf16 backward SASS: {len(bwd16)} kernels, expected 35 (D, "
-             f"dK/dV and dQ at 16 head sizes, the split sum, the finish)")
-    if any(h + g for h, g in bwd16.values()):
-        fail("K4 bf16 backward SASS: a kernel runs on the tensor cores "
-             "(this design's products are fp32 FMAs)")
-    print(f"K4 bf16 backward SASS: no HMMA or HGMMA in its {len(bwd16)} "
-          f"kernels")
+    mma16 = {n: c for n, c in bwd16.items() if re.search(r"_(dkdv|dq)_", n)}
+    if len(bwd16) != 34 or len(mma16) != 32:
+        fail(f"K4 bf16 backward SASS: {len(bwd16)} kernels, {len(mma16)} of "
+             f"them dK/dV or dQ, expected 34 and 32 (D, dK/dV and dQ at 16 "
+             f"head sizes, the split sum)")
+    if not all(h + g for h, g in mma16.values()):
+        fail("K4 bf16 backward SASS: a dK/dV or dQ kernel has no HMMA or "
+             "HGMMA")
+    if any(h + g for n, (h, g) in bwd16.items() if n not in mma16):
+        fail("K4 bf16 backward SASS: its D or split-sum kernel runs on the "
+             "tensor cores")
+    print(f"K4 bf16 backward SASS: HMMA {sum(h for h, _ in mma16.values())}"
+          f", HGMMA {sum(g for _, g in mma16.values())} in its 32 dK/dV and "
+          f"dQ kernels (min HMMA {min(h for h, _ in mma16.values())} a "
+          f"kernel); none in its D and split-sum kernels")
     k5b = sass_mma_counts(_build.library_path("ssd_bwd"))
     if len(k5b) != 11:
         fail(f"K5 backward SASS: {len(k5b)} kernels, expected 11 (chunk, "
@@ -4927,9 +4944,10 @@ def main():
           f"{len(k4b16_in)} cases (dq, dk, dv within {K4_BWD_BF16_TOL} of "
           f"each one's largest element), one launch of the bf16 library a "
           f"call, the same bits on a repeated call and through autograd")
-    for case, (err, share) in zip(K4_BWD_BF16_CASES, k4b16_errs):
+    for case, (err, share, shares) in zip(K4_BWD_BF16_CASES, k4b16_errs):
         print(f"  K4 bf16 backward {case[0]}: max abs err {err:.3g} "
-              f"({share:.3g} of the largest element)")
+              f"({share:.3g} of the largest element; " + ", ".join(
+                  f"{label} {x:.3g}" for label, x in shares.items()) + ")")
     for (name, N, B, S, Hq, Hkv, hd), (err, share) in zip(
             K4_VMAP_CASES, check_k4_vmap(torch)):
         print(f"K4 under torch.func.vmap, {name} ({N} clients x ({B}, {S}, "
@@ -5279,8 +5297,7 @@ def main():
          "bound_by": k4b_rows[0]["bound_by"],
          "library_ms": k4b_rows[0]["library_ms"], "shapes": k4b_rows},
         {"name": "flash_attention_bwd_bf16", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu "
-                   "(built with FA_BWD_BF16)",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
          "replaces": "src/repro/kernels/flash_attention.py:96 (its "
                      "function's gradient at bf16, repro's cast points; no "
                      "Pallas counterpart)",

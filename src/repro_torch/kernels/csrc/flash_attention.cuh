@@ -1,13 +1,17 @@
-// What the forward (flash_attention.cu) and the backward
-// (flash_attention_bwd.cu) of K4 share: the problem they are given, the
-// cp.async copies that stage q, k and v rows in shared memory, the mask
-// and the span of key tiles a block of query rows walks.
+// What the forward (flash_attention.cu) and the backwards
+// (flash_attention_bwd.cu in fp32, flash_attention_bwd_bf16.cu in bf16)
+// of K4 share: the problem they are given, the cp.async copies that stage
+// q, k and v rows in shared memory, the mask and the span of key tiles a
+// block of query rows walks; and the tensor-core primitives of the two
+// bf16 sources (ldmatrix, mma.sync.m16n8k16 with bf16 inputs and fp32
+// sums, the bf16 pair packing).
 //
 // Positions are aligned: query row i and key j sit at positions i and j,
 // so row i sees the keys j with j <= i (causal) and j > i - window
 // (window > 0). A masked score is -1e30, as in the Pallas kernel.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +110,61 @@ template <int BK>
 __device__ __forceinline__ Span block_span(const Problem& p) {
   return block_span<BK>(p, static_cast<int>(blockIdx.x),
                         static_cast<int>(gridDim.x));
+}
+
+// ---- tensor-core primitives (sm_80 and later)
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// the same two at the shared-space address `addr` plus OFF bytes, a
+// constant folded into the instruction: one address register serves a
+// whole tile, however many fragments the loops over it read
+template <int OFF>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+      "[%4+%5];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr), "n"(OFF));
+}
+
+template <int OFF>
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4+%5];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr), "n"(OFF));
+}
+
+// c += a b for one m16n8k16 tile: bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace

@@ -10,12 +10,12 @@ described in ``csrc/flash_attention.cu``. Its plain version is
 `repro_torch.kernels.ref.flash_attention_ref`. On inputs that require
 grad (fp32 or bf16), `flash_attention` is a ``torch.autograd.Function``:
 its forward also writes each row's log-sum-exp, and its backward is
-`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``, which has no
-Pallas counterpart: `repro` differentiates its plain attention, at bf16
-with its cast points), whose plain version is
-`repro_torch.kernels.ref.flash_attention_bwd_ref`. The source is built
-twice, one library an element type: fp32 (`flash_attention_bwd`'s
-count) and bf16 (`flash_attention_bwd_bf16`'s).
+`flash_attention_bwd`, which has no Pallas counterpart (`repro`
+differentiates its plain attention, at bf16 with its cast points), and
+whose plain version is `repro_torch.kernels.ref.flash_attention_bwd_ref`:
+in fp32 ``csrc/flash_attention_bwd.cu`` (`flash_attention_bwd`'s count),
+in bf16 ``csrc/flash_attention_bwd_bf16.cu`` (`flash_attention_bwd_bf16`'s
+count), one library each.
 
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to a plain version (`repro_torch.kernels.ops.flash_attention`
@@ -45,50 +45,53 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 +
              (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
               ctypes.c_int, ctypes.c_void_p))
-# q, k, v, out, dout, lse, delta, dq, dk, dv, ds, part, dq32; B, Sq, Sk,
-# Hq, Hkv, hd; strides; causal, window, scale; plan; device; stream
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 6 +
-                 (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_void_p))
-#: the backward's library and C entry by element type (one source, built
-#: with FA_BWD_BF16 for bf16: `_build.DEFINES`)
-_BWD_ENTRIES = {torch.float32: ("flash_attention_bwd",
-                                "flash_attention_bwd_f32"),
-                torch.bfloat16: ("flash_attention_bwd_bf16",
-                                 "flash_attention_bwd_bf16")}
+# q, k, v, out, dout, lse, delta, dq, dk, dv, then the scratch (fp32: ds,
+# part; bf16: part); B, Sq, Sk, Hq, Hkv, hd; strides; causal, window,
+# scale; plan; device; stream
+_BWD_TAIL = ((ctypes.c_int,) * 6 +
+             (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
+#: the backward's library, C entry, argument types and scratch tensors (in
+#: the entry's order) by element type
+_BWD_ENTRIES = {
+    torch.float32: ("flash_attention_bwd", "flash_attention_bwd_f32",
+                    (ctypes.c_void_p,) * 12 + _BWD_TAIL, ("ds", "part")),
+    torch.bfloat16: ("flash_attention_bwd_bf16", "flash_attention_bwd_bf16",
+                     (ctypes.c_void_p,) * 11 + _BWD_TAIL, ("part",))}
 MAX_HEAD_DIM = 256
 #: bytes of each cp.async copy (and ldmatrix row) of the kernel
 ALIGN = 16
-#: the backward's threads a block of (b) and of the split sum, query rows
-#: a tile, and the dynamic shared memory a block may take
-#: (csrc/flash_attention_bwd.cu's kBwdThreads, flash_attention.cuh's kBQ
-#: and kMaxSmem)
+#: the backward's threads a block of the split sum (and of fp32's (b)),
+#: query rows a tile, and the dynamic shared memory a block may take
+#: (csrc/flash_attention_bwd.cu's kBwdThreads, flash_attention_bwd_bf16
+#: .cu's kReduceThreads, flash_attention.cuh's kBQ and kMaxSmem)
 BWD_THREADS = 256
 QUERY_TILE = 64
 MAX_SMEM = 232448
-#: the backward's scratch of scale dS^T holds at most this many bytes:
-#: longer key ranges are walked in slabs of keys
+#: the fp32 backward's scratch of scale dS^T holds at most this many
+#: bytes: longer key ranges are walked in slabs of keys (the bf16
+#: backward has no such scratch)
 BWD_SCRATCH_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
 class BackwardPlan:
     """How `flash_attention_bwd` launches its kernels at one shape
-    (csrc/flash_attention_bwd.cu's (a), (b), (c) and the split sum).
+    (csrc/flash_attention_bwd.cu's, or in bf16 flash_attention_bwd_bf16
+    .cu's, (a), (b), (c) and the split sum).
 
     ``block_keys`` keys a (b) block and a tile of (c); ``splits`` blocks
     share a GQA group's query heads in (b) (each its Hq / Hkv / splits
-    heads); ``slab_keys`` keys a pass of (b) and (c), ``n_slabs`` passes;
-    ``grids`` each launch's (x, y, z) in order, under "delta", "dkdv"
-    ((KV head, split), batch, key tile), "dq" (head, batch, query tile)
-    and "reduce" (the C entry derives each slab's from ``launch`` the
-    same way): the tile is the slowest axis, so the blocks with the most
-    work start first when causal; ``smem`` the dynamic shared bytes of
-    (b) and (c) and ``stages`` (b)'s Q/dO stages; ``scratch`` the shapes
-    of the fp32 scratch tensors ("ds"; "part" when splits > 1, and at
-    bf16 always, with "dq", the fp32 dQ the slabs add into); ``launch``
-    the ints the C entry takes."""
+    heads); ``slab_keys`` keys a pass of (b) and (c), ``n_slabs`` passes
+    (bf16: one pass over every key); ``grids`` each launch's (x, y, z) in
+    order, under "delta", "dkdv" ((KV head, split), batch, key tile), "dq"
+    (head, batch, query tile) and "reduce" (the C entry derives each
+    slab's from ``launch`` the same way): the tile is the slowest axis,
+    so the blocks with the most work start first when causal; ``smem``
+    the dynamic shared bytes of (b) and (c) and ``stages`` (b)'s Q/dO
+    stages; ``scratch`` the shapes of the fp32 scratch tensors (fp32:
+    "ds", and "part" when splits > 1; bf16: "part" when splits > 1, and
+    nothing else); ``launch`` the ints the C entry takes."""
     block_keys: int
     splits: int
     slab_keys: int
@@ -110,13 +113,25 @@ def backward_block_keys(hd: int) -> int:
     return 64 if hd <= 128 else 32
 
 
-def backward_smem(hd: int) -> Tuple[int, int, int]:
-    """((b)'s dynamic shared bytes, its Q/dO stages, (c)'s bytes), as
-    csrc/flash_attention_bwd.cu's KVTiles and QTiles lay them out: (b)
-    holds K and V tiles, P and dS, and one or two stages of Q and dO,
-    rows padded by 4 floats; (c) two stages of a scratch tile and a K
-    tile."""
-    bk, pitch = backward_block_keys(hd), hd + 4
+def backward_smem(hd: int, element_size: int = 4) -> Tuple[int, int, int]:
+    """((b)'s dynamic shared bytes, its Q/dO stages, (c)'s bytes), as the
+    sources' KVTiles and QTiles lay them out. fp32
+    (csrc/flash_attention_bwd.cu): (b) holds K and V tiles, P and dS, and
+    one or two stages of Q and dO, rows padded by 4 floats; (c) two stages
+    of a scratch tile and a K tile. bf16 (element size 2,
+    csrc/flash_attention_bwd_bf16.cu): bf16 rows padded by 8 elements;
+    (b) holds K and V tiles, two stages of Q and dO tiles with the tile's
+    L and D (fp32), and the exchange tiles of P^T and dS^T's hi and lo
+    (keys x 64 queries); (c) Q and dO tiles, two stages of K and V tiles
+    and the exchange tiles of dS's hi and lo (64 rows x the key tile)."""
+    bk = backward_block_keys(hd)
+    if element_size == 2:
+        pitch = 2 * (hd + 8)
+        stage = 2 * QUERY_TILE * pitch + 2 * QUERY_TILE * 4
+        return (2 * bk * pitch + 2 * stage + 3 * bk * 2 * (QUERY_TILE + 8),
+                2, (2 * QUERY_TILE + 4 * bk) * pitch +
+                2 * QUERY_TILE * 2 * (bk + 8))
+    pitch = hd + 4
     fixed = 2 * bk * pitch + 2 * QUERY_TILE * (bk + 4)
     stage = 2 * QUERY_TILE * pitch
     stages = 2 if (fixed + 2 * stage) * 4 <= MAX_SMEM else 1
@@ -127,43 +142,41 @@ def backward_smem(hd: int) -> Tuple[int, int, int]:
 def backward_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
                   sms: int, element_size: int = 4) -> BackwardPlan:
     """The launch plan of `flash_attention_bwd` for these shapes on a
-    card of ``sms`` SMs. The scratch of scale dS^T, (B, Hq, query tiles,
-    slab keys, 64) fp32, stays within BWD_SCRATCH_BYTES unless one key
-    tile already exceeds it; the splits are the fewest (a divisor of Hq /
-    Hkv) that give (b)'s first pass two blocks an SM, else Hq / Hkv. Pure
-    arithmetic, so the CPU tests reach it.
-
-    By ``element_size``: the tiles, shared memory, slabs and splits are
-    the same at 2 (bf16) as at 4 (the kernels convert bf16 tiles to fp32
-    as they load them); at 2 the partials' scratch "part" is there
-    whatever the splits and an fp32 "dq" is added, and the last launch
-    (the bf16 finish kernel) has a third row of blocks for dQ."""
+    card of ``sms`` SMs, at ``element_size`` 4 (fp32) or 2 (bf16). fp32:
+    the scratch of scale dS^T, (B, Hq, query tiles, slab keys, 64) fp32,
+    stays within BWD_SCRATCH_BYTES unless one key tile already exceeds
+    it. bf16: (c) recomputes S and dP, so there is no such scratch and one
+    pass covers every key. Either way the splits are the fewest (a divisor
+    of Hq / Hkv) that give (b)'s first pass two blocks an SM, else Hq /
+    Hkv, and the partials' scratch "part" is there only when splits > 1.
+    Pure arithmetic, so the CPU tests reach it."""
     bk = backward_block_keys(hd)
     rep = Hq // Hkv
     n_qt = -(-Sq // QUERY_TILE)
     key_tiles = -(-Sk // bk)
-    per_key = B * Hq * n_qt * QUERY_TILE * 4
-    slab = bk * max(1, min(key_tiles, BWD_SCRATCH_BYTES // (per_key * bk)))
+    bf16 = element_size == 2
+    if bf16:
+        slab = key_tiles * bk
+    else:
+        per_key = B * Hq * n_qt * QUERY_TILE * 4
+        slab = bk * max(1, min(key_tiles,
+                               BWD_SCRATCH_BYTES // (per_key * bk)))
     n_slabs = -(-Sk // slab)
     first = -(-min(slab, Sk) // bk) * Hkv * B
     splits = next((d for d in range(1, rep + 1)
                    if rep % d == 0 and first * d >= 2 * sms), rep)
-    dkdv_smem, stages, dq_smem = backward_smem(hd)
-    bf16 = element_size == 2
-    n4 = max(B * Sk * Hkv, B * Sq * Hq if bf16 else 0) * hd // 4
+    dkdv_smem, stages, dq_smem = backward_smem(hd, element_size)
+    n4 = B * Sk * Hkv * hd // 4
     reduce_blocks = max(1, min(-(-n4 // BWD_THREADS), 8 * sms))
     grids = {
         "delta": ((-(-B * Sq * Hq // 4), 1, 1),),
         "dkdv": tuple((Hkv * splits, B, -(-min(slab, Sk - s * slab) // bk))
                       for s in range(n_slabs)),
         "dq": ((Hq, B, n_qt),) * n_slabs,
-        "reduce": ((reduce_blocks, 3 if bf16 else 2, 1),)
-        if splits > 1 or bf16 else ()}
-    scratch = {"ds": (B, Hq, n_qt, slab, QUERY_TILE)}
-    if splits > 1 or bf16:
+        "reduce": ((reduce_blocks, 2, 1),) if splits > 1 else ()}
+    scratch = {} if bf16 else {"ds": (B, Hq, n_qt, slab, QUERY_TILE)}
+    if splits > 1:
         scratch["part"] = (2, splits, B, Sk, Hkv, hd)
-    if bf16:
-        scratch["dq"] = (B, Sq, Hq, hd)
     return BackwardPlan(
         block_keys=bk, splits=splits, slab_keys=slab, n_slabs=n_slabs,
         query_tiles=n_qt, stages=stages, grids=grids,
@@ -439,12 +452,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sq, Hq, hd) in q's dtype (copied if not contiguous and 16-byte
     aligned). Returns contiguous (B, Sq, Hq, hd), (B, Sk, Hkv, hd) twice
     in q's dtype; at bf16 the gradient of the plain attention with
-    `repro`'s cast points (``csrc/flash_attention_bwd.cu``). One call
-    launches the kernels of `backward_plan` (the row sums D =
-    rowsum(dout * out), then dk and dv with scale dS to a scratch and dq
-    from it, once per slab of keys, then the sum of the head splits where
-    there are several, or at bf16 the finish kernel) and adds one to
-    ``flash_attention_bwd.launches`` (fp32) or
+    `repro`'s cast points (``csrc/flash_attention_bwd_bf16.cu``). One
+    call launches the kernels of `backward_plan` (the row sums D =
+    rowsum(dout * out); fp32: dk and dv with scale dS to a scratch and dq
+    from it, once per slab of keys; bf16: dk and dv, then dq with S and
+    dP recomputed; then the sum of the head splits where there are
+    several) and adds one to ``flash_attention_bwd.launches`` (fp32) or
     ``flash_attention_bwd_bf16.launches`` (bf16). The scratch
     (`BackwardPlan.scratch_bytes`) lives for the call."""
     B, Sq, Sk, Hq, Hkv, hd = _check(q, k, v, window)
@@ -474,12 +487,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = backward_plan(B, Sq, Sk, Hq, Hkv, hd, _meta.target_sms() if meta
                          else _sm_count(q.device.index), q.element_size())
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    ds = torch.empty(plan.scratch["ds"], dtype=torch.float32,
-                     device=q.device)
-    part, dq32 = (torch.empty(plan.scratch[name], dtype=torch.float32,
-                              device=q.device)
-                  if name in plan.scratch else None
-                  for name in ("part", "dq"))
+    library, symbol, argtypes, names = _BWD_ENTRIES[q.dtype]
+    scratch = [torch.empty(plan.scratch[name], dtype=torch.float32,
+                           device=q.device) if name in plan.scratch else None
+               for name in names]
     if meta:
         _meta.record("flash_attention_bwd", bwd_work(
             B, Sq, Sk, Hq, Hkv, hd, causal, window, q.element_size()),
@@ -487,16 +498,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     strides = _strides(q, k, v)
     launch = (ctypes.c_int * len(plan.launch))(*plan.launch)
-    library, symbol = _BWD_ENTRIES[q.dtype]
-    lib_fn = _build.entry(library, symbol, _BWD_ARGTYPES)
+    lib_fn = _build.entry(library, symbol, argtypes)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(library, lib_fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), ds.data_ptr(),
-        None if part is None else part.data_ptr(),
-        None if dq32 is None else dq32.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
-        ctypes.addressof(strides), int(causal),
+        dk.data_ptr(), dv.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch),
+        B, Sq, Sk, Hq, Hkv, hd, ctypes.addressof(strides), int(causal),
         0 if window is None else int(window), 1.0 / math.sqrt(hd),
         ctypes.addressof(launch), q.device.index, stream))
     if q.dtype == torch.bfloat16:
@@ -511,9 +520,10 @@ def flash_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool = True,
                              window: Optional[int] = None):
-    """`flash_attention_bwd` on bf16 inputs only (the library built with
-    FA_BWD_BF16), whose calls ``flash_attention_bwd_bf16.launches``
-    counts; any other dtype raises ``TypeError``."""
+    """`flash_attention_bwd` on bf16 inputs only (the library of
+    csrc/flash_attention_bwd_bf16.cu), whose calls
+    ``flash_attention_bwd_bf16.launches`` counts; any other dtype raises
+    ``TypeError``."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention_bwd_bf16: bf16 inputs, got "
                         f"{q.dtype}")

@@ -555,10 +555,10 @@ def test_flash_attention_backward_in_slabs_of_keys(cuda, monkeypatch, B, Sq,
 
 
 # K4's bf16 backward: the three main-path shapes (qwen3-0.6b's train
-# shape; whisper-medium's encoder, non-causal in 5 slabs of keys;
+# shape; whisper-medium's encoder, non-causal over 1,500 keys;
 # recurrentgemma-9b's, one KV head of 256 in 8 head splits, window 2,048),
 # then small cases of every mask (ragged, a window, Sq < Sk, Sq > Sk,
-# GQA 2 and 8, hd 16 to 224)
+# GQA 2 and 8, hd 16 to 224; hd 176's dK/dV column quarters uneven)
 K4_BWD_BF16_SHAPES = [(8, 512, 512, 16, 8, 128, True, None),
                       (8, 1500, 1500, 16, 16, 64, False, None),
                       (4, 512, 512, 16, 1, 256, True, 2048),

@@ -222,12 +222,15 @@ def test_kernel_source_is_registered_for_nvcc():
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert 'extern "C" int flash_attention_bwd_f32(' in src
     assert 'extern "C" const char* flash_attention_bwd_error_string(' in src
-    # the bf16 backward: the same source built with FA_BWD_BF16
+    # the bf16 backward: a source of its own, and the fp32 source builds
+    # one element type
+    assert "FA_BWD_BF16" not in src and "bfloat16" not in src
     assert _build.SOURCES["flash_attention_bwd_bf16"] == \
-        "flash_attention_bwd.cu"
-    assert _build.DEFINES["flash_attention_bwd_bf16"] == ("-DFA_BWD_BF16",)
+        "flash_attention_bwd_bf16.cu"
+    src = (_build.CSRC / "flash_attention_bwd_bf16.cu").read_text()
     assert 'extern "C" int flash_attention_bwd_bf16(' in src
     assert 'extern "C" const char* flash_attention_bwd_bf16_error_string(' \
         in src
+    assert "mma_bf16(" in src and "ldmatrix_x4_trans<" in src
     assert _build.library_path("flash_attention_bwd") != \
         _build.library_path("flash_attention_bwd_bf16")

@@ -544,6 +544,240 @@ def test_flash_attention_backward_plan_computes_the_gradients(
                                    atol=2e-5, msg=f"d{name}")
 
 
+# K4's bf16 backward (csrc/flash_attention_bwd_bf16.cu): the plan at
+# element size 2, and its passes at the kernels' cast points
+BF16 = 2
+#: CUDA's grid extents (x, y, z)
+GRID_MAX = (2 ** 31 - 1, 65535, 65535)
+#: each bf16 gradient against the plain version's as a share of its
+#: largest element: chip_smoke.py's K4_BWD_BF16_TOL, the card's tolerance
+K4_BWD_BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, "
+                         "keys", K4_BWD_PLANS)
+def test_flash_attention_bf16_backward_plan_covers_every_pair_once(
+        B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, keys):
+    """The bf16 plan is one pass over every key: (b) visits every visible
+    (key tile, query tile, head) once, each query head of a group in
+    exactly one split, and (c) every visible (query tile, key tile) of
+    every head once, in ascending key order; the grids lie within CUDA's
+    extents and the shared memory within a block's. (The fp32 scratch
+    budget, ``keys``, does not bind a plan that has no scratch.)"""
+    plan = k4.backward_plan(B, Sq, Sk, Hq, Hkv, hd, sms, BF16)
+    bk, T, rep = plan.block_keys, k4.QUERY_TILE, Hq // Hkv
+    assert plan.n_slabs == 1 and Sk <= plan.slab_keys < Sk + bk
+    assert rep % plan.splits == 0
+    assert max(plan.smem.values()) <= k4.MAX_SMEM
+    for grids in plan.grids.values():
+        for grid in grids:
+            assert all(0 < g <= m for g, m in zip(grid, GRID_MAX))
+    vis = _visible(Sq, Sk, causal, window)
+    want = {(qt, k0) for qt in range(plan.query_tiles)
+            for k0 in range(0, Sk, bk)
+            if vis[qt * T:(qt + 1) * T, k0:k0 + bk].any()}
+    (lo, dkdv, dq), = _k4_bwd_blocks(plan, B, Sq, Sk, Hq, Hkv, causal,
+                                     window)
+    visits, heads = {}, {}
+    for z, k0, hk, split, hs, pairs in dkdv:
+        for h in hs:
+            heads[(z, k0, h)] = heads.get((z, k0, h), 0) + 1
+        for h, qt in pairs:
+            visits[(z, h, qt, k0)] = visits.get((z, h, qt, k0), 0) + 1
+    assert set(heads) == {(z, k0, h) for z in range(B)
+                          for k0 in range(0, Sk, bk) for h in range(Hq)}
+    assert set(heads.values()) == {1} and set(visits.values()) == {1}
+    for z in range(B):
+        for h in range(Hq):
+            assert {(qt, k0) for (zz, hh, qt, k0) in visits
+                    if (zz, hh) == (z, h)} == want
+    seen = {}
+    for z, h, qt, tiles, add in dq:
+        assert not add and (z, h, qt) not in seen
+        seen[(z, h, qt)] = tiles
+    assert set(seen) == {(z, h, qt) for z in range(B) for h in range(Hq)
+                         for qt in range(plan.query_tiles)}
+    for (z, h, qt), tiles in seen.items():
+        assert tiles == sorted({k0 for q, k0 in want if q == qt})
+
+
+@pytest.mark.parametrize("hd", range(16, 257, 16))
+def test_flash_attention_bf16_backward_shared_memory_fits_every_head_size(
+        hd):
+    """(b) holds bf16 K and V tiles, two stages of Q and dO tiles with
+    their L and D, and the P^T, dS^T hi and dS^T lo exchange tiles (keys x
+    64 queries); (c) Q and dO tiles, two stages of K and V tiles and the dS
+    hi and lo exchange tiles (64 rows x keys); rows padded by 16 bytes:
+    both fit a block's shared memory at every head size; the key tiles
+    are the fp32 backward's (64 keys, 32 above hd 128)."""
+    dkdv, stages, dq = k4.backward_smem(hd, BF16)
+    bk, row = k4.backward_block_keys(hd), 2 * (hd + 8)
+    assert stages == 2
+    assert dkdv == 2 * bk * row + 2 * (2 * 64 * row + 2 * 64 * 4) + \
+        3 * bk * 2 * 72
+    assert dq == (2 * 64 + 4 * bk) * row + 2 * 64 * 2 * (bk + 8)
+    assert max(dkdv, dq) <= k4.MAX_SMEM
+    plan = k4.backward_plan(1, 100, 100, 2, 1, hd, 132, BF16)
+    assert (plan.block_keys, plan.stages) == (bk, 2)
+    assert plan.smem == {"dkdv": dkdv, "dq": dq}
+    assert plan.launch[4:6] == (dkdv, dq)
+    # the fp32 plan keeps its own
+    assert k4.backward_plan(1, 100, 100, 2, 1, hd, 132).smem == {
+        "dkdv": k4.backward_smem(hd)[0], "dq": k4.backward_smem(hd)[2]}
+
+
+def test_flash_attention_bf16_backward_plans_at_the_training_shapes():
+    """The three shapes of bf16 training's main path: qwen3-0.6b's and
+    whisper-medium's encoder run one split and no scratch at all (the
+    request is delta and the bf16 gradients: 33,816,576 bytes at qwen3's
+    shape, against 235,143,168 for the first bf16 design, which wrote scale
+    dS to a scratch between its passes); recurrentgemma-9b's
+    (hd 256, one KV head) 8 splits, 32-key tiles and the fp32 partials."""
+    p = k4.backward_plan(8, 512, 512, 16, 8, 128, 132, BF16)
+    assert (p.block_keys, p.splits, p.n_slabs, p.stages) == (64, 1, 1, 2)
+    assert p.grids == {"delta": ((8 * 512 * 16 // 4, 1, 1),),
+                       "dkdv": ((8, 8, 8),), "dq": ((16, 8, 8),),
+                       "reduce": ()}
+    assert p.scratch == {} and p.scratch_bytes() == 0
+    assert p.smem == {"dkdv": 133120, "dq": 122880}
+    grads = 2 * (8 * 512 * 16 * 128 + 2 * 8 * 512 * 8 * 128)
+    assert grads + 4 * 8 * 16 * 512 == 33816576
+    p = k4.backward_plan(8, 1500, 1500, 16, 16, 64, 132, BF16)
+    assert (p.block_keys, p.splits, p.slab_keys, p.n_slabs) == \
+        (64, 1, 1536, 1)
+    assert p.grids["dkdv"] == ((16, 8, 24),)
+    assert p.grids["dq"] == ((16, 8, 24),) and p.scratch == {}
+    p = k4.backward_plan(4, 512, 512, 16, 1, 256, 132, BF16)
+    assert (p.block_keys, p.splits, p.n_slabs) == (32, 8, 1)
+    assert p.grids["dkdv"] == ((8, 4, 16),) and p.grids["dq"] == (
+        (16, 4, 8),)
+    assert p.grids["reduce"] == ((512, 2, 1),)
+    assert p.scratch == {"part": (2, 8, 4, 512, 1, 256)}
+    assert p.scratch_bytes() == 33554432
+    assert p.smem == {"dkdv": 183808, "dq": 145408}
+
+
+def _round_bf16(x):
+    return x.bfloat16().float()
+
+
+def _split_bf16(x):
+    """(hi, lo): hi = bf16(x), lo = bf16(x - hi), as fp32."""
+    hi = _round_bf16(x)
+    return hi, _round_bf16(x - hi)
+
+
+def test_bf16_split_carries_sixteen_bits():
+    """hi + lo = x within 2^-17 |x| (normal fp32 values), so hi^T Q + lo^T
+    Q is the fp32 dS's product within 2^-16 of each term."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(100000) *
+                          np.exp(rng.uniform(-20, 20, 100000)))
+                         .astype(np.float32))
+    hi, lo = _split_bf16(x)
+    rest = (x.double() - hi.double() - lo.double()).abs()
+    assert (rest <= x.double().abs() * 2.0 ** -17).all()
+    assert ((x.double() - hi.double()).abs() > x.double().abs() *
+            2.0 ** -10).any()    # a bf16 dS alone would not do
+
+
+def _emulate_bwd_bf16(q, k, v, dout, causal, window, plan):
+    """dq, dk, dv (bf16) by the bf16 plan's passes, tile by tile, at the
+    kernels' cast points: the forward's bf16 out and fp32 L; D = rowsum
+    (dO o O) of the bf16 O; (b) per block, for each query head of its
+    split and each query tile of its band, in order: P = exp(scale S - L)
+    (fp32 sums of the bf16 products), dV += bf16(P)^T dO, dP = bf16(dO
+    V^T), dS = scale P (dP - D), dK += hi^T Q + lo^T Q (dS = hi + lo in
+    bf16), each block's sums in fp32, rounded to bf16 once or written as
+    a split's fp32 partial and summed in split order; (c) per (head, query
+    tile), its key tiles in ascending order: S, P, dP, dS again, dQ += hi
+    K + lo K, rounded once."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep, bk, T = Hq // Hkv, plan.block_keys, k4.QUERY_TILE
+    scale = 1.0 / np.sqrt(hd)
+    out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    vis = torch.from_numpy(_visible(Sq, Sk, causal, window))
+    s_all = torch.einsum("bqhd,bkhd->bhqk", qf,
+                         kf.repeat_interleave(rep, dim=2)) * scale
+    lse = torch.logsumexp(torch.where(vis, s_all, -1e30), dim=-1)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)
+    nq, nk = plan.query_tiles * T, -(-Sk // bk) * bk
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1]) +
+                                         t.shape[2:])], dim=1)
+    qp, gp, kp, vp = pad(qf, nq), pad(gf, nq), pad(kf, nk), pad(vf, nk)
+    lp = torch.cat([lse, lse.new_zeros(B, Hq, nq - Sq)], dim=2)
+    dp_ = torch.cat([delta, delta.new_zeros(B, Hq, nq - Sq)], dim=2)
+    visp = torch.zeros((nq, nk), dtype=torch.bool)
+    visp[:Sq, :Sk] = vis
+
+    def tile(z, h, qt, k0):
+        """P and the hi, lo of dS of one (query tile, key tile) pair."""
+        rows, keys = slice(qt * T, (qt + 1) * T), slice(k0, k0 + bk)
+        qt_, gt = qp[z, rows, h], gp[z, rows, h]
+        kt, vt = kp[z, keys, h // rep], vp[z, keys, h // rep]
+        p = torch.where(visp[rows, keys],
+                        torch.exp(qt_ @ kt.T * scale - lp[z, h, rows, None]),
+                        0.0)
+        ds = scale * p * (_round_bf16(gt @ vt.T) - dp_[z, h, rows, None])
+        return p, _split_bf16(ds)
+
+    (_, dkdv, dqb), = _k4_bwd_blocks(plan, B, Sq, Sk, Hq, Hkv, causal,
+                                     window)
+    part = torch.zeros((2, plan.splits, B, Sk, Hkv, hd))
+    for z, k0, hk, split, _, pairs in dkdv:
+        acc = torch.zeros((2, bk, hd))
+        for h, qt in pairs:
+            p, (hi, lo) = tile(z, h, qt, k0)
+            rows = slice(qt * T, (qt + 1) * T)
+            acc[0] += hi.T @ qp[z, rows, h] + lo.T @ qp[z, rows, h]
+            acc[1] += _round_bf16(p).T @ gp[z, rows, h]
+        n = min(bk, Sk - k0)
+        part[:, split, z, k0:k0 + n, hk] = acc[:, :n]
+    dk, dv = part[0, 0], part[1, 0]
+    for g in range(1, plan.splits):
+        dk, dv = dk + part[0, g], dv + part[1, g]
+    dq = torch.full((B, Sq, Hq, hd), float("nan"))
+    for z, h, qt, tiles, add in dqb:
+        acc = torch.zeros((T, hd))
+        for k0 in tiles:
+            _, (hi, lo) = tile(z, h, qt, k0)
+            kt = kp[z, k0:k0 + bk, h // rep]
+            acc += hi @ kt + lo @ kt
+        n = min(T, Sq - qt * T)
+        dq[z, qt * T:qt * T + n, h] = acc[:n]
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, "
+                         "keys", [c for c in K4_BWD_PLANS
+                                  if c[1] * c[2] * c[3] <= 200 * 200 * 4])
+def test_flash_attention_bf16_backward_passes_compute_the_gradients(
+        B, Sq, Sk, Hq, Hkv, hd, causal, window, sms, keys):
+    """The bf16 plan's passes at the kernels' cast points (the hi + lo
+    split of the fp32 dS included) give the plain version's bf16
+    gradients (`repro`'s autograd of its plain attention at bf16) within
+    the card's tolerance, and every dQ row is written."""
+    plan = k4.backward_plan(B, Sq, Sk, Hq, Hkv, hd, sms, BF16)
+    rng = np.random.default_rng(4)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32) * c).bfloat16() for s, c in (
+        ((B, Sq, Hq, hd), 0.5), ((B, Sk, Hkv, hd), 0.5),
+        ((B, Sk, Hkv, hd), 1.0), ((B, Sq, Hq, hd), 1.0)))
+    got = _emulate_bwd_bf16(q, k, v, dout, causal, window, plan)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == w.dtype == torch.bfloat16
+        assert not torch.isnan(g.float()).any(), f"d{name}"
+        scale = w.float().abs().max()
+        err = float(((g.float() - w.float()) / scale).abs().max())
+        assert err <= K4_BWD_BF16_TOL, f"d{name}: {err}"
+
+
 # K5 shapes (b, l, H, p, n, L, h0): the serve shape, eight chunks, one
 # ragged chunk (L 100), one tile (L 32), p 24 and n 4, p 128 with h0, a
 # chunk of 65 rows (a one-row second tile)

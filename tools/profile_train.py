@@ -1,6 +1,9 @@
 """Where the time of the port's training step goes on the card.
 
-Builds an arch at chip_smoke.py's train run's config in float32
+Builds an arch at chip_smoke.py's train run's config in float32, or in
+bf16 with ``--dtype bfloat16`` (qwen3-0.6b's then is chip_smoke.py's
+``TRAIN_BF16``: the whole config at bf16, `repro`'s default dtype, with
+AdamW's moments in fp32, as `launch.train.train` runs it)
 (``--arch qwen3-0.6b``, the default: ``TRAIN_ARGV``, batch 8, sequence
 512; ``--arch mamba2-370m``: ``TRAIN_SSM_ARGV``, the same batch and
 sequence; ``--arch internvl2-2b``: ``TRAIN_VLM``, whole, the same batch
@@ -15,21 +18,25 @@ and decoder alike), batch 8, sequence 448 after chip_smoke's 1,500
 seeded frames (``make_frames``)),
 runs two warm-up steps of `repro_torch.launch.train`'s step
 (`make_train_step` under AdamW and ``warmup_cosine``), then profiles one
-step under ``torch.profiler`` with its three phases marked (the loss's
-forward, the backward pass with its recompute, AdamW and the update of
-the weights) and prints one JSON line: the step's wall time (host clock,
-the card synchronised), each phase's host wall and device-kernel time
-(the backward's: the step's less the other two),
+step phase by phase (the loss's forward, the backward pass with its
+recompute, AdamW and the update of the weights), each phase under a
+``torch.profiler`` of its own and ending in a synchronize, and prints
+one JSON line: the step's wall time (the phases' host walls summed, the
+card synchronised after each), each phase's host wall and device-kernel
+time (the sum of its kernels', copies' and memsets' device times: a
+host-bound phase's range on the device would count its idle gaps too),
 the summed device-kernel time and the device's idle share, the kernel
 launches, the TOP kernels that take the most device time, and the
-port's kernels (K4's forward ``flash_attention_f32_kernel`` and its
-backward's ``flash_attention_bwd_*_kernel``; K5's ``ssd_*_kernel`` and
-its backward's ``ssd_bwd_*_kernel``; K6's ``rglru_scan_kernel`` and
+port's kernels (K4's forward ``flash_attention_f32_kernel`` or
+``flash_attention_bf16_kernel`` and its backward's
+``flash_attention_bwd_*_kernel``; K5's ``ssd_*_kernel`` and its
+backward's ``ssd_bwd_*_kernel``; K6's ``rglru_scan_kernel`` and
 ``rglru_scan_bwd_kernel``), each by name, and the device time split into
-the fp32 GEMMs (cuBLAS kernels, "gemm" in the name), the port's kernels
-and the rest.
+the GEMMs (cuBLAS kernels: "gemm" in the name, or "nvjet", its Hopper
+kernels of bf16 products), the port's kernels and the rest.
 
     python3 tools/profile_train.py [--arch ARCH] [--layers N]
+                                   [--dtype bfloat16]
 
 Needs a CUDA card; imports no JAX.
 """
@@ -48,7 +55,7 @@ sys.path.insert(0, str(ROOT))
 
 TOP = 10
 PHASES = ("forward", "backward", "optimizer")
-PORT_KERNELS = (r"\bflash_attention_f32_kernel\b",
+PORT_KERNELS = (r"\bflash_attention_(f32|bf16)_kernel\b",
                 r"\bflash_attention_bwd_[a-z]+_kernel\b",
                 r"\bssd_(bwd_)?[a-z]+_kernel\b",
                 r"\brglru_scan_(bwd_)?kernel\b")
@@ -57,7 +64,7 @@ PORT_KERNELS = (r"\bflash_attention_f32_kernel\b",
 def main():
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
     from repro_torch import prng
@@ -84,11 +91,17 @@ def main():
                          "qwen3-moe-30b-a3b or whisper-medium (its first N "
                          "layers, whisper's N encoder and N decoder "
                          "layers; default chip_smoke's)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the weights' and activations' dtype (bfloat16: "
+                         "qwen3-0.6b at chip_smoke's TRAIN_BF16)")
     args = ap.parse_args()
+    if args.dtype == "bfloat16":
+        cuts["qwen3-0.6b"] = chip_smoke.TRAIN_BF16
     if args.arch in cuts:
         cut = cuts[args.arch]
         cfg = get_config(args.arch).replace(
-            n_layers=args.layers or cut["n_layers"], dtype="float32")
+            n_layers=args.layers or cut["n_layers"], dtype=args.dtype)
         if cfg.family == "audio" and args.layers:
             cfg = cfg.replace(n_enc_layers=args.layers)
         B, S, steps = cut["batch"], cut["seq"], cut["steps"]
@@ -97,7 +110,7 @@ def main():
 
         def flag(name):
             return argv[argv.index(name) + 1]
-        cfg = get_config(flag("--arch")).replace(dtype="float32")
+        cfg = get_config(flag("--arch")).replace(dtype=args.dtype)
         B, S, steps = int(flag("--batch")), int(flag("--seq")), int(
             flag("--steps"))
     model = build_model(cfg, device="meta", loss_chunks=4)
@@ -107,7 +120,8 @@ def main():
     params = dict(model.named_parameters())
     optimizer = adamw(warmup_cosine(3e-4, 10, steps))
     state = optimizer.init(params)
-    walls = {}
+    walls, kernels_by_phase = {}, {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def step(idx, profiled=False):
         batch = {"tokens": corpus[torch.from_numpy(idx).cuda()]}
@@ -120,11 +134,17 @@ def main():
             if not profiled:
                 return fn()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with record_function(name):
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
                 out = fn()
                 torch.cuda.synchronize()
-            walls[name] = time.perf_counter() - t0
+                walls[name] = time.perf_counter() - t0
+            # device events: kernels, memsets and copies, by name
+            kernels_by_phase[name] = {
+                ev.key: (ev.self_device_time_total, ev.count)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and ev.self_device_time_total > 0}
             return out
         loss, _ = phase("forward", lambda: model.loss(batch))
         grads = phase("backward", lambda: torch.autograd.grad(
@@ -136,7 +156,7 @@ def main():
                                               state, params)
             with torch.no_grad():
                 for k, p in params.items():
-                    p.add_(updates[k])
+                    p.add_(updates[k].to(p.dtype))
         phase("optimizer", update)
         return loss
 
@@ -146,26 +166,19 @@ def main():
     for idx in rows[:2]:
         step(idx)
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step(rows[2], profiled=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    step(rows[2], profiled=True)
+    wall = sum(walls.values())
 
-    # device events: the kernels (and memsets, copies), and each phase's
-    # range as the profiler marks it on the device (a user annotation
-    # spanning the kernels its thread launched: the backward pass runs
-    # on autograd's device thread, so it has none; it is the rest)
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA
-              and ev.self_device_time_total > 0]
-    kernels = sorted((ev.self_device_time_total, ev.key, ev.count)
-                     for ev in events if ev.key not in PHASES)[::-1]
+    merged = {}
+    for by_name in kernels_by_phase.values():
+        for key, (us, n) in by_name.items():
+            t, c = merged.get(key, (0, 0))
+            merged[key] = (t + us, c + n)
+    kernels = sorted(((us, key, n) for key, (us, n) in merged.items()),
+                     reverse=True)
     device_s = sum(r[0] for r in kernels) / 1e6
-    ranges = {ev.key: ev.self_device_time_total / 1e6 for ev in events
-              if ev.key in ("forward", "optimizer")}
-    ranges["backward"] = device_s - sum(ranges.values())
+    ranges = {p: sum(us for us, _ in kernels_by_phase[p].values()) / 1e6
+              for p in PHASES}
     smi = chip_smoke.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -173,14 +186,16 @@ def main():
 
     port_s = sum(r[0] for r in kernels if any(
         re.search(p, r[1]) for p in PORT_KERNELS)) / 1e6
-    gemm_s = sum(r[0] for r in kernels if re.search(r"gemm", r[1])) / 1e6
+    gemm_s = sum(r[0] for r in kernels
+                 if re.search(r"gemm|nvjet", r[1])) / 1e6
 
     def rec(us, k, n):
         return {"name": k[:90], "device_ms": us / 1e3, "calls": n,
                 "share_of_device": us / 1e6 / device_s}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S,
+        "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "batch": B, "seq": S,
         "vision_positions": batch_vision,
         "frames": 0 if frames is None else frames.shape[1],
         "remat": model.remat,
