@@ -72,7 +72,13 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    ``no_transfer`` fence, each of `transfer_probes` inside the
    fence (raising where `TRANSFER_FENCED` says) and inside
    ``allow_transfers`` (passing), and the `donation_report` of the
-   full-width dense `dpfl_round_step`; the dense run's best
+   full-width dense `dpfl_round_step` (every donatable leaf in place);
+   the donation phase: the dense run with the round step's donation off
+   and on, bit for bit, each one's peak of allocated memory and report;
+   the paper's §4.5 label-flip run (Fig. 4: LABEL_FLIP_DATA, 3 of 8
+   clients malicious) on the card (K1 on its path) and on the CPU, each
+   last graph segregating benign from malicious clients; the dense
+   run's best
    models through the port's `CheckpointManager` and back bit for bit;
    then the eleven Table-1 baselines, and FedAvg under markov outages
    with the top-k codec, through `repro_torch.fl.baselines.run_baseline`
@@ -160,7 +166,9 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    clients (LM_DPFL_FULL), each with the counts zeroed just before and
    read just after (K4 once a layer per vmapped call, its backward once
    a layer per local step, K1 as in the dense run: `lm_dpfl_launches`),
-   every round under the no-sync fence; and
+   every round under the no-sync fence, and the full-width run again
+   with a round step that does not donate (its peak beside the donating
+   run's; the same graphs and accuracies); and
    `examples/serve_personalized_torch.py` on the whole published
    qwen3-0.6b (PERSONALIZED_RUN: 3 clients' weights, 4 requests of 512
    tokens, 32 new; 28 K4 launches in the prefill, 0 in decode), each
@@ -298,6 +306,14 @@ LEARN_REF = {"dense": 0.8583984375, "sparse": 0.8583984375,
              "fedrep": 0.3798828125, "knnper": 0.48828125,
              "pfedgraph": 0.4453125, "fedavg-markov-topk": 0.16650390625}
 LEARN_MARGIN = 0.1
+# The paper's §4.5 label-flip run (Fig. 4; tests/test_fl_e2e.py's
+# segregation claim): `make_label_flip_data` with 3 of 8 clients under one
+# label permutation, MLP(16, 32, 10), lr 0.05, batch 8, and its DPFLConfig.
+LABEL_FLIP_DATA = dict(seed=0, n_clients=8, n_malicious=3, feature_dim=16,
+                       n_train=24, n_val=24, n_test=24, noise=0.5)
+LABEL_FLIP_MLP = (16, 32, 10)
+LABEL_FLIP_ENGINE = dict(lr=0.05, batch_size=8)
+LABEL_FLIP_RUN = dict(rounds=6, tau_init=3, tau_train=3, budget=5, seed=0)
 # The sharded phase: the main path's width (SMOKE_DATA, SMOKE_RUN) on
 # client meshes (pods, ranks a pod) of processes sharing the card, gloo
 # between them. Runs: the random-graph dense run (no greedy decision, so
@@ -843,6 +859,11 @@ K4_VMAP_CASES = (("lm-dpfl", 4, 8, 32, 16, 8, 128),
 # token ids: its bigram tables are vocab^2 entries (369 GB at the model's
 # vocabulary)
 LM_DPFL_FULL = dict(arch="qwen3-0.6b", n_layers=2, clients=4)
+# The lm-dpfl full-width run's peak of allocated memory with a round step
+# that allocated its outputs (no donation), as kept in PERF.md §5 (NVIDIA
+# H100 80GB HBM3): printed beside this run's, with the plain step's
+# peak measured in the same run.
+LM_DPFL_FULL_PLAIN_PEAK_GB = 70.7
 # personalized serving on the whole published qwen3-0.6b (28 layers,
 # float32): the example's 3 clients (weights drawn from split(PRNGKey(0),
 # 3)) and its 4 requests' clients, each request a 512-token prompt drawn
@@ -2623,12 +2644,148 @@ def run_guards(torch, engine, dense_counts):
     del state
     if rep["blocked"]:
         fail(f"guards: round-state leaves not donatable: {rep['blocked']}")
+    if rep["in_place"] != rep["donatable"]:
+        fail(f"guards: the donating round left donatable leaves out of "
+             f"place: {sorted(set(rep['donatable']) - set(rep['in_place']))}")
     print(f"guards: donation_report of the dense dpfl_round_step at "
           f"PaperCNN width (N {SMOKE_DATA['n_clients']}, P "
           f"{engine.n_params}): donatable {rep['donatable']} "
           f"({rep['donatable_bytes']} bytes), blocked {rep['blocked']}, "
           f"in place {rep['in_place']}")
     return counts
+
+
+@contextlib.contextmanager
+def plain_round_steps():
+    """Inside the block `run_dpfl` runs a round step that does not donate
+    (`dpfl_round_step(donate=False)`: it allocates its outputs)."""
+    from repro_torch.core import dpfl
+
+    real = dpfl.dpfl_round_step
+    dpfl.dpfl_round_step = functools.partial(real, donate=False)
+    try:
+        yield
+    finally:
+        dpfl.dpfl_round_step = real
+
+
+DONATION_ORDER = ("plain", "donating", "donating", "plain")
+
+
+def run_donation(torch, engine, dense_counts):
+    """The donation phase at full PaperCNN width: the dense run of
+    VARIANTS with the round step's donation off and on (`run_dpfl`'s
+    default) in turns (DONATION_ORDER), each with the counts zeroed just
+    before and read just after (the dense run's launches), its peak of
+    allocated memory from a `reset_peak_memory_stats`, the memory
+    allocated when it starts and the bytes the allocator hands out during
+    it; all four bit for bit (best models, Omega, every graph, the
+    counters, the accuracies); and the `donation_report` of each step
+    from the dense initial state (the donating step's in place list
+    holding every donatable leaf). Returns {label: launches}."""
+    from repro_torch.analysis import guards
+    from repro_torch.core import dpfl
+
+    def handed_out():
+        return torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+
+    runs = []
+    for label in DONATION_ORDER:
+        ctx = plain_round_steps() if label == "plain" else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        base, before = torch.cuda.memory_allocated(), handed_out()
+        with ctx:
+            res, cfg, counts, seconds, peak = run_main_path(torch, engine,
+                                                            "dense")
+        if counts != dense_counts:
+            fail(f"donation: the {label} dense run launched {counts}, the "
+                 f"first dense run {dense_counts}")
+        if runs and not _same_run(runs[0][1], res):
+            fail(f"donation: dense run {len(runs)} ({label}) differs from "
+                 f"run 0 ({runs[0][0]})")
+        runs.append((label, res, counts, seconds, base, peak,
+                     handed_out() - before))
+    state, _ = dpfl.dpfl_initial_state(engine, cfg)
+    reps = {label: guards.donation_report(
+        dpfl.dpfl_round_step(engine, cfg, donate=label == "donating"),
+        state) for label in ("plain", "donating")}
+    del state
+    if reps["donating"]["in_place"] != reps["donating"]["donatable"] or \
+            reps["donating"]["blocked"]:
+        fail(f"donation: the donating step's report {reps['donating']}")
+    for label in ("plain", "donating"):
+        print(f"donation: donation_report of the {label} dense round step: "
+              f"in place {reps[label]['in_place']} of donatable "
+              f"{reps[label]['donatable']} "
+              f"({reps[label]['donatable_bytes']} bytes), blocked "
+              f"{reps[label]['blocked']}")
+    for i, (label, res, counts, seconds, base, peak, nbytes) in \
+            enumerate(runs):
+        print(f"donation: dense run {i} at PaperCNN width (N "
+              f"{SMOKE_DATA['n_clients']}, P {engine.n_params}, "
+              f"{cfg.rounds} rounds), round step {label}: {seconds:.3f} s "
+              f"wall, allocated at its start {base} bytes, "
+              f"max_memory_allocated {peak} after reset_peak_memory_stats "
+              f"({peak - base} above its start), {nbytes} bytes handed out "
+              f"by the allocator during the run; launches "
+              f"{_nonzero(counts)}")
+    print(f"donation: the {len(runs)} dense runs ({', '.join(DONATION_ORDER)}"
+          f") bit for bit (best_flat, Omega, "
+          f"{len(runs[0][1].graph_history)} graphs, comm counters, test and "
+          f"val accuracies); {SMI}")
+    return {f"{label} {i}": counts
+            for i, (label, _, counts, *_) in enumerate(runs)}
+
+
+def run_label_flip(torch):
+    """Fig. 4's label-flip run (LABEL_FLIP_DATA, LABEL_FLIP_MLP,
+    LABEL_FLIP_RUN: tests/test_fl_e2e.py::test_label_flip_segregation)
+    through `run_dpfl` on the card, with the counts zeroed just before
+    and read just after (K1: ceil(N/B) BGGC batches, the preprocessing
+    mix, and each round's greedy init and mix), and on the CPU. Each
+    run's last graph must segregate: its benign-to-benign edge rate above
+    its benign-to-malicious one. The two graphs need not be equal (the
+    greedy's coin flips amplify ulps). Returns {device: (result, edge
+    rates (within, cross))}, the card's launches and the benign mask."""
+    import numpy as np
+
+    from repro_torch.core.dpfl import DPFLConfig, run_dpfl
+    from repro_torch.data import make_label_flip_data
+    from repro_torch.fl.engine import FLEngine
+    from repro_torch.models.classifier import MLP
+
+    data = make_label_flip_data(**LABEL_FLIP_DATA)
+    cfg = DPFLConfig(**LABEL_FLIP_RUN)
+    benign = data.cluster == 0
+    N, B = data.n_clients, cfg.budget
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = FLEngine(MLP(*LABEL_FLIP_MLP), data, device=dev,
+                          **LABEL_FLIP_ENGINE)
+        _zero_launches()
+        res = run_dpfl(engine, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _read_launches()
+        adj = res.graph_history[-1].astype(float)
+        cross = adj[np.ix_(benign, ~benign)].mean()
+        within = (adj[np.ix_(benign, benign)].sum() - benign.sum()) / \
+            (benign.sum() * (benign.sum() - 1))
+        if not within > cross:
+            fail(f"label flip on {dev}: benign-to-benign edge rate "
+                 f"{within:.4f} not above benign-to-malicious {cross:.4f}; "
+                 f"last graph {res.graph_history[-1].astype(int).tolist()}")
+        if not np.isfinite(res.test_acc).all() or \
+                len(res.graph_history) != cfg.rounds:
+            fail(f"label flip on {dev}: test acc {res.test_acc}, "
+                 f"{len(res.graph_history)} graphs")
+        out[dev] = (res, (within, cross))
+    want = {name: 0 for name in _kernel_modules()}
+    want["graph_mix"] = math.ceil(N / B) + 1 + 2 * cfg.rounds
+    if launches != want:
+        fail(f"label flip: launches {launches}, expected {want}")
+    return out, launches, benign
 
 
 def check_serve_guards(torch, cfg, model, params, gen):
@@ -3862,9 +4019,14 @@ def run_lm_dpfl(torch, cfg, n_clients, device):
     the fence fails), each local step's (N,) losses and each greedy
     decision's |u - a/(a+b)| recorded, and on the card the device spans
     (CUDA events, read after the run) of the local steps, the greedy's
-    decision steps and their reward calls. Returns a dict of the run."""
+    decision steps and their reward calls, the memory allocated when the
+    run starts ("base") and the peak of allocated memory before the first
+    round, in each round and after the last ("segments", the allocator's
+    statistics read and reset between rounds, where no kernel waits).
+    Returns a dict of the run."""
     import lm_dpfl_torch as ex
 
+    from repro_torch.analysis.guards import allow_transfers
     from repro_torch.core import DPFLConfig, dpfl, graph
 
     engine, cluster_of = ex.lm_engine(cfg, n_clients, device)
@@ -3892,12 +4054,29 @@ def run_lm_dpfl(torch, cfg, n_clients, device):
             return round_step(st)
         return run_rounds(step, state, rounds, **kw)
 
-    dpfl.run_rounds = fenced_run_rounds
+    segments = []
+
+    def segment():
+        # the peak since the last reset, then a new segment
+        if device == "cuda":
+            with allow_transfers():
+                segments.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+
+    def segmented_run_rounds(round_step, state, rounds, **kw):
+        def step(st):
+            segment()
+            return round_step(st)
+        return fenced_run_rounds(step, state, rounds, **kw)
+
+    dpfl.run_rounds = segmented_run_rounds
     margins, undo = _greedy_margins(torch, graph, spans)
     try:
+        base = 0
         if device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         _zero_launches()
         t0 = time.perf_counter()
         res = dpfl.run_dpfl(engine, run)
@@ -3905,6 +4084,7 @@ def run_lm_dpfl(torch, cfg, n_clients, device):
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _read_launches()
+        segment()
     finally:
         dpfl.run_rounds = run_rounds
         undo()
@@ -3918,7 +4098,7 @@ def run_lm_dpfl(torch, cfg, n_clients, device):
         want=lm_dpfl_launches(cfg.n_layers, n_clients, nb, run),
         losses=torch.stack(losses).cpu(),
         margin=torch.cat(margins).min().item(),
-        peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
+        peak=max(segments, default=0), base=base, segments=segments,
         span_ms={k: _span_ms(v) for k, v in spans.items() if v is not None})
 
 
@@ -4004,6 +4184,41 @@ def check_lm_dpfl_full(torch):
     if not np.isfinite(res.test_acc).all():
         fail(f"lm-dpfl {cfg.name}: test accuracies {res.test_acc}")
     return out
+
+
+def check_lm_dpfl_turns(torch, full):
+    """lm-dpfl at LM_DPFL_FULL again after the donating run ``full``
+    (`check_lm_dpfl_full`), with a round step that does not donate
+    (`plain_round_steps`): its launches, Omega, every graph and test
+    accuracies ``full``'s. Each run's peaks before its first round and in
+    each round show where donation moves the peak (a plain round keeps
+    the caller's round-start state beside its own output from round 1
+    on). Returns [(label, run)] of the two runs in order
+    (`run_lm_dpfl`)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    c = LM_DPFL_FULL
+    cfg = get_config(c["arch"]).replace(n_layers=c["n_layers"],
+                                        dtype="float32")
+    turns = [("donating", full)]
+    for label in ("plain",):
+        ctx = plain_round_steps() if label == "plain" else \
+            contextlib.nullcontext()
+        with ctx:
+            out = run_lm_dpfl(torch, cfg, c["clients"], "cuda")
+        a, b = full["res"], out["res"]
+        if out["launches"] != full["launches"] or \
+                not np.array_equal(a.omega, b.omega) or \
+                not all(np.array_equal(x, y) for x, y in
+                        zip(a.graph_history, b.graph_history)) \
+                or not np.array_equal(a.test_acc, b.test_acc):
+            fail(f"lm-dpfl {cfg.name}: run {len(turns)} ({label}; launches "
+                 f"{out['launches']}, test acc {b.test_acc}) differs from "
+                 f"the first ({full['launches']}, {a.test_acc})")
+        turns.append((label, out))
+    return turns
 
 
 def run_personalized(torch):
@@ -5032,6 +5247,29 @@ def main():
     launches["guards dense (warm)"] = run_guards(torch, engine,
                                                  launches["dense"])
     print(f"guards phase: {time.perf_counter() - t0:.3f} s; {SMI}")
+    t0 = time.perf_counter()
+    for label, counts in run_donation(torch, engine,
+                                      launches["dense"]).items():
+        launches[f"donation dense ({label})"] = counts
+    flip, launches["label flip"], benign = run_label_flip(torch)
+    for dev, (res, (within, cross)) in flip.items():
+        print(f"label flip (Fig. 4) on {dev}: {LABEL_FLIP_DATA['n_clients']} "
+              f"clients, malicious {np.flatnonzero(~benign).tolist()}, "
+              f"{LABEL_FLIP_RUN}: last graph "
+              f"{res.graph_history[-1].astype(int).tolist()}; benign-to-"
+              f"benign edge rate {within:.4f} above benign-to-malicious "
+              f"{cross:.4f}; Omega {res.omega.astype(int).tolist()}; mean "
+              f"test acc {float(res.test_acc.mean()):.4f}"
+              + (f"; launches {_nonzero(launches['label flip'])}"
+                 if dev == "cuda" else ""))
+    same = all(np.array_equal(a, b) for a, b in zip(
+        flip["cuda"][0].graph_history, flip["cpu"][0].graph_history))
+    print(f"label flip: the card's and the CPU's graphs "
+          f"{'the same in every round' if same else 'differ'} (not "
+          f"required: the greedy's coin flips amplify ulps)")
+    del flip
+    print(f"donation and label-flip phase: {time.perf_counter() - t0:.3f} "
+          f"s; {SMI}")
     nbytes = check_checkpoint(torch, engine, dense_res)
     print(f"checkpoint: the dense run's best models ({engine.n_params} "
           f"parameters x {SMOKE_DATA['n_clients']} clients) through "
@@ -5203,7 +5441,19 @@ def main():
           f"|u - a/(a+b)| {full['margin']:.3g}; every round under the "
           f"no-sync fence; device spans (ms, CUDA events): " + ", ".join(
               f"{k} {v:.3f}" for k, v in full["span_ms"].items()))
-    del full
+    for i, (label, run) in enumerate(check_lm_dpfl_turns(torch, full)):
+        if i:
+            launches[f"lm-dpfl full width ({label} {i})"] = run["launches"]
+        print(f"lm-dpfl {LM_DPFL_FULL} run {i}, round step {label}: "
+              f"{run['seconds']:.3f} s wall; allocated at its start "
+              f"{run['base']} bytes, peak {run['peak']} ("
+              f"{run['peak'] - run['base']} above its start; "
+              f"{LM_DPFL_FULL_PLAIN_PEAK_GB} GB kept in PERF.md from before "
+              f"the round steps donated); peaks before the first round, in "
+              f"rounds 0-{len(run['segments']) - 3} and in the last round "
+              f"with the results {run['segments']}; Omega, graphs and test "
+              f"acc run 0's; {SMI}")
+    del full, run
     torch.cuda.empty_cache()
     pers = run_personalized(torch)
     launches["serve personalized"] = pers["launches"]
@@ -5262,11 +5512,11 @@ def main():
         check=True, timeout=60).stdout.strip())
 
     # ---- 6. results: launches summed over the main-path runs (the eight
-    # DPFL runs, the twelve baseline runs, the eight sharded runs summed
-    # over their ranks, the six serve runs, the six
-    # train runs, the card sides of the six cross train runs, the DPFL
-    # mix, the two lm-dpfl runs on the card and the personalized serve),
-    # with each run's counts beside them
+    # DPFL runs, the guards, donation and label-flip runs, the twelve
+    # baseline runs, the sharded runs summed over their ranks, the serve
+    # runs, the train runs, the card sides of the cross train runs, the
+    # DPFL mix, the three lm-dpfl runs on the card and the personalized
+    # serve), with each run's counts beside them
     def total(kname):
         return sum(c.get(kname, 0) for c in launches.values())
 

@@ -20,7 +20,8 @@ _GUARD_EXPORTS = (
     "no_transfer", "allow_transfers", "recompile_sentinel",
     "RecompileError", "TransferError", "donation_report",
 )
-_REGISTRY_EXPORTS = ("exchange_site", "EXCHANGE_SITES", "ExchangeSite")
+_REGISTRY_EXPORTS = ("exchange_site", "is_exchange_site", "EXCHANGE_SITES",
+                     "ExchangeSite")
 
 __all__ = (["registry", "guards", "commaudit"] + list(_GUARD_EXPORTS)
            + list(_REGISTRY_EXPORTS))

@@ -22,7 +22,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
-__all__ = ["ExchangeSite", "EXCHANGE_SITES", "exchange_site"]
+__all__ = ["ExchangeSite", "EXCHANGE_SITES", "exchange_site",
+           "is_exchange_site"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,8 @@ class ExchangeSite:
 
 
 #: module.qualname -> ExchangeSite, filled at import time by the decorator
+#: (`repro_torch.fl.round_engine.make_round_step` warns when an aggregate
+#: is neither registered nor reaches a registered function)
 EXCHANGE_SITES: Dict[str, ExchangeSite] = {}
 
 
@@ -56,3 +59,8 @@ def exchange_site(fn=None, *, charges: Optional[str] = None):
     if fn is None:
         return register
     return register(fn)
+
+
+def is_exchange_site(fn) -> bool:
+    """True iff ``fn`` carries the ``@exchange_site`` tag."""
+    return getattr(fn, "__exchange_site__", None) is not None

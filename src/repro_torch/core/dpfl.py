@@ -64,8 +64,7 @@ from ..fl import robust as _robust
 from ..fl.adversary import AdversaryConfig
 from ..fl.engine import FLEngine
 from ..fl.robust import MIX_RULES
-from ..fl.round_engine import (init_round_state, make_round_step,
-                               round_state_shardings, run_rounds)
+from ..fl.round_engine import init_round_state, make_round_step, run_rounds
 from ..kernels import ops as _kops
 from ..sharding import collectives as _coll
 from ..sharding.rows import eye_rows
@@ -591,12 +590,15 @@ def _dpfl_aux_specs(hist_len: int, participation: bool = False,
     return specs
 
 
-def dpfl_round_step(engine: FLEngine, cfg: DPFLConfig):
+def dpfl_round_step(engine: FLEngine, cfg: DPFLConfig, *,
+                    donate: bool = True):
     """The DPFL ``round_step`` for (engine, cfg): the exact function
     `run_dpfl` dispatches each round (`repro.core.dpfl.dpfl_round_step`),
     public so the audit and the donation report run the round itself,
-    never a copy of it. Built anew on each call: the port compiles
-    nothing, so there is nothing to memoize on the engine."""
+    never a copy of it. It donates the state, as `repro`'s does
+    (``donate=False`` gives the same bits from a step that allocates its
+    outputs). Built anew on each call: the port compiles nothing, so
+    there is nothing to memoize on the engine."""
     _check_ported(cfg)
     budget = _budget(cfg, engine.data.n_clients)
     hist_len = _hist_len(cfg)
@@ -611,9 +613,14 @@ def dpfl_round_step(engine: FLEngine, cfg: DPFLConfig):
                      if adv is not None else None),
         post_train=(_adversary.make_post_train(adv, engine.rows)
                     if adv is not None else None),
+        hist_len=hist_len,
+        aux_specs=_dpfl_aux_specs(
+            hist_len, cfg.participation is not None,
+            _compress.normalize(cfg.compression), _sparse(cfg),
+            adv is not None),
         participation_key=("part" if cfg.participation is not None
                            else None),
-        hist_len=hist_len)
+        donate=donate)
 
 
 def dpfl_initial_state(engine: FLEngine, cfg: DPFLConfig):
@@ -707,9 +714,7 @@ def run_dpfl(engine: FLEngine, cfg: DPFLConfig) -> DPFLResult:
     hist_len = _hist_len(cfg)
     round_step = dpfl_round_step(engine, cfg)
     # the client axis of each leaf: what the flushes and the end gather
-    spec = round_state_shardings(hist_len=hist_len, aux_specs=_dpfl_aux_specs(
-        hist_len, "part" in state.aux, _compress.normalize(cfg.compression),
-        sparse, cfg.adversary is not None))
+    spec = round_step.shardings
     g_key = "omega_nbr" if sparse else "omega"
 
     def flush_histories(st, k):

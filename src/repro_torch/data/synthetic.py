@@ -1,11 +1,13 @@
 """Synthetic heterogeneous federated datasets (numpy).
 
 A copy of `repro.data.synthetic`'s ``FederatedData``,
-``make_federated_classification`` and ``make_lm_token_data``: clients in
-``n_clusters`` hidden clusters, each cluster with its own class-
-conditional Gaussian prototypes, and label skew from a Dirichlet,
-pathological or iid split; and per-cluster bigram token corpora for
-LM training (`repro_torch.launch.train`).
+``make_federated_classification``, ``make_label_flip_data`` and
+``make_lm_token_data``: clients in ``n_clusters`` hidden clusters, each
+cluster with its own class-conditional Gaussian prototypes, and label
+skew from a Dirichlet, pathological or iid split; the paper's §4.5
+label-flip data (malicious clients under one label permutation); and
+per-cluster bigram token corpora for LM training
+(`repro_torch.launch.train`).
 The same seed gives the same arrays in both packages (tested), so the
 port and the reference train on identical data.
 """
@@ -152,6 +154,41 @@ def make_federated_classification(
         tr = (tr_x, tr_y)
         p = sizes.astype(float) / sizes.sum()
     return FederatedData(*tr, *va, *te, p=p, cluster=cluster_of,
+                         n_classes=n_classes)
+
+
+def make_label_flip_data(seed: int = 0, n_clients: int = 10,
+                         n_malicious: int = 4, n_classes: int = 10,
+                         feature_dim: int = 32, **kw) -> FederatedData:
+    """Paper §4.5's label-flip data: ``n_malicious`` clients, drawn at
+    random, see every label through one fixed derangement of the classes;
+    all clients share one set of class prototypes (iid labels, one
+    cluster of features). ``cluster`` is 1 for the malicious clients and
+    0 for the benign ones. `repro.data.make_label_flip_data`'s code: the
+    same seed gives the same arrays."""
+    rng = np.random.default_rng(seed)
+    shape = (feature_dim,)
+    protos = rng.normal(0, 1.0, size=(1, n_classes) + shape)
+    cluster_of = np.zeros(n_clients, int)
+    dists = _class_dists(rng, n_clients, n_classes, "iid", 0.0, 0)
+    perm = rng.permutation(n_classes)
+    while np.any(perm == np.arange(n_classes)):
+        perm = rng.permutation(n_classes)
+    mal = rng.choice(n_clients, n_malicious, replace=False)
+    label_perm = [perm if i in mal else None for i in range(n_clients)]
+    kw.setdefault("n_train", 64)
+    kw.setdefault("n_val", 32)
+    kw.setdefault("n_test", 32)
+    kw.setdefault("noise", 0.5)
+    tr = _sample_split(rng, dists, protos, cluster_of, kw["n_train"],
+                       kw["noise"], shape, label_perm)
+    va = _sample_split(rng, dists, protos, cluster_of, kw["n_val"],
+                       kw["noise"], shape, label_perm)
+    te = _sample_split(rng, dists, protos, cluster_of, kw["n_test"],
+                       kw["noise"], shape, label_perm)
+    cluster = np.array([1 if i in mal else 0 for i in range(n_clients)])
+    p = np.full(n_clients, 1.0 / n_clients)
+    return FederatedData(*tr, *va, *te, p=p, cluster=cluster,
                          n_classes=n_classes)
 
 

@@ -10,12 +10,13 @@ fences the rounds with `repro_torch.analysis.guards.no_transfer`, so no
 round makes a device-to-host sync. From the same seed every method draws `repro`'s
 init and `repro`'s keys (`prng` is bitwise ``jax.random``).
 
-Two arguments of `repro`'s ``_loop`` are not here. ``cache_key``
+One argument of `repro`'s ``_loop`` is not here: ``cache_key``
 memoizes `repro`'s jitted round step on the engine; the port compiles
-nothing, so there is nothing to keep. ``aux_specs`` places the aux
-leaves on a client mesh: here every client-stacked aux tensor is built
-from the engine's rows (APFL's and Ditto's personal models from the
-round-start panel, the residuals), and the schedules are whole.
+nothing, so there is nothing to keep. ``aux_specs`` names the
+client-stacked aux leaves (APFL's and Ditto's personal models and the
+residuals, built from the engine's rows); the schedules and keys are
+whole on every rank. Every round step donates the state (as `repro`'s):
+a round writes the new models into the old ones' storage.
 
 Every method runs on an engine sharded over a client mesh
 (`FLEngine.shard_clients`): a rank trains and evaluates its rows, and
@@ -81,14 +82,16 @@ def _finish(engine, best_flat):
 
 
 def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
-          eval_flat=None, make_aux=None, participation=None,
+          eval_flat=None, make_aux=None, aux_specs=None, participation=None,
           compression=None):
     """Generic round loop: local train -> aggregate -> track best-val.
 
     ``aggregate(flat, aux, t) -> (flat, aux)`` is the round's exchange
     (None: local training only); ``make_aux(flat0, key)`` builds the side
     state it carries; ``eval_flat(flat, aux)`` picks the validated and
-    kept model. ``participation`` puts the seeded (rounds, N) schedule in
+    kept model; ``aux_specs`` marks the client-stacked leaves of
+    ``make_aux``'s dict (axis 0; every other leaf is whole).
+    ``participation`` puts the seeded (rounds, N) schedule in
     ``aux["part"]``: absent clients hold their params and ``aggregate``
     reads the same row. ``compression`` carries the codec's key
     (``fold_in(key, 977)``) and residuals and calls ``aggregate(flat, aux,
@@ -98,6 +101,7 @@ def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
     key = prng.PRNGKey(seed, device=dev)
     flat0 = engine.flatten(engine.init_clients(key))
     aux = make_aux(flat0, key) if make_aux is not None else {}
+    aux_specs = dict(aux_specs or {})
     part_key = None
     if participation is not None:
         sched = schedule_for_data(participation, rounds, engine.data)
@@ -108,6 +112,7 @@ def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
         aux = dict(aux, k_comp=prng.fold_in(key, 977))
         if _compress.uses_ef(comp):
             aux = dict(aux, ef=torch.zeros_like(flat0))
+            aux_specs["ef"] = 0
         base_agg = aggregate
 
         def aggregate(flat, aux, t):  # noqa: F811 (the compressed wrap)
@@ -123,12 +128,10 @@ def _loop(engine, rounds, tau, seed, aggregate, *, local_train=None,
                     new_ef = torch.where(a[:, None], new_ef, aux["ef"])
                 aux2 = dict(aux2, ef=new_ef)
             return out, aux2
-    agg = None if aggregate is None else \
-        (lambda flat, aux, t, prev: aggregate(flat, aux, t))
-    round_step = make_round_step(engine, tau=tau, aggregate=agg,
+    round_step = make_round_step(engine, tau=tau, aggregate=aggregate,
                                  local_train=local_train,
-                                 eval_flat=eval_flat,
-                                 participation_key=part_key)
+                                 eval_flat=eval_flat, aux_specs=aux_specs,
+                                 participation_key=part_key, donate=True)
     state = run_rounds(round_step, init_round_state(flat0, key, aux=aux),
                        rounds)
     return state.best_flat, engine.unflatten(state.flat), state.aux
@@ -194,11 +197,10 @@ def _prox_train(engine, lam):
     """Local train whose every step adds (lam/2)||w - w_ref||^2 to the
     loss, w_ref the client's round-start params (or ``ref_flat``): the
     engine's own minibatch loop, permutations and SGD with a per-step
-    loss override. Takes the round engine's ``aux``/``t`` keywords."""
+    loss override."""
     base_loss = engine.loss_fn
 
-    def local_train(stacked, key, epochs, *, aux=None, t=None,
-                    ref_flat=None):
+    def local_train(stacked, key, epochs, *, ref_flat=None):
         ref = engine.flatten(stacked) if ref_flat is None else ref_flat
 
         def prox_loss(params, batch):
@@ -255,7 +257,7 @@ def run_apfl(engine, rounds=20, tau=5, seed=0, alpha=0.5,
     best_flat, _, _ = _loop(
         engine, rounds, tau, seed, aggregate, eval_flat=eval_flat,
         make_aux=lambda flat0, key: {"v": flat0, "key": key},
-        participation=participation)
+        aux_specs={"v": 0}, participation=participation)
     return _finish(engine, best_flat)
 
 
@@ -299,7 +301,7 @@ def run_ditto(engine, rounds=20, tau=5, seed=0, lam=0.75,
     best_flat, _, _ = _loop(
         engine, rounds, tau, seed, aggregate, eval_flat=eval_flat,
         make_aux=lambda flat0, key: {"pers": flat0, "key": key},
-        participation=participation)
+        aux_specs={"pers": 0}, participation=participation)
     return _finish(engine, best_flat)
 
 

@@ -58,10 +58,10 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 
 def make_client_mesh(n_devices: Optional[int] = None, *, pods: int = 1,
-                     device_type: Optional[str] = None):
+                     device_type: str = "cuda"):
     """The ``('pod', 'data')`` `DeviceMesh` of shape ``(pods, n // pods)``
     over the initialised world (``n`` defaults to, and must equal, its
-    size). ``device_type`` defaults to ``cuda`` where there is a card.
+    size), on ``device_type`` (a CPU caller passes ``"cpu"``).
     Raises ``ValueError`` where ``n`` does not split into ``pods``."""
     if n_devices is not None and n_devices % pods:
         raise ValueError(f"{n_devices} devices not divisible into {pods} "
@@ -80,13 +80,13 @@ def make_client_mesh(n_devices: Optional[int] = None, *, pods: int = 1,
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
-              device_type: Optional[str] = None):
+              device_type: str = "cuda"):
     """The `DeviceMesh` of ``shape`` with axis names ``axes`` (of
     `MESH_AXES`, in `repro`'s order, e.g. ``('data', 'model')`` or
     ``('pod', 'data', 'model')``) over the initialised world, ranks
     row-major: ``repro.sharding.compat.make_mesh(shape, axes)``. The
-    shape's product must be the world's size. ``device_type`` defaults
-    to ``cuda`` where there is a card."""
+    shape's product must be the world's size. The mesh is on
+    ``device_type``, the card unless the caller asks for ``"cpu"``."""
     from torch.distributed.device_mesh import DeviceMesh
 
     shape, axes = tuple(shape), tuple(axes)
@@ -101,8 +101,6 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if n != world:
         raise ValueError(f"make_mesh: a {shape} mesh has {n} shards, but "
                          f"the world has {world} processes (one per shard)")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
 

@@ -142,7 +142,8 @@ def test_dpfl_round_donation_equals_repro():
     path, shape and dtype (nothing blocked), as `repro` finds by
     ``eval_shape`` of its jitted round. The lists are `repro`'s less
     ``.t``: `repro`'s round counter is an int32 array leaf, the port's a
-    host int, which is no tensor and so no leaf."""
+    host int, which is no tensor and so no leaf. The round donates, as
+    `repro`'s does: every donatable leaf keeps its storage."""
     from repro.analysis.guards import donation_report as jdonation
     from repro.core import DPFLConfig as JConfig
     from repro.core.dpfl import abstract_round_state, \
@@ -160,11 +161,12 @@ def test_dpfl_round_donation_equals_repro():
     assert rep["donatable"] == [p for p in jrep["donatable"] if p != ".t"]
     assert rep["blocked"] == jrep["blocked"] == []
     # written in place or passed through: the counters, the histories,
-    # Omega and the keys; the mixed panel and the best models are new
+    # Omega and the keys, and (donated) the mixed panel, the graph and
+    # the best models
     assert {".aux['comm']", ".aux['graph_hist']", ".val_hist",
-            ".aux['omega']", ".key"} <= set(rep["in_place"])
-    assert ".flat" not in rep["in_place"]
-    assert ".best_flat" not in rep["in_place"]
+            ".aux['omega']", ".key", ".flat", ".best_flat",
+            ".aux['adj']"} <= set(rep["in_place"])
+    assert rep["in_place"] == rep["donatable"]
     assert rep["donatable_bytes"] == sum(
         t.numel() * t.element_size() for t in guards._leaves(state).values())
 

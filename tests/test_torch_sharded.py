@@ -216,6 +216,45 @@ def test_make_client_mesh_refuses_pods_that_do_not_divide():
         make_client_mesh(3, pods=2)
 
 
+@pytest.mark.parametrize("build", ["make_mesh", "make_client_mesh"])
+def test_mesh_defaults_to_the_card_without_probing(monkeypatch, build):
+    """No silent CPU fallback: `make_mesh` and `make_client_mesh` build a
+    "cuda" mesh unless the caller asks for "cpu", with no card present
+    too (`torch.cuda.is_available` is not asked). The mesh itself is not
+    built: a stand-in records what `DeviceMesh` would be given."""
+    import inspect
+
+    import torch.distributed.device_mesh as device_mesh
+
+    from repro_torch.launch import mesh as tmesh
+
+    made = []
+
+    def stand_in(device_type, ranks, mesh_dim_names):
+        made.append((device_type, ranks.tolist(), mesh_dim_names))
+        return made[-1]
+
+    def no_probe():
+        raise AssertionError("make_mesh asked torch.cuda.is_available")
+
+    monkeypatch.setattr(device_mesh, "DeviceMesh", stand_in)
+    monkeypatch.setattr(tmesh.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(tmesh.dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "is_available", no_probe)
+    fn = getattr(tmesh, build)
+    assert inspect.signature(fn).parameters["device_type"].default == "cuda"
+    if build == "make_mesh":
+        fn((1, 2), ("data", "model"))
+        fn((1, 2), ("data", "model"), device_type="cpu")
+        assert made == [("cuda", [[0, 1]], ("data", "model")),
+                        ("cpu", [[0, 1]], ("data", "model"))]
+    else:
+        fn(2)
+        fn(2, device_type="cpu")
+        assert made == [("cuda", [[0, 1]], ("pod", "data")),
+                        ("cpu", [[0, 1]], ("pod", "data"))]
+
+
 def test_launcher_raises_a_rank_failure(tmp_path):
     with pytest.raises(RuntimeError, match="deliberate failure on rank 1"):
         run_on_client_mesh(workers.fail_on_rank, 2, device="cpu",
