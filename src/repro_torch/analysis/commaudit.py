@@ -37,15 +37,16 @@ unexplained model-sized call) without the exact count.
 
 Classification is exact-match, not a threshold: a call is a model
 payload iff it is an all-gather or a ppermute whose per-rank operand
-bytes hit the codec catalogue. A call inside the `collectives.region`
-``"refresh"`` (the GGC refresh: `repro`'s ``cond`` branch) is attributed
-and not charged; the refresh probes the decoded peers, so under a lossy
-codec the decoded fp32 panel (S·4P) is a refresh part too. A call whose
-site lies in model or training code (``/models/``, ``/data/``,
-``fl/engine.py``, ``optim``) is the simulation's own traffic: reported
-under "training" and never a failure; a call from ``prng.py`` is "rng".
-Everything else stays under one raw model (4P bytes x its calls on the
-rank: "control") or FAILS the audit as UNEXPLAINED.
+bytes hit the codec catalogue. A call inside the span ``"refresh"``
+(the GGC refresh: `repro`'s ``cond`` branch; `collectives.TAGS`) is
+attributed and not charged; the refresh probes the decoded peers, so
+under a lossy codec the decoded fp32 panel (S·4P) is a refresh part too.
+A call whose site lies in model or training code (``/models/``,
+``/data/``, ``fl/engine.py``, ``optim``) is the simulation's own
+traffic: reported under "training" and never a failure; a call from
+``prng.py`` is "rng". Everything else stays under one raw model (4P
+bytes x its calls on the rank: "control") or FAILS the audit as
+UNEXPLAINED.
 
 What differs from `repro`: a record is one rank's call, where an HLO
 collective stands for every device. So a row here is one rank's calls
@@ -64,7 +65,8 @@ __all__ = ["AuditRow", "AuditReport", "payload_catalogue",
            "wire_bytes", "audit_records", "audit_config",
            "static_downloads_per_round", "reconcile", "REFRESH"]
 
-#: the `collectives.region` tag of the GGC refresh
+#: the span of the GGC refresh, the region of the collectives inside it
+#: (`collectives.TAGS`)
 REFRESH = "refresh"
 #: call sites of the simulation's own traffic (`repro`'s ``_TRAINING_SRC``)
 _TRAINING_SRC = ("/models/", "/data/", "fl/engine.py", "optim")

@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .. import prng
 from ..analysis.registry import exchange_site
 from ..data.availability import ParticipationConfig, schedule_for_data
@@ -362,9 +363,10 @@ def _exchange(comp, wire, aux, t, active, mesh=None, client_axes=None):
     ``active`` is the availability of ``wire``'s rows."""
     if comp is None:
         return wire, None, None
-    payload, dec, new_ef = _compress.compress_exchange(
-        comp, wire, aux.get("ef"), prng.fold_in(aux["k_comp"], t),
-        mesh=mesh, client_axes=client_axes)
+    with _obs.span("codec"):
+        payload, dec, new_ef = _compress.compress_exchange(
+            comp, wire, aux.get("ef"), prng.fold_in(aux["k_comp"], t),
+            mesh=mesh, client_axes=client_axes)
     if new_ef is not None and active is not None:
         new_ef = torch.where(active[:, None], new_ef, aux["ef"])
     return dec, payload, new_ef
@@ -485,9 +487,10 @@ def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
         new_adj = adj
         if refresh:
             cand = omega if active is None else omega & active[None, :]
-            # the refresh's exchanges are tagged for the wire-bytes audit
-            # (`analysis.commaudit`): attributed there, not charged
-            with _coll.region("refresh"):
+            # the refresh's exchanges are tagged by its span for the
+            # wire-bytes audit (`analysis.commaudit`): attributed there,
+            # not charged
+            with _obs.span("refresh"):
                 new_adj = all_clients_graph(
                     prng.fold_in(aux["k_graph"], 1000 + t), recv, p, cand,
                     reward_fn, budget, impl=cfg.graph_impl, mesh=mesh,
@@ -495,7 +498,8 @@ def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
             if active is not None:
                 # absent clients keep their previous C_k
                 new_adj = torch.where(mine[:, None], new_adj, adj)
-        mixed = mix(new_adj, flat, recv, payload, prev, active)
+        with _obs.span("mix"):
+            mixed = mix(new_adj, flat, recv, payload, prev, active)
         aux["comm"][t] = comm_t
         if hist_len:
             aux["graph_hist"][t % hist_len] = new_adj
@@ -537,7 +541,7 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
                                           rows.start)
         new_nbr = nbr
         if refresh:
-            with _coll.region("refresh"):
+            with _obs.span("refresh"):
                 new_nbr = all_clients_graph_sparse(
                     prng.fold_in(aux["k_graph"], 1000 + t), recv, p, omega,
                     reward_fn, budget, active=active, mesh=mesh,
@@ -545,7 +549,8 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
             if active is not None:
                 # absent clients keep their previous C_k lists
                 new_nbr = torch.where(mine[:, None], new_nbr, nbr)
-        mixed = mix(new_nbr, flat, recv, payload, prev, active)
+        with _obs.span("mix"):
+            mixed = mix(new_nbr, flat, recv, payload, prev, active)
         aux["comm"][t] = comm_t
         if hist_len:
             aux["graph_hist"][t % hist_len] = new_nbr

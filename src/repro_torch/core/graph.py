@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import obs as _obs
 from .. import prng
 from ..analysis.registry import exchange_site
 from ..kernels import ops as _kops
@@ -196,26 +197,38 @@ def _scan(step, carry, order, coins, flat_w, p, k_idx, cand_mask, budget,
     """Feed the candidates at ``positions`` of each client's order
     through the decision step."""
     for s in positions:
-        j = order[:, s]
-        col = j[:, None]
-        carry = step(carry, j, flat_w[j], u=coins.gather(1, col)[:, 0],
-                     k_idx=k_idx, is_cand=cand_mask.gather(1, col)[:, 0],
-                     p_j=p[j], budget=budget)
+        with _obs.span("ggc.position"):
+            j = order[:, s]
+            col = j[:, None]
+            carry = step(carry, j, flat_w[j], u=coins.gather(1, col)[:, 0],
+                         k_idx=k_idx, is_cand=cand_mask.gather(1, col)[:, 0],
+                         p_j=p[j], budget=budget)
     return carry
+
+
+def _tally_candidates(cand):
+    """Tally the probe models of the decisions a scan will make at a
+    candidate: the four of `greedy_decision_step` per true entry of
+    ``cand``, the (client, candidate) pairs. Over the reward's count of
+    every probe model (``ggc.probe_models``), the share of the scan's
+    probes that can change a selection; the rest are exact no-ops."""
+    if _obs.active():
+        _obs.tally("ggc.candidate_probe_models", cand.sum(), n=4)
 
 
 def _greedy_init(k_idx, cand_mask, flat_w, p) -> GreedyCarry:
     """Shared GGC initialization: X = {k}, Y = Omega_k ∪ {k}, running sums
     through one batched graph_mix launch."""
-    maskX = _self_mask(k_idx, flat_w.shape[0])
-    maskY = cand_mask | maskX
-    mask_p = maskY.float() * p[None, :]
-    return GreedyCarry(
-        maskX=maskX, maskY=maskY,
-        wX=p[k_idx][:, None] * flat_w[k_idx],
-        wY=weighted_sum(mask_p, flat_w),
-        pX=p[k_idx], pY=mask_p.sum(dim=1),
-        nsel=torch.zeros_like(k_idx))
+    with _obs.span("ggc.init"):
+        maskX = _self_mask(k_idx, flat_w.shape[0])
+        maskY = cand_mask | maskX
+        mask_p = maskY.float() * p[None, :]
+        return GreedyCarry(
+            maskX=maskX, maskY=maskY,
+            wX=p[k_idx][:, None] * flat_w[k_idx],
+            wY=weighted_sum(mask_p, flat_w),
+            pX=p[k_idx], pY=mask_p.sum(dim=1),
+            nsel=torch.zeros_like(k_idx))
 
 
 def make_ggc(reward_fn: Callable, budget: int):
@@ -235,6 +248,7 @@ def make_ggc(reward_fn: Callable, budget: int):
     def ggc(keys, k_idx, cand_mask, flat_w, p, budget_k=None):
         N = flat_w.shape[0]
         cand_mask = cand_mask & ~_self_mask(k_idx, N)
+        _tally_candidates(cand_mask)
         carry = _greedy_init(k_idx, cand_mask, flat_w, p)
         order, coins = _streams(keys, N)
         carry = _scan(step, carry, order, coins, flat_w, p, k_idx,
@@ -260,6 +274,7 @@ def make_ggc_naive(reward_fn: Callable, budget: int):
     def ggc(keys, k_idx, cand_mask, flat_w, p):
         N = flat_w.shape[0]
         cand_mask = cand_mask & ~_self_mask(k_idx, N)
+        _tally_candidates(cand_mask)
         maskX = _self_mask(k_idx, N)
         maskY = cand_mask | maskX
         nsel = torch.zeros_like(k_idx)
@@ -301,6 +316,7 @@ def make_bggc(reward_fn: Callable, budget: int):
         N = flat_w.shape[0]
         self_k = _self_mask(k_idx, N)
         cand_mask = cand_mask & ~self_k
+        _tally_candidates(cand_mask)
         # --- phase 1: stream batches to accumulate w^Y (Alg. 3 lines 2-7)
         maskY0 = cand_mask | self_k
         wY = p[k_idx][:, None] * flat_w[k_idx]
@@ -538,6 +554,7 @@ def make_ggc_sparse(reward_fn: Callable, budget: int):
         valid = (cand_idx >= 0) & (safe != k_idx[:, None])
         if active is not None:
             valid = valid & active[safe] & active[k_idx][:, None]
+        _tally_candidates(valid)
         # running sums start from the same masked (K, N) @ (N, P) launch
         # as the dense scan, so the probes start bitwise aligned
         hits = torch.zeros((K, N), dtype=torch.int64, device=dev)
@@ -554,12 +571,14 @@ def make_ggc_sparse(reward_fn: Callable, budget: int):
         visit = torch.argsort(rank, dim=1, stable=True)
         coins = prng.uniform(prng.fold_in(keys[:, None, :], safe + 1))
         for s in range(B):
-            slot = visit[:, s]
-            col = slot[:, None]
-            j = safe.gather(1, col)[:, 0]
-            carry = step(carry, j, flat_w[j], u=coins.gather(1, col)[:, 0],
-                         k_idx=k_idx, is_cand=valid.gather(1, col)[:, 0],
-                         p_j=p[j], budget=budget, slot=slot)
+            with _obs.span("ggc.position"):
+                slot = visit[:, s]
+                col = slot[:, None]
+                j = safe.gather(1, col)[:, 0]
+                carry = step(carry, j, flat_w[j],
+                             u=coins.gather(1, col)[:, 0], k_idx=k_idx,
+                             is_cand=valid.gather(1, col)[:, 0], p_j=p[j],
+                             budget=budget, slot=slot)
         # canonical output order: ascending global id, -1 slots last
         sel = torch.sort(torch.where(carry.maskX, safe, N + safe),
                          dim=1).values

@@ -28,6 +28,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from .. import obs as _obs
 from .. import prng
 from ..models.classifier import accuracy as _acc
 from ..models.classifier import xent_loss as _xent
@@ -318,15 +319,19 @@ class FLEngine:
         opt_state = self.opt.init(params)
         epoch_losses = []
         for e in range(epochs):
-            xe, ye = x[rows, perms[:, e]], y[rows, perms[:, e]]
+            with _obs.span("local_train.gather"):
+                xe, ye = x[rows, perms[:, e]], y[rows, perms[:, e]]
             step_losses = []
             for b in range(nb):
                 sl = slice(b * bs, (b + 1) * bs)
-                loss, grads = self._loss_and_grads(
-                    params, {"x": xe[:, sl], "y": ye[:, sl]}, loss_fn)
-                updates, opt_state = self.opt.update(grads, opt_state,
-                                                     params)
-                params = {k: params[k] + updates[k] for k in self._keys}
+                with _obs.span("local_train.loss_grad"):
+                    loss, grads = self._loss_and_grads(
+                        params, {"x": xe[:, sl], "y": ye[:, sl]}, loss_fn)
+                _obs.count("local_train.steps")
+                with _obs.span("local_train.update"):
+                    updates, opt_state = self.opt.update(grads, opt_state,
+                                                         params)
+                    params = {k: params[k] + updates[k] for k in self._keys}
                 step_losses.append(loss)
             epoch_losses.append(torch.stack(step_losses).mean(0))
         return params, torch.stack(epoch_losses).mean(0)
@@ -356,11 +361,11 @@ class FLEngine:
         lo = self.rows.start
 
         @torch.no_grad()
-        def reward(probes: torch.Tensor, k_idx: torch.Tensor):
+        def forward(probes: torch.Tensor, k_idx: torch.Tensor):
             K, Q = probes.shape[:2]
             c = self._client_chunk
             if c is not None and c < K:
-                return torch.cat([reward(probes[i:i + c], k_idx[i:i + c])
+                return torch.cat([forward(probes[i:i + c], k_idx[i:i + c])
                                   for i in range(0, K, c)])
             params = self.unflatten(probes.reshape(K * Q, -1))
             rows = k_idx - lo
@@ -369,5 +374,13 @@ class FLEngine:
             batch = {"x": x.reshape((K * Q,) + val_x.shape[1:]),
                      "y": y.reshape((K * Q,) + val_y.shape[1:])}
             return -self.loss_fn(params, batch).reshape(K, Q)
+
+        def reward(probes: torch.Tensor, k_idx: torch.Tensor):
+            with _obs.span("reward"):
+                # the greedy's probe models, against the candidates' share
+                # the scans tally (`core.graph`)
+                _obs.count("ggc.probe_models",
+                           probes.shape[0] * probes.shape[1])
+                return forward(probes, k_idx)
 
         return reward

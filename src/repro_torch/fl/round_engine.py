@@ -12,6 +12,10 @@ runs inside `repro_torch.analysis.guards.no_transfer`, so on CUDA a
 hidden sync raises instead of serializing the rounds, as in `repro`.
 Histories leave the device only in ``on_flush``.
 
+Each round is the span ``round`` of `repro_torch.obs` (its ``t`` the
+round counter), holding the spans ``local_train``, ``aggregate`` and
+``eval``; the counter ``rounds`` counts the rounds a trace holds.
+
 A donating step (``make_round_step(donate=True)``, what `run_dpfl` and
 the baselines run, as in `repro`) writes the new state into the storage
 of the state it was given, in place of a second (N, P) ``best_flat`` a
@@ -36,6 +40,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .. import obs as _obs
 from .. import prng
 from ..analysis.guards import allow_transfers, no_transfer
 
@@ -331,6 +336,11 @@ def make_round_step(engine, *, tau: int,
     sharded = getattr(engine, "mesh", None) is not None
 
     def round_step(state: RoundState) -> RoundState:
+        with _obs.span("round", t=state.t):
+            _obs.count("rounds")
+            return step(state)
+
+    def step(state: RoundState) -> RoundState:
         if sharded:
             _check_rows(state, spec, engine.n_local)
         if donate:
@@ -338,22 +348,25 @@ def make_round_step(engine, *, tau: int,
         t = state.t
         stacked = engine.unflatten(state.flat)
         kt = prng.fold_in(state.key, t)
-        if lt_takes_aux:
-            stacked, _ = lt(stacked, kt, epochs=tau, aux=state.aux, t=t)
-        else:
-            stacked, _ = lt(stacked, kt, epochs=tau)
+        with _obs.span("local_train"):
+            if lt_takes_aux:
+                stacked, _ = lt(stacked, kt, epochs=tau, aux=state.aux, t=t)
+            else:
+                stacked, _ = lt(stacked, kt, epochs=tau)
         flat = engine.flatten(stacked)
         if participation_key is not None:
             m = state.aux[participation_key][t][engine.rows]
             flat = torch.where(m[:, None], flat, state.flat)
         if post_train is not None:
             flat = post_train(flat, state.flat, state.aux, t)
-        if agg_takes_prev:
-            flat, aux = agg(flat, state.aux, t, prev=state.flat)
-        else:
-            flat, aux = agg(flat, state.aux, t)
+        with _obs.span("aggregate"):
+            if agg_takes_prev:
+                flat, aux = agg(flat, state.aux, t, prev=state.flat)
+            else:
+                flat, aux = agg(flat, state.aux, t)
         ev = eval_flat(flat, aux) if eval_flat is not None else flat
-        val_acc, _ = engine.eval_val(engine.unflatten(ev))
+        with _obs.span("eval"):
+            val_acc, _ = engine.eval_val(engine.unflatten(ev))
         improved = val_acc > state.best_val
         if hist_len:
             state.val_hist[t % hist_len] = val_acc

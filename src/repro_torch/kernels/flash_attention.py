@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import obs as _obs
 from . import _build
 from . import meta as _meta
 
@@ -305,14 +306,16 @@ def _forward(q, k, v, causal, window, with_lse):
     if B == 0 or Sq == 0 or Hq == 0:
         return out, lse
     strides = _strides(q, k, v)
-    lib_fn = _build.entry("flash_attention", _SYMBOLS[q.dtype], _ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check("flash_attention", lib_fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
-        ctypes.addressof(strides), int(causal),
-        0 if window is None else int(window), 1.0 / math.sqrt(hd),
-        q.device.index, stream))
+    with _obs.span("k4"):
+        lib_fn = _build.entry("flash_attention", _SYMBOLS[q.dtype],
+                              _ARGTYPES)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.check("flash_attention", lib_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+            ctypes.addressof(strides), int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(hd),
+            q.device.index, stream))
     flash_attention.launches += 1
     return out, lse
 
@@ -498,16 +501,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     strides = _strides(q, k, v)
     launch = (ctypes.c_int * len(plan.launch))(*plan.launch)
-    lib_fn = _build.entry(library, symbol, argtypes)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(library, lib_fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in scratch),
-        B, Sq, Sk, Hq, Hkv, hd, ctypes.addressof(strides), int(causal),
-        0 if window is None else int(window), 1.0 / math.sqrt(hd),
-        ctypes.addressof(launch), q.device.index, stream))
+    with _obs.span("k4_bwd"):
+        lib_fn = _build.entry(library, symbol, argtypes)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.check(library, lib_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch),
+            B, Sq, Sk, Hq, Hkv, hd, ctypes.addressof(strides), int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(hd),
+            ctypes.addressof(launch), q.device.index, stream))
     if q.dtype == torch.bfloat16:
         flash_attention_bwd_bf16.launches += 1
     else:

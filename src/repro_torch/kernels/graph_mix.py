@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from .. import obs as _obs
 from . import _build
 from . import meta as _meta
 
@@ -84,11 +85,12 @@ def graph_mix(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if N == 0:
         return out.zero_()
     cols = vector_width(P, W.element_size(), W.data_ptr(), out.data_ptr())
-    lib_fn = _build.entry("graph_mix", _SYMBOLS[W.dtype], _ARGTYPES)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    _build.check("graph_mix", lib_fn(A.data_ptr(), W.data_ptr(),
-                                     out.data_ptr(), M, N, P, cols,
-                                     W.device.index, stream))
+    with _obs.span("k1"):
+        lib_fn = _build.entry("graph_mix", _SYMBOLS[W.dtype], _ARGTYPES)
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        _build.check("graph_mix", lib_fn(A.data_ptr(), W.data_ptr(),
+                                         out.data_ptr(), M, N, P, cols,
+                                         W.device.index, stream))
     graph_mix.launches += 1
     return out
 

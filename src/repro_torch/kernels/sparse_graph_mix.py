@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from .. import obs as _obs
 from . import _build
 from . import meta as _meta
 from .graph_mix import vector_width
@@ -124,12 +125,14 @@ def sparse_graph_mix(self_w: torch.Tensor, nbr_w: torch.Tensor,
     cols = vector_width(P, W_self.element_size(), W_self.data_ptr(),
                         W_peers.data_ptr(), out.data_ptr())
     grid_y = launch_grid(N, P, cols)
-    fn = _build.entry("sparse_graph_mix", _SYMBOLS[W_self.dtype], _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check("sparse_graph_mix", fn(
-        self_w.data_ptr(), nbr_w.data_ptr(), nbr_idx.data_ptr(),
-        W_self.data_ptr(), W_peers.data_ptr(), out.data_ptr(), N, B, P,
-        cols, grid_y, dev.index, stream))
+    with _obs.span("k2"):
+        fn = _build.entry("sparse_graph_mix", _SYMBOLS[W_self.dtype],
+                          _ARGTYPES)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check("sparse_graph_mix", fn(
+            self_w.data_ptr(), nbr_w.data_ptr(), nbr_idx.data_ptr(),
+            W_self.data_ptr(), W_peers.data_ptr(), out.data_ptr(), N, B, P,
+            cols, grid_y, dev.index, stream))
     sparse_graph_mix.launches += 1
     return out
 

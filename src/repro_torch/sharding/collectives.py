@@ -38,8 +38,9 @@ as one rank of a production mesh this way.
 
 Inside a `recording` block each call also leaves a `CallRecord`: the
 op, what this rank sent, the group's size, the call site (the first
-frame outside this module) and the `region` tag the caller set, such as
-the GGC refresh. `repro_torch.analysis.commaudit` reads them as
+frame outside this module) and its region: the span of `TAGS` open
+around the call (`repro_torch.obs`), such as the GGC refresh's.
+`repro_torch.analysis.commaudit` reads them as
 `repro`'s audit reads the collectives of the compiled round. Outside
 such a block a call records nothing and looks up no call site.
 """
@@ -56,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import obs as _obs
 from ..analysis.guards import allow_transfers
 
 #: (backend, op) -> how a CUDA tensor crosses ranks: "device" (the
@@ -67,6 +69,9 @@ TRANSPORT: Dict[Tuple[str, str], str] = {
     ("gloo", "ppermute"): "host",
     ("gloo", "all_reduce"): "device",
 }
+#: the spans that tag the collectives called inside them, in their
+#: `CallRecord`: the GGC refresh (`repro_torch.analysis.commaudit.REFRESH`)
+TAGS = ("refresh",)
 #: the counted ops; `psum` and `pmax` cross by the "all_reduce" row
 OPS = ("all_gather", "ppermute", "psum", "pmax")
 _TRANSPORT_OP = {"psum": "all_reduce", "pmax": "all_reduce"}
@@ -91,7 +96,8 @@ class CallRecord:
     site:       ``"<file under repro_torch/>:<function>"`` of the first
                 frame outside this module (a caller outside the package:
                 its file's name)
-    region:     the innermost `region` tag around the call, or None
+    region:     the innermost span of `TAGS` open around the call,
+                however deep (`repro_torch.obs.span`), or None
     """
     op: str
     shape: Tuple[int, ...]
@@ -102,9 +108,8 @@ class CallRecord:
     region: Optional[str]
 
 
-# the lists of the active `recording` blocks, and the `region` tags
+# the lists of the active `recording` blocks
 _recorders: List[List[CallRecord]] = []
-_regions: List[str] = []
 
 
 class ShapeMesh:
@@ -171,15 +176,8 @@ def recording():
         _recorders.pop()
 
 
-@contextlib.contextmanager
-def region(tag: str):
-    """Tag the collectives called inside the block with ``tag`` in their
-    `CallRecord` (the innermost tag wins)."""
-    _regions.append(tag)
-    try:
-        yield
-    finally:
-        _regions.pop()
+def _region() -> Optional[str]:
+    return next((s for s in reversed(_obs.stack()) if s in TAGS), None)
 
 
 _HERE = os.path.abspath(__file__)
@@ -222,8 +220,7 @@ def _exchange(op: str, t: torch.Tensor, group_size: int):
     nbytes = t.numel() * t.element_size()
     if _recorders:
         rec = CallRecord(op, tuple(t.shape), str(t.dtype), nbytes,
-                         group_size, _call_site(),
-                         _regions[-1] if _regions else None)
+                         group_size, _call_site(), _region())
         for recs in _recorders:
             recs.append(rec)
     with allow_transfers():
