@@ -48,7 +48,11 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    ``torch.func.vmap`` over clients
    (K4_VMAP_CASES, the lm-dpfl example's head_dim 32 among them: one
    launch on the folded batch, forward and backward, bit for bit the
-   per-client launches);
+   per-client launches); K7 cnn_features (K7_CASES: the dense cell's
+   reward call of 400 probe models with the weights as views of one
+   probe panel, image 16, the narrow widths, one input channel, one
+   image, ragged G and B; in float64 against the plain version, the
+   same bits on a repeat and for a model launched alone);
    then `prng.normal` (2**20 draws) on the card: the CPU's bits and
    jax.random.normal's (`NORMAL_SHA256`);
 4. the port's main paths: Algorithm 1 through
@@ -59,7 +63,8 @@ Phases (each raises on failure; the script exits non-zero unless all pass):
    the robust mix rules: markov outages; free riders under bernoulli
    outages, clipped, sparse; sign flippers under cluster outages,
    clipped, top-k; label flippers, trimmed), each with the kernel launch
-   counts zeroed just before and read just after, the run's invariants
+   counts zeroed just before and read just after (K7's held to the
+   run's reward calls plus twice its evaluations), the run's invariants
    (Omega equal to the dense run's, realized downloads, absent clients'
    graphs held, the malicious head-count) and a learning check; then
    the same entry point on a small input on the card and on the CPU
@@ -725,6 +730,22 @@ K6_BWD_CASES = [("train", 4, 512, 4096, "model", False, False),
                 ("ragged, no dh_last", 2, 200, 100, "kernels", True, False),
                 ("S = 1, h0, dh_last", 4, 1, 4096, "model", True, True)]
 K6_BWD_TIMED = ("train",)
+# K7, PaperCNN's convolution stack: (label, G, B, image, cin, c1, c2). The
+# dense cell's reward call (400 probe models x 50 validation images, the
+# weights views of one probe panel as `make_reward_fn` hands them over;
+# timed), image 16, the tests' narrow widths, one input channel, one
+# image, and G and B that no tile divides (a block takes at most 4
+# images). Held to the plain version in float64 within K7_TOL of the
+# largest feature: each output sums 75 or 150 fp32 products in another
+# order
+K7_CASES = [("reward call", 400, 50, 32, 3, 6, 16),
+            ("image 16", 7, 5, 16, 3, 6, 16),
+            ("narrow", 6, 8, 16, 3, 4, 8),
+            ("1 channel", 5, 6, 32, 1, 6, 16),
+            ("narrow 1 channel", 3, 7, 16, 1, 4, 8),
+            ("one image", 9, 1, 32, 3, 6, 16),
+            ("ragged", 13, 9, 32, 3, 6, 16)]
+K7_TOL = 1e-5
 # the K6 backward rounds each product and sum in the plain version's
 # order (every sum has two terms): bit for bit, checked with torch.equal
 # The training path: `repro_torch.launch.train.main` at qwen3-0.6b's
@@ -2063,9 +2084,110 @@ def time_k6_bwd(torch, inputs, errs, rates):
 
 #: the kernels redesigned for Hopper: their ptxas report is printed in
 #: full, and a spill fails the run
+def k7_inputs(torch):
+    """Seeded (x, conv1_w, conv1_b, conv2_w, conv2_b) on the card for every
+    K7 case: normal images, weights of 0.1 normals as views of one
+    (G, P) panel one element in (no 16-byte alignment), as the greedy's
+    probe rows are."""
+    out = []
+    for label, G, B, image, cin, c1, c2 in K7_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((G, B, image, image, cin), generator=gen,
+                        device="cuda")
+        shapes = [(5, 5, cin, c1), (c1,), (5, 5, c1, c2), (c2,)]
+        sizes = [math.prod(sh) for sh in shapes]
+        panel = 0.1 * torch.randn((G, sum(sizes) + 1), generator=gen,
+                                  device="cuda")
+        leaves = torch.split(panel[:, 1:], sizes, dim=1)
+        out.append((label, (x, *[leaf.reshape((G,) + sh)
+                                 for leaf, sh in zip(leaves, shapes)])))
+    return out
+
+
+def check_k7(torch, inputs):
+    """K7 against its plain version (grouped convolutions) in float64 in
+    every case, within K7_TOL of the largest feature; the same bits on a
+    repeated call, and, in the reward call's case, for a model launched
+    alone. Returns the error (a share of the largest feature) per case."""
+    from repro_torch.kernels import cnn_features as k7
+    from repro_torch.kernels import ref
+
+    errs = []
+    for label, args in inputs:
+        got = k7.cnn_features(*args)
+        want = ref.cnn_features_ref(*[a.double() for a in args])
+        torch.cuda.synchronize()
+        share = ((got.double() - want).abs().max() /
+                 want.abs().max()).item()
+        if not share <= K7_TOL:
+            fail(f"K7 {label}: max abs err {share:.3g} of the largest "
+                 f"feature, over {K7_TOL}")
+        if not torch.equal(got, k7.cnn_features(*args)):
+            fail(f"K7 {label}: a repeated call gave other bits")
+        if label == "reward call":
+            for g in (0, 211, args[0].shape[0] - 1):
+                alone = k7.cnn_features(*[a[g:g + 1] for a in args])
+                if not torch.equal(alone[0], got[g]):
+                    fail(f"K7 {label}: model {g} alone gave other bits "
+                         f"than among {args[0].shape[0]}")
+        errs.append(share)
+    return errs
+
+
+def k7_library(torch, x, w1, b1, w2, b2):
+    """The yardstick: cuDNN's grouped convolutions, bias, ReLU and pool of
+    the plain version alone, on inputs already in its NCHW layout (the
+    plain version's permutes and flatten left out)."""
+    import torch.nn.functional as F
+
+    G, B, H, W, cin = x.shape
+    h = x.permute(1, 0, 4, 2, 3).reshape(B, G * cin, H, W)
+    wt1 = w1.permute(0, 4, 3, 1, 2).reshape(-1, cin, 5, 5)
+    wt2 = w2.permute(0, 4, 3, 1, 2).reshape(-1, w1.shape[-1], 5, 5)
+    bb1, bb2 = b1.reshape(1, -1, 1, 1), b2.reshape(1, -1, 1, 1)
+
+    def stack():
+        y = F.max_pool2d(F.relu(F.conv2d(h, wt1, groups=G) + bb1), 2)
+        return F.max_pool2d(F.relu(F.conv2d(y, wt2, groups=G) + bb2), 2)
+
+    return stack
+
+
+def time_k7(torch, inputs, errs, rates):
+    """K7, its plain version and cuDNN's grouped-convolution stack alone
+    (`k7_library`) timed at the reward call's shape, beside the bound.
+    Returns the rows."""
+    from repro_torch.kernels import cnn_features as k7
+    from repro_torch.kernels import ref
+
+    rows = []
+    for (label, args), err in zip(inputs, errs):
+        if label != "reward call":
+            continue
+        ms = time_ms(lambda: k7.cnn_features(*args), torch)
+        plain_ms = time_ms(lambda: ref.cnn_features_ref(*args), torch)
+        lib_ms = time_ms(k7_library(torch, *args), torch)
+        G, B, H, W, cin = args[0].shape
+        c1, c2 = args[1].shape[-1], args[3].shape[-1]
+        nbytes, flops = k7.work(G, B, H, W, cin, c1, c2)
+        bound_ms, bound_by = _bound(rates, nbytes, flops, "float32")
+        rows.append(dict(case=label, G=G, B=B, H=H, W=W, cin=cin, c1=c1,
+                         c2=c2, dtype="float32", max_abs_err=err,
+                         tol=K7_TOL, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         tflops=flops / ms / 1e9))
+        print(f"  K7 {label} (G {G}, B {B}, {H}x{W}x{cin}, {c1}/{c2}) err "
+              f"{err:.3g} kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+              f"TFLOP/s)  plain {plain_ms:.4f} ms  cuDNN stack {lib_ms:.4f}"
+              f" ms  bound {bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
 REDESIGNED = ("graph_mix", "sparse_graph_mix", "compressed_graph_mix",
               "flash_attention", "flash_attention_bwd",
-              "flash_attention_bwd_bf16", "ssd", "ssd_bwd", "rglru_scan_bwd")
+              "flash_attention_bwd_bf16", "ssd", "ssd_bwd", "rglru_scan_bwd",
+              "cnn_features")
 
 
 def ptxas_report(log):
@@ -2209,6 +2331,14 @@ def report_build(built):
         fail("K5 backward SASS: a kernel runs on the tensor cores (IEEE "
              "fp32 fmaf only, no TF32)")
     print(f"K5 backward SASS: no HMMA or HGMMA in its {len(k5b)} kernels")
+    k7s = sass_mma_counts(_build.library_path("cnn_features"))
+    if len(k7s) != 4:
+        fail(f"K7 SASS: {len(k7s)} kernels, expected 4 (cin, c1, c2 of "
+             f"cnn_features.KERNELS)")
+    if any(h + g for h, g in k7s.values()):
+        fail("K7 SASS: a kernel runs on the tensor cores (IEEE fp32 fmaf "
+             "only, no TF32)")
+    print(f"K7 SASS: no HMMA or HGMMA in its {len(k7s)} kernels")
 
 
 def _kernel_modules():
@@ -2278,17 +2408,46 @@ def run_main_path(torch, engine, variant):
     (zeroed just before the run, read just after), the wall time and the
     run's peak of allocated device memory in bytes."""
     from repro_torch.core.dpfl import run_dpfl
+    from repro_torch.kernels import cnn_features as k7
 
     cfg = smoke_config(variant, **SMOKE_RUN)
+    calls = {"reward": 0, "eval": 0}
+    make, split = engine.make_reward_fn, engine._eval_split
+
+    def make_counted():
+        reward = make()
+
+        def counted(*args):
+            calls["reward"] += 1
+            return reward(*args)
+
+        return counted
+
+    def split_counted(*args):
+        calls["eval"] += 1
+        return split(*args)
+
+    engine.make_reward_fn, engine._eval_split = make_counted, split_counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
-    t0 = time.perf_counter()
-    res = run_dpfl(engine, cfg)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return res, cfg, _read_launches(), seconds, \
-        torch.cuda.max_memory_allocated()
+    k7.cnn_features.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = run_dpfl(engine, cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del engine.make_reward_fn, engine._eval_split
+    counts = _read_launches()
+    # K7 once a reward call (all its probe models) and twice an
+    # evaluation (the accuracy's and the loss's forwards)
+    counts["cnn_features"] = k7.cnn_features.launches
+    if counts["cnn_features"] != calls["reward"] + 2 * calls["eval"]:
+        fail(f"{variant}: {counts['cnn_features']} K7 launches for "
+             f"{calls['reward']} reward calls and {calls['eval']} "
+             f"evaluations")
+    return res, cfg, counts, seconds, torch.cuda.max_memory_allocated()
 
 
 def expected_launches(variant, N, B, rounds):
@@ -2332,6 +2491,8 @@ def check_main_path(res, engine, cfg, variant, launches, omega_dense,
     B = cfg.budget
     if want is None:
         want = expected_launches(variant, N, B, cfg.rounds)
+        # held to the run's reward and evaluation calls (`run_main_path`)
+        want["cnn_features"] = launches["cnn_features"]
     if launches != want:
         fail(f"{variant}: kernel launches on the main path {launches}, "
              f"expected {want}")
@@ -5198,6 +5359,13 @@ def main():
     print(f"K6 backward agrees with its plain version bit for bit in "
           f"{len(k6b_in)} cases (" + ", ".join(c[0] for c in K6_BWD_CASES) +
           ")")
+    k7_in = k7_inputs(torch)
+    k7_errs = check_k7(torch, k7_in)
+    print(f"K7 agrees with its plain version in float64 in {len(k7_in)} "
+          f"cases (within {K7_TOL} of the largest feature), the same bits "
+          f"on a repeated call and for a model launched alone")
+    for (label, _), err in zip(k7_in, k7_errs):
+        print(f"  K7 {label}: max abs err {err:.3g} of the largest feature")
     normal_s = check_normal(torch)
     print(f"prng.normal: {NORMAL_DRAWS} draws from PRNGKey(3) on the card in "
           f"{normal_s:.3f} s, the CPU's bits and jax.random.normal's")
@@ -5506,6 +5674,8 @@ def main():
     k5b_rows = time_k5_bwd(torch, k5b_in, k5b_errs, rates)
     k6b_rows = time_k6_bwd(torch, k6b_in, k6b_errs, rates)
     del k5b_in, k6b_in
+    k7_rows = time_k7(torch, k7_in, k7_errs, rates)
+    del k7_in
     print("clocks.sm, power.draw after timing: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5569,10 +5739,16 @@ def main():
                     "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
                     "src/repro/kernels/rglru_scan.py:60 (its function's "
                     "gradient; no Pallas counterpart)",
-                    total("rglru_scan_bwd"), k6b_rows)]
+                    total("rglru_scan_bwd"), k6b_rows),
+        _kernel_row("cnn_features",
+                    "src/repro_torch/kernels/csrc/cnn_features.cu",
+                    "none (repro leaves PaperCNN's convolutions to XLA: "
+                    "src/repro/models/classifier.py PaperCNN.features)",
+                    total("cnn_features"), k7_rows)]
     # the backwards' errors over every case, not the timed one's alone
-    rows[-2]["max_abs_err"] = max(e[0] for e in k5b_errs)
-    rows[-1]["max_abs_err"] = max(k6b_errs)
+    rows[-3]["max_abs_err"] = max(e[0] for e in k5b_errs)
+    rows[-2]["max_abs_err"] = max(k6b_errs)
+    rows[-1]["max_abs_err"] = max(k7_errs)
     for row in rows:
         row["launches_by_run"] = {v: c.get(row["name"], 0)
                                   for v, c in launches.items()}

@@ -39,7 +39,8 @@ SOURCES = {"graph_mix": "graph_mix.cu",
            "ssd": "ssd.cu",
            "ssd_bwd": "ssd_bwd.cu",
            "rglru_scan": "rglru_scan.cu",
-           "rglru_scan_bwd": "rglru_scan_bwd.cu"}
+           "rglru_scan_bwd": "rglru_scan_bwd.cu",
+           "cnn_features": "cnn_features.cu"}
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -23,6 +23,7 @@ import torch
 
 from ..analysis.registry import exchange_site
 from ..sharding import collectives as _coll
+from . import cnn_features as _k7
 from . import compressed_graph_mix as _k3
 from . import flash_attention as _k4
 from . import graph_mix as _k1
@@ -245,3 +246,18 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     if _on_cpu(a, b, *(() if h0 is None else (h0,))):
         return ref.linear_scan_ref(a, b, h0)
     return _k6.rglru_scan(a, b, h0)
+
+
+def cnn_features(x: torch.Tensor, conv1_w: torch.Tensor,
+                 conv1_b: torch.Tensor, conv2_w: torch.Tensor,
+                 conv2_b: torch.Tensor) -> torch.Tensor:
+    """PaperCNN's convolution stack (conv5, bias, ReLU, 2x2 max-pool,
+    twice) for G models: x (G, B, H, W, C) NHWC per model, weights HWIO
+    with a leading model axis; returns (G, B, flat), NHWC-flattened. On
+    CPU tensors the plain grouped convolutions (`ref.cnn_features_ref`),
+    on CUDA tensors K7 (`kernels.cnn_features`); not differentiable on
+    the card: `repro_torch.models.classifier.PaperCNN` calls it where no
+    gradient is taken."""
+    if _on_cpu(x, conv1_w, conv1_b, conv2_w, conv2_b):
+        return ref.cnn_features_ref(x, conv1_w, conv1_b, conv2_w, conv2_b)
+    return _k7.cnn_features(x, conv1_w, conv1_b, conv2_w, conv2_b)

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def graph_mix_ref(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -246,3 +247,36 @@ def linear_scan_bwd_ref(a: torch.Tensor, b: torch.Tensor,
         leaves = ins + ([] if h is None else [h])
         got = torch.autograd.grad(outs, leaves, grads)
     return tuple(got) + ((None,) if h is None else ())
+
+
+def _grouped_conv(h: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Grouped VALID conv, one group a model. h: (B, G*Cin, H, W); w: (G,
+    kh, kw, Cin, Cout) HWIO per model; b: (G, Cout). Returns (B, G*Cout,
+    H', W')."""
+    G, kh, kw, cin, cout = w.shape
+    wt = w.permute(0, 4, 3, 1, 2).reshape(G * cout, cin, kh, kw)
+    return F.conv2d(h, wt, groups=G) + b.reshape(1, G * cout, 1, 1)
+
+
+def cnn_features_ref(x: torch.Tensor, conv1_w: torch.Tensor,
+                     conv1_b: torch.Tensor, conv2_w: torch.Tensor,
+                     conv2_b: torch.Tensor) -> torch.Tensor:
+    """PaperCNN's convolution stack for G models: each model's conv1 ->
+    bias -> ReLU -> 2x2 max-pool -> conv2 -> bias -> ReLU -> 2x2 max-pool
+    over its images, as one grouped convolution a layer (``groups=G``).
+    x: (G, B, H, W, C) NHWC per model; weights HWIO with a leading model
+    axis. Returns (G, B, flat), each model's activations flattened in
+    NHWC order, as `repro` flattens them before fc1. Differentiable: the
+    model's training route (`repro_torch.models.classifier.PaperCNN`)."""
+    G, B = x.shape[:2]
+    # NHWC -> one NCHW batch whose channels are the G models' inputs
+    h = x.permute(1, 0, 4, 2, 3).reshape(B, G * x.shape[4], x.shape[2],
+                                          x.shape[3])
+    h = F.relu(_grouped_conv(h, conv1_w, conv1_b))
+    h = F.max_pool2d(h, 2)
+    h = F.relu(_grouped_conv(h, conv2_w, conv2_b))
+    h = F.max_pool2d(h, 2)
+    c2 = conv2_w.shape[-1]
+    h = h.reshape(B, G, c2, h.shape[2], h.shape[3])
+    return h.permute(1, 0, 3, 4, 2).reshape(G, B, -1)

@@ -10,11 +10,18 @@ dense weights) so a flat row is the same vector in both packages. Every
 forward takes a stack of G models (each leaf has a leading G axis) and a
 stack of G input batches, ``x`` of shape (G, B, ...), and returns
 (G, B, n_classes): G is the clients during local training and the
-clients times the greedy's reward probes during a GGC refresh. The G
-convolutions run as one grouped convolution (``groups=G``), the dense
-layers as batched matmuls. ``features`` is the penultimate activations
-(kNN-Per's embedding), and ``logits`` is the output head on them;
-``HEAD_KEYS`` names the head that FedRep keeps local.
+clients times the greedy's reward probes during a GGC refresh. The
+dense layers run as batched matmuls. PaperCNN's convolution stack takes
+one of two routes, by whether a gradient will be taken: where grad mode
+is on and an input or a parameter needs a gradient (local training),
+one grouped convolution a layer (``groups=G``,
+`repro_torch.kernels.ref.cnn_features_ref`), which autograd
+differentiates; else (the reward probes, evaluation, kNN-Per's
+embeddings) `repro_torch.kernels.ops.cnn_features`, K7 on the card and
+the same grouped convolutions on the CPU. ``features`` is the
+penultimate activations (kNN-Per's embedding), and ``logits`` is the
+output head on them; ``HEAD_KEYS`` names the head that FedRep keeps
+local.
 """
 from __future__ import annotations
 
@@ -24,17 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import prng
+from ..kernels import ops, ref
 from .common import dense_init
 
 Params = Dict[str, torch.Tensor]
-
-
-def _conv(h, w, b):
-    """Grouped VALID conv. h: (B, G*Cin, H, W); w: (G, kh, kw, Cin, Cout)
-    HWIO per model; b: (G, Cout). Returns (B, G*Cout, H', W')."""
-    G, kh, kw, cin, cout = w.shape
-    wt = w.permute(0, 4, 3, 1, 2).reshape(G * cout, cin, kh, kw)
-    return F.conv2d(h, wt, groups=G) + b.reshape(1, G * cout, 1, 1)
 
 
 def _dense(h, w, b):
@@ -78,18 +78,13 @@ class PaperCNN:
         """Penultimate activations (G, B, fc2): the convs, pools and both
         hidden dense layers; x: (G, B, H, W, C) float32 (NHWC per
         model)."""
-        G, B = x.shape[:2]
-        # NHWC -> one NCHW batch whose channels are the G models' inputs
-        h = x.permute(1, 0, 4, 2, 3).reshape(B, G * x.shape[4], x.shape[2],
-                                              x.shape[3])
-        h = F.relu(_conv(h, params["conv1_w"], params["conv1_b"]))
-        h = F.max_pool2d(h, 2)
-        h = F.relu(_conv(h, params["conv2_w"], params["conv2_b"]))
-        h = F.max_pool2d(h, 2)
-        # flatten each model's activations in NHWC order, as repro does
-        c2 = params["conv2_w"].shape[-1]
-        h = h.reshape(B, G, c2, h.shape[2], h.shape[3])
-        h = h.permute(1, 0, 3, 4, 2).reshape(G, B, -1)
+        conv = (x, params["conv1_w"], params["conv1_b"], params["conv2_w"],
+                params["conv2_b"])
+        # each model's activations flattened in NHWC order, as repro does
+        if torch.is_grad_enabled() and any(t.requires_grad for t in conv):
+            h = ref.cnn_features_ref(*conv)
+        else:
+            h = ops.cnn_features(*conv)
         h = F.relu(_dense(h, params["fc1_w"], params["fc1_b"]))
         return F.relu(_dense(h, params["fc2_w"], params["fc2_b"]))
 

@@ -1475,3 +1475,197 @@ def test_serve_decode_runs_inside_the_fence(cuda):
         again = generate(model, None, prompts, 6)
     assert modes == [2] * 5
     assert torch.equal(first.tokens, again.tokens)
+
+
+# K7, PaperCNN's convolution stack: (label, G, B, image, cin, c1, c2). The
+# dense cell's reward call (400 probe models x 50 images), image 16, the
+# tests' narrow widths, one input channel, one image, and G and B that
+# no tile divides (a block takes at most 4 images)
+K7_CASES = [("reward call", 400, 50, 32, 3, 6, 16),
+            ("image 16", 7, 5, 16, 3, 6, 16),
+            ("narrow", 6, 8, 16, 3, 4, 8),
+            ("1 channel", 5, 6, 32, 1, 6, 16),
+            ("narrow 1 channel", 3, 7, 16, 1, 4, 8),
+            ("one image", 9, 1, 32, 3, 6, 16),
+            ("ragged", 13, 9, 32, 3, 6, 16)]
+#: of the largest feature: each output sums 75 or 150 fp32 products in
+#: another order than the float64 plain version (cuDNN's fp32 reads
+#: about 1e-7 of it)
+K7_TOL = 1e-5
+
+
+def _k7_inputs(G, B, image, cin, c1, c2, device, seed=0, probe_rows=False):
+    """Seeded images and weights (biases non-zero). ``probe_rows``: the
+    weights as views of one (G, P) panel, as the reward's probes are."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((G, B, image, image, cin), generator=gen, device=device)
+    shapes = [(5, 5, cin, c1), (c1,), (5, 5, c1, c2), (c2,)]
+    sizes = [int(np.prod(s)) for s in shapes]
+    panel = 0.1 * torch.randn((G, sum(sizes) + 3), generator=gen,
+                              device=device)
+    if not probe_rows:
+        panel = panel.contiguous()
+    leaves = torch.split(panel[:, 3:] if probe_rows else panel[:, :sum(sizes)],
+                         sizes, dim=1)
+    ws = [leaf.reshape((G,) + s) for leaf, s in zip(leaves, shapes)]
+    if not probe_rows:
+        ws = [w.contiguous() for w in ws]
+    return (x, *ws)
+
+
+def _k7_check(args):
+    from repro_torch.kernels import cnn_features as k7
+
+    got = k7.cnn_features(*args)
+    want = ref.cnn_features_ref(*[a.double() for a in args])
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    assert err <= K7_TOL * scale, (err, scale)
+    return got
+
+
+@pytest.mark.parametrize("case", K7_CASES, ids=[c[0] for c in K7_CASES])
+def test_cnn_features_kernel_matches_plain_version(cuda, case):
+    """K7 against the plain version (grouped convolutions) in float64, one
+    launch a call, and the same bits on a repeated call."""
+    from repro_torch.kernels import cnn_features as k7
+
+    _, G, B, image, cin, c1, c2 = case
+    args = _k7_inputs(G, B, image, cin, c1, c2, cuda)
+    before = k7.cnn_features.launches
+    got = _k7_check(args)
+    assert k7.cnn_features.launches == before + 1
+    assert torch.equal(got, k7.cnn_features(*args))
+
+
+def test_cnn_features_kernel_reads_probe_rows_and_strided_images(cuda):
+    """Weights as views of one (G, P) panel (an odd offset: no 16-byte
+    alignment) and images at a stride between models and between images
+    (a view: the scalar staging path) give the contiguous inputs' bits."""
+    from repro_torch.kernels import cnn_features as k7
+
+    args = _k7_inputs(20, 6, 32, 3, 6, 16, cuda, seed=1, probe_rows=True)
+    assert not args[1].is_contiguous()
+    got = _k7_check(args)
+    assert torch.equal(got, k7.cnn_features(
+        *[a.contiguous() for a in args]))
+    wide = torch.zeros((20, 7, 32, 32, 4), device=cuda)
+    wide[:, :6, :, :, :3] = args[0]
+    x = wide[:, :6, :, :, :3]
+    assert not x.is_contiguous()
+    with pytest.raises(ValueError):        # pixels not contiguous
+        k7.cnn_features(x, *args[1:])
+    wide = torch.zeros((20, 7, 32 * 32 * 3 + 1), device=cuda)
+    wide[:, :6, 1:] = args[0].reshape(20, 6, -1)
+    x = wide[:, :6, 1:].unflatten(2, (32, 32, 3))
+    assert torch.equal(k7.cnn_features(x, *args[1:]), got)
+
+
+def test_cnn_features_kernel_same_bits_alone_and_among_many(cuda):
+    """A model's features are the same bits launched alone, among 400
+    models, twice in a row, and for a prefix of its images (another
+    tiling): each output is one thread's sum in a fixed order."""
+    from repro_torch.kernels import cnn_features as k7
+
+    args = _k7_inputs(400, 50, 32, 3, 6, 16, cuda, seed=2, probe_rows=True)
+    many = k7.cnn_features(*args)
+    assert torch.equal(many, k7.cnn_features(*args))
+    for g in (0, 17, 399):
+        alone = k7.cnn_features(*[a[g:g + 1] for a in args])
+        assert torch.equal(alone[0], many[g])
+    prefix = k7.cnn_features(args[0][:, :7], *args[1:])
+    assert torch.equal(prefix, many[:, :7])
+
+
+def test_cnn_features_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import cnn_features as k7
+
+    args = _k7_inputs(4, 3, 32, 3, 6, 16, cuda)
+    with pytest.raises(TypeError):
+        k7.cnn_features(args[0].half(), *args[1:])
+    with pytest.raises(TypeError):
+        k7.cnn_features(*args[:3], args[3].double(), args[4])
+    with pytest.raises(ValueError):     # images not contiguous
+        k7.cnn_features(args[0].transpose(2, 3), *args[1:])
+    with pytest.raises(ValueError):     # a leaf not contiguous
+        k7.cnn_features(args[0], args[1].transpose(1, 2), *args[2:])
+    with pytest.raises(ValueError):     # no kernel for 5 channels
+        k7.cnn_features(*_k7_inputs(4, 3, 32, 3, 5, 16, cuda))
+    with pytest.raises(ValueError):     # no pooled conv2 output
+        k7.cnn_features(*_k7_inputs(4, 3, 12, 3, 6, 16, cuda))
+    with pytest.raises(ValueError):     # a CPU tensor among them
+        k7.cnn_features(args[0].cpu(), *args[1:])
+
+
+def test_papercnn_routes_inference_to_k7_and_training_to_cudnn(cuda):
+    """On the card PaperCNN's no-grad forward launches K7 once, within
+    K7_TOL of the training route's features; a forward whose leaves need
+    a gradient launches none and differentiates as before."""
+    from repro_torch.configs.paper_cnn import CNNConfig
+    from repro_torch.kernels import cnn_features as k7
+    from repro_torch.models.classifier import PaperCNN
+
+    model = PaperCNN(CNNConfig())
+    keys = prng.split(prng.PRNGKey(0, device=cuda), 6)
+    params = {k: torch.stack([model.init(keys[i])[k] for i in range(6)])
+              for k in model.init(keys[0])}
+    x = torch.randn((6, 10, 32, 32, 3), device=cuda)
+    before = k7.cnn_features.launches
+    with torch.no_grad():
+        fast = model.features(params, x)
+    assert k7.cnn_features.launches == before + 1
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        slow = model.features(leaves, x)
+        slow.sum().backward()
+    assert k7.cnn_features.launches == before + 1
+    assert all(v.grad is not None for k, v in leaves.items()
+               if k not in model.HEAD_KEYS)
+    scale = slow.abs().max().item()
+    assert (fast - slow.detach()).abs().max().item() <= K7_TOL * scale
+
+
+def test_dense_and_sparse_ggc_select_the_same_on_the_card(cuda):
+    """The dense and the sparse GGC, and BGGC, over the engine's reward on
+    the card (PaperCNN, K7 in every reward call: N calls of 4N probe
+    models a dense scan, one a slot a sparse one) select the same peers,
+    bit for bit."""
+    from repro_torch.configs.paper_cnn import CNNConfig
+    from repro_torch.core import graph
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl.engine import FLEngine
+    from repro_torch.kernels import cnn_features as k7
+    from repro_torch.models.classifier import PaperCNN
+
+    N, budget = 12, 3
+    data = make_federated_classification(
+        seed=3, n_clients=N, n_clusters=3, partition="pathological",
+        classes_per_client=3, image_shape=(32, 32, 3), n_train=50,
+        n_val=50, n_test=10, noise=1.0, assign_level="cluster")
+    engine = FLEngine(PaperCNN(CNNConfig()), data, lr=0.05, batch_size=25,
+                      device=cuda)
+    stacked = engine.init_clients(prng.PRNGKey(0, device=cuda))
+    trained, _ = engine.local_train(stacked, prng.PRNGKey(1, device=cuda),
+                                    epochs=2)
+    flat, p = engine.flatten(trained), engine.p
+    reward = engine.make_reward_fn()
+    key = prng.PRNGKey(7, device=cuda)
+    before = k7.cnn_features.launches
+    omega_dense = graph.all_clients_bggc(
+        key, flat, p, torch.ones((N, N), dtype=torch.bool, device=cuda),
+        reward, budget)
+    omega_sparse = graph.all_clients_bggc_sparse(key, flat, p, reward,
+                                                 budget)
+    assert torch.equal(graph.adjacency_from_neighbors(omega_sparse, N),
+                       omega_dense)
+    cand = graph.neighbors_from_adjacency(omega_dense, budget)
+    key = prng.PRNGKey(8, device=cuda)
+    dense = graph.all_clients_graph(key, flat, p, omega_dense, reward,
+                                    budget)
+    launches = k7.cnn_features.launches
+    sparse = graph.all_clients_graph_sparse(key, flat, p, cand, reward,
+                                            budget)
+    assert torch.equal(graph.adjacency_from_neighbors(sparse, N), dense)
+    assert k7.cnn_features.launches - launches == budget
+    assert launches > before + N

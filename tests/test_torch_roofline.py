@@ -22,6 +22,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import prng
 from repro_torch.configs import get_config
+from repro_torch.kernels import cnn_features as k7
 from repro_torch.kernels import compressed_graph_mix as k3
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import graph_mix as k1
@@ -130,9 +131,16 @@ def _case_k6_bwd():
             0)
 
 
+def _case_k7():
+    G, B, H, W = 4, 3, 16, 16
+    out = k7.cnn_features(m(G, B, H, W, 3), m(G, 5, 5, 3, 6), m(G, 6),
+                          m(G, 5, 5, 6, 16), m(G, 16))
+    return "cnn_features", (out,), (k7.work(G, B, H, W, 3, 6, 16),), 0
+
+
 CASES = {f.__name__[6:]: f for f in (
     _case_k1, _case_k2, _case_k3, _case_k4, _case_k4_bwd, _case_k5,
-    _case_k5_bwd, _case_k6, _case_k6_bwd)}
+    _case_k5_bwd, _case_k6, _case_k6_bwd, _case_k7)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -145,7 +153,7 @@ def test_kernel_meta_path_allocates_the_plan_and_records_its_work(case):
     launches = {f: f.launches for f in (
         k1.graph_mix, k2.sparse_graph_mix, k3.compressed_graph_mix,
         k4.flash_attention, k4.flash_attention_bwd, k5.ssd, k5.ssd_bwd,
-        k6.rglru_scan, k6.rglru_scan_bwd)}
+        k6.rglru_scan, k6.rglru_scan_bwd, k7.cnn_features)}
     with kmeta.recording() as calls, PeakTracker() as peak:
         name, outs, works, scratch = CASES[case]()
     assert all(t.device.type == "meta" and t.dtype == torch.float32

@@ -172,11 +172,14 @@ def measure(torch, dpfl, engine, cfg, args, **extra):
                         for us, k, n in rows[:args.top]],
         # the port's kernels: graph_mix, sparse_graph_mix and
         # compressed_graph_mix (its bucketing pass and its mix, two
-        # kernels whose names both hold "graph_mix"), and K4's forward
-        # and backward kernels in the LM run
+        # kernels whose names both hold "graph_mix"), K7's
+        # cnn_features_kernel (PaperCNN's inference forwards), and K4's
+        # forward and backward kernels in the LM run
         "port_kernels": [{"name": k[:90], "device_ms": us / 1e3,
                           "calls": n} for us, k, n in rows
-                         if "graph_mix" in k or "flash_attention" in k],
+                         if any(name in k for name in (
+                             "graph_mix", "cnn_features",
+                             "flash_attention"))],
     }))
 
 
