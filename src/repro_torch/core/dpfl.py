@@ -289,18 +289,22 @@ def _preprocess(engine: FLEngine, cfg: DPFLConfig, reward_fn, budget: int):
     stacked = engine.init_clients(k_init)
     stacked, _ = engine.local_train(stacked, k_pre, epochs=cfg.tau_init)
     flat = engine.flatten(stacked)
+    del stacked
     sparse = _sparse(cfg)
+    chunk = engine._client_chunk
     if cfg.random_graph:
         omega = _random_graph(cfg, N, budget, sparse,
                               engine.device)[engine.rows].contiguous()
     elif sparse:
         omega = all_clients_bggc_sparse(k_graph, flat, p, reward_fn, budget,
-                                        mesh=mesh, client_axes=ca)
+                                        mesh=mesh, client_axes=ca,
+                                        client_chunk=chunk)
     else:
         cand = torch.ones((engine.n_local, N), dtype=torch.bool,
                           device=engine.device)
         omega = all_clients_bggc(k_graph, flat, p, cand, reward_fn, budget,
-                                 mesh=mesh, client_axes=ca)
+                                 mesh=mesh, client_axes=ca,
+                                 client_chunk=chunk)
     if sparse:
         self_w, nbr_w = sparse_mixing_weights(omega, p, row0=row0)
         flat = mix_flat_sparse(self_w, nbr_w, omega, flat, mesh=mesh,
@@ -494,7 +498,7 @@ def _make_dpfl_aggregate(engine: FLEngine, cfg: DPFLConfig, reward_fn,
                 new_adj = all_clients_graph(
                     prng.fold_in(aux["k_graph"], 1000 + t), recv, p, cand,
                     reward_fn, budget, impl=cfg.graph_impl, mesh=mesh,
-                    client_axes=ca)
+                    client_axes=ca, client_chunk=engine._client_chunk)
             if active is not None:
                 # absent clients keep their previous C_k
                 new_adj = torch.where(mine[:, None], new_adj, adj)
@@ -545,7 +549,7 @@ def _make_dpfl_aggregate_sparse(engine: FLEngine, cfg: DPFLConfig,
                 new_nbr = all_clients_graph_sparse(
                     prng.fold_in(aux["k_graph"], 1000 + t), recv, p, omega,
                     reward_fn, budget, active=active, mesh=mesh,
-                    client_axes=ca)
+                    client_axes=ca, client_chunk=engine._client_chunk)
             if active is not None:
                 # absent clients keep their previous C_k lists
                 new_nbr = torch.where(mine[:, None], new_nbr, nbr)

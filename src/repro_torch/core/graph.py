@@ -9,9 +9,15 @@ probability a/(a+b) (1 when a = b = 0), until |C_k| = B_c.
 
 Every builder works on a batch of K clients at once: the greedy carry
 holds one row per client, each step's four reward probes of all K
-clients are one batched forward (K*4 models), and the loop over
-candidate positions is a Python loop. Client k's stream is `repro`'s:
-candidate order ``permutation(fold_in(key_k, 0), N)`` and coin flip
+clients are one batched forward (K*4 models, written into one (K, 4, P)
+buffer), and the loop over candidate positions is a Python loop. The
+``all_clients_*`` entries take a ``client_chunk``: with it the clients
+go through the builder in blocks of that many (`_in_blocks`, a
+``ggc.block`` span each), with the same selections, so that only a
+block's working set is live (about nine models a client: the carry, the
+candidate, the added and removed sums, the four probes). Client k's
+stream is `repro`'s: candidate order ``permutation(fold_in(key_k, 0),
+N)`` and coin flip
 ``uniform(fold_in(key_k, j + 1))`` for candidate j, drawn for all (k, j)
 in one call. The running set sums go through `kernels.ops.graph_mix`
 (one (K, N) @ (N, P) launch per greedy init, one (K, b) @ (b, P) launch
@@ -150,13 +156,18 @@ def greedy_decision_step(reward_fn: Callable):
         pw = p_j[:, None] * w_j
         wX_add, pX_add = wX + pw, pX + p_j
         wY_rem, pY_rem = wY - pw, pY - p_j
-        probes = torch.stack([
-            wX / pX[:, None],
-            wX_add / pX_add[:, None],
-            wY / pY[:, None],
-            wY_rem / torch.clamp_min(pY_rem, 1e-12)[:, None],
-        ], dim=1)
+        del pw
+        # the four set averages written into one (K, 4, P) buffer: the
+        # bits of four divisions stacked, without the stack's copy
+        probes = torch.empty((wX.shape[0], 4, wX.shape[1]), dtype=wX.dtype,
+                             device=wX.device)
+        torch.div(wX, pX[:, None], out=probes[:, 0])
+        torch.div(wX_add, pX_add[:, None], out=probes[:, 1])
+        torch.div(wY, pY[:, None], out=probes[:, 2])
+        torch.div(wY_rem, torch.clamp_min(pY_rem, 1e-12)[:, None],
+                  out=probes[:, 3])
         r = reward_fn(probes, k_idx)
+        del probes
         a = torch.clamp_min(r[:, 1] - r[:, 0], 0.0)
         b = torch.clamp_min(r[:, 3] - r[:, 2], 0.0)
         prob = torch.where(a + b > 0, a / (a + b), 1.0)
@@ -175,6 +186,24 @@ def greedy_decision_step(reward_fn: Callable):
             nsel=nsel + add.long())
 
     return step
+
+
+def _in_blocks(build, chunk, keys, k_idx, *rows):
+    """``build(keys, k_idx, *rows)`` on blocks of ``chunk`` clients at a
+    time (the rows of ``keys``, ``k_idx`` and each of ``rows``), each in
+    a ``ggc.block`` span, the results concatenated; on all of them at
+    once where ``chunk`` is None or covers them. Each client's decisions
+    read only its own key stream, carry and rewards, so the result is the
+    same bits either way; a block holds only its clients' working set."""
+    n = k_idx.shape[0]
+    if chunk is None or chunk >= n:
+        return build(keys, k_idx, *rows)
+    out = []
+    for lo in range(0, n, chunk):
+        sl = slice(lo, lo + chunk)
+        with _obs.span("ggc.block"):
+            out.append(build(keys[sl], k_idx[sl], *(r[sl] for r in rows)))
+    return torch.cat(out)
 
 
 def _self_mask(k_idx, N: int):
@@ -374,12 +403,14 @@ def _graph_inputs(key, flat_w, mesh=None, client_axes=None):
 
 
 def all_clients_graph(key, flat_w, p, cand_masks, reward_fn, budget,
-                      impl: str = "ggc", mesh=None, client_axes=None):
-    """Graph construction for every client in one batch. cand_masks:
-    (N, N) bool, row k = Omega_k. Returns the (N, N) bool adjacency,
-    adj[k, i] = 1 iff i is selected for k (diagonal True). Under
-    ``mesh``, ``flat_w`` and ``cand_masks`` are the rank's rows and so is
-    the result."""
+                      impl: str = "ggc", mesh=None, client_axes=None,
+                      client_chunk=None):
+    """Graph construction for every client in one batch, or in blocks of
+    ``client_chunk`` clients (`_in_blocks`: the same selections).
+    cand_masks: (N, N) bool, row k = Omega_k. Returns the (N, N) bool
+    adjacency, adj[k, i] = 1 iff i is selected for k (diagonal True).
+    Under ``mesh``, ``flat_w`` and ``cand_masks`` are the rank's rows and
+    so is the result."""
     if impl == "naive":
         ggc = make_ggc_naive(reward_fn, budget)
     elif impl == "ggc":
@@ -388,17 +419,19 @@ def all_clients_graph(key, flat_w, p, cand_masks, reward_fn, budget,
         raise NotImplementedError(f"graph_impl {impl!r} is not ported "
                                   f"(the port has 'ggc' and 'naive')")
     keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
-    return ggc(keys, k_idx, cand_masks, peers, p)
+    return _in_blocks(lambda ks, ki, cm: ggc(ks, ki, cm, peers, p),
+                      client_chunk, keys, k_idx, cand_masks)
 
 
 def all_clients_bggc(key, flat_w, p, cand_masks, reward_fn, budget,
-                     mesh=None, client_axes=None):
-    """Batched-GGC preprocessing for every client in one batch (same
-    ``fold_in(key, k)`` streams as `all_clients_graph`; ``mesh`` as
-    there)."""
+                     mesh=None, client_axes=None, client_chunk=None):
+    """Batched-GGC preprocessing for every client in one batch, or in
+    blocks of ``client_chunk`` clients (same ``fold_in(key, k)`` streams
+    as `all_clients_graph`; ``mesh`` and ``client_chunk`` as there)."""
     bggc = make_bggc(reward_fn, budget)
     keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
-    return bggc(keys, k_idx, cand_masks, peers, p)
+    return _in_blocks(lambda ks, ki, cm: bggc(ks, ki, cm, peers, p),
+                      client_chunk, keys, k_idx, cand_masks)
 
 
 def all_clients_graph_heterogeneous(key, flat_w, p, cand_masks, reward_fn,
@@ -589,7 +622,7 @@ def make_ggc_sparse(reward_fn: Callable, budget: int):
 
 def all_clients_graph_sparse(key, flat_w, p, cand_idx, reward_fn,
                              budget: int, active=None, mesh=None,
-                             client_axes=None):
+                             client_axes=None, client_chunk=None):
     """Sparse-representation graph construction for every client in one
     batch: candidates and selections are (N, B) neighbor lists, and each
     client's greedy probes only its <= B candidates. Selects what
@@ -597,24 +630,27 @@ def all_clients_graph_sparse(key, flat_w, p, cand_idx, reward_fn,
     restricts the candidates to available peers (absent clients keep
     their previous C_k: the caller's, as in the dense path). Under
     ``mesh``, ``flat_w`` and ``cand_idx`` are the rank's rows and so is
-    the result."""
+    the result; ``client_chunk`` as in `all_clients_graph`."""
     ggc = make_ggc_sparse(reward_fn, budget)
     keys, k_idx, peers = _graph_inputs(key, flat_w, mesh, client_axes)
-    return ggc(keys, k_idx, cand_idx, peers, p, active=active)
+    return _in_blocks(lambda ks, ki, ci: ggc(ks, ki, ci, peers, p,
+                                             active=active),
+                      client_chunk, keys, k_idx, cand_idx)
 
 
 def all_clients_bggc_sparse(key, flat_w, p, reward_fn, budget: int,
-                            mesh=None, client_axes=None):
+                            mesh=None, client_axes=None, client_chunk=None):
     """Batched-GGC preprocessing emitting (N, B) Omega lists. Algorithm 3
     streams every peer (full candidacy), so this is `all_clients_bggc`
     with full candidate masks, converted to lists of width
     ``max(1, min(budget, N - 1))`` (a client selects at most that many
-    peers; the round buffers use the same width). ``mesh`` as in
-    `all_clients_bggc`."""
+    peers; the round buffers use the same width). ``mesh`` and
+    ``client_chunk`` as in `all_clients_bggc`."""
     n, N = flat_w.shape[0], p.shape[0]
     row0 = first_row(mesh, client_axes, n)
     cand = ~eye_rows(n, N, row0, flat_w.device)
     omega = all_clients_bggc(key, flat_w, p, cand, reward_fn, budget,
-                             mesh=mesh, client_axes=client_axes)
+                             mesh=mesh, client_axes=client_axes,
+                             client_chunk=client_chunk)
     return neighbors_from_adjacency(omega, max(1, min(budget, N - 1)),
                                     row0)

@@ -95,7 +95,8 @@ class FLEngine:
                  weight_decay: float = 1e-3, batch_size: int = 16,
                  loss_fn: Optional[Callable] = None,
                  acc_fn: Optional[Callable] = None, device=None,
-                 mesh=None, client_axes=None):
+                 mesh=None, client_axes=None,
+                 client_chunk: Optional[int] = None):
         """``device`` defaults to ``cuda``; nothing falls back to the CPU
         when there is no GPU (pass ``device="cpu"`` to run there).
         ``loss_fn(params, batch)`` and ``acc_fn(params, batch)`` map
@@ -104,8 +105,23 @@ class FLEngine:
         one-client function goes through `vmap_clients` first.
         `eval_val` and `eval_test` (so `run_dpfl`'s validation and test
         accuracies) use ``acc_fn``. ``mesh`` / ``client_axes``: as
-        `shard_clients`. On a card the engine turns TF32 off and cuDNN's
-        deterministic algorithms on, for the whole process."""
+        `shard_clients`. ``client_chunk``: the forward and backward of
+        local training, evaluation, the greedy's reward probes and the
+        GGC / BGGC refresh (`core.graph`'s ``client_chunk``) on this many
+        clients at a time (None: all of the engine's rows at once). A
+        client's values and the selections do not depend on it, except
+        that on a card cuDNN picks its grouped-convolution algorithms by
+        the group count, so a single-device run with the chunk a rank's
+        N / D is the bit-for-bit twin of a client-mesh run. It bounds the
+        working set to a chunk's activations and the greedy's decision
+        state: LM clients of a billion weights need it. Their panels
+        (gigabytes a row) are allocated and freed in turn, which
+        fragments the caching allocator's pool until a round fails with
+        memory to spare: run them with
+        ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` (a setting of
+        the whole process, which the engine leaves to it). On a card the
+        engine turns TF32 off and cuDNN's deterministic algorithms on,
+        for the whole process."""
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             # IEEE fp32 everywhere: cuDNN would otherwise run the PaperCNN
@@ -135,15 +151,10 @@ class FLEngine:
         self._shapes = {k: tuple(example[k].shape) for k in self._keys}
         self._sizes = [math.prod(self._shapes[k]) for k in self._keys]
         self.n_params = sum(self._sizes)
-        # A verification device, not an option: the forward and backward
-        # of local training, evaluation and the greedy's reward probes on
-        # this many clients at a time (None: all of the engine's rows at
-        # once). A client's values do not depend on it, except that on a
-        # card cuDNN picks its grouped-convolution algorithms by the
-        # group count, so a single-device run with the chunk a rank's
-        # N / D is the bit-for-bit twin of a client-mesh run. Only those
-        # twins set it (chip_smoke.py, tools/dpfl_repeat.py, the tests).
-        self._client_chunk: Optional[int] = None
+        # the constructor's ``client_chunk``; the verification twins
+        # (chip_smoke.py, tools/dpfl_repeat.py, the tests) set it after
+        # construction
+        self._client_chunk: Optional[int] = client_chunk
         self.mesh = None
         self.client_axes = None
         #: the engine's rows of the client axis: all of them, or this
@@ -246,20 +257,29 @@ class FLEngine:
     def _chunked(self, fn: Callable, params: Params, batch):
         """``fn(params, batch)`` -> a tuple of outputs (tensors or dicts
         of tensors on the client axis), on `_client_chunk` clients at a
-        time, concatenated."""
+        time, each chunk's outputs copied into their rows of the whole
+        outputs as it comes (the bits of a concatenation, with one
+        chunk's outputs live beside them)."""
         n, c = self.n_local, self._client_chunk
         if c is None or c >= n:
             return fn(params, batch)
-        outs = [fn({k: v[i:i + c] for k, v in params.items()},
-                   {k: v[i:i + c] for k, v in batch.items()})
-                for i in range(0, n, c)]
+        def whole(x):
+            return x.new_empty((n,) + x.shape[1:])
 
-        def cat(parts):
-            if isinstance(parts[0], dict):
-                return {k: torch.cat([q[k] for q in parts]) for k in parts[0]}
-            return torch.cat(parts)
-
-        return tuple(cat([o[j] for o in outs]) for j in range(len(outs[0])))
+        outs = None
+        for i in range(0, n, c):
+            part = fn({k: v[i:i + c] for k, v in params.items()},
+                      {k: v[i:i + c] for k, v in batch.items()})
+            if outs is None:
+                outs = tuple({k: whole(x) for k, x in o.items()}
+                             if isinstance(o, dict) else whole(o)
+                             for o in part)
+            for out, o in zip(outs, part):
+                for k, x in (o.items() if isinstance(o, dict) else
+                             [(None, o)]):
+                    (out if k is None else out[k])[i:i + x.shape[0]] = x
+            del part
+        return outs
 
     def _loss_and_grads(self, params: Params, batch, loss_fn: Callable):
         # a loss other than the engine's own (FedProx's, which closes
@@ -331,7 +351,11 @@ class FLEngine:
                 with _obs.span("local_train.update"):
                     updates, opt_state = self.opt.update(grads, opt_state,
                                                          params)
-                    params = {k: params[k] + updates[k] for k in self._keys}
+                    del grads
+                    # leaf by leaf: one leaf of the old weights and of the
+                    # updates outlives its own add
+                    for k in self._keys:
+                        params[k] = params[k] + updates.pop(k)
                 step_losses.append(loss)
             epoch_losses.append(torch.stack(step_losses).mean(0))
         return params, torch.stack(epoch_losses).mean(0)

@@ -354,6 +354,7 @@ def make_round_step(engine, *, tau: int,
             else:
                 stacked, _ = lt(stacked, kt, epochs=tau)
         flat = engine.flatten(stacked)
+        del stacked
         if participation_key is not None:
             m = state.aux[participation_key][t][engine.rows]
             flat = torch.where(m[:, None], flat, state.flat)

@@ -36,6 +36,16 @@ heads a block; W per group of heads; dC, dB and d dlogA. No Pallas
 counterpart: `repro` differentiates its oracle), whose plain version is
 `repro_torch.kernels.ref.ssd_bwd_ref`.
 
+Under ``torch.func.vmap`` (`repro_torch.fl.engine.vmap_clients`, the LM
+clients) the autograd Function folds the vmapped axis into b (the rules
+of `flash_attention`'s `_fold` and `_unfold`), so one op serves every
+vmapped slice. Each op's launches lie in the span ``k5`` and each
+backward's in ``k5_bwd`` (`repro_torch.obs`), and the counters
+``k5.calls``, ``k5.tokens`` and ``k5.seqs.l<l>`` (``k5_bwd.*`` the same)
+add 1, b l and, under the call's own length l, b: each call's (b, l) as
+far as its work goes, which at one length is linear in b (`work`,
+`bwd_work`).
+
 The wrappers launch their kernels on CUDA tensors, or raise: they never
 fall back to a plain version (`repro_torch.kernels.ops.ssd` picks the
 plain version, which autograd differentiates, for CPU tensors only). On
@@ -54,6 +64,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import obs as _obs
 from . import _build
 from . import meta as _meta
 
@@ -361,13 +372,15 @@ def ssd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
     scan (``csrc/ssd.cu``). The
     workspaces hold about b l (H + (L + 64) / 2 + n + H n pw / L) floats:
     11 MB at mamba2-370m's serve shape. Inputs that require grad (grad
-    mode on) go through the autograd Function, whose backward launches
-    `ssd_bwd`. Adds one to ``ssd.launches`` per op (three kernel
-    launches; under activation recompute the forward runs again in the
-    backward pass)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dlogA, B, C, h0)):
-        return _Scan.apply(x, dlogA, B, C, h0, chunk)
+    mode on), and every call inside a ``torch.func`` transform
+    (``vmap``), go through the autograd Function, whose backward launches
+    `ssd_bwd` and whose rule folds the vmapped axis into b. Adds one
+    to ``ssd.launches`` per op (three kernel launches; under activation
+    recompute the forward runs again in the backward pass)."""
+    if torch._C._are_functorch_transforms_active() or (
+            torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                            for t in (x, dlogA, B, C, h0))):
+        return _Scan.apply(x, dlogA, B, C, h0, chunk)[:2]
     return _forward(x, dlogA, B, C, chunk, h0)[:2]
 
 
@@ -425,6 +438,14 @@ def _check(x, dlogA, B, C, chunk, h0):
     return b, l, H, p, n, L
 
 
+def _count(name: str, b: int, l: int):
+    """The op's call, its tokens, and its b under its length l
+    (`repro_torch.obs`)."""
+    _obs.count(name + ".calls")
+    _obs.count(name + ".tokens", b * l)
+    _obs.count(f"{name}.seqs.l{l}", b)
+
+
 def _forward(x, dlogA, B, C, chunk, h0):
     """Launch the forward; returns (y, h_last, cum, states), the last two
     None where there is no block to launch."""
@@ -451,14 +472,16 @@ def _forward(x, dlogA, B, C, chunk, h0):
         x.stride(0), x.stride(1), x.stride(2),
         dlogA.stride(0), dlogA.stride(1), dlogA.stride(2),
         B.stride(0), B.stride(1), C.stride(0), C.stride(1))
-    lib_fn = _build.entry("ssd", "ssd_f32", _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check("ssd", lib_fn(
-        x.data_ptr(), dlogA.data_ptr(), B.data_ptr(), C.data_ptr(),
-        None if h0c is None else h0c.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), *(work_.data_ptr() + 4 * i for i in starts),
-        b, l, H, p, n, L, vec, strides, (ctypes.c_int * 6)(*plan.launch),
-        dev.index, stream))
+    with _obs.span("k5"):
+        lib_fn = _build.entry("ssd", "ssd_f32", _ARGTYPES)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check("ssd", lib_fn(
+            x.data_ptr(), dlogA.data_ptr(), B.data_ptr(), C.data_ptr(),
+            None if h0c is None else h0c.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), *(work_.data_ptr() + 4 * i for i in starts),
+            b, l, H, p, n, L, vec, strides,
+            (ctypes.c_int * 6)(*plan.launch), dev.index, stream))
+    _count("k5", b, l)
     ssd.launches += 1
     return (y, h_last, *_views(work_, starts, sizes, plan))
 
@@ -471,28 +494,69 @@ def _views(work_, starts, sizes, plan):
         plan.workspace["states"]))
 
 
+def _fold(info, in_dims, *tensors):
+    """The vmap rule's fold (`flash_attention._fold`): each tensor's
+    vmapped dimension moved to the front (an unbatched tensor broadcast
+    to the vmap's size) and merged into b, (N, b, ...) to (N b, ...); a
+    None stays None."""
+    n = info.batch_size
+
+    def one(t, dim):
+        if t is None:
+            return None
+        t = t.expand((n,) + t.shape) if dim is None else t.movedim(dim, 0)
+        return t.reshape((n * t.shape[1],) + t.shape[2:])
+    return tuple(one(t, d) for t, d in zip(tensors, in_dims))
+
+
+def _unfold(info, t):
+    """(N b, ...) back to (N, b, ...), the vmapped dimension first; None
+    stays None."""
+    return None if t is None else t.unflatten(0, (info.batch_size, -1))
+
+
 class _Scan(torch.autograd.Function):
     """K5 under autograd: the forward saves x, dlogA, B and C (as the views
-    they arrive as), h0 and its workspaces ``cum`` and ``states``; the
-    backward is `ssd_bwd`. An unused h_last arrives as None (no zeros are
-    made for it)."""
+    they arrive as), h0 and its workspaces ``cum`` and ``states`` (outputs
+    that take no gradient); the backward is `ssd_bwd`. An unused h_last
+    arrives as None (no zeros are made for it). Every call inside a
+    ``torch.func`` transform comes here, since a batched tensor reports no
+    ``requires_grad`` (the LM clients' scans): the rule below folds the
+    vmapped axis into b and applies the Function again on the folded
+    (real) tensors, which do report it. Under grad mode one forward and
+    one backward thus serve the folded batch, and the backward is
+    recorded on it; without grad (the clients' evaluation and reward
+    probes) the forward alone runs on it, and the workspaces go with the
+    discarded outputs. No batched tensor reaches ``data_ptr()``."""
 
     @staticmethod
-    def forward(ctx, x, dlogA, B, C, h0, chunk):
-        y, h_last, cum, states = _forward(x, dlogA, B, C, chunk, h0)
+    def forward(x, dlogA, B, C, h0, chunk):
+        return _forward(x, dlogA, B, C, chunk, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dlogA, B, C, h0, chunk = inputs
+        _, _, cum, states = output
+        ctx.mark_non_differentiable(*(t for t in (cum, states)
+                                      if t is not None))
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dlogA, B, C, h0, cum, states)
         ctx.chunk = chunk
-        return y, h_last
 
     @staticmethod
-    def backward(ctx, dy, dh_last):
+    def backward(ctx, dy, dh_last, _dcum, _dstates):
         x, dlogA, B, C, h0, cum, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
         grads = ssd_bwd(x, dlogA, B, C, ctx.chunk, h0, dy, dh_last, cum,
                         states)
         return grads + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dlogA, B, C, h0, chunk):
+        out = _Scan.apply(*_fold(info, in_dims[:5], x, dlogA, B, C, h0),
+                          chunk)
+        return tuple(_unfold(info, t) for t in out), (0, 0, 0, 0)
 
 
 def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
@@ -552,16 +616,19 @@ def ssd_bwd(x: torch.Tensor, dlogA: torch.Tensor, B: torch.Tensor,
         x.stride(0), x.stride(1), x.stride(2), B.stride(0), B.stride(1),
         C.stride(0), C.stride(1))
     grid = (ctypes.c_int * len(plan.launch))(*plan.launch)
-    lib_fn = _build.entry("ssd_bwd", "ssd_bwd_f32", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check("ssd_bwd", lib_fn(
-        x.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
-        None if dhl is None else dhl.data_ptr(), cum.data_ptr(),
-        states.data_ptr(), dx.data_ptr(), ddlogA.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-        ctypes.addressof(ptrs), b, l, H, p, n, L, plan.groups,
-        int(h0 is not None), vec, ctypes.addressof(strides),
-        ctypes.addressof(grid), dev.index, stream))
+    with _obs.span("k5_bwd"):
+        lib_fn = _build.entry("ssd_bwd", "ssd_bwd_f32", _BWD_ARGTYPES)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check("ssd_bwd", lib_fn(
+            x.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            None if dhl is None else dhl.data_ptr(), cum.data_ptr(),
+            states.data_ptr(), dx.data_ptr(), ddlogA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(),
+            ctypes.addressof(ptrs), b, l, H, p, n, L, plan.groups,
+            int(h0 is not None), vec, ctypes.addressof(strides),
+            ctypes.addressof(grid), dev.index, stream))
+    _count("k5_bwd", b, l)
     ssd_bwd.launches += 1
     return dx, ddlogA, dB, dC, dh0
 

@@ -3,8 +3,12 @@
 embeddings, sliding windows, ring-buffer KV caches, SwiGLU MLPs, top-k
 MoE blocks (`repro_torch.models.moe`), a prefix of precomputed vision
 embeddings (vlm, whose layers are dense), Mamba2 (SSD) blocks, RG-LRU
-recurrent blocks interleaved with local attention (Griffin) and a tied
-or separate output head.
+recurrent blocks interleaved with local attention (Griffin), Granite-4.0-H
+layers (the granite family, `configs.granite_4_0_h_micro`: a Mamba2 or an
+attention mixer without rotary positions in each layer's place of
+``layer_types``, each followed by a shared SwiGLU MLP, with Granite's
+embedding, residual and logit multipliers; not in `repro`) and a tied or
+separate output head.
 
 `DecoderLM` is an ``nn.Module`` that owns its weights: one `DenseLayer`,
 `MoELayer`, `MambaLayer` or `RecLayer` module per layer, in execution
@@ -65,7 +69,8 @@ from .common import (NEG_INF, apply_rope, attention_ref,
                      swiglu)
 from .moe import MoE, init_moe
 from .rglru import init_rec_block, init_rec_cache, rec_block
-from .ssm import init_mamba_block, init_mamba_cache, mamba_block, mamba_dims
+from .ssm import (init_mamba_block, init_mamba_cache, mamba_block,
+                  mamba_dims, mamba_mixer)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -144,8 +149,12 @@ def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, d). q_pos: (S,) int64 absolute positions (decode: (1,)).
     cache: {"k": (B, C, Hkv, hd), "v": ..., "pos": (B, C)} ring buffer or
-    None. Without a cache, the positions are ``arange(S)`` and the
-    attention is the K4 kernel; given ``cache_len`` it also returns the
+    None. Without ``cfg.use_rope`` (`GraniteConfig`'s switch; other
+    configurations have none and take rotary positions) no rotary
+    positions; with ``cfg.attention_multiplier`` (Granite's too; else
+    hd^-1/2) the softmax scale is that number. Without
+    a cache, the positions are ``arange(S)`` and the attention is the K4
+    kernel; given ``cache_len`` it also returns the
     ring cache the prefill leaves (`cache_from_prefill`, from the K and V
     computed here: `repro` computes them a second time for the cache, the
     same values). With a cache, the new rows go to slots ``q_pos % C``,
@@ -161,8 +170,14 @@ def attn_apply(p: "Attention", x: torch.Tensor, cfg: ArchConfig,
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, q_pos, cfg.rope_theta)
+    if getattr(cfg, "use_rope", True):
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    scale = getattr(cfg, "attention_multiplier", None)
+    if scale is not None:
+        # every attention path scales the scores by hd^-1/2: q carries the
+        # rest (Granite's 0.015625 * 8 = 2^-3, exact)
+        q = q * (scale * math.sqrt(hd))
 
     if cache is None:
         out = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -307,7 +322,8 @@ class MambaLayer(nn.Module):
     """One Mamba2 block's weights: ln (d,), in_proj (d, 2 d_in + 2n + H),
     conv_w (K, conv_dim), A_log, D and dt_bias (H,) in float32 whatever
     the model's dtype (as in `repro`), norm_w (d_in,), out_proj
-    (d_in, d)."""
+    (d_in, d); with ``cfg.ssm_conv_bias`` the conv's bias conv_b
+    (conv_dim,)."""
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -317,11 +333,41 @@ class MambaLayer(nn.Module):
         self.in_proj = _weight((d, 2 * d_in + 2 * cfg.ssm_state + H), dtype,
                                device)
         self.conv_w = _weight((cfg.ssm_conv, conv_dim), dtype, device)
+        if getattr(cfg, "ssm_conv_bias", False):
+            self.conv_b = _weight((conv_dim,), dtype, device)
         self.A_log = _weight((H,), torch.float32, device)
         self.D = _weight((H,), torch.float32, device)
         self.dt_bias = _weight((H,), torch.float32, device)
         self.norm_w = _weight((d_in,), dtype, device)
         self.out_proj = _weight((d_in, d), dtype, device)
+
+
+class GraniteMambaLayer(MambaLayer):
+    """A Granite-4.0-H Mamba2 layer's weights: `MambaLayer`'s (``ln`` the
+    input norm) and the shared MLP's: ln2, wi_gate, wi_up (d, d_ff),
+    wo_mlp (d_ff, d). Its attention layers are `DenseLayer`s."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__(cfg, dtype, device)
+        d = cfg.d_model
+        self.ln2 = _weight((d,), dtype, device)
+        self.wi_gate = _weight((d, cfg.d_ff), dtype, device)
+        self.wi_up = _weight((d, cfg.d_ff), dtype, device)
+        self.wo_mlp = _weight((cfg.d_ff, d), dtype, device)
+
+
+def init_granite_mamba_layer(key: torch.Tensor, cfg: ArchConfig,
+                             dtype) -> Dict:
+    """A `GraniteMambaLayer`'s init for ``key``: the Mamba2 block's from the
+    first of two keys, the MLP's from the second (ln2 ones)."""
+    ks = prng.split(key, 2)
+    km = prng.split(ks[1], 3)
+    d = cfg.d_model
+    return {**init_mamba_block(ks[0], cfg, dtype),
+            "ln2": torch.ones((d,), dtype=dtype, device=key.device),
+            "wi_gate": dense_init(km[0], (d, cfg.d_ff), dtype),
+            "wi_up": dense_init(km[1], (d, cfg.d_ff), dtype),
+            "wo_mlp": dense_init(km[2], (cfg.d_ff, d), dtype)}
 
 
 class RecLayer(nn.Module):
@@ -378,7 +424,8 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense, moe, vlm, SSM or hybrid family. The
+    """Decoder-only LM of the dense, moe, vlm, SSM, hybrid or granite
+    family. The
     weights are allocated uninitialised on ``device`` (default cuda;
     "meta" allocates nothing); `init` draws them, or
     ``load_state_dict(params, assign=True)`` takes a state dict
@@ -453,6 +500,9 @@ class DecoderLM(nn.Module):
         if cfg.family == "hybrid":
             layers = [RecLayer if kind == "rec" else DenseLayer
                       for *_, kind in hybrid_layout(cfg)]
+        elif cfg.family == "granite":
+            layers = [GraniteMambaLayer if kind == "mamba" else DenseLayer
+                      for kind in cfg.layer_types]
         else:
             layers = [{"ssm": MambaLayer,
                        "moe": functools.partial(MoELayer, mesh=mesh)}.get(
@@ -465,8 +515,9 @@ class DecoderLM(nn.Module):
         """Draw `repro`'s init for ``key`` (its key tree: ``split(key, 4)``,
         the layers from ``split(ks[2], n_layers)``, or a hybrid model's
         group g of block bi of segment si from ``split(fold_in(ks[2],
-        si * 16 + bi), groups)[g]``) on the key's device, make it the
-        module's weights and return the state dict. Build the model on
+        si * 16 + bi), groups)[g]``; a granite model's layer i, of either
+        kind, from ``split(ks[2], n_layers)[i]``) on the key's device, make
+        it the module's weights and return the state dict. Build the model on
         "meta" first, so that the weights exist once. The port's normal
         sampler may differ from jax's by a few ulps
         (`repro_torch.prng.normal`). Under a mesh each MoE layer draws
@@ -490,6 +541,13 @@ class DecoderLM(nn.Module):
                     else init_dense_layer
                 params.update(_flatten(layer_init(keys[g], cfg, dtype),
                                        f"layers.{i}."))
+        elif cfg.family == "granite":
+            keys = prng.split(ks[2], cfg.n_layers)
+            for i, kind in enumerate(cfg.layer_types):
+                layer_init = init_granite_mamba_layer if kind == "mamba" \
+                    else init_dense_layer
+                params.update(_flatten(layer_init(keys[i], cfg, dtype),
+                                       f"layers.{i}."))
         else:
             layer_init = {"ssm": init_mamba_block,
                           "moe": functools.partial(init_moe_layer,
@@ -509,7 +567,11 @@ class DecoderLM(nn.Module):
         """One layer (`repro`'s ``_block``): a Mamba2 or RG-LRU block, whose
         cache does not depend on ``cache_len`` or the positions, a dense
         or an MoE block. Returns (x, cache, the router's load-balance
-        loss: an fp32 scalar for an MoE block, else None)."""
+        loss: an fp32 scalar for an MoE block, else None). A granite
+        layer is `_granite_block`."""
+        if self.cfg.family == "granite":
+            return (*self._granite_block(layer, x, q_pos, cache, cache_len),
+                    None)
         if isinstance(layer, MambaLayer):
             return (*mamba_block(layer, x, self.cfg, cache), None)
         if isinstance(layer, RecLayer):
@@ -531,6 +593,28 @@ class DecoderLM(nn.Module):
             return x + mo, cache, aux
         return x + swiglu(xn, layer.wi_gate, layer.wi_up, layer.wo_mlp), \
             cache, None
+
+    def _granite_block(self, layer: nn.Module, x: torch.Tensor,
+                       q_pos: torch.Tensor, cache: Optional[Cache] = None,
+                       cache_len: Optional[int] = None):
+        """A Granite-4.0-H layer: its mixer (Mamba2 or attention) on the
+        normed input, then the shared SwiGLU MLP on the normed sum, each
+        output times ``residual_multiplier`` before its residual add.
+        Returns (x, cache)."""
+        cfg = self.cfg
+        rm = cfg.residual_multiplier
+        if isinstance(layer, MambaLayer):
+            h, cache = mamba_mixer(layer, rms_norm(x, layer.ln, cfg.norm_eps),
+                                   cfg, cache)
+        else:
+            h, cache = attn_apply(
+                layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps), cfg, q_pos,
+                cache, self.window, cache_len=cache_len,
+                seqshard=self.mesh if self.decode_cache_seqshard else None)
+        x = x + h * rm
+        m = swiglu(rms_norm(x, layer.ln2, cfg.norm_eps), layer.wi_gate,
+                   layer.wi_up, layer.wo_mlp)
+        return x + m * rm, cache
 
     def _apply_stack(self, x: torch.Tensor, q_pos: torch.Tensor,
                      caches: Optional[List[Cache]] = None):
@@ -570,11 +654,17 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------- embed/out
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.tok_embed)
+        x = F.embedding(tokens, self.tok_embed)
+        # Granite's multipliers are `GraniteConfig`'s alone
+        scale = getattr(self.cfg, "embedding_multiplier", 1.0)
+        return x * scale if scale != 1.0 else x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head
         logits = x @ head
+        scale = getattr(self.cfg, "logits_scaling", 1.0)
+        if scale != 1.0:
+            logits = logits / scale
         if self.vp != self.cfg.vocab_size:
             mask = torch.arange(self.vp, device=x.device) < self.cfg.vocab_size
             logits = torch.where(mask, logits, NEG_INF)

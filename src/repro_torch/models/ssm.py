@@ -61,12 +61,18 @@ def mamba_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
 
 def init_mamba_block(key: torch.Tensor, cfg: ArchConfig, dtype) -> Dict:
     """`repro`'s Mamba2 block init for ``key``, on the key's device. A_log,
-    D and dt_bias are float32 whatever ``dtype`` is, as in `repro`."""
+    D and dt_bias are float32 whatever ``dtype`` is, as in `repro`. With
+    ``cfg.ssm_conv_bias`` (Granite-4.0-H; `repro` has none) the conv's
+    bias ``conv_b`` (conv_dim,) is drawn from the fourth key, normal times
+    0.2 as the conv's taps."""
     d = cfg.d_model
     d_in, H, conv_dim = mamba_dims(cfg)
     ks = prng.split(key, 5)
     dev = key.device
+    bias = {"conv_b": dense_init(ks[3], (conv_dim,), dtype, scale=0.2)} \
+        if getattr(cfg, "ssm_conv_bias", False) else {}
     return {
+        **bias,
         "ln": torch.ones((d,), dtype=dtype, device=dev),
         "in_proj": dense_init(ks[0], (d, 2 * d_in + 2 * cfg.ssm_state + H),
                               dtype),
@@ -93,17 +99,30 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig,
                 cache: Optional[Cache] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """x: (B, S, d); ``p`` holds the block's weights under `repro`'s names
-    (a `repro_torch.models.lm.MambaLayer`). Without a cache (prefill) the
-    scan is `ops.ssd` over the S steps and the block returns the serving
-    cache {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)}, the last
-    K-1 *pre*-conv projections; S < K-1 raises ``ValueError``, since that
+    (a `repro_torch.models.lm.MambaLayer`): the norm ``ln``, then
+    `mamba_mixer`, added to x. Returns (y, cache)."""
+    out, cache = mamba_mixer(p, rms_norm(x, p.ln, cfg.norm_eps), cfg, cache)
+    return x + out, cache
+
+
+def mamba_mixer(p, xn: torch.Tensor, cfg: ArchConfig,
+                cache: Optional[Cache] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The Mamba2 mixer of a normed input xn (B, S, d), up to its output
+    projection: in_proj, the causal conv (plus ``conv_b`` with
+    ``cfg.ssm_conv_bias``) and SiLU, softplus dt, the scan, the D skip,
+    the gated norm, out_proj. The switch is `GraniteConfig`'s alone:
+    other configurations have no conv bias. Without a cache (prefill) the scan is
+    `ops.ssd` over the S steps and the mixer returns the serving cache
+    {"h": (B, H, hd, n) fp32, "conv": (B, K-1, conv_dim)}, the last K-1
+    *pre*-conv projections; S < K-1 raises ``ValueError``, since that
     cache cannot be built (`repro` returns None there, and its decode then
-    runs without state). With a cache (decode, S == 1) the block runs
-    `ssd_decode_step` and writes the cache in place. Returns (y, cache)."""
-    B_, S, _ = x.shape
+    runs without state). With a cache (decode, S == 1) it runs
+    `ssd_decode_step` and writes the cache in place. Returns (out, cache)."""
+    B_, S, _ = xn.shape
     d_in, H, _ = mamba_dims(cfg)
     n, hd, K = cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_conv
-    xn = rms_norm(x, p.ln, cfg.norm_eps)
+    conv_bias = getattr(cfg, "ssm_conv_bias", False)
     zxbcdt = xn @ p.in_proj
     z, xBC, dt = _split_proj(zxbcdt, cfg)
     dt = F.softplus(dt.float() + p.dt_bias)                 # (B, S, H)
@@ -116,7 +135,10 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig,
                 f"conv cache of {K - 1} rows; prompts need >= {K - 1} "
                 f"tokens")
         conv_cache = xBC[:, S - (K - 1):, :].contiguous()
-        xBC = F.silu(depthwise_causal_conv(xBC, p.conv_w))
+        xBC = depthwise_causal_conv(xBC, p.conv_w)
+        if conv_bias:
+            xBC = xBC + p.conv_b
+        xBC = F.silu(xBC)
         xs = xBC[..., :d_in].reshape(B_, S, H, hd)
         Bmat = xBC[..., d_in:d_in + n].float()
         Cmat = xBC[..., d_in + n:].float()
@@ -126,7 +148,10 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig,
         cache = {"h": h_last, "conv": conv_cache}
     else:
         conv_in = torch.cat([cache["conv"], xBC], dim=1)    # (B, K, C)
-        xBC_t = F.silu(torch.einsum("bkc,kc->bc", conv_in, p.conv_w))
+        xBC_t = torch.einsum("bkc,kc->bc", conv_in, p.conv_w)
+        if conv_bias:
+            xBC_t = xBC_t + p.conv_b
+        xBC_t = F.silu(xBC_t)
         # the conv state stores *pre*-conv projections, as the prefill's
         xs = xBC_t[:, :d_in].reshape(B_, H, hd)
         Bt = xBC_t[:, d_in:d_in + n].float()
@@ -138,9 +163,9 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig,
         cache["h"].copy_(h)
         cache["conv"].copy_(conv_in[:, 1:])
 
-    y = y.reshape(B_, S, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.norm_w, cfg.norm_eps)
-    return x + y @ p.out_proj, cache
+    y = y.reshape(B_, S, d_in).to(xn.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(xn.dtype), p.norm_w, cfg.norm_eps)
+    return y @ p.out_proj, cache
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int, dtype,

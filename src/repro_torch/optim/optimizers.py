@@ -7,9 +7,9 @@ updates (`apply_updates`). The arithmetic follows `repro`'s order step
 for step. The step count is a host int, so a learning-rate schedule
 never reads the device.
 
-Where `repro` returns new moments, AdamW writes them into the state's
-tensors in place: the port's stand-in for donating the old state, which
-the caller must not reuse. Its updates are fresh tensors.
+Where `repro` returns new moments, AdamW and SGD write them into the
+state's tensors in place: the port's stand-in for donating the old
+state, which the caller must not reuse. Their updates are fresh tensors.
 """
 from __future__ import annotations
 
@@ -47,7 +47,10 @@ def clip_by_global_norm(tree: Params, max_norm: float):
 def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0,
         nesterov: bool = False) -> Optimizer:
     """``g += wd * p``; ``mu = m * mu + g``; ``update = -lr * mu`` (or
-    ``-lr * (g + m * mu)`` with nesterov)."""
+    ``-lr * (g + m * mu)`` with nesterov). Leaf by leaf, the momentum
+    written into the state's tensors in place (as AdamW's moments), so
+    that an update holds one panel of updates and one leaf of
+    temporaries beside its inputs."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params: Params):
@@ -57,15 +60,16 @@ def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0,
 
     def update(grads: Params, state, params: Params):
         step_lr = lr_fn(state["count"])
-        if weight_decay:
-            grads = {k: g + weight_decay * params[k] for k, g in grads.items()}
-        if momentum:
-            mu = {k: momentum * state["mu"][k] + g for k, g in grads.items()}
-            eff = ({k: g + momentum * mu[k] for k, g in grads.items()}
-                   if nesterov else mu)
-        else:
-            mu, eff = None, grads
-        updates = {k: -step_lr * e for k, e in eff.items()}
+        mu = state["mu"] if momentum else None
+        updates = {}
+        for k, g in grads.items():
+            if weight_decay:
+                g = g + weight_decay * params[k]
+            if momentum:
+                # m * mu + g, the same two roundings, in place
+                m = mu[k].mul_(momentum).add_(g)
+                g = g + momentum * m if nesterov else m
+            updates[k] = -step_lr * g
         return updates, {"mu": mu, "count": state["count"] + 1}
 
     return Optimizer(init, update)

@@ -1669,3 +1669,129 @@ def test_dense_and_sparse_ggc_select_the_same_on_the_card(cuda):
     assert torch.equal(graph.adjacency_from_neighbors(sparse, N), dense)
     assert k7.cnn_features.launches - launches == budget
     assert launches > before + N
+
+
+# K5 under torch.func.vmap over clients: (clients, b, l, H, p, n), the
+# granite cell's local step and reward call (4 clients of 4 and of 4 x 2
+# sequences of 512 at Granite-4.0-H's 64 heads of 64, state 128) and a
+# small ragged case
+K5_VMAP_SHAPES = [(4, 4, 512, 64, 64, 128), (1, 8, 512, 64, 64, 128),
+                  (3, 2, 128, 5, 24, 20)]
+
+
+@pytest.mark.parametrize("N, b, l, H, p, n", K5_VMAP_SHAPES)
+def test_ssd_under_vmap_folds_the_clients(cuda, N, b, l, H, p, n):
+    """One forward launch (and one backward call under autograd) on the
+    folded (N b) batch, bit for bit the per-client launches, and the
+    program's counters of its calls; the gradients within K5_BWD_TOL of
+    the plain version's largest element."""
+    from repro_torch import obs
+
+    x, dA, Bm, Cm, _ = (t if t is None else t.unflatten(0, (N, b))
+                        for t in _k5_inputs(N * b, l, H, p, n, "model",
+                                            False, cuda))
+    f = torch.func.vmap(lambda *t: ops.ssd(*t, chunk=256))
+
+    def counts():
+        return k5.ssd.launches, k5.ssd_bwd.launches
+    before = counts()
+    obs.reset()
+    with torch.no_grad(), obs.tracing():
+        y, h_last = f(x, dA, Bm, Cm)
+    assert counts() == (before[0] + 1, before[1])
+    assert obs.snapshot()["counts"] == {
+        "k5.calls": 1, "k5.tokens": N * b * l, f"k5.seqs.l{l}": N * b}
+    with torch.no_grad():
+        each = [ops.ssd(x[i], dA[i], Bm[i], Cm[i], chunk=256)
+                for i in range(N)]
+    assert torch.equal(y, torch.stack([e[0] for e in each]))
+    assert torch.equal(h_last, torch.stack([e[1] for e in each]))
+    leaves = [t.clone().requires_grad_(True) for t in (x, dA, Bm, Cm)]
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    before = counts()
+    obs.reset()
+    with obs.tracing():
+        got = torch.autograd.grad(f(*leaves)[0], leaves, dy)
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert obs.snapshot()["counts"]["k5_bwd.calls"] == 1
+    obs.reset()
+    for i in range(N):
+        li = [t[i].clone().requires_grad_(True) for t in (x, dA, Bm, Cm)]
+        gi = torch.autograd.grad(ops.ssd(*li, chunk=256)[0], li, dy[i])
+        assert all(torch.equal(a[i], c) for a, c in zip(got, gi))
+    want = ref.ssd_bwd_ref(x.flatten(0, 1), dA.flatten(0, 1),
+                           Bm.flatten(0, 1), Cm.flatten(0, 1), 256, None,
+                           dy.flatten(0, 1), None)
+    for g, w in zip(got, want):
+        w = w.unflatten(0, (N, b))
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0,
+                                   atol=K5_BWD_TOL)
+
+
+def test_granite_model_on_the_card_matches_the_plain_reference(cuda):
+    """A granite `DecoderLM` at Granite-4.0-H's head, state and chunk
+    sizes (2 Mamba2 layers around an attention layer, d_model 512,
+    vocabulary 1,000; K5 and K4 on the card, TF32 off) against the plain
+    reference in float64 on the card: logits within 1e-4 of the largest,
+    the loss within 1e-5 (relative), every gradient leaf within 1e-3 of
+    its largest element; and the vmapped loss over 2 clients (one K4 and
+    one K5 launch a layer) within 1e-6 of the per-client losses (cuBLAS
+    picks other algorithms for the batched products than for one
+    client's)."""
+    from repro_torch.configs.granite_4_0_h_micro import CONFIG
+    from repro_torch.fl.engine import vmap_clients
+    from repro_torch.models import build_model, granite_ref
+    from repro_torch.models.common import rms_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CONFIG.replace(n_layers=3, layer_types=("mamba", "attention",
+                                                  "mamba"),
+                         d_model=512, n_heads=8, n_kv_heads=2, d_ff=1024,
+                         vocab_size=1000, dtype="float32")
+    model = build_model(cfg, device="meta", remat="none", loss_chunks=1)
+    params = model.init(prng.PRNGKey(0, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for v in params.values():
+            if v.dim() == 1:
+                v.add_(0.3 * torch.randn(v.shape, generator=g, device=cuda))
+    named = dict(model.named_parameters())
+    toks = torch.randint(0, cfg.vocab_size, (2, 513), generator=g,
+                         device=cuda)
+    wide = {k: v.detach().double() for k, v in named.items()}
+    with torch.no_grad():
+        x = model._embed(toks[:, :-1])
+        h, _ = model._apply_stack(x, torch.arange(512, device=cuda))
+        got = model._logits(rms_norm(h, model.final_norm, cfg.norm_eps))
+        want = granite_ref.logits(wide, cfg, toks[:, :-1])
+    scale = want.abs().max()
+    torch.testing.assert_close(got.double() / scale, want / scale, rtol=0,
+                               atol=1e-4)
+    loss, _ = model.loss({"tokens": toks})
+    grads = torch.autograd.grad(loss, list(named.values()))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in wide.items()}
+    want_loss = granite_ref.loss(leaves, cfg, toks)
+    want_grads = torch.autograd.grad(want_loss, list(leaves.values()))
+    torch.testing.assert_close(loss.double(), want_loss, rtol=1e-5, atol=0)
+    for k, a, w in zip(named, grads, want_grads):
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(a.double() / scale, w / scale, rtol=0,
+                                   atol=1e-3, msg=k)
+    stacked = {k: torch.stack([v.detach(), v.detach() * 0.9])
+               for k, v in named.items()}
+    batch = {"x": torch.stack([toks, toks.flip(0)])}
+    before = (k4.flash_attention.launches, k5.ssd.launches)
+    with torch.no_grad():
+        losses = vmap_clients(model, lambda m, b: m.loss(
+            {"tokens": b["x"]})[0])(stacked, batch)
+    assert (k4.flash_attention.launches - before[0],
+            k5.ssd.launches - before[1]) == (1, 2)
+    for i in range(2):
+        one = build_model(cfg, device="meta", remat="none", loss_chunks=1)
+        one.load_state_dict({k: v[i] for k, v in stacked.items()},
+                            assign=True)
+        with torch.no_grad():
+            torch.testing.assert_close(losses[i], one.loss(
+                {"tokens": batch["x"][i]})[0], rtol=1e-6, atol=0)

@@ -23,9 +23,10 @@ algorithms: it measures four times in turns, with
 warm-up run and a profiled one), one JSON line each.
 
 ``--spans`` gives the operator's view of the round by the program's own
-spans (`repro_torch.obs`), at the settings of the benchmark's dense
-cell (read from `bench/configs/papercnn-n100.json`: 100 clients of
-450/50/100 images, 5 local epochs of batch 50 a round, budget 10). After the
+spans (`repro_torch.obs`), at the settings of a benchmark cell
+(``--cell``, by default the dense cell ``papercnn-n100.dense``: 100
+clients of 450/50/100 images, 5 local epochs of batch 50 a round, budget
+10; the engine, inputs and `DPFLConfig` as `bench/` builds them). After the
 preprocessing and a warm round it first prices tracing: windows of
 ``--window-rounds`` untraced rounds with `obs` off and with
 ``obs.enable()``, in turns, ``--pairs`` of each (the host time a round,
@@ -37,11 +38,13 @@ milliseconds a round (the union of its operations' intervals), its
 kernel launches a round, and the device's idle milliseconds a round
 charged to the innermost span open on the host when the device went
 idle; beside them the host milliseconds a round inside each span, the
-greedy's counters against the hand count from Omega, and how far the
-records' starts lie from their profiler ranges'. One JSON line, and the
-same in ``chiprun_out/profile_spans.json``.
+greedy's counters against the hand count from Omega, every counter a
+round (K5's calls and tokens among them), and how far the records'
+starts lie from their profiler ranges'. One JSON line, written also to
+``profile_spans.json`` in the git-ignored output directory.
 
-    python3 tools/profile_dpfl.py --spans [--rounds 3] [--pairs 4]
+    python3 tools/profile_dpfl.py --spans [--rounds 3] [--pairs 4] \
+        [--cell granite-4.0-h-micro-l10-n4.dense-blocked]
 
 Needs a CUDA card; imports no JAX.
 """
@@ -79,8 +82,10 @@ def main():
                     help="the LM example at chip_smoke.LM_DPFL_FULL (its "
                          "own rounds; --rounds and --variant unused)")
     ap.add_argument("--spans", action="store_true",
-                    help="the dense cell's round by the program's spans, "
-                         "and the price of tracing (--variant unused)")
+                    help="a cell's round by the program's spans, and the "
+                         "price of tracing (--variant unused)")
+    ap.add_argument("--cell", default="papercnn-n100.dense",
+                    help="--spans: the benchmark cell whose settings run")
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--window-rounds", type=int, default=6)
     ap.add_argument("--seed", type=int, default=2 ** 31 + 11)
@@ -184,9 +189,6 @@ def measure(torch, dpfl, engine, cfg, args, **extra):
 
 
 # ------------------------------------------------------------------ spans
-#: the configuration of the benchmark's dense cell (its dense mix sets
-#: no option of its own)
-CELL = ROOT / "bench" / "configs" / "papercnn-n100.json"
 #: the label of what no span covers
 OUTSIDE = "outside the spans"
 #: host-side CUDA runtime and driver calls (a launch, a copy, a fill)
@@ -203,22 +205,17 @@ def _spread(xs):
 def spans(torch, args):
     from torch.profiler import ProfilerActivity, profile
 
+    from bench import harness
+    from bench.entries import dpfl as entry
     from repro_torch import obs
-    from repro_torch.configs.paper_cnn import CNNConfig
     from repro_torch.core import dpfl
-    from repro_torch.data import make_federated_classification
-    from repro_torch.fl.engine import FLEngine
     from repro_torch.fl.round_engine import run_rounds
-    from repro_torch.models.classifier import PaperCNN
 
-    cell = json.loads(CELL.read_text())
-    data = make_federated_classification(
-        seed=args.seed, n_clients=cell["clients"],
-        **dict(cell["data"], image_shape=tuple(cell["data"]["image_shape"])))
-    engine = FLEngine(PaperCNN(CNNConfig(**cell["model"])), data,
-                      **cell["train"])
-    cfg = dpfl.DPFLConfig(rounds=cell["rounds_cap"], seed=args.seed,
-                          track_history=False, **cell["dpfl"])
+    cell = harness.load_cell(args.cell)
+    fam = harness.family(cell)
+    data = fam.make_data(cell.config, args.seed)
+    engine = fam.make_engine(cell.config, data, "cuda")
+    cfg = entry.dpfl_config(cell, args.seed)
     state, _ = dpfl.dpfl_initial_state(engine, cfg)
     N = data.n_clients
     eye = torch.eye(N, dtype=torch.bool, device=engine.device)
@@ -251,7 +248,9 @@ def spans(torch, args):
     probes = snap["counts"]["ggc.probe_models"]
     out.update(
         device=torch.cuda.get_device_name(0), power=_power(),
-        seed=args.seed, rounds=rounds,
+        cell=args.cell, seed=args.seed, rounds=rounds,
+        counts_per_round={k: v / rounds
+                          for k, v in sorted(snap["counts"].items())},
         round_ts=sorted({r.t for r in snap["records"]}),
         local_train_steps=snap["counts"]["local_train.steps"] / rounds,
         ggc_probes_per_round=probes / rounds,
